@@ -6,13 +6,20 @@ Phases, each printing its numbers on its own line:
   1. build the CUDA kernels from ``tpu_search_torch/csrc`` and print the
      card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the main path gives it (max error, kernel and plain times);
+     shapes the main path gives it (max error, kernel and plain times),
+     the flat scan also at k > 128 and on the cases of
+     ``tests/test_pallas_topk.py``, the int8 scan in both corpus layouts;
   3. drive the main path at the full width of all-mpnet-base-v2 with
-     random seeded weights: index synthetic conversations through
-     ``SearchEngine.index_conversations``, search in process and through
-     the CLI in a subprocess, and check that every kernel was launched.
+     random seeded weights, on three storage paths, each a fresh data
+     directory: bf16 (1,000 conversations), then
+     ``CLAUDE_SEARCH_STORAGE_DTYPE=int8`` and ``=int4`` (200 each).  Each
+     indexes synthetic conversations through
+     ``SearchEngine.index_conversations``, searches in process (filtered
+     too, and at ``top_k=200``) and through the CLI in a subprocess, and
+     checks that its kernels were launched, with the launch counts set to
+     0 just before the path and read just after.
 The second line from the end is the kernel summary JSON, with each
-kernel's launch count from that main-path run; the last line is
+kernel's launch count from the path that runs it; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
 The script takes no arguments.
 """
@@ -25,7 +32,9 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -47,7 +56,11 @@ ROOT = Path(__file__).resolve().parent
 #    amax / 127 gives ~3e-4 and ~3 %, quantizing LN1's output before its
 #    bf16 rounding ~4e-3 and ~37 %, and on the planted inputs (see
 #    ``planted_ffn_inputs``) a fault at the planted site ~5e-3 and 30-57 %.
-TOL = {"flat_topk": 1e-4, "mpnet_attention": 3e-2, "int8_ffn_ln": 6.25e-2}
+#  flat_topk_int8, flat_topk_int4: exact int32 dots, the same written-out
+#    FMA, multiply and add as the plain version's float64 combine, and
+#    first-index ties: scores and ids identical, gate 0.
+TOL = {"flat_topk": 1e-4, "mpnet_attention": 3e-2, "int8_ffn_ln": 6.25e-2,
+       "flat_topk_int8": 0.0, "flat_topk_int4": 0.0}
 FFN_MEAN_TOL = 1e-4
 FFN_ULP_SHARE_TOL = 0.01
 
@@ -59,7 +72,27 @@ SOURCES = {
                         "tpu_search/ops/pallas_mpnet_attention.py:165"),
     "int8_ffn_ln": ("tpu_search_torch/csrc/int8_ffn_ln.cu",
                     "tpu_search/ops/pallas_int8_gemm.py:417"),
+    "flat_topk_int8": ("tpu_search_torch/csrc/flat_topk_int8.cu",
+                       "tpu_search/ops/pallas_topk_dma.py:515 and :531"),
+    "flat_topk_int4": ("tpu_search_torch/csrc/flat_topk_int4.cu",
+                       "tpu_search/ops/pallas_topk_dma.py:358"),
 }
+# The storage path whose run counts each kernel's launches.
+PATH_OF = {"flat_topk": "bfloat16", "mpnet_attention": "bfloat16",
+           "int8_ffn_ln": "bfloat16", "flat_topk_int8": "int8",
+           "flat_topk_int4": "int4"}
+N_QUANT_CONVERSATIONS = 200
+# The probes are drawn from the first PROBE_POOL chunk ids, which hold the
+# same texts on every storage path (each indexes the same files first, the
+# quantized paths about 3,400 chunks), so the three paths time the same
+# queries.
+PROBE_POOL = 3000
+# A quantized row keeps each component to within half its scale step
+# (int8: max|v| / 127, int4: max|v| / 7), uniformly: against a unit query
+# its score moves with a standard deviation of scale / sqrt(12).  Two rows
+# whose scores differ by less than QUANT_TIE_SIGMAS such deviations (of
+# the difference) are a tie the tier cannot resolve.
+QUANT_TIE_SIGMAS = 4.0
 
 
 def fail(msg: str) -> None:
@@ -89,6 +122,49 @@ def paired_ms(kernel, plain, iters: int = 10):
     k2 = cuda_ms(kernel, iters)
     p2 = cuda_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_breakdown(tag: str, fn, calls: int = 20) -> None:
+    """Where one call of a scan wrapper spends the card's time: the device
+    time per call of each kernel it launches (torch.profiler), against the
+    wall time per call; the rest of the wall is the card waiting on the
+    host's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_search_torch.utils.device_profile import (
+        _by_kernel,
+        _device_events,
+        busy_seconds,
+    )
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / calls
+    events = _device_events(prof)
+    busy = busy_seconds((e.time_range.start, e.time_range.end)
+                        for e in events) / calls
+    kernels = _by_kernel(events)
+    parts = [f"{short_kernel_name(name)}={ms / calls:.4f}"
+             for name, ms, _ in kernels[:3]]
+    rest = sum(ms for _, ms, _ in kernels[3:]) / calls
+    print(f"[profile] {tag} wall_ms={wall * 1e3:.4f} "
+          f"device_busy_ms={busy * 1e3:.4f} launches_per_call="
+          f"{len(events) / calls:.1f} kernel_ms: {' '.join(parts)} "
+          f"other={rest:.4f}", flush=True)
+
+
+def short_kernel_name(name: str) -> str:
+    """``void (anonymous namespace)::digit_partial<...>(...)`` ->
+    ``digit_partial``."""
+    head = re.split(r"[<(]", name.removeprefix("void ").replace(
+        "(anonymous namespace)::", ""))[0]
+    return head.split("::")[-1].strip().replace(" ", "_")
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -129,7 +205,7 @@ def check_flat_topk(results: dict) -> None:
             kms, pms = paired_ms(
                 lambda: flat_topk_scan(vecs, penalty, queries, k, alpha),
                 lambda: flat_topk_plain(vecs, penalty, queries, k, alpha),
-                iters=5,
+                iters=20,
             )
             print(f"[flat_topk] N={n} D={d} Q={q} k={k} max_abs_err={err:.3e} "
                   f"id_score_err={id_err:.3e} id_agreement={same:.6f} "
@@ -139,7 +215,186 @@ def check_flat_topk(results: dict) -> None:
             worst = max(worst, err, id_err)
             if q == 1 and k == 10:
                 results["flat_topk"] = {"ms": kms, "plain_ms": pms}
+                device_breakdown(
+                    f"flat_topk N={n} Q=1 k=10",
+                    lambda: flat_topk_scan(vecs, penalty, queries, k, alpha))
+    # k > 128: the scores-only mode, then a stable sort.
+    for q, k in ((1, 200), (1, 1000), (8, 1000)):
+        queries = torch.randn((q, d), generator=gen, device=dev)
+        queries = queries / queries.norm(dim=1, keepdim=True)
+        ks, ki = flat_topk_scan(vecs, penalty, queries, k, alpha)
+        ps, pi = flat_topk_plain(vecs, penalty, queries, k, alpha)
+        torch.cuda.synchronize()
+        err = float((ks - ps).abs().max())
+        tie_ok = bool(((ki == pi) | ((ks - ps).abs() <= TOL["flat_topk"])
+                       ).all())
+        kms, pms = paired_ms(
+            lambda: flat_topk_scan(vecs, penalty, queries, k, alpha),
+            lambda: flat_topk_plain(vecs, penalty, queries, k, alpha),
+            iters=5,
+        )
+        print(f"[flat_topk] N={n} D={d} Q={q} k={k} (scores mode) "
+              f"max_abs_err={err:.3e} "
+              f"id_agreement={float((ki == pi).float().mean()):.6f} "
+              f"kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
+        if ks.shape != (q, k) or err > TOL["flat_topk"] or not tie_ok:
+            fail(f"flat_topk scores mode disagrees at Q={q} k={k}")
+        worst = max(worst, err)
+    del vecs
+    worst = max(worst, check_v1_cases())
     results["flat_topk"]["max_abs_err"] = worst
+
+
+def v1_scan_inputs(case: str, dtype: str, q: int, device):
+    """The numpy inputs of ``tests/test_pallas_topk.py`` (same seeds,
+    shapes, masks and k) as ``(vectors, penalty 0 / +inf, queries, k)``
+    tensors for ``flat_topk_scan``: ``matches`` is ``test_matches_xla_path``,
+    ``masked_tile`` ``test_all_masked_tile_handled``."""
+    import numpy as np
+    import torch
+
+    def normed(rng, n, d):
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    if case == "matches":
+        rng = np.random.default_rng(0)
+        n, d, k = 4096, 128, 10
+        vecs = normed(rng, n, d)
+        mask = rng.random(n) < 0.6
+    elif case == "masked_tile":
+        rng = np.random.default_rng(1)
+        n, d, k = 2048, 128, 5
+        vecs = normed(rng, n, d)
+        mask = np.ones(n, dtype=bool)
+        mask[1024:] = False
+    else:
+        raise ValueError(case)
+    queries = normed(rng, q, d)
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    pen = np.where(mask, 0.0, np.inf).astype(np.float32)
+    return (torch.from_numpy(vecs).to(device=device, dtype=tdtype),
+            torch.from_numpy(pen).to(device),
+            torch.from_numpy(queries).to(device), k)
+
+
+def check_v1_cases() -> float:
+    """``flat_topk.cu`` on the cases of ``tests/test_pallas_topk.py``
+    (the v1 ``pallas_flat_topk``'s tests) against the plain version."""
+    import torch
+
+    from tpu_search_torch.ops.flat_topk import flat_topk_scan
+    from tpu_search_torch.ops.topk_scan import flat_topk_plain
+
+    dev = torch.device("cuda")
+    worst, same = 0.0, True
+    for dtype in ("float32", "bfloat16"):
+        for q in (8, 16):
+            vecs, pen, queries, k = v1_scan_inputs("matches", dtype, q, dev)
+            ks, ki = flat_topk_scan(vecs, pen, queries, k)
+            ps, pi = flat_topk_plain(vecs, pen, queries, k)
+            worst = max(worst, float((ks - ps).abs().max()))
+            same = same and bool(torch.equal(ki, pi))
+    vecs, pen, queries, k = v1_scan_inputs("masked_tile", "float32", 8, dev)
+    _, ki = flat_topk_scan(vecs, pen, queries, k)
+    masked_ok = bool(((ki >= 0) & (ki < 1024)).all())
+    torch.cuda.synchronize()
+    print(f"[flat_topk] v1 cases of tests/test_pallas_topk.py: "
+          f"max_abs_err={worst:.3e} ids_equal={same} "
+          f"masked_tile_ok={masked_ok}", flush=True)
+    if worst > 1e-5 or not same or not masked_ok:
+        fail("flat_topk disagrees on the v1 scan cases")
+    return worst
+
+
+def check_quant_topk(results: dict) -> None:
+    """The int8 scan (rows and words) and the int4 scan at the main path's
+    shapes: 1M unit rows x 768 quantized by the index's quantizers, 10 %
+    masked, against their plain versions (gate 0)."""
+    import torch
+
+    from tpu_search_torch.index.flat import quantize_rows_int8
+    from tpu_search_torch.ops.flat_topk_int4 import flat_topk_int4_scan
+    from tpu_search_torch.ops.flat_topk_int8 import flat_topk_int8_scan
+    from tpu_search_torch.ops.int4_pack import (
+        nibble_rows_to_bytes,
+        quantize_rows_int4,
+    )
+    from tpu_search_torch.ops.int8_pack import pack_int8_rows
+    from tpu_search_torch.ops.topk_scan import (
+        flat_topk_int4_plain,
+        flat_topk_int8_plain,
+        quantize_queries,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n, d = 1_000_000, 768
+    v = torch.randn((n, d), generator=gen, device=dev)
+    v = v / v.norm(dim=1, keepdim=True)
+    # The quantizers give the CPU's bits (held there against the JAX
+    # package's) on the card too.
+    sample = v[:4096]
+    for fn in (quantize_rows_int8, quantize_rows_int4, quantize_queries):
+        for a, b in zip(fn(sample), fn(sample.cpu())):
+            if not torch.equal(a.cpu(), b):
+                fail(f"{fn.__name__} on the card differs from the CPU")
+    print("[quantizers] int8 rows, int4 rows, query digits: "
+          "cuda == cpu bit for bit", flush=True)
+    rows, scales = quantize_rows_int8(v)
+    words = pack_int8_rows(rows)
+    u, scales4 = quantize_rows_int4(v)
+    nib = nibble_rows_to_bytes(u)
+    del v, u
+    live = torch.rand((n,), generator=gen, device=dev) >= 0.10
+    pen = torch.where(live, 0.0, float("-inf"))
+    cases = {
+        "flat_topk_int8 rows": (
+            "flat_topk_int8",
+            lambda qs, k: flat_topk_int8_scan(rows, scales, pen, qs, k),
+            lambda qs, k: flat_topk_int8_plain(rows, scales, pen, qs, k)),
+        "flat_topk_int8 words": (
+            "flat_topk_int8",
+            lambda qs, k: flat_topk_int8_scan(words, scales, pen, qs, k,
+                                              words=True),
+            lambda qs, k: flat_topk_int8_plain(rows, scales, pen, qs, k)),
+        "flat_topk_int4": (
+            "flat_topk_int4",
+            lambda qs, k: flat_topk_int4_scan(nib, scales4, pen, qs, k),
+            lambda qs, k: flat_topk_int4_plain(nib, scales4, pen, qs, k)),
+    }
+    for q in (1, 8, 128):
+        queries = torch.randn((q, d), generator=gen, device=dev)
+        queries = queries / queries.norm(dim=1, keepdim=True)
+        for k in (10, 128, 200):
+            for tag, (name, kernel, plain) in cases.items():
+                if k > 128 and q > 8:
+                    continue  # the scores mode: one query block is enough
+                ks, ki = kernel(queries, k)
+                ps, pi = plain(queries, k)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(ps)
+                same_fin = bool(torch.equal(torch.isfinite(ks), fin))
+                err = (float((ks[fin] - ps[fin]).abs().max())
+                       if same_fin else float("inf"))
+                agree = float((ki == pi).float().mean())
+                if not bool(live[ki[ki >= 0].long()].all()):
+                    fail(f"{tag} returned a masked row")
+                kms, pms = paired_ms(lambda: kernel(queries, k),
+                                     lambda: plain(queries, k), iters=20)
+                print(f"[{tag}] N={n} D={d} Q={q} k={k} max_abs_err={err:.3e} "
+                      f"id_agreement={agree:.6f} kernel_ms={kms:.4f} "
+                      f"plain_ms={pms:.4f}", flush=True)
+                if err > TOL[name] or agree < 1.0:
+                    fail(f"{tag} disagrees with its plain version at "
+                         f"Q={q} k={k}")
+                entry = results.setdefault(name, {"max_abs_err": 0.0})
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                if q == 1 and k == 10:
+                    device_breakdown(f"{tag} N={n} Q=1 k=10",
+                                     lambda: kernel(queries, k))
+                    if tag != "flat_topk_int8 words":
+                        entry.update(ms=kms, plain_ms=pms)
 
 
 def check_attention(results: dict) -> None:
@@ -337,144 +592,294 @@ def check_encoder_reference(engine, texts) -> float:
     return float((gpu * ref).sum(axis=1).min())
 
 
-def run_main_path() -> dict:
-    """Index and search on the GPU; return the kernel launch counts of that
-    run."""
+def index_path(engine, files, tag: str):
+    """Index ``files[0]`` as a warm-up, then, with the launch counts set
+    to 0, the rest, timed.  Returns ``(total chunks, launches of the
+    indexing)``."""
+    import torch
+
+    from tpu_search_torch.ops import _build
+
+    t0 = time.perf_counter()
+    warm = engine.index_conversations(files[:1])
+    gate = engine.embedder.int8_gate
+    print(f"[warmup] path={tag} first file chunks={warm['chunks_indexed']} "
+          f"seconds={time.perf_counter() - t0:.2f} "
+          f"int8_ffn={engine.embedder._int8_ffn} "
+          f"gate_min_cosine={gate.get('min_cosine')}", flush=True)
+    if not engine.embedder._int8_ffn:
+        fail(f"int8 FFN gate closed on random full-width weights: {gate}")
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    # The parser prints one warning per malformed or noise line (two in
+    # every file of this recipe); count them instead of echoing them.
+    parser_log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(parser_log):
+        stats = engine.index_conversations(files[1:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after_index = dict(_build.LAUNCHES)
+    n_timed = len(files) - 1
+    print(f"[index] path={tag} conversations={n_timed} files_processed="
+          f"{stats['files_processed']} chunks={stats['chunks_indexed']} "
+          f"seconds={wall:.3f} s_per_1k_conversations="
+          f"{wall / n_timed * 1000:.3f} chunks_per_s="
+          f"{stats['chunks_indexed'] / wall:.1f} "
+          f"errors={len(stats['errors'])} "
+          f"parser_warnings={parser_log.getvalue().count(chr(10))}",
+          flush=True)
+    print(f"[index] path={tag} phases={json.dumps(stats['phases'])}",
+          flush=True)
+    if stats["errors"] or stats["files_processed"] != n_timed:
+        fail(f"indexing errors: {stats['errors'][:3]}")
+    total = warm["chunks_indexed"] + stats["chunks_indexed"]
+    index = engine.storage.index
+    if index.ntotal != total or index.live != total:
+        fail("index row count disagrees with the chunks indexed")
+    if index.dtype != tag:
+        fail(f"the {tag} path built a {index.dtype} index")
+    if 0 in (after_index["mpnet_attention"], after_index["int8_ffn_ln"]):
+        fail(f"indexing did not run the encoder kernels: {after_index}")
+    return total, after_index
+
+
+def search_path(engine, total: int, tag: str, check_hit):
+    """The 20 queries (16 probes' own text, 2 ``--project``, 2
+    ``--has-code``) in a cold and a warm pass; ``check_hit(results, want,
+    text, filters)`` returns an error or None for each query with a known
+    answer (outside the timed call).  Returns the probes."""
     import numpy as np
+    import torch
+
+    storage = engine.storage
+    pool = min(total, PROBE_POOL)
+    probe_ids = [f"chunk_{i:06d}" for i in
+                 np.random.default_rng(3).choice(pool, 16, replace=False) + 1]
+    probes = [storage.get_chunk_by_id(cid) for cid in probe_ids]
+    project = storage.get_all_projects()[0]
+    queries = [(p.text, None, p.id) for p in probes]
+    queries += [(probes[i].text, {"project_name": project[-6:]}, probes[i].id)
+                for i in range(2)]
+    queries += [(probes[i].text, {"has_code": True}, None) for i in (2, 3)]
+
+    # Two passes over the same queries: the first meets each query
+    # shape and filter for the first time, the second is warm.
+    passes = {"cold": [], "warm": []}
+    for times, (text, filters, want) in itertools.product(
+        passes.values(), queries
+    ):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.search_conversations(text, filters, top_k=10)
+        times.append(((time.perf_counter() - t0) * 1000, bool(filters)))
+        if not results:
+            fail(f"no results for filters={filters}")
+        if want is not None:
+            error = check_hit(results, want, text, filters)
+            if error:
+                fail(f"self-search on the {tag} path: {error}")
+        if filters and "has_code" in filters:
+            if not all(r["has_code"] for r in results):
+                fail("--has-code returned a chunk without code")
+        if filters and "project_name" in filters:
+            if not all(r["project"] == project for r in results):
+                fail("--project returned another project")
+    for name, times in passes.items():
+        for kind, sel in (("all", (False, True)), ("unfiltered", (False,)),
+                          ("filtered", (True,))):
+            ms = [t for t, filtered in times if filtered in sel]
+            print(f"[search] path={tag} pass={name} queries={kind} "
+                  f"n={len(ms)} p50_ms={np.median(ms):.3f} "
+                  f"p90_ms={np.percentile(ms, 90):.3f} "
+                  f"max_ms={max(ms):.3f}", flush=True)
+    return probes
+
+
+def check_cli(engine, data_dir: Path, query: str, tag: str,
+              env_extra: dict) -> None:
+    """``search --json`` in a subprocess, over the index loaded from disk,
+    returns the in-process ids."""
+    inproc = [r["chunk_id"] for r in engine.search_conversations(query)]
+    env = dict(os.environ, CLAUDE_SEARCH_MODEL="smoke-mpnet", **env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
+         "--data-dir", str(data_dir), "--device", "cuda",
+         "search", query, "--json"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT),
+        timeout=600,
+    )
+    if proc.returncode != 0:
+        fail(f"CLI search failed: {proc.stderr[-2000:]}")
+    cli_ids = [item["uid"] for item in json.loads(proc.stdout)["items"]]
+    print(f"[cli] path={tag} search --json seconds="
+          f"{time.perf_counter() - t0:.2f} same_top_ids={cli_ids == inproc} "
+          f"top={cli_ids[:3]}", flush=True)
+    if cli_ids != inproc:
+        fail(f"CLI (index loaded from disk) {cli_ids} != in-process {inproc}")
+
+
+def path_kernels(tag: str):
+    return [name for name, path in PATH_OF.items() if path == tag]
+
+
+def run_main_path(work: Path, files) -> dict:
+    """Index and search on the GPU with the default bf16 storage; return
+    the kernel launch counts of that run."""
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.ops import _build
+
+    engine = SearchEngine(str(work / "data"), model_name="smoke-mpnet",
+                          device="cuda")
+    total, after_index = index_path(engine, files, "bfloat16")
+
+    def rank_one(results, want, text, filters):
+        top = results[0]
+        if top["chunk_id"] != want or abs(top["similarity"] - 1.0) > 1e-2:
+            return (f"want {want} at rank 1 with sim ~1, got "
+                    f"{top['chunk_id']} sim={top['similarity']}")
+        return None
+
+    probes = search_path(engine, total, "bfloat16", rank_one)
+    launches = dict(_build.LAUNCHES)
+    searched = {k: launches[k] - after_index[k] for k in launches}
+    print(f"[launches] path=bfloat16 index={after_index} search={searched}",
+          flush=True)
+    if any(searched[k] == 0 for k in path_kernels("bfloat16")):
+        fail(f"search did not run every kernel: {searched}")
+
+    cos = check_encoder_reference(engine, [p.text[:200] for p in probes[:4]])
+    print(f"[reference] cuda_vs_cpu_plain_min_cosine={cos:.6f}", flush=True)
+    if not cos > 0.999:
+        fail("CUDA encoder disagrees with the plain CPU encoder")
+    check_cli(engine, work / "data", probes[4].text, "bfloat16", {})
+    return launches
+
+
+def chunk_embeddings(engine):
+    """The indexed chunks' texts, encoded again: ``[total, D]`` f32."""
+    storage = engine.storage
+    rows = storage.meta.rows_for_vec_ids(list(range(storage.index.ntotal)))
+    return engine.embedder._encode_texts([rows[i]["text"] for i in sorted(rows)])
+
+
+def gaussian_rows():
+    """The rows of ``tests/test_index_int4.py``'s recall test: 8192 unit
+    Gaussian rows of 768 dims (seed 9)."""
+    import numpy as np
+
+    x = np.random.default_rng(9).standard_normal((8192, 768)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def recall_at_10(emb, dtype: str):
+    """Recall@10 of a ``dtype`` FlatIndex against a bf16 one, both built on
+    the card from ``emb``, queried with 64 of its rows (each query's own row
+    counts).  Also describes how alike the rows are: the median cosine of
+    a query with its 2nd and 10th bf16 neighbours."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.index.flat import FlatIndex
+
+    dev = torch.device("cuda")
+    quant, ref = (FlatIndex(emb.shape[1], dtype=t, device=dev)
+                  for t in (dtype, "bfloat16"))
+    quant.add(emb)
+    ref.add(emb)
+    queries = emb[np.random.default_rng(5).choice(len(emb), 64, replace=False)]
+    _, got = quant.search(queries, 10)
+    ref_s, want = ref.search(queries, 10)
+    recall = float(np.mean([len(set(g) & set(w)) / 10
+                            for g, w in zip(got, want)]))
+    spread = (f"median cos to the 2nd / 10th neighbour "
+              f"{np.median(ref_s[:, 1]):.4f} / {np.median(ref_s[:, 9]):.4f}")
+    return recall, spread
+
+
+def run_quant_path(work: Path, files, dtype: str) -> dict:
+    """The main path with ``CLAUDE_SEARCH_STORAGE_DTYPE=dtype`` in a fresh
+    data directory (the same checkpoint): index, search (filtered, and at
+    ``top_k=200``), the CLI on the saved index.  Returns the launch counts
+    of that run (set to 0 just before it)."""
     import torch
 
     from tpu_search_torch.api.engine import SearchEngine
     from tpu_search_torch.ops import _build
-    from tpu_search_torch.utils.synthetic import (
-        N_CONVERSATIONS,
-        write_conversations,
-        write_model,
-    )
 
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    data = work / f"data_{dtype}"
+    data.mkdir()
+    (data / "models").symlink_to(work / "data" / "models")
+    env = {"CLAUDE_SEARCH_STORAGE_DTYPE": dtype}
+    os.environ.update(env)
     try:
-        t0 = time.perf_counter()
-        config = write_model(work / "data" / "models" / "smoke-mpnet")
-        files = write_conversations(work, N_CONVERSATIONS,
-                                    config.vocab_size - 5)
-        print(f"[setup] checkpoint+{N_CONVERSATIONS} conversations "
-              f"seconds={time.perf_counter() - t0:.2f}", flush=True)
-
-        engine = SearchEngine(str(work / "data"), model_name="smoke-mpnet",
+        engine = SearchEngine(str(data), model_name="smoke-mpnet",
                               device="cuda")
+        total, after_index = index_path(engine, files, dtype)
+
+        index, slot = engine.storage.index, engine.storage.chunk_id_to_faiss_id
+        gaps = []
+
+        def sigma(chunk_id):
+            return float(index._scales[slot[chunk_id]]) / math.sqrt(12.0)
+
+        def hit(results, want, text, filters):
+            """The own chunk ranks first, or below chunks whose scores it
+            ties within the tier's quantization noise; int8 also scores
+            it within 2e-2 of 1."""
+            ranked = results
+            if want not in [r["chunk_id"] for r in ranked]:
+                ranked = engine.search_conversations(text, filters, top_k=200)
+            ids = [r["chunk_id"] for r in ranked]
+            if want not in ids:
+                return f"want {want} in the top 200, got {ids[:10]}"
+            rank = ids.index(want)
+            own, top = ranked[rank]["similarity"], ranked[0]["similarity"]
+            bound = QUANT_TIE_SIGMAS * math.hypot(sigma(want), sigma(ids[0]))
+            gaps.append((rank, top - own, bound))
+            if top - own > bound:
+                return (f"{want} at rank {rank + 1}, {top - own:.3e} under "
+                        f"{ids[0]} (tie bound {bound:.3e})")
+            if dtype == "int8" and abs(own - 1.0) > 2e-2:
+                return f"{want} scores {own}, not within 2e-2 of 1"
+            return None
+
+        probes = search_path(engine, total, dtype, hit)
+        ranks = [r for r, _, _ in gaps]
+        print(f"[search] path={dtype} own chunk rank: 1st {ranks.count(0)} "
+              f"of {len(ranks)}, top 10 {sum(r < 10 for r in ranks)}, worst "
+              f"{max(ranks) + 1}; gap to the top / tie bound: max "
+              f"{max(g / b for _, g, b in gaps):.3f}, bound median "
+              f"{statistics.median(b for _, _, b in gaps):.3e}", flush=True)
         t0 = time.perf_counter()
-        warm = engine.index_conversations(files[:1])
-        gate = engine.embedder.int8_gate
-        print(f"[warmup] first file chunks={warm['chunks_indexed']} "
-              f"seconds={time.perf_counter() - t0:.2f} "
-              f"int8_ffn={engine.embedder._int8_ffn} "
-              f"gate_min_cosine={gate.get('min_cosine')}", flush=True)
-        if not engine.embedder._int8_ffn:
-            fail(f"int8 FFN gate closed on random full-width weights: {gate}")
-
-        _build.reset_launches()
+        wide = engine.search_conversations(probes[5].text, top_k=200)
         torch.cuda.synchronize()
-        # The parser prints one warning per malformed or noise line (two in
-        # every file of this recipe); count them instead of echoing them.
-        parser_log = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(parser_log):
-            stats = engine.index_conversations(files[1:])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        after_index = dict(_build.LAUNCHES)
-        n_timed = len(files) - 1
-        print(f"[index] conversations={n_timed} files_processed="
-              f"{stats['files_processed']} chunks={stats['chunks_indexed']} "
-              f"seconds={wall:.3f} s_per_1k_conversations="
-              f"{wall / n_timed * 1000:.3f} chunks_per_s="
-              f"{stats['chunks_indexed'] / wall:.1f} "
-              f"errors={len(stats['errors'])} "
-              f"parser_warnings={parser_log.getvalue().count(chr(10))}",
-              flush=True)
-        print(f"[index] phases={json.dumps(stats['phases'])}", flush=True)
-        if stats["errors"] or stats["files_processed"] != n_timed:
-            fail(f"indexing errors: {stats['errors'][:3]}")
-        total = warm["chunks_indexed"] + stats["chunks_indexed"]
-        if engine.storage.index.ntotal != total or engine.storage.index.live != total:
-            fail("index row count disagrees with the chunks indexed")
-        if 0 in (after_index["mpnet_attention"],
-                             after_index["int8_ffn_ln"]):
-            fail(f"indexing did not run the encoder kernels: {after_index}")
-
-        storage = engine.storage
-        probe_ids = [f"chunk_{i:06d}" for i in
-                     np.random.default_rng(3).choice(total, 16, replace=False) + 1]
-        probes = [storage.get_chunk_by_id(cid) for cid in probe_ids]
-        project = storage.get_all_projects()[0]
-        queries = [(p.text, None, p.id) for p in probes]
-        queries += [(probes[i].text, {"project_name": project[-6:]}, probes[i].id)
-                    for i in range(2)]
-        queries += [(probes[i].text, {"has_code": True}, None) for i in (2, 3)]
-
-        # Two passes over the same queries: the first meets each query
-        # shape and filter for the first time, the second is warm.
-        passes = {"cold": [], "warm": []}
-        for times, (text, filters, want) in itertools.product(
-            passes.values(), queries
-        ):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            results = engine.search_conversations(text, filters, top_k=10)
-            times.append(((time.perf_counter() - t0) * 1000, bool(filters)))
-            if not results:
-                fail(f"no results for filters={filters}")
-            if want is not None:
-                top = results[0]
-                if top["chunk_id"] != want or abs(top["similarity"] - 1.0) > 1e-2:
-                    fail(f"self-search: want {want} at rank 1 with sim ~1, got "
-                         f"{top['chunk_id']} sim={top['similarity']}")
-            if filters and "has_code" in filters:
-                if not all(r["has_code"] for r in results):
-                    fail("--has-code returned a chunk without code")
-            if filters and "project_name" in filters:
-                if not all(r["project"] == project for r in results):
-                    fail("--project returned another project")
+        print(f"[search] path={dtype} top_k=200 results={len(wide)} "
+              f"ms={(time.perf_counter() - t0) * 1000:.3f}", flush=True)
+        if len(wide) != 200:
+            fail(f"top_k=200 on the {dtype} path returned {len(wide)}")
         launches = dict(_build.LAUNCHES)
         searched = {k: launches[k] - after_index[k] for k in launches}
-        for name, times in passes.items():
-            for kind, sel in (("all", (False, True)), ("unfiltered", (False,)),
-                              ("filtered", (True,))):
-                ms = [t for t, filtered in times if filtered in sel]
-                print(f"[search] pass={name} queries={kind} n={len(ms)} "
-                      f"p50_ms={np.median(ms):.3f} "
-                      f"p90_ms={np.percentile(ms, 90):.3f} "
-                      f"max_ms={max(ms):.3f}", flush=True)
-        print(f"[launches] index={after_index} search={searched}", flush=True)
-        if 0 in searched.values():
-            fail(f"search did not run every kernel: {searched}")
-
-        cos = check_encoder_reference(engine, [p.text[:200] for p in probes[:4]])
-        print(f"[reference] cuda_vs_cpu_plain_min_cosine={cos:.6f}", flush=True)
-        if not cos > 0.999:
-            fail("CUDA encoder disagrees with the plain CPU encoder")
-
-        query = probes[4].text
-        inproc = [r["chunk_id"] for r in engine.search_conversations(query)]
-        env = dict(os.environ, CLAUDE_SEARCH_MODEL="smoke-mpnet")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
-             "--data-dir", str(work / "data"), "--device", "cuda",
-             "search", query, "--json"],
-            capture_output=True, text=True, env=env, cwd=str(ROOT),
-            timeout=600,
-        )
-        if proc.returncode != 0:
-            fail(f"CLI search failed: {proc.stderr[-2000:]}")
-        cli_ids = [item["uid"] for item in json.loads(proc.stdout)["items"]]
-        print(f"[cli] search --json seconds={time.perf_counter() - t0:.2f} "
-              f"same_top_ids={cli_ids == inproc} top={cli_ids[:3]}", flush=True)
-        if cli_ids != inproc:
-            fail(f"CLI (index loaded from disk) {cli_ids} != in-process {inproc}")
+        print(f"[launches] path={dtype} index={after_index} "
+              f"search={searched}", flush=True)
+        if any(searched[k] == 0 for k in path_kernels(dtype)):
+            fail(f"the {dtype} search did not run its kernel: {searched}")
+        emb = chunk_embeddings(engine)
+        recall, spread = recall_at_10(emb, dtype)
+        gauss, _ = recall_at_10(gaussian_rows(), dtype)
+        print(f"[recall] path={dtype} recall_at_10_vs_bf16 embeddings="
+              f"{recall:.4f} ({total} rows, 64 queries; {spread}) "
+              f"gaussian_rows={gauss:.4f} (8192 x 768, 64 queries)",
+              flush=True)
+        if dtype == "int4" and gauss < 0.6:
+            fail(f"int4 recall@10 on Gaussian rows {gauss:.4f} < 0.6")
+        check_cli(engine, data, probes[4].text, dtype, env)
         return launches
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        for key in env:
+            os.environ.pop(key, None)
 
 
 # -- main ----------------------------------------------------------------------
@@ -501,10 +906,30 @@ def main() -> None:
 
     results: dict = {}
     check_flat_topk(results)
+    check_quant_topk(results)
     check_attention(results)
     check_int8_ffn(results)
 
-    launches = run_main_path()
+    from tpu_search_torch.utils.synthetic import (
+        N_CONVERSATIONS,
+        write_conversations,
+        write_model,
+    )
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        t0 = time.perf_counter()
+        config = write_model(work / "data" / "models" / "smoke-mpnet")
+        files = write_conversations(work, N_CONVERSATIONS,
+                                    config.vocab_size - 5)
+        print(f"[setup] checkpoint+{N_CONVERSATIONS} conversations "
+              f"seconds={time.perf_counter() - t0:.2f}", flush=True)
+        launches = {"bfloat16": run_main_path(work, files)}
+        for dtype in ("int8", "int4"):
+            launches[dtype] = run_quant_path(
+                work, files[: N_QUANT_CONVERSATIONS + 1], dtype)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     summary = {"kernels": [
         {
@@ -512,7 +937,7 @@ def main() -> None:
             "route": "cuda",
             "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
-            "launches": launches[name],
+            "launches": launches[PATH_OF[name]][name],
             "max_abs_err": results[name]["max_abs_err"],
             "ms": results[name]["ms"],
             "plain_ms": results[name]["plain_ms"],

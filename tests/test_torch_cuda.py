@@ -1,18 +1,20 @@
 """The CUDA kernels against their plain versions on the card, at edge
 shapes the smoke run does not reach: ragged corpus and row counts,
-several query blocks, k up to 128, planted ties, fully masked corpora,
-head dim 32, hidden 384.  Marked ``cuda``; skipped where there is no
-card.  On a machine with one (``--noconftest``: ``tests/conftest.py``
-imports jax, which the port's machine need not have):
+several query blocks, k up to 128 and the scores-only mode above it,
+planted ties, fully masked corpora and row ranges, head dim 32, hidden
+384.  Marked ``cuda``; skipped where there is no card.  On a machine with
+one (``--noconftest``: ``tests/conftest.py`` imports jax, which the port's
+machine need not have):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances are those of ``chip_smoke.py``: top-k scores 1e-4 with ids
-equal outside near-ties; attention 3e-2 (a bf16 ulp or two of O(1)
-outputs); the int8 FFN 6.25e-2 at most (a few bf16 ulps of the LayerNorm
-output), 1e-4 on average and at most 1 % of outputs more than one bf16 ulp
-off, on random inputs and on the planted ones of ``chip_smoke.
-planted_ffn_inputs``.
+Tolerances are those of ``chip_smoke.py``: bf16/f32 top-k scores 1e-4
+with ids equal outside near-ties; the int8 and int4 scans exactly equal
+(exact int32 dots, the same FMA, first-index ties); attention 3e-2 (a
+bf16 ulp or two of O(1) outputs); the int8 FFN 6.25e-2 at most (a few
+bf16 ulps of the LayerNorm output), 1e-4 on average and at most 1 % of
+outputs more than one bf16 ulp off, on random inputs and on the planted
+ones of ``chip_smoke.planted_ffn_inputs``.
 """
 
 import math
@@ -149,8 +151,216 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     v = torch.randn((256, 64), device=dev)
     with pytest.raises(ValueError, match="k="):
         flat_topk_scan(v, torch.zeros(256, device=dev),
-                       torch.randn((1, 64), device=dev), 129)
+                       torch.randn((1, 64), device=dev), 257)
     x = torch.randn((1, 100, 128), device=dev).to(torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 64"):
         mpnet_attention(x, x, x, torch.zeros((2, 100, 100), device=dev),
                         torch.zeros((1, 100), device=dev), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [200, 1000])
+def test_flat_topk_scores_mode(dev, dtype, k):
+    """k > 128: the kernel writes the masked scores, a stable sort picks."""
+    from tpu_search_torch.ops.flat_topk import flat_topk_scan
+    from tpu_search_torch.ops.topk_scan import flat_topk_plain, row_penalty
+
+    gen = torch.Generator(device=dev).manual_seed(k)
+    v = torch.randn((3001, 96), generator=gen, device=dev).to(dtype)
+    v[9] = v[2]
+    mask = torch.rand((3001,), generator=gen, device=dev) < 0.8
+    mask[2] = mask[9] = True
+    queries = torch.randn((5, 96), generator=gen, device=dev)
+    queries[0] = v[2].float()
+    pen, alpha = row_penalty(mask, "ip")
+    ks, ki = flat_topk_scan(v, pen, queries, k, alpha)
+    ps, pi = flat_topk_plain(v, pen, queries, k, alpha)
+    torch.cuda.synchronize()
+    assert ks.shape == (5, k)
+    assert torch.allclose(ks, ps, atol=1e-4, rtol=1e-5, equal_nan=True)
+    assert bool(((ki == pi) | ((ks - ps).abs() <= 1e-4)).all())
+    assert ki[0, :2].tolist() == [2, 9]
+
+
+# (n, q, k, masked rows): odd N, several query blocks, a masked row range
+# longer than a CTA's range (all-masked CTAs), every row masked.
+QUANT_CASES = [
+    (4133, 1, 1, None), (4133, 17, 10, None), (1000, 130, 128, None),
+    (20000, 3, 10, (2000, 19000)), (300, 2, 5, (0, 300)),
+    (4133, 9, 200, None), (777, 2, 777, (100, 700)),
+]
+
+
+def quant_inputs(dev, n, d, q, masked, seed):
+    """Unit-norm rows with a planted duplicate, quantized by the port's
+    quantizers; queries, the first one a corpus row; the 0 / -inf penalty
+    with ~10 % of rows masked and ``masked`` (a row range) on top."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((n, d), generator=gen, device=dev)
+    v = v / v.norm(dim=1, keepdim=True)
+    v[min(7, n - 1)] = v[3]
+    queries = torch.randn((q, d), generator=gen, device=dev)
+    queries[0] = v[3]
+    live = torch.rand((n,), generator=gen, device=dev) >= 0.1
+    live[3] = live[min(7, n - 1)] = True
+    if masked is not None:
+        live[masked[0]: masked[1]] = False
+    pen = torch.where(live, 0.0, float("-inf"))
+    return v, queries, pen
+
+
+def assert_same_quant(got, want, pen):
+    ks, ki = got
+    ps, pi = want
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(torch.isfinite(ks), torch.isfinite(ps))
+    assert torch.equal(ks[torch.isfinite(ks)], ps[torch.isfinite(ps)])
+    assert bool(torch.isfinite(pen)[ki[ki >= 0].long()].all())
+
+
+@pytest.mark.parametrize("words", [False, True])
+@pytest.mark.parametrize("n,q,k,masked", QUANT_CASES)
+def test_int8_kernel(dev, words, n, q, k, masked):
+    from tpu_search_torch.index.flat import quantize_rows_int8
+    from tpu_search_torch.ops.flat_topk_int8 import flat_topk_int8_scan
+    from tpu_search_torch.ops.int8_pack import pack_int8_rows
+    from tpu_search_torch.ops.topk_scan import flat_topk_int8_plain
+
+    if words:
+        n -= n % 4  # the word layout holds whole words
+        k = min(k, n)
+    v, queries, pen = quant_inputs(dev, n, 128, q, masked, n + q)
+    rows, scales = quantize_rows_int8(v)
+    corpus = pack_int8_rows(rows) if words else rows
+    got = flat_topk_int8_scan(corpus, scales, pen, queries, k, words=words)
+    want = flat_topk_int8_plain(rows, scales, pen, queries, k)
+    assert_same_quant(got, want, pen)
+    if masked is None and k > 1:
+        assert got[1][0, :2].tolist() == [3, 7]
+
+
+@pytest.mark.parametrize("n,q,k,masked", QUANT_CASES)
+def test_int4_kernel(dev, n, q, k, masked):
+    from tpu_search_torch.ops.flat_topk_int4 import flat_topk_int4_scan
+    from tpu_search_torch.ops.int4_pack import (
+        nibble_rows_to_bytes,
+        quantize_rows_int4,
+    )
+    from tpu_search_torch.ops.topk_scan import flat_topk_int4_plain
+
+    v, queries, pen = quant_inputs(dev, n, 128, q, masked, n + 2 * q)
+    u, scales = quantize_rows_int4(v)
+    nib = nibble_rows_to_bytes(u)
+    got = flat_topk_int4_scan(nib, scales, pen, queries, k)
+    want = flat_topk_int4_plain(nib, scales, pen, queries, k)
+    assert_same_quant(got, want, pen)
+    if masked is None and k > 1:
+        assert got[1][0, :2].tolist() == [3, 7]
+
+
+def test_quantizers_match_the_cpu(dev):
+    """The row and query quantizers give the same bits on the card as on
+    the CPU (where the tests hold them against the JAX package)."""
+    from tpu_search_torch.index.flat import quantize_rows_int8
+    from tpu_search_torch.ops.int4_pack import quantize_rows_int4
+    from tpu_search_torch.ops.topk_scan import quantize_queries
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((4096, 768), generator=gen)
+    for fn in (quantize_rows_int8, quantize_rows_int4, quantize_queries):
+        for a, b in zip(fn(x), fn(x.to(dev))):
+            assert torch.equal(a, b.cpu()), fn.__name__
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q", [8, 16])
+def test_v1_scan_cases(dev, dtype, q):
+    """``tests/test_pallas_topk.py::test_matches_xla_path`` on the CUDA
+    scan: the same numpy inputs, an all-0 / +inf penalty.  The CPU tests
+    hold the plain version against ``pallas_flat_topk`` on these inputs
+    (``tests/test_torch_flat_topk.py``)."""
+    from chip_smoke import v1_scan_inputs
+    from tpu_search_torch.ops.flat_topk import flat_topk_scan
+    from tpu_search_torch.ops.topk_scan import flat_topk_plain
+
+    vecs, pen, queries, k = v1_scan_inputs("matches", dtype, q, dev)
+    ks, ki = flat_topk_scan(vecs, pen, queries, k)
+    ps, pi = flat_topk_plain(vecs, pen, queries, k)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.allclose(ks, ps, rtol=1e-5, atol=1e-5)
+
+
+def test_v1_scan_all_masked_tile(dev):
+    """``tests/test_pallas_topk.py::test_all_masked_tile_handled``."""
+    from chip_smoke import v1_scan_inputs
+    from tpu_search_torch.ops.flat_topk import flat_topk_scan
+
+    vecs, pen, queries, k = v1_scan_inputs("masked_tile", "float32", 8, dev)
+    _, ki = flat_topk_scan(vecs, pen, queries, k)
+    assert bool((ki < 1024).all()) and bool((ki >= 0).all())
+
+
+def test_quant_wrappers_raise_instead_of_falling_back(dev):
+    from tpu_search_torch.ops.flat_topk_int4 import flat_topk_int4_scan
+    from tpu_search_torch.ops.flat_topk_int8 import flat_topk_int8_scan
+
+    rows = torch.zeros((256, 64), dtype=torch.int8, device=dev)
+    nib = torch.zeros((128, 64), dtype=torch.uint8, device=dev)
+    s = torch.ones(256, device=dev)
+    pen = torch.zeros(256, device=dev)
+    qs = torch.randn((2, 64), device=dev)
+    with pytest.raises(TypeError):
+        flat_topk_int8_scan(nib, s, pen, qs, 5)
+    with pytest.raises(TypeError):
+        flat_topk_int8_scan(rows, s, pen, qs, 5, words=True)
+    with pytest.raises(TypeError):
+        flat_topk_int4_scan(rows, s, pen, qs, 5)
+    with pytest.raises(ValueError, match="cpu"):
+        flat_topk_int8_scan(rows, s, pen.cpu(), qs, 5)
+    with pytest.raises(ValueError, match="shape"):
+        flat_topk_int8_scan(rows, s[:100], pen, qs, 5)
+    with pytest.raises(ValueError, match="shape"):
+        flat_topk_int4_scan(nib[:100], s, pen, qs, 5)
+    with pytest.raises(ValueError, match="D % 16"):
+        flat_topk_int8_scan(rows[:, :40].contiguous(), s, pen, qs[:, :40], 5)
+    for k in (0, 257):
+        with pytest.raises(ValueError, match="k="):
+            flat_topk_int8_scan(rows, s, pen, qs, k)
+        with pytest.raises(ValueError, match="k="):
+            flat_topk_int4_scan(nib, s, pen, qs, k)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
+@pytest.mark.parametrize("k", [10, 200])
+def test_index_search_runs_the_kernels(dev, dtype, k):
+    """``FlatIndex.search`` on the card, k = 200 included, goes through its
+    tier's kernel and agrees with the same index on the CPU."""
+    import numpy as np
+
+    from tpu_search_torch.index.flat import FlatIndex
+    from tpu_search_torch.ops import _build
+
+    rng = np.random.default_rng(k)
+    data = rng.standard_normal((3000, 128)).astype(np.float32)
+    data /= np.linalg.norm(data, axis=1, keepdims=True)
+    queries = data[[5, 17, 2999]] + 0.01
+    on_card, on_cpu = (FlatIndex(128, dtype=dtype, device=d)
+                       for d in (dev, torch.device("cpu")))
+    for index in (on_card, on_cpu):
+        index.add(data)
+        index.remove(range(0, 3000, 9))
+    name = {"bfloat16": "flat_topk", "int8": "flat_topk_int8",
+            "int4": "flat_topk_int4"}[dtype]
+    before = _build.LAUNCHES[name]
+    scores, ids = on_card.search(queries, k)
+    assert _build.LAUNCHES[name] == before + 1
+    want_s, want_i = on_cpu.search(queries, k)
+    assert scores.shape == ids.shape == (3, k)
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(scores, want_s, atol=1e-4, rtol=1e-5)
+        assert ((ids == want_i) | (np.abs(scores - want_s) <= 1e-4)).all()
+    else:
+        np.testing.assert_array_equal(ids, want_i)
+        np.testing.assert_array_equal(scores, want_s)

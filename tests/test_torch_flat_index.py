@@ -114,5 +114,11 @@ def test_tpusidx2_interop_both_ways(tmp_path, dtype, metric):
 
 
 def test_quantized_storage_is_refused():
-    with pytest.raises(NotImplementedError):
-        FlatIndex(64, dtype="int8", device=CPU)
+    """The quantized storage a flat index cannot hold is refused as the
+    JAX package refuses it: pq (IVF only) and int8/int4 with l2."""
+    for dtype, metric in (("pq", "ip"), ("int8", "l2"), ("int4", "l2")):
+        with pytest.raises(ValueError):
+            FlatIndex(64, metric=metric, dtype=dtype, device=CPU)
+        with pytest.raises(ValueError):
+            JaxFlatIndex(64, metric=metric, dtype=dtype,
+                         device=jax.devices("cpu")[0])

@@ -141,3 +141,33 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
         flat_topk_scan(torch.zeros((256, 64), device="meta"),
                        torch.zeros(256, device="meta"),
                        torch.zeros((1, 64), device="meta"), 5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q", [8, 16])
+def test_v1_scan_cases_match_pallas_flat_topk(dtype, q):
+    """The cases of ``tests/test_pallas_topk.py`` (the v1
+    ``pallas_flat_topk``), built by ``chip_smoke.v1_scan_inputs`` as the
+    card test of ``flat_topk.cu`` builds them: the plain version equals the
+    v1 kernel here, and the CUDA kernel equals the plain version there."""
+    from chip_smoke import v1_scan_inputs
+    from tpu_search.ops.pallas_topk import pallas_flat_topk
+
+    vecs, pen, queries, k = v1_scan_inputs("matches", dtype, q, "cpu")
+    jv = jnp.asarray(vecs.float().numpy()).astype(
+        jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    mask = jnp.asarray((pen == 0).numpy())
+    ps, pi = pallas_flat_topk(jv, mask, jnp.asarray(queries.numpy()), k,
+                              tile_n=1024, interpret=True)
+    ts, ti = flat_topk_scan(vecs, pen, queries, k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(pi))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(ps), rtol=TOL, atol=TOL)
+
+    vecs, pen, queries, k = v1_scan_inputs("masked_tile", "float32", 8, "cpu")
+    _, pi = pallas_flat_topk(jnp.asarray(vecs.numpy()),
+                             jnp.asarray((pen == 0).numpy()),
+                             jnp.asarray(queries.numpy()), k, tile_n=1024,
+                             interpret=True)
+    _, ti = flat_topk_scan(vecs, pen, queries, k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(pi))
+    assert (ti.numpy() < 1024).all()

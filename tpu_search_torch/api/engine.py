@@ -100,11 +100,23 @@ class SearchEngine:
                 device=device,
             )
         )
+        # CLAUDE_SEARCH_INDEX_TYPE = flat|ivf|hnsw and
+        # CLAUDE_SEARCH_STORAGE_DTYPE = float32|bfloat16|int8|int4|pq,
+        # validated as the JAX engine does; the storage layer resolves and
+        # refuses what the port lacks (ivf).
         storage_kwargs: Dict[str, Any] = {}
-        for env, key in (("CLAUDE_SEARCH_INDEX_TYPE", "index_type"),
-                         ("CLAUDE_SEARCH_STORAGE_DTYPE", "storage_dtype")):
-            if os.environ.get(env):
-                storage_kwargs[key] = os.environ[env]
+        for env, key, allowed in (
+            ("CLAUDE_SEARCH_INDEX_TYPE", "index_type", ("flat", "ivf", "hnsw")),
+            ("CLAUDE_SEARCH_STORAGE_DTYPE", "storage_dtype",
+             ("float32", "bfloat16", "int8", "int4", "pq")),
+        ):
+            value = os.environ.get(env)
+            if value and value not in allowed:
+                raise ValueError(
+                    f"{env}={value!r} is not one of {sorted(allowed)}"
+                )
+            if value:
+                storage_kwargs[key] = value
         self.storage = HybridStorage(
             StorageConfig(
                 data_dir=str(self.data_dir),

@@ -1,0 +1,240 @@
+// Masked top-k over an int8-coded corpus with two-digit int8 queries:
+// the body shared by flat_topk_int8.cu (int8 rows, or the JAX package's
+// word-packed int8 layout) and flat_topk_int4.cu (biased nibbles).
+//
+// Contract (that of the TPU kernels _kernel_int8 / _kernel_int4 and of
+// ops/topk_scan.py flat_topk_int8_plain / flat_topk_int4_plain):
+//   d1, d2     = exact int32 dots of query digit 1 / digit 2 with the row
+//                (int4: minus the nibble bias 8 * sum(digit), in int32)
+//   score[q,r] = fma(rho[q], d2, d1) * scale[r] + penalty[r]
+// penalty 0 (live row) or -inf (masked row).  The k best per query,
+// descending, first-index ties, slots past the live rows -inf / -1.  The
+// query scale qs1 > 0 multiplies the selected scores outside the kernel.
+// The epilogue writes out __fmaf_rn / __fmul_rn / __fadd_rn, so its
+// rounding does not depend on nvcc's -fmad.
+//
+// What bounds it on the H100: at small Q the corpus bytes (1 B a component
+// for int8, 0.5 B for int4; 2 x Q x N x D int8 ops sit far under the
+// ~590 op/byte int8 ridge), so HBM bandwidth.
+//
+// Design (the shape of flat_topk.cu): the TPU kernels walk the corpus in
+// one sequential grid with a running top-k; here N splits into row ranges,
+// one CTA per (query block, range), each with partial lists in shared
+// memory behind a k-th-best gate (topk_select.cuh), then merge_topk.
+//  - A query block is QB = 8 or 32 queries.  Its digits form the A operand
+//    of mma.sync m16n8k32 s8 x s8 -> s32, arranged per m-tile of 16 rows
+//    as 8 queries' digit 1 (rows 0-7) then the same 8 queries' digit 2
+//    (rows 8-15), so a thread's accumulator holds d1 (c0, c1) and d2
+//    (c2, c3) of the same query and row, and the digit combine happens in
+//    registers.
+//  - The corpus tile (128 rows x 128 dims) is staged in shared memory as
+//    int8 rows with D contiguous, the B operand; the Stage policy decodes
+//    the layout on the way in.  Each of the 8 warps takes 16 rows.
+//  - The scan is latency-bound at small Q, so each thread loads the next
+//    chunk (or the next tile's first) into registers before the current
+//    chunk's MMAs, and the tile's row scales and penalties before its
+//    first chunk: the HBM reads overlap the compute.
+// Not yet done (later work): cp.async/TMA multi-stage buffering and wgmma.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "topk_select.cuh"
+
+namespace {
+
+constexpr int kTile = 128;             // corpus rows per tile
+constexpr int kChunk = 128;            // dims (bytes) staged per pass
+constexpr int kThreads = 256;          // 8 warps
+constexpr int kVStride = kChunk + 16;  // bytes per staged row: no bank conflicts
+
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
+                                       const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint4 zero4() { return make_uint4(0, 0, 0, 0); }
+
+__host__ __device__ inline size_t digit_smem_bytes(int qb, int dp, int kpad) {
+  return (size_t)qb * kTile * 4      // S: the tile's scores
+         + (size_t)qb * kpad * 8     // partial lists
+         + (size_t)qb * 4            // rho
+         + (size_t)qb * 2 * 4        // nibble bias offsets
+         + (size_t)2 * qb * (dp + 16)  // query digits (A)
+         + (size_t)kTile * kVStride;   // corpus tile (B)
+}
+
+// Partial scan of one (query block, row range).  Stage::load(V, n, d, t0,
+// kc, regs) reads the bytes of tile rows t0.., dims kc.. into registers
+// (zero past n and d); Stage::store(regs, Vs) writes them to Vs[r *
+// kVStride + c] as the int8 values of tile row r, dim kc + c.  qoff is
+// null for int8 corpora.
+template <class Stage, int QB>
+__global__ void __launch_bounds__(kThreads)
+digit_partial(const void* __restrict__ V, const float* __restrict__ scale,
+              const float* __restrict__ penalty,
+              const int8_t* __restrict__ digits, const float* __restrict__ rho,
+              const int* __restrict__ qoff, int n, int d, int q, int k,
+              int kpad, int rows_per_split, float* __restrict__ part_s,
+              int* __restrict__ part_i, float* __restrict__ out_scores) {
+  constexpr int MT = QB / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dp = round_up(d, kChunk);
+  const int qstr = dp + 16;
+  float* S = reinterpret_cast<float*>(smem);
+  float* bs = S + QB * kTile;
+  int* bi = reinterpret_cast<int*>(bs + QB * kpad);
+  float* rho_s = reinterpret_cast<float*>(bi + QB * kpad);
+  int* qoff_s = reinterpret_cast<int*>(rho_s + QB);
+  int8_t* Qs = reinterpret_cast<int8_t*>(qoff_s + 2 * QB);
+  int8_t* Vs = Qs + 2 * QB * qstr;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int q0 = blockIdx.x * QB;
+  const int row_begin = blockIdx.y * rows_per_split;
+  const int row_end = min(n, row_begin + rows_per_split);
+
+  // A rows: m-tile mt, row r -> digit (r < 8 ? 1 : 2) of query mt*8 + r%8.
+  const int c16s = dp / 16;
+  for (int i = tid; i < 2 * QB * c16s; i += kThreads) {
+    const int ar = i / c16s, c16 = (i % c16s) * 16;
+    const int r = ar % 16, qi = q0 + (ar / 16) * 8 + (r & 7);
+    uint4 v = zero4();
+    if (qi < q && c16 < d)
+      v = *reinterpret_cast<const uint4*>(
+          digits + (size_t)(r < 8 ? qi : q + qi) * d + c16);
+    *reinterpret_cast<uint4*>(Qs + ar * qstr + c16) = v;
+  }
+  for (int i = tid; i < QB; i += kThreads) {
+    const bool live = q0 + i < q;
+    rho_s[i] = live ? rho[q0 + i] : 0.f;
+    qoff_s[i] = live && qoff ? qoff[q0 + i] : 0;
+    qoff_s[QB + i] = live && qoff ? qoff[q + q0 + i] : 0;
+  }
+  for (int i = tid; i < QB * kpad; i += kThreads) {
+    bs[i] = -INFINITY;
+    bi[i] = -1;
+  }
+
+  typename Stage::Regs regs;
+  if (row_begin < row_end) Stage::load(V, n, d, row_begin, 0, regs);
+  for (int t0 = row_begin; t0 < row_end; t0 += kTile) {
+    // The epilogue's row scales and penalties, read ahead of the MMAs.
+    float sc[2][2], pn[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = t0 + warp * 16 + nt * 8 + tig * 2 + j;
+        sc[nt][j] = row < row_end ? scale[row] : 0.f;
+        pn[nt][j] = row < row_end ? penalty[row] : -INFINITY;
+      }
+    int acc[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0;
+
+    for (int kc = 0; kc < dp; kc += kChunk) {
+      __syncthreads();
+      Stage::store(regs, Vs);
+      __syncthreads();
+      const bool last = kc + kChunk >= dp;
+      const int next_t0 = last ? t0 + kTile : t0;
+      if (next_t0 < row_end)
+        Stage::load(V, n, d, next_t0, last ? 0 : kc + kChunk, regs);
+#pragma unroll
+      for (int ks = 0; ks < kChunk; ks += 32) {
+        uint32_t b[2][2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int8_t* p = Vs + (warp * 16 + nt * 8 + g) * kVStride + ks + tig * 4;
+          b[nt][0] = *reinterpret_cast<const uint32_t*>(p);
+          b[nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int8_t* p = Qs + (mt * 16 + g) * qstr + kc + ks + tig * 4;
+          uint32_t a[4];
+          a[0] = *reinterpret_cast<const uint32_t*>(p);
+          a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * qstr);
+          a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
+          a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * qstr + 16);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) mma_s8(acc[mt][nt], a, b[nt]);
+        }
+      }
+    }
+    // Epilogue in registers: c0/c1 are d1 and c2/c3 d2 of query mt*8 + g.
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qq = mt * 8 + g, c = warp * 16 + nt * 8 + tig * 2 + j;
+          const float d1 = __int2float_rn(acc[mt][nt][j] - qoff_s[qq]);
+          const float d2 = __int2float_rn(acc[mt][nt][j + 2] - qoff_s[QB + qq]);
+          // Rows past the range carry penalty -inf and scale 0: -inf.
+          S[qq * kTile + c] = __fadd_rn(
+              __fmul_rn(__fmaf_rn(rho_s[qq], d2, d1), sc[nt][j]), pn[nt][j]);
+        }
+    __syncthreads();
+    consume_tile<QB, kTile, kThreads>(S, q0, q, t0, row_end, n, k, kpad, bs,
+                                      bi, out_scores);
+  }
+  if (out_scores) return;
+  __syncthreads();
+  store_partials<QB, kThreads>(bs, bi, q0, q, kpad, part_s, part_i);
+}
+
+template <class Stage, int QB>
+cudaError_t launch_digit_qb(const void* V, const float* scale,
+                            const float* penalty, const int8_t* digits,
+                            const float* rho, const int* qoff, int n, int d,
+                            int q, int k, int n_splits, int rows_per_split,
+                            float* part_s, int* part_i, float* out_scores,
+                            cudaStream_t stream) {
+  const int kpad = out_scores ? 0 : round_up(k, 32);
+  const size_t bytes = digit_smem_bytes(QB, round_up(d, kChunk), kpad);
+  cudaError_t err = cudaFuncSetAttribute(
+      digit_partial<Stage, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((q + QB - 1) / QB, n_splits);
+  digit_partial<Stage, QB><<<grid, kThreads, bytes, stream>>>(
+      V, scale, penalty, digits, rho, qoff, n, d, q, k, kpad, rows_per_split,
+      part_s, part_i, out_scores);
+  return cudaGetLastError();
+}
+
+// The whole scan: partial lists then the merge, or with out_scores set
+// (k > 128) the masked [q, n] scores only.
+template <class Stage>
+int launch_digit_scan(const void* V, const float* scale, const float* penalty,
+                      const int8_t* digits, const float* rho, const int* qoff,
+                      int n, int d, int q, int k, int n_splits,
+                      int rows_per_split, float* part_s, int* part_i,
+                      float* out_s, int* out_i, float* out_scores,
+                      cudaStream_t st) {
+  cudaError_t err =
+      q <= 8 ? launch_digit_qb<Stage, 8>(V, scale, penalty, digits, rho, qoff,
+                                         n, d, q, k, n_splits, rows_per_split,
+                                         part_s, part_i, out_scores, st)
+             : launch_digit_qb<Stage, 32>(V, scale, penalty, digits, rho, qoff,
+                                          n, d, q, k, n_splits, rows_per_split,
+                                          part_s, part_i, out_scores, st);
+  if (err != cudaSuccess || out_scores) return (int)err;
+  return (int)launch_merge(part_s, part_i, q, n_splits, k, out_s, out_i, st);
+}
+
+}  // namespace

@@ -9,7 +9,9 @@
 // f32 accumulation, queries already cast to the corpus dtype by the caller.
 // Output: the k best scores per query, descending, ties broken by the
 // lower row id (the TPU kernel's _select_topk order); slots past the live
-// rows carry -inf and id -1.
+// rows carry -inf and id -1.  For k > 128 (flat_scores) the kernel writes
+// the masked [Q, N] scores instead, and the caller selects with a stable
+// sort, as the JAX package sends k > 128 to its XLA scan.
 //
 // What bounds it on the H100: at small Q the scan reads N*D*2 bytes of
 // bf16 corpus for 2*Q*N*D flops, far under the ~295 flop/byte ridge, so
@@ -29,9 +31,8 @@
 //    corpora take a plain FMA path with the same staging.
 //  - The tile's scores go to shared memory; one warp per query compares
 //    them with the current k-th best (the pruning gate of the TPU kernel)
-//    and inserts the few that beat it into a sorted list.  Rows are
-//    visited in increasing order, so a strict '>' against the k-th best
-//    keeps the first-index tie order, in the partial lists and the merge.
+//    and inserts the few that beat it into a sorted list (topk_select.cuh:
+//    first-index tie order in the partial lists and the merge).
 //  - The query blocks of one row range are neighbours in blockIdx.x, so
 //    they run together and read the range once from HBM, then from L2.
 // Not yet done (later work): cp.async/TMA double buffering and wgmma.
@@ -43,14 +44,13 @@
 
 #include <type_traits>
 
+#include "topk_select.cuh"
+
 namespace {
 
 constexpr int kTile = 128;    // corpus rows per tile
 constexpr int kChunk = 64;    // dims staged per pass
 constexpr int kThreads = 256; // 8 warps
-constexpr unsigned kFull = 0xffffffffu;
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          const uint32_t b[2]) {
@@ -59,57 +59,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Insert (s, id) into a list sorted by (score desc, id asc) of length k
-// (k <= 128), held in shared memory.  Precondition: s > ls[k-1] and id is
-// larger than every listed id of equal score.  Warp-cooperative.
-__device__ void warp_insert(float* ls, int* li, int k, float s, int id,
-                            int lane) {
-  int pos = 0;
-  for (int base = 0; base < k; base += 32) {
-    const int e = base + lane;
-    pos += __popc(__ballot_sync(kFull, e < k && ls[e] >= s));
-  }
-  float vs[4];
-  int vi[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int e = r * 32 + lane;
-    if (e < k && e > pos) {
-      vs[r] = ls[e - 1];
-      vi[r] = li[e - 1];
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int e = r * 32 + lane;
-    if (e < k && e > pos) {
-      ls[e] = vs[r];
-      li[e] = vi[r];
-    } else if (e == pos) {
-      ls[e] = s;
-      li[e] = id;
-    }
-  }
-  __syncwarp();
-}
-
-// Offer 32 candidates (one per lane, ids ascending with the lane) to a
-// sorted list.  Returns false when none of them beat the k-th best.
-__device__ bool warp_offer(float* ls, int* li, int k, float s, int id,
-                           int lane) {
-  unsigned m = __ballot_sync(kFull, s > ls[k - 1]);
-  if (!m) return false;
-  while (m) {
-    const int b = __ffs(m) - 1;
-    m &= m - 1;
-    const float sb = __shfl_sync(kFull, s, b);
-    const int ib = __shfl_sync(kFull, id, b);
-    if (sb > ls[k - 1]) warp_insert(ls, li, k, sb, ib, lane);
-  }
-  return true;
 }
 
 template <bool kBf16>
@@ -222,7 +171,8 @@ partial_topk(const typename Layout<kBf16>::T* __restrict__ V,
              const float* __restrict__ penalty,
              const typename Layout<kBf16>::T* __restrict__ queries, int n,
              int d, int q, int k, int kpad, int rows_per_split, float alpha,
-             float* __restrict__ part_s, int* __restrict__ part_i) {
+             float* __restrict__ part_s, int* __restrict__ part_i,
+             float* __restrict__ out_scores) {
   using T = typename Layout<kBf16>::T;
   extern __shared__ __align__(16) unsigned char smem[];
   const int dp = round_up(d, kChunk);
@@ -233,7 +183,7 @@ partial_topk(const typename Layout<kBf16>::T* __restrict__ V,
   float* bs = S + QB * kTile;
   int* bi = reinterpret_cast<int*>(bs + QB * kpad);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int q0 = blockIdx.x * QB;
   const int split = blockIdx.y;
   const int row_begin = split * rows_per_split;
@@ -260,67 +210,22 @@ partial_topk(const typename Layout<kBf16>::T* __restrict__ V,
       S[i] = row < row_end ? __fsub_rn(s, penalty[row]) : -INFINITY;
     }
     __syncthreads();
-    for (int qq = warp; qq < QB && q0 + qq < q; qq += kThreads / 32) {
-      float* ls = bs + qq * kpad;
-      int* li = bi + qq * kpad;
-#pragma unroll 1
-      for (int j = 0; j < kTile / 32; ++j)
-        warp_offer(ls, li, k, S[qq * kTile + j * 32 + lane],
-                   t0 + j * 32 + lane, lane);
-    }
+    consume_tile<QB, kTile, kThreads>(S, q0, q, t0, row_end, n, k, kpad, bs,
+                                      bi, out_scores);
   }
+  if (out_scores) return;
   __syncthreads();
-  const int n_splits = gridDim.y;
-  for (int i = tid; i < QB * kpad; i += kThreads) {
-    const int qq = i / kpad, e = i % kpad;
-    if (q0 + qq < q) {
-      const size_t o = ((size_t)(q0 + qq) * n_splits + split) * kpad + e;
-      part_s[o] = bs[i];
-      part_i[o] = bi[i];
-    }
-  }
-}
-
-// One warp per query: merge the per-range partial lists, in range order.
-__global__ void merge_topk(const float* __restrict__ part_s,
-                           const int* __restrict__ part_i, int n_splits, int k,
-                           int kpad, float* __restrict__ out_s,
-                           int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ls = reinterpret_cast<float*>(smem);
-  int* li = reinterpret_cast<int*>(ls + kpad);
-  const int qi = blockIdx.x, lane = threadIdx.x;
-  for (int e = lane; e < kpad; e += 32) {
-    ls[e] = -INFINITY;
-    li[e] = -1;
-  }
-  __syncwarp();
-  const size_t base = (size_t)qi * n_splits * kpad;
-  for (int sp = 0; sp < n_splits; ++sp) {
-    const float* cs = part_s + base + (size_t)sp * kpad;
-    const int* ci = part_i + base + (size_t)sp * kpad;
-    for (int b0 = 0; b0 < k; b0 += 32) {
-      const int e = b0 + lane;
-      const float s = e < k ? cs[e] : -INFINITY;
-      const int id = e < k ? ci[e] : -1;
-      // Each partial list is sorted: once a group of 32 misses, the rest
-      // of that list misses too.
-      if (!warp_offer(ls, li, k, s, id, lane)) break;
-    }
-  }
-  for (int e = lane; e < k; e += 32) {
-    out_s[(size_t)qi * k + e] = ls[e];
-    out_i[(size_t)qi * k + e] = li[e];
-  }
+  store_partials<QB, kThreads>(bs, bi, q0, q, kpad, part_s, part_i);
 }
 
 template <bool kBf16, int QB>
 cudaError_t launch(const void* vectors, const float* penalty,
                    const void* queries, int n, int d, int q, int k,
                    float alpha, int n_splits, int rows_per_split,
-                   float* part_s, int* part_i, cudaStream_t stream) {
+                   float* part_s, int* part_i, float* out_scores,
+                   cudaStream_t stream) {
   using T = typename Layout<kBf16>::T;
-  const int kpad = round_up(k, 32);
+  const int kpad = out_scores ? 0 : round_up(k, 32);
   const size_t bytes = Layout<kBf16>::bytes(QB, round_up(d, kChunk), kpad);
   cudaError_t err = cudaFuncSetAttribute(
       partial_topk<kBf16, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -329,8 +234,28 @@ cudaError_t launch(const void* vectors, const float* penalty,
   dim3 grid((q + QB - 1) / QB, n_splits);
   partial_topk<kBf16, QB><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(vectors), penalty, static_cast<const T*>(queries),
-      n, d, q, k, kpad, rows_per_split, alpha, part_s, part_i);
+      n, d, q, k, kpad, rows_per_split, alpha, part_s, part_i, out_scores);
   return cudaGetLastError();
+}
+
+cudaError_t launch_partial(const void* vectors, const float* pen,
+                           const void* queries, int n, int d, int q, int k,
+                           int is_bf16, float alpha, int n_splits,
+                           int rows_per_split, float* ps, int* pi,
+                           float* out_scores, cudaStream_t st) {
+  if (is_bf16)
+    return q <= 16 ? launch<true, 16>(vectors, pen, queries, n, d, q, k, alpha,
+                                      n_splits, rows_per_split, ps, pi,
+                                      out_scores, st)
+                   : launch<true, 32>(vectors, pen, queries, n, d, q, k, alpha,
+                                      n_splits, rows_per_split, ps, pi,
+                                      out_scores, st);
+  return q <= 16 ? launch<false, 16>(vectors, pen, queries, n, d, q, k, alpha,
+                                     n_splits, rows_per_split, ps, pi,
+                                     out_scores, st)
+                 : launch<false, 32>(vectors, pen, queries, n, d, q, k, alpha,
+                                     n_splits, rows_per_split, ps, pi,
+                                     out_scores, st);
 }
 
 }  // namespace
@@ -345,25 +270,26 @@ extern "C" int flat_topk(const void* vectors, const void* penalty,
                          int rows_per_split, void* part_s, void* part_i,
                          void* out_s, void* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* pen = static_cast<const float*>(penalty);
   float* ps = static_cast<float*>(part_s);
   int* pi = static_cast<int*>(part_i);
-  cudaError_t err;
-  if (is_bf16) {
-    err = q <= 16 ? launch<true, 16>(vectors, pen, queries, n, d, q, k, alpha,
-                                     n_splits, rows_per_split, ps, pi, st)
-                  : launch<true, 32>(vectors, pen, queries, n, d, q, k, alpha,
-                                     n_splits, rows_per_split, ps, pi, st);
-  } else {
-    err = q <= 16 ? launch<false, 16>(vectors, pen, queries, n, d, q, k, alpha,
-                                      n_splits, rows_per_split, ps, pi, st)
-                  : launch<false, 32>(vectors, pen, queries, n, d, q, k, alpha,
-                                      n_splits, rows_per_split, ps, pi, st);
-  }
+  cudaError_t err = launch_partial(vectors, static_cast<const float*>(penalty),
+                                   queries, n, d, q, k, is_bf16, alpha,
+                                   n_splits, rows_per_split, ps, pi, nullptr,
+                                   st);
   if (err != cudaSuccess) return (int)err;
-  const int kpad = round_up(k, 32);
-  merge_topk<<<q, 32, (size_t)kpad * 8, st>>>(
-      ps, pi, n_splits, k, kpad, static_cast<float*>(out_s),
-      static_cast<int*>(out_i));
-  return (int)cudaGetLastError();
+  return (int)launch_merge(ps, pi, q, n_splits, k, static_cast<float*>(out_s),
+                           static_cast<int*>(out_i), st);
+}
+
+// The scores-only mode (k > 128): the same products, alpha and penalty,
+// written to scores [q, n] f32 for a selection outside the kernel.
+extern "C" int flat_scores(const void* vectors, const void* penalty,
+                           const void* queries, int n, int d, int q,
+                           int is_bf16, float alpha, int n_splits,
+                           int rows_per_split, void* scores, void* stream) {
+  return (int)launch_partial(vectors, static_cast<const float*>(penalty),
+                             queries, n, d, q, 0, is_bf16, alpha, n_splits,
+                             rows_per_split, nullptr, nullptr,
+                             static_cast<float*>(scores),
+                             static_cast<cudaStream_t>(stream));
 }

@@ -1,20 +1,27 @@
 """Device-resident exact vector index (``FlatIndex`` of the port).
 
-Counterpart of ``tpu_search/index/flat.py`` for f32 and bf16 storage:
+Counterpart of ``tpu_search/index/flat.py``:
 
-- vectors live in one ``[capacity, D]`` tensor on the index's device;
-  capacity grows by doubling (min 1024), appends write in place;
+- vectors live in one tensor on the index's device; capacity grows by
+  doubling (min 1024), appends write in place.  Storage dtypes:
+  ``float32`` / ``bfloat16`` rows ``[capacity, D]``; ``int8`` rows
+  ``[capacity, D]`` with per-row f32 scales; ``int4`` nibble-pair byte
+  rows ``[capacity/2, D]`` uint8 (``ops.int4_pack``, the TPUSIDX2 layout)
+  with per-row f32 scales.  The JAX package packs int8/int4 into int32
+  words for the TPU's DMA engine; the port keeps the plain layouts.
+  int8/int4 score the ``ip`` metric only;
+- rows quantize on add, to the bits the JAX index stores (its host and
+  device quantizers agree bit for bit, and so does this one);
 - deletion is a tombstone in a ``[capacity]`` validity mask, and
-  ``compact()`` rebuilds contiguously and returns the old -> new id map;
-- search folds validity, the metadata predicate and (for l2) the ``|v|^2``
-  correction into one f32 penalty stream and runs the exact top-k scan
-  (``ops.flat_topk``: the CUDA kernel on the card, the plain version on
-  the CPU).  The penalty is cached per predicate digest; any mutation
-  drops the cache;
+  ``compact()`` rebuilds contiguously (quantized rows dequantize and
+  re-add, as in the JAX package) and returns the old -> new id map;
+- search folds validity and the metadata predicate into one f32 penalty
+  stream (for float l2 also the ``|v|^2`` correction; for int8/int4 0 or
+  ``-inf``), cached per predicate digest until the next mutation, and runs
+  the exact top-k scan of the storage dtype (``ops.flat_topk*``: the CUDA
+  kernels on the card, their plain versions on the CPU), any k;
 - ``save``/``load`` speak TPUSIDX2, so both packages read each other's
   files.
-
-int8/int4 storage is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,13 +33,32 @@ import numpy as np
 import torch
 
 from ..ops.flat_topk import flat_topk_scan
-from ..ops.topk_scan import row_penalty, row_sq_norms
+from ..ops.flat_topk_int4 import flat_topk_int4_scan
+from ..ops.flat_topk_int8 import flat_topk_int8_scan
+from ..ops.int4_pack import (
+    NIBBLE_BIAS,
+    bytes_to_nibble_rows,
+    nibble_rows_to_bytes,
+    quantize_rows_int4,
+)
+from ..ops.topk_scan import INV127, absmax_scales, row_penalty, row_sq_norms
 from ..utils.shapes import next_pow2, round_up
 
-__all__ = ["FlatIndex"]
+__all__ = ["FlatIndex", "quantize_rows_int8"]
 
 _MIN_CAPACITY = 1024
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_QUANTIZED = ("int8", "int4")
+
+
+def quantize_rows_int8(vectors: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: ``v ~ q * scale``, ``scale = max|v| *
+    f32(1/127)`` (floor 1e-12), ``q = rint(v / scale)``.  The JAX index's
+    ``_quantize_rows`` and ``_append_device_int8`` bit for bit, on any
+    device (one f32 multiply and a tensor-by-tensor division)."""
+    v = vectors.float()
+    scales = absmax_scales(v, INV127)
+    return torch.round(v / scales[:, None]).to(torch.int8), scales
 
 
 class FlatIndex:
@@ -47,12 +73,10 @@ class FlatIndex:
     ) -> None:
         if metric not in ("ip", "l2"):
             raise ValueError(f"Unknown metric: {metric}")
-        if dtype in ("int8", "int4", "pq"):
-            raise NotImplementedError(
-                f"{dtype} flat storage is not ported to tpu_search_torch yet"
-            )
-        if dtype not in _DTYPES:
+        if dtype not in _DTYPES and dtype not in _QUANTIZED:
             raise ValueError(f"Unknown storage dtype: {dtype}")
+        if dtype in _QUANTIZED and metric != "ip":
+            raise ValueError(f"{dtype} storage supports the 'ip' metric only")
         self.dim = dim
         self.metric = metric
         self.dtype = dtype
@@ -63,6 +87,7 @@ class FlatIndex:
         self._count = 0
         self._vectors: Optional[torch.Tensor] = None
         self._valid: Optional[torch.Tensor] = None
+        self._scales: Optional[torch.Tensor] = None  # int8/int4: [cap] f32
         self._sq_cache: Optional[torch.Tensor] = None
         self._penalty_cache: Dict[Optional[bytes], torch.Tensor] = {}
 
@@ -89,18 +114,44 @@ class FlatIndex:
 
     # -- mutation ------------------------------------------------------------
 
+    def _empty_buffers(self, capacity: int):
+        """Zeroed ``(vectors, valid, scales)`` for ``capacity`` slots."""
+        if self.dtype == "int8":
+            shape, dtype = (capacity, self.dim), torch.int8
+        elif self.dtype == "int4":
+            shape, dtype = (capacity // 2, self.dim), torch.uint8
+        else:
+            shape, dtype = (capacity, self.dim), _DTYPES[self.dtype]
+        vecs = torch.zeros(shape, dtype=dtype, device=self.device)
+        valid = torch.zeros((capacity,), dtype=torch.bool, device=self.device)
+        scales = None
+        if self.dtype in _QUANTIZED:
+            scales = torch.ones((capacity,), dtype=torch.float32,
+                                device=self.device)
+        return vecs, valid, scales
+
     def _ensure_capacity(self, needed: int) -> None:
         target = max(_MIN_CAPACITY, next_pow2(needed))
         if target <= self._capacity:
             return
-        vecs = torch.zeros((target, self.dim), dtype=_DTYPES[self.dtype],
-                           device=self.device)
-        valid = torch.zeros((target,), dtype=torch.bool, device=self.device)
+        vecs, valid, scales = self._empty_buffers(target)
         if self._vectors is not None:
-            vecs[: self._capacity] = self._vectors
+            vecs[: self._vectors.shape[0]] = self._vectors
             valid[: self._capacity] = self._valid
-        self._vectors, self._valid = vecs, valid
+            if scales is not None:
+                scales[: self._capacity] = self._scales
+        self._vectors, self._valid, self._scales = vecs, valid, scales
         self._capacity = target
+
+    def _write_nibbles(self, u: torch.Tensor, start: int) -> None:
+        """Write ``[n, D]`` biased nibbles at logical slot ``start``: an odd
+        start keeps the low nibble of its byte row; an odd end leaves a
+        zero high nibble (a slot past the count)."""
+        if start % 2:
+            u = torch.cat([self._vectors[start // 2][None] & 0x0F, u])
+        packed = nibble_rows_to_bytes(u)
+        b0 = start // 2
+        self._vectors[b0: b0 + packed.shape[0]] = packed
 
     def add(
         self, vectors: Union[np.ndarray, torch.Tensor], n: Optional[int] = None
@@ -124,9 +175,17 @@ class FlatIndex:
             raise ValueError(f"Expected dim {self.dim}, got {batch.shape[1]}")
         self._ensure_capacity(self._count + n)
         start = self._count
-        self._vectors[start: start + n] = batch[:n].to(
-            device=self.device, dtype=torch.float32
-        ).to(_DTYPES[self.dtype])
+        rows = batch[:n].to(device=self.device, dtype=torch.float32)
+        if self.dtype == "int8":
+            q, scales = quantize_rows_int8(rows)
+            self._vectors[start: start + n] = q
+            self._scales[start: start + n] = scales
+        elif self.dtype == "int4":
+            u, scales = quantize_rows_int4(rows)
+            self._write_nibbles(u, start)
+            self._scales[start: start + n] = scales
+        else:
+            self._vectors[start: start + n] = rows.to(_DTYPES[self.dtype])
         self._valid[start: start + n] = True
         self._count += n
         self._mutated()
@@ -144,12 +203,24 @@ class FlatIndex:
         self._mutated()
         return n_live
 
+    def _rows_f32(self) -> torch.Tensor:
+        """The first ``count`` rows as f32 (dequantized for int8/int4)."""
+        count = self._count
+        if self.dtype == "int8":
+            q = self._vectors[:count].float()
+        elif self.dtype == "int4":
+            nib = bytes_to_nibble_rows(self._vectors[: (count + 1) // 2])
+            q = nib[:count].float() - NIBBLE_BIAS
+        else:
+            return self._vectors[:count].float()
+        return q * self._scales[:count, None]
+
     def compact(self) -> Dict[int, int]:
         """Drop tombstones, renumber contiguously; returns old -> new."""
         if self._count == 0:
             return {}
         keep = torch.nonzero(self._valid[: self._count]).flatten()
-        kept = self._vectors[keep].float()
+        kept = self._rows_f32()[keep]
         mapping = {int(old): new for new, old in enumerate(keep.tolist())}
         self.clear()
         if kept.shape[0]:
@@ -161,33 +232,37 @@ class FlatIndex:
         self._count = 0
         self._vectors = None
         self._valid = None
+        self._scales = None
         self._mutated()
 
     # -- search ----------------------------------------------------------------
 
-    def _penalty(self, mask: Optional[np.ndarray]) -> Tuple[torch.Tensor, float]:
+    def _penalty(self, mask: Optional[np.ndarray]) -> torch.Tensor:
         """Cached ``[capacity]`` penalty for validity & predicate."""
-        alpha = 2.0 if self.metric == "l2" else 1.0
         key = None
         if mask is not None:
             mask = np.asarray(mask, dtype=np.bool_)
             key = hashlib.blake2b(mask.tobytes(), digest_size=16).digest()
         cached = self._penalty_cache.get(key)
         if cached is not None:
-            return cached, alpha
+            return cached
         full = self._valid
         if mask is not None:
             padded = np.zeros((self._capacity,), dtype=np.bool_)
             take = min(mask.shape[0], self._capacity)
             padded[:take] = mask[:take]
             full = full & torch.from_numpy(padded).to(self.device)
-        if self.metric == "l2" and self._sq_cache is None:
-            self._sq_cache = row_sq_norms(self._vectors)
-        penalty, alpha = row_penalty(full, self.metric, self._sq_cache)
+        if self.dtype in _QUANTIZED:
+            # Added, as the TPU kernels' aux stream: 0 live, -inf masked.
+            penalty = torch.where(full, 0.0, float("-inf"))
+        else:
+            if self.metric == "l2" and self._sq_cache is None:
+                self._sq_cache = row_sq_norms(self._vectors)
+            penalty, _ = row_penalty(full, self.metric, self._sq_cache)
         if len(self._penalty_cache) >= 8:  # FIFO bound
             self._penalty_cache.pop(next(iter(self._penalty_cache)))
         self._penalty_cache[key] = penalty
-        return penalty, alpha
+        return penalty
 
     def search(
         self,
@@ -208,16 +283,22 @@ class FlatIndex:
             return (np.full(shape, -np.inf, dtype=np.float32),
                     np.full(shape, -1, dtype=np.int64))
         k_eff = min(k, self._capacity)
-        penalty, alpha = self._penalty(mask)
+        penalty = self._penalty(mask)
         # Rows past the assigned slots are dead: scan only what is needed.
         n_scan = min(self._capacity, max(round_up(self._count, 128), k_eff))
-        scores, ids = flat_topk_scan(
-            self._vectors[:n_scan],
-            penalty[:n_scan],
-            torch.from_numpy(queries).to(self.device),
-            k_eff,
-            alpha,
-        )
+        qt = torch.from_numpy(queries).to(self.device)
+        if self.dtype == "int8":
+            scores, ids = flat_topk_int8_scan(
+                self._vectors[:n_scan], self._scales[:n_scan],
+                penalty[:n_scan], qt, k_eff)
+        elif self.dtype == "int4":
+            scores, ids = flat_topk_int4_scan(
+                self._vectors[: (n_scan + 1) // 2], self._scales[:n_scan],
+                penalty[:n_scan], qt, k_eff)
+        else:
+            scores, ids = flat_topk_scan(
+                self._vectors[:n_scan], penalty[:n_scan], qt, k_eff,
+                2.0 if self.metric == "l2" else 1.0)
         scores = scores.cpu().numpy()
         ids = ids.cpu().numpy().astype(np.int64)
         if k_eff < k:
@@ -229,8 +310,9 @@ class FlatIndex:
     # -- persistence -----------------------------------------------------------
 
     def save(self, path: str) -> None:
-        """Write a TPUSIDX2 file (vectors in their storage dtype + the
-        validity mask)."""
+        """Write a TPUSIDX2 file: vectors in their storage dtype (int8 rows;
+        int4 as ``[ceil(count/2), D]`` nibble-pair bytes), the validity
+        mask, and for int8/int4 the per-row scales."""
         from .serialize import tensor_section, write_file
 
         header = {
@@ -240,11 +322,20 @@ class FlatIndex:
             "dtype": self.dtype,
             "count": self._count,
         }
+        count = self._count
+        if self.dtype == "int4":
+            rows = (count + 1) // 2
+            vectors = tensor_section("vectors", "uint8", self._vectors, rows)
+            if not rows:  # the JAX package's empty int4 section shape
+                vectors = ("vectors", "uint8", (0, self.dim), iter(()))
+        else:
+            vectors = tensor_section("vectors", self.dtype, self._vectors, count)
         valid = None if self._valid is None else self._valid.to(torch.uint8)
-        write_file(path, header, [
-            tensor_section("vectors", self.dtype, self._vectors, self._count),
-            tensor_section("valid", "uint8", valid, self._count),
-        ])
+        sections = [vectors, tensor_section("valid", "uint8", valid, count)]
+        if self.dtype in _QUANTIZED:
+            sections.append(
+                tensor_section("scales", "float32", self._scales, count))
+        write_file(path, header, sections)
 
     @classmethod
     def load(
@@ -271,14 +362,19 @@ class FlatIndex:
         # round-up for large corpora.
         align = 65536 if count >= 65536 else _MIN_CAPACITY
         capacity = max(_MIN_CAPACITY, round_up(count, align))
-        index._vectors = upload_rows(
-            arrays["vectors"], index.dtype, capacity, index.device
-        )
+        if index.dtype == "int4":
+            index._vectors = upload_rows(
+                arrays["vectors"], "uint8", capacity // 2, index.device)
+        else:
+            index._vectors = upload_rows(
+                arrays["vectors"], index.dtype, capacity, index.device)
         valid = np.zeros((capacity,), dtype=np.bool_)
         valid[:count] = np.asarray(arrays["valid"]).astype(np.bool_)
         index._valid = torch.from_numpy(valid).to(index.device)
+        if index.dtype in _QUANTIZED:
+            scales = np.ones((capacity,), dtype=np.float32)
+            scales[:count] = arrays["scales"]
+            index._scales = torch.from_numpy(scales).to(index.device)
         index._capacity = capacity
         index._count = count
         return index
-
-

@@ -49,6 +49,7 @@ _NP_DTYPES = {
 }
 
 _TORCH_DTYPES = {
+    "int8": torch.int8,
     "uint8": torch.uint8,
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,

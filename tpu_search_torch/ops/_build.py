@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface under ``build/kernels/`` at the repository root,
 on first use, and loads through ``ctypes``.  The library name carries a
-hash of the source and the flags, so an edited kernel rebuilds and a stale
-one is never loaded.  Nothing here runs at import time: the CPU tests
-import every module on a machine without ``nvcc``.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited kernel rebuilds and a stale one is never loaded.  Nothing here
+runs at import time: the CPU tests import every module on a machine
+without ``nvcc``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into a ``RuntimeError``.
@@ -39,7 +40,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 # One library per kernel source; the names double as launch-counter keys.
-KERNELS = ("flat_topk", "mpnet_attention", "int8_ffn_ln")
+KERNELS = ("flat_topk", "mpnet_attention", "int8_ffn_ln", "flat_topk_int8",
+           "flat_topk_int4")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -72,10 +74,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

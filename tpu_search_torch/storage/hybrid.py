@@ -1,12 +1,13 @@
 """Hybrid storage: a device-resident flat index + SQLite metadata.
 
-Counterpart of ``tpu_search/storage/hybrid.py`` with the flat index only.
-The SQLite schema and the index file name are the JAX package's, so one
-data directory serves both packages.  Filters compile to a predicate mask
-fused into the scan; hits are hydrated with one batched SQL query.
+Counterpart of ``tpu_search/storage/hybrid.py`` with the flat index only,
+in float32, bfloat16, int8 or int4 storage.  The SQLite schema and the
+index file name are the JAX package's, so one data directory serves both
+packages.  Filters compile to a predicate mask fused into the scan; hits
+are hydrated with one batched SQL query.
 
-Not ported yet, and refused rather than ignored: ``index_type="ivf"``,
-int8/int4/pq storage, the refine tier and sharding over several devices.
+Not ported yet, and refused rather than ignored: ``index_type="ivf"``
+(with it IVF-PQ), the refine tier and sharding over several devices.
 """
 
 from __future__ import annotations
@@ -44,7 +45,9 @@ class StorageConfig:
     index_name: str = "embeddings.tpuidx.npz"
     embedding_dim: int = 768
     index_type: str = "flat"
-    storage_dtype: str = "bfloat16"  # "bfloat16" | "float32"
+    # "float32" | "bfloat16" | "int8" | "int4" | "pq" (int8/int4/pq are
+    # ip-only; pq needs IVF, so a flat index stores it as int4).
+    storage_dtype: str = "bfloat16"
     refine_dtype: str = "none"
     normalize_embeddings: bool = True
     auto_save: bool = True
@@ -75,11 +78,6 @@ def _check_supported(config: StorageConfig) -> None:
         raise NotImplementedError(
             f"index_type={config.index_type!r}: only 'flat' is ported"
         )
-    if config.storage_dtype not in ("bfloat16", "float32"):
-        raise NotImplementedError(
-            f"storage_dtype={config.storage_dtype!r}: only bfloat16 and "
-            f"float32 are ported"
-        )
     if config.refine_dtype not in (None, "", "none"):
         raise NotImplementedError("the refine tier is not ported")
     if config.shard_devices > 1:
@@ -91,6 +89,12 @@ class HybridStorage:
 
     def __init__(self, config: Optional[StorageConfig] = None) -> None:
         self.config = config or StorageConfig()
+        if self.config.index_type == "hnsw":
+            logger.warning(
+                "index_type 'hnsw' is not supported; using 'flat' (exact "
+                "scan; 'ivf' is the ANN option of the JAX package)"
+            )
+            self.config.index_type = "flat"
         _check_supported(self.config)
         self.logger = logger
         self.data_dir = Path(self.config.data_dir).expanduser()
@@ -118,12 +122,32 @@ class HybridStorage:
             self._capability = assess_device_capability(self._device)
         return self._device
 
+    def _effective_dtype(self) -> str:
+        """``config.storage_dtype`` resolved against the metric and the
+        index type, the JAX package's rules: quantized storage scores ip
+        only, so an l2 (un-normalized) corpus falls back to bfloat16; PQ
+        needs IVF, so a flat index stores int4.  The build and the load
+        path both resolve through here."""
+        dtype = self.config.storage_dtype
+        if dtype in ("int8", "int4", "pq") and not self.config.normalize_embeddings:
+            self.logger.warning(
+                "storage_dtype '%s' with l2 metric is not supported; "
+                "using 'bfloat16'", dtype,
+            )
+            dtype = "bfloat16"
+        if dtype == "pq" and self.config.index_type != "ivf":
+            self.logger.warning(
+                "storage_dtype 'pq' requires index_type 'ivf'; using 'int4'"
+            )
+            dtype = "int4"
+        return dtype
+
     def _build_index(self) -> FlatIndex:
         _check_supported(self.config)
         return FlatIndex(
             dim=self.embedding_dim,
             metric="ip" if self.config.normalize_embeddings else "l2",
-            dtype=self.config.storage_dtype,
+            dtype=self._effective_dtype(),
             device=self.device,
         )
 
@@ -145,8 +169,16 @@ class HybridStorage:
                 self.logger.warning("Could not load existing index: %s", exc)
                 self.index = None
             if self.index is not None:
-                self.logger.info("Loaded index with %d vectors",
-                                 self.index.ntotal)
+                self.logger.info("Loaded %s index with %d vectors",
+                                 self.index.dtype, self.index.ntotal)
+                # The file's dtype is authoritative (it was written with
+                # the dtype the config resolved to when it was built).
+                if self.index.dtype != self._effective_dtype():
+                    self.logger.info(
+                        "storage_dtype resolves to %r; keeping the saved "
+                        "%r index", self._effective_dtype(),
+                        self.index.dtype,
+                    )
                 if self.index.dim != self.embedding_dim:
                     self.embedding_dim = self.index.dim
                     self.config.embedding_dim = self.index.dim
@@ -421,7 +453,9 @@ class HybridStorage:
             "total_storage_size": index_size + db_size,
             "embedding_dimension": self.embedding_dim,
             "index_type": self.config.index_type,
-            "storage_dtype": self.config.storage_dtype,
+            "storage_dtype": (
+                self.index.dtype if self.index else self._effective_dtype()
+            ),
             "live_vectors": self.index.live if self.index else 0,
             "tombstones": (
                 (self.index.ntotal - self.index.live) if self.index else 0
