@@ -3,21 +3,36 @@
     python3 chip_smoke.py
 
 Phases, each printing its numbers on its own line:
-  1. build the CUDA kernels from ``tpu_search_torch/csrc`` and print the
-     card's name and power limit;
+  1. build the CUDA kernels from ``tpu_search_torch/csrc`` (one ``nvcc``
+     per source, all started together) and print the card's name and
+     power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the main path gives it (max error, kernel and plain times),
-     the flat scan also at k > 128 and on the cases of
-     ``tests/test_pallas_topk.py``, the int8 scan in both corpus layouts;
+     shapes the main path gives it (max error, kernel and plain times,
+     the least time the card could take, and where one PyTorch call
+     computes the same function, that call's time), the flat scan also at
+     k > 128 and on the cases of ``tests/test_pallas_topk.py``, the int8
+     scan in both corpus layouts; the three IVF probe scans at the size
+     the JAX bench gives IVF (1M x 768 clustered unit rows, nlist 1024,
+     trained by the port's balanced k-means on the card, 10 % tombstoned;
+     the 4,096 cluster centres and row labels come from a numpy seed, the
+     per-row noise from a torch generator seeded alike), nprobe 8 and 32,
+     Q/k in (1, 10), (1, 128), (8, 10), (128, 10), (128, 128) and k = 200
+     (scores mode); and the IVF index against the flat exact scan at
+     nprobe = nlist, and its ``tune_nprobe(0.95)``;
   3. drive the main path at the full width of all-mpnet-base-v2 with
-     random seeded weights, on three storage paths, each a fresh data
-     directory: bf16 (1,000 conversations), then
-     ``CLAUDE_SEARCH_STORAGE_DTYPE=int8`` and ``=int4`` (200 each).  Each
-     indexes synthetic conversations through
+     random seeded weights, on six storage paths, each a fresh data
+     directory: flat bf16 (1,000 conversations), flat
+     ``CLAUDE_SEARCH_STORAGE_DTYPE=int8`` and ``=int4`` (200 each), then
+     ``CLAUDE_SEARCH_INDEX_TYPE=ivf`` with bf16 (1,000), int8 and int4
+     (200 each; int4 with its automatic int8 refine tier and deployed-
+     recall calibration).  Each indexes synthetic conversations through
      ``SearchEngine.index_conversations``, searches in process (filtered
-     too, and at ``top_k=200``) and through the CLI in a subprocess, and
-     checks that its kernels were launched, with the launch counts set to
-     0 just before the path and read just after.
+     too, and at ``top_k=200``) and through the CLI in a subprocess (the
+     IVF paths also run ``optimize`` through the CLI), and checks that its
+     kernels were launched, with the launch counts set to 0 just before
+     the path and read just after.  The IVF paths warm up on 10 files, not
+     1, so that their first add trains the default 100 lists (the JAX
+     package's rule: a first batch smaller than nlist shrinks nlist).
 The second line from the end is the kernel summary JSON, with each
 kernel's launch count from the path that runs it; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -59,8 +74,11 @@ ROOT = Path(__file__).resolve().parent
 #  flat_topk_int8, flat_topk_int4: exact int32 dots, the same written-out
 #    FMA, multiply and add as the plain version's float64 combine, and
 #    first-index ties: scores and ids identical, gate 0.
+#  ivf_topk: as flat_topk; ivf_topk_int8, ivf_topk_int4: as the flat
+#    int8 / int4 scans, the per-probe bias one more written-out add.
 TOL = {"flat_topk": 1e-4, "mpnet_attention": 3e-2, "int8_ffn_ln": 6.25e-2,
-       "flat_topk_int8": 0.0, "flat_topk_int4": 0.0}
+       "flat_topk_int8": 0.0, "flat_topk_int4": 0.0, "ivf_topk": 1e-4,
+       "ivf_topk_int8": 0.0, "ivf_topk_int4": 0.0}
 FFN_MEAN_TOL = 1e-4
 FFN_ULP_SHARE_TOL = 0.01
 
@@ -76,11 +94,24 @@ SOURCES = {
                        "tpu_search/ops/pallas_topk_dma.py:515 and :531"),
     "flat_topk_int4": ("tpu_search_torch/csrc/flat_topk_int4.cu",
                        "tpu_search/ops/pallas_topk_dma.py:358"),
+    "ivf_topk": ("tpu_search_torch/csrc/ivf_topk.cu",
+                 "tpu_search/ops/pallas_ivf_scan.py:213"),
+    "ivf_topk_int8": ("tpu_search_torch/csrc/ivf_topk_int8.cu",
+                      "tpu_search/ops/pallas_ivf_scan.py:400"),
+    "ivf_topk_int4": ("tpu_search_torch/csrc/ivf_topk_int4.cu",
+                      "tpu_search/ops/pallas_ivf_scan.py:632"),
 }
 # The storage path whose run counts each kernel's launches.
 PATH_OF = {"flat_topk": "bfloat16", "mpnet_attention": "bfloat16",
            "int8_ffn_ln": "bfloat16", "flat_topk_int8": "int8",
-           "flat_topk_int4": "int4"}
+           "flat_topk_int4": "int4", "ivf_topk": "ivf_bfloat16",
+           "ivf_topk_int8": "ivf_int8", "ivf_topk_int4": "ivf_int4"}
+N_IVF_QUANT_CONVERSATIONS = 200
+IVF_WARM_FILES = 10
+# The H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM
+# bytes/s and tensor-core operations/s by operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 N_QUANT_CONVERSATIONS = 200
 # The probes are drawn from the first PROBE_POOL chunk ids, which hold the
 # same texts on every storage path (each indexes the same files first, the
@@ -124,7 +155,16 @@ def paired_ms(kernel, plain, iters: int = 10):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_breakdown(tag: str, fn, calls: int = 20) -> None:
+def bound(nbytes: float, ops: float, kind: str):
+    """``(bound_ms, bound_by)``: the least time the card could take, the
+    larger of the bytes over HBM bandwidth and the operations over the
+    peak rate of their type."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def device_breakdown(tag: str, fn, calls: int = 20) -> float:
     """Where one call of a scan wrapper spends the card's time: the device
     time per call of each kernel it launches (torch.profiler), against the
     wall time per call; the rest of the wall is the card waiting on the
@@ -157,6 +197,7 @@ def device_breakdown(tag: str, fn, calls: int = 20) -> None:
           f"device_busy_ms={busy * 1e3:.4f} launches_per_call="
           f"{len(events) / calls:.1f} kernel_ms: {' '.join(parts)} "
           f"other={rest:.4f}", flush=True)
+    return busy * 1e3
 
 
 def short_kernel_name(name: str) -> str:
@@ -214,7 +255,13 @@ def check_flat_topk(results: dict) -> None:
                 fail(f"flat_topk disagrees at Q={q} k={k}")
             worst = max(worst, err, id_err)
             if q == 1 and k == 10:
-                results["flat_topk"] = {"ms": kms, "plain_ms": pms}
+                # corpus, penalty and queries read once, the top k written
+                bound_ms, by = bound(n * d * 2 + n * 4 + q * d * 2 + q * k * 8,
+                                     2 * q * n * d, "bf16")
+                # no single PyTorch call masks, scores and selects
+                results["flat_topk"] = {"ms": kms, "plain_ms": pms,
+                                        "bound_ms": bound_ms, "bound_by": by,
+                                        "library_ms": None}
                 device_breakdown(
                     f"flat_topk N={n} Q=1 k=10",
                     lambda: flat_topk_scan(vecs, penalty, queries, k, alpha))
@@ -394,7 +441,12 @@ def check_quant_topk(results: dict) -> None:
                     device_breakdown(f"{tag} N={n} Q=1 k=10",
                                      lambda: kernel(queries, k))
                     if tag != "flat_topk_int8 words":
-                        entry.update(ms=kms, plain_ms=pms)
+                        row_bytes = d if name == "flat_topk_int8" else d // 2
+                        bound_ms, by = bound(
+                            n * (row_bytes + 8) + 2 * q * d + q * k * 8,
+                            4 * q * n * d, "int8")
+                        entry.update(ms=kms, plain_ms=pms, bound_ms=bound_ms,
+                                     bound_by=by, library_ms=None)
 
 
 def check_attention(results: dict) -> None:
@@ -441,8 +493,31 @@ def check_attention(results: dict) -> None:
             fail(f"mpnet_attention disagrees at S={s}")
         worst = max(worst, err)
         if s == 384:
-            results["mpnet_attention"] = {"ms": kms, "plain_ms": pms}
+            bound_ms, by = bound(4 * b * s * h * 2 + nh * s * s * 4 + b * s * 4,
+                                 4 * b * s * s * h, "bf16")
+            results["mpnet_attention"] = {
+                "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                "bound_by": by,
+                "library_ms": sdpa_ms(q, k, v, bias, mask, nh, scale)}
     results["mpnet_attention"]["max_abs_err"] = worst
+
+
+def sdpa_ms(q, k, v, bias, mask, nh, scale) -> float:
+    """The same attention through ``F.scaled_dot_product_attention`` (a
+    yardstick only: the port never calls it), with the bias and the key
+    mask folded into one bf16 additive mask outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, h = q.shape
+
+    def heads(t):
+        return t.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    add = (bias[None] + mask[:, None, None, :]).to(torch.bfloat16)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=add, scale=scale))
 
 
 def bf16_ulp_share(out, ref) -> float:
@@ -550,7 +625,14 @@ def check_int8_ffn(results: dict) -> None:
         print(f"{line} kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
         worst = max(worst, err)
         if m == 128 * 384:
-            results["int8_ffn_ln"] = {"ms": kms, "plain_ms": pms}
+            # input and output rows, int8 weights and their scales read
+            # once; the two W8A8 products at the int8 rate
+            bound_ms, by = bound(2 * m * h * 2 + 2 * h * inter + 4 * (inter + h),
+                                 2 * 2 * m * h * inter, "int8")
+            # no single PyTorch call: W8A8 GEMMs with GELU, requantize, LN
+            results["int8_ffn_ln"] = {"ms": kms, "plain_ms": pms,
+                                      "bound_ms": bound_ms, "bound_by": by,
+                                      "library_ms": None}
 
     for kind in ("ties", "mul_div"):
         pre, ln1_scale, ln1_bias = planted_ffn_inputs(kind, h, 64, dev)
@@ -562,6 +644,179 @@ def check_int8_ffn(results: dict) -> None:
         print(line, flush=True)
         worst = max(worst, err)
     results["int8_ffn_ln"]["max_abs_err"] = worst
+
+
+IVF_N, IVF_NLIST, IVF_CENTRES = 1_000_000, 1024, 4096
+IVF_CASES = ((1, 10), (1, 128), (8, 10), (128, 10), (128, 128), (1, 200))
+# Bytes a scheduled row brings: the row, then its penalty (bf16) or its
+# scale and penalty (int8, int4).
+IVF_ROW_BYTES = {"bfloat16": 768 * 2 + 4, "int8": 768 + 8, "int4": 384 + 8}
+
+
+def ivf_corpus(dev):
+    """1M x 768 clustered unit rows: 4,096 centres drawn in a 32-dim
+    subspace (neighbouring clusters overlap, as topics of one corpus do)
+    and each row's label from numpy seed 21, the per-row noise (|noise|
+    about 3 times a centre's norm, so that a row's neighbours span several
+    lists: at 60k rows and 64 lists the tuned nprobe is 8-32, on the CPU)
+    from a torch generator seeded 21 on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(21)
+    basis = rng.standard_normal((32, 768)).astype(np.float32)
+    centres = rng.standard_normal((IVF_CENTRES, 32)).astype(np.float32) @ basis
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    labels = torch.from_numpy(rng.integers(0, IVF_CENTRES, IVF_N)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = torch.from_numpy(centres).to(dev)[labels]
+    rows += 0.11 * torch.randn((IVF_N, 768), generator=gen, device=dev)
+    return rows / rows.norm(dim=1, keepdim=True)
+
+
+def build_ivf_indexes(rows, dead):
+    """bf16 (trained by the port's balanced k-means), int8 and int4 IVF
+    indexes over ``rows`` at nlist 1024, sharing the bf16 index's
+    centroids, with ``dead`` ids tombstoned."""
+    import torch
+
+    from tpu_search_torch.index.ivf import IVFIndex
+
+    indexes = {}
+    for dtype in ("bfloat16", "int8", "int4"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = IVFIndex(768, dtype=dtype, nlist=IVF_NLIST,
+                         device=rows.device)
+        if indexes:
+            index.centroids = indexes["bfloat16"].centroids
+        index.add(rows)
+        index.remove(dead)
+        torch.cuda.synchronize()
+        print(f"[ivf_build] dtype={dtype} rows={index.ntotal} live="
+              f"{index.live} trained={'here' if not indexes else 'shared'} "
+              f"seconds={time.perf_counter() - t0:.2f} cap="
+              f"{index._cluster_capacity} padding="
+              f"{json.dumps(index.padding_stats())}", flush=True)
+        indexes[dtype] = index
+    return indexes
+
+
+def check_ivf(results: dict) -> None:
+    """The three IVF probe scans against their plain versions at 1M x 768,
+    nlist 1024 (int8 / int4 exact; bf16 scores within 1e-4, ids equal
+    outside near-ties), then the IVF index against the flat exact scan at
+    nprobe = nlist and its ``tune_nprobe(0.95)``."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.index.flat import FlatIndex
+    from tpu_search_torch.index.ivf import probe_clusters
+    from tpu_search_torch.ops import ivf_scan
+
+    dev = torch.device("cuda")
+    rows = ivf_corpus(dev)
+    dead = np.random.default_rng(22).choice(IVF_N, IVF_N // 10, replace=False)
+    indexes = build_ivf_indexes(rows, dead)
+    qrng = np.random.default_rng(23)
+    scans = {
+        "bfloat16": ("ivf_topk", ivf_scan.ivf_topk_scan,
+                     ivf_scan.ivf_topk_plain, "bf16"),
+        "int8": ("ivf_topk_int8", ivf_scan.ivf_topk_int8_scan,
+                 ivf_scan.ivf_topk_int8_plain, "int8"),
+        "int4": ("ivf_topk_int4", ivf_scan.ivf_topk_int4_scan,
+                 ivf_scan.ivf_topk_int4_plain, "int8"),
+    }
+    for dtype, index in indexes.items():
+        name, scan, plain, kind = scans[dtype]
+        pen, fills = index._penalty(None), index._device_fills()
+        cap = index._cluster_capacity
+        worst = 0.0
+        for nprobe in (8, 32):
+            for q, k in IVF_CASES:
+                queries = rows[torch.from_numpy(
+                    qrng.choice(IVF_N, q, replace=False)).to(dev)]
+                cs, probe = probe_clusters(queries, index._dcent, "ip", nprobe)
+                if dtype == "bfloat16":
+                    args = (index._dblocks, pen, fills, probe, queries, k)
+                else:
+                    cbias = torch.gather(cs, 1, probe.long())
+                    args = (index._dblocks, index._dscale, pen, fills, probe,
+                            queries, k, cbias)
+                ks, ki = scan(*args)
+                ps, pi = plain(*args)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(ps)
+                same_fin = bool(torch.equal(torch.isfinite(ks), fin))
+                err = (float((ks[fin] - ps[fin]).abs().max())
+                       if same_fin and bool(fin.any()) else
+                       (0.0 if same_fin else float("inf")))
+                if dtype == "bfloat16":
+                    ok = err <= TOL[name] and bool(
+                        ((ki == pi) | ((ks - ps).abs() <= TOL[name])).all())
+                else:
+                    ok = bool(torch.equal(ks, ps)) and bool(torch.equal(ki, pi))
+                live = index._dvalid.reshape(-1)[ki[ki >= 0].long()]
+                if not bool(live.all()):
+                    fail(f"{name} returned a tombstoned slot")
+                tile_idx, clusters, n_sched = ivf_scan.build_probe_schedule(
+                    probe, fills, cap, ivf_scan.IVF_TILE)
+                n_sched = int(n_sched)
+                pos = ivf_scan.probe_positions(probe, IVF_NLIST)
+                members = int((pos[:, clusters[:n_sched].long()] >= 0).sum())
+                sched_bytes = n_sched * ivf_scan.IVF_TILE * IVF_ROW_BYTES[dtype]
+                digits = 1 if dtype == "bfloat16" else 2
+                bound_ms, by = bound(
+                    sched_bytes + q * 768 * 4 + q * k * 8,
+                    2 * digits * members * ivf_scan.IVF_TILE * 768, kind)
+                kms, pms = paired_ms(lambda: scan(*args), lambda: plain(*args),
+                                     iters=5)
+                dms = device_breakdown(
+                    f"{name} nprobe={nprobe} Q={q} k={k}", lambda: scan(*args),
+                    calls=10)
+                print(f"[{name}] N={IVF_N} nlist={IVF_NLIST} cap={cap} "
+                      f"nprobe={nprobe} Q={q} k={k} max_abs_err={err:.3e} "
+                      f"id_agreement={float((ki == pi).float().mean()):.6f} "
+                      f"wrapper_ms={kms:.4f} plain_ms={pms:.4f} "
+                      f"device_ms={dms:.4f} scheduled_tiles={n_sched} "
+                      f"scheduled_bytes={sched_bytes} bound_ms={bound_ms:.4f} "
+                      f"bound_by={by} ok={ok}", flush=True)
+                if not ok:
+                    fail(f"{name} disagrees with its plain version at "
+                         f"nprobe={nprobe} Q={q} k={k}")
+                worst = max(worst, err)
+                if nprobe == 32 and q == 1 and k == 10:
+                    results[name] = {"ms": kms, "plain_ms": pms,
+                                     "device_ms": dms, "bound_ms": bound_ms,
+                                     "bound_by": by, "library_ms": None}
+        results[name]["max_abs_err"] = worst
+
+    # The index: every list probed equals the flat exact scan; the tuned
+    # nprobe meets its recall target.
+    ivf = indexes["bfloat16"]
+    del indexes
+    flat = FlatIndex(768, dtype="bfloat16", device=dev)
+    flat.add(rows)
+    flat.remove(dead)
+    qs = rows[torch.from_numpy(qrng.choice(IVF_N, 8, replace=False)).to(dev)]
+    qs = qs.cpu().numpy()
+    del rows
+    fs, fi = flat.search(qs, 10)
+    vs, vi = ivf.search(qs, 10, nprobe=IVF_NLIST)
+    err = float(np.abs(fs - vs).max())
+    same = bool(((fi == vi) | (np.abs(fs - vs) <= TOL["ivf_topk"])).all())
+    print(f"[ivf_index] nprobe=nlist={IVF_NLIST} vs flat exact scan: "
+          f"max_abs_err={err:.3e} id_agreement={float((fi == vi).mean()):.4f} "
+          f"ids_equal_outside_near_ties={same}", flush=True)
+    if err > TOL["ivf_topk"] or not same:
+        fail("the IVF index at nprobe = nlist disagrees with the flat scan")
+    del flat
+    t0 = time.perf_counter()
+    report = ivf.tune_nprobe(0.95)
+    print(f"[ivf_index] tune_nprobe(0.95) {json.dumps(report)} seconds="
+          f"{time.perf_counter() - t0:.2f}", flush=True)
+    if not report["tuned"] or report["recall"] < 0.95:
+        fail(f"tune_nprobe did not reach recall 0.95: {report}")
 
 
 # -- phase 3: the main path -----------------------------------------------------
@@ -592,16 +847,17 @@ def check_encoder_reference(engine, texts) -> float:
     return float((gpu * ref).sum(axis=1).min())
 
 
-def index_path(engine, files, tag: str):
-    """Index ``files[0]`` as a warm-up, then, with the launch counts set
-    to 0, the rest, timed.  Returns ``(total chunks, launches of the
-    indexing)``."""
+def index_path(engine, files, tag: str, dtype: str, warm_files: int = 1):
+    """Index ``files[:warm_files]`` as a warm-up, then, with the launch
+    counts set to 0, the rest, timed.  Returns ``(total chunks, launches of
+    the indexing)``."""
     import torch
 
     from tpu_search_torch.ops import _build
 
     t0 = time.perf_counter()
-    warm = engine.index_conversations(files[:1])
+    with contextlib.redirect_stdout(io.StringIO()):  # the parser's warnings
+        warm = engine.index_conversations(files[:warm_files])
     gate = engine.embedder.int8_gate
     print(f"[warmup] path={tag} first file chunks={warm['chunks_indexed']} "
           f"seconds={time.perf_counter() - t0:.2f} "
@@ -617,11 +873,11 @@ def index_path(engine, files, tag: str):
     parser_log = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(parser_log):
-        stats = engine.index_conversations(files[1:])
+        stats = engine.index_conversations(files[warm_files:])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     after_index = dict(_build.LAUNCHES)
-    n_timed = len(files) - 1
+    n_timed = len(files) - warm_files
     print(f"[index] path={tag} conversations={n_timed} files_processed="
           f"{stats['files_processed']} chunks={stats['chunks_indexed']} "
           f"seconds={wall:.3f} s_per_1k_conversations="
@@ -638,7 +894,7 @@ def index_path(engine, files, tag: str):
     index = engine.storage.index
     if index.ntotal != total or index.live != total:
         fail("index row count disagrees with the chunks indexed")
-    if index.dtype != tag:
+    if index.dtype != dtype:
         fail(f"the {tag} path built a {index.dtype} index")
     if 0 in (after_index["mpnet_attention"], after_index["int8_ffn_ln"]):
         fail(f"indexing did not run the encoder kernels: {after_index}")
@@ -721,6 +977,52 @@ def check_cli(engine, data_dir: Path, query: str, tag: str,
         fail(f"CLI (index loaded from disk) {cli_ids} != in-process {inproc}")
 
 
+def rank_one(results, want, text, filters):
+    """The own chunk at rank 1 with similarity ~1 (bf16 storage)."""
+    top = results[0]
+    if top["chunk_id"] != want or abs(top["similarity"] - 1.0) > 1e-2:
+        return (f"want {want} at rank 1 with sim ~1, got "
+                f"{top['chunk_id']} sim={top['similarity']}")
+    return None
+
+
+def tie_hit(engine, sigma, exact_near_one: bool, gaps: list):
+    """A self-search check for quantized storage: the own chunk ranks
+    first, or below chunks whose scores it ties within the tier's
+    quantization noise (``QUANT_TIE_SIGMAS`` of ``sigma(chunk_id)``, the
+    score's standard deviation); with ``exact_near_one`` (int8) it also
+    scores within 2e-2 of 1.  Appends ``(rank, gap, bound)`` to ``gaps``."""
+
+    def hit(results, want, text, filters):
+        ranked = results
+        if want not in [r["chunk_id"] for r in ranked]:
+            ranked = engine.search_conversations(text, filters, top_k=200)
+        ids = [r["chunk_id"] for r in ranked]
+        if want not in ids:
+            return f"want {want} in the top 200, got {ids[:10]}"
+        rank = ids.index(want)
+        own, top = ranked[rank]["similarity"], ranked[0]["similarity"]
+        limit = QUANT_TIE_SIGMAS * math.hypot(sigma(want), sigma(ids[0]))
+        gaps.append((rank, top - own, limit))
+        if top - own > limit:
+            return (f"{want} at rank {rank + 1}, {top - own:.3e} under "
+                    f"{ids[0]} (tie bound {limit:.3e})")
+        if exact_near_one and abs(own - 1.0) > 2e-2:
+            return f"{want} scores {own}, not within 2e-2 of 1"
+        return None
+
+    return hit
+
+
+def print_gaps(tag: str, gaps: list) -> None:
+    ranks = [r for r, _, _ in gaps]
+    print(f"[search] path={tag} own chunk rank: 1st {ranks.count(0)} "
+          f"of {len(ranks)}, top 10 {sum(r < 10 for r in ranks)}, worst "
+          f"{max(ranks) + 1}; gap to the top / tie bound: max "
+          f"{max(g / b for _, g, b in gaps):.3f}, bound median "
+          f"{statistics.median(b for _, _, b in gaps):.3e}", flush=True)
+
+
 def path_kernels(tag: str):
     return [name for name, path in PATH_OF.items() if path == tag]
 
@@ -733,15 +1035,7 @@ def run_main_path(work: Path, files) -> dict:
 
     engine = SearchEngine(str(work / "data"), model_name="smoke-mpnet",
                           device="cuda")
-    total, after_index = index_path(engine, files, "bfloat16")
-
-    def rank_one(results, want, text, filters):
-        top = results[0]
-        if top["chunk_id"] != want or abs(top["similarity"] - 1.0) > 1e-2:
-            return (f"want {want} at rank 1 with sim ~1, got "
-                    f"{top['chunk_id']} sim={top['similarity']}")
-        return None
-
+    total, after_index = index_path(engine, files, "bfloat16", "bfloat16")
     probes = search_path(engine, total, "bfloat16", rank_one)
     launches = dict(_build.LAUNCHES)
     searched = {k: launches[k] - after_index[k] for k in launches}
@@ -817,7 +1111,7 @@ def run_quant_path(work: Path, files, dtype: str) -> dict:
     try:
         engine = SearchEngine(str(data), model_name="smoke-mpnet",
                               device="cuda")
-        total, after_index = index_path(engine, files, dtype)
+        total, after_index = index_path(engine, files, dtype, dtype)
 
         index, slot = engine.storage.index, engine.storage.chunk_id_to_faiss_id
         gaps = []
@@ -825,34 +1119,9 @@ def run_quant_path(work: Path, files, dtype: str) -> dict:
         def sigma(chunk_id):
             return float(index._scales[slot[chunk_id]]) / math.sqrt(12.0)
 
-        def hit(results, want, text, filters):
-            """The own chunk ranks first, or below chunks whose scores it
-            ties within the tier's quantization noise; int8 also scores
-            it within 2e-2 of 1."""
-            ranked = results
-            if want not in [r["chunk_id"] for r in ranked]:
-                ranked = engine.search_conversations(text, filters, top_k=200)
-            ids = [r["chunk_id"] for r in ranked]
-            if want not in ids:
-                return f"want {want} in the top 200, got {ids[:10]}"
-            rank = ids.index(want)
-            own, top = ranked[rank]["similarity"], ranked[0]["similarity"]
-            bound = QUANT_TIE_SIGMAS * math.hypot(sigma(want), sigma(ids[0]))
-            gaps.append((rank, top - own, bound))
-            if top - own > bound:
-                return (f"{want} at rank {rank + 1}, {top - own:.3e} under "
-                        f"{ids[0]} (tie bound {bound:.3e})")
-            if dtype == "int8" and abs(own - 1.0) > 2e-2:
-                return f"{want} scores {own}, not within 2e-2 of 1"
-            return None
-
-        probes = search_path(engine, total, dtype, hit)
-        ranks = [r for r, _, _ in gaps]
-        print(f"[search] path={dtype} own chunk rank: 1st {ranks.count(0)} "
-              f"of {len(ranks)}, top 10 {sum(r < 10 for r in ranks)}, worst "
-              f"{max(ranks) + 1}; gap to the top / tie bound: max "
-              f"{max(g / b for _, g, b in gaps):.3f}, bound median "
-              f"{statistics.median(b for _, _, b in gaps):.3e}", flush=True)
+        probes = search_path(engine, total, dtype,
+                             tie_hit(engine, sigma, dtype == "int8", gaps))
+        print_gaps(dtype, gaps)
         t0 = time.perf_counter()
         wide = engine.search_conversations(probes[5].text, top_k=200)
         torch.cuda.synchronize()
@@ -876,6 +1145,95 @@ def run_quant_path(work: Path, files, dtype: str) -> dict:
         if dtype == "int4" and gauss < 0.6:
             fail(f"int4 recall@10 on Gaussian rows {gauss:.4f} < 0.6")
         check_cli(engine, data, probes[4].text, dtype, env)
+        return launches
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+
+
+def check_cli_optimize(data_dir: Path, tag: str, env_extra: dict) -> None:
+    """``optimize`` through the CLI on the saved index."""
+    env = dict(os.environ, CLAUDE_SEARCH_MODEL="smoke-mpnet", **env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
+         "--data-dir", str(data_dir), "--device", "cuda", "optimize"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=600,
+    )
+    out = " | ".join(line.strip() for line in proc.stdout.splitlines())
+    print(f"[cli] path={tag} optimize seconds={time.perf_counter() - t0:.2f} "
+          f"rc={proc.returncode} out={out}", flush=True)
+    if proc.returncode != 0 or "Optimization complete" not in proc.stdout:
+        fail(f"CLI optimize failed: {proc.stderr[-2000:]}")
+
+
+def run_ivf_path(work: Path, files, dtype: str) -> dict:
+    """The main path with ``CLAUDE_SEARCH_INDEX_TYPE=ivf`` and
+    ``CLAUDE_SEARCH_STORAGE_DTYPE=dtype`` in a fresh data directory: index
+    (auto-train, rebalance, nprobe autotune; int4 with its refine tier and
+    calibration), search (filtered, and at ``top_k=200``), the CLI on the
+    saved index, ``optimize`` through the CLI.  Returns the launch counts
+    of that run (set to 0 after the warm-up)."""
+    import torch
+
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.ops import _build
+
+    tag = f"ivf_{dtype}"
+    data = work / f"data_{tag}"
+    data.mkdir()
+    (data / "models").symlink_to(work / "data" / "models")
+    env = {"CLAUDE_SEARCH_INDEX_TYPE": "ivf",
+           "CLAUDE_SEARCH_STORAGE_DTYPE": dtype}
+    os.environ.update(env)
+    try:
+        engine = SearchEngine(str(data), model_name="smoke-mpnet",
+                              device="cuda")
+        total, _ = index_path(engine, files, tag, dtype, IVF_WARM_FILES)
+        index = engine.storage.index
+        cal = {k: v for k, v in (index._quant_cal or {}).items()
+               if k != "trail"}
+        print(f"[ivf] path={tag} nlist={index.nlist} cap="
+              f"{index._cluster_capacity} padding="
+              f"{json.dumps(index.padding_stats())} nprobe_hint="
+              f"{index.nprobe_hint} refine={index.refine_dtype} "
+              f"refine_factor={index.refine_factor} calibration="
+              f"{json.dumps(cal)}", flush=True)
+        if dtype == "int4" and not cal.get("calibrated"):
+            fail(f"the int4 IVF path did not calibrate: {cal}")
+        slot = engine.storage.chunk_id_to_faiss_id
+
+        def sigma(chunk_id):
+            vid = slot[chunk_id]
+            if index._refine is not None:  # refine rows score the result
+                scale = float(index._refine.scales[vid])
+            else:
+                scale = float(index._dscale[int(index._slot_cluster[vid]),
+                                            int(index._slot_pos[vid])])
+            return scale / math.sqrt(12.0)
+
+        gaps = []
+        check = rank_one if dtype == "bfloat16" else tie_hit(
+            engine, sigma, dtype == "int8", gaps)
+        probes = search_path(engine, total, tag, check)
+        if gaps:
+            print_gaps(tag, gaps)
+        t0 = time.perf_counter()
+        wide = engine.search_conversations(probes[5].text, top_k=200)
+        torch.cuda.synchronize()
+        print(f"[search] path={tag} top_k=200 results={len(wide)} "
+              f"ms={(time.perf_counter() - t0) * 1000:.3f}", flush=True)
+        if len(wide) != 200:
+            fail(f"top_k=200 on the {tag} path returned {len(wide)}")
+        launches = dict(_build.LAUNCHES)
+        print(f"[launches] path={tag} index+search={launches}", flush=True)
+        wanted = [k for k, path in PATH_OF.items() if path == tag]
+        if dtype == "int4":
+            wanted.append("flat_topk_int8")  # the calibration's truth scan
+        if any(launches[k] == 0 for k in wanted):
+            fail(f"the {tag} path did not run {wanted}: {launches}")
+        check_cli(engine, data, probes[4].text, tag, env)
+        check_cli_optimize(data, tag, env)
         return launches
     finally:
         for key in env:
@@ -909,6 +1267,7 @@ def main() -> None:
     check_quant_topk(results)
     check_attention(results)
     check_int8_ffn(results)
+    check_ivf(results)
 
     from tpu_search_torch.utils.synthetic import (
         N_CONVERSATIONS,
@@ -928,6 +1287,11 @@ def main() -> None:
         for dtype in ("int8", "int4"):
             launches[dtype] = run_quant_path(
                 work, files[: N_QUANT_CONVERSATIONS + 1], dtype)
+        for dtype, n in (("bfloat16", N_CONVERSATIONS),
+                         ("int8", N_IVF_QUANT_CONVERSATIONS),
+                         ("int4", N_IVF_QUANT_CONVERSATIONS)):
+            launches[f"ivf_{dtype}"] = run_ivf_path(
+                work, files[: n + IVF_WARM_FILES], dtype)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -941,6 +1305,9 @@ def main() -> None:
             "max_abs_err": results[name]["max_abs_err"],
             "ms": results[name]["ms"],
             "plain_ms": results[name]["plain_ms"],
+            "bound_ms": results[name]["bound_ms"],
+            "bound_by": results[name]["bound_by"],
+            "library_ms": results[name]["library_ms"],
         }
         for name in _build.KERNELS
     ]}

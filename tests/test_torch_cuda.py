@@ -364,3 +364,142 @@ def test_index_search_runs_the_kernels(dev, dtype, k):
     else:
         np.testing.assert_array_equal(ids, want_i)
         np.testing.assert_array_equal(scores, want_s)
+
+
+def ivf_state(dev, nlist=9, cap=512, d=128, seed=3):
+    """Ragged fills (one empty cluster), tombstones, a duplicated row (an
+    exact tie), residual int8 / int4 codes of the rows."""
+    from tpu_search_torch.index.flat import quantize_rows_int8
+    from tpu_search_torch.ops.int4_pack import (
+        nibble_rows_to_bytes,
+        quantize_rows_int4,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cent = torch.randn((nlist, d), generator=gen, device=dev)
+    cent = cent / cent.norm(dim=1, keepdim=True)
+    rows = cent[:, None] + 0.3 * torch.randn((nlist, cap, d), generator=gen,
+                                             device=dev)
+    rows[0, 9] = rows[0, 4]
+    fills = torch.randint(10, cap + 1, (nlist,), generator=gen,
+                          device=dev).int()
+    fills[2] = 0
+    valid = (torch.arange(cap, device=dev)[None] < fills[:, None]) & (
+        torch.rand((nlist, cap), generator=gen, device=dev) > 0.2)
+    valid[0, 4] = valid[0, 9] = True
+    resid = (rows - cent[:, None]).reshape(-1, d)
+    i8, s8 = quantize_rows_int8(resid)
+    u, s4 = quantize_rows_int4(resid)
+    return dict(cent=cent, rows=rows, fills=fills, valid=valid,
+                i8=i8.reshape(nlist, cap, d), s8=s8.reshape(nlist, cap),
+                nib=nibble_rows_to_bytes(u).reshape(nlist, cap // 2, d),
+                s4=s4.reshape(nlist, cap))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("q,nprobe,k", [(1, 3, 10), (20, 4, 128), (40, 9, 60),
+                                        (3, 2, 300)])
+def test_ivf_topk_kernel(dev, dtype, metric, q, nprobe, k):
+    from tpu_search_torch.ops.ivf_scan import ivf_topk_plain, ivf_topk_scan
+
+    st = ivf_state(dev)
+    b = st["rows"].to(dtype)
+    sq = (b.float() ** 2).sum(-1)
+    pen = torch.where(st["valid"], sq if metric == "l2" else 0.0,
+                      float("inf"))
+    queries = torch.randn((q, 128), device=dev)
+    queries[0] = b[0, 4].float()
+    probe = torch.topk(queries @ st["cent"].T, nprobe).indices.int()
+    alpha = 2.0 if metric == "l2" else 1.0
+    ks, ki = ivf_topk_scan(b, pen, st["fills"], probe, queries, k, alpha)
+    ps, pi = ivf_topk_plain(b, pen, st["fills"], probe, queries, k, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(ks), torch.isfinite(ps))
+    fin = torch.isfinite(ps)
+    assert float((ks[fin] - ps[fin]).abs().max()) <= 1e-4
+    assert bool(((ki == pi) | ((ks - ps).abs() <= 1e-4)).all())
+    if metric == "ip":
+        assert ki[0, :2].tolist() == [4, 9]  # the tie: the lower slot first
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("q,nprobe,k", [(1, 3, 10), (8, 9, 128), (33, 4, 77),
+                                        (2, 5, 250)])
+def test_ivf_quant_kernels_exact(dev, kind, residual, q, nprobe, k):
+    from tpu_search_torch.ops import ivf_scan
+
+    st = ivf_state(dev, seed=q + nprobe)
+    pen = torch.where(st["valid"], 0.0, float("-inf"))
+    queries = torch.randn((q, 128), device=dev)
+    cs = queries @ st["cent"].T
+    probe = torch.topk(cs, nprobe).indices.int()
+    cbias = torch.gather(cs, 1, probe.long()) if residual else None
+    if kind == "int8":
+        args = (st["i8"], st["s8"])
+        kernel, plain = ivf_scan.ivf_topk_int8_scan, ivf_scan.ivf_topk_int8_plain
+    else:
+        args = (st["nib"], st["s4"])
+        kernel, plain = ivf_scan.ivf_topk_int4_scan, ivf_scan.ivf_topk_int4_plain
+    ks, ki = kernel(*args, pen, st["fills"], probe, queries, k, cbias)
+    ps, pi = plain(*args, pen, st["fills"], probe, queries, k, cbias)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps) and torch.equal(ki, pi)
+
+
+def test_ivf_all_masked_and_unprobed(dev):
+    """Every probed row masked: -inf / -1 everywhere; a query whose only
+    probe is the empty cluster: no candidates."""
+    from tpu_search_torch.ops.ivf_scan import ivf_topk_int8_scan, ivf_topk_scan
+
+    st = ivf_state(dev)
+    pen = torch.full(st["valid"].shape, float("inf"), device=dev)
+    probe = torch.tensor([[0, 1], [2, 2]], dtype=torch.int32, device=dev)
+    probe[1, 1] = 3
+    s, i = ivf_topk_scan(st["rows"].to(torch.bfloat16), pen, st["fills"],
+                         probe, torch.randn((2, 128), device=dev), 5)
+    assert torch.isneginf(s).all() and (i == -1).all()
+    probe = torch.tensor([[2]], dtype=torch.int32, device=dev)
+    s, i = ivf_topk_int8_scan(st["i8"], st["s8"], torch.zeros_like(pen),
+                              st["fills"], probe,
+                              torch.randn((1, 128), device=dev), 5)
+    assert torch.isneginf(s).all() and (i == -1).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "int4"])
+def test_ivf_index_search_runs_the_kernels(dev, dtype):
+    """``IVFIndex.search`` on the card goes through its dtype's kernel
+    (int4 with a refine tier: also the flat int8 truth scan of its
+    calibration) and agrees with the same index on the CPU."""
+    import numpy as np
+
+    from tpu_search_torch.index.ivf import IVFIndex
+    from tpu_search_torch.ops import _build
+
+    rng = np.random.default_rng(1)
+    data = rng.standard_normal((4000, 128)).astype(np.float32)
+    data /= np.linalg.norm(data, axis=1, keepdims=True)
+    on_card = IVFIndex(128, dtype=dtype, device=dev, nlist=16,
+                       pq_auto=dtype == "int4")
+    on_card.add(data)
+    on_card.remove(range(0, 4000, 9))
+    on_cpu = IVFIndex(128, dtype=dtype, device="cpu", nlist=16,
+                      pq_auto=dtype == "int4")
+    on_cpu.centroids = on_card.centroids
+    on_cpu.add(data)
+    on_cpu.remove(range(0, 4000, 9))
+    name = {"bfloat16": "ivf_topk", "int8": "ivf_topk_int8",
+            "int4": "ivf_topk_int4"}[dtype]
+    before = _build.LAUNCHES[name]
+    for k in (10, 200):
+        scores, ids = on_card.search(data[[3, 77, 3999]], k, nprobe=4)
+        want_s, want_i = on_cpu.search(data[[3, 77, 3999]], k, nprobe=4)
+        np.testing.assert_allclose(scores, want_s, atol=1e-4, rtol=1e-5)
+        assert ((ids == want_i) | (np.abs(scores - want_s) <= 1e-4)).all()
+    assert _build.LAUNCHES[name] == before + 2
+    if dtype == "int4":
+        before = _build.LAUNCHES["flat_topk_int8"]
+        report = on_card.calibrate_quant(target_recall=0.9)
+        assert report["calibrated"]
+        assert _build.LAUNCHES["flat_topk_int8"] == before + 1

@@ -250,10 +250,12 @@ def test_effective_dtype_matches_jax(tmp_path, dtype, normalize, index_type,
 
 
 def test_ivf_and_pq_on_ivf_stay_refused(tmp_path):
-    for dtype in ("bfloat16", "pq"):
+    # The IVF index is ported (tests/test_torch_engine_ivf.py); what stays
+    # refused is its product quantization: pq on IVF, and OPQ.
+    for kwargs in ({"storage_dtype": "pq"}, {"pq_opq": True}):
         with pytest.raises(NotImplementedError):
             HybridStorage(StorageConfig(data_dir=str(tmp_path), device="cpu",
-                                        index_type="ivf", storage_dtype=dtype))
+                                        index_type="ivf", **kwargs))
 
 
 @pytest.mark.parametrize("env,value", [

@@ -3,8 +3,8 @@
 Semantic search over Claude Code conversation history on one NVIDIA GPU:
 parse ``~/.claude/projects`` JSONL, chunk, embed with all-mpnet-base-v2
 (bf16, hand-written CUDA kernels for the attention and the W8A8 FFN),
-store in a device-resident flat index (hand-written top-k scan kernel) next
-to SQLite metadata, and search with metadata filters.  The JAX package
+store in a device-resident flat or IVF index (hand-written scan kernels)
+next to SQLite metadata, and search with metadata filters.  The JAX package
 ``tpu_search`` is the reference; each module here names its counterpart.
 """
 
@@ -12,6 +12,7 @@ __version__ = "0.1.0"
 
 from .api.engine import SearchEngine, SemanticSearchCLI
 from .index.flat import FlatIndex
+from .index.ivf import IVFIndex
 from .ingest.chunker import Chunk, ChunkingConfig, ConversationChunker
 from .ingest.parser import Conversation, JSONLParser, Message
 from .models.encoder import EmbeddingConfig, EmbeddingGenerator
@@ -32,6 +33,7 @@ __all__ = [
     "EmbeddingGenerator",
     "FlatIndex",
     "HybridStorage",
+    "IVFIndex",
     "JSONLParser",
     "MPNetConfig",
     "Message",

@@ -8,8 +8,10 @@ and storage per engine, driving
   of about 2048 chunks whose embeddings stay on the device from the
   encoder into the index, parse + chunk of upcoming files on one
   background thread, and one retry round for failed files;
-- ``search_conversations``: embed the query, run the masked exact scan,
-  hydrate from SQLite;
+- ``search_conversations``: embed the query, run the masked scan (exact
+  on a flat index, the probe scan on an IVF one), hydrate from SQLite;
+- ``optimize``: storage maintenance (vacuum, compact, rebalance, nprobe
+  tuning, calibration);
 - ``get_index_stats``.
 
 Not ported yet: the warm query server, reranking and the fused one-dispatch
@@ -72,6 +74,61 @@ def resolve_data_dir(data_dir: Optional[str] = None) -> str:
     return str(Path(data_dir).expanduser())
 
 
+def _env_choice(name: str, allowed: tuple) -> Optional[str]:
+    value = os.environ.get(name)
+    if value and value not in allowed:
+        raise ValueError(f"{name}={value!r} is not one of {sorted(allowed)}")
+    return value or None
+
+
+def _env_number(name: str, kind: type, what: str):
+    value = os.environ.get(name)
+    if not value:
+        return None
+    try:
+        return kind(value)
+    except ValueError:
+        raise ValueError(f"{name} must be {what}, got {value!r}") from None
+
+
+def _storage_env() -> Dict[str, Any]:
+    """The storage knobs of the environment, validated as the JAX engine
+    validates them (``ValueError`` on a bad value):
+
+    - ``CLAUDE_SEARCH_INDEX_TYPE`` = flat|ivf|hnsw,
+      ``CLAUDE_SEARCH_STORAGE_DTYPE`` = float32|bfloat16|int8|int4|pq;
+    - ``CLAUDE_SEARCH_REFINE`` = none|int8|bfloat16 (IVF refine tier),
+      ``CLAUDE_SEARCH_REFINE_FACTOR`` = its stage-1 over-fetch (integer);
+    - ``CLAUDE_SEARCH_NPROBE`` = fixed IVF probe count (integer, 0 = auto:
+      the measured hint, else 8), returned under ``nprobe``;
+    - ``CLAUDE_SEARCH_AUTOTUNE_RECALL`` = nprobe tuning target (float,
+      <= 0 off).
+    ``CLAUDE_SEARCH_PQ_OPQ=1`` raises ``NotImplementedError`` (OPQ is not
+    ported); the storage layer refuses ``pq`` on IVF."""
+    kwargs: Dict[str, Any] = {}
+    for env, key, allowed in (
+        ("CLAUDE_SEARCH_INDEX_TYPE", "index_type", ("flat", "ivf", "hnsw")),
+        ("CLAUDE_SEARCH_STORAGE_DTYPE", "storage_dtype",
+         ("float32", "bfloat16", "int8", "int4", "pq")),
+        ("CLAUDE_SEARCH_REFINE", "refine_dtype", ("none", "int8", "bfloat16")),
+    ):
+        value = _env_choice(env, allowed)
+        if value:
+            kwargs[key] = value
+    if _env_choice("CLAUDE_SEARCH_PQ_OPQ", ("0", "1")) == "1":
+        raise NotImplementedError("CLAUDE_SEARCH_PQ_OPQ=1: OPQ is not ported")
+    for env, key, kind, what in (
+        ("CLAUDE_SEARCH_REFINE_FACTOR", "refine_factor", int, "an integer"),
+        ("CLAUDE_SEARCH_NPROBE", "nprobe", int, "an integer"),
+        ("CLAUDE_SEARCH_AUTOTUNE_RECALL", "ivf_autotune_recall", float,
+         "a float"),
+    ):
+        value = _env_number(env, kind, what)
+        if value is not None:
+            kwargs[key] = value
+    return kwargs
+
+
 class SearchEngine:
     """Index + search over the PyTorch components."""
 
@@ -100,23 +157,8 @@ class SearchEngine:
                 device=device,
             )
         )
-        # CLAUDE_SEARCH_INDEX_TYPE = flat|ivf|hnsw and
-        # CLAUDE_SEARCH_STORAGE_DTYPE = float32|bfloat16|int8|int4|pq,
-        # validated as the JAX engine does; the storage layer resolves and
-        # refuses what the port lacks (ivf).
-        storage_kwargs: Dict[str, Any] = {}
-        for env, key, allowed in (
-            ("CLAUDE_SEARCH_INDEX_TYPE", "index_type", ("flat", "ivf", "hnsw")),
-            ("CLAUDE_SEARCH_STORAGE_DTYPE", "storage_dtype",
-             ("float32", "bfloat16", "int8", "int4", "pq")),
-        ):
-            value = os.environ.get(env)
-            if value and value not in allowed:
-                raise ValueError(
-                    f"{env}={value!r} is not one of {sorted(allowed)}"
-                )
-            if value:
-                storage_kwargs[key] = value
+        storage_kwargs = _storage_env()
+        self._default_nprobe = storage_kwargs.pop("nprobe", 0)
         self.storage = HybridStorage(
             StorageConfig(
                 data_dir=str(self.data_dir),
@@ -397,10 +439,17 @@ class SearchEngine:
         """Embed the query and run the filter-masked exact top-k scan."""
         self._open()
         cfg = SearchConfig(top_k=top_k, include_metadata=True,
-                           include_text=True)
+                           include_text=True, nprobe=self._default_nprobe)
         query_embedding = self.embedder.generate_single_embedding(query)
         results = self.storage.search(query_embedding, cfg, filters)
         return [format_search_result(r) for r in results]
+
+    # -- maintenance ---------------------------------------------------------
+
+    def optimize(self) -> None:
+        """Storage maintenance: vacuum, compact, rebalance, tune nprobe."""
+        self.storage.initialize()
+        self.storage.optimize()
 
     # -- stats ---------------------------------------------------------------
 

@@ -3,11 +3,12 @@
 // Replaces: tpu_search/ops/pallas_topk_dma.py, pallas_flat_topk_dma_int4
 // (:358, body _kernel_int4 :237): the scan of the int4 flat tier.
 //
-// Contract, bound and design: digit_scan.cuh.  The corpus is nibble-pair
-// byte rows [ceil(n/2), d] uint8 (ops/int4_pack.py, the TPUSIDX2 layout):
-// byte row m holds logical row 2m in its low nibble and row 2m+1 in its
-// high nibble, as biased codes u = q + 8 in 1..15.  Hopper's tensor cores
-// take int8, not int4, so the staging splits each 16-byte load in
+// Contract, bound and design: digit_scan.cuh (staging: NibbleStage).  The
+// corpus is nibble-pair byte rows [ceil(n/2), d] uint8 (ops/int4_pack.py,
+// the TPUSIDX2 layout): byte row m holds logical row 2m in its low nibble
+// and row 2m+1 in its high nibble, as biased codes u = q + 8 in 1..15.
+// Hopper's tensor cores take int8, not int4, so the staging splits each
+// 16-byte load in
 // registers (& 0x0F0F0F0F, >> 4) into the s8 values of two logical rows,
 // which feed the int8 MMA as they are; the bias 8 * sum(digit) comes off
 // in int32 before the combine (qoff, ops/topk_scan.py
@@ -17,46 +18,6 @@
 // Bound on the H100: 1M x 768 int4 is 0.384 GB, 0.115 ms at 3.35 TB/s.
 
 #include "digit_scan.cuh"
-
-namespace {
-
-struct NibbleStage {
-  // 64 byte rows x 128 dims: 8 16-byte loads a byte row, two logical rows
-  // each, 2 a thread.  Needs d % 16 == 0.
-  static constexpr int kPerRow = kChunk / 16;
-  static constexpr int kLoads = (kTile / 2) * kPerRow / kThreads;
-  struct Regs {
-    uint4 v[kLoads];
-  };
-  __device__ static void load(const void* V, int n, int d, int t0, int kc,
-                              Regs& regs) {
-    const uint8_t* B = static_cast<const uint8_t*>(V);
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int brow = t0 / 2 + i / kPerRow, col = kc + (i % kPerRow) * 16;
-      regs.v[j] = 2 * brow < n && col < d
-                      ? *reinterpret_cast<const uint4*>(B + (size_t)brow * d + col)
-                      : zero4();
-    }
-  }
-  __device__ static void store(const Regs& regs, int8_t* Vs) {
-    const uint32_t lo = 0x0F0F0F0Fu;
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const uint4 v = regs.v[j];
-      int8_t* dst = Vs + (2 * (i / kPerRow)) * kVStride + (i % kPerRow) * 16;
-      *reinterpret_cast<uint4*>(dst) =
-          make_uint4(v.x & lo, v.y & lo, v.z & lo, v.w & lo);
-      *reinterpret_cast<uint4*>(dst + kVStride) =
-          make_uint4((v.x >> 4) & lo, (v.y >> 4) & lo, (v.z >> 4) & lo,
-                     (v.w >> 4) & lo);
-    }
-  }
-};
-
-}  // namespace
 
 // nibbles [ceil(n/2), d] uint8; scale, penalty [n] f32; digits [2q, d]
 // int8; rho [q] f32; qoff [2q] int32 (8 * sum of each digit row); the rest

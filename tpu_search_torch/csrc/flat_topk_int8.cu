@@ -6,7 +6,7 @@
 //
 // Contract, bound and design: digit_scan.cuh.  Two corpus layouts, picked
 // by the Stage policy:
-//  - RowStage: [n, d] int8 rows (the port's index layout);
+//  - RowStage (digit_scan.cuh): [n, d] int8 rows (the port's index layout);
 //  - WordStage: [n/4, d] int32 words, byte b of word (s, c) = row 4s+b,
 //    column c (the JAX package's word-packed layout, ops/int8_pack.py).
 //    A 16-byte load brings 4 columns of 4 rows; four __byte_perm pairs
@@ -16,36 +16,6 @@
 #include "digit_scan.cuh"
 
 namespace {
-
-struct RowStage {
-  // 128 rows x 128 dims: 8 16-byte loads a row, 4 a thread.  Needs
-  // d % 16 == 0.
-  static constexpr int kLoads = kTile * (kChunk / 16) / kThreads;
-  struct Regs {
-    uint4 v[kLoads];
-  };
-  __device__ static void load(const void* V, int n, int d, int t0, int kc,
-                              Regs& regs) {
-    const int8_t* R = static_cast<const int8_t*>(V);
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int row = t0 + i / (kChunk / 16);
-      const int col = kc + (i % (kChunk / 16)) * 16;
-      regs.v[j] = row < n && col < d
-                      ? *reinterpret_cast<const uint4*>(R + (size_t)row * d + col)
-                      : zero4();
-    }
-  }
-  __device__ static void store(const Regs& regs, int8_t* Vs) {
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      *reinterpret_cast<uint4*>(Vs + (i / (kChunk / 16)) * kVStride +
-                                (i % (kChunk / 16)) * 16) = regs.v[j];
-    }
-  }
-};
 
 struct WordStage {
   // 32 word rows x 128 columns: 32 16-byte loads a word row, each 4

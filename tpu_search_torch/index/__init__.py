@@ -1,5 +1,7 @@
 """Vector indexes."""
 
 from .flat import FlatIndex
+from .ivf import IVFIndex
+from .registry import create_index, load_index
 
-__all__ = ["FlatIndex"]
+__all__ = ["FlatIndex", "IVFIndex", "create_index", "load_index"]

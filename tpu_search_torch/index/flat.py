@@ -32,6 +32,7 @@ from typing import Dict, Iterable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..devices.capability import resolve_device
 from ..ops.flat_topk import flat_topk_scan
 from ..ops.flat_topk_int4 import flat_topk_int4_scan
 from ..ops.flat_topk_int8 import flat_topk_int8_scan
@@ -81,7 +82,7 @@ class FlatIndex:
         self.metric = metric
         self.dtype = dtype
         self.device = torch.device(device) if device is not None else (
-            torch.device("cpu")
+            resolve_device()
         )
         self._capacity = 0
         self._count = 0
@@ -269,8 +270,10 @@ class FlatIndex:
         queries: np.ndarray,
         k: int,
         mask: Optional[np.ndarray] = None,
+        nprobe: int = 0,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Exact top-k with an optional predicate mask over slot ids.
+        """Exact top-k with an optional predicate mask over slot ids
+        (``nprobe``, the IVF knob, is accepted and ignored).
 
         Returns ``(scores [Q, k] f32, ids [Q, k] int64)``; unmatched slots
         score ``-inf`` with id ``-1``."""
@@ -350,8 +353,9 @@ class FlatIndex:
             )
         header, arrays = read_file(path)
         if header.get("kind", "flat") != "flat":
-            raise NotImplementedError(
-                f"index kind {header.get('kind')!r} is not ported yet"
+            raise ValueError(
+                f"{path} holds a {header.get('kind')!r} index "
+                f"(index.registry.load_index reads every kind)"
             )
         index = cls(dim=header["dim"], metric=header["metric"],
                     dtype=header["dtype"], device=device)

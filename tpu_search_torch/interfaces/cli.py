@@ -1,11 +1,13 @@
-"""Command line for the port: ``index``, ``search`` and ``stats``.
+"""Command line for the port: ``index``, ``search``, ``stats`` and
+``optimize``.
 
-Same flags and output as those three commands of the JAX package's CLI
+Same flags and output as those commands of the JAX package's CLI
 (``tpu_search/interfaces/cli.py``), on ``argparse``::
 
     python -m tpu_search_torch.interfaces.cli --data-dir D index --claude-dir P
     python -m tpu_search_torch.interfaces.cli --data-dir D search "query" --json
     python -m tpu_search_torch.interfaces.cli --data-dir D stats
+    python -m tpu_search_torch.interfaces.cli --data-dir D optimize
 
 ``--device`` (or ``CLAUDE_SEARCH_DEVICE``) picks ``cuda`` (default) or
 ``cpu``.
@@ -167,6 +169,29 @@ def cmd_stats(engine: SearchEngine, args) -> None:
             print(f"     - {chunk_type}: {count:,}")
 
 
+def cmd_optimize(engine: SearchEngine, args) -> None:
+    """Storage maintenance: vacuum, compact, rebalance, tune nprobe."""
+    storage = engine.storage
+    storage.initialize()
+    if storage.index is None or not storage.index.ntotal:
+        print("📭 Index is empty — nothing to optimize")
+        return
+    print("🔧 Optimizing storage...")
+    before_live = storage.index.live
+    before_total = storage.index.ntotal
+    storage.optimize()
+    print("✅ Optimization complete")
+    print(f"   • Vectors: {before_total} → {storage.index.ntotal} "
+          f"slots ({before_live} live)")
+    hint = getattr(storage.index, "nprobe_hint", 0)
+    if hint:
+        print(f"   • IVF nprobe tuned to {hint} "
+              f"(recall target {storage.config.ivf_autotune_recall})")
+    if storage.config.auto_save:
+        storage.save_index()
+        print("   • Index saved")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="tpu_search_torch",
@@ -205,6 +230,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("stats", help="Show index statistics")
     p.set_defaults(func=cmd_stats)
+
+    p = sub.add_parser("optimize", help="Run storage maintenance: vacuum, "
+                       "compact, rebalance, tune nprobe")
+    p.set_defaults(func=cmd_optimize)
     return parser
 
 

@@ -1,13 +1,17 @@
-"""Hybrid storage: a device-resident flat index + SQLite metadata.
+"""Hybrid storage: a device-resident vector index + SQLite metadata.
 
-Counterpart of ``tpu_search/storage/hybrid.py`` with the flat index only,
-in float32, bfloat16, int8 or int4 storage.  The SQLite schema and the
-index file name are the JAX package's, so one data directory serves both
-packages.  Filters compile to a predicate mask fused into the scan; hits
-are hydrated with one batched SQL query.
+Counterpart of ``tpu_search/storage/hybrid.py``: a flat or IVF index
+(``index_type``) in float32, bfloat16, int8 or int4 storage, the IVF one
+with its refine tier, skew-triggered rebalance, nprobe autotune and, for
+int4, the deployed-recall calibration, run after every write batch as in
+the JAX package.  The SQLite schema and the index file name are the JAX
+package's, so one data directory serves both packages.  Filters compile
+to a predicate mask fused into the scan; hits are hydrated with one
+batched SQL query.
 
-Not ported yet, and refused rather than ignored: ``index_type="ivf"``
-(with it IVF-PQ), the refine tier and sharding over several devices.
+Not ported yet, and refused rather than ignored: product quantization on
+IVF (``storage_dtype="pq"`` with ``index_type="ivf"``), OPQ
+(``pq_opq``) and sharding over several devices.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ..devices.capability import (
     assess_device_capability,
     resolve_device,
 )
-from ..index.flat import FlatIndex
+from ..index.registry import create_index, load_index
 from ..ingest.chunker import Chunk
 from ..utils.profiling import PhaseTimer
 from .filters import mask_for_filters
@@ -35,7 +39,8 @@ from .metadata import MetadataStore
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["StorageConfig", "SearchConfig", "SearchResult", "HybridStorage"]
+__all__ = ["StorageConfig", "SearchConfig", "SearchResult", "HybridStorage",
+           "resolve_nprobe"]
 
 
 @dataclass
@@ -44,11 +49,27 @@ class StorageConfig:
     db_name: str = "metadata.db"
     index_name: str = "embeddings.tpuidx.npz"
     embedding_dim: int = 768
-    index_type: str = "flat"
+    index_type: str = "flat"  # "flat" | "ivf" ("hnsw" falls back to flat)
+    ivf_nlist: int = 100
+    # Rebalance the IVF layout after a write batch when the hottest
+    # cluster's fill exceeds this many times the mean live fill (<= 0: off).
+    ivf_rebalance_skew: float = 2.5
+    # optimize() and the write path tune IVF nprobe to the smallest value
+    # meeting this recall@10 against a full-probe scan (<= 0: off).
+    ivf_autotune_recall: float = 0.95
+    pq_opq: bool = False  # OPQ: not ported, refused
+    # Quantization auto-config: an int4 IVF index gets an int8 refine tier
+    # and the deployed-recall calibration against pq_target_recall, unless
+    # the refine knobs were set by hand.
+    pq_auto: bool = True
+    pq_target_recall: float = 0.9
     # "float32" | "bfloat16" | "int8" | "int4" | "pq" (int8/int4/pq are
     # ip-only; pq needs IVF, so a flat index stores it as int4).
     storage_dtype: str = "bfloat16"
+    # IVF refine tier: "none" | "int8" | "bfloat16" rows re-ranking the
+    # probe scan's top k * refine_factor candidates.
     refine_dtype: str = "none"
+    refine_factor: int = 4
     normalize_embeddings: bool = True
     auto_save: bool = True
     save_interval_s: float = 0.0  # min seconds between auto-saves
@@ -62,6 +83,17 @@ class SearchConfig:
     similarity_threshold: float = 0.0
     include_metadata: bool = True
     include_text: bool = True
+    # IVF probe count; 0 = auto: the index's measured-recall nprobe_hint,
+    # else 8.
+    nprobe: int = 0
+
+
+def resolve_nprobe(cfg_nprobe: int, index: object) -> int:
+    """``SearchConfig.nprobe=0`` means auto: the index's ``nprobe_hint``
+    (set by ``tune_nprobe``) when it has one, else 8."""
+    if cfg_nprobe > 0:
+        return cfg_nprobe
+    return int(getattr(index, "nprobe_hint", 0) or 0) or 8
 
 
 @dataclass
@@ -74,12 +106,14 @@ class SearchResult:
 
 
 def _check_supported(config: StorageConfig) -> None:
-    if config.index_type != "flat":
+    if config.index_type not in ("flat", "ivf"):
+        raise ValueError(f"Unknown index type: {config.index_type}")
+    if config.index_type == "ivf" and config.storage_dtype == "pq":
         raise NotImplementedError(
-            f"index_type={config.index_type!r}: only 'flat' is ported"
-        )
-    if config.refine_dtype not in (None, "", "none"):
-        raise NotImplementedError("the refine tier is not ported")
+            "storage_dtype='pq' on an IVF index (product quantization) is "
+            "not ported")
+    if config.pq_opq:
+        raise NotImplementedError("OPQ (pq_opq) is not ported")
     if config.shard_devices > 1:
         raise NotImplementedError("sharding over several devices is not ported")
 
@@ -102,7 +136,7 @@ class HybridStorage:
         self.db_path = self.data_dir / self.config.db_name
         self.index_path = self.data_dir / self.config.index_name
         self.meta = MetadataStore(str(self.db_path))
-        self.index: Optional[FlatIndex] = None
+        self.index = None  # FlatIndex | IVFIndex
         self.chunk_id_to_faiss_id: Dict[str, int] = {}
         self.faiss_id_to_chunk_id: Dict[int, str] = {}
         self._capability: Optional[DeviceCapability] = None
@@ -142,13 +176,52 @@ class HybridStorage:
             dtype = "int4"
         return dtype
 
-    def _build_index(self) -> FlatIndex:
+    def _effective_refine(self) -> str:
+        """``config.refine_dtype`` resolved as the JAX package does: off on
+        a flat index (already exact over its dtype) and with l2 (the tier
+        scores ip only), off for an unknown value."""
+        refine = self.config.refine_dtype
+        if refine in (None, "", "none"):
+            return "none"
+        if refine not in ("int8", "bfloat16"):
+            self.logger.warning(
+                "refine_dtype %r unknown; disabling the refine tier", refine)
+            return "none"
+        if self.config.index_type != "ivf":
+            self.logger.warning(
+                "refine_dtype '%s' requires index_type 'ivf'; disabling "
+                "(the flat index is already exact over its storage dtype)",
+                refine)
+            return "none"
+        if not self.config.normalize_embeddings:
+            self.logger.warning(
+                "refine tier scores ip-only; disabling for l2 metric")
+            return "none"
+        return refine
+
+    def _effective_pq_auto(self) -> bool:
+        """Quantization auto-config only where the refine knobs are left
+        at their defaults (an explicit choice is a manual operating point)."""
+        return (
+            self.config.pq_auto
+            and self.config.storage_dtype in ("pq", "int4")
+            and not self.config.pq_opq
+            and self.config.refine_dtype == "none"
+        )
+
+    def _build_index(self):
         _check_supported(self.config)
-        return FlatIndex(
+        return create_index(
+            self.config.index_type,
             dim=self.embedding_dim,
             metric="ip" if self.config.normalize_embeddings else "l2",
             dtype=self._effective_dtype(),
             device=self.device,
+            nlist=self.config.ivf_nlist,
+            refine_dtype=self._effective_refine(),
+            refine_factor=self.config.refine_factor,
+            pq_auto=self._effective_pq_auto(),
+            pq_target_recall=self.config.pq_target_recall,
         )
 
     def rebuild_index(self, embedding_dim: int) -> None:
@@ -163,8 +236,8 @@ class HybridStorage:
         self.meta.open()
         if self.index_path.exists():
             try:
-                self.index = FlatIndex.load(str(self.index_path),
-                                            device=self.device)
+                self.index = load_index(str(self.index_path),
+                                        device=self.device)
             except (OSError, ValueError, KeyError) as exc:
                 self.logger.warning("Could not load existing index: %s", exc)
                 self.index = None
@@ -272,9 +345,82 @@ class HybridStorage:
             self.chunk_id_to_faiss_id[chunk.id] = int(vec_id)
             self.faiss_id_to_chunk_id[int(vec_id)] = chunk.id
         self.total_chunks += len(with_emb)
+        with self.timer.phase("store.maintain"):
+            if not self._maybe_rebalance_index():
+                # Freshness-gated: the first add past the sample floor
+                # measures, later adds remeasure after > 25 % growth.
+                self._maybe_autotune_nprobe(force=False)
+                self._maybe_calibrate_quant(force=False)
         if self.config.auto_save:
             with self.timer.phase("store.save"):
                 self._maybe_save()
+
+    def _maybe_rebalance_index(self) -> bool:
+        """Skew-triggered IVF rebalance on the write path; a rebalance
+        retunes nprobe and recalibrates, since both measured the old
+        layout."""
+        if self.config.ivf_rebalance_skew <= 0 or self.index is None:
+            return False
+        maybe = getattr(self.index, "maybe_rebalance", None)
+        if maybe is None:
+            return False
+        ran = bool(maybe(skew_threshold=self.config.ivf_rebalance_skew))
+        if ran:
+            stats = self.index.padding_stats()
+            self.logger.info(
+                "IVF layout skew exceeded %.1fx mean fill; rebalanced "
+                "(fill_fraction=%.2f max_fill=%d)",
+                self.config.ivf_rebalance_skew,
+                stats.get("fill_fraction", 1.0), stats.get("max_fill", 0))
+            self._maybe_autotune_nprobe(force=True)
+            self._maybe_calibrate_quant(force=True)
+        return ran
+
+    def _maybe_calibrate_quant(self, force: bool = True) -> bool:
+        """Deployed-recall calibration of a quantized IVF index
+        (``IVFIndex.calibrate_quant``); ``force=False`` remeasures only
+        when nothing was measured yet or the live count drifted > 25 %."""
+        if self.index is None:
+            return False
+        calibrate = getattr(self.index, "calibrate_quant", None)
+        if calibrate is None or not getattr(self.index, "pq_auto", False):
+            return False
+        if not force:
+            prev = getattr(self.index, "_quant_cal", None)
+            if prev and prev.get("calibrated"):
+                live = int(self.index.live)
+                at = int(prev.get("live", 0))
+                if at and 0.75 * at <= live <= 1.25 * at:
+                    return False
+        report = calibrate(target_recall=self.config.pq_target_recall)
+        if report.get("calibrated"):
+            self.logger.info(
+                "Quantization calibrated: deployed recall@10 %.3f (target "
+                "%.2f) at refine_factor=%d nprobe=%d%s",
+                report["recall"], report["target"], report["refine_factor"],
+                report["nprobe"],
+                " — TARGET UNREACHABLE at this code rate"
+                if report.get("target_unreachable") else "")
+        return bool(report.get("calibrated"))
+
+    def _maybe_autotune_nprobe(self, force: bool = True) -> bool:
+        """Measured-recall nprobe selection (``IVFIndex.tune_nprobe``);
+        ``force=False`` retunes only without a fresh hint."""
+        target = self.config.ivf_autotune_recall
+        if target <= 0 or self.index is None:
+            return False
+        tune = getattr(self.index, "tune_nprobe", None)
+        if tune is None:
+            return False
+        if not force and self.index.nprobe_hint_fresh():
+            return False
+        report = tune(target_recall=target)
+        if report.get("tuned"):
+            self.logger.info(
+                "IVF nprobe autotuned to %d (recall@10 %.3f >= %.2f target, "
+                "%d probe queries)", report["nprobe"], report["recall"],
+                target, report["sampled"])
+        return bool(report.get("tuned"))
 
     def _maybe_save(self) -> None:
         if (
@@ -316,7 +462,9 @@ class HybridStorage:
         mask = self.filter_mask(filters)
         if mask is not None and not mask.any():
             return [[] for _ in range(nq)]
-        all_scores, all_ids = self.index.search(queries, k=cfg.top_k, mask=mask)
+        all_scores, all_ids = self.index.search(
+            queries, k=cfg.top_k, mask=mask,
+            nprobe=resolve_nprobe(cfg.nprobe, self.index))
         return self.hydrate_results(all_scores, all_ids, cfg)
 
     def filter_mask(
@@ -437,6 +585,31 @@ class HybridStorage:
         self.index.save(str(self.index_path))
         self._last_save = monotonic()
 
+    def optimize(self) -> None:
+        """Vacuum SQLite, tombstone orphaned vectors (live slots without a
+        metadata row), compact the index (drop tombstones, renumber, save
+        at once), then rebalance if skewed, else retune nprobe and
+        recalibrate."""
+        self.logger.info("Optimizing storage...")
+        self.meta.vacuum()
+        if self.index is not None and self.index.ntotal:
+            referenced = np.fromiter(self.meta.live_vec_ids(), dtype=np.int64)
+            orphans = np.setdiff1d(
+                np.arange(self.index.ntotal, dtype=np.int64), referenced)
+            if len(orphans):
+                removed = self.index.remove(orphans)
+                if removed:
+                    self.logger.info("Tombstoned %d orphaned vectors", removed)
+        if self.index is not None and self.index.live != self.index.ntotal:
+            mapping = self.index.compact()
+            self.meta.update_vec_ids(mapping)
+            self._rebuild_id_mappings()
+            self.save_index()
+        if not self._maybe_rebalance_index():
+            self._maybe_autotune_nprobe()
+            self._maybe_calibrate_quant(force=True)
+        self.logger.info("Storage optimization complete")
+
     # -- stats ---------------------------------------------------------------
 
     def get_stats(self) -> Dict[str, Any]:
@@ -461,6 +634,17 @@ class HybridStorage:
                 (self.index.ntotal - self.index.live) if self.index else 0
             ),
         })
+        nprobe_hint = getattr(self.index, "nprobe_hint", 0)
+        if nprobe_hint:
+            stats["ivf_nprobe_tuned"] = int(nprobe_hint)
+        quant_cal = getattr(self.index, "_quant_cal", None)
+        if quant_cal:
+            stats["quant_cal"] = {
+                key: quant_cal[key]
+                for key in ("recall", "target", "refine_factor", "nprobe",
+                            "target_unreachable", "sampled", "live")
+                if key in quant_cal
+            }
         if self._capability is not None:
             cap = self._capability
             info: Dict[str, Any] = {
