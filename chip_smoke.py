@@ -32,7 +32,20 @@ Phases, each printing its numbers on its own line:
      kernels were launched, with the launch counts set to 0 just before
      the path and read just after.  The IVF paths warm up on 10 files, not
      1, so that their first add trains the default 100 lists (the JAX
-     package's rule: a first batch smaller than nlist shrinks nlist).
+     package's rule: a first batch smaller than nlist shrinks nlist);
+  4. the BERT family at full width with random seeded weights: an
+     all-MiniLM-L6-v2 embedder (flat bf16, 200 conversations, the same
+     searches and CLI check), then on its index three rerank paths through
+     ``search_conversations(rerank=True)`` and the CLI's ``search --rerank
+     --json`` (top_k 10, factor 5): the default ms-marco-MiniLM-L-6-v2
+     cross-encoder (the ``[B, S, H]`` attention), ms-marco-TinyBERT-L-4 (H
+     312, hd 26: the ``[B, heads, S, hd]`` kernel) and the checked-in
+     trained tiny-overlap reranker (H 64, the same kernel), each against
+     the same checkpoint on the CPU, the fixture also on the ordering cases
+     of ``tests/test_rerank_quality.py``.
+Phase 2 also holds the ``[B, heads, S, hd]`` kernel against its plain
+version at B 128 over S 64-512 at H 312 / 12 heads and H 64 / 2 heads, the
+``[B, S, H]`` kernel at S 512 / H 384, and the int8 FFN at H 384 / I 1536.
 The second line from the end is the kernel summary JSON, with each
 kernel's launch count from the path that runs it; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -42,6 +55,7 @@ The script takes no arguments.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import itertools
 import json
@@ -76,9 +90,23 @@ ROOT = Path(__file__).resolve().parent
 #    first-index ties: scores and ids identical, gate 0.
 #  ivf_topk: as flat_topk; ivf_topk_int8, ivf_topk_int4: as the flat
 #    int8 / int4 scans, the per-probe bias one more written-out add.
+#  mpnet_attention_bhsd: as mpnet_attention (the same tile code).
+#  Both attention kernels also gate the mean error and the share of outputs
+#  more than one bf16 ulp off: the kernels show 2e-8 to 1.2e-7 and under
+#  1e-4; leaving P unrounded before P V gives 2e-4 and 10 % with a max
+#  (8e-3 to 1.6e-2) inside the max gate.
 TOL = {"flat_topk": 1e-4, "mpnet_attention": 3e-2, "int8_ffn_ln": 6.25e-2,
        "flat_topk_int8": 0.0, "flat_topk_int4": 0.0, "ivf_topk": 1e-4,
-       "ivf_topk_int8": 0.0, "ivf_topk_int4": 0.0}
+       "ivf_topk_int8": 0.0, "ivf_topk_int4": 0.0,
+       "mpnet_attention_bhsd": 3e-2}
+ATTN_MEAN_TOL = 1e-5
+ATTN_ULP_SHARE_TOL = 1e-3
+# A reranker's logits (before the sigmoid, which saturates) on the card
+# (bf16) against the same checkpoint on the CPU (f32) differ by at most
+# this: read 1.26e-3 (MiniLM-L-6), 9.7e-4 (TinyBERT-L-4) and 3.0e-4 (the
+# trained fixture).  Two logits closer than twice it on the CPU are a tie,
+# whose order the card may flip; farther apart, their order must hold.
+RERANK_LOGIT_TOL = 2e-3
 FFN_MEAN_TOL = 1e-4
 FFN_ULP_SHARE_TOL = 0.01
 
@@ -100,12 +128,28 @@ SOURCES = {
                       "tpu_search/ops/pallas_ivf_scan.py:400"),
     "ivf_topk_int4": ("tpu_search_torch/csrc/ivf_topk_int4.cu",
                       "tpu_search/ops/pallas_ivf_scan.py:632"),
+    "mpnet_attention_bhsd": ("tpu_search_torch/csrc/mpnet_attention_bhsd.cu",
+                             "tpu_search/ops/pallas_mpnet_attention.py:252"),
 }
-# The storage path whose run counts each kernel's launches.
+# The path whose run counts each kernel's launches ("rerank": the TinyBERT
+# and the tiny-overlap rerank paths together).
 PATH_OF = {"flat_topk": "bfloat16", "mpnet_attention": "bfloat16",
            "int8_ffn_ln": "bfloat16", "flat_topk_int8": "int8",
            "flat_topk_int4": "int4", "ivf_topk": "ivf_bfloat16",
-           "ivf_topk_int8": "ivf_int8", "ivf_topk_int4": "ivf_int4"}
+           "ivf_topk_int8": "ivf_int8", "ivf_topk_int4": "ivf_int4",
+           "mpnet_attention_bhsd": "rerank"}
+# The rerank paths: (tag, reranker, kernels it must launch).  All run on
+# the all-MiniLM-L6-v2 index; the reranker sees top_k * factor candidates.
+RERANK_PATHS = (
+    ("rerank_minilm", "ms-marco-MiniLM-L-6-v2", ("mpnet_attention",)),
+    ("rerank_tinybert", "ms-marco-TinyBERT-L-4", ("mpnet_attention_bhsd",)),
+    ("rerank_fixture", "tiny-overlap", ("mpnet_attention_bhsd",)),
+)
+RERANK_TOP_K, RERANK_FACTOR = 10, 5
+N_BERT_CONVERSATIONS = 200
+# bf16 storage keeps 8 significant bits of each stored component: against
+# a unit query, a stored unit row's score moves by less than 2^-8.
+BF16_TIE = 2.0 ** -8
 N_IVF_QUANT_CONVERSATIONS = 200
 IVF_WARM_FILES = 10
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM
@@ -449,7 +493,27 @@ def check_quant_topk(results: dict) -> None:
                                      bound_by=by, library_ms=None)
 
 
+def attention_inputs(gen, shape, nh, s, dev):
+    """Random bf16 q, k, v of ``shape``, a ``[nh, S, S]`` bias, and a key
+    mask with random lengths (row 0 full) and row 1 fully padded."""
+    import torch
+
+    b = shape[0]
+    neg = torch.finfo(torch.float32).min
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    bias = 0.5 * torch.randn((nh, s, s), generator=gen, device=dev)
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+    lengths[0] = s
+    live = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    mask = (1.0 - live.float()) * neg
+    mask[1] = neg  # one fully padded row: the no-NaN guard
+    return q, k, v, bias, mask.contiguous()
+
+
 def check_attention(results: dict) -> None:
+    """The ``[B, S, H]`` kernel at all-mpnet-base-v2's width for every
+    embedder bucket, and at the MiniLM reranker's (H 384) at S 512."""
     import torch
 
     from tpu_search_torch.ops.mpnet_attention import (
@@ -459,65 +523,111 @@ def check_attention(results: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
-    b, h, nh = 128, 768, 12
-    neg = torch.finfo(torch.float32).min
+    b, nh = 128, 12
     worst = 0.0
-    for s in (64, 128, 256, 384):
-        q, k, v = (
-            torch.randn((b, s, h), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(3)
-        )
-        bias = 0.5 * torch.randn((nh, s, s), generator=gen, device=dev)
-        lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
-        lengths[0] = s
-        live = torch.arange(s, device=dev)[None, :] < lengths[:, None]
-        mask = (1.0 - live.float()) * neg
-        mask[1] = neg  # one fully padded row: the no-NaN guard
-        mask = mask.contiguous()
+    for h, s in ((768, 64), (768, 128), (768, 256), (768, 384), (384, 512)):
+        q, k, v, bias, mask = attention_inputs(gen, (b, s, h), nh, s, dev)
         scale = 1.0 / math.sqrt(h // nh)
         out = mpnet_attention(q, k, v, bias, mask, nh, scale)
         ref = mpnet_attention_plain(q, k, v, bias, mask, nh, scale)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out.float()).all()):
             fail("mpnet_attention produced non-finite values")
-        err = float((out.float() - ref.float()).abs().max())
-        mean_err = float((out.float() - ref.float()).abs().mean())
+        errors = bf16_errors(out, ref)
         kms, pms = paired_ms(
             lambda: mpnet_attention(q, k, v, bias, mask, nh, scale),
             lambda: mpnet_attention_plain(q, k, v, bias, mask, nh, scale),
         )
         print(f"[mpnet_attention] B={b} S={s} H={h} heads={nh} "
-              f"max_abs_err={err:.3e} mean_abs_err={mean_err:.3e} "
-              f"kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
-        if err > TOL["mpnet_attention"]:
-            fail(f"mpnet_attention disagrees at S={s}")
-        worst = max(worst, err)
-        if s == 384:
+              f"{format_errors(errors)} kernel_ms={kms:.4f} "
+              f"plain_ms={pms:.4f}", flush=True)
+        if not attention_ok(errors, "mpnet_attention"):
+            fail(f"mpnet_attention disagrees at S={s} H={h}")
+        worst = max(worst, errors["max_abs_err"])
+        if (h, s) == (768, 384):
             bound_ms, by = bound(4 * b * s * h * 2 + nh * s * s * 4 + b * s * 4,
                                  4 * b * s * s * h, "bf16")
             results["mpnet_attention"] = {
                 "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
                 "bound_by": by,
-                "library_ms": sdpa_ms(q, k, v, bias, mask, nh, scale)}
+                "library_ms": sdpa_ms(heads_of(q, nh), heads_of(k, nh),
+                                      heads_of(v, nh), bias, mask, scale)}
+        del q, k, v, bias, mask, out, ref
     results["mpnet_attention"]["max_abs_err"] = worst
 
 
-def sdpa_ms(q, k, v, bias, mask, nh, scale) -> float:
-    """The same attention through ``F.scaled_dot_product_attention`` (a
-    yardstick only: the port never calls it), with the bias and the key
-    mask folded into one bf16 additive mask outside the timed call."""
+def heads_of(t, nh):
+    """``[B, S, H]`` -> contiguous ``[B, nh, S, H / nh]``."""
+    b, s, h = t.shape
+    return t.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
+
+
+def check_attention_bhsd(results: dict) -> None:
+    """The ``[B, heads, S, hd]`` kernel at B 128 over the reranker's
+    buckets, at the TinyBERT-L-4 cross-encoder's width (H 312, 12 heads of
+    26: padded head columns) and the tiny-overlap reranker's (H 64, 2 heads
+    of 32)."""
+    import torch
+
+    from tpu_search_torch.ops.mpnet_attention import (
+        mpnet_attention_bhsd,
+        mpnet_attention_bhsd_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    b, worst = 128, 0.0
+    for h, nh in ((312, 12), (64, 2)):
+        hd = h // nh
+        for s in (64, 128, 256, 384, 512):
+            q, k, v, bias, mask = attention_inputs(gen, (b, nh, s, hd), nh, s,
+                                                   dev)
+            scale = 1.0 / math.sqrt(hd)
+
+            def kernel():
+                return mpnet_attention_bhsd(q, k, v, bias, mask, scale)
+
+            def plain():
+                return mpnet_attention_bhsd_plain(q, k, v, bias, mask, scale)
+
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out.float()).all()):
+                fail(f"mpnet_attention_bhsd produced non-finite values at "
+                     f"S={s} H={h}")
+            errors = bf16_errors(out, ref)
+            kms, pms = paired_ms(kernel, plain)
+            lib = sdpa_ms(q, k, v, bias, mask, scale)
+            print(f"[mpnet_attention_bhsd] B={b} S={s} H={h} heads={nh} "
+                  f"hd={hd} {format_errors(errors)} kernel_ms={kms:.4f} "
+                  f"plain_ms={pms:.4f} sdpa_ms={lib:.4f}", flush=True)
+            if not attention_ok(errors, "mpnet_attention_bhsd"):
+                fail(f"mpnet_attention_bhsd disagrees at S={s} H={h}")
+            worst = max(worst, errors["max_abs_err"])
+            if (h, s) == (312, 512):
+                # q, k, v read and out written once, the shared bias and
+                # the mask read once; QK^T and PV at the unpadded hd
+                bound_ms, by = bound(
+                    4 * b * s * h * 2 + nh * s * s * 4 + b * s * 4,
+                    4 * b * nh * s * s * hd, "bf16")
+                results["mpnet_attention_bhsd"] = {
+                    "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": lib}
+            del q, k, v, bias, mask, out, ref
+    results["mpnet_attention_bhsd"]["max_abs_err"] = worst
+
+
+def sdpa_ms(q, k, v, bias, mask, scale) -> float:
+    """The same attention on ``[B, heads, S, hd]`` inputs through
+    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
+    calls it), with the bias and the key mask folded into one bf16 additive
+    mask outside the timed call."""
     import torch
     import torch.nn.functional as F
 
-    b, s, h = q.shape
-
-    def heads(t):
-        return t.reshape(b, s, nh, h // nh).transpose(1, 2).contiguous()
-
-    qh, kh, vh = heads(q), heads(k), heads(v)
     add = (bias[None] + mask[:, None, None, :]).to(torch.bfloat16)
     return cuda_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=add, scale=scale))
+        q, k, v, attn_mask=add, scale=scale))
 
 
 def bf16_ulp_share(out, ref) -> float:
@@ -530,10 +640,23 @@ def bf16_ulp_share(out, ref) -> float:
     return float(((out.float() - ref).abs() > ulp).float().mean())
 
 
-def ffn_errors(out, ref) -> dict:
+def bf16_errors(out, ref) -> dict:
+    """Max and mean error of a bf16 kernel output, and its share of outputs
+    more than one bf16 ulp off."""
     err = (out.float() - ref.float()).abs()
     return {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
             "over_1ulp_share": bf16_ulp_share(out, ref)}
+
+
+def format_errors(errors: dict) -> str:
+    return " ".join(f"{key}={value:.3e}" for key, value in errors.items())
+
+
+def attention_ok(errors: dict, name: str) -> bool:
+    """An attention kernel's tolerance against its plain version."""
+    return (errors["max_abs_err"] <= TOL[name]
+            and errors["mean_abs_err"] <= ATTN_MEAN_TOL
+            and errors["over_1ulp_share"] <= ATTN_ULP_SHARE_TOL)
 
 
 def ffn_ok(errors: dict) -> bool:
@@ -576,6 +699,9 @@ def planted_ffn_inputs(kind: str, h: int, rows: int, device):
 
 
 def check_int8_ffn(results: dict) -> None:
+    """The W8A8 FFN at all-mpnet-base-v2's width (H 768, I 3072) and at
+    all-MiniLM-L6-v2's (H 384, I 1536): random inputs at an indexing wave's
+    and a query's row count, then the planted rounding inputs."""
     import torch
 
     from tpu_search_torch.ops.int8_ffn import (
@@ -586,25 +712,12 @@ def check_int8_ffn(results: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
-    h, inter = 768, 3072
 
     def bf(t):
         return t.to(torch.bfloat16).float()
 
-    w1q, s1 = quantize_weight_columns(
-        bf(0.02 * torch.randn((h, inter), generator=gen, device=dev)))
-    w2q, s2 = quantize_weight_columns(
-        bf(0.02 * torch.randn((inter, h), generator=gen, device=dev)))
-    w1t, w2t = w1q.T.contiguous(), w2q.T.contiguous()
-    b1 = bf(0.02 * torch.randn((inter,), generator=gen, device=dev))
-    b2 = bf(0.02 * torch.randn((h,), generator=gen, device=dev))
-    ln = [bf(1.0 + 0.1 * torch.randn((h,), generator=gen, device=dev))
-          if i % 2 == 0 else
-          bf(0.1 * torch.randn((h,), generator=gen, device=dev))
-          for i in range(4)]
-
     def gate(tag, out, ref):
-        errors = ffn_errors(out, ref)
+        errors = bf16_errors(out, ref)
         line = f"[int8_ffn_ln] {tag} " + " ".join(
             f"{k}={v:.3e}" for k, v in errors.items())
         if not ffn_ok(errors):
@@ -612,37 +725,52 @@ def check_int8_ffn(results: dict) -> None:
         return errors["max_abs_err"], line
 
     worst = 0.0
-    for m in (128 * 384, 8 * 64):
-        pre = torch.randn((m, h), generator=gen, device=dev).to(torch.bfloat16)
-        pre[0] = 0  # an all-zero row (its LN output is the LN bias)
-        args = (pre, w1t, s1, b1, w2t, s2, b2, *ln)
-        out = int8_ffn_ln(*args)
-        ref = int8_ffn_ln_plain(*args)
-        torch.cuda.synchronize()
-        err, line = gate(f"M={m} H={h} I={inter}", out, ref)
-        kms, pms = paired_ms(lambda: int8_ffn_ln(*args),
-                             lambda: int8_ffn_ln_plain(*args), iters=5)
-        print(f"{line} kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
-        worst = max(worst, err)
-        if m == 128 * 384:
-            # input and output rows, int8 weights and their scales read
-            # once; the two W8A8 products at the int8 rate
-            bound_ms, by = bound(2 * m * h * 2 + 2 * h * inter + 4 * (inter + h),
-                                 2 * 2 * m * h * inter, "int8")
-            # no single PyTorch call: W8A8 GEMMs with GELU, requantize, LN
-            results["int8_ffn_ln"] = {"ms": kms, "plain_ms": pms,
-                                      "bound_ms": bound_ms, "bound_by": by,
-                                      "library_ms": None}
+    for h, inter in ((768, 3072), (384, 1536)):
+        w1q, s1 = quantize_weight_columns(
+            bf(0.02 * torch.randn((h, inter), generator=gen, device=dev)))
+        w2q, s2 = quantize_weight_columns(
+            bf(0.02 * torch.randn((inter, h), generator=gen, device=dev)))
+        w1t, w2t = w1q.T.contiguous(), w2q.T.contiguous()
+        b1 = bf(0.02 * torch.randn((inter,), generator=gen, device=dev))
+        b2 = bf(0.02 * torch.randn((h,), generator=gen, device=dev))
+        ln = [bf(1.0 + 0.1 * torch.randn((h,), generator=gen, device=dev))
+              if i % 2 == 0 else
+              bf(0.1 * torch.randn((h,), generator=gen, device=dev))
+              for i in range(4)]
+        for m in (128 * 384, 8 * 64):
+            pre = torch.randn((m, h), generator=gen, device=dev).to(
+                torch.bfloat16)
+            pre[0] = 0  # an all-zero row (its LN output is the LN bias)
+            args = (pre, w1t, s1, b1, w2t, s2, b2, *ln)
+            out = int8_ffn_ln(*args)
+            ref = int8_ffn_ln_plain(*args)
+            torch.cuda.synchronize()
+            err, line = gate(f"M={m} H={h} I={inter}", out, ref)
+            kms, pms = paired_ms(lambda: int8_ffn_ln(*args),
+                                 lambda: int8_ffn_ln_plain(*args), iters=5)
+            print(f"{line} kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
+            worst = max(worst, err)
+            if (m, h) == (128 * 384, 768):
+                # input and output rows, int8 weights and their scales read
+                # once; the two W8A8 products at the int8 rate
+                bound_ms, by = bound(
+                    2 * m * h * 2 + 2 * h * inter + 4 * (inter + h),
+                    2 * 2 * m * h * inter, "int8")
+                # no single PyTorch call: W8A8 GEMMs, GELU, requantize, LN
+                results["int8_ffn_ln"] = {"ms": kms, "plain_ms": pms,
+                                          "bound_ms": bound_ms, "bound_by": by,
+                                          "library_ms": None}
 
-    for kind in ("ties", "mul_div"):
-        pre, ln1_scale, ln1_bias = planted_ffn_inputs(kind, h, 64, dev)
-        args = (pre, w1t, s1, b1, w2t, s2, b2, ln1_scale, ln1_bias, *ln[2:])
-        out = int8_ffn_ln(*args, eps=0.0)
-        ref = int8_ffn_ln_plain(*args, eps=0.0)
-        torch.cuda.synchronize()
-        err, line = gate(f"M=64 H={h} I={inter} planted={kind}", out, ref)
-        print(line, flush=True)
-        worst = max(worst, err)
+        for kind in ("ties", "mul_div"):
+            pre, ln1_scale, ln1_bias = planted_ffn_inputs(kind, h, 64, dev)
+            args = (pre, w1t, s1, b1, w2t, s2, b2, ln1_scale, ln1_bias,
+                    *ln[2:])
+            out = int8_ffn_ln(*args, eps=0.0)
+            ref = int8_ffn_ln_plain(*args, eps=0.0)
+            torch.cuda.synchronize()
+            err, line = gate(f"M=64 H={h} I={inter} planted={kind}", out, ref)
+            print(line, flush=True)
+            worst = max(worst, err)
     results["int8_ffn_ln"]["max_abs_err"] = worst
 
 
@@ -954,23 +1082,33 @@ def search_path(engine, total: int, tag: str, check_hit):
 
 
 def check_cli(engine, data_dir: Path, query: str, tag: str,
-              env_extra: dict) -> None:
-    """``search --json`` in a subprocess, over the index loaded from disk,
-    returns the in-process ids."""
-    inproc = [r["chunk_id"] for r in engine.search_conversations(query)]
-    env = dict(os.environ, CLAUDE_SEARCH_MODEL="smoke-mpnet", **env_extra)
+              env_extra: dict, model: str = "smoke-mpnet",
+              rerank_model: str = "") -> None:
+    """``search --json`` (with ``rerank_model``: ``search --rerank
+    --rerank-model M --rerank-factor F --json``) in a subprocess, over the
+    index loaded from disk, returns the in-process ids."""
+    flags, kwargs = [], {}
+    if rerank_model:
+        flags = ["--rerank", "--rerank-model", rerank_model,
+                 "--rerank-factor", str(RERANK_FACTOR)]
+        kwargs = dict(rerank=True, rerank_model=rerank_model,
+                      rerank_factor=RERANK_FACTOR)
+    inproc = [r["chunk_id"] for r in engine.search_conversations(
+        query, top_k=RERANK_TOP_K, **kwargs)]
+    env = dict(os.environ, CLAUDE_SEARCH_MODEL=model, **env_extra)
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
          "--data-dir", str(data_dir), "--device", "cuda",
-         "search", query, "--json"],
+         "search", query, "--top-k", str(RERANK_TOP_K), *flags, "--json"],
         capture_output=True, text=True, env=env, cwd=str(ROOT),
         timeout=600,
     )
     if proc.returncode != 0:
         fail(f"CLI search failed: {proc.stderr[-2000:]}")
     cli_ids = [item["uid"] for item in json.loads(proc.stdout)["items"]]
-    print(f"[cli] path={tag} search --json seconds="
+    what = "search --rerank --json" if rerank_model else "search --json"
+    print(f"[cli] path={tag} {what} seconds="
           f"{time.perf_counter() - t0:.2f} same_top_ids={cli_ids == inproc} "
           f"top={cli_ids[:3]}", flush=True)
     if cli_ids != inproc:
@@ -984,6 +1122,28 @@ def rank_one(results, want, text, filters):
         return (f"want {want} at rank 1 with sim ~1, got "
                 f"{top['chunk_id']} sim={top['similarity']}")
     return None
+
+
+def bf16_tie_hit(gaps: list):
+    """A self-search check for bf16 storage where neighbouring chunks embed
+    nearly alike (random-weight BERT: adjacent chunks share a turn): the own
+    chunk in the top 10 with similarity within 1e-2 of 1, and at rank 1 or
+    within ``BF16_TIE`` of the top score.  Appends ``(rank, gap, bound)``
+    to ``gaps``."""
+
+    def hit(results, want, text, filters):
+        ids = [r["chunk_id"] for r in results]
+        if want not in ids:
+            return f"want {want} in the top 10, got {ids}"
+        rank = ids.index(want)
+        own, top = results[rank]["similarity"], results[0]["similarity"]
+        gaps.append((rank, top - own, BF16_TIE))
+        if top - own > BF16_TIE or abs(own - 1.0) > 1e-2:
+            return (f"{want} at rank {rank + 1} with sim {own}, "
+                    f"{top - own:.3e} under {ids[0]}")
+        return None
+
+    return hit
 
 
 def tie_hit(engine, sigma, exact_near_one: bool, gaps: list):
@@ -1240,6 +1400,213 @@ def run_ivf_path(work: Path, files, dtype: str) -> dict:
             os.environ.pop(key, None)
 
 
+def run_bert_path(work: Path, files):
+    """The main path with an all-MiniLM-L6-v2 embedder (BERT, full width,
+    random weights, mean pooling) on flat bf16 storage: index, the 20
+    searches, the CLI.  The cross-encoders and the tiny-overlap fixture go
+    into the same data directory for the rerank paths.  Returns ``(engine,
+    data dir, probes, launch counts)``."""
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.utils.synthetic import write_bert_model
+
+    tag, data = "minilm", work / "data_minilm"
+    t0 = time.perf_counter()
+    for seed, name in enumerate(("all-MiniLM-L6-v2", "ms-marco-MiniLM-L-6-v2",
+                                 "ms-marco-TinyBERT-L-4")):
+        write_bert_model(data / "models" / name, name, 30 + seed)
+    shutil.copytree(ROOT / "tests" / "fixtures" / "tiny-overlap",
+                    data / "models" / "tiny-overlap")
+    print(f"[setup] path={tag} checkpoints seconds="
+          f"{time.perf_counter() - t0:.2f}", flush=True)
+    engine = SearchEngine(str(data), model_name="all-MiniLM-L6-v2",
+                          device="cuda")
+    total, after_index = index_path(engine, files, tag, "bfloat16")
+    gaps = []
+    probes = search_path(engine, total, tag, bf16_tie_hit(gaps))
+    print_gaps(tag, gaps)
+    launches = dict(_build.LAUNCHES)
+    searched = {k: launches[k] - after_index[k] for k in launches}
+    print(f"[launches] path={tag} index={after_index} search={searched}",
+          flush=True)
+    if any(searched[k] == 0 for k in path_kernels("bfloat16")):
+        fail(f"the {tag} search did not run every kernel: {searched}")
+    cos = check_encoder_reference(engine, [p.text[:200] for p in probes[:4]])
+    print(f"[reference] path={tag} cuda_vs_cpu_plain_min_cosine={cos:.6f}",
+          flush=True)
+    if not cos > 0.999:
+        fail("CUDA MiniLM encoder disagrees with the plain CPU encoder")
+    check_cli(engine, data, probes[4].text, tag, {}, model="all-MiniLM-L6-v2")
+    return engine, data, probes, launches
+
+
+def cpu_twin(reranker):
+    """The same cross-encoder checkpoint on the CPU (f32, plain versions)."""
+    from tpu_search_torch.models.cross_encoder import CrossEncoder
+
+    twin = CrossEncoder(dataclasses.replace(reranker.config, device="cpu"))
+    twin.load_model()
+    return twin
+
+
+def classifier_reference(reranker, twin, pairs):
+    """The reranker on the card and its CPU twin on ``pairs``, as one
+    padded batch: each side's logits (the first label, before the sigmoid)
+    and the minimum cosine of the final CLS hidden states (random-weight
+    classifiers give every pair about one logit, so the hidden state is
+    what shows the kernels' work)."""
+    import torch
+
+    from tpu_search_torch.models.cross_encoder import SEQ_BUCKETS
+    from tpu_search_torch.utils.shapes import bucket_size
+
+    tok, max_len = reranker._tokenizer, reranker.max_length
+    width = bucket_size(max(len(tok.encode_pair(a, b, max_len)[0])
+                            for a, b in pairs), SEQ_BUCKETS)
+    ids, types, mask = (torch.from_numpy(a).long() for a in
+                        tok.encode_pair_batch(pairs, max_len, pad_to=width))
+    hidden, logits = {}, {}
+    for name, enc in (("cuda", reranker), ("cpu", twin)):
+        args = [t.to(enc.device) for t in (ids, mask, types)]
+        with torch.inference_mode():
+            out = enc._model.forward_hidden(args[0], args[1],
+                                            token_type_ids=args[2])
+            hidden[name] = out[:, 0].float().cpu()
+            logits[name] = enc._model.classify(*args)[:, 0].float().cpu()
+    cos = torch.nn.functional.cosine_similarity(hidden["cuda"],
+                                                hidden["cpu"], dim=1)
+    return logits["cuda"].numpy(), logits["cpu"].numpy(), float(cos.min())
+
+
+def outranks_ok(got, want, tie: float) -> bool:
+    """Every pair that ``want`` orders by more than ``tie``, ``got`` orders
+    the same way: the orders agree outside ties."""
+    return all(got[i] > got[j] for i in range(len(want))
+               for j in range(len(want)) if want[i] - want[j] > tie)
+
+
+def check_logit_order(tag: str, case: str, card, cpu) -> None:
+    """The card's logits against the CPU's: print both orders, the largest
+    difference, the smallest CPU gap and the ties; fail unless every logit
+    is within ``RERANK_LOGIT_TOL`` and the orders agree outside ties."""
+    import numpy as np
+
+    tie = 2 * RERANK_LOGIT_TOL
+    card_order = np.argsort(-card, kind="stable").tolist()
+    cpu_order = np.argsort(-cpu, kind="stable").tolist()
+    diff = float(np.abs(card - cpu).max())
+    same = outranks_ok(card, cpu, tie)
+    gaps = np.abs(cpu[:, None] - cpu[None, :])[np.triu_indices(len(cpu), 1)]
+    print(f"[rerank] path={tag} case={case} cuda_logit_order={card_order} "
+          f"cpu_logit_order={cpu_order} identical={card_order == cpu_order} "
+          f"agree_outside_ties={same} max_abs_logit_diff={diff:.4e} "
+          f"min_cpu_logit_gap={float(gaps.min()):.4e} "
+          f"cpu_logit_std={float(np.std(cpu)):.4e} "
+          f"tie_pairs={int((gaps <= tie).sum())}/{len(gaps)}", flush=True)
+    if not (diff <= RERANK_LOGIT_TOL and same):
+        fail(f"{tag} {case}: the card's logits disagree with the CPU's")
+
+
+def check_fixture_orderings(reranker, twin) -> None:
+    """``tests/test_rerank_quality.py::TestFixtureQuality``'s ordering
+    cases, scored by the trained tiny-overlap reranker on the card and on
+    the CPU's plain path: each case's assertions hold on both, and the two
+    logit orders agree outside ties."""
+    import numpy as np
+
+    query = "alpha bravo charlie delta echo foxtrot"
+    relevant = ["alpha bravo charlie delta echo foxtrot",
+                "delta echo foxtrot alpha kilo lima",
+                "bravo charlie delta mike november"]
+    irrelevant = ["apple banana cherry grape lemon mango",
+                  "kilo lima mike november oscar papa",
+                  "alphax bravox charliex deltax echox foxtrotx",
+                  "apple apple apple apple apple apple"]
+    by_overlap = ["apple banana cherry grape lemon mango",
+                  "alpha bravo charlie delta echo foxtrot",
+                  "alpha bravo charlie kilo lima mike"]
+    for name, docs in (("separation", relevant + irrelevant),
+                       ("rank_by_overlap", by_overlap)):
+        pairs = [(query, d) for d in docs]
+        for device, enc in (("cuda", reranker), ("cpu", twin)):
+            scores = enc.predict(pairs)
+            order = np.argsort(-scores, kind="stable")
+            if name == "separation":
+                ok = (scores[:3].min() > scores[3:].max()
+                      and scores[:3].mean() > 0.9 and scores[3:].mean() < 0.1)
+            else:
+                ok = set(order[:2].tolist()) == {1, 2} and order[-1] == 0
+            if not ok:
+                fail(f"fixture case {name} fails on {device}: {scores}")
+        card, cpu, _ = classifier_reference(reranker, twin, pairs)
+        check_logit_order("rerank_fixture", name, card, cpu)
+
+
+def run_rerank_path(engine, data: Path, probes, tag: str, model: str,
+                    kernels) -> dict:
+    """``search_conversations(rerank=True)`` with ``model`` over the 16
+    probes (top_k 10, factor 5: 50 candidates, batch bucket 128) after one
+    warm-up query, launch counts set to 0 just before and read just after;
+    the reranker against its CPU twin; ``search --rerank --json``."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.ops import _build
+
+    def rerank(text):
+        return engine.search_conversations(
+            text, top_k=RERANK_TOP_K, rerank=True, rerank_model=model,
+            rerank_factor=RERANK_FACTOR)
+
+    t0 = time.perf_counter()
+    rerank(probes[0].text)  # loads the reranker
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    reranker = engine._rerankers.get(model)
+    if reranker is None:
+        fail(f"the {model} reranker did not load")
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    times = []
+    for probe in probes:
+        t0 = time.perf_counter()
+        results = rerank(probe.text)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+        scores = [r.get("rerank_score") for r in results]
+        if len(results) != RERANK_TOP_K or None in scores:
+            fail(f"{tag}: {len(results)} results, scores {scores}")
+        if scores != sorted(scores, reverse=True):
+            fail(f"{tag}: results not in rerank order: {scores}")
+    launches = dict(_build.LAUNCHES)
+    print(f"[rerank] path={tag} model={model} layers="
+          f"{reranker._model_config.num_layers} hidden="
+          f"{reranker._model_config.hidden_size} layout="
+          f"{reranker._model.layers[0].layout} candidates="
+          f"{RERANK_TOP_K * RERANK_FACTOR} queries={len(times)} "
+          f"first_call_s={warm:.2f} p50_ms={np.median(times):.3f} "
+          f"p90_ms={np.percentile(times, 90):.3f} max_ms={max(times):.3f} "
+          f"launches={json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if any(launches[k] == 0 for k in kernels):
+        fail(f"the {tag} path did not run {kernels}: {launches}")
+
+    cands = engine.search_conversations(probes[1].text, top_k=8)
+    pairs = [(probes[1].text, c["text"]) for c in cands]
+    twin = cpu_twin(reranker)
+    card, cpu, cos = classifier_reference(reranker, twin, pairs)
+    print(f"[reference] path={tag} cuda_vs_cpu_plain pairs={len(pairs)} "
+          f"min_cls_hidden_cosine={cos:.6f}", flush=True)
+    if not cos > 0.999:
+        fail(f"{tag}: the card's reranker disagrees with the CPU's")
+    check_logit_order(tag, "probe_candidates", card, cpu)
+    if model == "tiny-overlap":
+        check_fixture_orderings(reranker, twin)
+    check_cli(engine, data, probes[4].text, tag, {},
+              model="all-MiniLM-L6-v2", rerank_model=model)
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -1266,6 +1633,7 @@ def main() -> None:
     check_flat_topk(results)
     check_quant_topk(results)
     check_attention(results)
+    check_attention_bhsd(results)
     check_int8_ffn(results)
     check_ivf(results)
 
@@ -1292,6 +1660,14 @@ def main() -> None:
                          ("int4", N_IVF_QUANT_CONVERSATIONS)):
             launches[f"ivf_{dtype}"] = run_ivf_path(
                 work, files[: n + IVF_WARM_FILES], dtype)
+        engine, data, probes, launches["minilm"] = run_bert_path(
+            work, files[: N_BERT_CONVERSATIONS + 1])
+        for tag, model, kernels in RERANK_PATHS:
+            launches[tag] = run_rerank_path(engine, data, probes, tag, model,
+                                            kernels)
+        launches["rerank"] = {
+            k: launches["rerank_tinybert"][k] + launches["rerank_fixture"][k]
+            for k in launches["rerank_fixture"]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

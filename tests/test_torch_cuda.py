@@ -76,6 +76,7 @@ def test_flat_topk_all_masked(dev):
 @pytest.mark.parametrize("s,h,nh", [(64, 128, 4), (128, 768, 12),
                                     (512, 256, 4)])
 def test_attention_kernel(dev, s, h, nh):
+    from chip_smoke import attention_ok, bf16_errors
     from tpu_search_torch.ops.mpnet_attention import (
         mpnet_attention,
         mpnet_attention_plain,
@@ -94,7 +95,8 @@ def test_attention_kernel(dev, s, h, nh):
     ref = mpnet_attention_plain(q, k, v, bias, mask, nh, scale)
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
-    assert (out.float() - ref.float()).abs().max() <= 3e-2
+    errors = bf16_errors(out, ref)
+    assert attention_ok(errors, "mpnet_attention"), errors
 
 
 def ffn_args(dev, m, h, inter, seed):
@@ -116,14 +118,14 @@ def ffn_args(dev, m, h, inter, seed):
 
 @pytest.mark.parametrize("m,h,inter", [(100, 768, 3072), (64, 384, 1536)])
 def test_int8_ffn_kernel(dev, m, h, inter):
-    from chip_smoke import ffn_errors, ffn_ok
+    from chip_smoke import bf16_errors, ffn_ok
     from tpu_search_torch.ops.int8_ffn import int8_ffn_ln, int8_ffn_ln_plain
 
     args = ffn_args(dev, m, h, inter, m)
     out = int8_ffn_ln(*args)
     ref = int8_ffn_ln_plain(*args)
     torch.cuda.synchronize()
-    errors = ffn_errors(out, ref)
+    errors = bf16_errors(out, ref)
     assert ffn_ok(errors), errors
 
 
@@ -132,7 +134,7 @@ def test_int8_ffn_kernel(dev, m, h, inter):
 def test_int8_ffn_kernel_planted_rounding(dev, kind, h, inter):
     """Inputs on which rounding half away from zero (``ties``) or dividing
     by ``amax / 127`` (``mul_div``) would move most int8 codes."""
-    from chip_smoke import ffn_errors, ffn_ok, planted_ffn_inputs
+    from chip_smoke import bf16_errors, ffn_ok, planted_ffn_inputs
     from tpu_search_torch.ops.int8_ffn import int8_ffn_ln, int8_ffn_ln_plain
 
     args = ffn_args(dev, 16, h, inter, 2)
@@ -140,7 +142,7 @@ def test_int8_ffn_kernel_planted_rounding(dev, kind, h, inter):
     out = int8_ffn_ln(*args, eps=0.0)
     ref = int8_ffn_ln_plain(*args, eps=0.0)
     torch.cuda.synchronize()
-    errors = ffn_errors(out, ref)
+    errors = bf16_errors(out, ref)
     assert ffn_ok(errors), errors
 
 
@@ -503,3 +505,93 @@ def test_ivf_index_search_runs_the_kernels(dev, dtype):
         report = on_card.calibrate_quant(target_recall=0.9)
         assert report["calibrated"]
         assert _build.LAUNCHES["flat_topk_int8"] == before + 1
+
+
+@pytest.mark.parametrize("s,nh,hd", [(512, 12, 26), (512, 2, 32), (64, 4, 8),
+                                     (128, 3, 120), (192, 2, 64)])
+def test_attention_bhsd_kernel(dev, s, nh, hd):
+    """The ``[B, heads, S, hd]`` kernel: padded head columns (hd 26, 8, 120)
+    and the uint4 path (hd 32, 64); a padded row and a fully padded one;
+    the gates of ``chip_smoke.attention_ok``."""
+    from chip_smoke import attention_ok, bf16_errors
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.mpnet_attention import (
+        mpnet_attention_bhsd,
+        mpnet_attention_bhsd_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(s + hd)
+    b = 5
+    q, k, v = (torch.randn((b, nh, s, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    bias = torch.randn((nh, s, s), generator=gen, device=dev)
+    mask = torch.zeros((b, s), device=dev)
+    mask[1, s // 3:] = float("-inf")
+    mask[2] = torch.finfo(torch.float32).min
+    scale = 1.0 / math.sqrt(hd)
+    before = _build.LAUNCHES["mpnet_attention_bhsd"]
+    out = mpnet_attention_bhsd(q, k, v, bias, mask, scale)
+    ref = mpnet_attention_bhsd_plain(q, k, v, bias, mask, scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mpnet_attention_bhsd"] == before + 1
+    assert torch.isfinite(out.float()).all()
+    errors = bf16_errors(out, ref)
+    assert attention_ok(errors, "mpnet_attention_bhsd"), errors
+
+
+def test_attention_bhsd_wrapper_raises(dev):
+    from tpu_search_torch.ops.mpnet_attention import mpnet_attention_bhsd
+
+    x = torch.randn((1, 2, 100, 26), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mpnet_attention_bhsd(x, x, x, torch.zeros((2, 100, 100), device=dev),
+                             torch.zeros((1, 100), device=dev))
+    x = torch.randn((1, 2, 64, 136), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        mpnet_attention_bhsd(x, x, x, torch.zeros((2, 64, 64), device=dev),
+                             torch.zeros((1, 64), device=dev))
+
+
+def test_cross_encoder_fixture_cuda_matches_cpu(dev):
+    """The trained tiny-overlap reranker (H 64, hd 32: the bhsd kernel) on
+    the card in bf16 against the CPU's f32 plain path: relevant above
+    irrelevant on both, and the logits (the sigmoid saturates) within
+    ``chip_smoke.RERANK_LOGIT_TOL`` of each other and in one order outside
+    ties."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from chip_smoke import RERANK_LOGIT_TOL, classifier_reference, outranks_ok
+    from tpu_search_torch.models.cross_encoder import (
+        CrossEncoder,
+        CrossEncoderConfig,
+    )
+    from tpu_search_torch.ops import _build
+
+    fixtures = Path(__file__).resolve().parent / "fixtures"
+    query = "alpha bravo charlie delta echo foxtrot"
+    docs = ["alpha bravo charlie delta echo foxtrot",
+            "delta echo foxtrot alpha kilo lima",
+            "bravo charlie delta mike november",
+            "apple banana cherry grape lemon mango",
+            "kilo lima mike november oscar papa",
+            "alphax bravox charliex deltax echox foxtrotx",
+            "apple apple apple apple apple apple"]
+    pairs = [(query, d) for d in docs]
+    encoders = {}
+    for device in ("cuda", "cpu"):
+        encoder = CrossEncoder(CrossEncoderConfig(
+            model_name="tiny-overlap", cache_dir=str(fixtures),
+            device=device))
+        before = _build.LAUNCHES["mpnet_attention_bhsd"]
+        scores = encoder.predict(pairs)
+        launched = _build.LAUNCHES["mpnet_attention_bhsd"] - before
+        assert launched == (2 if device == "cuda" else 0)  # one per layer
+        assert scores[:3].min() > scores[3:].max()
+        encoders[device] = encoder
+    card, cpu, cos = classifier_reference(encoders["cuda"], encoders["cpu"],
+                                          pairs)
+    assert cos > 0.999
+    assert np.abs(card - cpu).max() <= RERANK_LOGIT_TOL, (card, cpu)
+    assert outranks_ok(card, cpu, 2 * RERANK_LOGIT_TOL), (card, cpu)

@@ -129,6 +129,8 @@ def test_filters_identical(tmp_path):
 @pytest.mark.parametrize("module", [
     "tpu_search_torch",
     "tpu_search_torch.interfaces.cli",
+    "tpu_search_torch.models.cross_encoder",
+    "chip_smoke",
 ])
 def test_port_imports_no_jax_click_or_ml_dtypes(module):
     code = (
@@ -156,3 +158,149 @@ def test_cuda_without_cuda_raises(monkeypatch, tmp_path):
         storage.initialize()
     monkeypatch.setenv("CLAUDE_SEARCH_DEVICE", "cpu")
     assert resolve_device(None) == torch.device("cpu")
+
+
+# -- tokenizers and the hashing encoder (verbatim copies) --------------------
+
+
+@pytest.fixture(scope="module")
+def bpe_dir(tmp_path_factory):
+    """A byte-level BPE trained in-test by ``tests/test_bpe_tokenizer.py``'s
+    recipe: ``tokenizer.json`` and ``vocab.json`` + ``merges.txt``."""
+    pytest.importorskip("tokenizers")
+    from test_bpe_tokenizer import CORPUS
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+    from tokenizers import processors, trainers
+
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.train_from_iterator(CORPUS, trainers.BpeTrainer(
+        vocab_size=600,
+        special_tokens=["<s>", "<pad>", "</s>", "<unk>", "<mask>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet(),
+        show_progress=False,
+    ))
+    tok.post_processor = processors.RobertaProcessing(
+        sep=("</s>", tok.token_to_id("</s>")),
+        cls=("<s>", tok.token_to_id("<s>")),
+    )
+    tok.decoder = decoders.ByteLevel()
+    root = tmp_path_factory.mktemp("bpe")
+    tok.save(str(root / "tokenizer.json"))
+    tok.model.save(str(root))
+    return root
+
+
+@pytest.fixture(scope="module")
+def sp_dir(tmp_path_factory):
+    """The unigram ``tokenizer.json`` of ``tests/test_sp_tokenizer.py``."""
+    pytest.importorskip("tokenizers")
+    from test_sp_tokenizer import VOCAB as SP_VOCAB
+    from tokenizers import Regex, Tokenizer, models, normalizers
+    from tokenizers import pre_tokenizers
+
+    tok = Tokenizer(models.Unigram(SP_VOCAB, unk_id=3, byte_fallback=False))
+    tok.normalizer = normalizers.Sequence([
+        normalizers.Replace(Regex("[\\t\\n\\r]"), " "),
+        normalizers.NFKC(),
+        normalizers.Replace(Regex(" {2,}"), " "),
+        normalizers.Strip(),
+    ])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁",
+                                                 prepend_scheme="always")
+    root = tmp_path_factory.mktemp("sp")
+    tok.save(str(root / "tokenizer.json"))
+    return root
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_bpe_tokenizer_identical(bpe_dir, fast):
+    """The copy equals ``tpu_search``'s, with the ``tokenizers`` fast path
+    and on the pure path (``fast_path=None``: the card's machine has no
+    ``tokenizers``), which also equals the Rust engine."""
+    from test_bpe_tokenizer import BATTERY
+    from tokenizers import Tokenizer
+    from tpu_search.models.bpe_tokenizer import (
+        ByteLevelBPETokenizer as JaxBPE,
+    )
+    from tpu_search_torch.models.bpe_tokenizer import ByteLevelBPETokenizer
+
+    if fast:
+        port = ByteLevelBPETokenizer.from_pretrained_dir(str(bpe_dir))
+        ref = JaxBPE.from_pretrained_dir(str(bpe_dir))
+        assert port._fast is not None
+    else:
+        spec = json.loads((bpe_dir / "tokenizer.json").read_text())
+        port = ByteLevelBPETokenizer.from_tokenizer_json(spec, fast_path=None)
+        ref = JaxBPE.from_tokenizer_json(spec, fast_path=None)
+        assert port._fast is None
+    engine = Tokenizer.from_file(str(bpe_dir / "tokenizer.json"))
+    for text in BATTERY:
+        for limit in (6, 512):
+            assert port.encode(text, limit) == ref.encode(text, limit), text
+        assert port.encode(text, 512) == engine.encode(text).ids, text
+    assert port.pad_id == ref.pad_id
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_sp_tokenizer_identical(sp_dir, fast):
+    from test_sp_tokenizer import TEXT_MATRIX
+    from tpu_search.models.sp_tokenizer import UnigramTokenizer as JaxUnigram
+    from tpu_search_torch.models.sp_tokenizer import UnigramTokenizer
+
+    if fast:
+        port = UnigramTokenizer.from_pretrained_dir(str(sp_dir))
+        ref = JaxUnigram.from_pretrained_dir(str(sp_dir))
+    else:
+        spec = json.loads((sp_dir / "tokenizer.json").read_text())
+        port = UnigramTokenizer.from_tokenizer_json(spec, fast_path=None)
+        ref = JaxUnigram.from_tokenizer_json(spec, fast_path=None)
+        assert port._fast is None
+    for text in TEXT_MATRIX:
+        for limit in (4, 512):
+            assert port.encode(text, limit) == ref.encode(text, limit), text
+    assert port.pad_id == ref.pad_id
+
+
+def test_tokenizer_dispatch_follows_the_assets(tmp_path, bpe_dir, sp_dir):
+    """BPE assets first, then ``arch="xlmr"`` or sentencepiece assets, else
+    WordPiece (``tpu_search``'s order)."""
+    from tpu_search_torch.models.bpe_tokenizer import ByteLevelBPETokenizer
+    from tpu_search_torch.models.encoder import load_tokenizer
+    from tpu_search_torch.models.mpnet import MPNetConfig
+    from tpu_search_torch.models.sp_tokenizer import UnigramTokenizer
+
+    (tmp_path / "vocab.txt").write_text("\n".join(VOCAB) + "\n")
+    bert, xlmr = MPNetConfig(arch="bert"), MPNetConfig(arch="xlmr")
+    assert isinstance(load_tokenizer(tmp_path, bert), WordPieceTokenizer)
+    assert isinstance(load_tokenizer(bpe_dir, xlmr), ByteLevelBPETokenizer)
+    assert isinstance(load_tokenizer(sp_dir, bert), UnigramTokenizer)
+    assert isinstance(load_tokenizer(sp_dir, xlmr), UnigramTokenizer)
+
+
+def test_wordpiece_pairs_identical(tmp_path):
+    """``encode_pair`` / ``encode_pair_batch`` (the cross-encoder's input)
+    equal ``tpu_search``'s, longest-first truncation included."""
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + VOCAB[5:]
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    port = WordPieceTokenizer.from_pretrained_dir(str(tmp_path))
+    ref = JaxWordPiece.from_pretrained_dir(str(tmp_path))
+    pairs = [("tok1 tok2", "tok3 " * 40), ("tok9 " * 30, "tok4 tok5"),
+             ("", "tok7"), ("Tok1, unknown!", "tok2 ΣΑΣ")]
+    for a, b in pairs:
+        for limit in (7, 34, 512):
+            assert port.encode_pair(a, b, limit) == ref.encode_pair(a, b, limit)
+    for got, want in zip(port.encode_pair_batch(pairs, 34, pad_to=64),
+                         ref.encode_pair_batch(pairs, 34, pad_to=64)):
+        assert got.tolist() == want.tolist()
+
+
+def test_hashing_encoder_bit_for_bit():
+    from tpu_search.models.hashing import HashingEncoder as JaxHashing
+    from tpu_search_torch.models.hashing import HashingEncoder
+
+    texts = ["install jax on a tpu", "", "Ünïcödé 🙂 tok1", "a" * 500, None]
+    for dim, normalize in ((768, True), (256, False), (32, True)):
+        got = HashingEncoder(dim).encode(texts, normalize=normalize)
+        want = JaxHashing(dim).encode(texts, normalize=normalize)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()

@@ -131,5 +131,10 @@ def test_checkpoint_format_shared_with_jax(tmp_path):
 
 
 def test_other_archs_raise():
-    with pytest.raises(NotImplementedError):
-        MPNetModel(dataclasses.replace(tiny(2), arch="bert"))
+    """The three families are built; any other arch or pooling raises."""
+    for arch in ("mpnet", "bert", "xlmr"):
+        MPNetModel(dataclasses.replace(tiny(2), arch=arch))
+    with pytest.raises(ValueError, match="arch"):
+        MPNetModel(dataclasses.replace(tiny(2), arch="t5"))
+    with pytest.raises(ValueError, match="pooling"):
+        MPNetModel(dataclasses.replace(tiny(2), pooling="weighted"))

@@ -1,13 +1,16 @@
 """The pieces of the GPU smoke run and the device profile that run on the
-CPU: the synthetic conversation recipe, the device busy-time union, and
-the int8 FFN gates of ``chip_smoke.py``, which must fail a kernel that
+CPU: the synthetic conversation recipe, the device busy-time union, the
+int8 FFN gates of ``chip_smoke.py``, which must fail a kernel that
 rounds its half-step ties away from zero or divides by ``amax / 127``
-where the contract multiplies by ``127 / amax``.
+where the contract multiplies by ``127 / amax``, the attention gates,
+which must fail a kernel that skips rounding P before P V, and the
+reranker's logit-order gate.
 """
 
 import contextlib
 import io
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +18,7 @@ import chip_smoke
 from tpu_search_torch.ingest.chunker import ConversationChunker
 from tpu_search_torch.ingest.parser import JSONLParser
 from tpu_search_torch.ops import int8_ffn
+from tpu_search_torch.ops.mpnet_attention import mpnet_attention_bhsd_plain
 from tpu_search_torch.utils.device_profile import busy_seconds
 from tpu_search_torch.utils.synthetic import N_CONVERSATIONS, write_conversations
 
@@ -87,11 +91,48 @@ def test_ffn_gates_fail_a_rounding_fault(monkeypatch, kind, target, fault):
     the gates ``chip_smoke.py`` holds the kernel to."""
     args = ffn_args(kind)
     ref = int8_ffn.int8_ffn_ln_plain(*args, eps=0.0)
-    assert chip_smoke.ffn_ok(chip_smoke.ffn_errors(ref, ref))
+    assert chip_smoke.ffn_ok(chip_smoke.bf16_errors(ref, ref))
     monkeypatch.setattr(target, *fault)
     bad = int8_ffn.int8_ffn_ln_plain(*args, eps=0.0)
-    errors = chip_smoke.ffn_errors(bad, ref)
+    errors = chip_smoke.bf16_errors(bad, ref)
     assert errors["max_abs_err"] <= chip_smoke.TOL["int8_ffn_ln"]
     assert errors["mean_abs_err"] > chip_smoke.FFN_MEAN_TOL
     assert errors["over_1ulp_share"] > chip_smoke.FFN_ULP_SHARE_TOL
     assert not chip_smoke.ffn_ok(errors)
+
+
+@pytest.mark.parametrize("h,heads,s", [(312, 12, 128), (64, 2, 256)])
+def test_attention_gates_fail_unrounded_probs(h, heads, s):
+    """Leaving P in f32 before P V (an f32 ``v`` keeps it there) stays
+    inside the max-error gate but fails the mean and ulp-share gates."""
+    gen = torch.Generator().manual_seed(15)
+    q, k, v, bias, mask = chip_smoke.attention_inputs(
+        gen, (8, heads, s, h // heads), heads, s, torch.device("cpu"))
+    scale = (h // heads) ** -0.5
+    ref = mpnet_attention_bhsd_plain(q, k, v, bias, mask, scale)
+    name = "mpnet_attention_bhsd"
+    assert chip_smoke.attention_ok(chip_smoke.bf16_errors(ref, ref), name)
+    bad = mpnet_attention_bhsd_plain(q, k, v.float(), bias, mask, scale)
+    assert bad.dtype == torch.bfloat16
+    errors = chip_smoke.bf16_errors(bad, ref)
+    assert errors["max_abs_err"] <= chip_smoke.TOL[name]
+    assert errors["mean_abs_err"] > chip_smoke.ATTN_MEAN_TOL
+    assert errors["over_1ulp_share"] > chip_smoke.ATTN_ULP_SHARE_TOL
+    assert not chip_smoke.attention_ok(errors, name)
+
+
+def test_logit_order_gate():
+    """Logits within ``RERANK_LOGIT_TOL`` pass, and so does a swap of two
+    logits inside a tie; a swap of two apart, or one logit moved past the
+    tolerance, fails."""
+    tol = chip_smoke.RERANK_LOGIT_TOL
+    cpu = np.array([11.0, 11.0 + tol / 2, -11.0, -11.0 - 8 * tol],
+                   np.float32)
+    moved = cpu.copy()
+    moved[3] += 2 * tol
+    with contextlib.redirect_stdout(io.StringIO()):
+        chip_smoke.check_logit_order("t", "same", cpu + tol / 2, cpu)
+        chip_smoke.check_logit_order("t", "tie", cpu[[1, 0, 2, 3]], cpu)
+        for card in (cpu[[0, 1, 3, 2]], moved):
+            with pytest.raises(SystemExit):
+                chip_smoke.check_logit_order("t", "apart", card, cpu)

@@ -10,12 +10,16 @@ and storage per engine, driving
   background thread, and one retry round for failed files;
 - ``search_conversations``: embed the query, run the masked scan (exact
   on a flat index, the probe scan on an IVF one), hydrate from SQLite;
+  with ``rerank`` (or ``CLAUDE_SEARCH_RERANK=1``) fetch ``top_k * factor``
+  (at most 100) and reorder them with the cross-encoder
+  (``models/cross_encoder.py``; ``CLAUDE_SEARCH_RERANK_MODEL``,
+  ``CLAUDE_SEARCH_RERANK_FACTOR``);
 - ``optimize``: storage maintenance (vacuum, compact, rebalance, nprobe
   tuning, calibration);
 - ``get_index_stats``.
 
-Not ported yet: the warm query server, reranking and the fused one-dispatch
-query path.  The device is explicit: ``device`` argument, else
+Not ported yet: the warm query server and the fused one-dispatch query
+path.  The device is explicit: ``device`` argument, else
 ``CLAUDE_SEARCH_DEVICE``, else ``cuda``.
 """
 
@@ -31,8 +35,14 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..devices.capability import resolve_device
 from ..ingest.chunker import ChunkingConfig, ConversationChunker
 from ..ingest.parser import JSONLParser
+from ..models.cross_encoder import (
+    CrossEncoder,
+    CrossEncoderConfig,
+    resolve_reranker_name,
+)
 from ..models.encoder import EmbeddingConfig, EmbeddingGenerator
 from ..storage.hybrid import HybridStorage, SearchConfig, StorageConfig
 from ..utils.profiling import PhaseTimer
@@ -43,6 +53,7 @@ __all__ = [
     "DEFAULT_DATA_DIR",
     "SearchEngine",
     "format_search_result",
+    "rerank_fetch_k",
     "resolve_data_dir",
 ]
 
@@ -65,6 +76,16 @@ def format_search_result(result) -> Dict[str, Any]:
         "timestamp": meta.get("timestamp", "unknown"),
         "has_code": meta.get("has_code", False),
     }
+
+
+def rerank_fetch_k(top_k: int, spec: Dict[str, Any]) -> int:
+    """Stage-1 fetch size for a rerank request: ``top_k * factor``, capped
+    at 100 candidates (the cross-encoder's cost is linear in them)."""
+    try:
+        factor = int(spec.get("factor", 5) or 5)
+    except (TypeError, ValueError, AttributeError):
+        factor = 5  # a loose spec ({"rerank": true}): the default factor
+    return min(max(top_k, top_k * max(1, factor)), max(top_k, 100))
 
 
 def resolve_data_dir(data_dir: Optional[str] = None) -> str:
@@ -170,6 +191,9 @@ class SearchEngine:
             )
         )
         self.storage.timer = self._timer
+        self._rerankers: Dict[str, Any] = {}
+        self._reranker_failed: set = set()
+        self._reranker_lock = threading.Lock()
 
     # -- discovery ----------------------------------------------------------
 
@@ -254,7 +278,11 @@ class SearchEngine:
             removed_counted = False
             try:
                 with self._timer.phase("embed"):
+                    # Device-resident embeddings; the hashing encoder runs
+                    # on the host and sets chunk.embedding instead.
                     emb = self.embedder.generate_embeddings_device(all_chunks)
+                    if emb is None:
+                        self.embedder.generate_embeddings(all_chunks)
                 with self._timer.phase("store"):
                     removed = self.storage.remove_chunks_for_files(
                         [str(fp) for fp, _ in batch]
@@ -435,14 +463,103 @@ class SearchEngine:
         query: str,
         filters: Optional[Dict[str, Any]] = None,
         top_k: int = 10,
+        rerank: Optional[bool] = None,
+        rerank_model: Optional[str] = None,
+        rerank_factor: Optional[int] = None,
     ) -> List[Dict[str, Any]]:
-        """Embed the query and run the filter-masked exact top-k scan."""
+        """Embed the query and run the filter-masked top-k scan; with
+        ``rerank`` (``None`` defers to ``CLAUDE_SEARCH_RERANK``) reorder the
+        top ``top_k * rerank_factor`` with the cross-encoder."""
+        spec = self._rerank_spec(rerank, rerank_model, rerank_factor)
         self._open()
-        cfg = SearchConfig(top_k=top_k, include_metadata=True,
+        fetch_k = rerank_fetch_k(top_k, spec) if spec else top_k
+        cfg = SearchConfig(top_k=fetch_k, include_metadata=True,
                            include_text=True, nprobe=self._default_nprobe)
         query_embedding = self.embedder.generate_single_embedding(query)
         results = self.storage.search(query_embedding, cfg, filters)
-        return [format_search_result(r) for r in results]
+        formatted = [format_search_result(r) for r in results]
+        if spec:
+            formatted = self.rerank_results(query, formatted, top_k,
+                                            model=spec["model"])
+        return formatted
+
+    # -- cross-encoder reranking ---------------------------------------------
+
+    def _rerank_spec(
+        self,
+        rerank: Optional[bool],
+        model: Optional[str],
+        factor: Optional[int],
+    ) -> Optional[Dict[str, Any]]:
+        """Resolve a rerank request (explicit arguments > environment) into
+        ``{"factor", "model"}``, or None."""
+        if rerank is None:
+            rerank = os.environ.get("CLAUDE_SEARCH_RERANK", "") == "1"
+        if not rerank:
+            return None
+        if factor is None:
+            try:
+                factor = int(os.environ.get("CLAUDE_SEARCH_RERANK_FACTOR",
+                                            "5"))
+            except ValueError:
+                factor = 5
+        return {"factor": max(1, factor),
+                "model": resolve_reranker_name(model)}
+
+    def _get_reranker(self, model_name: Optional[str] = None):
+        """The cached cross-encoder, loaded on first use.  A checkpoint
+        that is missing (``FileNotFoundError``) or has no classification
+        head (``ValueError``) is remembered and degrades to bi-encoder
+        order with one warning; any other error (the device, a kernel)
+        propagates."""
+        name = resolve_reranker_name(model_name)
+        with self._reranker_lock:
+            if name in self._rerankers:
+                return self._rerankers[name]
+            if name in self._reranker_failed:
+                return None
+            # resolved outside the try: a device error is not a missing
+            # checkpoint
+            device = resolve_device(self.embedder.config.device)
+            encoder = CrossEncoder(CrossEncoderConfig(
+                model_name=name,
+                cache_dir=str(self.data_dir / "models"),
+                device=str(device),
+            ))
+            try:
+                encoder.load_model()
+            except (FileNotFoundError, ValueError) as exc:
+                logger.warning(
+                    "Reranker %r unavailable (%s); results keep the "
+                    "bi-encoder order.", name, exc,
+                )
+                self._reranker_failed.add(name)
+                return None
+            self._rerankers[name] = encoder
+            return encoder
+
+    def rerank_results(
+        self,
+        query: str,
+        results: List[Dict[str, Any]],
+        top_k: int,
+        model: Optional[str] = None,
+    ) -> List[Dict[str, Any]]:
+        """Reorder formatted results by cross-encoder relevance (stable on
+        ``(-score, i)``) and cut to ``top_k``; each kept result gains
+        ``rerank_score`` beside its bi-encoder ``similarity``."""
+        reranker = self._get_reranker(model)
+        if reranker is None or not results:
+            return results[:top_k]
+        pairs = [(query, result.get("text") or "") for result in results]
+        scores = reranker.predict(pairs)
+        order = sorted(range(len(results)), key=lambda i: (-scores[i], i))
+        reranked = []
+        for i in order[:top_k]:
+            result = dict(results[i])
+            result["rerank_score"] = float(scores[i])
+            reranked.append(result)
+        return reranked
 
     # -- maintenance ---------------------------------------------------------
 

@@ -21,46 +21,24 @@
 // The dense composite this replaces writes and reads the [B, heads, S, S]
 // f32 score tensor through HBM (0.9 GB per layer at b128 s384).
 //
-// Design: one CTA per (64-query block, head, batch row), 4 warps of 16
-// query rows.  The whole score block [64, S] stays in shared memory (S <=
-// 512: at most 132 KB), so the softmax is the TPU kernel's whole-row
-// softmax, not an online one, and the bf16 rounding of the normalized
-// probabilities happens at the same place.  K and V pass through one
-// [64, hd] shared tile per 64 keys; both products use mma.sync m16n8k16
-// (bf16 in, f32 accumulate).  The probabilities overwrite their own f32
-// score row in place as bf16.  Not yet done (later work): wgmma, TMA, and
-// keeping K/V for several heads resident.
+// Design (the tile code in attention_tile.cuh, shared with
+// mpnet_attention_bhsd.cu): one CTA per (64-query block, head, batch row),
+// 4 warps of 16 query rows.  The whole score block [64, S] stays in shared
+// memory (S <= 512: at most 132 KB), so the softmax is the TPU kernel's
+// whole-row softmax, not an online one, and the bf16 rounding of the
+// normalized probabilities happens at the same place.  The query fragments
+// load straight from global memory; K and V pass through one [64, hd]
+// shared tile per 64 keys (uint4 loads: hd is 32, 64 or 128); both
+// products use mma.sync m16n8k16 (bf16 in, f32 accumulate).  Not yet done
+// (later work): wgmma, TMA, and keeping K/V for several heads resident.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per CTA
-constexpr int kBlockK = 64;   // keys per K/V tile
-constexpr int kThreads = 128; // 4 warps x 16 query rows
-constexpr int kMaxSeq = 512;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
+using attn::kBlockK;
+using attn::kBlockQ;
+using attn::kThreads;
 
 // Stage rows kb..kb+63 of head `head` from a [B, S, H] tensor into KV.
 template <int HD>
@@ -84,7 +62,6 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
                  const float* __restrict__ bias,
                  const float* __restrict__ kmask,
                  __nv_bfloat16* __restrict__ out, int s, int h, float scale) {
-  constexpr int KS = HD + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ss = s + 4;  // f32 score row stride (bank-conflict padding)
   float* Sr = reinterpret_cast<float*>(smem);
@@ -97,92 +74,24 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Query fragments of this warp's 16 rows, straight from global memory.
   uint32_t qa[HD / 16][4];
-  {
-    const __nv_bfloat16* base =
-        q + ((size_t)b * s + q0 + wr + g) * h + (size_t)head * HD + tig * 2;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      qa[kk][0] = ld32(base + kk * 16);
-      qa[kk][1] = ld32(base + 8 * (size_t)h + kk * 16);
-      qa[kk][2] = ld32(base + kk * 16 + 8);
-      qa[kk][3] = ld32(base + 8 * (size_t)h + kk * 16 + 8);
-    }
-  }
+  attn::load_q<HD>(
+      qa, q + ((size_t)b * s + q0 + wr + g) * h + (size_t)head * HD + tig * 2,
+      h);
 
   // Phase 1: scores = (q k^T) * scale + bias + mask  -> Sr.
   for (int kb = 0; kb < s; kb += kBlockK) {
     __syncthreads();
     load_tile<HD>(k, b, s, h, head, kb, KV);
     __syncthreads();
-    float acc[kBlockK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockK / 8; ++nt) {
-        const __nv_bfloat16* p = KV + (nt * 8 + g) * KS + kk * 16 + tig * 2;
-        const uint32_t bb[2] = {ld32(p), ld32(p + 8)};
-        mma_bf16(acc[nt], qa[kk], bb);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = wr + g + half * 8;
-        const int key = kb + nt * 8 + tig * 2;
-        const float2 bv = *reinterpret_cast<const float2*>(
-            bias + ((size_t)head * s + q0 + row) * s + key);
-        const float2 mv =
-            *reinterpret_cast<const float2*>(kmask + (size_t)b * s + key);
-        Sr[row * ss + key] = __fadd_rn(
-            __fadd_rn(__fmul_rn(acc[nt][half * 2], scale), bv.x), mv.x);
-        Sr[row * ss + key + 1] = __fadd_rn(
-            __fadd_rn(__fmul_rn(acc[nt][half * 2 + 1], scale), bv.y), mv.y);
-      }
-    }
+    attn::score_tile<HD>(qa, KV, bias, kmask, Sr, ss, s, q0, head, b, kb, wr,
+                         g, tig, scale);
   }
   __syncwarp();
 
   // Phase 2: whole-row softmax of this warp's rows; bf16 probs in place.
-  for (int r = wr; r < wr + 16; ++r) {
-    float* row = Sr + r * ss;
-    float vals[kMaxSeq / 32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kMaxSeq / 32; ++i) {
-      const int c = i * 32 + lane;
-      vals[i] = c < s ? row[c] : -INFINITY;
-      mx = fmaxf(mx, vals[i]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-    const bool safe = isfinite(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxSeq / 32; ++i) {
-      const int c = i * 32 + lane;
-      const float x = safe ? __fsub_rn(vals[i], mx) : 0.f;
-      vals[i] = c < s ? expf(x) : 0.f;
-      sum += vals[i];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
-    __syncwarp();
-    __nv_bfloat16* prow = reinterpret_cast<__nv_bfloat16*>(row);
-#pragma unroll
-    for (int i = 0; i < kMaxSeq / 32; ++i) {
-      const int c = i * 32 + lane;
-      if (c < s) prow[c] = __float2bfloat16_rn(__fdiv_rn(vals[i], sum));
-    }
-    __syncwarp();
-  }
+  attn::softmax_rows(Sr, ss, s, wr, lane);
 
   // Phase 3: out = P V, accumulated over 64-key tiles of V.
-  const int ps = 2 * ss;  // bf16 row stride of the probabilities
   const __nv_bfloat16* P = reinterpret_cast<const __nv_bfloat16*>(Sr);
   float o[HD / 8][4];
 #pragma unroll
@@ -193,19 +102,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     load_tile<HD>(v, b, s, h, head, kb, KV);
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBlockK; kk += 16) {
-      const __nv_bfloat16* pa = P + (wr + g) * ps + kb + kk + tig * 2;
-      const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * ps), ld32(pa + 8),
-                             ld32(pa + 8 * ps + 8)};
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        const __nv_bfloat16* pv = KV + (kk + tig * 2) * KS + nt * 8 + g;
-        const uint32_t bb[2] = {pack2(pv[0], pv[KS]),
-                                pack2(pv[8 * KS], pv[9 * KS])};
-        mma_bf16(o[nt], a, bb);
-      }
-    }
+    attn::pv_tile<HD>(o, P, 2 * ss, KV, kb, wr, g, tig);
   }
 #pragma unroll
   for (int nt = 0; nt < HD / 8; ++nt) {
@@ -226,8 +123,7 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, const void* kmask, void* out, int b,
                    int s, int h, int nh, float scale, cudaStream_t stream) {
-  const size_t bytes =
-      (size_t)kBlockQ * (s + 4) * 4 + (size_t)kBlockK * (HD + 8) * 2;
+  const size_t bytes = attn::smem_bytes(s, HD);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);

@@ -10,7 +10,9 @@ Same flags and output as those commands of the JAX package's CLI
     python -m tpu_search_torch.interfaces.cli --data-dir D optimize
 
 ``--device`` (or ``CLAUDE_SEARCH_DEVICE``) picks ``cuda`` (default) or
-``cpu``.
+``cpu``.  ``search --rerank`` reorders the top ``top_k * --rerank-factor``
+with the cross-encoder ``--rerank-model`` (defaults:
+``CLAUDE_SEARCH_RERANK``, ``_RERANK_FACTOR``, ``_RERANK_MODEL``).
 """
 
 from __future__ import annotations
@@ -59,7 +61,11 @@ def _alfred_items(results: List[Dict[str, Any]], subtitle_fn) -> str:
 
 def _print_results(results, full_content: bool) -> None:
     for i, r in enumerate(results, 1):
-        print(f"{i}. [Similarity: {r['similarity']:.3f}] {r['project']}")
+        if "rerank_score" in r:
+            print(f"{i}. [Rerank: {r['rerank_score']:.3f} | "
+                  f"Similarity: {r['similarity']:.3f}] {r['project']}")
+        else:
+            print(f"{i}. [Similarity: {r['similarity']:.3f}] {r['project']}")
         if full_content:
             print(f"   {r['text']}")
         else:
@@ -126,7 +132,10 @@ def cmd_index(engine: SearchEngine, args) -> None:
 def cmd_search(engine: SearchEngine, args) -> None:
     filters = _filters(args)
     try:
-        results = engine.search_conversations(args.query, filters, args.top_k)
+        results = engine.search_conversations(
+            args.query, filters, args.top_k, rerank=args.rerank,
+            rerank_model=args.rerank_model, rerank_factor=args.rerank_factor,
+        )
     except SystemExit:
         raise
     except Exception as exc:
@@ -226,6 +235,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Show full content instead of truncated")
     p.add_argument("--json", action="store_true",
                    help="Output results as JSON")
+    p.add_argument("--rerank", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="Re-order the top candidates with the cross-encoder "
+                   "(default: CLAUDE_SEARCH_RERANK)")
+    p.add_argument("--rerank-model",
+                   help="Cross-encoder model (default: ms-marco-MiniLM-L-6-v2 "
+                   "or $CLAUDE_SEARCH_RERANK_MODEL)")
+    p.add_argument("--rerank-factor", type=int, default=None,
+                   help="Stage-1 over-fetch multiple for reranking "
+                   "(default 5, cap 100)")
     p.set_defaults(func=cmd_search)
 
     p = sub.add_parser("stats", help="Show index statistics")

@@ -1,7 +1,17 @@
 """Batched embedding generation (the ``EmbeddingGenerator`` of the port).
 
-Counterpart of ``tpu_search/models/encoder.py``: host WordPiece
-tokenization feeds the MPNet module in shape buckets.
+Counterpart of ``tpu_search/models/encoder.py``: host tokenization feeds
+the encoder module (MPNet, BERT or XLM-R, with the checkpoint's pooling) in
+shape buckets.
+
+- The tokenizer follows the assets the model directory ships: byte-level
+  BPE (``vocab.json`` + ``merges.txt`` or a BPE ``tokenizer.json``) first,
+  then sentencepiece unigram for ``arch="xlmr"`` or sentencepiece assets,
+  else WordPiece ``vocab.txt``.
+- A model directory without ``model.tpu.npz`` but with HF weights is
+  converted once (``convert.convert_pretrained_dir``).
+- ``hash-<dim>`` selects the weight-free hashing encoder on the host
+  (``models/hashing.py``), for tests and offline use.
 
 - Sequence and batch sizes pad up to ``SEQ_BUCKETS`` / ``BATCH_BUCKETS``;
   texts are encoded longest-first so each bucket is dense.  Pad rows of a
@@ -39,8 +49,11 @@ from ..devices.capability import (
 )
 from ..ingest.chunker import Chunk
 from ..utils.shapes import ADD_ROW_BUCKETS, bucket_size
-from .convert import load_checkpoint, model_from_params
+from .bpe_tokenizer import ByteLevelBPETokenizer, has_bpe_assets
+from .convert import convert_pretrained_dir, load_checkpoint, model_from_params
+from .hashing import HashingEncoder
 from .mpnet import MPNetConfig, MPNetModel
+from .sp_tokenizer import UnigramTokenizer, has_sp_assets
 from .tokenizer import WordPieceTokenizer
 
 logger = logging.getLogger(__name__)
@@ -81,7 +94,8 @@ class EmbeddingGenerator:
         self.logger = logger
         self._model: Optional[MPNetModel] = None
         self._model_config: Optional[MPNetConfig] = None
-        self._tokenizer: Optional[WordPieceTokenizer] = None
+        self._tokenizer = None  # WordPiece, byte-level BPE or unigram
+        self._hash_encoder: Optional[HashingEncoder] = None
         self._prompts: Dict[str, str] = {}
         self._default_prompt_name: Optional[str] = None
         self._embedding_dim: Optional[int] = None
@@ -93,7 +107,7 @@ class EmbeddingGenerator:
 
     @property
     def is_model_loaded(self) -> bool:
-        return self._model is not None
+        return self._model is not None or self._hash_encoder is not None
 
     @property
     def embedding_dimension(self) -> Optional[int]:
@@ -106,34 +120,25 @@ class EmbeddingGenerator:
     def load_model(self) -> None:
         name = self.config.model_name
         if name.startswith("hash"):
-            raise NotImplementedError(
-                "the hashing encoder is not ported to tpu_search_torch yet"
-            )
+            dim = int(name.split("-")[1]) if "-" in name else 768
+            self._hash_encoder = HashingEncoder(dim=dim)
+            self._embedding_dim = dim
+            self.logger.info("Loaded deterministic hashing encoder (%dd)", dim)
+            return
         cache_dir = Path(
             self.config.cache_dir or "~/.claude-semantic-search/data/models"
         ).expanduser()
         model_dir = cache_dir / name
-        ckpt = model_dir / "model.tpu.npz"
-        if not ckpt.exists():
-            raise FileNotFoundError(
-                f"No native checkpoint {ckpt}; convert the model with the "
-                f"tpu_search package's setup-models first"
-            )
-        if not (model_dir / "vocab.txt").exists():
-            raise NotImplementedError(
-                f"{model_dir} has no WordPiece vocab.txt; the BPE and "
-                f"sentencepiece tokenizers are not ported yet"
-            )
+        params, model_config = load_model_dir(model_dir, name)
         dtype = _DTYPES[self.config.compute_dtype]
         device = resolve_device(self.config.device)
-        params, model_config = load_checkpoint(str(ckpt))
         model = model_from_params(params, model_config)
         del params
         model.layers.to(dtype)
         self._model = model.to(device)
         self._model_config = model_config
         self._device = device
-        self._tokenizer = WordPieceTokenizer.from_pretrained_dir(str(model_dir))
+        self._tokenizer = load_tokenizer(model_dir, model_config)
         self._load_prompts(model_dir)
         self._embedding_dim = model_config.hidden_size
 
@@ -275,9 +280,12 @@ class EmbeddingGenerator:
         """``[Npad, dim]`` f32 embeddings on the model's device, in chunk
         order, rows past ``len(chunks)`` zero (``ADD_ROW_BUCKETS``);
         ``chunk.embedding`` stays unset.  The index appends it with no
-        host round trip."""
+        host round trip.  None with the hashing encoder (it runs on the
+        host: the caller takes :meth:`generate_embeddings`)."""
         if not self.is_model_loaded:
             self.load_model()
+        if self._hash_encoder is not None:
+            return None
         texts = self._validated([c.text for c in chunks],
                                 self._prompt_for("document"))
         return self.encode_texts_to_device(texts)
@@ -323,6 +331,9 @@ class EmbeddingGenerator:
         return pending
 
     def _encode_texts(self, texts: Sequence[str]) -> np.ndarray:
+        if self._hash_encoder is not None:
+            return self._hash_encoder.encode(
+                texts, normalize=self.config.normalize_embeddings)
         out = np.zeros((len(texts), self._embedding_dim), dtype=np.float32)
         for batch_idx, n_live, vecs in self._encode_batches(texts):
             out[batch_idx] = vecs[:n_live].float().cpu().numpy()
@@ -338,3 +349,32 @@ class EmbeddingGenerator:
                                    device=self._device)
             out.index_copy_(0, rows, vecs[:n_live].float())
         return out
+
+
+def load_model_dir(model_dir: Path, name: str) -> Tuple[Dict[str, Any],
+                                                       MPNetConfig]:
+    """``(numpy parameter tree, config)`` of a model directory: its
+    ``model.tpu.npz``, else its HF weights converted once into one."""
+    ckpt = model_dir / "model.tpu.npz"
+    if ckpt.exists():
+        return load_checkpoint(str(ckpt))
+    if model_dir.exists():
+        logger.info("Converting torch checkpoint in %s to native format",
+                    model_dir)
+        return convert_pretrained_dir(str(model_dir), str(ckpt))
+    raise FileNotFoundError(
+        f"Model '{name}' not found under {model_dir.parent}: put its "
+        f"model.tpu.npz (or HF weights) and tokenizer there, or use model "
+        f"name 'hash-768' for the weight-free fallback encoder."
+    )
+
+
+def load_tokenizer(model_dir: Path, config: MPNetConfig):
+    """The tokenizer the directory's assets select: byte-level BPE (the
+    RoBERTa family) first, then sentencepiece unigram (``arch="xlmr"`` or
+    sentencepiece assets), else WordPiece, as ``tpu_search`` dispatches."""
+    if has_bpe_assets(model_dir):
+        return ByteLevelBPETokenizer.from_pretrained_dir(str(model_dir))
+    if config.arch == "xlmr" or has_sp_assets(model_dir):
+        return UnigramTokenizer.from_pretrained_dir(str(model_dir))
+    return WordPieceTokenizer.from_pretrained_dir(str(model_dir))

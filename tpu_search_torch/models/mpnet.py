@@ -1,18 +1,34 @@
-"""MPNet sentence encoder as a PyTorch ``nn.Module``.
+"""The encoder families as one PyTorch ``nn.Module``.
 
-Counterpart of ``tpu_search/models/mpnet.py`` (HF ``MPNetModel`` +
-the sentence-transformers pooling head): learned absolute positions from
-``pad + 1``, one relative-attention bias table shared by every layer
-(T5-style log buckets), post-LN blocks, masked mean pooling and L2
-normalization.  Only ``arch="mpnet"`` is built here; the BERT and XLM-R
-families raise ``NotImplementedError``.
+Counterpart of ``tpu_search/models/mpnet.py`` (``forward_hidden``,
+``encode``, ``classify``):
+
+- ``arch="mpnet"`` (HF ``MPNetModel``): learned absolute positions from
+  ``pad + 1`` and one relative-attention bias table shared by every layer
+  (T5-style log buckets);
+- ``arch="bert"`` (BERT, DistilBERT; all-MiniLM-*, the ms-marco
+  cross-encoders): absolute positions from 0 and the token-type-0 row;
+- ``arch="xlmr"`` (XLM-RoBERTa, RoBERTa): MPNet's positions from
+  ``pad + 1`` with BERT's token-type-0 row;
+
+BERT and XLM-R take a zero ``[heads, S, S]`` bias.  Post-LN blocks; the
+sentence-transformers pooling head (masked mean, CLS or masked max, then
+L2 normalization) in :meth:`MPNetModel.forward`; with ``num_labels > 0``
+pair inputs add the token-type table and :meth:`MPNetModel.classify` is
+``BertForSequenceClassification``'s head (CLS hidden, tanh pooler,
+classifier), in f32.  Position ids are clamped to ``max_position - 1``, as
+the JAX gather clamps them: a bucket longer than the position table (the
+tiny-overlap reranker's 34 positions in the 64 bucket) reads the last row
+for pad tokens, which the mask hides.
 
 Numerics follow the JAX graph: the embedding LayerNorm runs in f32, the
 layers run in their parameter dtype (bf16 by default) with f32 LayerNorm
 statistics and f32 softmax, and bf16 compute selects the tanh gelu.  The
-attention core is ``ops.mpnet_attention`` (the CUDA kernel on the card,
-its plain version on the CPU); with ``int8_ffn`` the post-attention half
-of each layer is ``ops.int8_ffn_ln``.
+attention core is ``ops.mpnet_attention`` in the ``[B, S, H]`` layout, or
+``ops.mpnet_attention_bhsd`` in ``[B, heads, S, hd]`` for the shapes
+:func:`~tpu_search_torch.ops.mpnet_attention.attention_layout` sends there
+(the CUDA kernels on the card, their plain versions on the CPU); with
+``int8_ffn`` the post-attention half of each layer is ``ops.int8_ffn_ln``.
 """
 
 from __future__ import annotations
@@ -27,14 +43,23 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_ffn import int8_ffn_ln, quantize_weight_columns
-from ..ops.mpnet_attention import mpnet_attention
+from ..ops.mpnet_attention import (
+    attention_layout,
+    mpnet_attention,
+    mpnet_attention_bhsd,
+)
 
 __all__ = [
+    "ARCHS",
     "MPNetConfig",
     "MPNetModel",
+    "POOLINGS",
     "init_params",
     "relative_position_bucket",
 ]
+
+ARCHS = ("mpnet", "bert", "xlmr")
+POOLINGS = ("mean", "cls", "max")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +90,9 @@ class MPNetConfig:
 def init_params(config: MPNetConfig, seed: int = 0) -> Dict[str, Any]:
     """Random-normal parameters (std 0.02) as a numpy tree in the JAX
     package's layout: ``[in, out]`` weights, layers stacked on a leading
-    ``[L]`` axis, ``rel_bias [buckets, heads]``."""
+    ``[L]`` axis, ``rel_bias [buckets, heads]``; for BERT and XLM-R a
+    random ``tt0`` row, and with ``num_labels > 0`` the token-type table
+    and the ``head`` subtree, as the JAX package's ``init_params``."""
     h, i, n = config.hidden_size, config.intermediate_size, config.num_layers
     rng = np.random.default_rng(seed)
 
@@ -78,7 +105,7 @@ def init_params(config: MPNetConfig, seed: int = 0) -> Dict[str, Any]:
     def ones(*shape):
         return np.ones(shape, np.float32)
 
-    return {
+    params = {
         "embeddings": {
             "word": normal(config.vocab_size, h),
             "position": normal(config.max_position, h),
@@ -99,6 +126,16 @@ def init_params(config: MPNetConfig, seed: int = 0) -> Dict[str, Any]:
             "ff_ln_scale": ones(n, h), "ff_ln_bias": zeros(n, h),
         },
     }
+    if config.arch in ("bert", "xlmr"):
+        params["embeddings"]["tt0"] = normal(h)
+    if config.num_labels > 0:
+        params["embeddings"]["tt_table"] = normal(2, h)
+        params["head"] = {
+            "pooler_w": normal(h, h), "pooler_b": zeros(h),
+            "cls_w": normal(h, config.num_labels),
+            "cls_b": zeros(config.num_labels),
+        }
+    return params
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -138,6 +175,7 @@ class MPNetLayer(nn.Module):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
         self.config = config
+        self.layout = attention_layout(h, config.num_heads)
         self.q = nn.Linear(h, h)
         self.k = nn.Linear(h, h)
         self.v = nn.Linear(h, h)
@@ -166,10 +204,18 @@ class MPNetLayer(nn.Module):
                 key_mask_add: torch.Tensor, int8_ffn: bool) -> torch.Tensor:
         cfg = self.config
         b, s, h = x.shape
-        ctx = mpnet_attention(
-            self.q(x), self.k(x), self.v(x), bias, key_mask_add,
-            num_heads=cfg.num_heads, scale=1.0 / math.sqrt(cfg.head_dim),
-        )
+        nh, scale = cfg.num_heads, 1.0 / math.sqrt(cfg.head_dim)
+        if self.layout == "bsh":
+            ctx = mpnet_attention(self.q(x), self.k(x), self.v(x), bias,
+                                  key_mask_add, num_heads=nh, scale=scale)
+        else:
+            def heads(t):
+                return t.reshape(b, s, nh, -1).transpose(1, 2).contiguous()
+
+            ctx = mpnet_attention_bhsd(
+                heads(self.q(x)), heads(self.k(x)), heads(self.v(x)), bias,
+                key_mask_add, scale=scale,
+            ).transpose(1, 2).reshape(b, s, h)
         attn = self.o(ctx)
         eps = cfg.layer_norm_eps
         if int8_ffn:
@@ -191,22 +237,19 @@ class MPNetLayer(nn.Module):
 
 
 class MPNetModel(nn.Module):
-    """Token ids -> sentence embeddings.  The embeddings stay f32; the
-    layers compute in their own parameter dtype (``model.layers.to(
-    torch.bfloat16)`` selects bf16 compute)."""
+    """Token ids -> sentence embeddings (or, with a classification head,
+    pair logits).  The embeddings and the head stay f32; the layers compute
+    in their own parameter dtype (``model.layers.to(torch.bfloat16)``
+    selects bf16 compute)."""
 
     def __init__(self, config: MPNetConfig) -> None:
         super().__init__()
-        if config.arch != "mpnet":
-            raise NotImplementedError(
-                f"arch={config.arch!r}: only 'mpnet' is ported so far"
+        if config.arch not in ARCHS:
+            raise ValueError(f"arch={config.arch!r} is not one of {ARCHS}")
+        if config.pooling not in POOLINGS:
+            raise ValueError(
+                f"pooling={config.pooling!r} is not one of {POOLINGS}"
             )
-        if config.pooling != "mean":
-            raise NotImplementedError(
-                f"pooling={config.pooling!r}: only 'mean' is ported so far"
-            )
-        if config.num_labels:
-            raise NotImplementedError("classification heads are not ported")
         self.config = config
         h = config.hidden_size
         self.word = nn.Embedding(config.vocab_size, h)
@@ -221,6 +264,10 @@ class MPNetModel(nn.Module):
         self.layers = nn.ModuleList(
             MPNetLayer(config) for _ in range(config.num_layers)
         )
+        if config.num_labels > 0:
+            self.tt_table = nn.Parameter(torch.zeros(2, h))
+            self.pooler = nn.Linear(h, h)
+            self.classifier = nn.Linear(h, config.num_labels)
         self._bias_cache: Dict[tuple, torch.Tensor] = {}
 
     @property
@@ -234,11 +281,15 @@ class MPNetModel(nn.Module):
 
     def position_bias(self, seq_len: int) -> torch.Tensor:
         """``[heads, S, S]`` f32 bias, shared by the batch and every layer
-        (cached per sequence length)."""
+        (cached per sequence length); zero for BERT and XLM-R."""
         dev = self.rel_bias.device
         key = (seq_len, str(dev))
         cached = self._bias_cache.get(key)
-        if cached is None:
+        if cached is None and self.config.arch != "mpnet":
+            cached = torch.zeros((self.config.num_heads, seq_len, seq_len),
+                                 device=dev)
+            self._bias_cache[key] = cached
+        elif cached is None:
             pos = torch.arange(seq_len, dtype=torch.int32, device=dev)
             buckets = relative_position_bucket(
                 pos[None, :] - pos[:, None],
@@ -252,13 +303,28 @@ class MPNetModel(nn.Module):
 
     def forward_hidden(self, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor,
-                       int8_ffn: bool = False) -> torch.Tensor:
+                       int8_ffn: bool = False,
+                       token_type_ids: Optional[torch.Tensor] = None,
+                       ) -> torch.Tensor:
+        """``[B, S]`` ids and mask -> the last hidden state ``[B, S, H]``.
+        ``token_type_ids`` (pair input) select rows of the token-type
+        table where the model has one; otherwise the ``tt0`` row is added
+        to every token."""
         cfg = self.config
         pad = cfg.pad_token_id
-        live = (input_ids != pad).to(torch.int32)
-        position_ids = torch.cumsum(live, dim=1) * live + pad
+        if cfg.arch == "bert":
+            position_ids = torch.arange(
+                input_ids.shape[1], device=input_ids.device
+            ).expand_as(input_ids)
+        else:
+            live = (input_ids != pad).to(torch.int32)
+            position_ids = torch.cumsum(live, dim=1) * live + pad
+        position_ids = position_ids.clamp(max=cfg.max_position - 1)
         x = self.word(input_ids) + self.position(position_ids)
-        x = x + self.tt0[None, None, :]
+        if token_type_ids is not None and hasattr(self, "tt_table"):
+            x = x + self.tt_table[token_type_ids]
+        else:
+            x = x + self.tt0[None, None, :]
         x = layer_norm(x, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
         x = x.to(self.compute_dtype)
         neg = torch.finfo(torch.float32).min
@@ -270,15 +336,33 @@ class MPNetModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 normalize: bool = True, int8_ffn: bool = False) -> torch.Tensor:
-        """``[B, S]`` ids and mask -> ``[B, H]`` f32 embeddings (masked
-        mean pooling, then L2 normalization)."""
+        """``[B, S]`` ids and mask -> ``[B, H]`` f32 embeddings (the
+        config's pooling, then L2 normalization)."""
         hidden = self.forward_hidden(input_ids, attention_mask, int8_ffn)
         hidden = hidden.float()
-        mask = attention_mask.float()[:, :, None]
-        summed = (hidden * mask).sum(dim=1)
-        counts = mask.sum(dim=1).clamp(min=1e-9)
-        pooled = summed / counts
+        if self.config.pooling == "cls":
+            pooled = hidden[:, 0, :]
+        elif self.config.pooling == "max":
+            neg = torch.finfo(torch.float32).min
+            live = attention_mask.bool()[:, :, None]
+            pooled = torch.where(live, hidden, neg).amax(dim=1)
+        else:
+            mask = attention_mask.float()[:, :, None]
+            summed = (hidden * mask).sum(dim=1)
+            counts = mask.sum(dim=1).clamp(min=1e-9)
+            pooled = summed / counts
         if normalize:
             norm = torch.linalg.norm(pooled, dim=-1, keepdim=True)
             pooled = pooled / norm.clamp(min=1e-12)
         return pooled
+
+    def classify(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 token_type_ids: torch.Tensor) -> torch.Tensor:
+        """Pair ids, mask and token types -> ``[B, num_labels]`` f32 logits:
+        CLS hidden state, tanh pooler, classifier, all in f32."""
+        if self.config.num_labels < 1:
+            raise ValueError("this model has no classification head")
+        hidden = self.forward_hidden(input_ids, attention_mask,
+                                     token_type_ids=token_type_ids)
+        pooled = torch.tanh(self.pooler(hidden[:, 0, :].float()))
+        return self.classifier(pooled)

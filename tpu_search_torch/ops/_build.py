@@ -41,7 +41,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 # One library per kernel source; the names double as launch-counter keys.
 KERNELS = ("flat_topk", "mpnet_attention", "int8_ffn_ln", "flat_topk_int8",
-           "flat_topk_int4", "ivf_topk", "ivf_topk_int8", "ivf_topk_int4")
+           "flat_topk_int4", "ivf_topk", "ivf_topk_int8", "ivf_topk_int4",
+           "mpnet_attention_bhsd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

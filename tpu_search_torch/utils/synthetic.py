@@ -1,5 +1,6 @@
 """Seeded synthetic inputs for the GPU smoke run and the device profile:
-a full-width all-mpnet-base-v2 checkpoint with random weights and
+full-width checkpoints with random weights (all-mpnet-base-v2, and the
+BERT-family embedder and cross-encoders of ``BERT_CONFIGS``) and
 Claude-Code-shaped JSONL transcripts."""
 
 from __future__ import annotations
@@ -10,7 +11,10 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["N_CONVERSATIONS", "write_conversations", "write_model"]
+from ..models.mpnet import MPNetConfig
+
+__all__ = ["BERT_CONFIGS", "N_CONVERSATIONS", "write_bert_model",
+           "write_conversations", "write_model"]
 
 # The count of the ``benchmarks/index_e2e.py`` recipe: 1,000 conversations,
 # the first indexed as a warm-up.
@@ -72,3 +76,45 @@ def write_model(model_dir: Path):
     vocab = specials + [f"tok{i}" for i in range(config.vocab_size - 5)]
     (model_dir / "vocab.txt").write_text("\n".join(vocab) + "\n")
     return config
+
+
+def _bert(**fields) -> MPNetConfig:
+    """A BERT config with the fields every published one below shares:
+    the uncased WordPiece vocabulary (30,522), 512 positions, LayerNorm eps
+    1e-12, [PAD] = 0."""
+    base = dict(vocab_size=30522, max_position=512, layer_norm_eps=1e-12,
+                pad_token_id=0, arch="bert")
+    return MPNetConfig(**{**base, **fields})
+
+
+_MINILM = dict(hidden_size=384, num_layers=6, num_heads=12,
+               intermediate_size=1536)
+
+# Full-width BERT-family configurations, by the published model's name
+# (each from its HF config.json).
+BERT_CONFIGS = {
+    # sentence-transformers/all-MiniLM-L6-v2: mean pooling
+    "all-MiniLM-L6-v2": _bert(**_MINILM),
+    # cross-encoder/ms-marco-MiniLM-L-6-v2, the default reranker
+    "ms-marco-MiniLM-L-6-v2": _bert(**_MINILM, num_labels=1),
+    # cross-encoder/ms-marco-TinyBERT-L-4 (TinyBERT 4L-312)
+    "ms-marco-TinyBERT-L-4": _bert(hidden_size=312, num_layers=4,
+                                   num_heads=12, intermediate_size=1200,
+                                   num_labels=1),
+}
+
+
+def write_bert_model(model_dir: Path, name: str, seed: int):
+    """The ``BERT_CONFIGS[name]`` checkpoint with random weights (std 0.02,
+    numpy-seeded) and a BERT ``vocab.txt``: ``[PAD] [UNK] [CLS] [SEP]
+    [MASK]`` then ``tok{i}``."""
+    from ..models.convert import save_checkpoint
+    from ..models.mpnet import init_params
+
+    config = BERT_CONFIGS[name]
+    model_dir.mkdir(parents=True, exist_ok=True)
+    save_checkpoint(str(model_dir / "model.tpu.npz"),
+                    init_params(config, seed), config)
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab = specials + [f"tok{i}" for i in range(config.vocab_size - 5)]
+    (model_dir / "vocab.txt").write_text("\n".join(vocab) + "\n")
