@@ -43,9 +43,18 @@ Phases, each printing its numbers on its own line:
      trained tiny-overlap reranker (H 64, the same kernel), each against
      the same checkpoint on the CPU, the fixture also on the ordering cases
      of ``tests/test_rerank_quality.py``.
+  5. the int8 GEMM bench (``tpu_search_torch.benchmarks.int8_gemm_bench``,
+     all-mpnet-base-v2's FFN over M = 128 x 384 rows), the entry point of
+     ``int8_gemm``, ``int8_ffn_in``, ``int8_ffn_out`` and
+     ``int8_ffn_fused``: every contender timed, the int8 pair's cosine to
+     the bf16 FFN at least 0.999.
 Phase 2 also holds the ``[B, heads, S, hd]`` kernel against its plain
 version at B 128 over S 64-512 at H 312 / 12 heads and H 64 / 2 heads, the
-``[B, S, H]`` kernel at S 512 / H 384, and the int8 FFN at H 384 / I 1536.
+``[B, S, H]`` kernel at S 512 / H 384, the int8 FFN at H 384 / I 1536,
+H 312 / I 1200 and H 1024 / I 4096 (and a 312-wide embedder through the
+int8 gate), and the four int8 GEMM kernels at the bench's shape, at M 512,
+and at H 312 / I 1200 and H 1024 / I 4096 with a ragged M, bf16 and f32
+outputs, and on planted requantization inputs.
 The second line from the end is the kernel summary JSON, with each
 kernel's launch count from the path that runs it; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -109,6 +118,19 @@ ATTN_ULP_SHARE_TOL = 1e-3
 RERANK_LOGIT_TOL = 2e-3
 FFN_MEAN_TOL = 1e-4
 FFN_ULP_SHARE_TOL = 0.01
+# The int8 GEMM family (int8_gemm, int8_ffn_in, int8_ffn_out,
+# int8_ffn_fused) against its plain versions on the card, in ulps of the
+# output dtype (``ulp_errors``): both sides take exact int32 (float64)
+# sums, the same f32 roundings and the same tanhf, and every kernel read 0
+# ulps at every shape, dtype and planted input; the plain version's float64
+# FMA rounds twice, which can move a result by one ulp.  An int8 code that
+# moves shifts every output of its row by a weight step: ``int8_ffn_out``
+# fed the bf16 h's row max, or a fused FFN quantizing the bf16 h, read mean
+# 0.28-0.31 ulps and 1.7-2.4 % of outputs over one ulp (on the CPU,
+# ``tests/test_torch_smoke_tools.py``).
+INT8_MAX_ULPS = 1.0
+INT8_MEAN_ULPS = 0.01
+INT8_ULP_SHARE_TOL = 1e-3
 
 
 SOURCES = {
@@ -130,6 +152,14 @@ SOURCES = {
                       "tpu_search/ops/pallas_ivf_scan.py:632"),
     "mpnet_attention_bhsd": ("tpu_search_torch/csrc/mpnet_attention_bhsd.cu",
                              "tpu_search/ops/pallas_mpnet_attention.py:252"),
+    "int8_gemm": ("tpu_search_torch/csrc/int8_gemm.cu",
+                  "tpu_search/ops/pallas_int8_gemm.py:646"),
+    "int8_ffn_in": ("tpu_search_torch/csrc/int8_ffn_in.cu",
+                    "tpu_search/ops/pallas_int8_gemm.py:158"),
+    "int8_ffn_out": ("tpu_search_torch/csrc/int8_ffn_out.cu",
+                     "tpu_search/ops/pallas_int8_gemm.py:275"),
+    "int8_ffn_fused": ("tpu_search_torch/csrc/int8_ffn_fused.cu",
+                       "tpu_search/ops/pallas_int8_gemm.py:578"),
 }
 # The path whose run counts each kernel's launches ("rerank": the TinyBERT
 # and the tiny-overlap rerank paths together).
@@ -137,7 +167,9 @@ PATH_OF = {"flat_topk": "bfloat16", "mpnet_attention": "bfloat16",
            "int8_ffn_ln": "bfloat16", "flat_topk_int8": "int8",
            "flat_topk_int4": "int4", "ivf_topk": "ivf_bfloat16",
            "ivf_topk_int8": "ivf_int8", "ivf_topk_int4": "ivf_int4",
-           "mpnet_attention_bhsd": "rerank"}
+           "mpnet_attention_bhsd": "rerank", "int8_gemm": "int8_bench",
+           "int8_ffn_in": "int8_bench", "int8_ffn_out": "int8_bench",
+           "int8_ffn_fused": "int8_bench"}
 # The rerank paths: (tag, reranker, kernels it must launch).  All run on
 # the all-MiniLM-L6-v2 index; the reranker sees top_k * factor candidates.
 RERANK_PATHS = (
@@ -666,6 +698,63 @@ def ffn_ok(errors: dict) -> bool:
             and errors["over_1ulp_share"] <= FFN_ULP_SHARE_TOL)
 
 
+def ulp_errors(out, ref) -> dict:
+    """Errors of a kernel output against its plain version, in units of the
+    output dtype's ulp at the plain value (bf16: 2^(e-8), f32: 2^(e-24)):
+    the max absolute error, the max and mean in ulps, and the share of
+    outputs more than one ulp off."""
+    import torch
+
+    ref = ref.float()
+    bits = 8 if out.dtype == torch.bfloat16 else 24
+    _, exp = torch.frexp(ref)
+    ulp = torch.ldexp(torch.ones_like(ref), exp - bits)
+    err = (out.float() - ref).abs()
+    ulps = err / ulp
+    return {"max_abs_err": float(err.max()), "max_ulps": float(ulps.max()),
+            "mean_ulps": float(ulps.mean()),
+            "over_1ulp_share": float((ulps > 1).float().mean())}
+
+
+def int8_ok(errors: dict) -> bool:
+    """The int8 GEMM family's tolerance against the plain versions (see
+    ``INT8_MAX_ULPS``)."""
+    return (errors["max_ulps"] <= INT8_MAX_ULPS
+            and errors["mean_ulps"] <= INT8_MEAN_ULPS
+            and errors["over_1ulp_share"] <= INT8_ULP_SHARE_TOL)
+
+
+def planted_rows(kind: str, width: int, rows: int, device):
+    """``[rows, width]`` f32 rows, each a permutation of one set of values
+    of at least 6 (where the f32 tanh-gelu returns its input exactly, as
+    tanh rounds to 1), on which one rounding fault moves most int8 codes:
+
+    - ``ties``: amax 127/8, so ``x * (127 / amax)`` is ``x * 8``, which lands
+      on k + 0.5 in half of the columns: round half to even and half away
+      from zero differ;
+    - ``mul_div``: amax A = 18.375 and the other columns A/2 (16 times the
+      ``planted_ffn_inputs`` values): multiplying by the f32 quotient
+      ``127 / A`` gives 63.5 -> 64, dividing by ``A / 127`` gives 63.
+
+    They are ``h`` for ``int8_ffn_out``; one row is the GEMM1 bias of
+    ``int8_ffn_fused`` over an all-zero ``x_q``, whose gelu output it then
+    is."""
+    import torch
+
+    gen = torch.Generator().manual_seed(9)
+    if kind == "ties":
+        steps = torch.tensor([80.5, 81.5, 82.5, 83.5, 100.5, 101.5, 126.5,
+                              127.0])
+        base = steps.repeat(width // 8) / 8.0
+    elif kind == "mul_div":
+        base = torch.full((width,), 18.375 / 2)
+        base[0] = 18.375
+    else:
+        raise ValueError(kind)
+    return torch.stack([base[torch.randperm(width, generator=gen)]
+                        for _ in range(rows)]).to(device)
+
+
 def planted_ffn_inputs(kind: str, h: int, rows: int, device):
     """LN1 inputs on which one rounding fault moves every row's int8 codes.
     Rows of +-1, as many of each, with eps = 0 make LN1's output its scale
@@ -699,9 +788,11 @@ def planted_ffn_inputs(kind: str, h: int, rows: int, device):
 
 
 def check_int8_ffn(results: dict) -> None:
-    """The W8A8 FFN at all-mpnet-base-v2's width (H 768, I 3072) and at
-    all-MiniLM-L6-v2's (H 384, I 1536): random inputs at an indexing wave's
-    and a query's row count, then the planted rounding inputs."""
+    """The W8A8 FFN at all-mpnet-base-v2's width (H 768, I 3072), at
+    all-MiniLM-L6-v2's (H 384, I 1536), at TinyBERT-312's (H 312, I 1200)
+    and at BERT-large's (H 1024, I 4096): random inputs at an indexing
+    wave's and a query's row count, then the planted rounding inputs; then
+    a random-weight 312-wide embedder through the int8 gate."""
     import torch
 
     from tpu_search_torch.ops.int8_ffn import (
@@ -725,7 +816,7 @@ def check_int8_ffn(results: dict) -> None:
         return errors["max_abs_err"], line
 
     worst = 0.0
-    for h, inter in ((768, 3072), (384, 1536)):
+    for h, inter in ((768, 3072), (384, 1536), (312, 1200), (1024, 4096)):
         w1q, s1 = quantize_weight_columns(
             bf(0.02 * torch.randn((h, inter), generator=gen, device=dev)))
         w2q, s2 = quantize_weight_columns(
@@ -772,6 +863,223 @@ def check_int8_ffn(results: dict) -> None:
             print(line, flush=True)
             worst = max(worst, err)
     results["int8_ffn_ln"]["max_abs_err"] = worst
+    check_int8_gate_312()
+
+
+def check_int8_gate_312() -> None:
+    """A random-weight TinyBERT_General_4L_312D embedder (H 312, I 1200)
+    loaded through ``EmbeddingGenerator`` on the card: the int8 gate runs
+    the widened FFN kernel and passes or fails by its cosine; the model
+    then encodes."""
+    import numpy as np
+
+    from tpu_search_torch.models.encoder import (
+        EmbeddingConfig,
+        EmbeddingGenerator,
+    )
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.utils.synthetic import write_bert_model
+
+    name = "TinyBERT_General_4L_312D"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_312_") as tmp:
+        write_bert_model(Path(tmp) / name, name, 40)
+        before = _build.LAUNCHES["int8_ffn_ln"]
+        gen = EmbeddingGenerator(EmbeddingConfig(
+            model_name=name, cache_dir=tmp, device="cuda",
+            auto_batch_size=False, show_progress=False))
+        gen.load_model()
+        emb = gen._encode_texts([f"tok{i} tok{i + 1} tok{i + 7}"
+                                 for i in range(8)])
+    gate = gen.int8_gate
+    print(f"[int8_gate] model={name} hidden=312 intermediate=1200 "
+          f"min_cosine={gate.get('min_cosine')} ok={gate.get('ok')} "
+          f"int8_ffn={gen._int8_ffn} ffn_launches="
+          f"{_build.LAUNCHES['int8_ffn_ln'] - before} "
+          f"embeddings={list(emb.shape)} finite={bool(np.isfinite(emb).all())}",
+          flush=True)
+    if gate.get("min_cosine") is None or not np.isfinite(emb).all():
+        fail(f"the 312-wide embedder did not pass through the int8 gate: {gate}")
+
+
+INT8_FAMILY = ("int8_gemm", "int8_ffn_in", "int8_ffn_out", "int8_ffn_fused")
+# The int8 GEMM family's shapes (M, H, I): the bench's (all-mpnet-base-v2's
+# FFN over an indexing wave, 128 x 384 rows), a query's row count, and
+# ragged row counts at TinyBERT-312's and BERT-large's widths.
+INT8_FAMILY_SHAPES = ((128 * 384, 768, 3072), (512, 768, 3072),
+                      (12289, 312, 1200), (12289, 1024, 4096))
+
+
+def int8_family_inputs(gen, m, h, inter, dev):
+    """The bench's operands: rows of 0.5 N(0, 1) quantized by
+    ``quantize_rows`` (row 0 all zero), weights of 0.02 N(0, 1) quantized
+    per output column, biases of 0.01 N(0, 1), a bf16 residual."""
+    import torch
+
+    from tpu_search_torch.ops.int8_ffn import quantize_weight_columns
+    from tpu_search_torch.ops.int8_gemm import quantize_rows
+
+    x = 0.5 * torch.randn((m, h), generator=gen, device=dev)
+    x[0] = 0
+    x_q, sx = quantize_rows(x)
+    w1q, s1 = quantize_weight_columns(
+        0.02 * torch.randn((h, inter), generator=gen, device=dev))
+    w2q, s2 = quantize_weight_columns(
+        0.02 * torch.randn((inter, h), generator=gen, device=dev))
+    return {"x_q": x_q, "sx": sx, "w1": w1q.T.contiguous(), "s1": s1,
+            "b1": 0.01 * torch.randn((inter,), generator=gen, device=dev),
+            "w2": w2q.T.contiguous(), "s2": s2,
+            "b2": 0.01 * torch.randn((h,), generator=gen, device=dev),
+            "res": (0.5 * torch.randn((m, h), generator=gen, device=dev)
+                    ).to(torch.bfloat16)}
+
+
+def int8_family_cases(t, out):
+    """``{kernel: [(tag, kernel call, plain call)]}`` for the operands ``t``
+    and the output dtype ``out`` (``int8_ffn_in`` returns ``(h, amax)``)."""
+    import torch
+
+    from tpu_search_torch.ops import int8_gemm as G
+
+    h_in, amax = G.int8_ffn_in_plain(t["x_q"], t["w1"], t["sx"], t["s1"],
+                                     t["b1"], out)
+    h_q, sh = G.quantize_rows(h_in)
+    res = t["res"].to(out)
+    gemm_in = (t["x_q"], t["w1"], t["sx"], t["s1"], t["b1"])
+    gemm_out = (h_q, t["w2"], sh, t["s2"], t["b2"])
+    fused = (t["x_q"], t["sx"], t["w1"], t["s1"], t["b1"], t["w2"], t["s2"],
+             t["b2"], res)
+
+    return {
+        "int8_gemm": [
+            ("ffn_in shape gelu",
+             lambda: G.int8_gemm(*gemm_in, fuse_gelu=True, out_dtype=out),
+             lambda: G.int8_gemm_plain(*gemm_in, fuse_gelu=True,
+                                       out_dtype=out)),
+            ("ffn_out shape",
+             lambda: G.int8_gemm(*gemm_out, out_dtype=out),
+             lambda: G.int8_gemm_plain(*gemm_out, out_dtype=out))],
+        "int8_ffn_in": [
+            ("", lambda: G.int8_ffn_in(*gemm_in, out_dtype=out),
+             lambda: G.int8_ffn_in_plain(*gemm_in, out_dtype=out))],
+        "int8_ffn_out": [
+            ("", lambda: G.int8_ffn_out(h_in, amax, t["w2"], t["s2"], t["b2"],
+                                        res, out_dtype=out),
+             lambda: G.int8_ffn_out_plain(h_in, amax, t["w2"], t["s2"],
+                                          t["b2"], res, out_dtype=out))],
+        "int8_ffn_fused": [
+            ("", lambda: G.int8_ffn_fused(*fused, out_dtype=out),
+             lambda: G.int8_ffn_fused_plain(*fused, out_dtype=out))],
+    }
+
+
+def int8_planted_cases(t, kind):
+    """``int8_ffn_out`` on planted ``h`` rows and ``int8_ffn_fused`` with
+    an all-zero x_q and a planted GEMM1 bias (see ``planted_rows``), 64
+    rows, f32 output."""
+    import torch
+
+    from tpu_search_torch.ops import int8_gemm as G
+
+    dev, inter = t["w1"].device, t["w1"].shape[0]
+    f32 = torch.float32
+    h = planted_rows(kind, inter, 64, dev)
+    amax = h.amax(dim=1, keepdim=True)
+    res = t["res"][:64].float()
+    out = (h, amax, t["w2"], t["s2"], t["b2"], res)
+    fused = [torch.zeros_like(t["x_q"][:64]), t["sx"][:64], t["w1"], t["s1"],
+             planted_rows(kind, inter, 1, dev)[0], t["w2"], t["s2"], t["b2"],
+             res]
+    return {
+        "int8_ffn_out": (lambda: G.int8_ffn_out(*out, out_dtype=f32),
+                         lambda: G.int8_ffn_out_plain(*out, out_dtype=f32)),
+        "int8_ffn_fused": (lambda: G.int8_ffn_fused(*fused, out_dtype=f32),
+                           lambda: G.int8_ffn_fused_plain(*fused,
+                                                          out_dtype=f32)),
+    }
+
+
+def int8_family_bound(name, m, h, inter):
+    """``(bound_ms, bound_by)`` of one call at (M, H, I) with bf16 output
+    and residual: each input read once, each output written once; the
+    products' operations (for the fused kernel, the function's two GEMMs:
+    its recomputation is not the function's work)."""
+    ops = 2 * m * h * inter
+    if name in ("int8_gemm", "int8_ffn_in"):  # ffn_in's shape
+        nbytes = m * h + inter * h + 4 * (m + 2 * inter) + 2 * m * inter
+        nbytes += 4 * m if name == "int8_ffn_in" else 0
+    elif name == "int8_ffn_out":  # bf16 h [M, I] in, [M, H] out
+        nbytes = 2 * m * inter + 4 * m + h * inter + 8 * h + 2 * 2 * m * h
+    else:
+        nbytes = m * h + 4 * m + 2 * h * inter + 8 * (h + inter) + 2 * 2 * m * h
+        ops *= 2
+    return bound(nbytes, ops, "int8")
+
+
+def check_int8_gemm(results: dict) -> None:
+    """The int8 GEMM family against its plain versions at
+    ``INT8_FAMILY_SHAPES``, bf16 and f32 outputs, then the planted
+    requantization inputs; times at the bench's shape (bf16), beside the
+    bound and, for ``int8_gemm``, ``torch._int_mm`` of the same int8
+    product (no epilogue) as the library yardstick."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst = {name: 0.0 for name in INT8_FAMILY}
+
+    def gate(name, tag, kernel, plain):
+        """Every output of ``kernel()`` (``int8_ffn_in``: h, then amax)
+        against ``plain()``'s; returns the line of their errors."""
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, ref = (got,), (ref,)
+        lines = []
+        for g, r in zip(got, ref):
+            errors = ulp_errors(g, r)
+            lines.append(format_errors(errors))
+            if not bool(torch.isfinite(g.float()).all()) or not int8_ok(errors):
+                fail(f"{name} disagrees with its plain version: [{name}] "
+                     f"{tag} {lines[-1]}")
+            worst[name] = max(worst[name], errors["max_abs_err"])
+        return f"[{name}] {tag} " + " | amax ".join(lines)
+
+    planted = set()
+    for m, h, inter in INT8_FAMILY_SHAPES:
+        t = int8_family_inputs(gen, m, h, inter, dev)
+        for out in (torch.bfloat16, torch.float32):
+            dt = "bf16" if out == torch.bfloat16 else "f32"
+            for name, cases in int8_family_cases(t, out).items():
+                for tag, kernel, plain in cases:
+                    line = gate(name, f"M={m} H={h} I={inter} out={dt} {tag}",
+                                kernel, plain)
+                    timed = (m, h, out) == (128 * 384, 768, torch.bfloat16) \
+                        and "ffn_out shape" not in tag
+                    if timed:
+                        kms, pms = paired_ms(kernel, plain, iters=5)
+                        bound_ms, by = int8_family_bound(name, m, h, inter)
+                        lib = None
+                        if name == "int8_gemm":
+                            w1t = t["w1"].t()
+                            lib = cuda_ms(lambda: torch._int_mm(t["x_q"], w1t))
+                        results[name] = {"ms": kms, "plain_ms": pms,
+                                         "bound_ms": bound_ms, "bound_by": by,
+                                         "library_ms": lib}
+                        line += (f" kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+                                 f"bound_ms={bound_ms:.4f} bound_by={by}"
+                                 + ("" if lib is None else
+                                    f" int_mm_ms={lib:.4f}"))
+                    print(line, flush=True)
+        for kind in ("ties", "mul_div"):
+            if (h, inter, kind) in planted:
+                continue
+            planted.add((h, inter, kind))
+            for name, (kernel, plain) in int8_planted_cases(t, kind).items():
+                print(gate(name, f"M=64 H={h} I={inter} out=f32 "
+                                 f"planted={kind}", kernel, plain), flush=True)
+        del t
+    for name in INT8_FAMILY:
+        results[name]["max_abs_err"] = worst[name]
 
 
 IVF_N, IVF_NLIST, IVF_CENTRES = 1_000_000, 1024, 4096
@@ -1607,6 +1915,39 @@ def run_rerank_path(engine, data: Path, probes, tag: str, model: str,
     return launches
 
 
+def run_int8_bench() -> dict:
+    """The int8 GEMM bench at full size (all-mpnet-base-v2's FFN, M = 128 x
+    384), its entry point ``int8_gemm_bench.run``, with the launch counts
+    set to 0 just before and read just after; the int8 pair must keep a
+    cosine of at least 0.999 to the bf16 FFN."""
+    import torch
+
+    from tpu_search_torch.benchmarks import int8_gemm_bench
+    from tpu_search_torch.ops import _build
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = int8_gemm_bench.run("cuda")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for name, r in out["results"].items():
+        tops = "" if r["tops"] is None else f" effective_tops={r['tops']:.1f}"
+        print(f"[int8_bench] {name} M={out['shape']['m']} H="
+              f"{out['shape']['h']} I={out['shape']['i']} reps={out['reps']} "
+              f"ms={r['ms']:.4f}{tops}", flush=True)
+    print(f"[int8_bench] cos_int8_pair_vs_bf16="
+          f"{out['cos_int8_pair_vs_bf16']:.6f} seconds="
+          f"{time.perf_counter() - t0:.2f} launches="
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if out["cos_int8_pair_vs_bf16"] < 0.999:
+        fail(f"int8 pair cosine {out['cos_int8_pair_vs_bf16']} < 0.999")
+    if any(launches[k] == 0 for k in path_kernels("int8_bench")):
+        fail(f"the int8 bench did not run its kernels: {launches}")
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -1635,6 +1976,7 @@ def main() -> None:
     check_attention(results)
     check_attention_bhsd(results)
     check_int8_ffn(results)
+    check_int8_gemm(results)
     check_ivf(results)
 
     from tpu_search_torch.utils.synthetic import (
@@ -1668,6 +2010,7 @@ def main() -> None:
         launches["rerank"] = {
             k: launches["rerank_tinybert"][k] + launches["rerank_fixture"][k]
             for k in launches["rerank_fixture"]}
+        launches["int8_bench"] = run_int8_bench()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -14,7 +14,12 @@ with ids equal outside near-ties; the int8 and int4 scans exactly equal
 bf16 ulp or two of O(1) outputs); the int8 FFN 6.25e-2 at most (a few
 bf16 ulps of the LayerNorm output), 1e-4 on average and at most 1 % of
 outputs more than one bf16 ulp off, on random inputs and on the planted
-ones of ``chip_smoke.planted_ffn_inputs``.
+ones of ``chip_smoke.planted_ffn_inputs``, at H 8 to 1,024; the int8 GEMM
+family (``int8_gemm``, ``int8_ffn_in``, ``int8_ffn_out``,
+``int8_ffn_fused``) within ``chip_smoke.int8_ok`` (one ulp of the output
+dtype at most, 0.01 on average, 0.1 % over one ulp) on random inputs, zero
+rows, ragged M and K/N off the 128 grid, and on the planted inputs of
+``chip_smoke.planted_rows``.
 """
 
 import math
@@ -116,7 +121,9 @@ def ffn_args(dev, m, h, inter, seed):
             1 + rnd(h, scale=0.1), rnd(h, scale=0.1)]
 
 
-@pytest.mark.parametrize("m,h,inter", [(100, 768, 3072), (64, 384, 1536)])
+@pytest.mark.parametrize("m,h,inter", [(100, 768, 3072), (64, 384, 1536),
+                                      (37, 312, 1200), (45, 1024, 4096),
+                                      (20, 8, 8)])
 def test_int8_ffn_kernel(dev, m, h, inter):
     from chip_smoke import bf16_errors, ffn_ok
     from tpu_search_torch.ops.int8_ffn import int8_ffn_ln, int8_ffn_ln_plain
@@ -130,7 +137,8 @@ def test_int8_ffn_kernel(dev, m, h, inter):
 
 
 @pytest.mark.parametrize("kind", ["ties", "mul_div"])
-@pytest.mark.parametrize("h,inter", [(768, 3072), (384, 1536)])
+@pytest.mark.parametrize("h,inter", [(768, 3072), (384, 1536), (312, 1200),
+                                    (1024, 4096)])
 def test_int8_ffn_kernel_planted_rounding(dev, kind, h, inter):
     """Inputs on which rounding half away from zero (``ties``) or dividing
     by ``amax / 127`` (``mul_div``) would move most int8 codes."""
@@ -144,6 +152,189 @@ def test_int8_ffn_kernel_planted_rounding(dev, kind, h, inter):
     torch.cuda.synchronize()
     errors = bf16_errors(out, ref)
     assert ffn_ok(errors), errors
+
+
+@pytest.mark.parametrize("h,inter", [(1032, 4096), (768, 4104), (300, 1200),
+                                    (312, 1204)])
+def test_int8_ffn_refuses_widths(dev, h, inter):
+    """Beyond H 1,024 / I 4,096, or off a multiple of 8, the wrapper raises
+    with the limits in its message."""
+    from tpu_search_torch.ops.int8_ffn import int8_ffn_ln
+
+    args = ffn_args(dev, 8, h, inter, 1)
+    with pytest.raises(ValueError, match="1024 / 4096"):
+        int8_ffn_ln(*args)
+
+
+def int8_operands(dev, m, k, n, seed):
+    """Random int8 codes (row 0 of x_q all zero), f32 scales in [0.001,
+    0.02] and biases: ``(x_q [m, k], w [n, k], sx, sw, bias)``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(n):
+        return 0.001 + 0.019 * torch.rand((n,), generator=gen, device=dev)
+
+    x_q = codes(m, k)
+    x_q[0] = 0
+    return (x_q, codes(n, k), scales(m), scales(n),
+            0.1 * torch.randn((n,), generator=gen, device=dev))
+
+
+INT8_SHAPES = [(37, 312, 1200), (128, 768, 3072), (200, 1024, 4096),
+               (9, 8, 8), (300, 3072, 768)]
+
+
+def assert_int8_close(got, ref):
+    from chip_smoke import int8_ok, ulp_errors
+
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    errors = ulp_errors(got, ref)
+    assert int8_ok(errors), errors
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_gemm_kernel(dev, m, k, n, gelu, out):
+    from tpu_search_torch.ops.int8_gemm import int8_gemm, int8_gemm_plain
+
+    ops = int8_operands(dev, m, k, n, m + k)
+    got = int8_gemm(*ops, fuse_gelu=gelu, out_dtype=out)
+    ref = int8_gemm_plain(*ops, fuse_gelu=gelu, out_dtype=out)
+    torch.cuda.synchronize()
+    assert_int8_close(got, ref)
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_ffn_in_kernel(dev, m, k, n, out):
+    from tpu_search_torch.ops.int8_gemm import int8_ffn_in, int8_ffn_in_plain
+
+    ops = int8_operands(dev, m, k, n, m + n)
+    h, amax = int8_ffn_in(*ops, out_dtype=out)
+    ref_h, ref_amax = int8_ffn_in_plain(*ops, out_dtype=out)
+    torch.cuda.synchronize()
+    assert_int8_close(h, ref_h)
+    assert amax.shape == (m, 1)
+    assert_int8_close(amax, ref_amax)
+
+
+def ffn_out_operands(dev, m, k, n, h_dtype, res_dtype, seed):
+    """Gelu-like h (row 3 all zero: amax 0), its f32 row maxima, int8
+    weights, scales, bias and a residual."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.nn.functional.gelu(
+        2 * torch.randn((m, k), generator=gen, device=dev)).to(h_dtype)
+    h[min(3, m - 1)] = 0
+    _, w, _, sw, bias = int8_operands(dev, 1, k, n, seed)
+    res = torch.randn((m, n), generator=gen, device=dev).to(res_dtype)
+    return h, h.float().abs().amax(dim=1, keepdim=True), w, sw, bias, res
+
+
+@pytest.mark.parametrize("h_dtype,res_dtype,out", [
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("m,k,n", [(37, 1200, 312), (128, 3072, 768),
+                                   (200, 4096, 1024), (9, 8, 8)])
+def test_int8_ffn_out_kernel(dev, m, k, n, h_dtype, res_dtype, out):
+    from tpu_search_torch.ops.int8_gemm import int8_ffn_out, int8_ffn_out_plain
+
+    ops = ffn_out_operands(dev, m, k, n, h_dtype, res_dtype, m + k)
+    got = int8_ffn_out(*ops, out_dtype=out)
+    ref = int8_ffn_out_plain(*ops, out_dtype=out)
+    torch.cuda.synchronize()
+    assert_int8_close(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["ties", "mul_div"])
+@pytest.mark.parametrize("k,n", [(3072, 768), (1200, 312)])
+def test_int8_ffn_out_kernel_planted_rounding(dev, kind, k, n):
+    """h on .5 steps (``ties``) and on the multiply-vs-divide discriminator
+    (``mul_div``): a fault there moves most codes."""
+    from chip_smoke import planted_rows
+    from tpu_search_torch.ops.int8_gemm import int8_ffn_out, int8_ffn_out_plain
+
+    h = planted_rows(kind, k, 64, dev)
+    _, _, w, sw, bias, res = ffn_out_operands(dev, 64, k, n, torch.float32,
+                                              torch.float32, 5)
+    ops = (h, h.amax(dim=1, keepdim=True), w, sw, bias, res)
+    got = int8_ffn_out(*ops, out_dtype=torch.float32)
+    ref = int8_ffn_out_plain(*ops, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert_int8_close(got, ref)
+
+
+def fused_operands(dev, m, h, inter, res_dtype, seed):
+    x_q, w1, sx, s1, b1 = int8_operands(dev, m, h, inter, seed)
+    _, w2, _, s2, b2 = int8_operands(dev, 1, inter, h, seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = torch.randn((m, h), generator=gen, device=dev).to(res_dtype)
+    # codes of 1/8 the range keep y in gelu's curved part
+    return [(x_q // 8).contiguous(), sx, w1, s1, b1, w2, s2, b2, res]
+
+
+@pytest.mark.parametrize("res_dtype,out", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("m,h,inter", [(37, 312, 1200), (100, 768, 3072),
+                                       (45, 1024, 4096), (64, 384, 1536),
+                                       (9, 8, 8)])
+def test_int8_ffn_fused_kernel(dev, m, h, inter, res_dtype, out):
+    from tpu_search_torch.ops.int8_gemm import (
+        int8_ffn_fused,
+        int8_ffn_fused_plain,
+    )
+
+    ops = fused_operands(dev, m, h, inter, res_dtype, m + h)
+    got = int8_ffn_fused(*ops, out_dtype=out)
+    ref = int8_ffn_fused_plain(*ops, out_dtype=out)
+    torch.cuda.synchronize()
+    assert_int8_close(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["ties", "mul_div"])
+@pytest.mark.parametrize("h,inter", [(768, 3072), (312, 1200)])
+def test_int8_ffn_fused_kernel_planted_rounding(dev, kind, h, inter):
+    """An all-zero x_q makes y the GEMM1 bias, planted where gelu returns
+    its input: the on-chip h_q lands on .5 steps or on the
+    multiply-vs-divide discriminator."""
+    from chip_smoke import planted_rows
+    from tpu_search_torch.ops.int8_gemm import (
+        int8_ffn_fused,
+        int8_ffn_fused_plain,
+    )
+
+    ops = fused_operands(dev, 40, h, inter, torch.float32, 3)
+    ops[0] = torch.zeros_like(ops[0])
+    ops[4] = planted_rows(kind, inter, 1, dev)[0]
+    got = int8_ffn_fused(*ops, out_dtype=torch.float32)
+    ref = int8_ffn_fused_plain(*ops, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert_int8_close(got, ref)
+
+
+def test_int8_family_refuses_shapes(dev):
+    from tpu_search_torch.ops import int8_gemm as G
+
+    x_q, w, sx, sw, bias = int8_operands(dev, 16, 64, 64, 1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        G.int8_gemm(x_q[:, :60].contiguous(), w[:, :60].contiguous(), sx, sw,
+                    bias)
+    with pytest.raises(ValueError, match="out_dtype"):
+        G.int8_gemm(x_q, w, sx, sw, bias, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="w must be"):
+        G.int8_ffn_in(x_q, w.T, sx, sw, bias)
+    x_q, w1, sx, s1, b1 = int8_operands(dev, 16, 1032, 64, 2)
+    _, w2, _, s2, b2 = int8_operands(dev, 1, 64, 1032, 3)
+    res = torch.zeros((16, 1032), device=dev)
+    with pytest.raises(ValueError, match="1024 / 4096"):
+        G.int8_ffn_fused(x_q, sx, w1, s1, b1, w2, s2, b2, res)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

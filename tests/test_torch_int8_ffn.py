@@ -5,9 +5,10 @@ Tolerance: f32 output within 1e-4 (LayerNorm sums in another order; the
 int8 products are exact on both sides); bf16 output within 1e-2, about
 one bf16 ulp of the O(1) LayerNorm output.  The quantization decisions
 themselves are compared exactly on inputs built to land on .5, and the
-per-column weight quantizer must be bit-identical.
+per-column weight quantizer must be bit-identical to its jitted form.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,8 +53,8 @@ def weights(seed):
 
 
 def run_both(pre, w1, w2, b1, b2, ln, eps, out):
-    jq1, js1 = jax_qcol(jnp.asarray(w1))
-    jq2, js2 = jax_qcol(jnp.asarray(w2))
+    jq1, js1 = jax.jit(jax_qcol)(jnp.asarray(w1))
+    jq2, js2 = jax.jit(jax_qcol)(jnp.asarray(w2))
     jdt = jnp.float32 if out == "float32" else jnp.bfloat16
     ref = int8_ffn_ln_fused(
         jnp.asarray(pre).astype(jdt), jq1, js1, jnp.asarray(b1), jq2, js2,
@@ -73,9 +74,19 @@ def run_both(pre, w1, w2, b1, b2, ln, eps, out):
 
 
 def test_weight_quantizer_bit_identical():
+    """Against ``jax.jit(jax_qcol)``, the form the jitted ``forward_hidden``
+    runs (XLA computes ``amax / 127.0`` as ``amax * f32(1/127)``): the test
+    weights, and all-mpnet-base-v2's ``[768, 3072]`` of bf16-valued
+    0.02 N(0, 1), where the eager divide gives other scales and codes."""
     w1, w2, *_ = weights(0)
-    for w in (w1, w2):
-        jq, js = jax_qcol(jnp.asarray(w))
+    rng = np.random.default_rng(11)
+    big = np.array(jnp.asarray(0.02 * rng.standard_normal((768, 3072)),
+                               jnp.float32).astype(jnp.bfloat16)
+                   .astype(jnp.float32))
+    eager = np.asarray(jax_qcol(jnp.asarray(big))[1])
+    assert (eager != np.asarray(jax.jit(jax_qcol)(jnp.asarray(big))[1])).sum() > 100
+    for w in (w1, w2, big):
+        jq, js = jax.jit(jax_qcol)(jnp.asarray(w))
         tq, ts = quantize_weight_columns(torch.from_numpy(w))
         np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -90,6 +101,28 @@ def test_plain_matches_pallas_fused(out):
     ln[1][:] = 0.0  # ... and a zero LN1 bias makes that row exactly zero
     got, ref = run_both(pre, w1, w2, b1, b2, ln, 1e-5, out)
     assert np.isfinite(got).all()
+    tol = 1e-4 if out == "float32" else 1e-2
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_plain_matches_pallas_fused_at_tinybert_width(out):
+    """H 312, I 1,200 (TinyBERT-312), which the JAX kernel takes as whole
+    rows and the CUDA kernel pads to 384 columns."""
+    rng = np.random.default_rng(6)
+
+    def bf(x):
+        return np.array(jnp.asarray(x, jnp.float32).astype(jnp.bfloat16)
+                        .astype(jnp.float32))
+
+    h, inter = 312, 1200
+    w1 = bf(0.05 * rng.standard_normal((h, inter)))
+    w2 = bf(0.05 * rng.standard_normal((inter, h)))
+    b1, b2 = bf(0.05 * rng.standard_normal(inter)), bf(0.05 * rng.standard_normal(h))
+    ln = [bf(1 + 0.1 * rng.standard_normal(h)), bf(0.1 * rng.standard_normal(h)),
+          bf(1 + 0.1 * rng.standard_normal(h)), bf(0.1 * rng.standard_normal(h))]
+    pre = rng.standard_normal((48, h)).astype(np.float32)
+    got, ref = run_both(pre, w1, w2, b1, b2, ln, 1e-5, out)
     tol = 1e-4 if out == "float32" else 1e-2
     np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
 

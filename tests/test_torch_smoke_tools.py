@@ -2,7 +2,9 @@
 CPU: the synthetic conversation recipe, the device busy-time union, the
 int8 FFN gates of ``chip_smoke.py``, which must fail a kernel that
 rounds its half-step ties away from zero or divides by ``amax / 127``
-where the contract multiplies by ``127 / amax``, the attention gates,
+where the contract multiplies by ``127 / amax``, the int8 GEMM family's
+gates, which must fail an ``int8_ffn_out`` fed the bf16 ``h``'s row max
+and a fused FFN that requantizes the bf16 ``h``, the attention gates,
 which must fail a kernel that skips rounding P before P V, and the
 reranker's logit-order gate.
 """
@@ -99,6 +101,77 @@ def test_ffn_gates_fail_a_rounding_fault(monkeypatch, kind, target, fault):
     assert errors["mean_abs_err"] > chip_smoke.FFN_MEAN_TOL
     assert errors["over_1ulp_share"] > chip_smoke.FFN_ULP_SHARE_TOL
     assert not chip_smoke.ffn_ok(errors)
+
+
+def int8_family(out=torch.bfloat16):
+    """The smoke run's int8 family operands at a small size (CPU), and the
+    bf16 gelu output of GEMM1 with its f32 row maxima."""
+    from tpu_search_torch.ops import int8_gemm
+
+    t = chip_smoke.int8_family_inputs(torch.Generator().manual_seed(16), 64,
+                                      128, 512, torch.device("cpu"))
+    h, amax = int8_gemm.int8_ffn_in_plain(t["x_q"], t["w1"], t["sx"],
+                                          t["s1"], t["b1"], out)
+    return t, h, amax
+
+
+def test_int8_cases_pass_their_gates_on_the_plain_path():
+    """Every case ``check_int8_gemm`` runs, on the CPU (where each wrapper
+    is its plain version), is inside the gates, and the bounds at the
+    bench's shape are the published-peak ones."""
+    t, _, _ = int8_family()
+    for out in (torch.bfloat16, torch.float32):
+        for name, cases in chip_smoke.int8_family_cases(t, out).items():
+            for _, kernel, plain in cases:
+                got, ref = kernel(), plain()
+                for g, r in zip(*((got, ref) if isinstance(got, tuple)
+                                  else ((got,), (ref,)))):
+                    assert chip_smoke.int8_ok(chip_smoke.ulp_errors(g, r))
+    for kind in ("ties", "mul_div"):
+        for kernel, plain in chip_smoke.int8_planted_cases(t, kind).values():
+            assert torch.equal(kernel(), plain())
+    m, h, i = 128 * 384, 768, 3072
+    got = {n: chip_smoke.int8_family_bound(n, m, h, i)
+           for n in chip_smoke.INT8_FAMILY}
+    assert got["int8_gemm"][1] == got["int8_ffn_fused"][1] == "operations"
+    assert got["int8_gemm"][0] == pytest.approx(0.1172, abs=1e-4)
+    assert got["int8_ffn_out"] == (pytest.approx(0.136, abs=1e-3), "bytes")
+    assert got["int8_ffn_fused"][0] == pytest.approx(0.2344, abs=1e-4)
+
+
+def test_int8_gates_fail_amax_from_bf16_h():
+    """``int8_ffn_out`` fed the row max of the bf16 ``h`` instead of the
+    f32 ``y``'s (the trap of ``int8_ffn_in``) moves codes in most rows."""
+    from tpu_search_torch.ops import int8_gemm
+
+    t, h, amax = int8_family()
+    args = (t["w2"], t["s2"], t["b2"], t["res"])
+    ref = int8_gemm.int8_ffn_out_plain(h, amax, *args)
+    bad_amax = h.float().abs().amax(dim=1, keepdim=True)
+    assert not torch.equal(bad_amax, amax)
+    bad = int8_gemm.int8_ffn_out_plain(h, bad_amax, *args)
+    errors = chip_smoke.ulp_errors(bad, ref)
+    assert errors["mean_ulps"] > chip_smoke.INT8_MEAN_ULPS
+    assert errors["over_1ulp_share"] > chip_smoke.INT8_ULP_SHARE_TOL
+    assert not chip_smoke.int8_ok(errors)
+
+
+def test_int8_gates_fail_fused_requantized_from_bf16():
+    """A fused FFN that quantizes the bf16-rounded ``h`` (what the pair
+    does) instead of the f32 one fails the fused kernel's gates."""
+    from tpu_search_torch.ops import int8_gemm
+
+    t, h, _ = int8_family()
+    fused = (t["x_q"], t["sx"], t["w1"], t["s1"], t["b1"], t["w2"], t["s2"],
+             t["b2"], t["res"])
+    ref = int8_gemm.int8_ffn_fused_plain(*fused)
+    hb = h.float()
+    bad = int8_gemm.int8_ffn_out_plain(hb, hb.abs().amax(dim=1), t["w2"],
+                                       t["s2"], t["b2"], t["res"])
+    errors = chip_smoke.ulp_errors(bad, ref)
+    assert errors["mean_ulps"] > chip_smoke.INT8_MEAN_ULPS
+    assert errors["over_1ulp_share"] > chip_smoke.INT8_ULP_SHARE_TOL
+    assert not chip_smoke.int8_ok(errors)
 
 
 @pytest.mark.parametrize("h,heads,s", [(312, 12, 128), (64, 2, 256)])

@@ -33,6 +33,7 @@ from .mpnet import MPNetConfig, MPNetModel
 __all__ = [
     "config_from_hf",
     "convert_pretrained_dir",
+    "int8_operands_from_numpy",
     "load_checkpoint",
     "model_from_params",
     "params_from_bert_state_dict",
@@ -410,6 +411,29 @@ def params_from_numpy(
             value = stacked[i].T if transpose else stacked[i]
             state[f"layers.{i}.{name}"] = t(value)
     return state
+
+
+def int8_operands_from_numpy(
+    w_q, scale, bias, device=None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX int8 kernels' weight operands as the port's: a ``[K, N]``
+    int8 weight (``tpu_search/ops/pallas_int8_gemm.py``'s layout) becomes
+    ``[N, K]`` int8 rows (``[out, in]``, what ``ops/int8_gemm.py`` and
+    ``ops/int8_ffn.py`` take), its ``[N]`` column scales and bias f32
+    tensors, on ``device`` (default: ``resolve_device``, the card)."""
+    from ..devices.capability import resolve_device
+
+    dev = resolve_device(device)
+    w = np.ascontiguousarray(np.asarray(w_q, dtype=np.int8).T)
+    n = w.shape[0]
+
+    def vec(a):
+        v = np.asarray(a, dtype=np.float32).reshape(-1)
+        if v.shape != (n,):
+            raise ValueError(f"expected {n} values, got {v.shape}")
+        return torch.from_numpy(v.copy()).to(dev)
+
+    return torch.from_numpy(w).to(dev), vec(scale), vec(bias)
 
 
 def model_from_params(

@@ -5,7 +5,11 @@ residual -> LN2, the function of ``int8_ffn_ln_fused`` in
 ``tpu_search/ops/pallas_int8_gemm.py``, with each of its rounding sites:
 the LN1 output and ``ff + residual`` round to the output dtype,
 activations quantize by multiplying with ``127 / amax`` (round half to
-even, clip to +-127), and the weight quantizer divides by its scale.
+even, clip to +-127), the weight quantizer divides by its scale, and every
+``amax / 127.0`` is ``amax * f32(1/127)``, as XLA computes it under jit.
+
+Widths: on the card H a multiple of 8 up to 1,024 and I a multiple of 8 up
+to 4,096; the wrapper raises ``ValueError`` beyond them.
 
 Weights are passed in PyTorch's ``[out, in]`` layout (``w1 [I, H]``,
 ``w2 [H, I]``), which is also what the tensor-core kernel wants.
@@ -23,8 +27,11 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .topk_scan import INV127
 
 __all__ = ["int8_ffn_ln", "int8_ffn_ln_plain", "quantize_weight_columns"]
+
+MAX_HIDDEN, MAX_INTERMEDIATE = 1024, 4096
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,22 +53,30 @@ def _div(a, b):
 
 def quantize_weight_columns(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-column symmetric int8 quantization of an ``[in, out]``
-    weight (``tpu_search/models/mpnet.py`` ``_qcol_stacked``): returns
-    ``(w_q [in, out] int8, scale [out] f32)`` with ``w ~ w_q * scale``."""
+    weight (``tpu_search/models/mpnet.py`` ``_qcol_stacked``, as the jitted
+    forward runs it): returns ``(w_q [in, out] int8, scale [out] f32)``
+    with ``w ~ w_q * scale``, ``scale = amax * f32(1/127)`` (1 for a zero
+    column) and ``w_q = clip(rint(w / scale))``, a true quotient."""
     wf = w.float()
     amax = wf.abs().amax(dim=0)
-    s = torch.where(amax > 0, _div(amax, 127.0), torch.ones_like(amax))
+    s = torch.where(amax > 0, amax * float(INV127), 1.0)
     wq = torch.clamp(torch.round(wf / s[None, :]), -127.0, 127.0)
     return wq.to(torch.int8), s
 
 
 def _quantize_rows_mul(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(x_q f64 [M, K], scale [M, 1] f32)``: multiply by ``127 / amax``."""
-    amax = x.abs().amax(dim=1, keepdim=True)
+    """``(x_q f64 [M, K], scale [M, 1] f32)``: multiply by ``127 / amax``
+    (the f32 quotient); ``scale = amax * f32(1/127)``."""
+    return _quantize_rows_by(x, x.abs().amax(dim=1, keepdim=True))
+
+
+def _quantize_rows_by(x, amax):
+    """``x [M, K]`` f32 quantized with the row maxima ``amax [M, 1]`` f32,
+    as the JAX int8 kernels requantize inside: ``(x_q f64, scale f32)``."""
     live = amax > 0
     inv = torch.where(live, _div(127.0, amax), torch.zeros_like(amax))
     xq = torch.clamp(torch.round(x * inv), -127.0, 127.0)
-    scale = torch.where(live, _div(amax, 127.0), torch.ones_like(amax))
+    scale = torch.where(live, amax * float(INV127), 1.0)
     return xq.double(), scale
 
 
@@ -140,8 +155,11 @@ def int8_ffn_ln(
         raise ValueError(f"unsupported device {pre.device}")
     m, h = pre.shape
     inter = w1_q.shape[0]
-    if h not in (384, 768) or inter % 128:
-        raise ValueError(f"hidden {h} / intermediate {inter} not supported")
+    if h % 8 or not 0 < h <= MAX_HIDDEN or inter % 8 or not (
+            0 < inter <= MAX_INTERMEDIATE):
+        raise ValueError(
+            f"hidden {h} / intermediate {inter} not supported: the CUDA FFN "
+            f"takes multiples of 8 up to {MAX_HIDDEN} / {MAX_INTERMEDIATE}")
     if out_dtype != torch.bfloat16 or pre.dtype != torch.bfloat16:
         raise ValueError("the CUDA FFN takes and returns bfloat16")
     if w1_q.shape != (inter, h) or w2_q.shape != (h, inter):

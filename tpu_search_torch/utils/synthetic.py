@@ -101,6 +101,10 @@ BERT_CONFIGS = {
     "ms-marco-TinyBERT-L-4": _bert(hidden_size=312, num_layers=4,
                                    num_heads=12, intermediate_size=1200,
                                    num_labels=1),
+    # huawei-noah/TinyBERT_General_4L_312D as an embedder (mean pooling):
+    # an FFN width (H 312, I 1,200) off the 128-column grid
+    "TinyBERT_General_4L_312D": _bert(hidden_size=312, num_layers=4,
+                                      num_heads=12, intermediate_size=1200),
 }
 
 
