@@ -47,14 +47,26 @@ Phases, each printing its numbers on its own line:
      all-mpnet-base-v2's FFN over M = 128 x 384 rows), the entry point of
      ``int8_gemm``, ``int8_ffn_in``, ``int8_ffn_out`` and
      ``int8_ffn_fused``: every contender timed, the int8 pair's cosine to
-     the bf16 FFN at least 0.999.
+     the bf16 FFN at least 0.999;
+  6. the two scan probes (``tpu_search_torch.benchmarks.int4_probe`` and
+     ``.scan_overhead_probe``), the entry points of ``int4_probe`` and
+     ``scan_overhead_probe``: every variant against its plain version at a
+     small N, then every variant timed at 1M x 768.
+Phase 3 ends on the flat bf16 path's encoder (all-mpnet-base-v2 at full
+width, the int8 FFN through its gate) run through
+``forward(attention_impl="flash")`` at B 128, S 384, the entry point of
+``flash_attention``: its embeddings against the same weights on the CPU in
+the flash mode (cosine > 0.999), its time beside the default mode's.
 Phase 2 also holds the ``[B, heads, S, hd]`` kernel against its plain
 version at B 128 over S 64-512 at H 312 / 12 heads and H 64 / 2 heads, the
 ``[B, S, H]`` kernel at S 512 / H 384, the int8 FFN at H 384 / I 1536,
 H 312 / I 1200 and H 1024 / I 4096 (and a 312-wide embedder through the
 int8 gate), and the four int8 GEMM kernels at the bench's shape, at M 512,
 and at H 312 / I 1200 and H 1024 / I 4096 with a ragged M, bf16 and f32
-outputs, and on planted requantization inputs.
+outputs, and on planted requantization inputs; ``int8_ffn_ln`` at 0 ulps
+from its plain version on ``planted_epilogue``'s inputs, whose LayerNorm
+statistics are exact; the stock-flash kernel at ``FLASH_SHAPES`` (S 384
+and 512, hd 64, 32 and 26) with padded rows and a trained-scale bias.
 The second line from the end is the kernel summary JSON, with each
 kernel's launch count from the path that runs it; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -100,6 +112,9 @@ ROOT = Path(__file__).resolve().parent
 #  ivf_topk: as flat_topk; ivf_topk_int8, ivf_topk_int4: as the flat
 #    int8 / int4 scans, the per-probe bias one more written-out add.
 #  mpnet_attention_bhsd: as mpnet_attention (the same tile code).
+#  flash_attention: as mpnet_attention: the same products, the same bf16
+#    rounding of p at the same step (the stock kernel's 128-key blocks);
+#    the running sum adds in another order.
 #  Both attention kernels also gate the mean error and the share of outputs
 #  more than one bf16 ulp off: the kernels show 2e-8 to 1.2e-7 and under
 #  1e-4; leaving P unrounded before P V gives 2e-4 and 10 % with a max
@@ -107,7 +122,7 @@ ROOT = Path(__file__).resolve().parent
 TOL = {"flat_topk": 1e-4, "mpnet_attention": 3e-2, "int8_ffn_ln": 6.25e-2,
        "flat_topk_int8": 0.0, "flat_topk_int4": 0.0, "ivf_topk": 1e-4,
        "ivf_topk_int8": 0.0, "ivf_topk_int4": 0.0,
-       "mpnet_attention_bhsd": 3e-2}
+       "mpnet_attention_bhsd": 3e-2, "flash_attention": 3e-2}
 ATTN_MEAN_TOL = 1e-5
 ATTN_ULP_SHARE_TOL = 1e-3
 # A reranker's logits (before the sigmoid, which saturates) on the card
@@ -160,6 +175,13 @@ SOURCES = {
                      "tpu_search/ops/pallas_int8_gemm.py:275"),
     "int8_ffn_fused": ("tpu_search_torch/csrc/int8_ffn_fused.cu",
                        "tpu_search/ops/pallas_int8_gemm.py:578"),
+    "flash_attention": ("tpu_search_torch/csrc/flash_attention.cu",
+                        "tpu_search/models/mpnet.py:262 (jax.experimental."
+                        "pallas.ops.tpu.flash_attention)"),
+    "int4_probe": ("tpu_search_torch/csrc/int4_probe.cu",
+                   "benchmarks/int4_probe.py:199"),
+    "scan_overhead_probe": ("tpu_search_torch/csrc/scan_overhead_probe.cu",
+                            "benchmarks/scan_overhead_probe.py:136"),
 }
 # The path whose run counts each kernel's launches ("rerank": the TinyBERT
 # and the tiny-overlap rerank paths together).
@@ -169,7 +191,8 @@ PATH_OF = {"flat_topk": "bfloat16", "mpnet_attention": "bfloat16",
            "ivf_topk_int8": "ivf_int8", "ivf_topk_int4": "ivf_int4",
            "mpnet_attention_bhsd": "rerank", "int8_gemm": "int8_bench",
            "int8_ffn_in": "int8_bench", "int8_ffn_out": "int8_bench",
-           "int8_ffn_fused": "int8_bench"}
+           "int8_ffn_fused": "int8_bench", "flash_attention": "flash_encoder",
+           "int4_probe": "probes", "scan_overhead_probe": "probes"}
 # The rerank paths: (tag, reranker, kernels it must launch).  All run on
 # the all-MiniLM-L6-v2 index; the reranker sees top_k * factor candidates.
 RERANK_PATHS = (
@@ -649,6 +672,94 @@ def check_attention_bhsd(results: dict) -> None:
     results["mpnet_attention_bhsd"]["max_abs_err"] = worst
 
 
+# The flash mode's shapes (B, S, H, heads): all-mpnet-base-v2's indexing
+# wave, the MiniLM cross-encoder's rerank bucket, TinyBERT-312's (hd 26).
+FLASH_SHAPES = ((128, 384, 768, 12), (128, 512, 384, 12), (128, 512, 312, 12))
+
+
+def flash_inputs(gen, b, s, h, nh, dev):
+    """bf16 q, k, v ``[B, heads, S, hd]``, a bf16 bias of trained scale
+    (N(0, 4)) ``[heads, S, S]``, and segment ids with a padded tail in
+    every batch row but row 0 (lengths from 1 to S)."""
+    import torch
+
+    hd = h // nh
+    q, k, v = (torch.randn((b, nh, s, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    ab = (2.0 * torch.randn((nh, s, s), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    lengths = torch.randint(1, s, (b,), generator=gen, device=dev)
+    lengths[0] = s
+    seg = (torch.arange(s, device=dev)[None, :] < lengths[:, None]).to(
+        torch.int32).contiguous()
+    return q, k, v, ab, seg
+
+
+def flash_sdpa_ms(q, k, v, ab, seg, scale) -> float:
+    """The flash mode's function through ``F.scaled_dot_product_attention``
+    (a yardstick only: the port never calls it): ``attn_mask = ab * scale
+    + segment mask``, built in bf16 outside the timed call, so that
+    ``q k^T * scale + mask = (q k^T + ab) * scale`` on the live pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    add = torch.where(same, (ab.float() * scale)[None], -1e30).to(
+        torch.bfloat16)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=add, scale=scale))
+
+
+def check_flash_attention(results: dict) -> None:
+    """The stock-flash kernel against its plain version at the three
+    ``FLASH_SHAPES``, with padded rows and a trained-scale bias."""
+    import torch
+
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst = 0.0
+    for b, s, h, nh in FLASH_SHAPES:
+        hd = h // nh
+        q, k, v, ab, seg = flash_inputs(gen, b, s, h, nh, dev)
+        scale = 1.0 / math.sqrt(hd)
+
+        def kernel():
+            return flash_attention(q, k, v, ab, seg, seg, scale)
+
+        def plain():
+            return flash_attention_plain(q, k, v, ab, seg, seg, scale)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out.float()).all()):
+            fail(f"flash_attention produced non-finite values at S={s} H={h}")
+        errors = bf16_errors(out, ref)
+        kms, pms = paired_ms(kernel, plain)
+        lib = flash_sdpa_ms(q, k, v, ab, seg, scale)
+        # q, k, v read and out written once, the shared bias and the
+        # segment ids read once; QK^T and PV at the unpadded hd
+        bound_ms, by = bound(4 * b * s * h * 2 + nh * s * s * 2 + 2 * b * s * 4,
+                             4 * b * nh * s * s * hd, "bf16")
+        print(f"[flash_attention] B={b} S={s} H={h} heads={nh} hd={hd} "
+              f"{format_errors(errors)} kernel_ms={kms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={bound_ms:.4f} ({by}) "
+              f"sdpa_ms={lib:.4f}", flush=True)
+        if not attention_ok(errors, "flash_attention"):
+            fail(f"flash_attention disagrees at S={s} H={h}")
+        worst = max(worst, errors["max_abs_err"])
+        if (s, h) == FLASH_SHAPES[0][1:3]:
+            results["flash_attention"] = {
+                "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": lib}
+        del q, k, v, ab, seg, out, ref
+    results["flash_attention"]["max_abs_err"] = worst
+
+
 def sdpa_ms(q, k, v, bias, mask, scale) -> float:
     """The same attention on ``[B, heads, S, hd]`` inputs through
     ``F.scaled_dot_product_attention`` (a yardstick only: the port never
@@ -787,6 +898,85 @@ def planted_ffn_inputs(kind: str, h: int, rows: int, device):
             torch.zeros((h,), device=device))
 
 
+def planted_epilogue(site: str):
+    """``int8_ffn_ln`` inputs on which its dequantize epilogue ``(acc *
+    s_row) * s_col + bias`` gives one result rounded once (an FMA, as XLA
+    compiles the JAX kernel) and another rounded after the product and
+    again after the bias, and on which that difference reaches the bf16
+    output; every other rounding is exact, so the output has one right
+    value bit for bit.
+
+    Rows of +-1 (column 0 always +1), LN1 scale 2^-30 and eps 0 make the
+    residual x = +-2^-30 exactly (absorbed where it is added), ``x_q`` =
+    +-127 and ``sx = 2^-30 * f32(1/127)``.  GEMM1 column 0 is zero with bias
+    127, so gelu gives h = 127 (tanh rounds to 1), ``127 / amax_h = 1`` and
+    ``scale_h = 1``.
+
+    - ``y`` (GEMM1): column 1 has code 77 in row 0 and scale s1 such that
+      t = round(acc1 * sx * s1) lies below the exact product, and bias b1 =
+      20.5 + 2^-20 - t.  Rounded twice, y is the tie 20.5 + 2^-20 -> 20.5
+      and h_q = rint(20.5) = 20; rounded once, y = 20.5 + 2^-19 and h_q =
+      21.  GEMM2 writes [127, h_q, 64, 64] across the columns (three values,
+      so LN2 does not normalize the change away; every sum is exact).
+    - ``ff`` (GEMM2): columns 4j have code 109 against h = 127 and scale s2
+      with t = round(acc2 * s2) below the exact product, and b2 = M + 2^-24
+      - t for the bf16 midpoint M = 1 + 81/256.  Rounded twice, ff is the
+      f32 tie M + 2^-24 -> M, which rounds to the even bf16 1 + 40/128;
+      rounded once, M + 2^-23, which rounds up to 1 + 41/128.  The other
+      columns hold 1 and 4 (bias only).
+
+    Returns numpy operands in the JAX kernel's order and layouts (``pre [16,
+    128]``, ``w1_q [128, 256]``, ``s1``, ``b1``, ``w2_q [256, 128]``, ``s2``,
+    ``b2``, the four LN vectors), and the planted site's value rounded
+    twice and once."""
+    import numpy as np
+
+    f32 = np.float32
+    h, inter, rows = 128, 256, 16
+    cols = np.arange(h)
+    rng = np.random.default_rng(5)
+    pre = np.stack([rng.permutation(np.r_[np.ones(h // 2), -np.ones(h // 2)])
+                    for _ in range(rows)]).astype(f32)
+    for r in pre:
+        if r[0] < 0:
+            j = np.nonzero(r > 0)[0][0]
+            r[0], r[j] = 1.0, -1.0
+    ln = [np.full(h, 2.0 ** -30, f32), np.zeros(h, f32), np.ones(h, f32),
+          np.zeros(h, f32)]
+    w1q, s1 = np.zeros((h, inter), np.int8), np.ones(inter, f32)
+    b1 = np.zeros(inter, f32)
+    w2q, s2, b2 = np.zeros((inter, h), np.int8), np.ones(h, f32), np.zeros(h, f32)
+    b1[0] = 127.0
+    inv127 = f32(1.0) / f32(127.0)
+    if site == "y":
+        code, scale, target = 77, f32(81439560.0), 20.5
+        acc_s = f32(f32(127 * code) * f32(f32(2.0 ** -30) * inv127))
+        half_ulp = 2.0 ** -20
+        w1q[0, 1], s1[1] = code, scale
+        w2q[0, cols % 4 == 0] = 1
+        w2q[1, cols % 4 == 1] = 1
+        b2[cols % 4 >= 2] = 64.0
+    elif site == "ff":
+        code, scale, target = 109, f32(3.1237007e-05), 1 + 81 / 256
+        acc_s = f32(127 * code)
+        half_ulp = 2.0 ** -24
+        w2q[0, cols % 4 == 0], s2[cols % 4 == 0] = code, scale
+        b2[cols % 4 == 1], b2[cols % 4 >= 2] = 1.0, 4.0
+    else:
+        raise ValueError(site)
+    t = f32(acc_s * scale)
+    assert float(acc_s) * float(scale) > float(t)  # the product rounded down
+    bias = f32(target + half_ulp - float(t))
+    assert float(bias) == target + half_ulp - float(t)
+    if site == "y":
+        b1[1] = bias
+    else:
+        b2[cols % 4 == 0] = bias
+    twice = f32(t + bias)
+    once = f32(float(acc_s) * float(scale) + float(bias))  # exact in f64
+    return (pre, w1q, s1, b1, w2q, s2, b2, ln), (twice, once)
+
+
 def check_int8_ffn(results: dict) -> None:
     """The W8A8 FFN at all-mpnet-base-v2's width (H 768, I 3072), at
     all-MiniLM-L6-v2's (H 384, I 1536), at TinyBERT-312's (H 312, I 1200)
@@ -809,8 +999,9 @@ def check_int8_ffn(results: dict) -> None:
 
     def gate(tag, out, ref):
         errors = bf16_errors(out, ref)
+        ulps = ulp_errors(out, ref)
         line = f"[int8_ffn_ln] {tag} " + " ".join(
-            f"{k}={v:.3e}" for k, v in errors.items())
+            f"{k}={v:.3e}" for k, v in {**errors, **ulps}.items())
         if not ffn_ok(errors):
             fail(f"int8_ffn_ln disagrees: {line}")
         return errors["max_abs_err"], line
@@ -862,6 +1053,20 @@ def check_int8_ffn(results: dict) -> None:
             err, line = gate(f"M=64 H={h} I={inter} planted={kind}", out, ref)
             print(line, flush=True)
             worst = max(worst, err)
+    for site in ("y", "ff"):
+        # exact LayerNorm statistics: one right output, bit for bit
+        ops, _ = planted_epilogue(site)
+        t = [torch.from_numpy(x).to(dev) for x in (*ops[:7], *ops[7])]
+        args = (t[0].to(torch.bfloat16), t[1].T.contiguous(), t[2], t[3],
+                t[4].T.contiguous(), *t[5:])
+        out = int8_ffn_ln(*args, eps=0.0)
+        ref = int8_ffn_ln_plain(*args, eps=0.0)
+        torch.cuda.synchronize()
+        ulps = ulp_errors(out, ref)
+        print(f"[int8_ffn_ln] planted_epilogue={site} max_ulps="
+              f"{ulps['max_ulps']:.3e}", flush=True)
+        if ulps["max_ulps"] != 0.0:
+            fail(f"int8_ffn_ln rounds its {site} epilogue otherwise: {ulps}")
     results["int8_ffn_ln"]["max_abs_err"] = worst
     check_int8_gate_312()
 
@@ -1496,8 +1701,8 @@ def path_kernels(tag: str):
 
 
 def run_main_path(work: Path, files) -> dict:
-    """Index and search on the GPU with the default bf16 storage; return
-    the kernel launch counts of that run."""
+    """Index and search on the GPU with the default bf16 storage, then the
+    flash step on its encoder; return the kernel launch counts of each."""
     from tpu_search_torch.api.engine import SearchEngine
     from tpu_search_torch.ops import _build
 
@@ -1517,6 +1722,74 @@ def run_main_path(work: Path, files) -> dict:
     if not cos > 0.999:
         fail("CUDA encoder disagrees with the plain CPU encoder")
     check_cli(engine, work / "data", probes[4].text, "bfloat16", {})
+    return launches, run_flash_encoder(engine)
+
+
+# The flash step: all-mpnet-base-v2 at full width over an indexing wave
+# (B 128 at the 384 bucket); FLASH_REF_ROWS of them again on the CPU.
+FLASH_BATCH, FLASH_SEQ, FLASH_REF_ROWS = 128, 384, 8
+
+
+def run_flash_encoder(engine) -> dict:
+    """The main path's encoder (all-mpnet-base-v2, 12 layers, H 768, bf16,
+    the int8 FFN as its gate left it) through ``forward(attention_impl=
+    "flash")`` at B 128, S 384 on the card, with the launch counts set to 0
+    just before and read just after; the first ``FLASH_REF_ROWS``
+    embeddings against the same weights on the CPU in the flash mode
+    (cosine > 0.999, the encoder gate), and the forward's time beside the
+    default (``"pallas"``) mode's."""
+    import copy
+
+    import torch
+
+    from tpu_search_torch.ops import _build
+
+    emb = engine.embedder
+    model, int8 = emb._model, emb._int8_ffn
+    cfg = model.config
+    gen = torch.Generator().manual_seed(21)
+    ids = torch.randint(5, cfg.vocab_size, (FLASH_BATCH, FLASH_SEQ),
+                        generator=gen)
+    lengths = torch.randint(8, FLASH_SEQ + 1, (FLASH_BATCH,), generator=gen)
+    lengths[0] = FLASH_SEQ
+    live = torch.arange(FLASH_SEQ)[None, :] < lengths[:, None]
+    ids = torch.where(live, ids, cfg.pad_token_id)
+    mask = live.to(torch.int32)
+    dev = next(model.parameters()).device
+    dids, dmask = ids.to(dev), mask.to(dev)
+
+    def forward(impl):
+        return model(dids, dmask, int8_ffn=int8, attention_impl=impl)
+
+    with torch.inference_mode():
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        got = forward("flash")
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        if launches["flash_attention"] != cfg.num_layers:
+            fail(f"the flash forward launched {launches}")
+        flash_ms, pallas_ms = paired_ms(lambda: forward("flash"),
+                                        lambda: forward("pallas"), iters=3)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        if int8:
+            cpu_model.quantize_ffn()
+        ref = cpu_model(ids[:FLASH_REF_ROWS], mask[:FLASH_REF_ROWS],
+                        int8_ffn=int8, attention_impl="flash")
+    got = got.float().cpu()
+    cos = float((got[:FLASH_REF_ROWS] * ref).sum(dim=1).min())
+    print(f"[flash_encoder] model=all-mpnet-base-v2 layers={cfg.num_layers} "
+          f"hidden={cfg.hidden_size} B={FLASH_BATCH} S={FLASH_SEQ} "
+          f"int8_ffn={int8} flash_forward_ms={flash_ms:.4f} "
+          f"pallas_forward_ms={pallas_ms:.4f} "
+          f"cuda_vs_cpu_min_cosine={cos:.6f} (rows {FLASH_REF_ROWS}) "
+          f"finite={bool(torch.isfinite(got).all())} "
+          f"launches={launches['flash_attention']}", flush=True)
+    if not bool(torch.isfinite(got).all()) or got.shape != (
+            FLASH_BATCH, cfg.hidden_size):
+        fail("the flash forward gave non-finite or misshapen embeddings")
+    if not cos > 0.999:
+        fail("the flash forward on the card disagrees with the CPU")
     return launches
 
 
@@ -1948,6 +2221,67 @@ def run_int8_bench() -> dict:
     return launches
 
 
+def run_probes(results: dict) -> dict:
+    """The int4 and scan-overhead probes: every variant against its plain
+    version at a small N, then both at full size (1M x 768), with the
+    launch counts set to 0 just before and read just after."""
+    import torch
+
+    from tpu_search_torch.benchmarks import int4_probe, scan_overhead_probe
+    from tpu_search_torch.ops import _build
+
+    for module, tol in ((int4_probe, 0.0),
+                        (scan_overhead_probe, scan_overhead_probe.SCORE_TOL)):
+        name = module.__name__.rsplit(".", 1)[-1]
+        errors = module.check("cuda")
+        print(f"[{name}] check max_abs_err={json.dumps(errors)}", flush=True)
+        if not all(e <= tol for e in errors.values()):
+            fail(f"{name} disagrees with its plain versions: {errors}")
+        results[name] = {"max_abs_err": max(errors.values())}
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    int4 = int4_probe.run("cuda")
+    overhead = scan_overhead_probe.run("cuda")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for name, out in (("int4_probe", int4),
+                      ("scan_overhead_probe", overhead)):
+        for key, r in out["results"].items():
+            gbps = "" if r["gbps"] is None else f" gbps={r['gbps']:.1f}"
+            print(f"[{name}] {key} ms={r['ms']:.4f} wall_ms="
+                  f"{r['wall_ms']:.4f}{gbps} bound_ms={r['bound_ms']:.4f}",
+                  flush=True)
+    print(f"[probes] seconds={time.perf_counter() - t0:.2f} launches="
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if any(launches[k] == 0 for k in path_kernels("probes")):
+        fail(f"the probes did not run their kernels: {launches}")
+
+    # The headline rows: the production structure of each scan, at the
+    # shortest row range, against its plain version at full size.
+    corpus, prep = int4_probe.make_inputs(1 << 20, 0, "cuda")
+    head = "full_t2048"
+    plain_ms = cuda_ms(lambda: int4_probe.plain("full", corpus, prep),
+                       iters=2)
+    results["int4_probe"].update(
+        ms=int4["results"][head]["ms"], plain_ms=plain_ms,
+        bound_ms=int4["results"][head]["bound_ms"], bound_by="bytes",
+        library_ms=None)
+    del corpus, prep
+    vectors, penalty, queries = scan_overhead_probe.make_inputs(
+        1 << 20, 0, "cuda")
+    head = "t2048_prod_r20"
+    plain_ms = cuda_ms(lambda: scan_overhead_probe.plain(
+        "prod", vectors, penalty, queries), iters=2)
+    results["scan_overhead_probe"].update(
+        ms=overhead["results"][head]["ms"], plain_ms=plain_ms,
+        bound_ms=overhead["results"][head]["bound_ms"], bound_by="bytes",
+        library_ms=None)
+    return launches
+
+
 # -- main ----------------------------------------------------------------------
 
 
@@ -1956,6 +2290,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    # Every f32 product of the plain versions in full f32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT))
     from tpu_search_torch.ops import _build
 
@@ -1975,6 +2312,7 @@ def main() -> None:
     check_quant_topk(results)
     check_attention(results)
     check_attention_bhsd(results)
+    check_flash_attention(results)
     check_int8_ffn(results)
     check_int8_gemm(results)
     check_ivf(results)
@@ -1993,7 +2331,8 @@ def main() -> None:
                                     config.vocab_size - 5)
         print(f"[setup] checkpoint+{N_CONVERSATIONS} conversations "
               f"seconds={time.perf_counter() - t0:.2f}", flush=True)
-        launches = {"bfloat16": run_main_path(work, files)}
+        launches = dict(zip(("bfloat16", "flash_encoder"),
+                            run_main_path(work, files)))
         for dtype in ("int8", "int4"):
             launches[dtype] = run_quant_path(
                 work, files[: N_QUANT_CONVERSATIONS + 1], dtype)
@@ -2011,6 +2350,7 @@ def main() -> None:
             k: launches["rerank_tinybert"][k] + launches["rerank_fixture"][k]
             for k in launches["rerank_fixture"]}
         launches["int8_bench"] = run_int8_bench()
+        launches["probes"] = run_probes(results)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -19,7 +19,11 @@ family (``int8_gemm``, ``int8_ffn_in``, ``int8_ffn_out``,
 ``int8_ffn_fused``) within ``chip_smoke.int8_ok`` (one ulp of the output
 dtype at most, 0.01 on average, 0.1 % over one ulp) on random inputs, zero
 rows, ragged M and K/N off the 128 grid, and on the planted inputs of
-``chip_smoke.planted_rows``.
+``chip_smoke.planted_rows``; ``int8_ffn_ln`` equal to its plain version on
+``chip_smoke.planted_epilogue``'s inputs; the stock-flash kernel within the
+attention tolerances at S 128 to 512 and head sizes 8 to 128, with padded
+rows; the int4 probe's variants equal to their plain versions and the
+scan-overhead probe's within the flat scan's 1e-4.
 """
 
 import math
@@ -786,3 +790,77 @@ def test_cross_encoder_fixture_cuda_matches_cpu(dev):
     assert cos > 0.999
     assert np.abs(card - cpu).max() <= RERANK_LOGIT_TOL, (card, cpu)
     assert outranks_ok(card, cpu, 2 * RERANK_LOGIT_TOL), (card, cpu)
+
+
+@pytest.mark.parametrize("s,hd,nh", [(128, 64, 3), (256, 26, 2), (384, 32, 2),
+                                     (512, 128, 2), (256, 8, 2)])
+def test_flash_attention_kernel(dev, s, hd, nh):
+    """The stock-flash kernel against its plain version: one block (S 128)
+    and several, head sizes padded to 16 and not, a trained-scale bias, a
+    padded tail, a mostly padded row and a fully padded one."""
+    from chip_smoke import attention_ok, bf16_errors
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(s + hd)
+    b = 4
+    q, k, v = (torch.randn((b, nh, s, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    ab = (2.0 * torch.randn((nh, s, s), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    seg[1, s // 3:] = 0
+    seg[2, 3:] = 0
+    seg[3] = 0
+    scale = 1.0 / math.sqrt(hd)
+    out = flash_attention(q, k, v, ab, seg, seg, scale)
+    ref = flash_attention_plain(q, k, v, ab, seg, seg, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    errors = bf16_errors(out, ref)
+    assert attention_ok(errors, "flash_attention"), errors
+
+
+@pytest.mark.parametrize("s,hd", [(64, 64), (192, 64), (256, 160)])
+def test_flash_attention_refuses_shapes(dev, s, hd):
+    from tpu_search_torch.ops.flash_attention import flash_attention
+
+    q = torch.zeros((1, 2, s, hd), dtype=torch.bfloat16, device=dev)
+    ab = torch.zeros((2, s, s), dtype=torch.bfloat16, device=dev)
+    seg = torch.ones((1, s), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, ab, seg, seg, 1.0)
+
+
+def test_int4_probe_variants(dev):
+    """Every int4 probe variant equals its plain version (folds, top-k)."""
+    from tpu_search_torch.benchmarks import int4_probe
+
+    errors = int4_probe.check("cuda")
+    assert set(errors.values()) == {0.0}, errors
+
+
+def test_scan_overhead_probe_variants(dev):
+    """Every scan-overhead variant agrees with its plain version."""
+    from tpu_search_torch.benchmarks import scan_overhead_probe
+
+    errors = scan_overhead_probe.check("cuda")
+    assert max(errors.values()) <= scan_overhead_probe.SCORE_TOL, errors
+
+
+@pytest.mark.parametrize("site", ["y", "ff"])
+def test_int8_ffn_epilogue_rounds_once(dev, site):
+    """On ``chip_smoke.planted_epilogue``'s inputs (exact LayerNorm
+    statistics) the kernel equals its plain version bit for bit."""
+    from chip_smoke import planted_epilogue
+    from tpu_search_torch.ops.int8_ffn import int8_ffn_ln, int8_ffn_ln_plain
+
+    ops, _ = planted_epilogue(site)
+    t = [torch.from_numpy(x).to(dev) for x in (*ops[:7], *ops[7])]
+    args = (t[0].to(torch.bfloat16), t[1].T.contiguous(), t[2], t[3],
+            t[4].T.contiguous(), *t[5:])
+    out = int8_ffn_ln(*args, eps=0.0)
+    ref = int8_ffn_ln_plain(*args, eps=0.0)
+    assert torch.equal(out, ref)

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from tpu_search.ops.pallas_int8_gemm import int8_ffn_ln_fused
 from tpu_search_torch.ops.int8_ffn import (
     _quantize_rows_mul,
@@ -182,3 +184,29 @@ def test_plain_is_the_cpu_path():
             q2.T.contiguous(), s2, torch.from_numpy(b2),
             *(torch.from_numpy(x) for x in ln))
     assert torch.equal(int8_ffn_ln(*args), int8_ffn_ln_plain(*args))
+
+
+@pytest.mark.parametrize("site", ["y", "ff"])
+def test_epilogue_rounds_once_as_the_jax_kernel(site):
+    """The JAX kernel in interpret mode rounds both dequantize epilogues
+    once (XLA contracts them into FMAs); the plain version must equal it
+    bit for bit on inputs where rounding twice changes the bf16 output."""
+    (pre, w1q, s1, b1, w2q, s2, b2, ln), (twice, once) = (
+        chip_smoke.planted_epilogue(site))
+    if site == "y":
+        assert np.rint(twice) != np.rint(once)  # h_q 20 against 21
+    else:
+        # 1 + 40/128 against 1 + 41/128 in bf16
+        assert (torch.tensor(twice).to(torch.bfloat16)
+                != torch.tensor(once).to(torch.bfloat16))
+    ref = int8_ffn_ln_fused(
+        jnp.asarray(pre).astype(jnp.bfloat16), jnp.asarray(w1q),
+        jnp.asarray(s1), jnp.asarray(b1), jnp.asarray(w2q), jnp.asarray(s2),
+        jnp.asarray(b2), *(jnp.asarray(x) for x in ln), eps=0.0,
+        out_dtype=jnp.bfloat16, interpret=True,
+    )
+    ref = np.asarray(ref.astype(jnp.float32))
+    t = [torch.from_numpy(x) for x in (pre, w1q, s1, b1, w2q, s2, b2, *ln)]
+    got = int8_ffn_ln(t[0].to(torch.bfloat16), t[1].T.contiguous(), t[2],
+                      t[3], t[4].T.contiguous(), *t[5:], eps=0.0)
+    np.testing.assert_array_equal(got.float().numpy(), ref)

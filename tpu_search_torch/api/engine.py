@@ -59,8 +59,11 @@ __all__ = [
 
 DEFAULT_DATA_DIR = "~/.claude-semantic-search/data"
 
-_EMBED_WAVE_CHUNKS = 2048
-_PREFETCH_FILES = 256
+# Cross-file embedding wave (chunks) and ingest lookahead (files), read
+# from the environment once, as the JAX engine reads them; a lookahead of
+# 0 parses and chunks each file on the calling thread (serial ingest).
+_EMBED_WAVE_CHUNKS = int(os.environ.get("CLAUDE_SEARCH_EMBED_WAVE", 2048))
+_PREFETCH_FILES = int(os.environ.get("CLAUDE_SEARCH_PREFETCH_FILES", 256))
 
 
 def format_search_result(result) -> Dict[str, Any]:
@@ -124,6 +127,9 @@ def _storage_env() -> Dict[str, Any]:
       the measured hint, else 8), returned under ``nprobe``;
     - ``CLAUDE_SEARCH_AUTOTUNE_RECALL`` = nprobe tuning target (float,
       <= 0 off).
+    - ``CLAUDE_SEARCH_SHARD_DEVICES`` = device count (integer, 0 = auto),
+      passed on as ``shard_devices``; the storage layer refuses more than
+      one device (multi-GPU is not ported).
     ``CLAUDE_SEARCH_PQ_OPQ=1`` raises ``NotImplementedError`` (OPQ is not
     ported); the storage layer refuses ``pq`` on IVF."""
     kwargs: Dict[str, Any] = {}
@@ -147,6 +153,15 @@ def _storage_env() -> Dict[str, Any]:
         value = _env_number(env, kind, what)
         if value is not None:
             kwargs[key] = value
+    shards = os.environ.get("CLAUDE_SEARCH_SHARD_DEVICES")
+    if shards:
+        try:
+            kwargs["shard_devices"] = int(shards)
+        except ValueError:
+            raise ValueError(
+                "CLAUDE_SEARCH_SHARD_DEVICES must be an integer "
+                f"(0 = auto), got {shards!r}"
+            ) from None
     return kwargs
 
 
@@ -156,16 +171,26 @@ class SearchEngine:
     def __init__(
         self,
         data_dir: str = DEFAULT_DATA_DIR,
+        use_gpu: bool = False,
         model_name: Optional[str] = None,
         save_interval_s: float = 30.0,
+        use_warm_server: bool = True,
+        *,
         device: Optional[str] = None,
     ) -> None:
+        """The JAX engine's parameters, in its order, then ``device``
+        (keyword only: ``cuda`` or ``cpu``, else ``CLAUDE_SEARCH_DEVICE``,
+        else ``cuda``).  ``use_gpu`` and ``use_warm_server`` are kept as
+        attributes; the warm query server is not ported, so the second
+        changes nothing yet."""
         if model_name is None:
             model_name = os.environ.get(
                 "CLAUDE_SEARCH_MODEL", "all-mpnet-base-v2"
             )
         self.data_dir = Path(data_dir).expanduser()
         self.data_dir.mkdir(parents=True, exist_ok=True)
+        self.use_gpu = use_gpu
+        self.use_warm_server = use_warm_server
         self._timer = PhaseTimer()
         self._chunk_lock = threading.Lock()
         self.parser = JSONLParser()
@@ -346,33 +371,43 @@ class SearchEngine:
                     continue
                 yield file_path
 
-        # Parse + chunk of upcoming files runs on ONE worker thread (chunk
-        # ids stay sequential in file order) while this thread waits on the
-        # device in flush_wave.
-        executor = ThreadPoolExecutor(max_workers=1,
-                                      thread_name_prefix="ingest")
-        pending: deque = deque()
-        source = candidates()
-        drained = False
-        try:
-            while True:
-                while not drained and len(pending) < _PREFETCH_FILES:
-                    nxt = next(source, None)
-                    if nxt is None:
-                        drained = True
+        if _PREFETCH_FILES > 0:
+            # Parse + chunk of upcoming files runs on ONE worker thread
+            # (chunk ids stay sequential in file order) while this thread
+            # waits on the device in flush_wave.
+            executor = ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="ingest")
+            pending: deque = deque()
+            source = candidates()
+            drained = False
+            try:
+                while True:
+                    while not drained and len(pending) < _PREFETCH_FILES:
+                        nxt = next(source, None)
+                        if nxt is None:
+                            drained = True
+                            break
+                        pending.append((nxt, executor.submit(
+                            self._prepare_one_file, nxt, stats,
+                            remove=False)))
+                    if not pending:
                         break
-                    pending.append((nxt, executor.submit(
-                        self._prepare_one_file, nxt, stats, remove=False)))
-                if not pending:
-                    break
-                file_path, fut = pending.popleft()
+                    file_path, fut = pending.popleft()
+                    try:
+                        report(f"Processing {file_path.name}")
+                        consume(file_path, fut.result())
+                    except Exception as exc:
+                        fail(file_path, exc)
+            finally:
+                executor.shutdown(wait=True)
+        else:  # CLAUDE_SEARCH_PREFETCH_FILES=0: strictly serial ingest
+            for file_path in candidates():
                 try:
                     report(f"Processing {file_path.name}")
-                    consume(file_path, fut.result())
+                    consume(file_path, self._prepare_one_file(
+                        file_path, stats, remove=False))
                 except Exception as exc:
                     fail(file_path, exc)
-        finally:
-            executor.shutdown(wait=True)
         flush_wave()
 
         if failed:

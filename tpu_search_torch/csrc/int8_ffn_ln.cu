@@ -11,11 +11,14 @@
 //   x_q = clip(rint(x * (127 / amax_x)), +-127)  -- multiply, not divide
 //         (:375-376), round half to even (rintf), zero rows quantize to 0;
 //   sx  = amax_x * f32(1/127) (:379, ``amax / 127.0`` under jit);
-//   y   = (acc1 * sx) * s1 + b1 with acc1 = x_q . W1 exact in int32;
+//   y   = fma(acc1 * sx, s1, b1) with acc1 = x_q . W1 exact in int32 (one
+//         rounding for the scale and the bias: XLA contracts them into an
+//         FMA, which the kernel run in interpret mode shows on planted
+//         inputs, tests/test_torch_int8_ffn.py);
 //   h   = tanh-gelu(y);
 //   h_q = clip(rint(h * (127 / amax_h)), +-127) with amax_h over the whole
 //         I-wide row (:391-392);
-//   ff  = ((acc2 * scale_h) * s2 + b2) + x, scale_h = amax_h * f32(1/127),
+//   ff  = fma(acc2 * scale_h, s2, b2) + x, scale_h = amax_h * f32(1/127),
 //         rounded to bf16 (:407);
 //   out = bf16(LN2(ff)).
 // Weights arrive per-output-column quantized ([out, in] int8 rows, so the
@@ -192,10 +195,9 @@ ffn_in(const __nv_bfloat16* __restrict__ pre, const int8_t* __restrict__ w1t,
       float hv[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const float y = __fadd_rn(
-            __fmul_rn(__fmul_rn((float)acc[nt][half * 2 + j], sx[r]),
-                      s1[col + j]),
-            b1[col + j]);
+        const float y =
+            __fmaf_rn(__fmul_rn((float)acc[nt][half * 2 + j], sx[r]),
+                      s1[col + j], b1[col + j]);
         hv[j] = gelu_tanh(y);
         rm[half] = fmaxf(rm[half], fabsf(hv[j]));
       }
@@ -307,7 +309,7 @@ ffn_out(const float* __restrict__ hbuf, const int* __restrict__ amax_h,
     }
   }
 
-  // ff = bf16(((acc * scale_h) * s2 + b2) + x), kept in registers; 0 in
+  // ff = bf16(fma(acc * scale_h, s2, b2) + x), kept in registers; 0 in
   // the padded columns, which no statistic reads.
   float ff[kNT][4];
   float part[2] = {0.f, 0.f};
@@ -324,9 +326,8 @@ ffn_out(const float* __restrict__ hbuf, const int* __restrict__ amax_h,
         const float x =
             m < m_rows ? __bfloat162float(xres[(size_t)m * h + col]) : 0.f;
         const float v = __fadd_rn(
-            __fadd_rn(
-                __fmul_rn(__fmul_rn((float)acc[nt][j], scale_h[r]), s2[col]),
-                b2[col]),
+            __fmaf_rn(__fmul_rn((float)acc[nt][j], scale_h[r]), s2[col],
+                      b2[col]),
             x);
         ff[nt][j] = __bfloat162float(__float2bfloat16_rn(v));
         part[half] += ff[nt][j];

@@ -29,6 +29,15 @@ attention core is ``ops.mpnet_attention`` in the ``[B, S, H]`` layout, or
 :func:`~tpu_search_torch.ops.mpnet_attention.attention_layout` sends there
 (the CUDA kernels on the card, their plain versions on the CPU); with
 ``int8_ffn`` the post-attention half of each layer is ``ops.int8_ffn_ln``.
+
+``attention_impl`` takes the JAX values.  ``"dense"`` (the default) and
+``"pallas"`` both run the attention above: the port has one kernel per
+layout where the JAX package has a dense XLA graph and a Pallas kernel of
+one contract.  ``"flash"`` is the JAX stock flash mode
+(``ops.flash_attention``): the bias rounded to the compute dtype and added
+before the scale, padding as segment ids (a pad query attends to the pad
+keys), S a multiple of 128.  No caller of the port selects it, as no
+caller of the JAX package does.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import flash_attention
 from ..ops.int8_ffn import int8_ffn_ln, quantize_weight_columns
 from ..ops.mpnet_attention import (
     attention_layout,
@@ -51,6 +61,7 @@ from ..ops.mpnet_attention import (
 
 __all__ = [
     "ARCHS",
+    "ATTENTION_IMPLS",
     "MPNetConfig",
     "MPNetModel",
     "POOLINGS",
@@ -59,6 +70,7 @@ __all__ = [
 ]
 
 ARCHS = ("mpnet", "bert", "xlmr")
+ATTENTION_IMPLS = ("dense", "pallas", "flash")
 POOLINGS = ("mean", "cls", "max")
 
 
@@ -201,17 +213,29 @@ class MPNetLayer(nn.Module):
         self.ff_out_wq, self.ff_out_ws = wq.T.contiguous(), ws
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
-                key_mask_add: torch.Tensor, int8_ffn: bool) -> torch.Tensor:
+                key_mask_add: torch.Tensor, int8_ffn: bool,
+                attention_impl: str = "dense",
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One block.  ``"dense"`` / ``"pallas"``: ``bias`` is the f32
+        ``[heads, S, S]`` position bias and ``key_mask_add`` the additive
+        ``[B, S]`` key mask; ``"flash"``: ``bias`` is ``ab`` in the compute
+        dtype and ``segment_ids`` the ``[B, S]`` int32 mask."""
         cfg = self.config
         b, s, h = x.shape
         nh, scale = cfg.num_heads, 1.0 / math.sqrt(cfg.head_dim)
-        if self.layout == "bsh":
+
+        def heads(t):
+            return t.reshape(b, s, nh, -1).transpose(1, 2).contiguous()
+
+        if attention_impl == "flash":
+            ctx = flash_attention(
+                heads(self.q(x)), heads(self.k(x)), heads(self.v(x)), bias,
+                segment_ids, segment_ids, scale,
+            ).transpose(1, 2).reshape(b, s, h)
+        elif self.layout == "bsh":
             ctx = mpnet_attention(self.q(x), self.k(x), self.v(x), bias,
                                   key_mask_add, num_heads=nh, scale=scale)
         else:
-            def heads(t):
-                return t.reshape(b, s, nh, -1).transpose(1, 2).contiguous()
-
             ctx = mpnet_attention_bhsd(
                 heads(self.q(x)), heads(self.k(x)), heads(self.v(x)), bias,
                 key_mask_add, scale=scale,
@@ -305,11 +329,15 @@ class MPNetModel(nn.Module):
                        attention_mask: torch.Tensor,
                        int8_ffn: bool = False,
                        token_type_ids: Optional[torch.Tensor] = None,
+                       attention_impl: str = "dense",
                        ) -> torch.Tensor:
         """``[B, S]`` ids and mask -> the last hidden state ``[B, S, H]``.
         ``token_type_ids`` (pair input) select rows of the token-type
         table where the model has one; otherwise the ``tt0`` row is added
-        to every token."""
+        to every token.  ``attention_impl``: see the module docstring."""
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl={attention_impl!r} is not one "
+                             f"of {ATTENTION_IMPLS}")
         cfg = self.config
         pad = cfg.pad_token_id
         if cfg.arch == "bert":
@@ -327,18 +355,28 @@ class MPNetModel(nn.Module):
             x = x + self.tt0[None, None, :]
         x = layer_norm(x, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
         x = x.to(self.compute_dtype)
-        neg = torch.finfo(torch.float32).min
-        key_mask_add = ((1.0 - attention_mask.float()) * neg).contiguous()
         bias = self.position_bias(input_ids.shape[1])
+        segment_ids = key_mask_add = None
+        if attention_impl == "flash":
+            # the JAX flash operands: ab in the compute dtype, pads as
+            # segment 0 (tpu_search/models/mpnet.py:409-417)
+            bias = bias.to(self.compute_dtype)
+            segment_ids = attention_mask.to(torch.int32).contiguous()
+        else:
+            neg = torch.finfo(torch.float32).min
+            key_mask_add = ((1.0 - attention_mask.float()) * neg).contiguous()
         for layer in self.layers:
-            x = layer(x, bias, key_mask_add, int8_ffn)
+            x = layer(x, bias, key_mask_add, int8_ffn, attention_impl,
+                      segment_ids)
         return x
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                normalize: bool = True, int8_ffn: bool = False) -> torch.Tensor:
+                normalize: bool = True, int8_ffn: bool = False,
+                attention_impl: str = "dense") -> torch.Tensor:
         """``[B, S]`` ids and mask -> ``[B, H]`` f32 embeddings (the
         config's pooling, then L2 normalization)."""
-        hidden = self.forward_hidden(input_ids, attention_mask, int8_ffn)
+        hidden = self.forward_hidden(input_ids, attention_mask, int8_ffn,
+                                     attention_impl=attention_impl)
         hidden = hidden.float()
         if self.config.pooling == "cls":
             pooled = hidden[:, 0, :]
@@ -357,12 +395,14 @@ class MPNetModel(nn.Module):
         return pooled
 
     def classify(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                 token_type_ids: torch.Tensor) -> torch.Tensor:
+                 token_type_ids: torch.Tensor,
+                 attention_impl: str = "dense") -> torch.Tensor:
         """Pair ids, mask and token types -> ``[B, num_labels]`` f32 logits:
         CLS hidden state, tanh pooler, classifier, all in f32."""
         if self.config.num_labels < 1:
             raise ValueError("this model has no classification head")
         hidden = self.forward_hidden(input_ids, attention_mask,
-                                     token_type_ids=token_type_ids)
+                                     token_type_ids=token_type_ids,
+                                     attention_impl=attention_impl)
         pooled = torch.tanh(self.pooler(hidden[:, 0, :].float()))
         return self.classifier(pooled)

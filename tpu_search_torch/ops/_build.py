@@ -43,7 +43,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 KERNELS = ("flat_topk", "mpnet_attention", "int8_ffn_ln", "flat_topk_int8",
            "flat_topk_int4", "ivf_topk", "ivf_topk_int8", "ivf_topk_int4",
            "mpnet_attention_bhsd", "int8_gemm", "int8_ffn_in", "int8_ffn_out",
-           "int8_ffn_fused")
+           "int8_ffn_fused", "flash_attention", "int4_probe",
+           "scan_overhead_probe")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

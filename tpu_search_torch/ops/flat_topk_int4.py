@@ -13,7 +13,7 @@ XLA outside ``pl.pallas_call``.  CPU tensors take
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,10 +39,13 @@ def flat_topk_int4_scan(
     penalty: torch.Tensor,
     queries: torch.Tensor,
     k: int,
+    rows_per_split: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k over ``N = len(penalty)`` int4 rows (``nibbles``
     ``[ceil(N/2), D]`` uint8), ``scales`` and ``penalty`` (0 / ``-inf``)
-    ``[N]`` f32.  Same outputs as ``flat_topk_int8_scan``."""
+    ``[N]`` f32.  Same outputs as ``flat_topk_int8_scan``.
+    ``rows_per_split`` (an even multiple of 128) sets the rows a CTA
+    scans, for the int4 probe; by default ``split_rows`` picks it."""
     if nibbles.device.type == "cpu":
         return flat_topk_int4_plain(nibbles, scales, penalty, queries, k)
     if nibbles.device.type != "cuda":
@@ -68,4 +71,4 @@ def flat_topk_int4_scan(
     head = (nibbles.data_ptr(), scales.data_ptr(), penalty.data_ptr(),
             q_i8.data_ptr(), rho.data_ptr(), qoff.data_ptr())
     return run_digit_scan("flat_topk_int4", _ARGTYPES, head, n, d, k, qs1,
-                          dev)
+                          dev, rows_per_split)

@@ -74,12 +74,17 @@ def flat_topk_int8_scan(
                           dev)
 
 
-def run_digit_scan(kernel, argtypes, head, n, d, k, qs1, dev):
+def run_digit_scan(kernel, argtypes, head, n, d, k, qs1, dev,
+                   rows_per_split=None):
     """Launch ``csrc/<kernel>.cu`` (``digit_scan.cuh``'s C signature after
     the ``head`` pointers) and finish its output: select for ``k > 128``
-    (scores-only mode), then multiply by ``qs1``."""
+    (scores-only mode), then multiply by ``qs1``.  ``rows_per_split`` (a
+    multiple of 128) overrides :func:`split_rows`'s row range per CTA."""
     q = qs1.shape[0]
-    n_splits, rows_per_split = split_rows(n, q, 8 if q <= 8 else 32, dev)
+    if rows_per_split is None:
+        n_splits, rows_per_split = split_rows(n, q, 8 if q <= 8 else 32, dev)
+    else:
+        n_splits = -(-n // rows_per_split)
     part_s = part_i = out_s = out_i = scores = None
     if k > MAX_K:
         scores = torch.empty((q, n), dtype=torch.float32, device=dev)

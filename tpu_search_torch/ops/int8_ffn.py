@@ -5,8 +5,12 @@ residual -> LN2, the function of ``int8_ffn_ln_fused`` in
 ``tpu_search/ops/pallas_int8_gemm.py``, with each of its rounding sites:
 the LN1 output and ``ff + residual`` round to the output dtype,
 activations quantize by multiplying with ``127 / amax`` (round half to
-even, clip to +-127), the weight quantizer divides by its scale, and every
-``amax / 127.0`` is ``amax * f32(1/127)``, as XLA computes it under jit.
+even, clip to +-127), the weight quantizer divides by its scale, every
+``amax / 127.0`` is ``amax * f32(1/127)``, and the two dequantize
+epilogues ``acc * s_row * s_col + bias`` round once, as an FMA of
+``acc * s_row``, ``s_col`` and the bias: XLA computes them so under jit
+(the kernel in interpret mode on planted inputs,
+``tests/test_torch_int8_ffn.py``).
 
 Widths: on the card H a multiple of 8 up to 1,024 and I a multiple of 8 up
 to 4,096; the wrapper raises ``ValueError`` beyond them.
@@ -80,6 +84,12 @@ def _quantize_rows_by(x, amax):
     return xq.double(), scale
 
 
+def _fma(a, b, c):
+    """``a * b + c`` of f32 tensors, rounded to f32 once (a float64 product
+    of two f32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _layer_norm_f32(x, scale, bias, eps):
     mean = x.mean(dim=1, keepdim=True)
     var = torch.square(x - mean).mean(dim=1, keepdim=True)
@@ -111,12 +121,12 @@ def int8_ffn_ln_plain(
     x = xln.to(out_dtype).to(f)
     x_q, sx = _quantize_rows_mul(x)
     acc1 = (x_q @ w1_q.double().T).to(f)
-    y = acc1 * sx * s1.to(f) + b1.to(f)
+    y = _fma(acc1 * sx, s1.to(f), b1.to(f))
     c = 0.7978845608028654
     h = 0.5 * y * (1.0 + torch.tanh(c * (y + 0.044715 * y * y * y)))
     h_q, scale_h = _quantize_rows_mul(h)
     acc2 = (h_q @ w2_q.double().T).to(f)
-    ff = acc2 * scale_h * s2.to(f) + b2.to(f) + x
+    ff = _fma(acc2 * scale_h, s2.to(f), b2.to(f)) + x
     ffc = ff.to(out_dtype).to(f)
     out = _layer_norm_f32(ffc, ln2_scale.to(f), ln2_bias.to(f), eps)
     return out.to(out_dtype)

@@ -35,7 +35,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .int8_ffn import MAX_HIDDEN, MAX_INTERMEDIATE, _quantize_rows_by
+from .int8_ffn import MAX_HIDDEN, MAX_INTERMEDIATE, _fma, _quantize_rows_by
 from .topk_scan import INV127
 
 __all__ = [
@@ -74,12 +74,6 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     sx = torch.where(amax > 0, amax * float(INV127), 1.0)
     x_q = torch.clamp(torch.round(xf / sx[:, None]), -127.0, 127.0)
     return x_q.to(torch.int8), sx
-
-
-def _fma(a, b, c):
-    """``a * b + c`` of f32 tensors, rounded to f32 once (a float64 product
-    of two f32 values is exact)."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def _gelu(y):
