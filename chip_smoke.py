@@ -4,8 +4,11 @@
 
 Phases, each printing its numbers on its own line:
   1. build the CUDA kernels from ``tpu_search_torch/csrc`` (one ``nvcc``
-     per source, all started together) and print the card's name and
-     power limit;
+     per source, all started together), print the registers and spills
+     ptxas reports for the two kernels redesigned for Hopper
+     (``mpnet_attention``, ``int8_gemm``), check that ``int8_gemm``'s SASS
+     multiplies with wgmma alone, and print the card's name and power
+     limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it (max error, kernel and plain times,
      the least time the card could take, and where one PyTorch call
@@ -57,6 +60,11 @@ width, the int8 FFN through its gate) run through
 ``forward(attention_impl="flash")`` at B 128, S 384, the entry point of
 ``flash_attention``: its embeddings against the same weights on the CPU in
 the flash mode (cosine > 0.999), its time beside the default mode's.
+The ``[B, S, H]`` attention prints its shared memory and SDPA's time at
+every shape; ``int8_gemm`` prints TOP/s, ``torch._int_mm``'s time and
+both of its tiles' times at the bench's two shapes.  The rerank paths also
+hold the card's logits against the card's own with the plain attention in
+place of the kernels, on the same pairs.
 Phase 2 also holds the ``[B, heads, S, hd]`` kernel against its plain
 version at B 128 over S 64-512 at H 312 / 12 heads and H 64 / 2 heads, the
 ``[B, S, H]`` kernel at S 512 / H 384, the int8 FFN at H 384 / I 1536,
@@ -130,6 +138,14 @@ ATTN_ULP_SHARE_TOL = 1e-3
 # this: read 1.26e-3 (MiniLM-L-6), 9.7e-4 (TinyBERT-L-4) and 3.0e-4 (the
 # trained fixture).  Two logits closer than twice it on the CPU are a tie,
 # whose order the card may flip; farther apart, their order must hold.
+# Random-weight rerankers give every candidate about one logit (std near
+# 1e-3), and their spread from the CPU is mostly not the attention
+# kernels': the int8 FFN's requantization (a code that flips moves a whole
+# row by a weight step) puts the card with the plain attention as far from
+# the CPU on some candidate sets.  So on every rerank path the card's
+# logits are held to this tolerance against the card's own logits with
+# the plain attention in place of the kernels (``plain_attention``), on
+# the same pairs, and the trained fixture's also against the CPU's.
 RERANK_LOGIT_TOL = 2e-3
 FFN_MEAN_TOL = 1e-4
 FFN_ULP_SHARE_TOL = 0.01
@@ -305,6 +321,80 @@ def short_kernel_name(name: str) -> str:
     head = re.split(r"[<(]", name.removeprefix("void ").replace(
         "(anonymous namespace)::", ""))[0]
     return head.split("::")[-1].strip().replace(" ", "_")
+
+
+# -- phase 1: the build report of the kernels redesigned for Hopper ----------
+
+# The kernels whose ptxas report (registers, spills) the build phase
+# prints; the int8 GEMM's SASS must hold wgmma products (GMMA) and no
+# mma.sync ones (IMMA).
+REDESIGNED = ("mpnet_attention", "int8_gemm")
+
+
+def ptxas_entries(log: str) -> list:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of each
+    entry function in an ``nvcc -Xptxas -v`` log."""
+    entries, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name, spills = found.group(1), (0, 0)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found:
+            spills = (int(found.group(1)), int(found.group(2)))
+            continue
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            entries.append((name, int(found.group(1)), *spills))
+            name = None
+    return entries
+
+
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program: on PATH or beside ``nvcc``."""
+    from tpu_search_torch.ops import _build
+
+    return shutil.which(name) or str(Path(_build._nvcc()).parent / name)
+
+
+def demangle(names: list) -> list:
+    try:
+        out = subprocess.run([cuda_tool("cu++filt")], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return out.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return names
+
+
+def check_build(logs: dict) -> None:
+    """Print registers and spills of the redesigned kernels, and fail
+    unless ``int8_gemm``'s SASS multiplies with wgmma alone."""
+    from tpu_search_torch.ops import _build
+
+    for name in REDESIGNED:
+        entries = ptxas_entries(logs.get(name, ""))
+        if not entries:
+            print(f"[build] ptxas {name}: not compiled in this run", flush=True)
+        for (_, regs, stores, loads), kernel in zip(
+                entries, demangle([e[0] for e in entries])):
+            # "void <unnamed>::k<(int)64, true>(...)" -> "k<64, true>"
+            kernel = re.sub(r"\((?:int|bool)\)|^void |(?:<unnamed>|"
+                            r"\(anonymous namespace\))::", "", kernel)
+            print(f"[build] ptxas {name} {kernel.split('(')[0]} "
+                  f"registers={regs} spill_stores={stores} "
+                  f"spill_loads={loads}", flush=True)
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass",
+                           str(_build._target("int8_gemm"))],
+                          capture_output=True, text=True, check=True).stdout
+    gmma = len(re.findall(r"\b[A-Z]*GMMA\.", sass))
+    imma = len(re.findall(r"\bIMMA\.", sass))
+    print(f"[build] sass int8_gemm gmma_instructions={gmma} "
+          f"imma_instructions={imma}", flush=True)
+    if gmma == 0 or imma:
+        fail(f"int8_gemm's SASS holds {gmma} GMMA and {imma} IMMA "
+             f"instructions: its products must be wgmma alone")
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -568,12 +658,15 @@ def attention_inputs(gen, shape, nh, s, dev):
 
 def check_attention(results: dict) -> None:
     """The ``[B, S, H]`` kernel at all-mpnet-base-v2's width for every
-    embedder bucket, and at the MiniLM reranker's (H 384) at S 512."""
+    embedder bucket, and at the MiniLM reranker's (H 384) at S 512: errors,
+    kernel, plain and SDPA times, the bound, and the kernel's shared memory
+    (the same at every S: its scores stay in registers)."""
     import torch
 
     from tpu_search_torch.ops.mpnet_attention import (
         mpnet_attention,
         mpnet_attention_plain,
+        mpnet_attention_smem_bytes,
     )
 
     dev = torch.device("cuda")
@@ -593,20 +686,21 @@ def check_attention(results: dict) -> None:
             lambda: mpnet_attention(q, k, v, bias, mask, nh, scale),
             lambda: mpnet_attention_plain(q, k, v, bias, mask, nh, scale),
         )
+        lib = sdpa_ms(heads_of(q, nh), heads_of(k, nh), heads_of(v, nh),
+                      bias, mask, scale)
+        bound_ms, by = bound(4 * b * s * h * 2 + nh * s * s * 4 + b * s * 4,
+                             4 * b * s * s * h, "bf16")
         print(f"[mpnet_attention] B={b} S={s} H={h} heads={nh} "
               f"{format_errors(errors)} kernel_ms={kms:.4f} "
-              f"plain_ms={pms:.4f}", flush=True)
+              f"plain_ms={pms:.4f} sdpa_ms={lib:.4f} bound_ms={bound_ms:.4f} "
+              f"smem_bytes={mpnet_attention_smem_bytes(h, nh)}", flush=True)
         if not attention_ok(errors, "mpnet_attention"):
             fail(f"mpnet_attention disagrees at S={s} H={h}")
         worst = max(worst, errors["max_abs_err"])
         if (h, s) == (768, 384):
-            bound_ms, by = bound(4 * b * s * h * 2 + nh * s * s * 4 + b * s * 4,
-                                 4 * b * s * s * h, "bf16")
             results["mpnet_attention"] = {
                 "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
-                "bound_by": by,
-                "library_ms": sdpa_ms(heads_of(q, nh), heads_of(k, nh),
-                                      heads_of(v, nh), bias, mask, scale)}
+                "bound_by": by, "library_ms": lib}
         del q, k, v, bias, mask, out, ref
     results["mpnet_attention"]["max_abs_err"] = worst
 
@@ -1220,6 +1314,66 @@ def int8_family_bound(name, m, h, inter):
     return bound(nbytes, ops, "int8")
 
 
+def gemm_out_operands(t):
+    """``int8_gemm``'s operands at the bench's second row (K 3,072, N 768):
+    the requantized gelu output of the first GEMM against ``w2``, its row
+    scales, ``s2`` and ``b2``."""
+    from tpu_search_torch.ops import int8_gemm as G
+
+    h_in, _ = G.int8_ffn_in_plain(t["x_q"], t["w1"], t["sx"], t["s1"],
+                                  t["b1"])
+    h_q, sh = G.quantize_rows(h_in)
+    return h_q, t["w2"], sh, t["s2"], t["b2"]
+
+
+def int8_gemm_timing(kernel, m, k, n, operands) -> str:
+    """``kernel_ms``, TOP/s, and ``torch._int_mm``'s time and TOP/s on the
+    same int8 product (no epilogue; a yardstick the port never calls)."""
+    import torch
+
+    x_q, w = operands
+    wt = w.t()
+    kms = cuda_ms(kernel, iters=5)
+    lib = cuda_ms(lambda: torch._int_mm(x_q, wt), iters=5)
+    ops = 2 * m * k * n
+    return (f" kernel_ms={kms:.4f} tops={ops / kms / 1e9:.1f} "
+            f"int_mm_ms={lib:.4f} int_mm_tops={ops / lib / 1e9:.1f}")
+
+
+def int8_tile_ms(x_q, w, sx, sw, bias, gelu: bool, ref) -> str:
+    """``int8_gemm.cu``'s two tiles (``int8_gemm_tile``: 128 x 256 fed by
+    a producer warpgroup, 128 x 128 by two producer warps) on the same
+    bf16-output call, each held to 0 ulps of ``ref``: the times behind
+    ``int8_gemm``'s choice of tile by epilogue."""
+    import ctypes
+
+    import torch
+
+    from tpu_search_torch.ops import _build
+
+    fn = _build.library("int8_gemm").int8_gemm_tile
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    m, k = x_q.shape
+    n = w.shape[0]
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
+    parts = []
+    for wide, tag in ((1, "tile256"), (0, "tile128")):
+        def call():
+            _build.check(fn(x_q.data_ptr(), w.data_ptr(), sx.data_ptr(),
+                            sw.data_ptr(), bias.data_ptr(), y.data_ptr(), m,
+                            n, k, int(gelu), 1, wide,
+                            _build.stream_ptr(x_q.device)), "int8_gemm_tile")
+
+        call()
+        torch.cuda.synchronize()
+        if ulp_errors(y, ref)["max_ulps"] != 0:
+            fail(f"int8_gemm's {tag} differs from its plain version")
+        parts.append(f"{tag}_ms={cuda_ms(call, iters=5):.4f}")
+    return " " + " ".join(parts)
+
+
 def check_int8_gemm(results: dict) -> None:
     """The int8 GEMM family against its plain versions at
     ``INT8_FAMILY_SHAPES``, bf16 and f32 outputs, then the planted
@@ -1258,15 +1412,26 @@ def check_int8_gemm(results: dict) -> None:
                 for tag, kernel, plain in cases:
                     line = gate(name, f"M={m} H={h} I={inter} out={dt} {tag}",
                                 kernel, plain)
-                    timed = (m, h, out) == (128 * 384, 768, torch.bfloat16) \
-                        and "ffn_out shape" not in tag
-                    if timed:
+                    bench = (m, h, out) == (128 * 384, 768, torch.bfloat16)
+                    if bench and name == "int8_gemm":
+                        gelu = "gelu" in tag
+                        ops = ((t["x_q"], t["w1"], t["sx"], t["s1"], t["b1"])
+                               if gelu else gemm_out_operands(t))
+                        line += int8_tile_ms(*ops, gelu, plain())
+                    if bench and "ffn_out shape" in tag:
+                        # the bench's second row: timed, not the summary's
+                        line += int8_gemm_timing(kernel, m, inter, h,
+                                                 gemm_out_operands(t)[:2])
+                    elif bench:
                         kms, pms = paired_ms(kernel, plain, iters=5)
                         bound_ms, by = int8_family_bound(name, m, h, inter)
                         lib = None
                         if name == "int8_gemm":
                             w1t = t["w1"].t()
                             lib = cuda_ms(lambda: torch._int_mm(t["x_q"], w1t))
+                            line += (f" tops={2 * m * h * inter / kms / 1e9:.1f}"
+                                     f" int_mm_tops="
+                                     f"{2 * m * h * inter / lib / 1e9:.1f}")
                         results[name] = {"ms": kms, "plain_ms": pms,
                                          "bound_ms": bound_ms, "bound_by": by,
                                          "library_ms": lib}
@@ -2059,6 +2224,26 @@ def classifier_reference(reranker, twin, pairs):
     return logits["cuda"].numpy(), logits["cpu"].numpy(), float(cos.min())
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """The encoder layers' attention through its plain versions on the
+    card (the kernels' oracle) while inside: the rerank logits the
+    attention kernels are held to."""
+    import tpu_search_torch.models.mpnet as M
+    from tpu_search_torch.ops.mpnet_attention import (
+        mpnet_attention_bhsd_plain,
+        mpnet_attention_plain,
+    )
+
+    saved = M.mpnet_attention, M.mpnet_attention_bhsd
+    M.mpnet_attention = mpnet_attention_plain
+    M.mpnet_attention_bhsd = mpnet_attention_bhsd_plain
+    try:
+        yield
+    finally:
+        M.mpnet_attention, M.mpnet_attention_bhsd = saved
+
+
 def outranks_ok(got, want, tie: float) -> bool:
     """Every pair that ``want`` orders by more than ``tie``, ``got`` orders
     the same way: the orders agree outside ties."""
@@ -2066,26 +2251,30 @@ def outranks_ok(got, want, tie: float) -> bool:
                for j in range(len(want)) if want[i] - want[j] > tie)
 
 
-def check_logit_order(tag: str, case: str, card, cpu) -> None:
-    """The card's logits against the CPU's: print both orders, the largest
-    difference, the smallest CPU gap and the ties; fail unless every logit
-    is within ``RERANK_LOGIT_TOL`` and the orders agree outside ties."""
+def check_logit_order(tag: str, case: str, card, ref,
+                      ref_name: str = "cpu") -> None:
+    """The card's logits against a reference's (the CPU's, or the card's
+    with the plain attention): print both orders, the largest difference,
+    the smallest reference gap and the ties; fail unless every logit is
+    within ``RERANK_LOGIT_TOL`` and the orders agree outside ties."""
     import numpy as np
 
     tie = 2 * RERANK_LOGIT_TOL
     card_order = np.argsort(-card, kind="stable").tolist()
-    cpu_order = np.argsort(-cpu, kind="stable").tolist()
-    diff = float(np.abs(card - cpu).max())
-    same = outranks_ok(card, cpu, tie)
-    gaps = np.abs(cpu[:, None] - cpu[None, :])[np.triu_indices(len(cpu), 1)]
+    ref_order = np.argsort(-ref, kind="stable").tolist()
+    diff = float(np.abs(card - ref).max())
+    same = outranks_ok(card, ref, tie)
+    gaps = np.abs(ref[:, None] - ref[None, :])[np.triu_indices(len(ref), 1)]
     print(f"[rerank] path={tag} case={case} cuda_logit_order={card_order} "
-          f"cpu_logit_order={cpu_order} identical={card_order == cpu_order} "
+          f"{ref_name}_logit_order={ref_order} "
+          f"identical={card_order == ref_order} "
           f"agree_outside_ties={same} max_abs_logit_diff={diff:.4e} "
-          f"min_cpu_logit_gap={float(gaps.min()):.4e} "
-          f"cpu_logit_std={float(np.std(cpu)):.4e} "
+          f"min_{ref_name}_logit_gap={float(gaps.min()):.4e} "
+          f"{ref_name}_logit_std={float(np.std(ref)):.4e} "
           f"tie_pairs={int((gaps <= tie).sum())}/{len(gaps)}", flush=True)
     if not (diff <= RERANK_LOGIT_TOL and same):
-        fail(f"{tag} {case}: the card's logits disagree with the CPU's")
+        fail(f"{tag} {case}: the card's logits disagree with the "
+             f"{ref_name} logits")
 
 
 def check_fixture_orderings(reranker, twin) -> None:
@@ -2128,7 +2317,9 @@ def run_rerank_path(engine, data: Path, probes, tag: str, model: str,
     """``search_conversations(rerank=True)`` with ``model`` over the 16
     probes (top_k 10, factor 5: 50 candidates, batch bucket 128) after one
     warm-up query, launch counts set to 0 just before and read just after;
-    the reranker against its CPU twin; ``search --rerank --json``."""
+    the reranker against its CPU twin (CLS hidden-state cosine; the
+    trained fixture's logits too) and against itself with the plain
+    attention (logits); ``search --rerank --json``."""
     import numpy as np
     import torch
 
@@ -2176,12 +2367,18 @@ def run_rerank_path(engine, data: Path, probes, tag: str, model: str,
     pairs = [(probes[1].text, c["text"]) for c in cands]
     twin = cpu_twin(reranker)
     card, cpu, cos = classifier_reference(reranker, twin, pairs)
+    with plain_attention():
+        plain, _, _ = classifier_reference(reranker, twin, pairs)
     print(f"[reference] path={tag} cuda_vs_cpu_plain pairs={len(pairs)} "
-          f"min_cls_hidden_cosine={cos:.6f}", flush=True)
+          f"min_cls_hidden_cosine={cos:.6f} max_abs_logit_diff="
+          f"{float(np.abs(card - cpu).max()):.4e} plain_attention_max_abs_"
+          f"logit_diff={float(np.abs(plain - cpu).max()):.4e}", flush=True)
     if not cos > 0.999:
         fail(f"{tag}: the card's reranker disagrees with the CPU's")
-    check_logit_order(tag, "probe_candidates", card, cpu)
+    check_logit_order(tag, "kernels_vs_plain_attention", card, plain,
+                      "plain_attention")
     if model == "tiny-overlap":
+        check_logit_order(tag, "probe_candidates", card, cpu)
         check_fixture_orderings(reranker, twin)
     check_cli(engine, data, probes[4].text, tag, {},
               model="all-MiniLM-L6-v2", rerank_model=model)
@@ -2297,9 +2494,10 @@ def main() -> None:
     from tpu_search_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all(verbose=True)
+    built = _build.build_all(verbose=True)
     print(f"[build] kernels={list(_build.KERNELS)} "
           f"seconds={time.perf_counter() - t0:.2f}", flush=True)
+    check_build(built["logs"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -23,7 +23,10 @@ rows, ragged M and K/N off the 128 grid, and on the planted inputs of
 ``chip_smoke.planted_epilogue``'s inputs; the stock-flash kernel within the
 attention tolerances at S 128 to 512 and head sizes 8 to 128, with padded
 rows; the int4 probe's variants equal to their plain versions and the
-scan-overhead probe's within the flat scan's 1e-4.
+scan-overhead probe's within the flat scan's 1e-4.  The ``[B, S, H]``
+attention also at S 512 with hd 32 and on a one-row query, with rows
+padded by -inf and by the f32 min; ``int8_gemm`` also at M, N and K off its
+wgmma tiles (K 8 and 312).
 """
 
 import math
@@ -82,23 +85,30 @@ def test_flat_topk_all_masked(dev):
     assert (i[:, 2:] == -1).all()
 
 
-@pytest.mark.parametrize("s,h,nh", [(64, 128, 4), (128, 768, 12),
-                                    (512, 256, 4)])
-def test_attention_kernel(dev, s, h, nh):
+# (S, H, heads, B): S 512 at hd 32 (the MiniLM reranker's H 384), S 64 with
+# B 1 (a query), and even B beside odd.
+@pytest.mark.parametrize("s,h,nh,b", [(64, 128, 4, 5), (128, 768, 12, 5),
+                                      (512, 256, 4, 5), (512, 384, 12, 4),
+                                      (64, 768, 12, 1), (384, 768, 12, 6)])
+def test_attention_kernel(dev, s, h, nh, b):
     from chip_smoke import attention_ok, bf16_errors
     from tpu_search_torch.ops.mpnet_attention import (
         mpnet_attention,
         mpnet_attention_plain,
     )
 
-    gen = torch.Generator(device=dev).manual_seed(s)
-    b = 5
+    gen = torch.Generator(device=dev).manual_seed(s + b)
     q, k, v = (torch.randn((b, s, h), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
     bias = torch.randn((nh, s, s), generator=gen, device=dev)
     mask = torch.zeros((b, s), device=dev)
-    mask[1, s // 3:] = float("-inf")
-    mask[2] = torch.finfo(torch.float32).min
+    if b == 1:
+        mask[0, s // 2:] = float("-inf")  # a query's padded tail
+    else:
+        mask[1, s // 3:] = float("-inf")
+        mask[2] = torch.finfo(torch.float32).min  # a padded row, finite
+    if b > 3:
+        mask[3] = float("-inf")  # a padded row whose max is not finite
     scale = 1.0 / math.sqrt(h // nh)
     out = mpnet_attention(q, k, v, bias, mask, nh, scale)
     ref = mpnet_attention_plain(q, k, v, bias, mask, nh, scale)
@@ -200,9 +210,16 @@ def assert_int8_close(got, ref):
     assert int8_ok(errors), errors
 
 
+# int8_gemm's wgmma tiles are 128 x 256 in 128-deep K chunks: M off the
+# tile (129, 4,097), N off it (312), K off the chunk and off 16 bytes
+# (312: the 8-byte copies) and K = 8.
+INT8_GEMM_SHAPES = INT8_SHAPES + [(129, 768, 3072), (4097, 768, 312),
+                                  (64, 312, 312), (130, 8, 264)]
+
+
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("gelu", [False, True])
-@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+@pytest.mark.parametrize("m,k,n", INT8_GEMM_SHAPES)
 def test_int8_gemm_kernel(dev, m, k, n, gelu, out):
     from tpu_search_torch.ops.int8_gemm import int8_gemm, int8_gemm_plain
 

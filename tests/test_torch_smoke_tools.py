@@ -209,3 +209,31 @@ def test_logit_order_gate():
         for card in (cpu[[0, 1, 3, 2]], moved):
             with pytest.raises(SystemExit):
                 chip_smoke.check_logit_order("t", "apart", card, cpu)
+
+
+def test_logit_gate_against_plain_attention():
+    """The kernels' logits are held to the card's plain-attention logits at
+    ``RERANK_LOGIT_TOL`` with no allowance added: one logit past it fails,
+    and so does a reranker that gives every pair one logit against plain
+    logits spread beyond it; ``plain_attention`` routes the encoder layers
+    through the plain versions and restores the kernels."""
+    import tpu_search_torch.models.mpnet as M
+    from tpu_search_torch.ops import mpnet_attention as A
+
+    tol = chip_smoke.RERANK_LOGIT_TOL
+    plain = np.array([0.1, 0.1 + tol / 4, 0.1 + 3 * tol], np.float32)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        chip_smoke.check_logit_order("t", "near", plain + tol / 2, plain,
+                                     "plain_attention")
+        for card in (plain + 1.5 * tol,
+                     np.full_like(plain, plain.mean())):
+            with pytest.raises(SystemExit):
+                chip_smoke.check_logit_order("t", "past", card, plain,
+                                             "plain_attention")
+    assert "plain_attention_logit_order=" in out.getvalue()
+    kernels = M.mpnet_attention, M.mpnet_attention_bhsd
+    with chip_smoke.plain_attention():
+        assert M.mpnet_attention is A.mpnet_attention_plain
+        assert M.mpnet_attention_bhsd is A.mpnet_attention_bhsd_plain
+    assert (M.mpnet_attention, M.mpnet_attention_bhsd) == kernels

@@ -1,10 +1,10 @@
-// The tile code shared by the two MPNet attention kernels:
-// mpnet_attention.cu (q/k/v/out in the projection layout [B, S, H]) and
-// mpnet_attention_bhsd.cu ([B, heads, S, hd], any hd up to 128).  Each
-// kernel stages its own rows; the products, the score epilogue and the
-// softmax are these functions.
+// The tile code of mpnet_attention_bhsd.cu ([B, heads, S, hd], any hd up
+// to 128): each CTA stages its own rows; the products, the score epilogue
+// and the softmax are these functions.  flash_attention.cu and the
+// two-pass loop of mpnet_attention.cu (attention_twopass.cuh) reuse the
+// mma.sync and fragment helpers.
 //
-// Contract (the TPU kernels'): scores = (q k^T) * scale + bias + mask in
+// Contract (the TPU kernel's): scores = (q k^T) * scale + bias + mask in
 // f32, with one [heads, S, S] f32 bias shared by every batch row and an
 // additive [B, S] f32 key mask; whole-row softmax in f32, a row whose max
 // is not finite gets uniform weights instead of NaN; the probabilities are
@@ -12,13 +12,14 @@
 //
 // Design: one CTA per (64-query block, head, batch row), 4 warps of 16
 // query rows.  The whole score block [64, S] stays in shared memory (S <=
-// 512: at most 132 KB), so the softmax is the TPU kernels' whole-row
-// softmax, not an online one, and the bf16 rounding of the normalized
-// probabilities happens at the same place.  K and V pass through one
-// [64, HDP] bf16 shared tile (row stride HDP + 8) per 64 keys; both
-// products use mma.sync m16n8k16 (bf16 in, f32 accumulate), so HDP, the
-// head size in shared memory, is a multiple of 16.  The probabilities
-// overwrite their own f32 score row in place as bf16.
+// 512: at most 132 KB), so the softmax is the TPU kernel's whole-row
+// softmax, and the bf16 rounding of the normalized probabilities happens
+// at the same place.  K and V pass through one [64, HDP] bf16 shared tile
+// (row stride HDP + 8) per 64 keys; both products use mma.sync m16n8k16
+// (bf16 in, f32 accumulate), so HDP, the head size in shared memory, is a
+// multiple of 16.  The probabilities overwrite their own f32 score row in
+// place as bf16.  The two-pass loop of attention_twopass.cuh keeps the
+// same rounding without the score block; this kernel can move onto it.
 
 #pragma once
 

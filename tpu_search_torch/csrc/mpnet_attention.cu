@@ -13,107 +13,199 @@
 //   whole-row softmax in f32; a row whose max is not finite gets uniform
 //   weights instead of NaN; probs are rounded to bf16 before P V (as the
 //   TPU kernel does at :128), and P V accumulates in f32.
+// S % 64 == 0, S <= 512, hd in {32, 64, 128}.
 //
 // What bounds it on the H100: 4*B*heads*S^2*hd flops against 4*B*S*H*2
-// bytes of q/k/v/out plus the bias: at S=384, hd=64 about 190 flops per
-// byte, under the bf16 ridge, so with a simple mma.sync kernel the limit
-// is the issue rate of the tensor-core and softmax instructions, not HBM.
-// The dense composite this replaces writes and reads the [B, heads, S, S]
-// f32 score tensor through HBM (0.9 GB per layer at b128 s384).
+// bytes of q/k/v/out plus the bias once: at B 128, S 384, hd 64 the bytes
+// (0.092 ms at 3.35 TB/s) outweigh the flops (0.059 ms at 989 TFLOP/s).
+// In practice the per-score work sets the pace: the f32 epilogue, two
+// exps, a division, and the bias read in each pass.
 //
-// Design (the tile code in attention_tile.cuh, shared with
-// mpnet_attention_bhsd.cu): one CTA per (64-query block, head, batch row),
-// 4 warps of 16 query rows.  The whole score block [64, S] stays in shared
-// memory (S <= 512: at most 132 KB), so the softmax is the TPU kernel's
-// whole-row softmax, not an online one, and the bf16 rounding of the
-// normalized probabilities happens at the same place.  The query fragments
-// load straight from global memory; K and V pass through one [64, hd]
-// shared tile per 64 keys (uint4 loads: hd is 32, 64 or 128); both
-// products use mma.sync m16n8k16 (bf16 in, f32 accumulate).  Not yet done
-// (later work): wgmma, TMA, and keeping K/V for several heads resident.
+// Design (helpers in attention_twopass.cuh): one CTA per (64-query block,
+// head, batch row), one warpgroup of 4 warps x 16 query rows.  The scores
+// never leave registers.  Pass 1 walks the 64-key tiles, computes the 64 x
+// 64 scores with wgmma.mma_async m64n64k16 (q from registers, K from a
+// 128-byte swizzled tile), applies the scale, bias and mask with every
+// rounding written out, and keeps each row's running max m and sum l (l
+// rescaled when m grows).  Pass 2 walks the same tiles, recomputes the
+// same scores bit for bit (same instructions, same order), and forms p =
+// bf16(exp(s - m) / l) (bf16(1 / S) where m is not finite), whose
+// accumulator fragments are the A operand of P V (mma.sync m16n8k16, V by
+// ldmatrix.trans).  So the normalized probabilities round to bf16 where
+// the TPU kernel rounds them, which a one-pass online softmax (round
+// exp(s - m_running), divide at the end) would not; the price is a second
+// q k^T (1.5x the flops).  The division is exact: the correctly rounded
+// reciprocal of l, then one FMA correction (Markstein), the correctly
+// rounded quotient for these operands.  K, V and the [64, 64] f32 bias
+// tile arrive through a two-stage cp.async ring, one __syncthreads a tile
+// (K alone and the bias in pass 1).  Shared memory is the ring alone,
+// independent of S: 71,680 bytes at hd 64, 63,488 at hd 32 (three CTAs a
+// multiprocessor).  Not yet done (later work): P V by wgmma, TMA, K/V
+// resident across query blocks.
 
-#include "attention_tile.cuh"
+#include "attention_twopass.cuh"
 
 namespace {
 
-using attn::kBlockK;
-using attn::kBlockQ;
-using attn::kThreads;
+using attn2::kBiasStride;
+using attn2::kBlockK;
+using attn2::kBlockQ;
+using attn2::kStages;
 
-// Stage rows kb..kb+63 of head `head` from a [B, S, H] tensor into KV.
+constexpr int kThreads = 128;  // 4 warps x 16 query rows: one warpgroup
+
+// One ring stage: the K tile (128-byte swizzled for wgmma), the V tile
+// (rows of HD + 8) and the [64, 64] f32 bias tile (rows of kBiasStride).
+// Every size is a multiple of 1024 bytes, so each swizzled K tile starts
+// on the swizzle's period.
 template <int HD>
-__device__ void load_tile(const __nv_bfloat16* __restrict__ src, int b, int s,
-                          int h, int head, int kb, __nv_bfloat16* KV) {
-  constexpr int KS = HD + 8;
-  constexpr int kVec = HD / 8;
-  for (int i = threadIdx.x; i < kBlockK * kVec; i += kThreads) {
-    const int r = i / kVec, c8 = (i % kVec) * 8;
-    const size_t off = ((size_t)b * s + kb + r) * h + (size_t)head * HD + c8;
-    *reinterpret_cast<uint4*>(KV + r * KS + c8) =
-        *reinterpret_cast<const uint4*>(src + off);
-  }
-}
+struct Ring {
+  static constexpr size_t kK = attn2::sw_tile_bytes<HD>();
+  static constexpr size_t kV = (size_t)kBlockK * (HD + 8) * 2;
+  static constexpr size_t kBias = (size_t)kBlockQ * kBiasStride * 4;
+  static constexpr size_t kSlot = kK + kV + kBias;
+  static constexpr size_t kBytes = kStages * kSlot;
+};
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, HD > 64 ? 1 : 3)
 attention_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const float* __restrict__ bias,
                  const float* __restrict__ kmask,
                  __nv_bfloat16* __restrict__ out, int s, int h, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ss = s + 4;  // f32 score row stride (bank-conflict padding)
-  float* Sr = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* KV = reinterpret_cast<__nv_bfloat16*>(Sr + kBlockQ * ss);
+  using R = Ring<HD>;
+  constexpr int NT = kBlockK / 8;
+  extern __shared__ __align__(1024) unsigned char smem[];
 
   const int q0 = blockIdx.x * kBlockQ, head = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr = warp * 16;  // this warp's first query row in the block
   const int g = lane >> 2, tig = lane & 3;
-  const int wr = warp * 16;  // first row of this warp inside the block
+  const int row0 = q0 + wr + g;  // this thread's rows: row0, row0 + 8
+  const size_t col = (size_t)head * HD;
 
-  // Query fragments of this warp's 16 rows, straight from global memory.
   uint32_t qa[HD / 16][4];
-  attn::load_q<HD>(
-      qa, q + ((size_t)b * s + q0 + wr + g) * h + (size_t)head * HD + tig * 2,
-      h);
+  attn::load_q<HD>(qa, q + ((size_t)b * s + row0) * h + col + tig * 2, h);
+  const float* bias_blk = bias + ((size_t)head * s + q0) * s;
+  const float* mrow = kmask + (size_t)b * s + tig * 2;
+  const __nv_bfloat16* kbase = k + (size_t)b * s * h + col;
+  const __nv_bfloat16* vbase = v + (size_t)b * s * h + col;
 
-  // Phase 1: scores = (q k^T) * scale + bias + mask  -> Sr.
-  for (int kb = 0; kb < s; kb += kBlockK) {
+  // Load step j < T stages K tile j and its bias tile (pass 1); step T + t
+  // stages K, V and bias tile t (pass 2).  Each step is one cp.async
+  // group, empty past the end.
+  const int tiles = s / kBlockK, steps = 2 * tiles;
+  auto slot_of = [&](int j) { return smem + (j % kStages) * R::kSlot; };
+  auto issue = [&](int j) {
+    if (j < steps) {
+      unsigned char* slot = slot_of(j);
+      const int kb = (j < tiles ? j : j - tiles) * kBlockK;
+      const size_t off = (size_t)kb * h;
+      attn2::stage_tile_sw128<HD, kThreads>(slot, kbase + off, h, tid);
+      if (j >= tiles)
+        attn2::stage_tile<HD, kThreads>(
+            reinterpret_cast<__nv_bfloat16*>(slot + R::kK), vbase + off, h,
+            tid);
+      attn2::stage_bias<kThreads>(
+          reinterpret_cast<float*>(slot + R::kK + R::kV), bias_blk + kb, s,
+          tid);
+    }
+    attn2::cp_async_commit();
+  };
+  // Wait for step j's tiles; every warp has left the slot step j + 1 reuses.
+  auto arrive = [&](int j) {
+    attn2::cp_async_wait<kStages - 2>();
+    attn2::fence_proxy_async();
     __syncthreads();
-    load_tile<HD>(k, b, s, h, head, kb, KV);
-    __syncthreads();
-    attn::score_tile<HD>(qa, KV, bias, kmask, Sr, ss, s, q0, head, b, kb, wr,
-                         g, tig, scale);
+    issue(j + kStages - 1);
+  };
+  // Step j's scores: (q k^T) * scale + bias + mask.
+  auto scores = [&](int j, float (&sc)[NT][4]) {
+    const unsigned char* slot = slot_of(j);
+    attn2::qk_tile_wgmma<HD>(sc, qa, slot);
+    const int kb = (j < tiles ? j : j - tiles) * kBlockK;
+    const float* r0 = reinterpret_cast<const float*>(slot + R::kK + R::kV) +
+                      (wr + g) * kBiasStride + tig * 2;
+    attn2::score_epilogue(sc, r0, r0 + 8 * kBiasStride, mrow + kb, scale);
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) issue(st);
+
+  // Pass 1: each row's max m, and this thread's share of the sum l of
+  // exp(s - m) (rescaled whenever m grows).
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < tiles; ++j) {
+    arrive(j);
+    float sc[NT][4];
+    scores(j, sc);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(sc[nt][half * 2], sc[nt][half * 2 + 1]));
+      const float m_new = fmaxf(m[half], attn2::quad_max(mx));
+      // a row with no finite score yet keeps l = 0 (exp(-inf - 0) = 0)
+      const float shift = m_new == -INFINITY ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        sum = __fadd_rn(sum, expf(__fsub_rn(sc[nt][half * 2], shift)));
+        sum = __fadd_rn(sum, expf(__fsub_rn(sc[nt][half * 2 + 1], shift)));
+      }
+      l[half] = __fadd_rn(
+          __fmul_rn(l[half], expf(__fsub_rn(m[half], shift))), sum);
+      m[half] = m_new;
+    }
   }
-  __syncwarp();
+  bool safe[2];
+  float rcp[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] = attn2::quad_sum(l[half]);
+    safe[half] = isfinite(m[half]);
+    rcp[half] = __frcp_rn(l[half]);
+  }
+  const float uniform = __fdiv_rn(1.f, (float)s);
 
-  // Phase 2: whole-row softmax of this warp's rows; bf16 probs in place.
-  attn::softmax_rows(Sr, ss, s, wr, lane);
-
-  // Phase 3: out = P V, accumulated over 64-key tiles of V.
-  const __nv_bfloat16* P = reinterpret_cast<const __nv_bfloat16*>(Sr);
+  // Pass 2: the same scores again, p = bf16(exp(s - m) / l), o += p V.
   float o[HD / 8][4];
 #pragma unroll
   for (int nt = 0; nt < HD / 8; ++nt)
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[nt][j] = 0.f;
-  for (int kb = 0; kb < s; kb += kBlockK) {
-    __syncthreads();
-    load_tile<HD>(v, b, s, h, head, kb, KV);
-    __syncthreads();
-    attn::pv_tile<HD>(o, P, 2 * ss, KV, kb, wr, g, tig);
+  for (int j = tiles; j < steps; ++j) {
+    arrive(j);
+    float sc[NT][4];
+    scores(j, sc);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        // ex / l, correctly rounded (Markstein): the quotient through the
+        // correctly rounded reciprocal, then one exact-residual FMA
+        const float ex = expf(__fsub_rn(sc[nt][e], m[half]));
+        const float q1 = __fmul_rn(ex, rcp[half]);
+        const float p = __fmaf_rn(__fmaf_rn(-q1, l[half], ex), rcp[half], q1);
+        sc[nt][e] = safe[half] ? p : uniform;
+      }
+    attn2::pv_tile<HD>(
+        o, sc, reinterpret_cast<const __nv_bfloat16*>(slot_of(j) + R::kK),
+        lane);
   }
+
 #pragma unroll
   for (int nt = 0; nt < HD / 8; ++nt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int row = q0 + wr + g + half * 8;
       __nv_bfloat162 pair;
       pair.x = __float2bfloat16_rn(o[nt][half * 2]);
       pair.y = __float2bfloat16_rn(o[nt][half * 2 + 1]);
       *reinterpret_cast<__nv_bfloat162*>(
-          out + ((size_t)b * s + row) * h + (size_t)head * HD + nt * 8 +
+          out + ((size_t)b * s + row0 + half * 8) * h + col + nt * 8 +
           tig * 2) = pair;
     }
   }
@@ -123,13 +215,17 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, const void* kmask, void* out, int b,
                    int s, int h, int nh, float scale, cudaStream_t stream) {
-  const size_t bytes = attn::smem_bytes(s, HD);
+  constexpr size_t bytes = Ring<HD>::kBytes;
+  auto kernel = attention_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   dim3 grid(s / kBlockQ, nh, b);
-  attention_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
@@ -146,6 +242,7 @@ extern "C" int mpnet_attention(const void* q, const void* k, const void* v,
                                const void* bias, const void* kmask, void* out,
                                int b, int s, int h, int nh, float scale,
                                void* stream) {
+  if (s <= 0 || s % kBlockQ || s > 512) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (h / nh) {
     case 32:
@@ -153,8 +250,24 @@ extern "C" int mpnet_attention(const void* q, const void* k, const void* v,
     case 64:
       return (int)launch<64>(q, k, v, bias, kmask, out, b, s, h, nh, scale, st);
     case 128:
-      return (int)launch<128>(q, k, v, bias, kmask, out, b, s, h, nh, scale, st);
+      return (int)launch<128>(q, k, v, bias, kmask, out, b, s, h, nh, scale,
+                              st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory one launch takes at this width (bytes; 0 for a
+// head size the kernel is not built for).  It does not depend on s.
+extern "C" int mpnet_attention_smem_bytes(int h, int nh) {
+  switch (h / nh) {
+    case 32:
+      return (int)Ring<32>::kBytes;
+    case 64:
+      return (int)Ring<64>::kBytes;
+    case 128:
+      return (int)Ring<128>::kBytes;
+    default:
+      return 0;
   }
 }

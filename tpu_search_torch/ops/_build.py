@@ -9,7 +9,10 @@ runs at import time: the CPU tests import every module on a machine
 without ``nvcc``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into a ``RuntimeError``.
+:func:`check` turns a non-zero code into a ``RuntimeError``.  The kernels
+use the CUDA runtime alone: none takes a TMA tensor map (the int8 GEMM's
+``wgmma`` ring fills by ``cp.async``), so nothing links the driver library
+or asks it for ``cuTensorMapEncodeTiled``.
 
 Each wrapper counts its own launches in :data:`LAUNCHES`, so a run can
 show that the main path went through the kernels.
@@ -104,12 +107,14 @@ def _finish(name: str, proc: subprocess.Popen) -> str:
     return log
 
 
-def build_all(verbose: bool = False) -> Dict[str, float]:
+def build_all(verbose: bool = False) -> dict:
     """Compile every kernel source that has no current library, in
-    parallel.  Returns ``{"seconds": wall time}``; prints the ptxas
-    register and shared-memory report when ``verbose``."""
+    parallel.  Returns ``{"seconds": wall time, "logs": {name: nvcc
+    output}}`` (the ptxas register, spill and shared-memory report of each
+    source compiled now); prints the logs when ``verbose``."""
     start = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    logs = {}
     with _lock:
         procs = {
             name: _compile(name)
@@ -117,12 +122,12 @@ def build_all(verbose: bool = False) -> Dict[str, float]:
             if not _target(name).exists()
         }
         for name, proc in procs.items():
-            log = _finish(name, proc)
+            logs[name] = _finish(name, proc)
             if verbose:
-                print(f"[build] {name}.cu\n{log}")
+                print(f"[build] {name}.cu\n{logs[name]}")
         for name in KERNELS:
             library(name)
-    return {"seconds": time.perf_counter() - start}
+    return {"seconds": time.perf_counter() - start, "logs": logs}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -34,6 +34,7 @@ __all__ = [
     "mpnet_attention_bhsd",
     "mpnet_attention_bhsd_plain",
     "mpnet_attention_plain",
+    "mpnet_attention_smem_bytes",
 ]
 
 _P = ctypes.c_void_p
@@ -99,6 +100,15 @@ def _fn():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def mpnet_attention_smem_bytes(hidden: int, num_heads: int) -> int:
+    """The dynamic shared memory (bytes) one launch of the ``[B, S, H]``
+    kernel takes at this width; it does not depend on S."""
+    fn = _build.library("mpnet_attention").mpnet_attention_smem_bytes
+    fn.argtypes = [_I, _I]
+    fn.restype = ctypes.c_int
+    return fn(hidden, num_heads)
 
 
 def mpnet_attention(
