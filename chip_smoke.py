@@ -5,10 +5,12 @@
 Phases, each printing its numbers on its own line:
   1. build the CUDA kernels from ``tpu_search_torch/csrc`` (one ``nvcc``
      per source, all started together), print the registers and spills
-     ptxas reports for the two kernels redesigned for Hopper
-     (``mpnet_attention``, ``int8_gemm``), check that ``int8_gemm``'s SASS
-     multiplies with wgmma alone, and print the card's name and power
-     limit;
+     ptxas reports for the four kernels redesigned for Hopper
+     (``mpnet_attention``, ``int8_gemm``, ``int8_ffn_ln``,
+     ``flash_attention``), check in their SASS that the int8 products
+     (``int8_gemm``, both GEMMs of ``int8_ffn_ln``) are wgmma's alone and
+     that ``flash_attention``'s q k^T issues wgmma, and print the card's
+     name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it (max error, kernel and plain times,
      the least time the card could take, and where one PyTorch call
@@ -61,10 +63,14 @@ width, the int8 FFN through its gate) run through
 ``flash_attention``: its embeddings against the same weights on the CPU in
 the flash mode (cosine > 0.999), its time beside the default mode's.
 The ``[B, S, H]`` attention prints its shared memory and SDPA's time at
-every shape; ``int8_gemm`` prints TOP/s, ``torch._int_mm``'s time and
-both of its tiles' times at the bench's two shapes.  The rerank paths also
-hold the card's logits against the card's own with the plain attention in
-place of the kernels, on the same pairs.
+every shape, the flash kernel its shared memory, CTAs a multiprocessor
+and SDPA's time; ``int8_gemm`` prints TOP/s, ``torch._int_mm``'s time and
+both of its tiles' times at the bench's two shapes; ``int8_ffn_ln`` at
+H 768 prints its effective TOP/s, each of its launches' device time
+(torch.profiler) and, as yardsticks it never calls, the port's bf16 FFN
+half on the same inputs and ``torch._int_mm`` of its two products.  The
+rerank paths also hold the card's logits against the card's own with the
+plain attention in place of the kernels, on the same pairs.
 Phase 2 also holds the ``[B, heads, S, hd]`` kernel against its plain
 version at B 128 over S 64-512 at H 312 / 12 heads and H 64 / 2 heads, the
 ``[B, S, H]`` kernel at S 512 / H 384, the int8 FFN at H 384 / I 1536,
@@ -326,9 +332,15 @@ def short_kernel_name(name: str) -> str:
 # -- phase 1: the build report of the kernels redesigned for Hopper ----------
 
 # The kernels whose ptxas report (registers, spills) the build phase
-# prints; the int8 GEMM's SASS must hold wgmma products (GMMA) and no
-# mma.sync ones (IMMA).
-REDESIGNED = ("mpnet_attention", "int8_gemm")
+# prints, and for each the kernels (by name) whose SASS must multiply with
+# wgmma (GMMA), and whether any mma.sync int8 product (IMMA) in the source
+# fails the build: the int8 products must be wgmma's alone.
+REDESIGNED = ("mpnet_attention", "int8_gemm", "int8_ffn_ln", "flash_attention")
+SASS_RULES = {
+    "int8_gemm": (("gemm_kernel",), True),
+    "int8_ffn_ln": (("ffn_gemm1", "ffn_gemm2"), True),
+    "flash_attention": (("flash_kernel",), False),
+}
 
 
 def ptxas_entries(log: str) -> list:
@@ -368,9 +380,46 @@ def demangle(names: list) -> list:
         return names
 
 
+def sass_counts(sass: str) -> dict:
+    """``{function: (GMMA count, IMMA count)}`` of a ``cuobjdump -sass``
+    listing, by the mangled name of each ``Function :`` section."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            counts[name] = (0, 0)
+        elif name is not None:
+            gmma, imma = counts[name]
+            counts[name] = (gmma + len(re.findall(r"\b[A-Z]*GMMA\.", line)),
+                            imma + len(re.findall(r"\bIMMA\.", line)))
+    return counts
+
+
+def sass_faults(counts: dict, wanted: tuple, no_imma: bool) -> list:
+    """What breaks a source's SASS rule: a kernel named in ``wanted`` that
+    is missing or holds no GMMA, or (``no_imma``) any IMMA at all."""
+    faults = []
+    for part in wanted:
+        hits = {n: c for n, c in counts.items() if part in n}
+        if not hits:
+            faults.append(f"no kernel named {part}")
+        faults += [f"{n} holds no GMMA" for n, (g, _) in hits.items() if not g]
+    imma = sum(i for _, i in counts.values())
+    if no_imma and imma:
+        faults.append(f"{imma} IMMA instructions")
+    return faults
+
+
+def short_name(kernel: str) -> str:
+    """``void <unnamed>::k<(int)64, true>(...)`` -> ``k<64, true>``."""
+    return re.sub(r"\((?:int|bool)\)|^void |(?:<unnamed>|"
+                  r"\(anonymous namespace\))::", "", kernel).split("(")[0]
+
+
 def check_build(logs: dict) -> None:
     """Print registers and spills of the redesigned kernels, and fail
-    unless ``int8_gemm``'s SASS multiplies with wgmma alone."""
+    unless their SASS keeps ``SASS_RULES``."""
     from tpu_search_torch.ops import _build
 
     for name in REDESIGNED:
@@ -379,22 +428,22 @@ def check_build(logs: dict) -> None:
             print(f"[build] ptxas {name}: not compiled in this run", flush=True)
         for (_, regs, stores, loads), kernel in zip(
                 entries, demangle([e[0] for e in entries])):
-            # "void <unnamed>::k<(int)64, true>(...)" -> "k<64, true>"
-            kernel = re.sub(r"\((?:int|bool)\)|^void |(?:<unnamed>|"
-                            r"\(anonymous namespace\))::", "", kernel)
-            print(f"[build] ptxas {name} {kernel.split('(')[0]} "
+            print(f"[build] ptxas {name} {short_name(kernel)} "
                   f"registers={regs} spill_stores={stores} "
                   f"spill_loads={loads}", flush=True)
-    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass",
-                           str(_build._target("int8_gemm"))],
-                          capture_output=True, text=True, check=True).stdout
-    gmma = len(re.findall(r"\b[A-Z]*GMMA\.", sass))
-    imma = len(re.findall(r"\bIMMA\.", sass))
-    print(f"[build] sass int8_gemm gmma_instructions={gmma} "
-          f"imma_instructions={imma}", flush=True)
-    if gmma == 0 or imma:
-        fail(f"int8_gemm's SASS holds {gmma} GMMA and {imma} IMMA "
-             f"instructions: its products must be wgmma alone")
+    for name, (wanted, no_imma) in SASS_RULES.items():
+        sass = subprocess.run(
+            [cuda_tool("cuobjdump"), "-sass", str(_build._target(name))],
+            capture_output=True, text=True, check=True).stdout
+        counts = sass_counts(sass)
+        names = demangle(list(counts))
+        for (gmma, imma), kernel in zip(counts.values(), names):
+            print(f"[build] sass {name} {short_name(kernel)} "
+                  f"gmma_instructions={gmma} imma_instructions={imma}",
+                  flush=True)
+        faults = sass_faults(counts, wanted, no_imma)
+        if faults:
+            fail(f"{name}'s SASS breaks its rule: {'; '.join(faults)}")
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -804,6 +853,23 @@ def flash_sdpa_ms(q, k, v, ab, seg, scale) -> float:
         q, k, v, attn_mask=add, scale=scale))
 
 
+def flash_occupancy(hd: int) -> str:
+    """The flash kernel's dynamic shared memory and CTAs a multiprocessor
+    at head size ``hd``."""
+    import ctypes
+
+    from tpu_search_torch.ops import _build
+
+    fn = _build.library("flash_attention").flash_attention_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    nbytes = ctypes.c_int(0)
+    ctas = fn(hd, ctypes.byref(nbytes))
+    if ctas <= 0:
+        fail(f"flash_attention cannot run at hd={hd}: code {-ctas}")
+    return f"smem_bytes={nbytes.value} ctas_per_sm={ctas}"
+
+
 def check_flash_attention(results: dict) -> None:
     """The stock-flash kernel against its plain version at the three
     ``FLASH_SHAPES``, with padded rows and a trained-scale bias."""
@@ -842,7 +908,7 @@ def check_flash_attention(results: dict) -> None:
         print(f"[flash_attention] B={b} S={s} H={h} heads={nh} hd={hd} "
               f"{format_errors(errors)} kernel_ms={kms:.4f} "
               f"plain_ms={pms:.4f} bound_ms={bound_ms:.4f} ({by}) "
-              f"sdpa_ms={lib:.4f}", flush=True)
+              f"sdpa_ms={lib:.4f} {flash_occupancy(hd)}", flush=True)
         if not attention_ok(errors, "flash_attention"):
             fail(f"flash_attention disagrees at S={s} H={h}")
         worst = max(worst, errors["max_abs_err"])
@@ -1071,6 +1137,80 @@ def planted_epilogue(site: str):
     return (pre, w1q, s1, b1, w2q, s2, b2, ln), (twice, once)
 
 
+def kernel_split(rows) -> list:
+    """``[(kernel, device ms a launch, launches)]`` from the profiler's
+    ``(name, device ms, count)`` rows, the template instances of one kernel
+    merged, largest first.  A mean over the launches recorded, not a sum
+    over calls: the profiler can miss a window's first launches."""
+    ms, count = {}, {}
+    for name, total, n in rows:
+        key = short_kernel_name(name)
+        ms[key] = ms.get(key, 0.0) + total
+        count[key] = count.get(key, 0) + n
+    return sorted(((k, ms[k] / count[k], count[k]) for k in ms),
+                  key=lambda r: -r[1])
+
+
+def ffn_launch_split(tag: str, args, calls: int = 5) -> None:
+    """The device time of each launch of ``int8_ffn_ln`` (torch.profiler,
+    as ``device_breakdown``), over ``calls`` calls: each kernel's mean, its
+    share of their sum (one call: each kernel launches once) and the
+    launches recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_search_torch.ops.int8_ffn import int8_ffn_ln
+    from tpu_search_torch.utils.device_profile import (
+        _by_kernel,
+        _device_events,
+    )
+
+    int8_ffn_ln(*args)
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        for _ in range(calls):
+            int8_ffn_ln(*args)
+        torch.cuda.synchronize()
+    split = kernel_split(_by_kernel(_device_events(prof)))
+    total = sum(ms for _, ms, _ in split)
+    print(f"[int8_ffn_ln] launches {tag} calls={calls} device_ms={total:.4f} "
+          + " ".join(f"{name}={ms:.4f}({ms / total:.1%},n={n})"
+                     for name, ms, n in split), flush=True)
+
+
+def ffn_yardsticks(args, w1, w2) -> str:
+    """Yardsticks the port never calls, on the same inputs: the port's
+    bf16 layer half (``int8_ffn=False``: cuBLAS products, gelu, LN) from
+    the unquantized weights, and ``torch._int_mm`` of the two int8
+    products alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_search_torch.models.mpnet import layer_norm
+
+    pre, w1t, _, b1, w2t, _, b2, l1s, l1b, l2s, l2b = args
+    bf = torch.bfloat16
+    w1o, w2o = w1.T.contiguous().to(bf), w2.T.contiguous().to(bf)
+    b1b, b2b = b1.to(bf), b2.to(bf)
+
+    def bf16_half():
+        x = layer_norm(pre, l1s, l1b, 1e-5)
+        ff = F.linear(F.gelu(F.linear(x, w1o, b1b), approximate="tanh"), w2o,
+                      b2b)
+        return layer_norm(ff + x, l2s, l2b, 1e-5)
+
+    m, h = pre.shape
+    inter = w1t.shape[0]
+    x_q = torch.randint(-127, 128, (m, h), dtype=torch.int8, device=pre.device)
+    h_q = torch.randint(-127, 128, (m, inter), dtype=torch.int8,
+                        device=pre.device)
+    mm1 = cuda_ms(lambda: torch._int_mm(x_q, w1t.t()), 5)
+    mm2 = cuda_ms(lambda: torch._int_mm(h_q, w2t.t()), 5)
+    return (f"bf16_ffn_ms={cuda_ms(bf16_half, 5):.4f} int_mm_in_ms={mm1:.4f} "
+            f"int_mm_out_ms={mm2:.4f} int_mm_pair_ms={mm1 + mm2:.4f}")
+
+
 def check_int8_ffn(results: dict) -> None:
     """The W8A8 FFN at all-mpnet-base-v2's width (H 768, I 3072), at
     all-MiniLM-L6-v2's (H 384, I 1536), at TinyBERT-312's (H 312, I 1200)
@@ -1102,10 +1242,10 @@ def check_int8_ffn(results: dict) -> None:
 
     worst = 0.0
     for h, inter in ((768, 3072), (384, 1536), (312, 1200), (1024, 4096)):
-        w1q, s1 = quantize_weight_columns(
-            bf(0.02 * torch.randn((h, inter), generator=gen, device=dev)))
-        w2q, s2 = quantize_weight_columns(
-            bf(0.02 * torch.randn((inter, h), generator=gen, device=dev)))
+        w1 = bf(0.02 * torch.randn((h, inter), generator=gen, device=dev))
+        w2 = bf(0.02 * torch.randn((inter, h), generator=gen, device=dev))
+        w1q, s1 = quantize_weight_columns(w1)
+        w2q, s2 = quantize_weight_columns(w2)
         w1t, w2t = w1q.T.contiguous(), w2q.T.contiguous()
         b1 = bf(0.02 * torch.randn((inter,), generator=gen, device=dev))
         b2 = bf(0.02 * torch.randn((h,), generator=gen, device=dev))
@@ -1124,8 +1264,14 @@ def check_int8_ffn(results: dict) -> None:
             err, line = gate(f"M={m} H={h} I={inter}", out, ref)
             kms, pms = paired_ms(lambda: int8_ffn_ln(*args),
                                  lambda: int8_ffn_ln_plain(*args), iters=5)
-            print(f"{line} kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
+            ops = 4 * m * h * inter
+            print(f"{line} kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+                  f"effective_tops={ops / kms / 1e9:.1f}", flush=True)
             worst = max(worst, err)
+            if h == 768:
+                print(f"[int8_ffn_ln] M={m} H={h} I={inter} yardsticks: "
+                      f"{ffn_yardsticks(args, w1, w2)}", flush=True)
+                ffn_launch_split(f"M={m} H={h} I={inter}", args)
             if (m, h) == (128 * 384, 768):
                 # input and output rows, int8 weights and their scales read
                 # once; the two W8A8 products at the int8 rate

@@ -26,7 +26,9 @@ rows; the int4 probe's variants equal to their plain versions and the
 scan-overhead probe's within the flat scan's 1e-4.  The ``[B, S, H]``
 attention also at S 512 with hd 32 and on a one-row query, with rows
 padded by -inf and by the f32 min; ``int8_gemm`` also at M, N and K off its
-wgmma tiles (K 8 and 312).
+wgmma tiles (K 8 and 312); ``int8_ffn_ln`` also at M 1, 127, 129 and 4,097
+(the edges of its 128-row tiles) and with row maxima in I 1,200's partial
+last column tile.
 """
 
 import math
@@ -137,7 +139,9 @@ def ffn_args(dev, m, h, inter, seed):
 
 @pytest.mark.parametrize("m,h,inter", [(100, 768, 3072), (64, 384, 1536),
                                       (37, 312, 1200), (45, 1024, 4096),
-                                      (20, 8, 8)])
+                                      (20, 8, 8), (1, 768, 3072),
+                                      (127, 384, 1536), (129, 312, 1200),
+                                      (4097, 768, 3072)])
 def test_int8_ffn_kernel(dev, m, h, inter):
     from chip_smoke import bf16_errors, ffn_ok
     from tpu_search_torch.ops.int8_ffn import int8_ffn_ln, int8_ffn_ln_plain
@@ -163,6 +167,22 @@ def test_int8_ffn_kernel_planted_rounding(dev, kind, h, inter):
     args[0], args[7], args[8] = planted_ffn_inputs(kind, h, 16, dev)
     out = int8_ffn_ln(*args, eps=0.0)
     ref = int8_ffn_ln_plain(*args, eps=0.0)
+    torch.cuda.synchronize()
+    errors = bf16_errors(out, ref)
+    assert ffn_ok(errors), errors
+
+
+def test_int8_ffn_row_max_in_the_last_column_tile(dev):
+    """At I 1,200 (nine 128-column tiles, the last one 48 wide) rows whose
+    |h| maximum lies in the last, partial tile, so the requantize scale
+    must collect that tile's maximum."""
+    from chip_smoke import bf16_errors, ffn_ok
+    from tpu_search_torch.ops.int8_ffn import int8_ffn_ln, int8_ffn_ln_plain
+
+    args = ffn_args(dev, 200, 312, 1200, 7)
+    args[3][1190] = 6.0  # gelu(6 + x w) is the row's largest |h|
+    out = int8_ffn_ln(*args)
+    ref = int8_ffn_ln_plain(*args)
     torch.cuda.synchronize()
     errors = bf16_errors(out, ref)
     assert ffn_ok(errors), errors
@@ -809,28 +829,31 @@ def test_cross_encoder_fixture_cuda_matches_cpu(dev):
     assert outranks_ok(card, cpu, 2 * RERANK_LOGIT_TOL), (card, cpu)
 
 
-@pytest.mark.parametrize("s,hd,nh", [(128, 64, 3), (256, 26, 2), (384, 32, 2),
-                                     (512, 128, 2), (256, 8, 2)])
-def test_flash_attention_kernel(dev, s, hd, nh):
+@pytest.mark.parametrize("s,hd,nh,b", [
+    (128, 64, 3, 4), (256, 26, 2, 4), (384, 32, 2, 4), (512, 128, 2, 4),
+    (256, 8, 2, 4), (128, 26, 2, 1), (128, 32, 2, 5), (128, 128, 1, 3),
+    (256, 64, 2, 1), (256, 128, 2, 5), (512, 26, 2, 5), (512, 32, 2, 3),
+    (512, 64, 2, 5), (256, 25, 2, 5), (128, 40, 2, 3)])
+def test_flash_attention_kernel(dev, s, hd, nh, b):
     """The stock-flash kernel against its plain version: one block (S 128)
-    and several, head sizes padded to 16 and not, a trained-scale bias, a
-    padded tail, a mostly padded row and a fully padded one."""
+    and several, head sizes padded to 16 and not (16-byte, 4-byte and, at
+    odd hd, 2-byte row copies), B 1 and odd B, a trained-scale bias, a
+    padded tail, a mostly padded row, a fully padded one and one that is
+    all pad but one key."""
     from chip_smoke import attention_ok, bf16_errors
     from tpu_search_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
     )
 
-    gen = torch.Generator(device=dev).manual_seed(s + hd)
-    b = 4
+    gen = torch.Generator(device=dev).manual_seed(s + hd + b)
     q, k, v = (torch.randn((b, nh, s, hd), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
     ab = (2.0 * torch.randn((nh, s, s), generator=gen, device=dev)).to(
         torch.bfloat16)
     seg = torch.ones((b, s), dtype=torch.int32, device=dev)
-    seg[1, s // 3:] = 0
-    seg[2, 3:] = 0
-    seg[3] = 0
+    for row, live in ((1, s // 3), (2, 3), (3, 0), (4, 1))[:b - 1]:
+        seg[row, live:] = 0
     scale = 1.0 / math.sqrt(hd)
     out = flash_attention(q, k, v, ab, seg, seg, scale)
     ref = flash_attention_plain(q, k, v, ab, seg, seg, scale)

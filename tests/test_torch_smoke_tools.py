@@ -237,3 +237,82 @@ def test_logit_gate_against_plain_attention():
         assert M.mpnet_attention is A.mpnet_attention_plain
         assert M.mpnet_attention_bhsd is A.mpnet_attention_bhsd_plain
     assert (M.mpnet_attention, M.mpnet_attention_bhsd) == kernels
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN41_GLOBAL__N__9ffn_gemm2ILb1ELi256ELi128EEEvPKa
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0100*/                   IGMMA.64x256x32.S8.S8 R24, gdesc[UR4], R24 ;
+        /*0110*/                   IGMMA.64x256x32.S8.S8 R24, gdesc[UR8], R24 ;
+\t\tFunction : _ZN41_GLOBAL__N__9ffn_gemm1ILb0EEEvPKa
+        /*0100*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], R24 ;
+\t\tFunction : _ZN41_GLOBAL__N__9ln1_quantILi768EEEvPK13__nv_bfloat16
+        /*0100*/                   FADD R1, R2, R3 ;
+"""
+
+
+def test_sass_counts_by_function():
+    """GMMA (any prefix) and IMMA are counted per ``Function :`` section."""
+    counts = chip_smoke.sass_counts(
+        SASS + "        /*0120*/   IMMA.16816.S8.S8 R4, R8, R12, R4 ;\n")
+    assert list(counts.values()) == [(2, 0), (1, 0), (0, 1)]
+    assert "ffn_gemm1" in list(counts)[1]
+
+
+@pytest.mark.parametrize("text,wanted,no_imma,faults", [
+    (SASS, ("ffn_gemm1", "ffn_gemm2"), True, []),
+    (SASS, ("ffn_gemm1", "ln1_quant"), True, ["holds no GMMA"]),
+    (SASS, ("flash_kernel",), False, ["no kernel named flash_kernel"]),
+    (SASS.replace("IGMMA.64x128x32", "IMMA.16832"), ("ffn_gemm2",), True,
+     ["1 IMMA instructions"]),
+    (SASS.replace("IGMMA.64x128x32", "IMMA.16832"), ("ffn_gemm2",), False,
+     []),
+])
+def test_sass_rule(text, wanted, no_imma, faults):
+    """A required kernel without GMMA, a missing one, or an IMMA where the
+    rule refuses it breaks the rule; nothing else does."""
+    got = chip_smoke.sass_faults(chip_smoke.sass_counts(text), wanted, no_imma)
+    assert len(got) == len(faults)
+    for fault, want in zip(got, faults):
+        assert want in fault
+
+
+def test_sass_rules_name_the_redesigned_kernels():
+    """Every source with a SASS rule prints its ptxas report too, and the
+    rules name kernels of their sources."""
+    assert set(chip_smoke.SASS_RULES) <= set(chip_smoke.REDESIGNED)
+    for name, (wanted, _) in chip_smoke.SASS_RULES.items():
+        src = (chip_smoke.ROOT / "tpu_search_torch" / "csrc"
+               / f"{name}.cu").read_text()
+        for kernel in wanted:
+            assert f"{kernel}(" in src
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("void <unnamed>::ffn_gemm2<(bool)1, (int)256, (int)128>(const signed "
+     "char *, int)", "ffn_gemm2<1, 256, 128>"),
+    ("void (anonymous namespace)::flash_kernel<(int)32, (bool)0>(int)",
+     "flash_kernel<32, 0>"),
+])
+def test_short_name(kernel, want):
+    assert chip_smoke.short_name(kernel) == want
+
+
+def test_kernel_split_merges_instances():
+    """The profiler's rows of one kernel's template instances merge into
+    one row of its mean time a launch, largest first; a kernel whose first
+    launch the profiler missed keeps its mean."""
+    rows = [
+        ("void (anonymous namespace)::ffn_gemm1<true>(signed char const*)",
+         2.8, 4),
+        ("void (anonymous namespace)::ffn_gemm2<true>(int)", 3.0, 3),
+        ("void (anonymous namespace)::ffn_gemm2<false>(int)", 2.0, 2),
+        ("Memset (Device)", 0.05, 5),
+    ]
+    split = chip_smoke.kernel_split(rows)
+    assert [name for name, _, _ in split] == ["ffn_gemm2", "ffn_gemm1",
+                                               "Memset"]
+    assert split[0][1] == pytest.approx(1.0)
+    assert split[0][2] == 5
+    assert split[1][1] == pytest.approx(0.7)

@@ -4,7 +4,9 @@
 // loads, quad reductions, the score epilogue and P V.  Written against one
 // warpgroup of 64 query rows and tiles of 64 keys staged from any row
 // stride, so a kernel over another layout (the [B, heads, S, hd] one
-// included) can stage its own rows and reuse them.
+// included) can stage its own rows and reuse them; flash_attention.cu's
+// online loop takes its copies, wgmma, reductions and P V per 64-key half
+// of each 128-key step.
 //
 // The loop (see mpnet_attention.cu for the contract it keeps):
 //   pass 1, per 64-key tile: s = (q k^T) * scale + bias + mask in

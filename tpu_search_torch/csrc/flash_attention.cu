@@ -19,77 +19,151 @@
 // the batch (JAX broadcasts the same values to [B, heads, S, S]); segment
 // ids are [B, S] int32.  S % 128 == 0 and 1 <= hd <= 128, as the stock
 // kernel's block sizes require.  Every rounding step is written out
-// (__fadd_rn, __fmul_rn, __fdiv_rn), so nvcc's -fmad changes nothing.
+// (__fadd_rn, __fmul_rn, __fdiv_rn), so nvcc's -fmad changes nothing.  The
+// step stays 128 keys: m' sets the scale at which p rounds to bf16, so
+// another step would be another function.
 //
 // What bounds it on the H100: at B 128, S 384, H 768 (12 heads of 64) it
 // reads q, k, v and ab and writes out once: 4*B*S*H*2 + heads*S^2*2 bytes
 // (306 MB, 0.091 ms at 3.35 TB/s) for 4*B*heads*S^2*hd flops (0.059 ms at
-// 989 TFLOP/s): bytes bound it.
+// 989 TFLOP/s): bytes bound it.  In practice the per-score work paces it
+// (the f32 epilogue, an exp, the running max and sum).
 //
-// Design: one CTA per (64-query block, head, batch row), 4 warps of 16
-// query rows, as the other attention kernels (attention_tile.cuh: the
-// mma.sync m16n8k16 bf16 -> f32 helpers).  Unlike them it never holds a
-// [64, S] score block: per 128-key block (the stock kernel's softmax
-// step, so the running max, sum and bf16 rounding of p happen where the
-// TPU kernel has them) the K and V rows are staged in shared memory
-// ([128, HDP + 8] bf16 each, 36 KB at hd 64), the 16 x 128 scores of each
-// warp stay in registers, the row max and sum are quad shuffles, and p
-// becomes the A fragments of P V in registers (the accumulator layout of
-// m16n8k16 is its A layout).  Shared memory does not grow with S.  Head
-// columns are zero-padded to HDP, a multiple of 16, in shared memory (hd
-// 26 -> 32); the query fragments load from global memory where hd == HDP.
-// Not yet done (later work): cp.async/TMA double buffering of K and V,
-// and wgmma.
+// Design (helpers in attention_twopass.cuh): one CTA per (64-query block,
+// head, batch row), one warpgroup of 4 warps x 16 query rows.  Per 128-key
+// step, a two-stage cp.async ring brings the step's K rows (128-byte
+// swizzled for wgmma), its V rows, the [64, 128] bf16 bias tile and the
+// 128 key segment ids, issued one step ahead, one __syncthreads a step.
+// q k^T is wgmma.mma_async m64n64k16 twice (q from registers, one per
+// 64-key half); its accumulators are the m16n8 fragments the score
+// epilogue, the quad reductions and the bf16 p of P V (mma.sync m16n8k16,
+// V by ldmatrix.trans) work on, so every thread keeps its keys and the
+// order of its share of the row sum.  Head columns are zero-padded to HDP,
+// a multiple of 16, in shared memory (hd 26 -> 32); rows of hd % 8 == 0
+// copy 16 bytes at a time, other even hd 4 bytes (TinyBERT's 52-byte
+// rows), odd hd by plain stores into the same layout.  Shared memory is the
+// ring alone, independent of S: 107,520 bytes at hd 64, 91,136 at hd 32
+// and below 48 (two CTAs a multiprocessor).  Two query warpgroups a CTA
+// sharing each K/V stage (half the K/V traffic a query, twice the bias
+// tile, one CTA a multiprocessor) read 5-10 % slower at S 384 and 512 and
+// were dropped.  Not yet done (later work): P V by wgmma, TMA, overlap of
+// one step's q k^T with the previous step's softmax.
 
 #include <float.h>
 
-#include "attention_tile.cuh"
+#include "attention_twopass.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per CTA
-constexpr int kBK = 128;      // keys per softmax step (the stock block_k)
-constexpr int kThreads = 128; // 4 warps x 16 query rows
+#define FLASH_HDPS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+
+constexpr int kBQ = 64;        // query rows per CTA: one warpgroup
+constexpr int kBK = 128;       // keys per softmax step (the stock block_k)
+constexpr int kThreads = 128;  // 4 warps x 16 query rows
+constexpr int kRingStages = 2;
+constexpr int kAbStride = kBK + 8;  // bf16 row stride of the bias tile
 constexpr float kMask = (float)(-0.7 * (double)FLT_MAX);
 
-__host__ __device__ constexpr size_t smem_bytes(int hdp) {
-  return (size_t)2 * kBK * (hdp + 8) * 2;
+// One ring stage: K (two 64-key halves, each NB blocks of [64 keys][128
+// bytes] swizzled), V ([128][HDP + 8] bf16), the bias tile ([64][136]
+// bf16) and the 128 key segment ids; stages start on 1024-byte
+// boundaries, the swizzle's period.
+template <int HDP>
+struct Stage {
+  static constexpr int kNB = (HDP + 63) / 64;
+  static constexpr int kVS = HDP + 8;
+  static constexpr size_t kK = (size_t)2 * kNB * 64 * 128;
+  static constexpr size_t kV = (size_t)kBK * kVS * 2;
+  static constexpr size_t kAb = (size_t)kBQ * kAbStride * 2;
+  static constexpr size_t kSeg = (size_t)kBK * 4;
+  static constexpr size_t kSlot = (kK + kV + kAb + kSeg + 1023) / 1024 * 1024;
+  // + the slack that aligns the ring
+  static constexpr size_t kBytes = kRingStages * kSlot + 1024;
+};
+
+// Byte offset of 16-byte chunk c (head columns 8 c .. 8 c + 7) of key r in
+// the swizzled K stage.
+template <int NB>
+__device__ __forceinline__ int k_offset(int r, int c) {
+  return (r >> 6) * (NB * 64 * 128) + (c >> 3) * (64 * 128) + (r & 63) * 128 +
+         (((c & 7) ^ (r & 7)) << 4);
 }
 
-// Stage rows r0..r0+nrows-1 (columns < hd) of one head's contiguous
-// [S, hd] slice into T [nrows][HDP + 8]: uint4 loads where hd == HDP, else
-// element by element; padding columns are never written.
-template <int HDP, bool kVec>
-__device__ void stage_rows(const __nv_bfloat16* __restrict__ head_rows,
-                           int hd, int r0, int nrows, __nv_bfloat16* T) {
-  constexpr int KS = HDP + 8;
-  const __nv_bfloat16* run = head_rows + (size_t)r0 * hd;
-  if constexpr (kVec) {
-    constexpr int kVecN = HDP / 8;
-    for (int i = threadIdx.x; i < nrows * kVecN; i += kThreads) {
-      const int r = i / kVecN, c8 = (i % kVecN) * 8;
-      *reinterpret_cast<uint4*>(T + r * KS + c8) =
-          *reinterpret_cast<const uint4*>(run + r * HDP + c8);
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   attn2::smem_u32(dst)),
+               "l"(src));
+}
+
+// Issue the copies of 128 K and V rows (columns < hd) of one head: 16
+// bytes at a time where hd % 8 == 0 (kVec16), else 4 where hd is even,
+// else plain 2-byte stores.  Padding columns are never written.
+template <int HDP, bool kVec16>
+__device__ __forceinline__ void stage_kv(unsigned char* ksw,
+                                         __nv_bfloat16* vs,
+                                         const __nv_bfloat16* kg,
+                                         const __nv_bfloat16* vg, int hd,
+                                         int tid) {
+  constexpr int kVS = HDP + 8, NB = (HDP + 63) / 64;
+  if constexpr (kVec16) {
+    const int per = hd >> 3;
+    for (int i = tid; i < kBK * per; i += kThreads) {
+      const int r = i / per, c = i - r * per;
+      attn2::cp_async16(ksw + k_offset<NB>(r, c), kg + r * hd + c * 8);
+      attn2::cp_async16(vs + r * kVS + c * 8, vg + r * hd + c * 8);
+    }
+  } else if ((hd & 1) == 0) {
+    const int per = hd >> 1;
+    for (int i = tid; i < kBK * per; i += kThreads) {
+      const int r = i / per, w = i - r * per;
+      cp_async4(ksw + k_offset<NB>(r, w >> 2) + ((w & 3) << 2),
+                kg + r * hd + 2 * w);
+      cp_async4(vs + r * kVS + 2 * w, vg + r * hd + 2 * w);
     }
   } else {
-    for (int i = threadIdx.x; i < nrows * hd; i += kThreads) {
-      const int r = i / hd;
-      T[r * KS + (i - r * hd)] = run[i];
+    for (int i = tid; i < kBK * hd; i += kThreads) {
+      const int r = i / hd, e = i - r * hd;
+      *reinterpret_cast<__nv_bfloat16*>(ksw + k_offset<NB>(r, e >> 3) +
+                                        ((e & 7) << 1)) = kg[i];
+      vs[r * kVS + e] = vg[i];
     }
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(attn::kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(attn::kFull, x, 2));
+// s[64 x 128] = q k^T for the warpgroup's rows: one m64n64k16 wgmma per 16
+// head columns and 64-key half, waited for before return.
+template <int HDP>
+__device__ __forceinline__ void qk_step(float (&sc)[kBK / 8][4],
+                                        const uint32_t qa[HDP / 16][4],
+                                        const unsigned char* ksw) {
+  constexpr int NB = (HDP + 63) / 64;
+  auto& lo = *reinterpret_cast<float(*)[kBK / 16][4]>(&sc[0]);
+  auto& hi = *reinterpret_cast<float(*)[kBK / 16][4]>(&sc[kBK / 16]);
+#pragma unroll
+  for (int nt = 0; nt < kBK / 8; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
+  attn2::fence_scores(lo);
+  attn2::fence_scores(hi);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)  // 32 bytes: 2 descriptor units
+    attn2::wgmma_rs_m64n64k16(
+        lo, qa[kk],
+        attn2::sw128_desc(ksw + (kk >> 2) * (64 * 128)) + 2 * (kk & 3));
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)
+    attn2::wgmma_rs_m64n64k16(
+        hi, qa[kk],
+        attn2::sw128_desc(ksw + (NB + (kk >> 2)) * (64 * 128)) +
+            2 * (kk & 3));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  attn2::fence_scores(lo);
+  attn2::fence_scores(hi);
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x = __fadd_rn(x, __shfl_xor_sync(attn::kFull, x, 1));
-  return __fadd_rn(x, __shfl_xor_sync(attn::kFull, x, 2));
-}
-
-template <int HDP, bool kVec>
+template <int HDP, bool kVec16>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
@@ -98,36 +172,67 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
              const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
              __nv_bfloat16* __restrict__ out, int s, int nh, int hd,
              float scale) {
-  constexpr int KS = HDP + 8;
-  constexpr int NT = kBK / 8;  // 8-key tiles of one step
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kBK * KS;
+  using St = Stage<HDP>;
+  constexpr int NT = kBK / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (attn2::smem_u32(smem_raw) & 1023)) & 1023);
 
   const int q0 = blockIdx.x * kBQ, head = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const int wr = warp * 16;
   const size_t base = ((size_t)b * nh + head) * s * hd;
   const int row0 = q0 + wr + g;  // this thread's rows: row0 and row0 + 8
   const int seg0 = q_seg[(size_t)b * s + row0];
   const int seg1 = q_seg[(size_t)b * s + row0 + 8];
-  const __nv_bfloat16* ab0 = ab + ((size_t)head * s + row0) * s;
-  const __nv_bfloat16* ab1 = ab0 + (size_t)8 * s;
+  const __nv_bfloat16* kh = k + base;
+  const __nv_bfloat16* vh = v + base;
+  const __nv_bfloat16* abh = ab + ((size_t)head * s + q0) * s;
   const int* kvs = kv_seg + (size_t)b * s;
+  auto slot_of = [&](int j) { return ring + (j % kRingStages) * St::kSlot; };
 
   uint32_t qa[HDP / 16][4];
-  if constexpr (kVec) {
+  if (hd == HDP) {
     attn::load_q<HDP>(qa, q + base + (size_t)row0 * hd + tig * 2, hd);
   } else {
-    // Zero both tiles once: the padding columns stay zero for the run.
-    for (int i = threadIdx.x; i < 2 * kBK * KS; i += kThreads)
-      Ks[i] = __float2bfloat16_rn(0.f);
+    // Zero the ring once: the padding columns stay zero for the run.  q
+    // passes through stage 1's V rows, which the first step leaves alone.
+    for (int i = tid; i < (int)(kRingStages * St::kSlot / 16); i += kThreads)
+      reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
     __syncthreads();
-    stage_rows<HDP, false>(q + base, hd, q0, kBQ, Ks);
+    __nv_bfloat16* qs =
+        reinterpret_cast<__nv_bfloat16*>(slot_of(1) + St::kK);
+    const __nv_bfloat16* qg = q + base + (size_t)q0 * hd;
+    for (int i = tid; i < kBQ * hd; i += kThreads)
+      qs[(i / hd) * St::kVS + i % hd] = qg[i];
     __syncthreads();
-    attn::load_q<HDP>(qa, Ks + (wr + g) * KS + tig * 2, KS);
+    attn::load_q<HDP>(qa, qs + (wr + g) * St::kVS + tig * 2, St::kVS);
   }
+
+  // Step j's K, V, bias tile and key segment ids, one cp.async group
+  // (empty past the last step).
+  const int steps = s / kBK;
+  auto issue = [&](int j) {
+    if (j < steps) {
+      unsigned char* slot = slot_of(j);
+      const int kb = j * kBK;
+      stage_kv<HDP, kVec16>(
+          slot, reinterpret_cast<__nv_bfloat16*>(slot + St::kK),
+          kh + (size_t)kb * hd, vh + (size_t)kb * hd, hd, tid);
+      auto* abs = reinterpret_cast<__nv_bfloat16*>(slot + St::kK + St::kV);
+#pragma unroll
+      for (int it = 0; it < kBQ * (kBK / 8) / kThreads; ++it) {
+        const int i = tid + it * kThreads, r = i >> 4, c = (i & 15) * 8;
+        attn2::cp_async16(abs + r * kAbStride + c, abh + (size_t)r * s + kb + c);
+      }
+      if (tid < kBK / 4)
+        attn2::cp_async16(slot + St::kK + St::kV + St::kAb + tid * 16,
+                          kvs + kb + tid * 4);
+    }
+    attn2::cp_async_commit();
+  };
+  issue(0);
 
   float o[HDP / 8][4];
 #pragma unroll
@@ -137,44 +242,39 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   float m_prev[2] = {-INFINITY, -INFINITY}, l_prev[2] = {0.f, 0.f};
   const bool single = s == kBK;
 
-  for (int kb = 0; kb < s; kb += kBK) {
-    __syncthreads();  // the previous step's readers are done
-    stage_rows<HDP, kVec>(k + base, hd, kb, kBK, Ks);
-    stage_rows<HDP, kVec>(v + base, hd, kb, kBK, Vs);
+  for (int j = 0; j < steps; ++j) {
+    // step j has landed; every warp has left the stage step j + 1 reuses
+    attn2::cp_async_wait<0>();
+    attn2::fence_proxy_async();
     __syncthreads();
+    issue(j + 1);
+    const unsigned char* slot = slot_of(j);
+    const auto* Vs = reinterpret_cast<const __nv_bfloat16*>(slot + St::kK);
+    const auto* abs =
+        reinterpret_cast<const __nv_bfloat16*>(slot + St::kK + St::kV);
+    const int* segs =
+        reinterpret_cast<const int*>(slot + St::kK + St::kV + St::kAb);
 
-    // s = (q k^T + ab) * scale + segment mask, 16 rows x 128 keys a warp.
+    // s = (q k^T + ab) * scale + segment mask, 64 rows x 128 keys.
     float sc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* p = Ks + (nt * 8 + g) * KS + kk * 16 + tig * 2;
-        const uint32_t bb[2] = {attn::ld32(p), attn::ld32(p + 8)};
-        attn::mma_bf16(sc[nt], qa[kk], bb);
-      }
-    }
+    qk_step<HDP>(sc, qa, slot);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const int key = kb + nt * 8 + tig * 2;
-      const int ks0 = kvs[key], ks1 = kvs[key + 1];
+      const int key = nt * 8 + tig * 2;
+      const int2 ks = *reinterpret_cast<const int2*>(segs + key);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(
-            (half ? ab1 : ab0) + key);
+            abs + (wr + g + half * 8) * kAbStride + key);
         const int qs = half ? seg1 : seg0;
         const float c0 = __fadd_rn(
             __fmul_rn(__fadd_rn(sc[nt][half * 2], __low2float(bv)), scale),
-            qs == ks0 ? 0.f : kMask);
+            qs == ks.x ? 0.f : kMask);
         const float c1 = __fadd_rn(
             __fmul_rn(__fadd_rn(sc[nt][half * 2 + 1], __high2float(bv)),
                       scale),
-            qs == ks1 ? 0.f : kMask);
+            qs == ks.y ? 0.f : kMask);
         sc[nt][half * 2] = c0;
         sc[nt][half * 2 + 1] = c1;
         mx[half] = fmaxf(mx[half], fmaxf(c0, c1));
@@ -184,18 +284,18 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
     float m_next[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int half = 0; half < 2; ++half)
-      m_next[half] = fmaxf(m_prev[half], quad_max(mx[half]));
+      m_next[half] = fmaxf(m_prev[half], attn2::quad_max(mx[half]));
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[nt][j] = expf(__fsub_rn(sc[nt][j], m_next[j >> 1]));
-        sum[j >> 1] = __fadd_rn(sum[j >> 1], sc[nt][j]);
+      for (int e = 0; e < 4; ++e) {
+        sc[nt][e] = expf(__fsub_rn(sc[nt][e], m_next[e >> 1]));
+        sum[e >> 1] = __fadd_rn(sum[e >> 1], sc[nt][e]);
       }
     float corr[2], inv[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const float total = quad_sum(sum[half]);
+      const float total = attn2::quad_sum(sum[half]);
       if (single) {
         // The stock one-step kernel: p /= l before the bf16 rounding.
         corr[half] = 0.f;
@@ -216,39 +316,22 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // o = o * corr + (bf16(p) V) * inv; p's accumulator layout is the A
-    // fragment layout of the next product.
+    // o = o * corr + (bf16(p) V) * inv, P V over the two 64-key halves in
+    // order; p's accumulator layout is the A fragment layout of m16n8k16.
     float oc[HDP / 8][4];
 #pragma unroll
     for (int nt = 0; nt < HDP / 8; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) oc[nt][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {
-          attn::pack2(__float2bfloat16_rn(sc[2 * kk][0]),
-                      __float2bfloat16_rn(sc[2 * kk][1])),
-          attn::pack2(__float2bfloat16_rn(sc[2 * kk][2]),
-                      __float2bfloat16_rn(sc[2 * kk][3])),
-          attn::pack2(__float2bfloat16_rn(sc[2 * kk + 1][0]),
-                      __float2bfloat16_rn(sc[2 * kk + 1][1])),
-          attn::pack2(__float2bfloat16_rn(sc[2 * kk + 1][2]),
-                      __float2bfloat16_rn(sc[2 * kk + 1][3]))};
-#pragma unroll
-      for (int nt = 0; nt < HDP / 8; ++nt) {
-        const __nv_bfloat16* pv = Vs + (kk * 16 + tig * 2) * KS + nt * 8 + g;
-        const uint32_t bb[2] = {attn::pack2(pv[0], pv[KS]),
-                                attn::pack2(pv[8 * KS], pv[9 * KS])};
-        attn::mma_bf16(oc[nt], a, bb);
-      }
-    }
+      for (int e = 0; e < 4; ++e) oc[nt][e] = 0.f;
+    attn2::pv_tile<HDP>(oc, sc, Vs, lane);
+    attn2::pv_tile<HDP>(oc, sc + kBK / 16, Vs + 64 * St::kVS, lane);
 #pragma unroll
     for (int nt = 0; nt < HDP / 8; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int half = j >> 1;
-        o[nt][j] = __fadd_rn(__fmul_rn(o[nt][j], corr[half]),
-                             __fmul_rn(oc[nt][j], inv[half]));
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        o[nt][e] = __fadd_rn(__fmul_rn(o[nt][e], corr[half]),
+                             __fmul_rn(oc[nt][e], inv[half]));
       }
   }
 
@@ -261,7 +344,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
       __nv_bfloat16* dst = out + base + (size_t)(row0 + half * 8) * hd + col;
       const __nv_bfloat16 lo = __float2bfloat16_rn(o[nt][half * 2]);
       const __nv_bfloat16 hi = __float2bfloat16_rn(o[nt][half * 2 + 1]);
-      if constexpr (kVec) {
+      if (hd == HDP) {
         __nv_bfloat162 pair;
         pair.x = lo;
         pair.y = hi;
@@ -274,18 +357,22 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HDP, bool kVec>
+template <int HDP, bool kVec16>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ab, const int* q_seg, const int* kv_seg,
                    void* out, int b, int nh, int s, int hd, float scale,
                    cudaStream_t stream) {
-  const size_t bytes = smem_bytes(HDP);
+  constexpr size_t bytes = Stage<HDP>::kBytes;
+  auto kernel = flash_kernel<HDP, kVec16>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<HDP, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   dim3 grid(s / kBQ, nh, b);
-  flash_kernel<HDP, kVec><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -294,16 +381,32 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The kernel for head size hd (16-byte row copies where hd % 8 == 0).
 template <int HDP>
 cudaError_t launch_hdp(const void* q, const void* k, const void* v,
                        const void* ab, const int* q_seg, const int* kv_seg,
                        void* out, int b, int nh, int s, int hd, float scale,
                        cudaStream_t stream) {
-  if (hd == HDP)
+  if (hd % 8 == 0)
     return launch<HDP, true>(q, k, v, ab, q_seg, kv_seg, out, b, nh, s, hd,
                              scale, stream);
   return launch<HDP, false>(q, k, v, ab, q_seg, kv_seg, out, b, nh, s, hd,
                             scale, stream);
+}
+
+// CTAs a multiprocessor of the kernel for head size hd, and its dynamic
+// shared memory in *bytes.
+template <int HDP>
+int occupancy_hdp(int hd, int* bytes) {
+  *bytes = (int)Stage<HDP>::kBytes;
+  int ctas = 0;
+  auto kernel = hd % 8 == 0 ? flash_kernel<HDP, true> : flash_kernel<HDP, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        kThreads, *bytes);
+  return err == cudaSuccess ? ctas : -(int)err;
 }
 
 }  // namespace
@@ -324,16 +427,25 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return (int)launch_hdp<HDP>(q, k, v, ab, qs, ks, out, b, nh, s, hd,    \
                                 scale, st);
   switch ((hd + 15) / 16) {
-    FLASH_CASE(16)
-    FLASH_CASE(32)
-    FLASH_CASE(48)
-    FLASH_CASE(64)
-    FLASH_CASE(80)
-    FLASH_CASE(96)
-    FLASH_CASE(112)
-    FLASH_CASE(128)
+    FLASH_HDPS(FLASH_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_CASE
+}
+
+// CTAs a multiprocessor of the kernel for head size hd (a negative CUDA
+// error code on failure), and its dynamic shared memory in *bytes; neither
+// depends on s.
+extern "C" int flash_attention_occupancy(int hd, int* bytes) {
+  *bytes = 0;
+#define FLASH_OCC(HDP) \
+  case HDP / 16:       \
+    return occupancy_hdp<HDP>(hd, bytes);
+  switch ((hd + 15) / 16) {
+    FLASH_HDPS(FLASH_OCC)
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
+#undef FLASH_OCC
 }

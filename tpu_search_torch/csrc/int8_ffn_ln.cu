@@ -21,453 +21,448 @@
 //   ff  = fma(acc2 * scale_h, s2, b2) + x, scale_h = amax_h * f32(1/127),
 //         rounded to bf16 (:407);
 //   out = bf16(LN2(ff)).
-// Weights arrive per-output-column quantized ([out, in] int8 rows, so the
-// tensor-core B fragments are contiguous) with f32 column scales; biases
-// and LN parameters arrive as f32 copies of their bf16 values.
+// Weights arrive per-output-column quantized ([out, in] int8 rows: K-major,
+// as wgmma's int8 operands must be) with f32 column scales; biases and LN
+// parameters arrive as f32 copies of their bf16 values.
 //
 // Widths: H a multiple of 8 up to 1,024 and I a multiple of 8 up to 4,096
-// (the BERT family up to large, TinyBERT-312).  Each kernel is built for
-// HP, H rounded up to a multiple of 128; columns past H and I are zero in
-// shared memory (zero codes add nothing to the int32 sums), their outputs
-// are never stored, and the LayerNorm statistics run over the true H.
-// Where H is HP and I a multiple of 128 (kExact: every BERT-family width
-// but TinyBERT's), those bounds are compile-time and fold away.
+// (the BERT family up to large, TinyBERT-312).  The row passes are built
+// for HP, H rounded up to a multiple of 128 (H / 32 values a lane in
+// registers); the LayerNorm statistics run over the true H.
 //
 // What bounds it on the H100: at M = 128*384 rows the two GEMMs are
-// 4*M*H*I = 464 G int8 ops per layer against ~0.2 GB of activations, so
-// the tensor cores bound it; mma.sync m16n8k32 s8 reaches only a part of
-// the 1,979 TOP/s peak that wgmma would.
+// 4*M*H*I = 464 G int8 ops per layer (0.23 ms at 1,979 TOP/s) against
+// ~0.2 GB of input, output and weights.  The requantize needs amax over the
+// whole I-wide gelu row before GEMM2 can start, and a 128-row block of the
+// [M, I] f32 activation (1.5 MB at I 3,072) fits in no multiprocessor, so
+// h goes through device memory once: 0.6 GB written, read, and 0.15 GB of
+// int8 codes, the largest stream of the layer.
 //
-// Design: two launches.  The requantize needs amax over the full
-// I-wide gelu row before GEMM2 can start, and a row block of the
-// [M, I] f32 activation does not fit next to the weight tiles in
-// 227 KB of shared memory, so h goes to device memory once (f32, written
-// by launch 1, read by launch 2).
-//  - Launch 1 (ffn_in): a CTA owns 64 rows x 128 columns of GEMM1.  It
-//    recomputes LN1 + quantize for its 64 rows into shared memory (cheap:
-//    H values a row), streams W1 in 128-deep chunks, runs mma.sync
-//    s8 x s8 -> s32, applies the epilogue and gelu, writes h, and folds
-//    the row |h| maxima into a global per-row amax with atomicMax on the
-//    float bits (non-negative floats order like their bit patterns).  The
-//    CTAs of column block 0 also write the bf16 residual x.
-//  - Launch 2 (ffn_out): a CTA owns 32 full rows (all HP columns), so LN2
-//    is local.  It quantizes h while staging 64-column chunks, streams W2,
-//    and reduces the LN2 statistics across its 16 warps in a fixed order
-//    (deterministic, no float atomics).
+// Design: one C call, five launches on the caller's stream.
+//  1. ln1_quant, a warp a row: LN1, the bf16 residual x, x_q and sx; it
+//     zeroes the row's amax_h word for GEMM1.
+//  2. GEMM1 on the wgmma loop of int8_wgmma.cuh (128 x 128 tiles, two
+//     producer warps, two CTAs a multiprocessor so that one's gelu
+//     epilogue overlaps the other's products): dequant + gelu -> h f32,
+//     and the row |h| maxima of the tile folded into amax_h with atomicMax
+//     on the float bits (non-negative floats order like their bit
+//     patterns; every column tile of a row meets in the same word).
+//  3. h_quant, elementwise: h_q = quant(h, 127 / amax_h) as int8 rows.
+//  4. GEMM2 on the same loop and tile: ff = bf16(fma(acc2 * scale_h, s2,
+//     b2) + x), written over x in place (each element is read and written
+//     by the same thread).  The 128 x 256 tile fed by a producer warpgroup
+//     (int8_gemm.cu's plain-epilogue tile) read 18-25 % slower at every M
+//     from 512 to 49,152 with this residual epilogue, so one tile serves.
+//  5. ln2, a warp a row: LN2 with f32 statistics in a fixed order (no
+//     float atomics) -> out.
+// LN1 and the quantize run once a row (not once a column tile), the
+// products are wgmma's, and every large operand streams through cp.async.
+// Each kernel's shared-memory attributes are set once a process, so a
+// query's small M pays five launches and little else on the host.
 
-#include "int8_mma.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
-// launch 1
-constexpr int kBM1 = 64, kBN1 = 128, kKC1 = 128, kThreads1 = 256;
-// launch 2
-constexpr int kBM2 = 32, kKC2 = 64, kThreads2 = 512;
 constexpr int kMaxH = 1024, kMaxI = 4096;
+constexpr int kRowWarps = 8;  // rows (one a warp) of a row-pass CTA
+constexpr int kBN = 128, kP = 64;  // GEMM tile columns, producer threads
+using Tile = WgTile<kBN, kP>;
 
 // ---------------------------------------------------------------------------
-// Launch 1: LN1 + quantize + GEMM1 + gelu -> h [M, I] f32, amax [M].
+// 1. LN1 + bf16 round + per-row quantize -> xres [M, H] bf16, x_q [M, H]
+// int8, sx [M] f32; amax_h [M] zeroed for GEMM1's maxima.
 // ---------------------------------------------------------------------------
-template <int HP, bool kExact>
-__global__ void __launch_bounds__(kThreads1)
-ffn_in(const __nv_bfloat16* __restrict__ pre, const int8_t* __restrict__ w1t,
-       const float* __restrict__ s1, const float* __restrict__ b1,
-       const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-       float eps, int m_rows, int h_arg, int inter,
-       __nv_bfloat16* __restrict__ xres, float* __restrict__ hbuf,
-       int* __restrict__ amax_h) {
-  constexpr int XS = HP + 16, WS = kKC1 + 16, kPer = HP / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* Xq = reinterpret_cast<int8_t*>(smem);
-  int8_t* Ws = Xq + kBM1 * XS;
-  float* sx = reinterpret_cast<float*>(Ws + kBN1 * WS);
-  int* rmax = reinterpret_cast<int*>(sx + kBM1);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * kBM1, n0 = blockIdx.x * kBN1;
-  const int h = kExact ? HP : h_arg;
+template <int HP>
+__global__ void __launch_bounds__(kRowWarps * 32)
+ln1_quant(const __nv_bfloat16* __restrict__ pre,
+          const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+          float eps, int m_rows, int h, __nv_bfloat16* __restrict__ xres,
+          int8_t* __restrict__ x_q, float* __restrict__ sx,
+          int* __restrict__ amax_h) {
+  constexpr int kPer = HP / 32;
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (m >= m_rows) return;
   const float hf = (float)h;
-
-  // LN1 + bf16 round + per-row quantize, 8 rows per warp.
-  for (int r = warp; r < kBM1; r += kThreads1 / 32) {
-    const int m = m0 + r;
-    if (threadIdx.x % 32 == 0) rmax[r] = 0;
-    if (m >= m_rows) {
-      for (int c = lane; c < HP; c += 32) Xq[r * XS + c] = 0;
-      if (lane == 0) sx[r] = 1.f;
-      continue;
-    }
-    float x[kPer];
-    float sum = 0.f;
+  const __nv_bfloat16* row = pre + (size_t)m * h;
+  float x[kPer];
+  float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = i * 32 + lane;
-      x[i] = kExact || c < h ? __bfloat162float(pre[(size_t)m * h + c]) : 0.f;
-      sum += x[i];
-    }
-    const float mean = __fdiv_rn(warp_sum(sum), hf);
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      if (kExact || i * 32 + lane < h) {
-        const float dlt = __fsub_rn(x[i], mean);
-        sq = __fadd_rn(sq, __fmul_rn(dlt, dlt));
-      }
-    }
-    const float var = __fdiv_rn(warp_sum(sq), hf);
-    const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = i * 32 + lane;
-      if (kExact || c < h) {
-        const float ln = __fadd_rn(
-            __fmul_rn(__fmul_rn(__fsub_rn(x[i], mean), rs), ln_s[c]), ln_b[c]);
-        const __nv_bfloat16 xc = __float2bfloat16_rn(ln);
-        if (blockIdx.x == 0) xres[(size_t)m * h + c] = xc;
-        x[i] = __bfloat162float(xc);
-        amax = fmaxf(amax, fabsf(x[i]));
-      }
-    }
-    amax = warp_max(amax);
-    const float inv = inv_of(amax);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) Xq[r * XS + i * 32 + lane] = quant(x[i], inv);
-    if (lane == 0) sx[r] = scale_of(amax);
+  for (int i = 0; i < kPer; ++i) {
+    const int c = i * 32 + lane;
+    x[i] = c < h ? __bfloat162float(row[c]) : 0.f;
+    sum += x[i];
   }
+  const float mean = __fdiv_rn(warp_sum(sum), hf);
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    if (i * 32 + lane < h) {
+      const float dlt = __fsub_rn(x[i], mean);
+      sq = __fadd_rn(sq, __fmul_rn(dlt, dlt));
+    }
+  }
+  const float var = __fdiv_rn(warp_sum(sq), hf);
+  const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = i * 32 + lane;
+    if (c < h) {
+      const float ln = __fadd_rn(
+          __fmul_rn(__fmul_rn(__fsub_rn(x[i], mean), rs), ln_s[c]), ln_b[c]);
+      const __nv_bfloat16 xc = __float2bfloat16_rn(ln);
+      xres[(size_t)m * h + c] = xc;
+      x[i] = __bfloat162float(xc);
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+  }
+  amax = warp_max(amax);
+  const float inv = inv_of(amax);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = i * 32 + lane;
+    if (c < h) x_q[(size_t)m * h + c] = quant(x[i], inv);
+  }
+  if (lane == 0) {
+    sx[m] = scale_of(amax);
+    amax_h[m] = 0;
+  }
+}
 
-  // GEMM1: warps 4 (rows) x 2 (columns), 16 x 64 per warp; K = h in
-  // 128-deep chunks, zero past h.
-  const int wm = warp & 3, wn = warp >> 2;
-  const bool vec16 = kExact || (h & 15) == 0;
-  int acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[nt][j] = 0;
-  for (int kc = 0; kc < h; kc += kKC1) {
-    __syncthreads();
-    if (vec16) {
-      for (int i = threadIdx.x; i < kBN1 * (kKC1 / 16); i += kThreads1) {
-        const int r = i / (kKC1 / 16), c16 = (i % (kKC1 / 16)) * 16;
-        const int n = n0 + r;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (n < inter && (kExact || kc + c16 < h))
-          v = *reinterpret_cast<const uint4*>(w1t + (size_t)n * h + kc + c16);
-        *reinterpret_cast<uint4*>(Ws + r * WS + c16) = v;
+// ---------------------------------------------------------------------------
+// 2 and 4. The two products on the wgmma loop; the roles and the ring are
+// int8_gemm.cu's (int8_wgmma.cuh).  A thread's accumulators acc[4 j + e]
+// are row 16 warp + g + 8 (e / 2), column 8 j + 2 tig + e % 2 of its
+// warpgroup's 64 rows.
+// ---------------------------------------------------------------------------
+
+// Shared memory: the ring on a 1024-byte boundary, then its mbarriers.
+struct Ring {
+  uint8_t* sa;
+  uint8_t* sb;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ explicit Ring(unsigned char* raw) {
+    sa = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+    sb = sa + Tile::kStages * kWgABytes;
+    full = reinterpret_cast<uint64_t*>(sb + Tile::kStages * Tile::kBBytes);
+    empty = full + Tile::kStages;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < Tile::kStages; ++s) {
+        mbar_init(&full[s], kP);  // one cp.async arrival a producer thread
+        mbar_init(&empty[s], 2);  // one arrival a consumer warpgroup
       }
-    } else {
-      for (int i = threadIdx.x; i < kBN1 * (kKC1 / 8); i += kThreads1) {
-        const int r = i / (kKC1 / 8), c8 = (i % (kKC1 / 8)) * 8;
-        const int n = n0 + r;
-        uint2 v = make_uint2(0, 0);
-        if (n < inter && kc + c8 < h)
-          v = *reinterpret_cast<const uint2*>(w1t + (size_t)n * h + kc + c8);
-        *reinterpret_cast<uint2*>(Ws + r * WS + c8) = v;
-      }
+      mbar_init_fence();
     }
     __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kKC1; ks += 32) {
-      const int8_t* pa = Xq + (wm * 16 + g) * XS + kc + ks + tig * 4;
-      const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * XS), ld32(pa + 16),
-                             ld32(pa + 8 * XS + 16)};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int8_t* pb = Ws + (wn * 64 + nt * 8 + g) * WS + ks + tig * 4;
-        const uint32_t b[2] = {ld32(pb), ld32(pb + 16)};
-        mma_s8(acc[nt], a, b);
-      }
-    }
   }
+};
 
-  // Epilogue: dequant + bias + gelu -> h; row |h| maxima -> amax_h.
-  float rm[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wm * 16 + g + half * 8;
-      const int m = m0 + r;
-      const int col = n0 + wn * 64 + nt * 8 + tig * 2;
-      if (!kExact && col >= inter) continue;  // inter % 8: col + 1 < inter
-      float hv[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float y =
-            __fmaf_rn(__fmul_rn((float)acc[nt][half * 2 + j], sx[r]),
-                      s1[col + j], b1[col + j]);
-        hv[j] = gelu_tanh(y);
-        rm[half] = fmaxf(rm[half], fabsf(hv[j]));
-      }
-      if (m < m_rows && col < inter)
-        *reinterpret_cast<float2*>(hbuf + (size_t)m * inter + col) =
-            make_float2(hv[0], hv[1]);
-    }
+// GEMM1: h = gelu(fma(acc1 * sx, s1, b1)) f32 [M, I]; amax_h |= row max.
+template <bool kVec16>
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kCtas)
+ffn_gemm1(const int8_t* __restrict__ x_q, const int8_t* __restrict__ w1t,
+          const float* __restrict__ sx, const float* __restrict__ s1,
+          const float* __restrict__ b1, float* __restrict__ hbuf,
+          int* __restrict__ amax_h, int m, int inter, int h) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Ring ring(smem_raw);
+  const int wg = threadIdx.x >> 7;
+  const int m0 = blockIdx.y * kWgBM, n0 = blockIdx.x * kBN;
+  if (wg == 2) {
+    wgmma_produce<kVec16, kBN, kP>(ring.sa, ring.sb, ring.full, ring.empty,
+                                   x_q, m, w1t, inter, h, m0, n0,
+                                   threadIdx.x - 256);
+    return;
   }
+  int acc[kBN / 2];
+  wgmma_consume<kBN, kP>(acc, ring.sa, ring.sb, ring.full, ring.empty, h,
+                         wg);
+
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int row_base = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int col_base = n0 + (lane & 3) * 2;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    float v = rm[half];
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, 2));
-    if (tig == 0) atomicMax(&rmax[wm * 16 + g + half * 8], __float_as_int(v));
+    const int row = row_base + half * 8;
+    const bool live = row < m;
+    const float s = live ? sx[row] : 0.f;
+    float* hrow = hbuf + (size_t)row * inter;
+    float rmax = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = col_base + j * 8;
+      if (col >= inter) continue;  // inter % 8 == 0: col + 1 < inter too
+      const float v0 =
+          gelu_tanh(dequant(acc[4 * j + 2 * half], s, s1[col], b1[col]));
+      const float v1 = gelu_tanh(
+          dequant(acc[4 * j + 2 * half + 1], s, s1[col + 1], b1[col + 1]));
+      rmax = fmaxf(rmax, fmaxf(fabsf(v0), fabsf(v1)));
+      if (live) store2(hrow + col, v0, v1);
+    }
+    // the quad (lanes 4 g .. 4 g + 3) holds the row's kBN columns
+    rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, 1));
+    rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, 2));
+    if (live && (lane & 3) == 0) atomicMax(&amax_h[row], __float_as_int(rmax));
   }
-  __syncthreads();
-  if (threadIdx.x < kBM1 && m0 + threadIdx.x < m_rows)
-    atomicMax(&amax_h[m0 + threadIdx.x], rmax[threadIdx.x]);
+}
+
+// 3. h_q = clip(rint(h * (127 / amax_h))) int8 [M, I], 8 values a thread
+// (I % 8 == 0: a group never crosses a row).
+__global__ void __launch_bounds__(256)
+h_quant(const float* __restrict__ hbuf, const int* __restrict__ amax_h,
+        int8_t* __restrict__ h_q, size_t groups, int inter) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= groups) return;
+  const float inv = inv_of(__int_as_float(amax_h[i * 8 / inter]));
+  const float4 a = reinterpret_cast<const float4*>(hbuf)[2 * i];
+  const float4 b = reinterpret_cast<const float4*>(hbuf)[2 * i + 1];
+  char4 lo, hi;
+  lo.x = quant(a.x, inv);
+  lo.y = quant(a.y, inv);
+  lo.z = quant(a.z, inv);
+  lo.w = quant(a.w, inv);
+  hi.x = quant(b.x, inv);
+  hi.y = quant(b.y, inv);
+  hi.z = quant(b.z, inv);
+  hi.w = quant(b.w, inv);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  reinterpret_cast<uint2*>(h_q)[i] = packed;
+}
+
+// GEMM2: ff = bf16(fma(acc2 * scale_h, s2, b2) + x) over x in place.
+template <bool kVec16>
+__global__ void __launch_bounds__(Tile::kThreads, Tile::kCtas)
+ffn_gemm2(const int8_t* __restrict__ h_q, const int8_t* __restrict__ w2t,
+          const int* __restrict__ amax_h, const float* __restrict__ s2,
+          const float* __restrict__ b2, __nv_bfloat16* __restrict__ xff,
+          int m, int h, int inter) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Ring ring(smem_raw);
+  const int wg = threadIdx.x >> 7;
+  const int m0 = blockIdx.y * kWgBM, n0 = blockIdx.x * kBN;
+  if (wg == 2) {
+    wgmma_produce<kVec16, kBN, kP>(ring.sa, ring.sb, ring.full, ring.empty,
+                                   h_q, m, w2t, h, inter, m0, n0,
+                                   threadIdx.x - 256);
+    return;
+  }
+  int acc[kBN / 2];
+  wgmma_consume<kBN, kP>(acc, ring.sa, ring.sb, ring.full, ring.empty,
+                         inter, wg);
+
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int row_base = m0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int col_base = n0 + (lane & 3) * 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_base + half * 8;
+    if (row >= m) continue;
+    const float s = scale_of(__int_as_float(amax_h[row]));
+    __nv_bfloat16* xrow = xff + (size_t)row * h;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = col_base + j * 8;
+      if (col >= h) continue;  // h % 8 == 0: col + 1 < h too
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+          xrow + col);
+      const float v0 = __fadd_rn(
+          dequant(acc[4 * j + 2 * half], s, s2[col], b2[col]),
+          __low2float(x));
+      const float v1 = __fadd_rn(
+          dequant(acc[4 * j + 2 * half + 1], s, s2[col + 1], b2[col + 1]),
+          __high2float(x));
+      store2(xrow + col, v0, v1);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
-// Launch 2: requantize h + GEMM2 + residual + bf16 round + LN2 -> out.
+// 5. LN2 over ff (bf16, rounded by GEMM2's epilogue) -> out [M, H] bf16.
 // ---------------------------------------------------------------------------
-template <int HP, bool kExact>
-__global__ void __launch_bounds__(kThreads2)
-ffn_out(const float* __restrict__ hbuf, const int* __restrict__ amax_h,
-        const int8_t* __restrict__ w2t, const float* __restrict__ s2,
-        const float* __restrict__ b2, const __nv_bfloat16* __restrict__ xres,
-        const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-        float eps, int m_rows, int h_arg, int inter,
-        __nv_bfloat16* __restrict__ out) {
-  constexpr int HS = kKC2 + 16, WS = kKC2 + 16;
-  constexpr int kWarpN = HP / 8;      // columns per warp (8 column warps)
-  constexpr int kNT = kWarpN / 8;     // n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* Hq = reinterpret_cast<int8_t*>(smem);
-  int8_t* Ws = Hq + kBM2 * HS;
-  float* inv_h = reinterpret_cast<float*>(Ws + HP * WS);
-  float* scale_h = inv_h + kBM2;
-  float* red = scale_h + kBM2;        // [8 column warps][kBM2]
-  float* stat = red + 8 * kBM2;       // [kBM2]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int m0 = blockIdx.x * kBM2;
-  const int h = kExact ? HP : h_arg;
+template <int HP>
+__global__ void __launch_bounds__(kRowWarps * 32)
+ln2(const __nv_bfloat16* __restrict__ ff, const float* __restrict__ ln_s,
+    const float* __restrict__ ln_b, float eps, int m_rows, int h,
+    __nv_bfloat16* __restrict__ out) {
+  constexpr int kPer = HP / 32;
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (m >= m_rows) return;
   const float hf = (float)h;
-  const bool vec16 = kExact || (inter & 15) == 0;
-
-  if (threadIdx.x < kBM2) {
-    const int m = m0 + threadIdx.x;
-    const float amax = m < m_rows ? __int_as_float(amax_h[m]) : 0.f;
-    inv_h[threadIdx.x] = inv_of(amax);
-    scale_h[threadIdx.x] = scale_of(amax);
+  const __nv_bfloat16* row = ff + (size_t)m * h;
+  float x[kPer];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = i * 32 + lane;
+    x[i] = c < h ? __bfloat162float(row[c]) : 0.f;
+    sum = __fadd_rn(sum, x[i]);
   }
-
-  int acc[kNT][4];
+  const float mean = __fdiv_rn(warp_sum(sum), hf);
+  float sq = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[nt][j] = 0;
-
-  for (int kc = 0; kc < inter; kc += kKC2) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBM2 * (kKC2 / 4); i += kThreads2) {
-      const int r = i / (kKC2 / 4), c4 = (i % (kKC2 / 4)) * 4;
-      const int m = m0 + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m < m_rows && (kExact || kc + c4 < inter))
-        v = *reinterpret_cast<const float4*>(hbuf + (size_t)m * inter + kc + c4);
-      const float inv = inv_h[r];
-      char4 q;
-      q.x = quant(v.x, inv);
-      q.y = quant(v.y, inv);
-      q.z = quant(v.z, inv);
-      q.w = quant(v.w, inv);
-      *reinterpret_cast<char4*>(Hq + r * HS + c4) = q;
-    }
-    if (vec16) {
-      for (int i = threadIdx.x; i < HP * (kKC2 / 16); i += kThreads2) {
-        const int r = i / (kKC2 / 16), c16 = (i % (kKC2 / 16)) * 16;
-        uint4 v = make_uint4(0, 0, 0, 0);
-        if (kExact || (r < h && kc + c16 < inter))
-          v = *reinterpret_cast<const uint4*>(w2t + (size_t)r * inter + kc + c16);
-        *reinterpret_cast<uint4*>(Ws + r * WS + c16) = v;
-      }
-    } else {
-      for (int i = threadIdx.x; i < HP * (kKC2 / 8); i += kThreads2) {
-        const int r = i / (kKC2 / 8), c8 = (i % (kKC2 / 8)) * 8;
-        uint2 v = make_uint2(0, 0);
-        if (r < h && kc + c8 < inter)
-          v = *reinterpret_cast<const uint2*>(w2t + (size_t)r * inter + kc + c8);
-        *reinterpret_cast<uint2*>(Ws + r * WS + c8) = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kKC2; ks += 32) {
-      const int8_t* pa = Hq + (wm * 16 + g) * HS + ks + tig * 4;
-      const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * HS), ld32(pa + 16),
-                             ld32(pa + 8 * HS + 16)};
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int8_t* pb = Ws + (wn * kWarpN + nt * 8 + g) * WS + ks + tig * 4;
-        const uint32_t b[2] = {ld32(pb), ld32(pb + 16)};
-        mma_s8(acc[nt], a, b);
-      }
+  for (int i = 0; i < kPer; ++i) {
+    if (i * 32 + lane < h) {
+      const float dlt = __fsub_rn(x[i], mean);
+      sq = __fadd_rn(sq, __fmul_rn(dlt, dlt));
     }
   }
-
-  // ff = bf16(fma(acc * scale_h, s2, b2) + x), kept in registers; 0 in
-  // the padded columns, which no statistic reads.
-  float ff[kNT][4];
-  float part[2] = {0.f, 0.f};
+  const float var = __fdiv_rn(warp_sum(sq), hf);
+  const float rs = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
 #pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int half = j >> 1;
-      const int r = wm * 16 + g + half * 8;
-      const int m = m0 + r;
-      const int col = wn * kWarpN + nt * 8 + tig * 2 + (j & 1);
-      ff[nt][j] = 0.f;
-      if (kExact || col < h) {
-        const float x =
-            m < m_rows ? __bfloat162float(xres[(size_t)m * h + col]) : 0.f;
-        const float v = __fadd_rn(
-            __fmaf_rn(__fmul_rn((float)acc[nt][j], scale_h[r]), s2[col],
-                      b2[col]),
-            x);
-        ff[nt][j] = __bfloat162float(__float2bfloat16_rn(v));
-        part[half] += ff[nt][j];
-      }
-    }
-  }
-
-  // Row statistics over the h columns spread across 8 column warps:
-  // quad shuffle, then a fixed-order sum over the column warps.
-  auto row_reduce = [&](float p0, float p1) {
-    float p[2] = {p0, p1};
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float v = p[half];
-      v += __shfl_xor_sync(kFull, v, 1);
-      v += __shfl_xor_sync(kFull, v, 2);
-      if (tig == 0) red[wn * kBM2 + wm * 16 + g + half * 8] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < kBM2) {
-      float s = 0.f;
-      for (int w = 0; w < 8; ++w) s += red[w * kBM2 + threadIdx.x];
-      stat[threadIdx.x] = __fdiv_rn(s, hf);
-    }
-    __syncthreads();
-  };
-  row_reduce(part[0], part[1]);
-  const float mean0 = stat[wm * 16 + g], mean1 = stat[wm * 16 + g + 8];
-  float sq[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int half = j >> 1;
-      if (kExact || wn * kWarpN + nt * 8 + tig * 2 + (j & 1) < h) {
-        const float d = __fsub_rn(ff[nt][j], half ? mean1 : mean0);
-        sq[half] = __fadd_rn(sq[half], __fmul_rn(d, d));
-      }
-    }
-  __syncthreads();
-  row_reduce(sq[0], sq[1]);
-  const float rs0 = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(stat[wm * 16 + g], eps)));
-  const float rs1 =
-      __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(stat[wm * 16 + g + 8], eps)));
-
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 16 + g + half * 8;
-      const int col = wn * kWarpN + nt * 8 + tig * 2;
-      if (m >= m_rows || (!kExact && col >= h)) continue;  // h % 8 == 0
-      const float mean = half ? mean1 : mean0, rs = half ? rs1 : rs0;
-      __nv_bfloat162 pair;
-      pair.x = __float2bfloat16_rn(__fadd_rn(
-          __fmul_rn(__fmul_rn(__fsub_rn(ff[nt][half * 2], mean), rs), ln_s[col]),
-          ln_b[col]));
-      pair.y = __float2bfloat16_rn(__fadd_rn(
-          __fmul_rn(__fmul_rn(__fsub_rn(ff[nt][half * 2 + 1], mean), rs),
-                    ln_s[col + 1]),
-          ln_b[col + 1]));
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * h + col) = pair;
-    }
+  for (int i = 0; i < kPer; ++i) {
+    const int c = i * 32 + lane;
+    if (c < h)
+      out[(size_t)m * h + c] = __float2bfloat16_rn(__fadd_rn(
+          __fmul_rn(__fmul_rn(__fsub_rn(x[i], mean), rs), ln_s[c]), ln_b[c]));
   }
 }
 
-template <int HP, bool kExact>
-cudaError_t launch(const void* pre, const void* w1t, const void* s1,
-                   const void* b1, const void* w2t, const void* s2,
-                   const void* b2, const void* ln1_s, const void* ln1_b,
-                   const void* ln2_s, const void* ln2_b, float eps, int m,
-                   int h, int inter, void* xres, void* hbuf, void* amax,
-                   void* out, cudaStream_t stream) {
-  const size_t bytes1 =
-      (size_t)kBM1 * (HP + 16) + (size_t)kBN1 * (kKC1 + 16) + kBM1 * 8;
-  const size_t bytes2 = (size_t)kBM2 * (kKC2 + 16) + (size_t)HP * (kKC2 + 16) +
-                        (size_t)kBM2 * 4 * 11;
+// ---------------------------------------------------------------------------
+// Launches.
+// ---------------------------------------------------------------------------
+
+// The ring's shared memory, asked for once a process (a static's
+// initializer runs once, thread-safely; the port drives one card a
+// process).
+template <typename Kernel>
+cudaError_t ring_smem(Kernel kernel) {
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_in<HP, kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes1);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      ffn_out<HP, kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes2);
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <bool kVec16>
+cudaError_t launch_gemms(const int8_t* x_q, const int8_t* w1t,
+                         const float* sx, const float* s1, const float* b1,
+                         float* hbuf, int* amax_h, int8_t* h_q,
+                         const int8_t* w2t, const float* s2, const float* b2,
+                         __nv_bfloat16* xff, int m, int h, int inter,
+                         cudaStream_t st) {
+  static const cudaError_t ready = ring_smem(ffn_gemm1<kVec16>);
+  if (ready != cudaSuccess) return ready;
+  const int row_tiles = (m + kWgBM - 1) / kWgBM;
+  ffn_gemm1<kVec16><<<dim3((inter + kBN - 1) / kBN, row_tiles),
+                      Tile::kThreads, Tile::kSmem, st>>>(
+      x_q, w1t, sx, s1, b1, hbuf, amax_h, m, inter, h);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid1((inter + kBN1 - 1) / kBN1, (m + kBM1 - 1) / kBM1);
-  ffn_in<HP, kExact><<<grid1, kThreads1, bytes1, stream>>>(
-      static_cast<const __nv_bfloat16*>(pre), static_cast<const int8_t*>(w1t),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const float*>(ln1_s), static_cast<const float*>(ln1_b), eps,
-      m, h, inter, static_cast<__nv_bfloat16*>(xres),
-      static_cast<float*>(hbuf), static_cast<int*>(amax));
+
+  const size_t groups = (size_t)m * inter / 8;
+  h_quant<<<(unsigned)((groups + 255) / 256), 256, 0, st>>>(hbuf, amax_h, h_q,
+                                                            groups, inter);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ffn_out<HP, kExact><<<(m + kBM2 - 1) / kBM2, kThreads2, bytes2, stream>>>(
-      static_cast<const float*>(hbuf), static_cast<const int*>(amax),
-      static_cast<const int8_t*>(w2t), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(xres),
-      static_cast<const float*>(ln2_s), static_cast<const float*>(ln2_b), eps,
-      m, h, inter, static_cast<__nv_bfloat16*>(out));
+
+  // GEMM2's K is inter: 16-byte copies where inter % 16 == 0
+  if (inter % 16 == 0) {
+    static const cudaError_t ready2 = ring_smem(ffn_gemm2<true>);
+    if (ready2 != cudaSuccess) return ready2;
+    ffn_gemm2<true><<<dim3((h + kBN - 1) / kBN, row_tiles), Tile::kThreads,
+                      Tile::kSmem, st>>>(h_q, w2t, amax_h, s2, b2, xff, m, h,
+                                         inter);
+  } else {
+    static const cudaError_t ready2 = ring_smem(ffn_gemm2<false>);
+    if (ready2 != cudaSuccess) return ready2;
+    ffn_gemm2<false><<<dim3((h + kBN - 1) / kBN, row_tiles), Tile::kThreads,
+                       Tile::kSmem, st>>>(h_q, w2t, amax_h, s2, b2, xff, m, h,
+                                          inter);
+  }
   return cudaGetLastError();
+}
+
+template <int HP>
+cudaError_t launch_rows(const __nv_bfloat16* pre, const float* ln1_s,
+                        const float* ln1_b, const float* ln2_s,
+                        const float* ln2_b, float eps, int m, int h,
+                        __nv_bfloat16* xres, int8_t* x_q, float* sx,
+                        int* amax_h, __nv_bfloat16* out, bool first,
+                        cudaStream_t st) {
+  const int blocks = (m + kRowWarps - 1) / kRowWarps;
+  if (first)
+    ln1_quant<HP><<<blocks, kRowWarps * 32, 0, st>>>(
+        pre, ln1_s, ln1_b, eps, m, h, xres, x_q, sx, amax_h);
+  else
+    ln2<HP><<<blocks, kRowWarps * 32, 0, st>>>(xres, ln2_s, ln2_b, eps, m, h,
+                                               out);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rows_hp(const __nv_bfloat16* pre, const float* ln1_s,
+                           const float* ln1_b, const float* ln2_s,
+                           const float* ln2_b, float eps, int m, int h,
+                           __nv_bfloat16* xres, int8_t* x_q, float* sx,
+                           int* amax_h, __nv_bfloat16* out, bool first,
+                           cudaStream_t st) {
+#define INT8_FFN_ROWS(HP)                                                   \
+  case HP:                                                                  \
+    return launch_rows<HP>(pre, ln1_s, ln1_b, ln2_s, ln2_b, eps, m, h,      \
+                           xres, x_q, sx, amax_h, out, first, st);
+  switch ((h + 127) / 128 * 128) {
+    INT8_FFN_ROWS(128)
+    INT8_FFN_ROWS(256)
+    INT8_FFN_ROWS(384)
+    INT8_FFN_ROWS(512)
+    INT8_FFN_ROWS(640)
+    INT8_FFN_ROWS(768)
+    INT8_FFN_ROWS(896)
+    INT8_FFN_ROWS(1024)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef INT8_FFN_ROWS
 }
 
 }  // namespace
 
 // pre [m, h] bf16; w1t [inter, h] int8; w2t [h, inter] int8; s1, b1
-// [inter] f32; s2, b2, ln1_*, ln2_* [h] f32.  Scratch: xres [m, h] bf16,
-// hbuf [m, inter] f32, amax [m] int32 zeroed.  out [m, h] bf16.
-// Requires h % 8 == 0, h <= 1024, inter % 8 == 0, inter <= 4096.
+// [inter] f32; s2, b2, ln1_*, ln2_* [h] f32.  Scratch: xres [m, h] bf16
+// (the residual, then ff), x_q [m, h] int8, sx [m] f32, amax [m] int32,
+// hbuf [m, inter] f32, h_q [m, inter] int8, each 16-byte aligned.  out
+// [m, h] bf16.  Requires m > 0, h % 8 == 0, h <= 1024, inter % 8 == 0,
+// inter <= 4096.
 extern "C" int int8_ffn_ln(const void* pre, const void* w1t, const void* s1,
                            const void* b1, const void* w2t, const void* s2,
                            const void* b2, const void* ln1_s,
                            const void* ln1_b, const void* ln2_s,
                            const void* ln2_b, float eps, int m, int h,
-                           int inter, void* xres, void* hbuf, void* amax,
-                           void* out, void* stream) {
-  if (h <= 0 || h % 8 || h > kMaxH || inter <= 0 || inter % 8 ||
+                           int inter, void* xres, void* x_q, void* sx,
+                           void* amax, void* hbuf, void* h_q, void* out,
+                           void* stream) {
+  if (m <= 0 || h <= 0 || h % 8 || h > kMaxH || inter <= 0 || inter % 8 ||
       inter > kMaxI)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define INT8_FFN_LN_CASE(HP)                                                \
-  case HP:                                                                  \
-    return h == HP && inter % kBN1 == 0                                     \
-               ? (int)launch<HP, true>(pre, w1t, s1, b1, w2t, s2, b2,       \
-                                       ln1_s, ln1_b, ln2_s, ln2_b, eps, m,  \
-                                       h, inter, xres, hbuf, amax, out, st) \
-               : (int)launch<HP, false>(pre, w1t, s1, b1, w2t, s2, b2,      \
-                                        ln1_s, ln1_b, ln2_s, ln2_b, eps, m, \
-                                        h, inter, xres, hbuf, amax, out, st);
-  switch ((h + 127) / 128 * 128) {
-    INT8_FFN_LN_CASE(128)
-    INT8_FFN_LN_CASE(256)
-    INT8_FFN_LN_CASE(384)
-    INT8_FFN_LN_CASE(512)
-    INT8_FFN_LN_CASE(640)
-    INT8_FFN_LN_CASE(768)
-    INT8_FFN_LN_CASE(896)
-    INT8_FFN_LN_CASE(1024)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef INT8_FFN_LN_CASE
+  auto* xr = static_cast<__nv_bfloat16*>(xres);
+  auto* xq = static_cast<int8_t*>(x_q);
+  auto* sxf = static_cast<float*>(sx);
+  auto* am = static_cast<int*>(amax);
+  const auto* ln1s = static_cast<const float*>(ln1_s);
+  const auto* ln1b = static_cast<const float*>(ln1_b);
+  const auto* ln2s = static_cast<const float*>(ln2_s);
+  const auto* ln2b = static_cast<const float*>(ln2_b);
+
+  cudaError_t err =
+      launch_rows_hp(static_cast<const __nv_bfloat16*>(pre), ln1s, ln1b, ln2s,
+                     ln2b, eps, m, h, xr, xq, sxf, am, nullptr, true, st);
+  if (err != cudaSuccess) return (int)err;
+  // GEMM1's K is h: 16-byte copies where h % 16 == 0
+  err = (h % 16 == 0 ? launch_gemms<true> : launch_gemms<false>)(
+      xq, static_cast<const int8_t*>(w1t), sxf, static_cast<const float*>(s1),
+      static_cast<const float*>(b1), static_cast<float*>(hbuf), am,
+      static_cast<int8_t*>(h_q), static_cast<const int8_t*>(w2t),
+      static_cast<const float*>(s2), static_cast<const float*>(b2), xr, m, h,
+      inter, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_rows_hp(nullptr, ln1s, ln1b, ln2s, ln2b, eps, m, h, xr,
+                             nullptr, nullptr, nullptr,
+                             static_cast<__nv_bfloat16*>(out), false, st);
 }

@@ -3,8 +3,9 @@
 // mma.sync product, its fragment loads, the activation quantizer, the
 // tanh-gelu with every rounding written out, warp reductions, the
 // cp.async copies that stage int8 tiles, the mma.sync main loop of an int8
-// x int8 tile (gemm_s8_tile; int8_gemm.cu has its wgmma loop in
-// int8_wgmma.cuh), and the f32 epilogue of the JAX package's int8 kernels.
+// x int8 tile (gemm_s8_tile; int8_gemm.cu and int8_ffn_ln.cu have their
+// wgmma loop in int8_wgmma.cuh), and the f32 epilogue of the JAX package's
+// int8 kernels.
 // Only helpers live here; each kernel keeps its own body and epilogue (a
 // whole kernel body in a header made a kernel spill).
 #pragma once

@@ -39,7 +39,9 @@ MAX_HIDDEN, MAX_INTERMEDIATE = 1024, 4096
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 11 + [ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P]
+_ARGTYPES = [_P] * 11 + [ctypes.c_float, _I, _I, _I] + [_P] * 8
+# Bytes each scratch buffer starts on (cp.async and vector loads need 16).
+_ALIGN = 256
 
 
 def _div(a, b):
@@ -132,6 +134,21 @@ def int8_ffn_ln_plain(
     return out.to(out_dtype)
 
 
+def _scratch(m: int, h: int, inter: int, device):
+    """One byte buffer holding the kernel's scratch, and the address of
+    each part: the bf16 residual (then ``ff``) ``[m, h]``, ``x_q [m, h]``
+    int8, ``sx [m]`` f32, the ``amax_h [m]`` words, ``h [m, inter]`` f32
+    and ``h_q [m, inter]`` int8."""
+    sizes = (2 * m * h, m * h, 4 * m, 4 * m, 4 * m * inter, m * inter)
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += -(-size // _ALIGN) * _ALIGN
+    work = torch.empty((total + _ALIGN,), dtype=torch.uint8, device=device)
+    base = -(-work.data_ptr() // _ALIGN) * _ALIGN
+    return work, [base + off for off in offsets]
+
+
 def _fn():
     fn = _build.library("int8_ffn_ln").int8_ffn_ln
     if fn.argtypes is None:
@@ -186,19 +203,15 @@ def int8_ffn_ln(
         if t.shape != (n,) or t.device != pre.device:
             raise ValueError("scale/bias vectors have the wrong shape")
         vecs.append(t.to(torch.float32).contiguous())
-    dev = pre.device
-    xres = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
-    hbuf = torch.empty((m, inter), dtype=torch.float32, device=dev)
-    amax = torch.zeros((m,), dtype=torch.int32, device=dev)
-    out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     s1f, b1f, s2f, b2f, l1s, l1b, l2s, l2b = vecs
+    work, ptrs = _scratch(m, h, inter, pre.device)  # alive until enqueued
+    out = torch.empty((m, h), dtype=torch.bfloat16, device=pre.device)
     code = _fn()(
         pre.data_ptr(), w1_q.data_ptr(), s1f.data_ptr(), b1f.data_ptr(),
         w2_q.data_ptr(), s2f.data_ptr(), b2f.data_ptr(),
         l1s.data_ptr(), l1b.data_ptr(), l2s.data_ptr(), l2b.data_ptr(),
-        float(eps), m, h, inter,
-        xres.data_ptr(), hbuf.data_ptr(), amax.data_ptr(), out.data_ptr(),
-        _build.stream_ptr(dev),
+        float(eps), m, h, inter, *ptrs, out.data_ptr(),
+        _build.stream_ptr(pre.device),
     )
     _build.check(code, "int8_ffn_ln")
     _build.LAUNCHES["int8_ffn_ln"] += 1
