@@ -5,12 +5,13 @@
 Phases, each printing its numbers on its own line:
   1. build the CUDA kernels from ``tpu_search_torch/csrc`` (one ``nvcc``
      per source, all started together), print the registers and spills
-     ptxas reports for the four kernels redesigned for Hopper
-     (``mpnet_attention``, ``int8_gemm``, ``int8_ffn_ln``,
-     ``flash_attention``), check in their SASS that the int8 products
-     (``int8_gemm``, both GEMMs of ``int8_ffn_ln``) are wgmma's alone and
-     that ``flash_attention``'s q k^T issues wgmma, and print the card's
-     name and power limit;
+     ptxas reports for the five kernels redesigned for Hopper
+     (``mpnet_attention``, ``mpnet_attention_bhsd``, ``int8_gemm``,
+     ``int8_ffn_ln``, ``flash_attention``), check in their SASS that the
+     int8 products (``int8_gemm``, both GEMMs of ``int8_ffn_ln``, which
+     ``int8_ffn_fused`` runs too) are wgmma's alone and that
+     ``flash_attention``'s and ``mpnet_attention_bhsd``'s q k^T issue
+     wgmma, and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it (max error, kernel and plain times,
      the least time the card could take, and where one PyTorch call
@@ -63,12 +64,14 @@ width, the int8 FFN through its gate) run through
 ``flash_attention``: its embeddings against the same weights on the CPU in
 the flash mode (cosine > 0.999), its time beside the default mode's.
 The ``[B, S, H]`` attention prints its shared memory and SDPA's time at
-every shape, the flash kernel its shared memory, CTAs a multiprocessor
-and SDPA's time; ``int8_gemm`` prints TOP/s, ``torch._int_mm``'s time and
-both of its tiles' times at the bench's two shapes; ``int8_ffn_ln`` at
-H 768 prints its effective TOP/s, each of its launches' device time
-(torch.profiler) and, as yardsticks it never calls, the port's bf16 FFN
-half on the same inputs and ``torch._int_mm`` of its two products.  The
+every shape, the flash and ``[B, heads, S, hd]`` kernels their shared
+memory, CTAs a multiprocessor and SDPA's time; ``int8_gemm`` prints
+TOP/s, ``torch._int_mm``'s time and both of its tiles' times at the
+bench's two shapes, ``int8_ffn_fused`` its TOP/s and each of its
+launches' device time (torch.profiler) at the bench's shape;
+``int8_ffn_ln`` at H 768 prints its effective TOP/s, each of its
+launches' device time and, as yardsticks it never calls, the port's bf16
+FFN half on the same inputs and ``torch._int_mm`` of its two products.  The
 rerank paths also hold the card's logits against the card's own with the
 plain attention in place of the kernels, on the same pairs.
 Phase 2 also holds the ``[B, heads, S, hd]`` kernel against its plain
@@ -125,7 +128,7 @@ ROOT = Path(__file__).resolve().parent
 #    first-index ties: scores and ids identical, gate 0.
 #  ivf_topk: as flat_topk; ivf_topk_int8, ivf_topk_int4: as the flat
 #    int8 / int4 scans, the per-probe bias one more written-out add.
-#  mpnet_attention_bhsd: as mpnet_attention (the same tile code).
+#  mpnet_attention_bhsd: as mpnet_attention (the same two-pass loop).
 #  flash_attention: as mpnet_attention: the same products, the same bf16
 #    rounding of p at the same step (the stock kernel's 128-key blocks);
 #    the running sum adds in another order.
@@ -195,7 +198,7 @@ SOURCES = {
                     "tpu_search/ops/pallas_int8_gemm.py:158"),
     "int8_ffn_out": ("tpu_search_torch/csrc/int8_ffn_out.cu",
                      "tpu_search/ops/pallas_int8_gemm.py:275"),
-    "int8_ffn_fused": ("tpu_search_torch/csrc/int8_ffn_fused.cu",
+    "int8_ffn_fused": ("tpu_search_torch/csrc/int8_ffn_ln.cu",
                        "tpu_search/ops/pallas_int8_gemm.py:578"),
     "flash_attention": ("tpu_search_torch/csrc/flash_attention.cu",
                         "tpu_search/models/mpnet.py:262 (jax.experimental."
@@ -335,8 +338,10 @@ def short_kernel_name(name: str) -> str:
 # prints, and for each the kernels (by name) whose SASS must multiply with
 # wgmma (GMMA), and whether any mma.sync int8 product (IMMA) in the source
 # fails the build: the int8 products must be wgmma's alone.
-REDESIGNED = ("mpnet_attention", "int8_gemm", "int8_ffn_ln", "flash_attention")
+REDESIGNED = ("mpnet_attention", "mpnet_attention_bhsd", "int8_gemm",
+              "int8_ffn_ln", "flash_attention")
 SASS_RULES = {
+    "mpnet_attention_bhsd": (("attention_bhsd_kernel",), False),
     "int8_gemm": (("gemm_kernel",), True),
     "int8_ffn_ln": (("ffn_gemm1", "ffn_gemm2"), True),
     "flash_attention": (("flash_kernel",), False),
@@ -764,7 +769,8 @@ def check_attention_bhsd(results: dict) -> None:
     """The ``[B, heads, S, hd]`` kernel at B 128 over the reranker's
     buckets, at the TinyBERT-L-4 cross-encoder's width (H 312, 12 heads of
     26: padded head columns) and the tiny-overlap reranker's (H 64, 2 heads
-    of 32)."""
+    of 32), with its shared memory and CTAs a multiprocessor (the same at
+    every S: its scores stay in registers)."""
     import torch
 
     from tpu_search_torch.ops.mpnet_attention import (
@@ -798,7 +804,8 @@ def check_attention_bhsd(results: dict) -> None:
             lib = sdpa_ms(q, k, v, bias, mask, scale)
             print(f"[mpnet_attention_bhsd] B={b} S={s} H={h} heads={nh} "
                   f"hd={hd} {format_errors(errors)} kernel_ms={kms:.4f} "
-                  f"plain_ms={pms:.4f} sdpa_ms={lib:.4f}", flush=True)
+                  f"plain_ms={pms:.4f} sdpa_ms={lib:.4f} "
+                  f"{occupancy('mpnet_attention_bhsd', hd)}", flush=True)
             if not attention_ok(errors, "mpnet_attention_bhsd"):
                 fail(f"mpnet_attention_bhsd disagrees at S={s} H={h}")
             worst = max(worst, errors["max_abs_err"])
@@ -853,20 +860,21 @@ def flash_sdpa_ms(q, k, v, ab, seg, scale) -> float:
         q, k, v, attn_mask=add, scale=scale))
 
 
-def flash_occupancy(hd: int) -> str:
-    """The flash kernel's dynamic shared memory and CTAs a multiprocessor
-    at head size ``hd``."""
+def occupancy(name: str, hd: int) -> str:
+    """The dynamic shared memory and CTAs a multiprocessor of attention
+    kernel ``name`` (``flash_attention`` or ``mpnet_attention_bhsd``) at
+    head size ``hd``, from its ``<name>_occupancy`` export."""
     import ctypes
 
     from tpu_search_torch.ops import _build
 
-    fn = _build.library("flash_attention").flash_attention_occupancy
+    fn = getattr(_build.library(name), f"{name}_occupancy")
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     nbytes = ctypes.c_int(0)
     ctas = fn(hd, ctypes.byref(nbytes))
     if ctas <= 0:
-        fail(f"flash_attention cannot run at hd={hd}: code {-ctas}")
+        fail(f"{name} cannot run at hd={hd}: code {-ctas}")
     return f"smem_bytes={nbytes.value} ctas_per_sm={ctas}"
 
 
@@ -908,7 +916,8 @@ def check_flash_attention(results: dict) -> None:
         print(f"[flash_attention] B={b} S={s} H={h} heads={nh} hd={hd} "
               f"{format_errors(errors)} kernel_ms={kms:.4f} "
               f"plain_ms={pms:.4f} bound_ms={bound_ms:.4f} ({by}) "
-              f"sdpa_ms={lib:.4f} {flash_occupancy(hd)}", flush=True)
+              f"sdpa_ms={lib:.4f} {occupancy('flash_attention', hd)}",
+              flush=True)
         if not attention_ok(errors, "flash_attention"):
             fail(f"flash_attention disagrees at S={s} H={h}")
         worst = max(worst, errors["max_abs_err"])
@@ -1151,32 +1160,31 @@ def kernel_split(rows) -> list:
                   key=lambda r: -r[1])
 
 
-def ffn_launch_split(tag: str, args, calls: int = 5) -> None:
-    """The device time of each launch of ``int8_ffn_ln`` (torch.profiler,
-    as ``device_breakdown``), over ``calls`` calls: each kernel's mean, its
-    share of their sum (one call: each kernel launches once) and the
-    launches recorded."""
+def launch_split(name: str, tag: str, call, calls: int = 5) -> None:
+    """The device time of each launch of ``call()``, a call of kernel
+    ``name``'s wrapper (torch.profiler, as ``device_breakdown``), over
+    ``calls`` calls: each kernel's mean, its share of their sum (one call:
+    each kernel launches once) and the launches recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_search_torch.ops.int8_ffn import int8_ffn_ln
     from tpu_search_torch.utils.device_profile import (
         _by_kernel,
         _device_events,
     )
 
-    int8_ffn_ln(*args)
+    call()
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         for _ in range(calls):
-            int8_ffn_ln(*args)
+            call()
         torch.cuda.synchronize()
     split = kernel_split(_by_kernel(_device_events(prof)))
     total = sum(ms for _, ms, _ in split)
-    print(f"[int8_ffn_ln] launches {tag} calls={calls} device_ms={total:.4f} "
-          + " ".join(f"{name}={ms:.4f}({ms / total:.1%},n={n})"
-                     for name, ms, n in split), flush=True)
+    print(f"[{name}] launches {tag} calls={calls} device_ms={total:.4f} "
+          + " ".join(f"{kernel}={ms:.4f}({ms / total:.1%},n={n})"
+                     for kernel, ms, n in split), flush=True)
 
 
 def ffn_yardsticks(args, w1, w2) -> str:
@@ -1271,7 +1279,8 @@ def check_int8_ffn(results: dict) -> None:
             if h == 768:
                 print(f"[int8_ffn_ln] M={m} H={h} I={inter} yardsticks: "
                       f"{ffn_yardsticks(args, w1, w2)}", flush=True)
-                ffn_launch_split(f"M={m} H={h} I={inter}", args)
+                launch_split("int8_ffn_ln", f"M={m} H={h} I={inter}",
+                             lambda: int8_ffn_ln(*args))
             if (m, h) == (128 * 384, 768):
                 # input and output rows, int8 weights and their scales read
                 # once; the two W8A8 products at the int8 rate
@@ -1446,8 +1455,7 @@ def int8_planted_cases(t, kind):
 def int8_family_bound(name, m, h, inter):
     """``(bound_ms, bound_by)`` of one call at (M, H, I) with bf16 output
     and residual: each input read once, each output written once; the
-    products' operations (for the fused kernel, the function's two GEMMs:
-    its recomputation is not the function's work)."""
+    products' operations (for the fused FFN, both GEMMs)."""
     ops = 2 * m * h * inter
     if name in ("int8_gemm", "int8_ffn_in"):  # ffn_in's shape
         nbytes = m * h + inter * h + 4 * (m + 2 * inter) + 2 * m * inter
@@ -1578,6 +1586,10 @@ def check_int8_gemm(results: dict) -> None:
                             line += (f" tops={2 * m * h * inter / kms / 1e9:.1f}"
                                      f" int_mm_tops="
                                      f"{2 * m * h * inter / lib / 1e9:.1f}")
+                        if name == "int8_ffn_fused":
+                            line += f" tops={4 * m * h * inter / kms / 1e9:.1f}"
+                            launch_split(name, f"M={m} H={h} I={inter}",
+                                         kernel)
                         results[name] = {"ms": kms, "plain_ms": pms,
                                          "bound_ms": bound_ms, "bound_by": by,
                                          "library_ms": lib}
@@ -2641,7 +2653,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     built = _build.build_all(verbose=True)
-    print(f"[build] kernels={list(_build.KERNELS)} "
+    print(f"[build] sources={list(_build.LIBRARIES)} "
           f"seconds={time.perf_counter() - t0:.2f}", flush=True)
     check_build(built["logs"])
     smi = subprocess.run(

@@ -1,6 +1,10 @@
-"""The arithmetic of ``csrc/mpnet_attention.cu``'s two-pass loop, modelled
-block by block on the CPU, against the JAX package's layout-native Pallas
-kernel ``mpnet_flash_attention_nsh`` in interpret mode.
+"""The arithmetic of the two-pass loop of ``csrc/mpnet_attention.cu`` and
+``csrc/mpnet_attention_bhsd.cu``, modelled block by block on the CPU,
+against the JAX package's Pallas kernels in interpret mode: the
+layout-native ``mpnet_flash_attention_nsh`` (``[B, S, H]``) and
+``mpnet_flash_attention`` (``[B, heads, S, hd]``, where the model pads
+head columns with zeros to a multiple of 16, as the kernel does in shared
+memory: hd 26 and 13 as TinyBERT's and an odd head size run it).
 
 The kernel walks 64-key tiles twice.  Pass 1 keeps each row's running max
 ``m`` and its sum ``l`` of ``exp(s - m)``, rescaled whenever ``m`` grows;
@@ -24,18 +28,23 @@ import pytest
 import torch
 
 from chip_smoke import attention_ok, bf16_errors
-from tpu_search.ops.pallas_mpnet_attention import mpnet_flash_attention_nsh
+from tpu_search.ops.pallas_mpnet_attention import (
+    mpnet_flash_attention,
+    mpnet_flash_attention_nsh,
+)
 
 NEG = float(np.finfo(np.float32).min)
 TILE = 64  # the kernel's keys per tile
 
 
-def inputs(seed, b, s, h, nh, pad_value):
-    """bf16-representable q, k, v ``[B, S, H]``, a ``[heads, S, S]`` bias,
-    and a key mask with random lengths (row 0 full, row 1 fully padded)."""
+def inputs(seed, b, s, h, nh, pad_value, shape=None):
+    """bf16-representable q, k, v of ``shape`` (default ``[B, S, H]``), a
+    ``[heads, S, S]`` bias, and a key mask with random lengths (row 0 full,
+    row 1 fully padded)."""
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h)).astype(
-        np.float32)).to(torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape or (b, s, h))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
     bias = (0.5 * rng.standard_normal((nh, s, s))).astype(np.float32)
     lengths = rng.integers(1, s + 1, size=b)
     lengths[0] = s
@@ -54,9 +63,25 @@ def jax_reference(q, k, v, bias, mask, nh, scale):
     return torch.from_numpy(np.array(out.astype(jnp.float32)))
 
 
+def jax_reference_bhsd(q, k, v, bias, mask, scale):
+    out = mpnet_flash_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)),
+        jnp.asarray(bias.numpy()), jnp.asarray(mask.numpy()), scale=scale,
+        interpret=True)
+    return torch.from_numpy(np.array(out.astype(jnp.float32)))
+
+
 def _heads(t, nh):
     b, s, h = t.shape
     return t.float().reshape(b, s, nh, h // nh).transpose(1, 2)
+
+
+def _padded(t):
+    """f32 ``[B, heads, S, hd]`` with head columns zero-padded to a
+    multiple of 16, as the kernel stages them."""
+    hd = t.shape[-1]
+    return torch.nn.functional.pad(t.float(), (0, -hd % 16))
 
 
 def _tile_scores(qf, kf, bias, mask, scale, t):
@@ -67,11 +92,10 @@ def _tile_scores(qf, kf, bias, mask, scale, t):
     return s + mask[:, None, None, keys]
 
 
-def two_pass(q, k, v, bias, mask, nh, scale):
-    """The kernel's order: pass 1 online m and l, pass 2 p = bf16(exp(s -
-    m) / l), P V in f32."""
-    qf, kf, vf = (_heads(t, nh) for t in (q, k, v))
-    b, _, s, _ = qf.shape
+def _two_pass_heads(qf, kf, vf, bias, mask, scale):
+    """The kernel's order over f32 ``[B, heads, S, hd]``: pass 1 online m
+    and l, pass 2 p = bf16(exp(s - m) / l), P V in f32."""
+    b, nh, s, _ = qf.shape
     m = torch.full((b, nh, s), float("-inf"))
     l = torch.zeros((b, nh, s))
     for t in range(s // TILE):
@@ -87,7 +111,21 @@ def two_pass(q, k, v, bias, mask, nh, scale):
         p = torch.exp(sc - m[..., None]) / l[..., None]
         p = torch.where(safe, p, torch.tensor(1.0 / s, dtype=torch.float32))
         o = o + p.to(torch.bfloat16).float() @ vf[:, :, t * TILE:(t + 1) * TILE]
+    return o
+
+
+def two_pass(q, k, v, bias, mask, nh, scale):
+    """The ``[B, S, H]`` kernel's loop."""
+    o = _two_pass_heads(*(_heads(t, nh) for t in (q, k, v)), bias, mask,
+                        scale)
     return o.transpose(1, 2).reshape(q.shape).to(torch.bfloat16)
+
+
+def two_pass_bhsd(q, k, v, bias, mask, scale):
+    """The ``[B, heads, S, hd]`` kernel's loop over zero-padded head
+    columns; the output's padding columns are dropped."""
+    o = _two_pass_heads(*(_padded(t) for t in (q, k, v)), bias, mask, scale)
+    return o[..., :q.shape[-1]].to(torch.bfloat16)
 
 
 def one_pass(q, k, v, bias, mask, nh, scale):
@@ -128,6 +166,24 @@ def test_two_pass_model_meets_the_kernel_gates(s, nh, pad_value):
     assert torch.isfinite(got.float()).all()
     errors = bf16_errors(got, ref)
     assert attention_ok(errors, "mpnet_attention"), errors
+
+
+@pytest.mark.parametrize("pad_value", [NEG, -np.inf])
+@pytest.mark.parametrize("nh,hd", [(2, 26), (2, 13), (2, 32)])
+@pytest.mark.parametrize("s", [64, 512])
+def test_two_pass_model_meets_the_kernel_gates_head_major(s, nh, hd,
+                                                          pad_value):
+    """hd 26 (TinyBERT's H 52 in two heads: 4-byte row copies), 13 (odd:
+    plain stores) and 32 (the tiny-overlap reranker's: no padding)."""
+    b = 3
+    q, k, v, bias, mask = inputs(s + hd, b, s, nh * hd, nh, pad_value,
+                                 shape=(b, nh, s, hd))
+    scale = 1.0 / np.sqrt(hd)
+    ref = jax_reference_bhsd(q, k, v, bias, mask, scale)
+    got = two_pass_bhsd(q, k, v, bias, mask, scale)
+    assert got.shape == (b, nh, s, hd) and torch.isfinite(got.float()).all()
+    errors = bf16_errors(got, ref)
+    assert attention_ok(errors, "mpnet_attention_bhsd"), errors
 
 
 def test_one_pass_softmax_fails_the_gates():

@@ -325,8 +325,10 @@ def fused_operands(dev, m, h, inter, res_dtype, seed):
     (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("m,h,inter", [(37, 312, 1200), (100, 768, 3072),
                                        (45, 1024, 4096), (64, 384, 1536),
-                                       (9, 8, 8)])
+                                       (9, 8, 8), (129, 776, 1032)])
 def test_int8_ffn_fused_kernel(dev, m, h, inter, res_dtype, out):
+    """H and I off the 16-byte copies (8, 776, 1032: 8-byte copies in both
+    products) and off the 128-row tile (129: a second, ragged row tile)."""
     from tpu_search_torch.ops.int8_gemm import (
         int8_ffn_fused,
         int8_ffn_fused_plain,
@@ -740,11 +742,13 @@ def test_ivf_index_search_runs_the_kernels(dev, dtype):
 
 
 @pytest.mark.parametrize("s,nh,hd", [(512, 12, 26), (512, 2, 32), (64, 4, 8),
-                                     (128, 3, 120), (192, 2, 64)])
+                                     (128, 3, 120), (192, 2, 64),
+                                     (256, 2, 13), (64, 12, 26)])
 def test_attention_bhsd_kernel(dev, s, nh, hd):
-    """The ``[B, heads, S, hd]`` kernel: padded head columns (hd 26, 8, 120)
-    and the uint4 path (hd 32, 64); a padded row and a fully padded one;
-    the gates of ``chip_smoke.attention_ok``."""
+    """The ``[B, heads, S, hd]`` kernel: padded head columns copied 4 bytes
+    at a time (hd 26, at S 512 and at the S 64 bucket), 16 (hd 8, 120) or
+    by plain stores (hd 13), and the unpadded path (hd 32, 64); a padded
+    row and a fully padded one; the gates of ``chip_smoke.attention_ok``."""
     from chip_smoke import attention_ok, bf16_errors
     from tpu_search_torch.ops import _build
     from tpu_search_torch.ops.mpnet_attention import (

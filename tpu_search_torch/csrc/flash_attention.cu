@@ -81,55 +81,6 @@ struct Stage {
   static constexpr size_t kBytes = kRingStages * kSlot + 1024;
 };
 
-// Byte offset of 16-byte chunk c (head columns 8 c .. 8 c + 7) of key r in
-// the swizzled K stage.
-template <int NB>
-__device__ __forceinline__ int k_offset(int r, int c) {
-  return (r >> 6) * (NB * 64 * 128) + (c >> 3) * (64 * 128) + (r & 63) * 128 +
-         (((c & 7) ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   attn2::smem_u32(dst)),
-               "l"(src));
-}
-
-// Issue the copies of 128 K and V rows (columns < hd) of one head: 16
-// bytes at a time where hd % 8 == 0 (kVec16), else 4 where hd is even,
-// else plain 2-byte stores.  Padding columns are never written.
-template <int HDP, bool kVec16>
-__device__ __forceinline__ void stage_kv(unsigned char* ksw,
-                                         __nv_bfloat16* vs,
-                                         const __nv_bfloat16* kg,
-                                         const __nv_bfloat16* vg, int hd,
-                                         int tid) {
-  constexpr int kVS = HDP + 8, NB = (HDP + 63) / 64;
-  if constexpr (kVec16) {
-    const int per = hd >> 3;
-    for (int i = tid; i < kBK * per; i += kThreads) {
-      const int r = i / per, c = i - r * per;
-      attn2::cp_async16(ksw + k_offset<NB>(r, c), kg + r * hd + c * 8);
-      attn2::cp_async16(vs + r * kVS + c * 8, vg + r * hd + c * 8);
-    }
-  } else if ((hd & 1) == 0) {
-    const int per = hd >> 1;
-    for (int i = tid; i < kBK * per; i += kThreads) {
-      const int r = i / per, w = i - r * per;
-      cp_async4(ksw + k_offset<NB>(r, w >> 2) + ((w & 3) << 2),
-                kg + r * hd + 2 * w);
-      cp_async4(vs + r * kVS + 2 * w, vg + r * hd + 2 * w);
-    }
-  } else {
-    for (int i = tid; i < kBK * hd; i += kThreads) {
-      const int r = i / hd, e = i - r * hd;
-      *reinterpret_cast<__nv_bfloat16*>(ksw + k_offset<NB>(r, e >> 3) +
-                                        ((e & 7) << 1)) = kg[i];
-      vs[r * kVS + e] = vg[i];
-    }
-  }
-}
-
 // s[64 x 128] = q k^T for the warpgroup's rows: one m64n64k16 wgmma per 16
 // head columns and 64-key half, waited for before return.
 template <int HDP>
@@ -194,20 +145,13 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
 
   uint32_t qa[HDP / 16][4];
   if (hd == HDP) {
-    attn::load_q<HDP>(qa, q + base + (size_t)row0 * hd + tig * 2, hd);
+    attn2::load_q<HDP>(qa, q + base + (size_t)row0 * hd + tig * 2, hd);
   } else {
-    // Zero the ring once: the padding columns stay zero for the run.  q
-    // passes through stage 1's V rows, which the first step leaves alone.
+    // Zero the ring once: the padding columns stay zero for the run.
     for (int i = tid; i < (int)(kRingStages * St::kSlot / 16); i += kThreads)
       reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
     __syncthreads();
-    __nv_bfloat16* qs =
-        reinterpret_cast<__nv_bfloat16*>(slot_of(1) + St::kK);
-    const __nv_bfloat16* qg = q + base + (size_t)q0 * hd;
-    for (int i = tid; i < kBQ * hd; i += kThreads)
-      qs[(i / hd) * St::kVS + i % hd] = qg[i];
-    __syncthreads();
-    attn::load_q<HDP>(qa, qs + (wr + g) * St::kVS + tig * 2, St::kVS);
+    attn2::load_q_padded<HDP>(qa, q + base + (size_t)row0 * hd, hd, hd, tig);
   }
 
   // Step j's K, V, bias tile and key segment ids, one cp.async group
@@ -217,7 +161,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
     if (j < steps) {
       unsigned char* slot = slot_of(j);
       const int kb = j * kBK;
-      stage_kv<HDP, kVec16>(
+      attn2::stage_rows<HDP, kBK, kThreads, kVec16>(
           slot, reinterpret_cast<__nv_bfloat16*>(slot + St::kK),
           kh + (size_t)kb * hd, vh + (size_t)kb * hd, hd, tid);
       auto* abs = reinterpret_cast<__nv_bfloat16*>(slot + St::kK + St::kV);

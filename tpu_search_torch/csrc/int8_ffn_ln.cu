@@ -59,6 +59,21 @@
 // products are wgmma's, and every large operand streams through cp.async.
 // Each kernel's shared-memory attributes are set once a process, so a
 // query's small M pays five launches and little else on the host.
+//
+// The same launches serve a second export, int8_ffn_fused: the W8A8 FFN
+// without its LayerNorms, y = gelu(fma(acc1 * sx, s1, b1)) in f32, h_q =
+// quant(y, 127 / amax) with amax over the whole I-wide f32 row, out =
+// fma(acc2 * scale_h, s2, b2) + res, res and out bf16 or f32.  It replaces
+// tpu_search/ops/pallas_int8_gemm.py, int8_ffn_fused (:578, kernel body
+// _ffn_fused_kernel :500-554), whose [M, I] activation never leaves VMEM:
+// that is a property of the TPU's design, not of the function.  Here the
+// whole-row amax needs every I column before GEMM2, a 128-row block of f32
+// y is 1.5 MB, and keeping h_q on chip costs one CTA a multiprocessor or a
+// second GEMM1 (a kernel that did both, mma.sync products, read 6.57 ms at
+// M 49,152, H 768, I 3,072 on an H100), so y takes the device-memory route
+// of steps 2-4: one C call of four steps on the caller's stream (amax_h
+// zeroed by cudaMemsetAsync, GEMM1, h_quant, GEMM2 with a residual and an
+// output of either type).  Bound at that shape: the two GEMMs, 0.234 ms.
 
 #include "int8_wgmma.cuh"
 
@@ -234,13 +249,15 @@ h_quant(const float* __restrict__ hbuf, const int* __restrict__ amax_h,
   reinterpret_cast<uint2*>(h_q)[i] = packed;
 }
 
-// GEMM2: ff = bf16(fma(acc2 * scale_h, s2, b2) + x) over x in place.
-template <bool kVec16>
+// GEMM2: out = fma(acc2 * scale_h, s2, b2) + res, rounded to OutT.  Each
+// element of res is read, and of out written, by one thread, so out may be
+// res (int8_ffn_ln: ff over the bf16 residual x in place).
+template <bool kVec16, typename RT, typename OutT>
 __global__ void __launch_bounds__(Tile::kThreads, Tile::kCtas)
 ffn_gemm2(const int8_t* __restrict__ h_q, const int8_t* __restrict__ w2t,
           const int* __restrict__ amax_h, const float* __restrict__ s2,
-          const float* __restrict__ b2, __nv_bfloat16* __restrict__ xff,
-          int m, int h, int inter) {
+          const float* __restrict__ b2, const RT* res, OutT* out, int m,
+          int h, int inter) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const Ring ring(smem_raw);
   const int wg = threadIdx.x >> 7;
@@ -263,20 +280,19 @@ ffn_gemm2(const int8_t* __restrict__ h_q, const int8_t* __restrict__ w2t,
     const int row = row_base + half * 8;
     if (row >= m) continue;
     const float s = scale_of(__int_as_float(amax_h[row]));
-    __nv_bfloat16* xrow = xff + (size_t)row * h;
+    const RT* rrow = res + (size_t)row * h;
+    OutT* orow = out + (size_t)row * h;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int col = col_base + j * 8;
       if (col >= h) continue;  // h % 8 == 0: col + 1 < h too
-      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-          xrow + col);
+      const float2 x = load2<RT>(rrow + col);
       const float v0 = __fadd_rn(
-          dequant(acc[4 * j + 2 * half], s, s2[col], b2[col]),
-          __low2float(x));
+          dequant(acc[4 * j + 2 * half], s, s2[col], b2[col]), x.x);
       const float v1 = __fadd_rn(
           dequant(acc[4 * j + 2 * half + 1], s, s2[col + 1], b2[col + 1]),
-          __high2float(x));
-      store2(xrow + col, v0, v1);
+          x.y);
+      store2(orow + col, v0, v1);
     }
   }
 }
@@ -340,19 +356,26 @@ cudaError_t ring_smem(Kernel kernel) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <bool kVec16>
+cudaError_t first_error(cudaError_t a, cudaError_t b) {
+  return a != cudaSuccess ? a : b;
+}
+
+// GEMM1, h_quant and GEMM2 on st: amax_h must be zero on entry.
+template <typename RT, typename OutT>
 cudaError_t launch_gemms(const int8_t* x_q, const int8_t* w1t,
                          const float* sx, const float* s1, const float* b1,
                          float* hbuf, int* amax_h, int8_t* h_q,
                          const int8_t* w2t, const float* s2, const float* b2,
-                         __nv_bfloat16* xff, int m, int h, int inter,
+                         const RT* res, OutT* out, int m, int h, int inter,
                          cudaStream_t st) {
-  static const cudaError_t ready = ring_smem(ffn_gemm1<kVec16>);
-  if (ready != cudaSuccess) return ready;
   const int row_tiles = (m + kWgBM - 1) / kWgBM;
-  ffn_gemm1<kVec16><<<dim3((inter + kBN - 1) / kBN, row_tiles),
-                      Tile::kThreads, Tile::kSmem, st>>>(
-      x_q, w1t, sx, s1, b1, hbuf, amax_h, m, inter, h);
+  // GEMM1's K is h: 16-byte copies where h % 16 == 0
+  auto gemm1 = h % 16 == 0 ? ffn_gemm1<true> : ffn_gemm1<false>;
+  static const cudaError_t ready1 =
+      first_error(ring_smem(ffn_gemm1<true>), ring_smem(ffn_gemm1<false>));
+  if (ready1 != cudaSuccess) return ready1;
+  gemm1<<<dim3((inter + kBN - 1) / kBN, row_tiles), Tile::kThreads,
+          Tile::kSmem, st>>>(x_q, w1t, sx, s1, b1, hbuf, amax_h, m, inter, h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -363,19 +386,14 @@ cudaError_t launch_gemms(const int8_t* x_q, const int8_t* w1t,
   if (err != cudaSuccess) return err;
 
   // GEMM2's K is inter: 16-byte copies where inter % 16 == 0
-  if (inter % 16 == 0) {
-    static const cudaError_t ready2 = ring_smem(ffn_gemm2<true>);
-    if (ready2 != cudaSuccess) return ready2;
-    ffn_gemm2<true><<<dim3((h + kBN - 1) / kBN, row_tiles), Tile::kThreads,
-                      Tile::kSmem, st>>>(h_q, w2t, amax_h, s2, b2, xff, m, h,
-                                         inter);
-  } else {
-    static const cudaError_t ready2 = ring_smem(ffn_gemm2<false>);
-    if (ready2 != cudaSuccess) return ready2;
-    ffn_gemm2<false><<<dim3((h + kBN - 1) / kBN, row_tiles), Tile::kThreads,
-                       Tile::kSmem, st>>>(h_q, w2t, amax_h, s2, b2, xff, m, h,
-                                          inter);
-  }
+  auto gemm2 = inter % 16 == 0 ? ffn_gemm2<true, RT, OutT>
+                               : ffn_gemm2<false, RT, OutT>;
+  static const cudaError_t ready2 =
+      first_error(ring_smem(ffn_gemm2<true, RT, OutT>),
+                  ring_smem(ffn_gemm2<false, RT, OutT>));
+  if (ready2 != cudaSuccess) return ready2;
+  gemm2<<<dim3((h + kBN - 1) / kBN, row_tiles), Tile::kThreads, Tile::kSmem,
+          st>>>(h_q, w2t, amax_h, s2, b2, res, out, m, h, inter);
   return cudaGetLastError();
 }
 
@@ -421,6 +439,12 @@ cudaError_t launch_rows_hp(const __nv_bfloat16* pre, const float* ln1_s,
 #undef INT8_FFN_ROWS
 }
 
+// The widths both exports take.
+bool widths_ok(int m, int h, int inter) {
+  return m > 0 && h > 0 && h % 8 == 0 && h <= kMaxH && inter > 0 &&
+         inter % 8 == 0 && inter <= kMaxI;
+}
+
 }  // namespace
 
 // pre [m, h] bf16; w1t [inter, h] int8; w2t [h, inter] int8; s1, b1
@@ -437,9 +461,7 @@ extern "C" int int8_ffn_ln(const void* pre, const void* w1t, const void* s1,
                            int inter, void* xres, void* x_q, void* sx,
                            void* amax, void* hbuf, void* h_q, void* out,
                            void* stream) {
-  if (m <= 0 || h <= 0 || h % 8 || h > kMaxH || inter <= 0 || inter % 8 ||
-      inter > kMaxI)
-    return (int)cudaErrorInvalidValue;
+  if (!widths_ok(m, h, inter)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* xr = static_cast<__nv_bfloat16*>(xres);
   auto* xq = static_cast<int8_t*>(x_q);
@@ -454,15 +476,50 @@ extern "C" int int8_ffn_ln(const void* pre, const void* w1t, const void* s1,
       launch_rows_hp(static_cast<const __nv_bfloat16*>(pre), ln1s, ln1b, ln2s,
                      ln2b, eps, m, h, xr, xq, sxf, am, nullptr, true, st);
   if (err != cudaSuccess) return (int)err;
-  // GEMM1's K is h: 16-byte copies where h % 16 == 0
-  err = (h % 16 == 0 ? launch_gemms<true> : launch_gemms<false>)(
-      xq, static_cast<const int8_t*>(w1t), sxf, static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<float*>(hbuf), am,
-      static_cast<int8_t*>(h_q), static_cast<const int8_t*>(w2t),
-      static_cast<const float*>(s2), static_cast<const float*>(b2), xr, m, h,
-      inter, st);
+  err = launch_gemms(xq, static_cast<const int8_t*>(w1t), sxf,
+                     static_cast<const float*>(s1),
+                     static_cast<const float*>(b1), static_cast<float*>(hbuf),
+                     am, static_cast<int8_t*>(h_q),
+                     static_cast<const int8_t*>(w2t),
+                     static_cast<const float*>(s2),
+                     static_cast<const float*>(b2), xr, xr, m, h, inter, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_rows_hp(nullptr, ln1s, ln1b, ln2s, ln2b, eps, m, h, xr,
                              nullptr, nullptr, nullptr,
                              static_cast<__nv_bfloat16*>(out), false, st);
+}
+
+// The W8A8 FFN without its LayerNorms (int8_ffn_fused): x_q [m, h] int8;
+// sx [m] f32; w1t [inter, h], w2t [h, inter] int8; s1, b1 [inter], s2, b2
+// [h] f32; res [m, h] bf16 (res_bf16) or f32; out [m, h] bf16 (out_bf16)
+// or f32.  Scratch: amax [m] int32, hbuf [m, inter] f32, h_q [m, inter]
+// int8, each 16-byte aligned.  Requires m > 0, h % 8 == 0, h <= 1024,
+// inter % 8 == 0, inter <= 4096.
+extern "C" int int8_ffn_fused(const void* x_q, const void* sx,
+                              const void* w1t, const void* s1, const void* b1,
+                              const void* w2t, const void* s2, const void* b2,
+                              const void* res, void* out, int m, int h,
+                              int inter, void* amax, void* hbuf, void* h_q,
+                              int res_bf16, int out_bf16, void* stream) {
+  if (!widths_ok(m, h, inter)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(amax, 0, (size_t)m * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  auto gemms = [&](const auto* r, auto* o) {
+    return launch_gemms(
+        static_cast<const int8_t*>(x_q), static_cast<const int8_t*>(w1t),
+        static_cast<const float*>(sx), static_cast<const float*>(s1),
+        static_cast<const float*>(b1), static_cast<float*>(hbuf),
+        static_cast<int*>(amax), static_cast<int8_t*>(h_q),
+        static_cast<const int8_t*>(w2t), static_cast<const float*>(s2),
+        static_cast<const float*>(b2), r, o, m, h, inter, st);
+  };
+  auto* bf_out = static_cast<__nv_bfloat16*>(out);
+  auto* f_out = static_cast<float*>(out);
+  if (res_bf16) {
+    const auto* r = static_cast<const __nv_bfloat16*>(res);
+    return (int)(out_bf16 ? gemms(r, bf_out) : gemms(r, f_out));
+  }
+  const auto* r = static_cast<const float*>(res);
+  return (int)(out_bf16 ? gemms(r, bf_out) : gemms(r, f_out));
 }

@@ -71,17 +71,6 @@ __device__ __forceinline__ uint32_t pack4(int8_t a, int8_t b, int8_t c,
          ((uint32_t)(uint8_t)c << 16) | ((uint32_t)(uint8_t)d << 24);
 }
 
-template <typename RT>
-__device__ __forceinline__ float2 load2(const RT* p);
-template <>
-__device__ __forceinline__ float2 load2<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-template <>
-__device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
 template <typename HT, typename RT, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 ffn_out_kernel(const HT* __restrict__ h, const float* __restrict__ amax,

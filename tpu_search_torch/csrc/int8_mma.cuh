@@ -1,5 +1,5 @@
 // Device helpers of the int8 kernels (int8_ffn_ln.cu, int8_gemm.cu,
-// int8_ffn_in.cu, int8_ffn_out.cu, int8_ffn_fused.cu): the s8 x s8 -> s32
+// int8_ffn_in.cu, int8_ffn_out.cu): the s8 x s8 -> s32
 // mma.sync product, its fragment loads, the activation quantizer, the
 // tanh-gelu with every rounding written out, warp reductions, the
 // cp.async copies that stage int8 tiles, the mma.sync main loop of an int8
@@ -216,15 +216,16 @@ __device__ __forceinline__ void gemm_s8_tile(int (&acc)[MT][NT][4],
   }
 }
 
+// Two neighbouring columns of a row, as f32.
 template <typename T>
-__device__ __forceinline__ float to_f32(T v);
+__device__ __forceinline__ float2 load2(const T* p);
 template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
+__device__ __forceinline__ float2 load2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // Two neighbouring columns of an output row.

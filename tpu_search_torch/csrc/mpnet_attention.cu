@@ -51,21 +51,7 @@ using attn2::kBiasStride;
 using attn2::kBlockK;
 using attn2::kBlockQ;
 using attn2::kStages;
-
-constexpr int kThreads = 128;  // 4 warps x 16 query rows: one warpgroup
-
-// One ring stage: the K tile (128-byte swizzled for wgmma), the V tile
-// (rows of HD + 8) and the [64, 64] f32 bias tile (rows of kBiasStride).
-// Every size is a multiple of 1024 bytes, so each swizzled K tile starts
-// on the swizzle's period.
-template <int HD>
-struct Ring {
-  static constexpr size_t kK = attn2::sw_tile_bytes<HD>();
-  static constexpr size_t kV = (size_t)kBlockK * (HD + 8) * 2;
-  static constexpr size_t kBias = (size_t)kBlockQ * kBiasStride * 4;
-  static constexpr size_t kSlot = kK + kV + kBias;
-  static constexpr size_t kBytes = kStages * kSlot;
-};
+using attn2::kThreads;
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads, HD > 64 ? 1 : 3)
@@ -75,7 +61,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
                  const float* __restrict__ bias,
                  const float* __restrict__ kmask,
                  __nv_bfloat16* __restrict__ out, int s, int h, float scale) {
-  using R = Ring<HD>;
+  using R = attn2::Ring<HD>;
   constexpr int NT = kBlockK / 8;
   extern __shared__ __align__(1024) unsigned char smem[];
 
@@ -87,7 +73,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t col = (size_t)head * HD;
 
   uint32_t qa[HD / 16][4];
-  attn::load_q<HD>(qa, q + ((size_t)b * s + row0) * h + col + tig * 2, h);
+  attn2::load_q<HD>(qa, q + ((size_t)b * s + row0) * h + col + tig * 2, h);
   const float* bias_blk = bias + ((size_t)head * s + q0) * s;
   const float* mrow = kmask + (size_t)b * s + tig * 2;
   const __nv_bfloat16* kbase = k + (size_t)b * s * h + col;
@@ -140,34 +126,11 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
     arrive(j);
     float sc[NT][4];
     scores(j, sc);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        mx = fmaxf(mx, fmaxf(sc[nt][half * 2], sc[nt][half * 2 + 1]));
-      const float m_new = fmaxf(m[half], attn2::quad_max(mx));
-      // a row with no finite score yet keeps l = 0 (exp(-inf - 0) = 0)
-      const float shift = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        sum = __fadd_rn(sum, expf(__fsub_rn(sc[nt][half * 2], shift)));
-        sum = __fadd_rn(sum, expf(__fsub_rn(sc[nt][half * 2 + 1], shift)));
-      }
-      l[half] = __fadd_rn(
-          __fmul_rn(l[half], expf(__fsub_rn(m[half], shift))), sum);
-      m[half] = m_new;
-    }
+    attn2::online_rows(sc, m, l);
   }
   bool safe[2];
   float rcp[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    l[half] = attn2::quad_sum(l[half]);
-    safe[half] = isfinite(m[half]);
-    rcp[half] = __frcp_rn(l[half]);
-  }
+  attn2::finish_rows(m, l, safe, rcp);
   const float uniform = __fdiv_rn(1.f, (float)s);
 
   // Pass 2: the same scores again, p = bf16(exp(s - m) / l), o += p V.
@@ -180,18 +143,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
     arrive(j);
     float sc[NT][4];
     scores(j, sc);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        // ex / l, correctly rounded (Markstein): the quotient through the
-        // correctly rounded reciprocal, then one exact-residual FMA
-        const float ex = expf(__fsub_rn(sc[nt][e], m[half]));
-        const float q1 = __fmul_rn(ex, rcp[half]);
-        const float p = __fmaf_rn(__fmaf_rn(-q1, l[half], ex), rcp[half], q1);
-        sc[nt][e] = safe[half] ? p : uniform;
-      }
+    attn2::normalize_rows(sc, m, l, safe, rcp, uniform);
     attn2::pv_tile<HD>(
         o, sc, reinterpret_cast<const __nv_bfloat16*>(slot_of(j) + R::kK),
         lane);
@@ -215,7 +167,7 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias, const void* kmask, void* out, int b,
                    int s, int h, int nh, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = Ring<HD>::kBytes;
+  constexpr size_t bytes = attn2::Ring<HD>::kBytes;
   auto kernel = attention_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -262,11 +214,11 @@ extern "C" int mpnet_attention(const void* q, const void* k, const void* v,
 extern "C" int mpnet_attention_smem_bytes(int h, int nh) {
   switch (h / nh) {
     case 32:
-      return (int)Ring<32>::kBytes;
+      return (int)attn2::Ring<32>::kBytes;
     case 64:
-      return (int)Ring<64>::kBytes;
+      return (int)attn2::Ring<64>::kBytes;
     case 128:
-      return (int)Ring<128>::kBytes;
+      return (int)attn2::Ring<128>::kBytes;
     default:
       return 0;
   }

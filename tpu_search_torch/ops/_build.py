@@ -1,12 +1,12 @@
 """Build and load the hand-written CUDA kernels in ``tpu_search_torch/csrc``.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface under ``build/kernels/`` at the repository root,
-on first use, and loads through ``ctypes``.  The library name carries a
-hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
-an edited kernel rebuilds and a stale one is never loaded.  Nothing here
-runs at import time: the CPU tests import every module on a machine
-without ``nvcc``.
+(:data:`LIBRARIES`) with a plain C interface under ``build/kernels/`` at the
+repository root, on first use, and loads through ``ctypes``.  The library
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited kernel rebuilds and a stale one is never loaded.
+Nothing here builds at import time: the CPU tests import every module on
+a machine without ``nvcc``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into a ``RuntimeError``.  The kernels
@@ -14,8 +14,11 @@ use the CUDA runtime alone: none takes a TMA tensor map (the int8 GEMM's
 ``wgmma`` ring fills by ``cp.async``), so nothing links the driver library
 or asks it for ``cuTensorMapEncodeTiled``.
 
-Each wrapper counts its own launches in :data:`LAUNCHES`, so a run can
-show that the main path went through the kernels.
+Each wrapper counts its own launches in :data:`LAUNCHES`, one key a kernel
+of :data:`KERNELS`, so a run can show that the main path went through the
+kernels.  Each kernel's export is in the library of its name, except
+``int8_ffn_fused``'s, which runs ``int8_ffn_ln``'s launches and is in that
+library.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Dict
 __all__ = [
     "KERNELS",
     "LAUNCHES",
+    "LIBRARIES",
     "build_all",
     "check",
     "library",
@@ -42,12 +46,14 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
-# One library per kernel source; the names double as launch-counter keys.
+# The port's kernels, one launch counter each.
 KERNELS = ("flat_topk", "mpnet_attention", "int8_ffn_ln", "flat_topk_int8",
            "flat_topk_int4", "ivf_topk", "ivf_topk_int8", "ivf_topk_int4",
            "mpnet_attention_bhsd", "int8_gemm", "int8_ffn_in", "int8_ffn_out",
            "int8_ffn_fused", "flash_attention", "int4_probe",
            "scan_overhead_probe")
+# One library per kernel source.
+LIBRARIES = tuple(sorted(path.stem for path in CSRC.glob("*.cu")))
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -118,14 +124,14 @@ def build_all(verbose: bool = False) -> dict:
     with _lock:
         procs = {
             name: _compile(name)
-            for name in KERNELS
+            for name in LIBRARIES
             if not _target(name).exists()
         }
         for name, proc in procs.items():
             logs[name] = _finish(name, proc)
             if verbose:
                 print(f"[build] {name}.cu\n{logs[name]}")
-        for name in KERNELS:
+        for name in LIBRARIES:
             library(name)
     return {"seconds": time.perf_counter() - start, "logs": logs}
 

@@ -134,12 +134,9 @@ def int8_ffn_ln_plain(
     return out.to(out_dtype)
 
 
-def _scratch(m: int, h: int, inter: int, device):
-    """One byte buffer holding the kernel's scratch, and the address of
-    each part: the bf16 residual (then ``ff``) ``[m, h]``, ``x_q [m, h]``
-    int8, ``sx [m]`` f32, the ``amax_h [m]`` words, ``h [m, inter]`` f32
-    and ``h_q [m, inter]`` int8."""
-    sizes = (2 * m * h, m * h, 4 * m, 4 * m, 4 * m * inter, m * inter)
+def _scratch(device, *sizes):
+    """One byte buffer holding a kernel's scratch, and the address of each
+    part of ``sizes`` bytes, each on a 256-byte boundary."""
     offsets, total = [], 0
     for size in sizes:
         offsets.append(total)
@@ -204,7 +201,10 @@ def int8_ffn_ln(
             raise ValueError("scale/bias vectors have the wrong shape")
         vecs.append(t.to(torch.float32).contiguous())
     s1f, b1f, s2f, b2f, l1s, l1b, l2s, l2b = vecs
-    work, ptrs = _scratch(m, h, inter, pre.device)  # alive until enqueued
+    # the bf16 residual (then ff) [m, h], x_q [m, h] int8, sx [m] f32, the
+    # amax_h [m] words, h [m, inter] f32 and h_q [m, inter] int8
+    work, ptrs = _scratch(pre.device, 2 * m * h, m * h, 4 * m, 4 * m,
+                          4 * m * inter, m * inter)  # alive until enqueued
     out = torch.empty((m, h), dtype=torch.bfloat16, device=pre.device)
     code = _fn()(
         pre.data_ptr(), w1_q.data_ptr(), s1f.data_ptr(), b1f.data_ptr(),

@@ -9,8 +9,9 @@
   ``|y|`` over the f32 ``y`` (``csrc/int8_ffn_in.cu``);
 - :func:`int8_ffn_out` (:275): requantizes ``h`` with those maxima, GEMM,
   bias and residual (``csrc/int8_ffn_out.cu``);
-- :func:`int8_ffn_fused` (:578): the whole FFN, ``h`` kept on chip
-  (``csrc/int8_ffn_fused.cu``).
+- :func:`int8_ffn_fused` (:578): the whole FFN in one call, whose GEMM1,
+  requantize and GEMM2 are ``int8_ffn_ln``'s launches
+  (``csrc/int8_ffn_ln.cu``); ``h`` passes through device memory.
 
 Weights come in the port's ``[out, in]`` int8 layout (``w [N, K]``, as
 ``ops/int8_ffn.py`` takes them; the JAX functions take ``[K, N]``) with f32
@@ -35,11 +36,16 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .int8_ffn import MAX_HIDDEN, MAX_INTERMEDIATE, _fma, _quantize_rows_by
+from .int8_ffn import (
+    MAX_HIDDEN,
+    MAX_INTERMEDIATE,
+    _fma,
+    _quantize_rows_by,
+    _scratch,
+)
 from .topk_scan import INV127
 
 __all__ = [
-    "fused_rows",
     "int8_ffn_fused",
     "int8_ffn_fused_plain",
     "int8_ffn_in",
@@ -52,8 +58,6 @@ __all__ = [
 ]
 
 OUT_DTYPES = (torch.bfloat16, torch.float32)
-# A CTA's shared memory on the H100 (opt-in maximum, bytes).
-SMEM_PER_BLOCK = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,8 +65,11 @@ _ARGTYPES = {
     "int8_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "int8_ffn_in": [_P] * 7 + [_I] * 4 + [_P],
     "int8_ffn_out": [_P] * 7 + [_I] * 6 + [_P],
-    "int8_ffn_fused": [_P] * 10 + [_I] * 6 + [_P],
+    "int8_ffn_fused": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_I] * 2 + [_P],
 }
+# The library of each export: its own, but int8_ffn_fused runs int8_ffn_ln's
+# launches.
+_LIBRARY = {"int8_ffn_fused": "int8_ffn_ln"}
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +132,7 @@ def int8_ffn_fused_plain(x_q, sx, w1, s1, b1, w2, s2, b2, residual,
 
 
 def _fn(name):
-    fn = getattr(_build.library(name), name)
+    fn = getattr(_build.library(_LIBRARY.get(name, name)), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -247,50 +254,23 @@ def int8_ffn_out(h: torch.Tensor, row_amax: torch.Tensor, w: torch.Tensor,
     return y
 
 
-# The fused kernel's column block, chunk depth and ring depth
-# (``csrc/int8_ffn_fused.cu``).
-FUSED_BN, FUSED_KC, FUSED_STAGES = 256, 64, 3
-
-
-def fused_rows(h: int, inter: int) -> int:
-    """The fused kernel's row block: 64 where its shared-memory tiles (x_q
-    and h_q rows, the ring of weight tiles, four row vectors) fit in a CTA,
-    else 32."""
-    x_stride = -(-h // FUSED_KC) * FUSED_KC + 16
-    h_stride = -(-inter // FUSED_BN) * FUSED_BN + 16
-    ring = FUSED_STAGES * FUSED_BN * (FUSED_KC + 16)
-    need = 64 * (x_stride + h_stride) + ring + 64 * 16
-    return 64 if need <= SMEM_PER_BLOCK else 32
-
-
-def _effective_splits(splits: int, rows: int) -> int:
-    """``splits`` halved as the JAX function halves it against its row
-    block (``pallas_int8_gemm.py:601-602``)."""
-    if splits < 1:
-        raise ValueError(f"splits must be >= 1, got {splits}")
-    while splits > 1 and (rows % splits or (rows // splits) % 8):
-        splits //= 2
-    return splits
-
-
 def int8_ffn_fused(x_q: torch.Tensor, sx: torch.Tensor, w1: torch.Tensor,
                    s1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                    s2: torch.Tensor, b2: torch.Tensor, residual: torch.Tensor,
                    out_dtype: torch.dtype = torch.bfloat16,
                    splits: int = 1) -> torch.Tensor:
-    """The whole W8A8 FFN in one launch: ``x_q [M, H] int8``, ``sx [M]``,
+    """The whole W8A8 FFN in one call: ``x_q [M, H] int8``, ``sx [M]``,
     ``w1 [I, H]``, ``w2 [H, I]`` int8, f32 ``s1, b1 [I]``, ``s2, b2 [H]``,
     ``residual [M, H]`` -> ``[M, H]``.  The gelu output is quantized from
     f32 (the pair quantizes int8_ffn_in's output, in its dtype).  On the
     card H and I are multiples of 8 up to 1,024 and 4,096.
 
-    ``splits`` is accepted and halved as the JAX function halves it; there
-    it only carves the TPU kernel's row block into sub-chains, each row's
-    arithmetic the same for every value, so the result here is the same
-    for every value too."""
+    ``splits`` (at least 1) only carves the TPU kernel's row block into
+    sub-chains there, each row's arithmetic the same for every value, so
+    it changes nothing here."""
     _check_out(out_dtype)
-    rows = fused_rows(x_q.shape[1], w1.shape[0])
-    _effective_splits(splits, rows)
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
     if not _on_card(x_q):
         return int8_ffn_fused_plain(x_q, sx, w1, s1, b1, w2, s2, b2,
                                     residual, out_dtype)
@@ -301,8 +281,8 @@ def int8_ffn_fused(x_q: torch.Tensor, sx: torch.Tensor, w1: torch.Tensor,
             0 < inter <= MAX_INTERMEDIATE):
         raise ValueError(
             f"hidden {h} / intermediate {inter} not supported: the fused "
-            f"kernel takes multiples of 8 up to {MAX_HIDDEN} / "
-            f"{MAX_INTERMEDIATE} (its shared-memory tiles)")
+            f"FFN takes multiples of 8 up to {MAX_HIDDEN} / "
+            f"{MAX_INTERMEDIATE}")
     _operand(x_q, (m, h), (torch.int8,), "x_q", dev)
     _operand(w1, (inter, h), (torch.int8,), "w1", dev)
     _operand(w2, (h, inter), (torch.int8,), "w2", dev)
@@ -312,10 +292,13 @@ def int8_ffn_fused(x_q: torch.Tensor, sx: torch.Tensor, w1: torch.Tensor,
         (b2, h, "b2"))]
     sxf, s1f, b1f, s2f, b2f = vecs
     y = torch.empty((m, h), dtype=out_dtype, device=dev)
+    # the amax_h [M] words, h [M, I] f32 and h_q [M, I] int8
+    work, ptrs = _scratch(dev, 4 * m, 4 * m * inter,
+                          m * inter)  # alive until enqueued
     code = _fn("int8_ffn_fused")(
         x_q.data_ptr(), sxf.data_ptr(), w1.data_ptr(), s1f.data_ptr(),
         b1f.data_ptr(), w2.data_ptr(), s2f.data_ptr(), b2f.data_ptr(),
-        residual.data_ptr(), y.data_ptr(), m, h, inter, rows,
+        residual.data_ptr(), y.data_ptr(), m, h, inter, *ptrs,
         int(residual.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(code, "int8_ffn_fused")
