@@ -5,13 +5,15 @@
 Phases, each printing its numbers on its own line:
   1. build the CUDA kernels from ``tpu_search_torch/csrc`` (one ``nvcc``
      per source, all started together), print the registers and spills
-     ptxas reports for the five kernels redesigned for Hopper
+     ptxas reports for the seven kernels redesigned for Hopper
      (``mpnet_attention``, ``mpnet_attention_bhsd``, ``int8_gemm``,
-     ``int8_ffn_ln``, ``flash_attention``), check in their SASS that the
+     ``int8_ffn_ln``, ``flash_attention``, ``ivf_topk_int8``,
+     ``ivf_topk_int4``), check in their SASS that the
      int8 products (``int8_gemm``, both GEMMs of ``int8_ffn_ln``, which
      ``int8_ffn_fused`` runs too) are wgmma's alone and that
      ``flash_attention``'s and ``mpnet_attention_bhsd``'s q k^T issue
-     wgmma, and print the card's name and power limit;
+     wgmma, that the IVF digit scans multiply with wgmma at Q > 8 and
+     mma.sync at Q <= 8, and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it (max error, kernel and plain times,
      the least time the card could take, and where one PyTorch call
@@ -23,8 +25,10 @@ Phases, each printing its numbers on its own line:
      the 4,096 cluster centres and row labels come from a numpy seed, the
      per-row noise from a torch generator seeded alike), nprobe 8 and 32,
      Q/k in (1, 10), (1, 128), (8, 10), (128, 10), (128, 128) and k = 200
-     (scores mode); and the IVF index against the flat exact scan at
-     nprobe = nlist, and its ``tune_nprobe(0.95)``;
+     (scores mode), with the int8 / int4 scans' prologue kernel against its
+     plain twin (``[ivf_prep]``) at every case and each scan's shared
+     memory and CTAs a multiprocessor; and the IVF index against the flat
+     exact scan at nprobe = nlist, and its ``tune_nprobe(0.95)``;
   3. drive the main path at the full width of all-mpnet-base-v2 with
      random seeded weights, on six storage paths, each a fresh data
      directory: flat bf16 (1,000 conversations), flat
@@ -186,9 +190,11 @@ SOURCES = {
                        "tpu_search/ops/pallas_topk_dma.py:358"),
     "ivf_topk": ("tpu_search_torch/csrc/ivf_topk.cu",
                  "tpu_search/ops/pallas_ivf_scan.py:213"),
-    "ivf_topk_int8": ("tpu_search_torch/csrc/ivf_topk_int8.cu",
+    "ivf_topk_int8": ("tpu_search_torch/csrc/ivf_topk_int8.cu (body: "
+                      "ivf_digit_scan.cuh, ivf_prep.cuh)",
                       "tpu_search/ops/pallas_ivf_scan.py:400"),
-    "ivf_topk_int4": ("tpu_search_torch/csrc/ivf_topk_int4.cu",
+    "ivf_topk_int4": ("tpu_search_torch/csrc/ivf_topk_int4.cu (body: "
+                      "ivf_digit_scan.cuh, ivf_prep.cuh)",
                       "tpu_search/ops/pallas_ivf_scan.py:632"),
     "mpnet_attention_bhsd": ("tpu_search_torch/csrc/mpnet_attention_bhsd.cu",
                              "tpu_search/ops/pallas_mpnet_attention.py:252"),
@@ -339,13 +345,41 @@ def short_kernel_name(name: str) -> str:
 # wgmma (GMMA), and whether any mma.sync int8 product (IMMA) in the source
 # fails the build: the int8 products must be wgmma's alone.
 REDESIGNED = ("mpnet_attention", "mpnet_attention_bhsd", "int8_gemm",
-              "int8_ffn_ln", "flash_attention")
+              "int8_ffn_ln", "flash_attention", "ivf_topk_int8",
+              "ivf_topk_int4")
 SASS_RULES = {
     "mpnet_attention_bhsd": (("attention_bhsd_kernel",), False),
     "int8_gemm": (("gemm_kernel",), True),
     "int8_ffn_ln": (("ffn_gemm1", "ffn_gemm2"), True),
     "flash_attention": (("flash_kernel",), False),
 }
+
+
+# The IVF digit scans (bodies in csrc/ivf_digit_scan.cuh), by demangled
+# kernel name: the scan of Q > 8 multiplies with wgmma (GMMA), that of
+# Q <= 8 with mma.sync (IMMA).
+DIGIT_SASS_RULES = {
+    name: {"GMMA": (f"ivf_digit_scan<{tiles}, 32>",),
+           "IMMA": (f"ivf_digit_scan<{tiles}, 8>",)}
+    for name, tiles in (("ivf_topk_int8", "RowTiles"),
+                        ("ivf_topk_int4", "NibbleTiles"))
+}
+
+
+def mma_faults(counts: dict, wanted: dict) -> list:
+    """What breaks a digit scan's rule: a kernel named in ``wanted[kind]``
+    (a part of its short name) that is missing or holds no instruction of
+    that kind (``GMMA`` / ``IMMA``); ``counts`` by short name."""
+    faults = []
+    for kind, parts in wanted.items():
+        column = ("GMMA", "IMMA").index(kind)
+        for part in parts:
+            hits = {n: c for n, c in counts.items() if part in n}
+            if not hits:
+                faults.append(f"no kernel named {part}")
+            faults += [f"{n} holds no {kind}" for n, c in hits.items()
+                       if not c[column]]
+    return faults
 
 
 def ptxas_entries(log: str) -> list:
@@ -424,7 +458,7 @@ def short_name(kernel: str) -> str:
 
 def check_build(logs: dict) -> None:
     """Print registers and spills of the redesigned kernels, and fail
-    unless their SASS keeps ``SASS_RULES``."""
+    unless their SASS keeps ``SASS_RULES`` and ``DIGIT_SASS_RULES``."""
     from tpu_search_torch.ops import _build
 
     for name in REDESIGNED:
@@ -436,17 +470,29 @@ def check_build(logs: dict) -> None:
             print(f"[build] ptxas {name} {short_name(kernel)} "
                   f"registers={regs} spill_stores={stores} "
                   f"spill_loads={loads}", flush=True)
-    for name, (wanted, no_imma) in SASS_RULES.items():
-        sass = subprocess.run(
+    def sass_of(name: str) -> dict:
+        return sass_counts(subprocess.run(
             [cuda_tool("cuobjdump"), "-sass", str(_build._target(name))],
-            capture_output=True, text=True, check=True).stdout
-        counts = sass_counts(sass)
+            capture_output=True, text=True, check=True).stdout)
+
+    for name, (wanted, no_imma) in SASS_RULES.items():
+        counts = sass_of(name)
         names = demangle(list(counts))
         for (gmma, imma), kernel in zip(counts.values(), names):
             print(f"[build] sass {name} {short_name(kernel)} "
                   f"gmma_instructions={gmma} imma_instructions={imma}",
                   flush=True)
         faults = sass_faults(counts, wanted, no_imma)
+        if faults:
+            fail(f"{name}'s SASS breaks its rule: {'; '.join(faults)}")
+    for name, wanted in DIGIT_SASS_RULES.items():
+        counts = sass_of(name)
+        by_name = {short_name(kernel): c for kernel, c in
+                   zip(demangle(list(counts)), counts.values())}
+        for kernel, (gmma, imma) in by_name.items():
+            print(f"[build] sass {name} {kernel} gmma_instructions={gmma} "
+                  f"imma_instructions={imma}", flush=True)
+        faults = mma_faults(by_name, wanted)
         if faults:
             fail(f"{name}'s SASS breaks its rule: {'; '.join(faults)}")
 
@@ -1666,10 +1712,45 @@ def build_ivf_indexes(rows, dead):
     return indexes
 
 
+def print_digit_config(name: str) -> None:
+    """Shared memory and CTAs a multiprocessor of a digit scan's scan CTA
+    at each query block (8: mma.sync, 32: wgmma) and k."""
+    from tpu_search_torch.ops import ivf_scan
+
+    for qb in (8, 32):
+        for k in (10, 128, 200):
+            smem, ctas = ivf_scan.digit_scan_config(name, qb, k)
+            print(f"[{name}] scan QB={qb} k={k} shared_memory_bytes={smem} "
+                  f"ctas_per_multiprocessor={ctas}", flush=True)
+
+
+def check_ivf_prep(dtype, probe, fills, queries, cbias, cap, nprobe) -> None:
+    """The digit scans' prologue kernel against its plain twin on the same
+    inputs: every output equal, bit for bit."""
+    import torch
+
+    from tpu_search_torch.ops import ivf_scan
+
+    int4 = dtype == "int4"
+    got = ivf_scan.ivf_digit_prep(probe, fills, queries, cbias, cap, int4)
+    want = ivf_scan.ivf_digit_prep_plain(probe, fills, queries, cbias, cap,
+                                         int4)
+    torch.cuda.synchronize()
+    bad = [key for key, value in want.items()
+           if (got[key] is None) != (value is None)
+           or (value is not None and not torch.equal(got[key], value))]
+    print(f"[ivf_prep] dtype={dtype} nprobe={nprobe} Q={queries.shape[0]} "
+          f"n_sched={int(want['n_sched'])} member_count="
+          f"{want['member_count'].tolist()} equal={not bad}", flush=True)
+    if bad:
+        fail(f"the {dtype} prologue differs from its plain twin in {bad}")
+
+
 def check_ivf(results: dict) -> None:
     """The three IVF probe scans against their plain versions at 1M x 768,
     nlist 1024 (int8 / int4 exact; bf16 scores within 1e-4, ids equal
-    outside near-ties), then the IVF index against the flat exact scan at
+    outside near-ties), the digit scans' prologue against its plain twin
+    at every case, then the IVF index against the flat exact scan at
     nprobe = nlist and its ``tune_nprobe(0.95)``."""
     import numpy as np
     import torch
@@ -1696,6 +1777,8 @@ def check_ivf(results: dict) -> None:
         pen, fills = index._penalty(None), index._device_fills()
         cap = index._cluster_capacity
         worst = 0.0
+        if dtype != "bfloat16":
+            print_digit_config(name)
         for nprobe in (8, 32):
             for q, k in IVF_CASES:
                 queries = rows[torch.from_numpy(
@@ -1707,6 +1790,9 @@ def check_ivf(results: dict) -> None:
                     cbias = torch.gather(cs, 1, probe.long())
                     args = (index._dblocks, index._dscale, pen, fills, probe,
                             queries, k, cbias)
+                if dtype != "bfloat16":
+                    check_ivf_prep(dtype, probe, fills, queries, cbias, cap,
+                                   nprobe)
                 ks, ki = scan(*args)
                 ps, pi = plain(*args)
                 torch.cuda.synchronize()

@@ -23,7 +23,11 @@ rows, ragged M and K/N off the 128 grid, and on the planted inputs of
 ``chip_smoke.planted_epilogue``'s inputs; the stock-flash kernel within the
 attention tolerances at S 128 to 512 and head sizes 8 to 128, with padded
 rows; the int4 probe's variants equal to their plain versions and the
-scan-overhead probe's within the flat scan's 1e-4.  The ``[B, S, H]``
+scan-overhead probe's within the flat scan's 1e-4; the IVF int8 / int4
+scans' prologue kernel equal to its plain twin on the cases of
+``tests/ivf_prep_cases.py``, and both scans exact with the live schedule
+empty, shorter than the grid and many times longer (nlist 4,099), and on
+an exact tie at k = 128.  The ``[B, S, H]``
 attention also at S 512 with hd 32 and on a one-row query, with rows
 padded by -inf and by the f32 min; ``int8_gemm`` also at M, N and K off its
 wgmma tiles (K 8 and 312); ``int8_ffn_ln`` also at M 1, 127, 129 and 4,097
@@ -33,6 +37,7 @@ last column tile.
 
 import math
 
+import ivf_prep_cases
 import pytest
 import torch
 
@@ -659,29 +664,90 @@ def test_ivf_topk_kernel(dev, dtype, metric, q, nprobe, k):
         assert ki[0, :2].tolist() == [4, 9]  # the tie: the lower slot first
 
 
-@pytest.mark.parametrize("kind", ["int8", "int4"])
-@pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("q,nprobe,k", [(1, 3, 10), (8, 9, 128), (33, 4, 77),
-                                        (2, 5, 250)])
-def test_ivf_quant_kernels_exact(dev, kind, residual, q, nprobe, k):
+def digit_scans(st, kind):
+    """``(corpus args, kernel, plain)`` of the int8 or int4 probe scan."""
     from tpu_search_torch.ops import ivf_scan
 
-    st = ivf_state(dev, seed=q + nprobe)
+    if kind == "int8":
+        return ((st["i8"], st["s8"]), ivf_scan.ivf_topk_int8_scan,
+                ivf_scan.ivf_topk_int8_plain)
+    return ((st["nib"], st["s4"]), ivf_scan.ivf_topk_int4_scan,
+            ivf_scan.ivf_topk_int4_plain)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("q,nprobe,k,nlist,schedule", [
+    (1, 3, 10, 9, "probed"), (8, 9, 128, 9, "probed"), (33, 4, 77, 9, "probed"),
+    (2, 5, 250, 9, "probed"),
+    # the live schedule empty (only the empty cluster probed), shorter than
+    # the grid's runs, and many times longer (nlist 4099)
+    (3, 1, 10, 9, "empty"), (40, 1, 128, 9, "empty"), (1, 1, 128, 9, "probed"),
+    (40, 64, 10, 4099, "probed"), (128, 16, 128, 4099, "probed"),
+    (5, 400, 250, 4099, "probed")])
+def test_ivf_quant_kernels_exact(dev, kind, residual, q, nprobe, k, nlist,
+                                 schedule):
+    st = ivf_state(dev, nlist=nlist, cap=512 if nlist < 100 else 256,
+                   d=128 if nlist < 100 else 64, seed=q + nprobe)
     pen = torch.where(st["valid"], 0.0, float("-inf"))
-    queries = torch.randn((q, 128), device=dev)
+    queries = torch.randn((q, st["cent"].shape[1]), device=dev)
     cs = queries @ st["cent"].T
     probe = torch.topk(cs, nprobe).indices.int()
+    if schedule == "empty":
+        probe[:] = 2  # fills[2] == 0
     cbias = torch.gather(cs, 1, probe.long()) if residual else None
-    if kind == "int8":
-        args = (st["i8"], st["s8"])
-        kernel, plain = ivf_scan.ivf_topk_int8_scan, ivf_scan.ivf_topk_int8_plain
-    else:
-        args = (st["nib"], st["s4"])
-        kernel, plain = ivf_scan.ivf_topk_int4_scan, ivf_scan.ivf_topk_int4_plain
+    args, kernel, plain = digit_scans(st, kind)
     ks, ki = kernel(*args, pen, st["fills"], probe, queries, k, cbias)
     ps, pi = plain(*args, pen, st["fills"], probe, queries, k, cbias)
     torch.cuda.synchronize()
     assert torch.equal(ks, ps) and torch.equal(ki, pi)
+    if schedule == "empty":
+        assert torch.isneginf(ks).all() and (ki == -1).all()
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_ivf_quant_tie_at_k128(dev, kind):
+    """Slots 4 and 9 of cluster 0 hold one row (one code, one scale): at
+    k = 128 the lower slot comes first, as in the plain version."""
+    st = ivf_state(dev)
+    pen = torch.where(st["valid"], 0.0, float("-inf"))
+    queries = torch.randn((3, 128), device=dev)
+    queries[0] = st["rows"][0, 4]
+    cs = queries @ st["cent"].T
+    probe = torch.topk(cs, 3).indices.int()
+    probe[0] = torch.tensor([0, 1, 3], dtype=torch.int32, device=dev)
+    cbias = torch.gather(cs, 1, probe.long())
+    args, kernel, plain = digit_scans(st, kind)
+    ks, ki = kernel(*args, pen, st["fills"], probe, queries, 128, cbias)
+    ps, pi = plain(*args, pen, st["fills"], probe, queries, 128, cbias)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, ps) and torch.equal(ki, pi)
+    assert ks[0, 0] == ks[0, 1] and ki[0, :2].tolist() == [4, 9]
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("name", sorted(ivf_prep_cases.CASES))
+def test_ivf_prep_kernel_equals_plain(dev, name, int4):
+    """The digit scans' prologue kernel against its plain twin, bit for bit,
+    on the cases of ``tests/test_torch_ivf_prep.py``."""
+    from tpu_search_torch.ops.ivf_scan import (
+        ivf_digit_prep,
+        ivf_digit_prep_plain,
+    )
+
+    probe, fills, queries, cbias, cap = ivf_prep_cases.make_case(name)
+    cpu = [torch.from_numpy(a) if a is not None else None
+           for a in (probe, fills, queries, cbias)]
+    want = ivf_digit_prep_plain(*cpu, cap, int4)
+    got = ivf_digit_prep(*[t.to(dev) if t is not None else None for t in cpu],
+                         cap, int4)
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        if value is None:
+            assert got[key] is None
+        else:
+            assert torch.equal(got[key].cpu(), value), key
 
 
 def test_ivf_all_masked_and_unprobed(dev):

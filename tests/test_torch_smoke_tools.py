@@ -316,3 +316,35 @@ def test_kernel_split_merges_instances():
     assert split[0][1] == pytest.approx(1.0)
     assert split[0][2] == 5
     assert split[1][1] == pytest.approx(0.7)
+
+
+DIGIT_SASS = """
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_digit_scanINS_8RowTilesELi32EEEvPKh
+        /*0100*/                   IGMMA.64x64x32.S8.S8 R24, gdesc[UR4], R24 ;
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_digit_scanINS_8RowTilesELi8EEEvPKh
+        /*0100*/                   IMMA.16832.S8.S8 R4, R8, R12, R4 ;
+"""
+
+
+@pytest.mark.parametrize("text,faults", [
+    (DIGIT_SASS, []),
+    (DIGIT_SASS.replace("IGMMA.64x64x32", "IMMA.16832"), ["holds no GMMA"]),
+    (DIGIT_SASS.replace("IMMA.16832.S8.S8 R4", "IADD3 R4"), ["holds no IMMA"]),
+    (DIGIT_SASS.replace("Li8E", "Li16E"), ["no kernel named"]),
+])
+def test_digit_sass_rule(text, faults):
+    """The digit scans' rule: wgmma in the QB 32 scan, mma.sync in the
+    QB 8 one, by demangled name."""
+    names = {
+        "ivf_digit_scanINS_8RowTilesELi32E": "ivf_digit_scan<RowTiles, 32>",
+        "ivf_digit_scanINS_8RowTilesELi8E": "ivf_digit_scan<RowTiles, 8>",
+        "ivf_digit_scanINS_8RowTilesELi16E": "ivf_digit_scan<RowTiles, 16>",
+    }
+    counts = chip_smoke.sass_counts(text)
+    by_name = {next(v for k, v in names.items() if k in n): c
+               for n, c in counts.items()}
+    got = chip_smoke.mma_faults(by_name,
+                                chip_smoke.DIGIT_SASS_RULES["ivf_topk_int8"])
+    assert len(got) == len(faults)
+    for fault, want in zip(got, faults):
+        assert want in fault

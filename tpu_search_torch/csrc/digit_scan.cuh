@@ -307,213 +307,4 @@ int launch_digit_scan(const void* V, const float* scale, const float* penalty,
   return (int)launch_merge(part_s, part_i, q, n_splits, k, out_s, out_i, st);
 }
 
-// -- the IVF probe scan (ivf_topk_int8.cu, ivf_topk_int4.cu) ----------------
-//
-// The same tile product and epilogue over the scheduled 128-row tiles of an
-// IVF index's blocks (ops/ivf_scan.py build_probe_schedule; ivf_topk.cu
-// has the schedule, membership and grid design), with the per-(query,
-// probed cluster) bias of the TPU kernels _kernel_ivf_int8 / _int4:
-//   score = ((fma(rho, d2, d1) * scale[row]) + penalty[row]) + bias
-// each step one f32 rounding, bias = cbias[q, p] / qs1 (divided outside)
-// for the probe position p of the tile's cluster, or -inf when q does not
-// probe it, which masks the row as the TPU kernel's membership does.
-// Tiles are not prefetched across entries (the next entry may be skipped);
-// inside a tile the next chunk is loaded before the current chunk's MMAs.
-template <class Stage, int QB>
-__global__ void __launch_bounds__(kThreads)
-ivf_digit_partial(const void* __restrict__ V, const float* __restrict__ scale,
-                  const float* __restrict__ penalty,
-                  const int8_t* __restrict__ digits,
-                  const float* __restrict__ rho, const int* __restrict__ qoff,
-                  const int* __restrict__ tile_idx,
-                  const int* __restrict__ clusters,
-                  const int* __restrict__ n_sched_p,
-                  const int* __restrict__ pos, const float* __restrict__ cbias,
-                  int n, int d, int q, int k, int kpad, int nlist, int nprobe,
-                  int max_sched, int eps, float* __restrict__ part_s,
-                  int* __restrict__ part_i, float* __restrict__ out_scores) {
-  constexpr int MT = QB / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int dp = round_up(d, kChunk);
-  const int qstr = dp + 16;
-  float* S = reinterpret_cast<float*>(smem);
-  float* bs = S + QB * kTile;
-  int* bi = reinterpret_cast<int*>(bs + QB * kpad);
-  float* rho_s = reinterpret_cast<float*>(bi + QB * kpad);
-  int* qoff_s = reinterpret_cast<int*>(rho_s + QB);
-  int8_t* Qs = reinterpret_cast<int8_t*>(qoff_s + 2 * QB);
-  int8_t* Vs = Qs + 2 * QB * qstr;
-  float* bias_s = reinterpret_cast<float*>(Vs + kTile * kVStride);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * QB;
-  const int n_sched = min(*n_sched_p, max_sched);
-  const int j0 = blockIdx.y * eps;
-  const int j1 = min(j0 + eps, n_sched);
-  const size_t n_out = (size_t)max_sched * kTile;
-
-  const int c16s = dp / 16;
-  for (int i = tid; i < 2 * QB * c16s; i += kThreads) {
-    const int ar = i / c16s, c16 = (i % c16s) * 16;
-    const int r = ar % 16, qi = q0 + (ar / 16) * 8 + (r & 7);
-    uint4 v = zero4();
-    if (qi < q && c16 < d)
-      v = *reinterpret_cast<const uint4*>(
-          digits + (size_t)(r < 8 ? qi : q + qi) * d + c16);
-    *reinterpret_cast<uint4*>(Qs + ar * qstr + c16) = v;
-  }
-  for (int i = tid; i < QB; i += kThreads) {
-    const bool live = q0 + i < q;
-    rho_s[i] = live ? rho[q0 + i] : 0.f;
-    qoff_s[i] = live && qoff ? qoff[q0 + i] : 0;
-    qoff_s[QB + i] = live && qoff ? qoff[q + q0 + i] : 0;
-  }
-  for (int i = tid; i < QB * kpad; i += kThreads) {
-    bs[i] = -INFINITY;
-    bi[i] = -1;
-  }
-
-  typename Stage::Regs regs;
-  for (int j = j0; j < j1; ++j) {
-    const int c = clusters[j];
-    __syncthreads();  // the previous tile's readers are done
-    int member = 0;
-    if (tid < QB) {
-      const int qi = q0 + tid;
-      const int p = qi < q ? pos[(size_t)qi * nlist + c] : -1;
-      member = p >= 0;
-      bias_s[tid] = member ? cbias[(size_t)qi * nprobe + p] : -INFINITY;
-    }
-    if (!__syncthreads_or(member)) continue;  // no query probes c
-    const int t0 = tile_idx[j] * kTile;
-    Stage::load(V, n, d, t0, 0, regs);
-    float sc[2][2], pn[2][2];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int row = t0 + warp * 16 + nt * 8 + tig * 2 + jj;
-        sc[nt][jj] = scale[row];
-        pn[nt][jj] = penalty[row];
-      }
-    int acc[MT][2][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[mt][nt][jj] = 0;
-
-    for (int kc = 0; kc < dp; kc += kChunk) {
-      __syncthreads();
-      Stage::store(regs, Vs);
-      __syncthreads();
-      if (kc + kChunk < dp) Stage::load(V, n, d, t0, kc + kChunk, regs);
-#pragma unroll
-      for (int ks = 0; ks < kChunk; ks += 32) {
-        uint32_t b[2][2];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int8_t* p = Vs + (warp * 16 + nt * 8 + g) * kVStride + ks + tig * 4;
-          b[nt][0] = *reinterpret_cast<const uint32_t*>(p);
-          b[nt][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int8_t* p = Qs + (mt * 16 + g) * qstr + kc + ks + tig * 4;
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(p);
-          a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * qstr);
-          a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
-          a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * qstr + 16);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) mma_s8(acc[mt][nt], a, b[nt]);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int qq = mt * 8 + g, col = warp * 16 + nt * 8 + tig * 2 + jj;
-          const float d1 = __int2float_rn(acc[mt][nt][jj] - qoff_s[qq]);
-          const float d2 =
-              __int2float_rn(acc[mt][nt][jj + 2] - qoff_s[QB + qq]);
-          S[qq * kTile + col] = __fadd_rn(
-              __fadd_rn(__fmul_rn(__fmaf_rn(rho_s[qq], d2, d1), sc[nt][jj]),
-                        pn[nt][jj]),
-              bias_s[qq]);
-        }
-    __syncthreads();
-    if (out_scores) {
-      for (int i = tid; i < QB * kTile; i += kThreads) {
-        const int qq = i / kTile;
-        if (q0 + qq < q)
-          out_scores[(size_t)(q0 + qq) * n_out + (size_t)j * kTile + i % kTile] =
-              S[i];
-      }
-    } else {
-      consume_tile<QB, kTile, kThreads>(S, q0, q, t0, t0 + kTile, n, k, kpad,
-                                        bs, bi, nullptr);
-    }
-  }
-  if (out_scores) return;
-  __syncthreads();
-  store_partials<QB, kThreads>(bs, bi, q0, q, kpad, part_s, part_i);
-}
-
-template <class Stage, int QB>
-cudaError_t launch_ivf_digit_qb(const void* V, const float* scale,
-                                const float* penalty, const int8_t* digits,
-                                const float* rho, const int* qoff,
-                                const int* tile_idx, const int* clusters,
-                                const int* n_sched, const int* pos,
-                                const float* cbias, int n, int d, int q, int k,
-                                int nlist, int nprobe, int max_sched, int eps,
-                                int n_splits, float* part_s, int* part_i,
-                                float* out_scores, cudaStream_t stream) {
-  const int kpad = out_scores ? 0 : round_up(k, 32);
-  const size_t bytes =
-      digit_smem_bytes(QB, round_up(d, kChunk), kpad) + QB * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ivf_digit_partial<Stage, QB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((q + QB - 1) / QB, n_splits);
-  ivf_digit_partial<Stage, QB><<<grid, kThreads, bytes, stream>>>(
-      V, scale, penalty, digits, rho, qoff, tile_idx, clusters, n_sched, pos,
-      cbias, n, d, q, k, kpad, nlist, nprobe, max_sched, eps, part_s, part_i,
-      out_scores);
-  return cudaGetLastError();
-}
-
-// The whole IVF scan: partial lists then the merge, or with out_scores set
-// (k > 128) the masked [q, max_sched * 128] scores only.
-template <class Stage>
-int launch_ivf_digit_scan(const void* V, const float* scale,
-                          const float* penalty, const int8_t* digits,
-                          const float* rho, const int* qoff,
-                          const int* tile_idx, const int* clusters,
-                          const int* n_sched, const int* pos,
-                          const float* cbias, int n, int d, int q, int k,
-                          int nlist, int nprobe, int max_sched, int eps,
-                          int n_splits, float* part_s, int* part_i,
-                          float* out_s, int* out_i, float* out_scores,
-                          cudaStream_t st) {
-  cudaError_t err =
-      q <= 8 ? launch_ivf_digit_qb<Stage, 8>(
-                   V, scale, penalty, digits, rho, qoff, tile_idx, clusters,
-                   n_sched, pos, cbias, n, d, q, k, nlist, nprobe, max_sched,
-                   eps, n_splits, part_s, part_i, out_scores, st)
-             : launch_ivf_digit_qb<Stage, 32>(
-                   V, scale, penalty, digits, rho, qoff, tile_idx, clusters,
-                   n_sched, pos, cbias, n, d, q, k, nlist, nprobe, max_sched,
-                   eps, n_splits, part_s, part_i, out_scores, st);
-  if (err != cudaSuccess || out_scores) return (int)err;
-  return (int)launch_merge(part_s, part_i, q, n_splits, k, out_s, out_i, st);
-}
-
 }  // namespace

@@ -2,39 +2,53 @@
 //
 // Replaces: tpu_search/ops/pallas_ivf_scan.py, pallas_ivf_topk_int8 (:400,
 // body _kernel_ivf_int8 :294), the scan behind every search of an int8 IVF
-// index.
+// index, with the XLA around it (the schedule, the query digits and the
+// cbias / qs1 of tpu_search/index/ivf.py _ivf_search_pallas_impl).
 //
-// Contract: digit_scan.cuh ivf_digit_partial (the score, first-index ties,
-// the scores-only mode) over [nlist, cap, d] int8 blocks read through
-// RowStage; schedule, membership and grid: ivf_topk.cu.  The digits, rho,
-// the bias cbias / qs1 and the final * qs1 are PyTorch in ops/ivf_scan.py,
-// as the JAX package computes them outside pl.pallas_call.
+// Contract, bounds and design: ivf_digit_scan.cuh (the prologue, the scan
+// and the merge, three launches of this one call), over [nlist, cap, d]
+// int8 blocks viewed as n = nlist * cap rows, a row's id its flat slot.
 // What bounds it on the H100: the scheduled tiles' bytes (D + 8 B a row:
 // the int8 row, its scale and its penalty) at small Q.
 
-#include "digit_scan.cuh"
+#include "ivf_digit_scan.cuh"
 
-// blocks [n / cap, cap, d] int8 viewed as n rows; scale, penalty [n] f32;
-// digits [2q, d] int8; rho [q] f32; tile_idx / clusters [max_sched + 1],
-// n_sched [1], pos [q, nlist] int32; cbias [q, nprobe] f32 (already divided
-// by qs1); the rest as ivf_topk.  Requires d % 16 == 0.
-extern "C" int ivf_topk_int8(const void* blocks, const void* scale,
-                             const void* penalty, const void* digits,
-                             const void* rho, const void* tile_idx,
-                             const void* clusters, const void* n_sched,
-                             const void* pos, const void* cbias, int n, int d,
-                             int q, int k, int nlist, int nprobe,
-                             int max_sched, int eps, int n_splits,
-                             void* part_s, void* part_i, void* out_s,
-                             void* out_i, void* scores, void* stream) {
-  return launch_ivf_digit_scan<RowStage>(
+// queries [q, d] f32, probe [q, nprobe] int32, fills [nlist] int32, cbias
+// [q, nprobe] f32 or null; scale, penalty [n] f32; the scratch as
+// ops/ivf_scan.py _DigitWork lays it out; out_s / out_i [q, k], or with
+// scores set (k > 128) scores [q, max_sched * 128] (-inf filled).
+// prologue_only: run the prologue alone.  Requires d % 16 == 0.
+extern "C" int ivf_topk_int8(
+    const void* blocks, const void* scale, const void* penalty,
+    const void* queries, const void* probe, const void* fills,
+    const void* cbias, int d, int q, int k, int nlist, int nprobe, int cap,
+    int max_sched, int qb, int runs, int prologue_only, void* digits,
+    void* rho, void* qs1, void* qoff, void* table, void* tile_idx,
+    void* clusters, void* n_sched, void* mem, void* mem_count,
+    void* merge_count, void* part_s, void* part_i, void* grp_s, void* grp_i,
+    void* out_s, void* out_i, void* scores, void* stream) {
+  const IvfDigitCall c = {
+      {static_cast<const float*>(queries), static_cast<const int*>(probe),
+       static_cast<const int*>(fills), static_cast<const float*>(cbias), q, d,
+       nlist, nprobe, cap / kIvfTile, max_sched, qb,
+       static_cast<int8_t*>(digits), static_cast<float*>(rho),
+       static_cast<float*>(qs1), static_cast<int*>(qoff),
+       static_cast<float*>(table), static_cast<int*>(tile_idx),
+       static_cast<int*>(clusters), static_cast<int*>(n_sched),
+       static_cast<int2*>(mem), static_cast<int*>(mem_count),
+       static_cast<int*>(merge_count)},
       blocks, static_cast<const float*>(scale),
-      static_cast<const float*>(penalty), static_cast<const int8_t*>(digits),
-      static_cast<const float*>(rho), nullptr,
-      static_cast<const int*>(tile_idx), static_cast<const int*>(clusters),
-      static_cast<const int*>(n_sched), static_cast<const int*>(pos),
-      static_cast<const float*>(cbias), n, d, q, k, nlist, nprobe, max_sched,
-      eps, n_splits, static_cast<float*>(part_s), static_cast<int*>(part_i),
+      static_cast<const float*>(penalty), k, runs,
+      static_cast<float*>(part_s), static_cast<int*>(part_i),
+      static_cast<float*>(grp_s), static_cast<int*>(grp_i),
       static_cast<float*>(out_s), static_cast<int*>(out_i),
-      static_cast<float*>(scores), static_cast<cudaStream_t>(stream));
+      static_cast<float*>(scores)};
+  return launch_ivf_digit<RowTiles>(c, prologue_only ? 1 : 3,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// The scan's shared memory (out[0], bytes) and CTAs a multiprocessor
+// (out[1]) at query block qb and k.
+extern "C" int ivf_topk_int8_config(int qb, int k, void* out) {
+  return ivf_digit_config<RowTiles>(qb, k, static_cast<int*>(out));
 }

@@ -24,6 +24,12 @@ Pallas path (``_ivf_search_pallas_impl``):
   against ``pallas_ivf_topk_int8`` in interpret mode; the XLA grouped path
   multiplies by ``1 / qs1`` instead, a 1e-4-level difference.)
 
+The int8 / int4 scans on the card are one C call of three launches: a
+prologue kernel that writes the query digits, the bias, the schedule and
+each query block's member list (its plain twin :func:`ivf_digit_prep_plain`
+is composed of the functions above), the scan, and a merge that multiplies
+by ``qs1``; nothing of PyTorch's runs between them (``csrc/ivf_digit_scan.cuh``).
+
 CPU tensors take the plain versions; a CUDA tensor launches the kernel or
 raises.  ``k > MAX_K`` runs each kernel's scores-only mode (the masked
 scores of the scheduled rows) and a stable sort, as the JAX package sends
@@ -33,7 +39,8 @@ k > 128 to its XLA path.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,6 +52,10 @@ from .topk_scan import quantize_queries, query_nibble_offsets
 __all__ = [
     "IVF_TILE",
     "build_probe_schedule",
+    "digit_block",
+    "digit_scan_config",
+    "ivf_digit_prep",
+    "ivf_digit_prep_plain",
     "ivf_topk_int4_plain",
     "ivf_topk_int4_scan",
     "ivf_topk_int8_plain",
@@ -68,10 +79,11 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "ivf_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                  _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "ivf_topk_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "ivf_topk_int4": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # corpus, scale, penalty, queries, probe, fills, cbias; d, q, k, nlist,
+    # nprobe, cap, max_sched, qb, runs, prologue_only; the scratch
+    # (_digit_parts), out_s, out_i, scores, stream
+    "ivf_topk_int8": [_P] * 7 + [_I] * 10 + [_P] * 19,
+    "ivf_topk_int4": [_P] * 7 + [_I] * 10 + [_P] * 19,
 }
 
 
@@ -359,32 +371,229 @@ def ivf_topk_scan(
     return _run("ivf_topk", head, launch, k, dev)
 
 
+# -- the digit scans: prologue, scan and merge in one C call -------------------
+
+# Runs' lists a merge CTA takes (csrc/ivf_digit_scan.cuh kMergeBatch).
+_MERGE_BATCH = 16
+# Runs' lists a merge CTA takes (csrc/ivf_digit_scan.cuh kMergeBatch).
+_MERGE_BATCH = 16
+
+
+def _digit_parts(q, d, nlist, max_sched, q_blocks, runs, kpad):
+    """The digit scans' scratch, in the C entries' argument order: ``(name,
+    dtype, shape)`` a part."""
+    groups = cdiv(runs, _MERGE_BATCH)
+    i8, i32, f32 = torch.int8, torch.int32, torch.float32
+    return (("digits", i8, (2 * q, d)), ("rho", f32, (q,)),
+            ("qs1", f32, (q,)), ("qoff", i32, (2 * q,)),
+            ("table", f32, (q, nlist)), ("tile_idx", i32, (max_sched + 1,)),
+            ("clusters", i32, (max_sched + 1,)), ("n_sched", i32, (1,)),
+            ("members", i32, (q_blocks, max_sched, 2)),
+            ("member_count", i32, (q_blocks,)), ("merge_count", i32, (q,)),
+            ("part_s", f32, (q, runs, kpad)), ("part_i", i32, (q, runs, kpad)),
+            ("group_s", f32, (q, groups, kpad)),
+            ("group_i", i32, (q, groups, kpad)))
+
+
+_ALIGN = 256
+_ELEMENT_BYTES = {torch.int8: 1, torch.int32: 4, torch.float32: 4}
+_SMS: Dict[int, int] = {}
+_CONFIG: Dict[Tuple[str, int, int], Tuple[int, int]] = {}
+
+
+def digit_block(q: int) -> int:
+    """Queries a scan CTA of the digit scans (the kernels' QB) at Q = q:
+    32 above 8 (wgmma's 64 rows are 32 queries' two digits), else one
+    mma.sync block of 8."""
+    return 8 if q <= 8 else 32
+
+
+def digit_scan_config(kernel: str, qb: int, k: int) -> Tuple[int, int]:
+    """``(shared memory bytes, CTAs a multiprocessor)`` of the scan CTA of
+    ``kernel`` (``ivf_topk_int8`` / ``ivf_topk_int4``) at query block
+    ``qb`` and ``k`` (any k > 128: the scores-only mode), on the current
+    CUDA device; cached."""
+    kpad = 0 if k > MAX_K else round_up(k, 32)
+    key = (kernel, qb, kpad)
+    if key not in _CONFIG:
+        out = (ctypes.c_int * 2)()
+        fn = c_entry(kernel, f"{kernel}_config", [_I, _I, _P])
+        _build.check(fn(qb, k, ctypes.addressof(out)), kernel)
+        _CONFIG[key] = (out[0], out[1])
+    return _CONFIG[key]
+
+
+def _runs(kernel, qb, k, q_blocks, max_sched, dev) -> int:
+    """Runs a query block: the card's multiprocessors x the scan's CTAs a
+    multiprocessor over the query blocks, at most one an entry."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    ctas = digit_scan_config(kernel, qb, k)[1]
+    return max(1, min(_SMS[index] * max(ctas, 1) // q_blocks, max_sched))
+
+
+class _DigitWork:
+    """A digit-scan call's scratch: one ``torch.empty`` byte buffer cut
+    into the parts of :func:`_digit_parts`, each on a 256-byte boundary;
+    ``ptrs`` their addresses in order, :meth:`view` a part as a tensor."""
+
+    def __init__(self, sizes, dev):
+        self.parts, total = {}, 0
+        for name, dtype, shape in _digit_parts(*sizes):
+            nbytes = math.prod(shape) * _ELEMENT_BYTES[dtype]
+            self.parts[name] = (dtype, shape, total, nbytes)
+            total += cdiv(nbytes, _ALIGN) * _ALIGN
+        self.buf = torch.empty((total,), dtype=torch.uint8, device=dev)
+        base = self.buf.data_ptr()
+        self.ptrs = [base + off for _, _, off, _ in self.parts.values()]
+
+    def view(self, name: str) -> torch.Tensor:
+        dtype, shape, off, nbytes = self.parts[name]
+        return self.buf[off: off + nbytes].view(dtype).view(shape)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _digit_call(kernel, corpus, fills, probe_ids, queries, k, cbias, cap):
+    """One C call of a digit scan: the prologue, then (``corpus`` =
+    ``(blocks, scales, penalty)``) the scan and the merge, or with
+    ``corpus`` None the prologue alone.  Returns ``(work, out_s, out_i,
+    scores)``: the scratch (:class:`_DigitWork`), the ``[Q, k]`` results
+    (k <= 128) or the masked ``[Q, max_sched * 128]`` scores (k > 128)."""
+    q, nprobe = probe_ids.shape
+    nlist, d = fills.shape[0], queries.shape[1]
+    probe_ids = probe_ids.to(torch.int32).contiguous()
+    fills = fills.to(torch.int32).contiguous()
+    queries = queries.float().contiguous()
+    tensors = {"queries": queries, "probe_ids": probe_ids, "fills": fills}
+    if cbias is not None:
+        cbias = tensors["cbias"] = cbias.float().contiguous()
+    if corpus is not None:
+        tensors.update(zip(("blocks", "scales", "penalty"), corpus))
+    dev = check_scan_args(nlist * cap, min(k, nlist * cap), **tensors)
+    qb = digit_block(q)
+    q_blocks = cdiv(q, qb)
+    max_sched = min(q * nprobe, nlist) * (cap // IVF_TILE)
+    kpad = 0 if k > MAX_K else round_up(k, 32)
+    runs = _runs(kernel, qb, k, q_blocks, max_sched, dev)
+    work = _DigitWork((q, d, nlist, max_sched, q_blocks, runs, kpad), dev)
+    out_s = out_i = scores = None
+    if corpus is not None and k > MAX_K:
+        scores = torch.full((q, max_sched * IVF_TILE), float("-inf"),
+                            dtype=torch.float32, device=dev)
+    elif corpus is not None:
+        out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    parts = list(work.ptrs)
+    if kernel == "ivf_topk_int8":
+        parts[3] = None  # no nibble offsets
+    head = (None, None, None) if corpus is None else corpus
+    code = c_entry(kernel, kernel, _ARGTYPES[kernel])(
+        *map(_ptr, head), queries.data_ptr(), probe_ids.data_ptr(),
+        fills.data_ptr(), _ptr(cbias), d, q, k, nlist, nprobe, cap,
+        max_sched, qb, runs, int(corpus is None), *parts,
+        _ptr(out_s), _ptr(out_i), _ptr(scores), _build.stream_ptr(dev))
+    _build.check(code, kernel)
+    _build.LAUNCHES[kernel] += 1
+    return work, out_s, out_i, scores
+
+
+def _prep_result(parts: dict, int4: bool) -> dict:
+    """The prologue's outputs as compared: schedule entries past ``n_sched``
+    and member entries past each block's count zeroed."""
+    n_sched = parts["n_sched"].reshape(())
+    dev = n_sched.device
+    live = torch.arange(parts["tile_idx"].shape[0], device=dev) < n_sched
+    counts = parts["member_count"]
+    listed = (torch.arange(parts["members"].shape[1], device=dev)[None, :]
+              < counts[:, None])
+    return {
+        "digits": parts["digits"], "rho": parts["rho"], "qs1": parts["qs1"],
+        "qoff": parts["qoff"] if int4 else None, "table": parts["table"],
+        "n_sched": n_sched,
+        "tile_idx": torch.where(live, parts["tile_idx"], 0),
+        "clusters": torch.where(live, parts["clusters"], 0),
+        "members": torch.where(listed[..., None], parts["members"], 0),
+        "member_count": counts,
+    }
+
+
+def ivf_digit_prep_plain(probe_ids, fills, queries, cbias, cap,
+                         int4=False) -> dict:
+    """What the digit scans' prologue kernel writes, from the plain pieces:
+    ``quantize_queries`` (``digits``, ``rho``, ``qs1``),
+    ``query_nibble_offsets`` (``qoff``, int4), ``build_probe_schedule``
+    (``tile_idx``, ``clusters``, ``n_sched``), and ``probe_positions`` with
+    ``_bias_pre`` (``table [Q, nlist]``: the probe's ``cbias / qs1``, ``-inf``
+    where the query does not probe the cluster); ``members [blocks,
+    max_sched, 2]``: per block of :func:`digit_block` queries, ``(tile,
+    j)`` of each schedule entry ``j`` one of its queries probes, ascending,
+    and ``member_count``."""
+    q = probe_ids.shape[0]
+    nlist = fills.shape[0]
+    qb = digit_block(q)
+    q_i8, rho, qs1 = quantize_queries(queries)
+    tile_idx, clusters, n_sched = build_probe_schedule(
+        probe_ids, fills.to(torch.int32), cap, IVF_TILE)
+    pos = probe_positions(probe_ids, nlist)
+    bias = _bias_pre(cbias, qs1, probe_ids)
+    table = torch.where(pos >= 0, bias.gather(1, pos.clamp(min=0).long()),
+                        float("-inf"))
+    n = int(n_sched)
+    blocks = cdiv(q, qb)
+    members = torch.zeros((blocks, tile_idx.shape[0] - 1, 2),
+                          dtype=torch.int32, device=probe_ids.device)
+    counts = torch.zeros((blocks,), dtype=torch.int32,
+                         device=probe_ids.device)
+    for b in range(blocks):
+        hit = (pos[b * qb: (b + 1) * qb][:, clusters[:n].long()] >= 0).any(0)
+        js = torch.nonzero(hit).flatten()
+        members[b, : js.shape[0], 0] = tile_idx[js]
+        members[b, : js.shape[0], 1] = js.to(torch.int32)
+        counts[b] = js.shape[0]
+    return _prep_result({
+        "digits": q_i8, "rho": rho, "qs1": qs1,
+        "qoff": query_nibble_offsets(q_i8), "table": table,
+        "tile_idx": tile_idx, "clusters": clusters, "n_sched": n_sched,
+        "members": members, "member_count": counts}, int4)
+
+
+def ivf_digit_prep(probe_ids, fills, queries, cbias, cap,
+                   int4=False) -> dict:
+    """The prologue kernel of the digit scans alone, on CUDA tensors (the
+    plain twin on CPU ones); outputs as :func:`ivf_digit_prep_plain`."""
+    if probe_ids.device.type == "cpu":
+        return ivf_digit_prep_plain(probe_ids, fills, queries, cbias, cap,
+                                    int4)
+    kernel = "ivf_topk_int4" if int4 else "ivf_topk_int8"
+    work = _digit_call(kernel, None, fills, probe_ids, queries, 1, cbias,
+                       cap)[0]
+    return _prep_result({name: work.view(name) for name in work.parts}, int4)
+
+
 def _digit_scan(kernel, blocks, scales, penalty, fills, probe_ids, queries,
-                k, cbias, cap, n_rows, int4):
+                k, cbias, cap):
     nlist, _, d = blocks.shape
     _check_ivf_args(penalty, fills, probe_ids, queries, nlist, cap, d)
     if d % 16:
         raise ValueError("the int8 / int4 CUDA scans need D % 16 == 0")
     if scales.shape != (nlist, cap) or scales.dtype != torch.float32:
         raise ValueError("scales must be [nlist, cap] float32")
-    probe_ids = probe_ids.to(torch.int32).contiguous()
-    q = queries.shape[0]
     if cbias is not None and cbias.shape != probe_ids.shape:
         raise ValueError("cbias must be [Q, nprobe], as probe_ids")
-    q_i8, rho, qs1 = quantize_queries(queries)
-    bias = _bias_pre(cbias, qs1, probe_ids)
-    extra = {"qoff": query_nibble_offsets(q_i8)} if int4 else {}
-    dev = check_scan_args(n_rows, min(k, n_rows), blocks=blocks,
-                          scales=scales, penalty=penalty, digits=q_i8,
-                          rho=rho, bias=bias, **extra)
-    launch = _Launch(probe_ids, fills, cap, q, k, 8 if q <= 8 else 32, dev)
-    head = (blocks.data_ptr(), scales.data_ptr(), penalty.data_ptr(),
-            q_i8.data_ptr(), rho.data_ptr(),
-            *[t.data_ptr() for t in extra.values()],
-            *launch.sched_ptrs(), bias.data_ptr(), n_rows, d, q, k, nlist,
-            probe_ids.shape[1])
-    scores, ids = _run(kernel, head, launch, k, dev)
-    return scores * qs1[:, None], ids
+    work, out_s, out_i, scores = _digit_call(
+        kernel, (blocks, scales, penalty), fills, probe_ids, queries, k,
+        cbias, cap)
+    if scores is None:
+        return out_s, out_i
+    rows, _ = _schedule_rows(work.view("tile_idx"), work.view("n_sched")[0],
+                             IVF_TILE)
+    top, ids = _select(scores, rows, k)
+    return top * work.view("qs1")[:, None], ids
 
 
 def ivf_topk_int8_scan(
@@ -408,7 +617,7 @@ def ivf_topk_int8_scan(
         raise TypeError(f"block dtype {blocks.dtype}, expected int8")
     nlist, cap, _ = blocks.shape
     return _digit_scan("ivf_topk_int8", blocks, scales, penalty, fills,
-                       probe_ids, queries, k, cbias, cap, nlist * cap, False)
+                       probe_ids, queries, k, cbias, cap)
 
 
 def ivf_topk_int4_scan(
@@ -431,5 +640,4 @@ def ivf_topk_int4_scan(
         raise TypeError(f"block dtype {nibbles.dtype}, expected uint8")
     nlist, half, _ = nibbles.shape
     return _digit_scan("ivf_topk_int4", nibbles, scales, penalty, fills,
-                       probe_ids, queries, k, cbias, 2 * half,
-                       nlist * 2 * half, True)
+                       probe_ids, queries, k, cbias, 2 * half)
