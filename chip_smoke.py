@@ -144,6 +144,12 @@ TOL = {"flat_topk": 1e-4, "mpnet_attention": 3e-2, "int8_ffn_ln": 6.25e-2,
        "flat_topk_int8": 0.0, "flat_topk_int4": 0.0, "ivf_topk": 1e-4,
        "ivf_topk_int8": 0.0, "ivf_topk_int4": 0.0,
        "mpnet_attention_bhsd": 3e-2, "flash_attention": 3e-2}
+# ivf_topk on f32 blocks: exact f32 FMAs against the plain version's f32
+# products differ only in the order of the sums.  TF32 operands (10
+# mantissa bits) would pass the 1e-4 of the bf16 blocks, so the f32 case
+# has its own gate, and its line reports the plain version's error with
+# TF32 products beside it: the gate's margin is read, not assumed.
+IVF_F32_TOL = 1e-5
 ATTN_MEAN_TOL = 1e-5
 ATTN_ULP_SHARE_TOL = 1e-3
 # A reranker's logits (before the sigmoid, which saturates) on the card
@@ -294,11 +300,14 @@ def bound(nbytes: float, ops: float, kind: str):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def device_breakdown(tag: str, fn, calls: int = 20) -> float:
+def device_breakdown(tag: str, fn, calls: int = 20):
     """Where one call of a scan wrapper spends the card's time: the device
     time per call of each kernel it launches (torch.profiler), against the
     wall time per call; the rest of the wall is the card waiting on the
-    host's launches."""
+    host's launches.  Returns ``(device busy ms, launches a call)``.  A
+    window in which the profiler recorded no device event (it happens now
+    and then after many windows in one process) is profiled again, at most
+    twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -310,13 +319,22 @@ def device_breakdown(tag: str, fn, calls: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / calls
-    events = _device_events(prof)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / calls
+        try:
+            events = _device_events(prof)
+            break
+        except RuntimeError:
+            if attempt == 2:
+                raise
+            print(f"[profile] {tag}: no device events, profiled again",
+                  flush=True)
     busy = busy_seconds((e.time_range.start, e.time_range.end)
                         for e in events) / calls
     kernels = _by_kernel(events)
@@ -327,7 +345,15 @@ def device_breakdown(tag: str, fn, calls: int = 20) -> float:
           f"device_busy_ms={busy * 1e3:.4f} launches_per_call="
           f"{len(events) / calls:.1f} kernel_ms: {' '.join(parts)} "
           f"other={rest:.4f}", flush=True)
-    return busy * 1e3
+    return busy * 1e3, len(events) / calls
+
+
+def check_launches(name: str, launches: float, most: float = 3.0) -> None:
+    """A one-C-call scan makes its three launches (prologue, scan, merge)
+    and no PyTorch kernel between them: at most ``most`` a call (the
+    profiler may miss a window's first launch)."""
+    if launches > most:
+        fail(f"{name} made {launches:.1f} launches a call, more than {most}")
 
 
 def short_kernel_name(name: str) -> str:
@@ -345,8 +371,8 @@ def short_kernel_name(name: str) -> str:
 # wgmma (GMMA), and whether any mma.sync int8 product (IMMA) in the source
 # fails the build: the int8 products must be wgmma's alone.
 REDESIGNED = ("mpnet_attention", "mpnet_attention_bhsd", "int8_gemm",
-              "int8_ffn_ln", "flash_attention", "ivf_topk_int8",
-              "ivf_topk_int4")
+              "int8_ffn_ln", "flash_attention", "ivf_topk", "ivf_topk_int8",
+              "ivf_topk_int4", "flat_topk_int4")
 SASS_RULES = {
     "mpnet_attention_bhsd": (("attention_bhsd_kernel",), False),
     "int8_gemm": (("gemm_kernel",), True),
@@ -355,24 +381,33 @@ SASS_RULES = {
 }
 
 
-# The IVF digit scans (bodies in csrc/ivf_digit_scan.cuh), by demangled
-# kernel name: the scan of Q > 8 multiplies with wgmma (GMMA), that of
-# Q <= 8 with mma.sync (IMMA).
+# The ring-fed scans, by demangled kernel name: the digit scans (bodies in
+# csrc/ivf_digit_scan.cuh; the IVF int8 / int4 scans, and the flat int4
+# scan at Q > 8) multiply with wgmma (GMMA) at Q > 8 and with mma.sync
+# (IMMA) at Q <= 8 (the flat int4 scan there: digit_partial); the bf16 IVF
+# scan (csrc/ivf_float_scan.cuh) with wgmma at its query block of 32 and
+# with mma.sync (HMMA) at 16.
 DIGIT_SASS_RULES = {
-    name: {"GMMA": (f"ivf_digit_scan<{tiles}, 32>",),
-           "IMMA": (f"ivf_digit_scan<{tiles}, 8>",)}
+    name: {"GMMA": (f"ivf_digit_scan<{tiles}, 32, IvfSource>",),
+           "IMMA": (f"ivf_digit_scan<{tiles}, 8, IvfSource>",)}
     for name, tiles in (("ivf_topk_int8", "RowTiles"),
                         ("ivf_topk_int4", "NibbleTiles"))
 }
+DIGIT_SASS_RULES["flat_topk_int4"] = {
+    "GMMA": ("ivf_digit_scan<NibbleTiles, 32, FlatSource>",),
+    "IMMA": ("digit_partial<NibbleStage, 8>",)}
+DIGIT_SASS_RULES["ivf_topk"] = {"GMMA": ("ivf_float_scan<Bf16Rows, 32>",),
+                                "HMMA": ("ivf_float_scan<Bf16Rows, 16>",)}
+MMA_KINDS = ("GMMA", "IMMA", "HMMA")
 
 
 def mma_faults(counts: dict, wanted: dict) -> list:
-    """What breaks a digit scan's rule: a kernel named in ``wanted[kind]``
+    """What breaks a ring scan's rule: a kernel named in ``wanted[kind]``
     (a part of its short name) that is missing or holds no instruction of
-    that kind (``GMMA`` / ``IMMA``); ``counts`` by short name."""
+    that kind (``GMMA`` / ``IMMA`` / ``HMMA``); ``counts`` by short name."""
     faults = []
     for kind, parts in wanted.items():
-        column = ("GMMA", "IMMA").index(kind)
+        column = MMA_KINDS.index(kind)
         for part in parts:
             hits = {n: c for n, c in counts.items() if part in n}
             if not hits:
@@ -420,18 +455,20 @@ def demangle(names: list) -> list:
 
 
 def sass_counts(sass: str) -> dict:
-    """``{function: (GMMA count, IMMA count)}`` of a ``cuobjdump -sass``
-    listing, by the mangled name of each ``Function :`` section."""
+    """``{function: (GMMA count, IMMA count, HMMA count)}`` of a
+    ``cuobjdump -sass`` listing, by the mangled name of each ``Function :``
+    section."""
     counts, name = {}, None
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = found.group(1)
-            counts[name] = (0, 0)
+            counts[name] = (0, 0, 0)
         elif name is not None:
-            gmma, imma = counts[name]
+            gmma, imma, hmma = counts[name]
             counts[name] = (gmma + len(re.findall(r"\b[A-Z]*GMMA\.", line)),
-                            imma + len(re.findall(r"\bIMMA\.", line)))
+                            imma + len(re.findall(r"\bIMMA\.", line)),
+                            hmma + len(re.findall(r"\bHMMA\.", line)))
     return counts
 
 
@@ -443,8 +480,9 @@ def sass_faults(counts: dict, wanted: tuple, no_imma: bool) -> list:
         hits = {n: c for n, c in counts.items() if part in n}
         if not hits:
             faults.append(f"no kernel named {part}")
-        faults += [f"{n} holds no GMMA" for n, (g, _) in hits.items() if not g]
-    imma = sum(i for _, i in counts.values())
+        faults += [f"{n} holds no GMMA" for n, (g, *_) in hits.items()
+                   if not g]
+    imma = sum(c[1] for c in counts.values())
     if no_imma and imma:
         faults.append(f"{imma} IMMA instructions")
     return faults
@@ -478,7 +516,7 @@ def check_build(logs: dict) -> None:
     for name, (wanted, no_imma) in SASS_RULES.items():
         counts = sass_of(name)
         names = demangle(list(counts))
-        for (gmma, imma), kernel in zip(counts.values(), names):
+        for (gmma, imma, _), kernel in zip(counts.values(), names):
             print(f"[build] sass {name} {short_name(kernel)} "
                   f"gmma_instructions={gmma} imma_instructions={imma}",
                   flush=True)
@@ -489,9 +527,10 @@ def check_build(logs: dict) -> None:
         counts = sass_of(name)
         by_name = {short_name(kernel): c for kernel, c in
                    zip(demangle(list(counts)), counts.values())}
-        for kernel, (gmma, imma) in by_name.items():
+        for kernel, (gmma, imma, hmma) in by_name.items():
             print(f"[build] sass {name} {kernel} gmma_instructions={gmma} "
-                  f"imma_instructions={imma}", flush=True)
+                  f"imma_instructions={imma} hmma_instructions={hmma}",
+                  flush=True)
         faults = mma_faults(by_name, wanted)
         if faults:
             fail(f"{name}'s SASS breaks its rule: {'; '.join(faults)}")
@@ -643,6 +682,25 @@ def check_v1_cases() -> float:
     return worst
 
 
+def check_flat_prep(queries) -> None:
+    """The flat int4 scan's prologue kernel against its plain twin on the
+    same queries: digits, rho, qs1 and nibble offsets equal, bit for bit."""
+    import torch
+
+    from tpu_search_torch.ops.flat_topk_int4 import (
+        flat_digit_prep,
+        flat_digit_prep_plain,
+    )
+
+    got, want = flat_digit_prep(queries), flat_digit_prep_plain(queries)
+    torch.cuda.synchronize()
+    bad = [key for key, value in want.items()
+           if not torch.equal(got[key], value)]
+    print(f"[flat_prep] Q={queries.shape[0]} equal={not bad}", flush=True)
+    if bad:
+        fail(f"the flat int4 prologue differs from its plain twin in {bad}")
+
+
 def check_quant_topk(results: dict) -> None:
     """The int8 scan (rows and words) and the int4 scan at the main path's
     shapes: 1M unit rows x 768 quantized by the index's quantizers, 10 %
@@ -702,6 +760,7 @@ def check_quant_topk(results: dict) -> None:
     for q in (1, 8, 128):
         queries = torch.randn((q, d), generator=gen, device=dev)
         queries = queries / queries.norm(dim=1, keepdim=True)
+        check_flat_prep(queries)
         for k in (10, 128, 200):
             for tag, (name, kernel, plain) in cases.items():
                 if k > 128 and q > 8:
@@ -727,8 +786,10 @@ def check_quant_topk(results: dict) -> None:
                 entry = results.setdefault(name, {"max_abs_err": 0.0})
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if q == 1 and k == 10:
-                    device_breakdown(f"{tag} N={n} Q=1 k=10",
-                                     lambda: kernel(queries, k))
+                    _, calls = device_breakdown(f"{tag} N={n} Q=1 k=10",
+                                                lambda: kernel(queries, k))
+                    if name == "flat_topk_int4":
+                        check_launches(tag, calls)
                     if tag != "flat_topk_int8 words":
                         row_bytes = d if name == "flat_topk_int8" else d // 2
                         bound_ms, by = bound(
@@ -1660,7 +1721,8 @@ IVF_N, IVF_NLIST, IVF_CENTRES = 1_000_000, 1024, 4096
 IVF_CASES = ((1, 10), (1, 128), (8, 10), (128, 10), (128, 128), (1, 200))
 # Bytes a scheduled row brings: the row, then its penalty (bf16) or its
 # scale and penalty (int8, int4).
-IVF_ROW_BYTES = {"bfloat16": 768 * 2 + 4, "int8": 768 + 8, "int4": 384 + 8}
+IVF_ROW_BYTES = {"bfloat16": 768 * 2 + 4, "float32": 768 * 4 + 4,
+                 "int8": 768 + 8, "int4": 384 + 8}
 
 
 def ivf_corpus(dev):
@@ -1685,15 +1747,15 @@ def ivf_corpus(dev):
 
 
 def build_ivf_indexes(rows, dead):
-    """bf16 (trained by the port's balanced k-means), int8 and int4 IVF
-    indexes over ``rows`` at nlist 1024, sharing the bf16 index's
+    """bf16 (trained by the port's balanced k-means), f32, int8 and int4
+    IVF indexes over ``rows`` at nlist 1024, sharing the bf16 index's
     centroids, with ``dead`` ids tombstoned."""
     import torch
 
     from tpu_search_torch.index.ivf import IVFIndex
 
     indexes = {}
-    for dtype in ("bfloat16", "int8", "int4"):
+    for dtype in ("bfloat16", "float32", "int8", "int4"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         index = IVFIndex(768, dtype=dtype, nlist=IVF_NLIST,
@@ -1712,29 +1774,42 @@ def build_ivf_indexes(rows, dead):
     return indexes
 
 
-def print_digit_config(name: str) -> None:
-    """Shared memory and CTAs a multiprocessor of a digit scan's scan CTA
-    at each query block (8: mma.sync, 32: wgmma) and k."""
-    from tpu_search_torch.ops import ivf_scan
+def print_scan_config(name: str) -> None:
+    """Shared memory and CTAs a multiprocessor of a ring scan's scan CTA
+    at each query block and k: the digit scans at 8 (mma.sync) and 32
+    (wgmma); the bf16 scan at 16 (mma.sync) and 32 (wgmma), the f32 scan
+    at 16."""
+    from tpu_search_torch.ops.ring_scan import scan_config
 
-    for qb in (8, 32):
+    blocks = {"ivf_topk": [(True, 16), (True, 32), (False, 16)],
+              "flat_topk_int4": [(True, 32)]}.get(name, [(True, 8), (True, 32)])
+    for bf16, qb in blocks:
+        head = (int(bf16),) if name == "ivf_topk" else ()
         for k in (10, 128, 200):
-            smem, ctas = ivf_scan.digit_scan_config(name, qb, k)
-            print(f"[{name}] scan QB={qb} k={k} shared_memory_bytes={smem} "
-                  f"ctas_per_multiprocessor={ctas}", flush=True)
+            smem, ctas = scan_config(name, qb, k, *head)
+            kind = "" if name != "ivf_topk" else (
+                " bf16" if bf16 else " f32")
+            print(f"[{name}] scan{kind} QB={qb} k={k} shared_memory_bytes="
+                  f"{smem} ctas_per_multiprocessor={ctas}", flush=True)
 
 
 def check_ivf_prep(dtype, probe, fills, queries, cbias, cap, nprobe) -> None:
-    """The digit scans' prologue kernel against its plain twin on the same
-    inputs: every output equal, bit for bit."""
+    """The scan's prologue kernel against its plain twin on the same
+    inputs (the digit scans' for int8 / int4, the float scan's for bf16 /
+    f32): every output equal, bit for bit."""
     import torch
 
     from tpu_search_torch.ops import ivf_scan
 
-    int4 = dtype == "int4"
-    got = ivf_scan.ivf_digit_prep(probe, fills, queries, cbias, cap, int4)
-    want = ivf_scan.ivf_digit_prep_plain(probe, fills, queries, cbias, cap,
-                                         int4)
+    if dtype in ("bfloat16", "float32"):
+        bf16 = dtype == "bfloat16"
+        got = ivf_scan.ivf_float_prep(probe, fills, queries, cap, bf16)
+        want = ivf_scan.ivf_float_prep_plain(probe, fills, queries, cap, bf16)
+    else:
+        int4 = dtype == "int4"
+        got = ivf_scan.ivf_digit_prep(probe, fills, queries, cbias, cap, int4)
+        want = ivf_scan.ivf_digit_prep_plain(probe, fills, queries, cbias,
+                                             cap, int4)
     torch.cuda.synchronize()
     bad = [key for key, value in want.items()
            if (got[key] is None) != (value is None)
@@ -1748,10 +1823,12 @@ def check_ivf_prep(dtype, probe, fills, queries, cbias, cap, nprobe) -> None:
 
 def check_ivf(results: dict) -> None:
     """The three IVF probe scans against their plain versions at 1M x 768,
-    nlist 1024 (int8 / int4 exact; bf16 scores within 1e-4, ids equal
-    outside near-ties), the digit scans' prologue against its plain twin
-    at every case, then the IVF index against the flat exact scan at
-    nprobe = nlist and its ``tune_nprobe(0.95)``."""
+    nlist 1024 (int8 / int4 exact; bf16 blocks scores within 1e-4, f32
+    blocks (an f32 index of the same rows) within ``IVF_F32_TOL``, ids
+    equal outside near-ties), each
+    scan's prologue against its plain twin and its launches a call (at
+    most 3 at k <= 128) at every case, then the IVF index against the flat
+    exact scan at nprobe = nlist and its ``tune_nprobe(0.95)``."""
     import numpy as np
     import torch
 
@@ -1767,32 +1844,40 @@ def check_ivf(results: dict) -> None:
     scans = {
         "bfloat16": ("ivf_topk", ivf_scan.ivf_topk_scan,
                      ivf_scan.ivf_topk_plain, "bf16"),
+        "float32": ("ivf_topk", ivf_scan.ivf_topk_scan,
+                    ivf_scan.ivf_topk_plain, "f32"),
         "int8": ("ivf_topk_int8", ivf_scan.ivf_topk_int8_scan,
                  ivf_scan.ivf_topk_int8_plain, "int8"),
         "int4": ("ivf_topk_int4", ivf_scan.ivf_topk_int4_scan,
                  ivf_scan.ivf_topk_int4_plain, "int8"),
     }
-    for dtype, index in indexes.items():
+    for dtype in ("bfloat16", "float32", "int8", "int4"):
+        index = indexes[dtype]
         name, scan, plain, kind = scans[dtype]
         pen, fills = index._penalty(None), index._device_fills()
         cap = index._cluster_capacity
-        worst = 0.0
-        if dtype != "bfloat16":
-            print_digit_config(name)
+        float_rows = dtype in ("bfloat16", "float32")
+        blocks = index._dblocks
+        f32 = dtype == "float32"
+        tol = IVF_F32_TOL if f32 else TOL[name]
+        worst = 0.0 if f32 else results.get(name, {}).get("max_abs_err", 0.0)
+        tf32_err = None
+        if not f32:
+            print_scan_config(name)
         for nprobe in (8, 32):
             for q, k in IVF_CASES:
                 queries = rows[torch.from_numpy(
                     qrng.choice(IVF_N, q, replace=False)).to(dev)]
                 cs, probe = probe_clusters(queries, index._dcent, "ip", nprobe)
-                if dtype == "bfloat16":
-                    args = (index._dblocks, pen, fills, probe, queries, k)
+                cbias = None
+                if float_rows:
+                    args = (blocks, pen, fills, probe, queries, k)
                 else:
                     cbias = torch.gather(cs, 1, probe.long())
-                    args = (index._dblocks, index._dscale, pen, fills, probe,
+                    args = (blocks, index._dscale, pen, fills, probe,
                             queries, k, cbias)
-                if dtype != "bfloat16":
-                    check_ivf_prep(dtype, probe, fills, queries, cbias, cap,
-                                   nprobe)
+                check_ivf_prep(dtype, probe, fills, queries, cbias, cap,
+                               nprobe)
                 ks, ki = scan(*args)
                 ps, pi = plain(*args)
                 torch.cuda.synchronize()
@@ -1801,9 +1886,9 @@ def check_ivf(results: dict) -> None:
                 err = (float((ks[fin] - ps[fin]).abs().max())
                        if same_fin and bool(fin.any()) else
                        (0.0 if same_fin else float("inf")))
-                if dtype == "bfloat16":
-                    ok = err <= TOL[name] and bool(
-                        ((ki == pi) | ((ks - ps).abs() <= TOL[name])).all())
+                if float_rows:
+                    ok = err <= tol and bool(
+                        ((ki == pi) | ((ks - ps).abs() <= tol)).all())
                 else:
                     ok = bool(torch.equal(ks, ps)) and bool(torch.equal(ki, pi))
                 live = index._dvalid.reshape(-1)[ki[ki >= 0].long()]
@@ -1815,16 +1900,19 @@ def check_ivf(results: dict) -> None:
                 pos = ivf_scan.probe_positions(probe, IVF_NLIST)
                 members = int((pos[:, clusters[:n_sched].long()] >= 0).sum())
                 sched_bytes = n_sched * ivf_scan.IVF_TILE * IVF_ROW_BYTES[dtype]
-                digits = 1 if dtype == "bfloat16" else 2
+                digits = 1 if float_rows else 2
                 bound_ms, by = bound(
                     sched_bytes + q * 768 * 4 + q * k * 8,
                     2 * digits * members * ivf_scan.IVF_TILE * 768, kind)
                 kms, pms = paired_ms(lambda: scan(*args), lambda: plain(*args),
                                      iters=5)
-                dms = device_breakdown(
-                    f"{name} nprobe={nprobe} Q={q} k={k}", lambda: scan(*args),
-                    calls=10)
-                print(f"[{name}] N={IVF_N} nlist={IVF_NLIST} cap={cap} "
+                label = name + (" f32" if dtype == "float32" else "")
+                dms, calls = device_breakdown(
+                    f"{label} nprobe={nprobe} Q={q} k={k}",
+                    lambda: scan(*args), calls=10)
+                if k <= 128:
+                    check_launches(label, calls)
+                print(f"[{label}] N={IVF_N} nlist={IVF_NLIST} cap={cap} "
                       f"nprobe={nprobe} Q={q} k={k} max_abs_err={err:.3e} "
                       f"id_agreement={float((ki == pi).float().mean()):.6f} "
                       f"wrapper_ms={kms:.4f} plain_ms={pms:.4f} "
@@ -1835,11 +1923,27 @@ def check_ivf(results: dict) -> None:
                     fail(f"{name} disagrees with its plain version at "
                          f"nprobe={nprobe} Q={q} k={k}")
                 worst = max(worst, err)
-                if nprobe == 32 and q == 1 and k == 10:
+                if f32 and nprobe == 32 and q == 128 and k == 10:
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        ts, _ = plain(*args)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
+                    tf32_err = float((ts[fin] - ps[fin]).abs().max())
+                if nprobe == 32 and q == 1 and k == 10 and not f32:
                     results[name] = {"ms": kms, "plain_ms": pms,
                                      "device_ms": dms, "bound_ms": bound_ms,
                                      "bound_by": by, "library_ms": None}
-        results[name]["max_abs_err"] = worst
+        if f32:
+            print(f"[ivf_topk f32] cases={2 * len(IVF_CASES)} "
+                  f"max_abs_err={worst:.3e} tol={IVF_F32_TOL:.0e} "
+                  f"tf32_plain_err={tf32_err:.3e} ok={worst <= tol}",
+                  flush=True)
+            if worst > tol:
+                fail(f"ivf_topk on f32 blocks errs {worst:.3e}")
+        else:
+            results[name]["max_abs_err"] = worst
+        del blocks
 
     # The index: every list probed equals the flat exact scan; the tuned
     # nprobe meets its recall target.

@@ -27,7 +27,10 @@ scan-overhead probe's within the flat scan's 1e-4; the IVF int8 / int4
 scans' prologue kernel equal to its plain twin on the cases of
 ``tests/ivf_prep_cases.py``, and both scans exact with the live schedule
 empty, shorter than the grid and many times longer (nlist 4,099), and on
-an exact tie at k = 128.  The ``[B, S, H]``
+an exact tie at k = 128; the bf16 / f32 IVF scan's prologue equal to its
+plain twin on the same cases, and the scan within 1e-4 at Q 1 to 128,
+nprobe 8 and 32, k 10, 128 and 200 (both query blocks, both metrics); the
+flat int4 scan's prologue equal to its plain twin.  The ``[B, S, H]``
 attention also at S 512 with hd 32 and on a one-row query, with rows
 padded by -inf and by the f32 min; ``int8_gemm`` also at M, N and K off its
 wgmma tiles (K 8 and 312); ``int8_ffn_ln`` also at M 1, 127, 129 and 4,097
@@ -566,6 +569,8 @@ def test_quant_wrappers_raise_instead_of_falling_back(dev):
         flat_topk_int4_scan(nib[:100], s, pen, qs, 5)
     with pytest.raises(ValueError, match="D % 16"):
         flat_topk_int8_scan(rows[:, :40].contiguous(), s, pen, qs[:, :40], 5)
+    with pytest.raises(ValueError, match="D % 16"):
+        flat_topk_int4_scan(nib[:, :40].contiguous(), s, pen, qs[:, :40], 5)
     for k in (0, 257):
         with pytest.raises(ValueError, match="k="):
             flat_topk_int8_scan(rows, s, pen, qs, k)
@@ -662,6 +667,79 @@ def test_ivf_topk_kernel(dev, dtype, metric, q, nprobe, k):
     assert bool(((ki == pi) | ((ks - ps).abs() <= 1e-4)).all())
     if metric == "ip":
         assert ki[0, :2].tolist() == [4, 9]  # the tie: the lower slot first
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("q", [1, 16, 17, 128])
+@pytest.mark.parametrize("nprobe", [8, 32])
+@pytest.mark.parametrize("k", [10, 128, 200])
+def test_ivf_topk_kernel_probes(dev, dtype, metric, q, nprobe, k):
+    """nlist 48: Q on both sides of the small-query cutoff (16), every
+    query probing 8 or 32 lists, k in the selecting and the scores-only
+    modes."""
+    from tpu_search_torch.ops.ivf_scan import ivf_topk_plain, ivf_topk_scan
+
+    st = ivf_state(dev, nlist=48, cap=256, d=96, seed=q + nprobe)
+    b = st["rows"].to(dtype)
+    sq = (b.float() ** 2).sum(-1)
+    pen = torch.where(st["valid"], sq if metric == "l2" else 0.0,
+                      float("inf"))
+    gen = torch.Generator(device=dev).manual_seed(k + q)
+    queries = torch.randn((q, 96), generator=gen, device=dev)
+    queries[0] = b[0, 4].float()
+    probe = torch.topk(queries @ st["cent"].T, nprobe).indices.int()
+    alpha = 2.0 if metric == "l2" else 1.0
+    ks, ki = ivf_topk_scan(b, pen, st["fills"], probe, queries, k, alpha)
+    ps, pi = ivf_topk_plain(b, pen, st["fills"], probe, queries, k, alpha)
+    torch.cuda.synchronize()
+    assert ks.shape == (q, k)
+    assert torch.equal(torch.isfinite(ks), torch.isfinite(ps))
+    fin = torch.isfinite(ps)
+    assert float((ks[fin] - ps[fin]).abs().max()) <= 1e-4
+    assert bool(((ki == pi) | ((ks - ps).abs() <= 1e-4)).all())
+    assert bool(st["valid"].reshape(-1)[ki[ki >= 0].long()].all())
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("name", sorted(ivf_prep_cases.CASES))
+def test_ivf_float_prep_kernel_equals_plain(dev, name, bf16):
+    """The bf16 / f32 scan's prologue kernel against its plain twin, bit
+    for bit (the bf16 cast, the table, the schedule, the member lists)."""
+    from tpu_search_torch.ops.ivf_scan import (
+        ivf_float_prep,
+        ivf_float_prep_plain,
+    )
+
+    probe, fills, queries, _, cap = ivf_prep_cases.make_case(name)
+    cpu = [torch.from_numpy(a) for a in (probe, fills, queries)]
+    want = ivf_float_prep_plain(*cpu, cap, bf16)
+    got = ivf_float_prep(*[t.to(dev) for t in cpu], cap, bf16)
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        if value is None:
+            assert got[key] is None
+        else:
+            assert torch.equal(got[key].cpu(), value), key
+
+
+@pytest.mark.parametrize("name", sorted(ivf_prep_cases.CASES))
+def test_flat_int4_prep_kernel_equals_plain(dev, name):
+    """The flat int4 scan's prologue kernel against its plain twin, bit
+    for bit, on the queries of the IVF prologue cases."""
+    from tpu_search_torch.ops.flat_topk_int4 import (
+        flat_digit_prep,
+        flat_digit_prep_plain,
+    )
+
+    queries = torch.from_numpy(ivf_prep_cases.make_case(name)[2])
+    want = flat_digit_prep_plain(queries)
+    got = flat_digit_prep(queries.to(dev))
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert torch.equal(got[key].cpu(), value), key
 
 
 def digit_scans(st, kind):

@@ -11,6 +11,7 @@ reranker's logit-order gate.
 
 import contextlib
 import io
+import re
 
 import numpy as np
 import pytest
@@ -253,10 +254,12 @@ SASS = """
 
 
 def test_sass_counts_by_function():
-    """GMMA (any prefix) and IMMA are counted per ``Function :`` section."""
+    """GMMA (any prefix), IMMA and HMMA are counted per ``Function :``
+    section."""
     counts = chip_smoke.sass_counts(
-        SASS + "        /*0120*/   IMMA.16816.S8.S8 R4, R8, R12, R4 ;\n")
-    assert list(counts.values()) == [(2, 0), (1, 0), (0, 1)]
+        SASS + "        /*0120*/   IMMA.16816.S8.S8 R4, R8, R12, R4 ;\n"
+        "        /*0130*/   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n")
+    assert list(counts.values()) == [(2, 0, 0), (1, 0, 0), (0, 1, 1)]
     assert "ffn_gemm1" in list(counts)[1]
 
 
@@ -319,9 +322,9 @@ def test_kernel_split_merges_instances():
 
 
 DIGIT_SASS = """
-\t\tFunction : _ZN41_GLOBAL__N__14ivf_digit_scanINS_8RowTilesELi32EEEvPKh
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_digit_scanINS_8RowTilesELi32ENS_9IvfSourceEEEvPKh
         /*0100*/                   IGMMA.64x64x32.S8.S8 R24, gdesc[UR4], R24 ;
-\t\tFunction : _ZN41_GLOBAL__N__14ivf_digit_scanINS_8RowTilesELi8EEEvPKh
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_digit_scanINS_8RowTilesELi8ENS_9IvfSourceEEEvPKh
         /*0100*/                   IMMA.16832.S8.S8 R4, R8, R12, R4 ;
 """
 
@@ -336,9 +339,12 @@ def test_digit_sass_rule(text, faults):
     """The digit scans' rule: wgmma in the QB 32 scan, mma.sync in the
     QB 8 one, by demangled name."""
     names = {
-        "ivf_digit_scanINS_8RowTilesELi32E": "ivf_digit_scan<RowTiles, 32>",
-        "ivf_digit_scanINS_8RowTilesELi8E": "ivf_digit_scan<RowTiles, 8>",
-        "ivf_digit_scanINS_8RowTilesELi16E": "ivf_digit_scan<RowTiles, 16>",
+        "ivf_digit_scanINS_8RowTilesELi32E":
+            "ivf_digit_scan<RowTiles, 32, IvfSource>",
+        "ivf_digit_scanINS_8RowTilesELi8E":
+            "ivf_digit_scan<RowTiles, 8, IvfSource>",
+        "ivf_digit_scanINS_8RowTilesELi16E":
+            "ivf_digit_scan<RowTiles, 16, IvfSource>",
     }
     counts = chip_smoke.sass_counts(text)
     by_name = {next(v for k, v in names.items() if k in n): c
@@ -348,3 +354,58 @@ def test_digit_sass_rule(text, faults):
     assert len(got) == len(faults)
     for fault, want in zip(got, faults):
         assert want in fault
+
+
+FLOAT_SASS = """
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_8Bf16RowsELi32EEEvPKh
+        /*0100*/                   HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], R24 ;
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_8Bf16RowsELi16EEEvPKh
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_7F32RowsELi16EEEvPKh
+        /*0100*/                   FFMA R4, R8, R12, R4 ;
+"""
+
+
+@pytest.mark.parametrize("text,faults", [
+    (FLOAT_SASS, []),
+    (FLOAT_SASS.replace("HGMMA.64x32x16", "HMMA.16816"), ["holds no GMMA"]),
+    (FLOAT_SASS.replace("HMMA.16816.F32.BF16 R4", "FFMA R4"),
+     ["holds no HMMA"]),
+])
+def test_float_sass_rule(text, faults):
+    """The bf16 IVF scan's rule: wgmma at query block 32, mma.sync (HMMA)
+    at 16; the f32 scan's FMAs need no rule."""
+    counts = chip_smoke.sass_counts(text)
+    by_name = {}
+    for mangled, c in counts.items():
+        rows = "Bf16Rows" if "Bf16Rows" in mangled else "F32Rows"
+        qb = re.search(r"ELi(\d+)E", mangled).group(1)
+        by_name[f"ivf_float_scan<{rows}, {qb}>"] = c
+    got = chip_smoke.mma_faults(by_name,
+                                chip_smoke.DIGIT_SASS_RULES["ivf_topk"])
+    assert len(got) == len(faults)
+    for fault, want in zip(got, faults):
+        assert want in fault
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """``a`` with each f32 rounded to TF32's 10 mantissa bits (to nearest,
+    ties away from zero, as the tensor cores take f32 operands)."""
+    bits = a.view(np.int32).astype(np.int64)
+    return ((bits + 0x1000) & ~0x1FFF).astype(np.int32).view(np.float32)
+
+
+def test_ivf_f32_gate_separates_f32_from_tf32():
+    """``IVF_F32_TOL`` passes f32 products summed in another order and
+    fails TF32 operands, on 768-dim unit rows as the smoke's IVF corpus:
+    the margin its ``[ivf_topk f32]`` line reads on the card."""
+    rng = np.random.default_rng(5)
+    rows = rng.standard_normal((2048, 768)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    queries = rows[:16]
+    exact = queries.astype(np.float64) @ rows.astype(np.float64).T
+    f32 = (torch.from_numpy(queries) @ torch.from_numpy(rows).T).numpy()
+    tf32 = (_tf32(queries).astype(np.float64)
+            @ _tf32(rows).astype(np.float64).T)
+    assert np.abs(f32 - exact).max() <= chip_smoke.IVF_F32_TOL / 4
+    assert np.abs(tf32 - f32).max() > 2 * chip_smoke.IVF_F32_TOL

@@ -14,7 +14,10 @@ scan pieces of ``csrc/digit_scan.cuh``, beside the production scan:
 - ``unpack``: both nibble planes split into shared memory, no MMA (an XOR
   of the split words);
 - ``nomerge``: everything but the top-k (the max of each query's scores);
-- ``full``: the production ``NibbleStage`` scan with its partial top-k;
+- ``full``: the production scan of ``flat_topk_int4_scan`` (the ring of
+  ``csrc/ivf_digit_scan.cuh`` and the tree merge), on the prepared digits;
+  the stripped variants above keep the staging of the scan it replaced
+  (``csrc/digit_scan.cuh``'s ``NibbleStage``);
 - ``concat1mm``: the tile staged in plane order (its low nibbles, then its
   high nibbles) in one MMA loop, ids mapped back as the TPU probe maps
   them;
@@ -56,6 +59,7 @@ from ..ops import _build
 from ..ops.flat_topk import c_entry, check_scan_args
 from ..ops.flat_topk_int4 import flat_topk_int4_scan
 from ..ops.int4_pack import bytes_to_nibble_rows
+from ..ops.ring_scan import MERGE_BATCH
 from ..ops.topk_scan import (
     digit_scores,
     flat_topk_int4_plain,
@@ -79,7 +83,7 @@ _NIBBLE_LO = 0x0F0F0F0F
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P] * 6
+_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P] * 9
 
 
 def make_inputs(n: int, seed: int, device) -> Tuple[tuple, tuple]:
@@ -139,7 +143,12 @@ def _launch(mode: str, corpus: tuple, prep: tuple, k: int,
                           penalty=penalty, queries=q_i8, rho=rho, qoff=qoff)
     n_splits = cdiv(n, rows_per_split)
     kpad = round_up(k, 32)
-    part_s = part_i = out_s = out_i = fold = None
+    part_s = part_i = out_s = out_i = fold = grp_s = grp_i = count = None
+    if mode == "full":  # the tree merge's groups and counters
+        groups = cdiv(n_splits, MERGE_BATCH)
+        grp_s = torch.empty((q, groups, k), dtype=torch.float32, device=dev)
+        grp_i = torch.empty((q, groups, k), dtype=torch.int32, device=dev)
+        count = torch.empty((q,), dtype=torch.int32, device=dev)
     if mode in _XOR:
         fold = torch.empty((n_splits,), dtype=torch.int32, device=dev)
     elif mode in _MAX:
@@ -152,7 +161,7 @@ def _launch(mode: str, corpus: tuple, prep: tuple, k: int,
         out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     ptrs = [0 if t is None else t.data_ptr()
-            for t in (part_s, part_i, out_s, out_i, fold)]
+            for t in (part_s, part_i, out_s, out_i, fold, grp_s, grp_i, count)]
     code = c_entry("int4_probe", "int4_probe", _ARGTYPES)(
         nibbles.data_ptr(), scales.data_ptr(), penalty.data_ptr(),
         q_i8.data_ptr(), rho.data_ptr(), qoff.data_ptr(), n,

@@ -1,6 +1,7 @@
 // Masked top-k over an int8-coded corpus with two-digit int8 queries:
 // the body shared by flat_topk_int8.cu (int8 rows, or the JAX package's
-// word-packed int8 layout) and flat_topk_int4.cu (biased nibbles).
+// word-packed int8 layout) and flat_topk_int4.cu at Q <= 8 (biased
+// nibbles; flat_int4_scan.cuh merges its partial lists).
 //
 // Contract (that of the TPU kernels _kernel_int8 / _kernel_int4 and of
 // ops/topk_scan.py flat_topk_int8_plain / flat_topk_int4_plain):
@@ -41,6 +42,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
 #include "topk_select.cuh"
 
 namespace {
@@ -49,15 +51,6 @@ constexpr int kTile = 128;             // corpus rows per tile
 constexpr int kChunk = 128;            // dims (bytes) staged per pass
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kVStride = kChunk + 16;  // bytes per staged row: no bank conflicts
-
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
-                                       const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ uint4 zero4() { return make_uint4(0, 0, 0, 0); }
 

@@ -1,5 +1,6 @@
-// The tile products of the bf16 / f32 scans, shared by flat_topk.cu (the
-// flat index) and ivf_topk.cu (the IVF probe scan).
+// The tile products of the flat bf16 / f32 scans: flat_topk.cu (the flat
+// index) and scan_overhead_probe.cu.  The IVF probe scan has its own
+// (ivf_float_scan.cuh).
 //
 // A CTA stages its query block (16 or 32 queries) in shared memory once;
 // tile_dots then computes one 128-row corpus tile against it: the tile is

@@ -1,7 +1,8 @@
 // Where the int4 flat scan's time goes at 1M x 768: stripped variants of
-// the scan of flat_topk_int4.cu, each a template instance of the pieces in
-// digit_scan.cuh and topk_select.cuh, built here so that the production
-// kernels' own instantiations stay as they are.
+// an int4 scan, each a template instance of the pieces in digit_scan.cuh
+// and topk_select.cuh, and (full) the production scan of flat_topk_int4.cu
+// itself, built here so that the production kernels' own instantiations
+// stay as they are.
 //
 // Replaces: benchmarks/int4_probe.py, build (:199; pallas_call :205,
 // kernel make_kernel :71), the TPU probe of pallas_flat_topk_dma_int4.
@@ -24,8 +25,10 @@
 //                  concatenated planes), one MMA loop, the scores offered
 //                  to the top-k in logical row order (the TPU probe's
 //                  ``local`` map, :113) -> partial lists, then merge_topk;
-//   full      (5): digit_partial<NibbleStage> itself (the production
-//                  structure) at the given row range -> top-k.
+//   full      (5): the production scan and merge of flat_topk_int4.cu
+//                  (flat_int4_scan.cuh: at Q <= 8 digit_partial over the
+//                  given row ranges, then the tree merge) on the given
+//                  digits -> top-k.
 // Contract of the scores and the top-k: digit_scan.cuh.  A CTA owns
 // rows_per_split logical rows (a multiple of 256: whole 128-row tiles of
 // logical rows and of byte rows); the TPU probe's tile sweep (2048, 4096,
@@ -35,7 +38,7 @@
 // Bound on the H100: 1M x 768 int4 is 0.403 GB of nibbles (plus 8 bytes a
 // row of scale and penalty), 0.120 ms at 3.35 TB/s.
 
-#include "digit_scan.cuh"
+#include "flat_int4_scan.cuh"
 
 namespace {
 
@@ -308,14 +311,17 @@ cudaError_t launch_mma(const void* V, const float* scale, const float* penalty,
 // int8; rho [q] f32; qoff [2q] int32; mode as above.  Outputs: dma and
 // unpack fold [n_splits] int32; mm_only and nomerge fold [q, n_splits]
 // f32; concat1mm and full part_s / part_i [q, n_splits, round_up(k, 32)]
-// scratch and out_s / out_i [q, k].  Requires q <= 8, d % 16 == 0, 1 <= k
-// <= 128, rows_per_split % 256 == 0 and n_splits * rows_per_split >= n.
+// scratch and out_s / out_i [q, k]; full also grp_s / grp_i [q,
+// cdiv(n_splits, 16), k] and count [q] scratch.  Requires q <= 8, d % 16
+// == 0, 1 <= k <= 128, rows_per_split % 256 == 0 and n_splits *
+// rows_per_split >= n.
 extern "C" int int4_probe(const void* nibbles, const void* scale,
                           const void* penalty, const void* digits,
                           const void* rho, const void* qoff, int n, int d,
                           int q, int k, int mode, int n_splits,
                           int rows_per_split, void* part_s, void* part_i,
-                          void* out_s, void* out_i, void* fold, void* stream) {
+                          void* out_s, void* out_i, void* fold, void* grp_s,
+                          void* grp_i, void* count, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q < 1 || q > kQB || d % 16 || k < 1 || k > 128 ||
       rows_per_split % (2 * kTile) || (long long)n_splits * rows_per_split < n)
@@ -357,11 +363,19 @@ extern "C" int int4_probe(const void* nibbles, const void* scale,
       return (int)launch_merge(ps, pi, q, n_splits, k,
                                static_cast<float*>(out_s),
                                static_cast<int*>(out_i), st);
-    case 5:
-      return launch_digit_scan<NibbleStage>(
-          nibbles, sc, pn, dg, rh, qo, n, d, q, k, n_splits, rows_per_split,
-          ps, pi, static_cast<float*>(out_s), static_cast<int*>(out_i),
-          nullptr, st);
+    case 5: {
+      err = cudaMemsetAsync(count, 0, (size_t)q * sizeof(int), st);
+      if (err != cudaSuccess) return (int)err;
+      const FlatDigitCall c = {
+          nullptr, q, d, n, k, kQB, n_splits, rows_per_split, nibbles, sc, pn,
+          const_cast<int8_t*>(dg), const_cast<float*>(rh), nullptr,
+          const_cast<int*>(qo),
+          {ps, pi, static_cast<float*>(grp_s), static_cast<int*>(grp_i),
+           static_cast<int*>(count), static_cast<float*>(out_s),
+           static_cast<int*>(out_i)},
+          nullptr};
+      return launch_flat_int4(c, false, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -15,9 +15,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 // f32(1 / 127): under jit, XLA computes ``amax / 127.0`` as a multiply by
 // this constant (measured against the JAX kernels in interpret mode).
 constexpr float kInv127 = 1.0f / 127.0f;

@@ -1,6 +1,8 @@
-// The IVF digit scans (ivf_topk_int8.cu, ivf_topk_int4.cu) as three
-// launches of one C call: the prologue (ivf_prep.cuh), the scan and the
-// merge, with nothing of PyTorch's between them.
+// The digit scans fed by a cp.async ring: the IVF int8 / int4 scans
+// (ivf_topk_int8.cu, ivf_topk_int4.cu) and, at Q > 8, the flat int4 scan
+// (flat_int4_scan.cuh), each three launches of one C call: a prologue
+// (ivf_prep.cuh), the scan and the merge (run_merge.cuh), with nothing of
+// PyTorch's between them.
 //
 // Contract (the TPU kernels _kernel_ivf_int8 / _kernel_ivf_int4 of
 // tpu_search/ops/pallas_ivf_scan.py and ops/ivf_scan.py's plain versions):
@@ -12,7 +14,12 @@
 // first-index (lowest flat slot) ties, -inf / -1 past the candidates,
 // each selected score times qs1 (__fmul_rn, as top * qs1[:, None]); with
 // out_scores set (k > 128) the masked scores of every schedule position
-// instead, [q, max_sched * 128], for a stable sort outside.
+// instead, [q, max_sched * 128], for a stable sort outside.  The flat scan
+// (FlatSource, the TPU kernel _kernel_int4 of ops/pallas_topk_dma.py and
+// ops/topk_scan.py flat_topk_int4_plain) is the same scan over every
+// 128-row tile of an n-row corpus, without the bias, rows past n scoring
+// -inf (their bytes, scales and penalties never read); its scores-only
+// mode writes [q, n].
 //
 // What bounds it on the H100: at small Q the bytes of the scheduled tiles
 // (D + 8 B a row for int8, D / 2 + 8 for int4), which at nprobe 32 and Q 1
@@ -57,21 +64,12 @@
 //  - Selection: the tile's scores go to shared memory (aliasing the stage
 //    just multiplied) and one warp a query offers them to its sorted list
 //    behind a k-th-best gate (topk_select.cuh consume_tile).
-//  - Merge: the runs' lists merged pairwise in a tree by merge path, every
-//    output its own thread's binary search, ordered by (score descending,
-//    flat slot ascending); groups of 16 runs on CTAs of their own, the
-//    last to finish merging the groups, then * qs1.  On an H100 at one
-//    query, an insertion merge (one insertion at a time) read 0.28 ms at k
-//    128 over 264 lists, and one CTA a query walking the batches one after
-//    another 0.06 ms at k 10; the groups read 0.026 and 0.011.
+//  - Merge: run_merge.cuh's tree merge, then * qs1.
 #pragma once
 
-// int8_mma.cuh (included by int8_wgmma.cuh) and topk_select.cuh both define
-// kFull; the first keeps its own copy under another name.
-#define kFull kFullMma
 #include "int8_wgmma.cuh"
-#undef kFull
 #include "ivf_prep.cuh"
+#include "run_merge.cuh"
 #include "topk_select.cuh"
 
 namespace {
@@ -80,8 +78,6 @@ constexpr int kIvfTile = 128;     // rows of a schedule entry
 constexpr int kIvfChunk = 128;    // dims (bytes) of a ring stage
 constexpr int kIvfThreads = 256;  // 8 warps, two warpgroups
 constexpr int kIvfStages = 3;
-constexpr int kMergeThreads = 256;
-constexpr int kMergeBatch = 16;  // runs' lists a merge round
 
 // Corpus layouts: int8 rows, or nibble-pair bytes (byte row m = logical
 // rows 2m, low nibble, and 2m + 1, high; biased codes 1..15).
@@ -92,6 +88,16 @@ struct RowTiles {
 struct NibbleTiles {
   static constexpr int kRawRows = kIvfTile / 2;
   static constexpr bool kNibbles = true;
+};
+
+// Where a CTA's entries come from: the IVF scan's member lists (entry e of
+// the run: mem[block][e], its bias from the table), or every tile of a
+// flat corpus of n rows (entry e: tile e, no bias, rows past n -inf).
+struct IvfSource {
+  static constexpr bool kFlat = false;
+};
+struct FlatSource {
+  static constexpr bool kFlat = true;
 };
 
 // Shared memory of one scan CTA: the ring (digits then corpus bytes a
@@ -115,13 +121,6 @@ struct IvfLayout {
       kIvfStages * kStageBytes + kDecBytes + kIvfStages * kSideBytes;
   static size_t bytes(int kpad) { return kFixed + (size_t)QB * kpad * 8 + 1024; }
 };
-
-// The first entry of run r of runs over n entries: contiguous runs
-// covering [0, n), empty at n = 0 (tests/test_torch_ivf_prep.py mirrors
-// it).
-__device__ __forceinline__ int run_begin(int n, int runs, int r) {
-  return (int)(((long long)n * r) / runs);
-}
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
@@ -156,10 +155,12 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// One query block's run of its member list.  digits [2q, d] int8, rho [q],
-// qoff [2q] (int4) or null, table [q, nlist], mem / mem_count from the
-// prologue; V the corpus as kRawRows-row tiles of d bytes a row.
-template <class Tiles, int QB>
+// One query block's run of its entries.  digits [2q, d] int8, rho [q],
+// qoff [2q] (int4) or null; IvfSource: table [q, nlist], mem / mem_count
+// from the prologue; FlatSource: the n rows' tiles (table, mem and
+// mem_count unused).  V the corpus as kRawRows-row tiles of d bytes a row;
+// out_scores [q, n_out].
+template <class Tiles, int QB, class Source>
 __global__ void __launch_bounds__(kIvfThreads)
 ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
                const float* __restrict__ penalty,
@@ -167,9 +168,10 @@ ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
                const int* __restrict__ qoff, const float* __restrict__ table,
                const int2* __restrict__ mem, const int* __restrict__ mem_count,
                int d, int q, int k, int kpad, int nlist, int tpc,
-               int max_sched, float* __restrict__ part_s,
+               int max_sched, int n, size_t n_out, float* __restrict__ part_s,
                int* __restrict__ part_i, float* __restrict__ out_scores) {
   using L = IvfLayout<Tiles, QB>;
+  constexpr bool kFlat = Source::kFlat;
   constexpr int kRaw = Tiles::kRawRows;
   extern __shared__ __align__(1024) unsigned char ivf_smem[];
   uint8_t* ring = ivf_smem + ((1024 - (smem_addr(ivf_smem) & 1023)) & 1023);
@@ -182,12 +184,16 @@ ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
   const int g = lane >> 2, t = lane & 3;
   const int blk = blockIdx.x, q0 = blk * QB;
   const int nkc = (d + kIvfChunk - 1) / kIvfChunk;
-  const int n_mem = mem_count[blk];
+  const int n_mem = kFlat ? (n + kIvfTile - 1) / kIvfTile : mem_count[blk];
   const int e0 = run_begin(n_mem, gridDim.y, blockIdx.y);
   const int n_ent = run_begin(n_mem, gridDim.y, blockIdx.y + 1) - e0;
   const int n_items = n_ent * nkc;
-  const int2* recs = mem + (size_t)blk * max_sched + e0;
-  const size_t n_out = (size_t)max_sched * kIvfTile;
+  const int2* recs = kFlat ? nullptr : mem + (size_t)blk * max_sched + e0;
+  // rows of V (flat: bytes past them are never read)
+  const int raw_rows = Tiles::kNibbles ? (n + 1) / 2 : n;
+  auto record = [&](int e) {
+    return kFlat ? make_int2(e0 + e, e0 + e) : recs[e];
+  };
 
   // The query whose two digit rows this thread's accumulators hold.
   const int wg = warp >> 2;
@@ -206,14 +212,14 @@ ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
   // Issue item v (entry v / nkc, chunk v % nkc) into stage v % kIvfStages,
   // and a commit group (empty past the run).  rec_next is read one entry
   // ahead of its use.
-  int2 rec = make_int2(0, 0), rec_next = n_ent ? recs[0] : rec;
+  int2 rec = make_int2(0, 0), rec_next = n_ent ? record(0) : rec;
   int rec_e = -1;
   auto issue = [&](int v) {
     if (v < n_items) {
       const int e = v / nkc, kc = (v - e * nkc) * kIvfChunk;
       if (e != rec_e) {
         rec = rec_next;
-        rec_next = e + 1 < n_ent ? recs[e + 1] : rec;
+        rec_next = e + 1 < n_ent ? record(e + 1) : rec;
         rec_e = e;
       }
       uint8_t* st = ring + (v % kIvfStages) * L::kStageBytes;
@@ -230,14 +236,26 @@ ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
       const uint8_t* rows = V + (size_t)rec.x * kRaw * d;
       for (int i = tid; i < kRaw * 8; i += kIvfThreads) {
         const int r = i >> 3, c = i & 7, kb = kc + c * 16;
-        const bool ok = kb < d;
+        const bool ok = kb < d && (!kFlat || rec.x * kRaw + r < raw_rows);
         cp_async<16>(st + L::kABytes + r * 128 + ((c ^ (r & 7)) << 4),
                      ok ? rows + (size_t)r * d + kb : V, ok ? 16 : 0);
       }
       if (kc == 0) {
         uint8_t* sd = side + (e % kIvfStages) * L::kSideBytes;
         const size_t row0 = (size_t)rec.x * kIvfTile;
-        if (tid < 32) {
+        if (kFlat) {
+          // row by row: n need not be a multiple of 4
+          const int r = tid & (kIvfTile - 1);
+          const bool ok = row0 + r < (size_t)n;
+          const float* src = tid < kIvfTile ? scale : penalty;
+          cp_async4(sd + (tid < kIvfTile ? 0 : 512) + r * 4,
+                    ok ? src + row0 + r : src, ok ? 4 : 0);
+          if (tid == 0) {
+            int* ids = reinterpret_cast<int*>(sd + 1024 + QB * 4);
+            ids[0] = rec.x;
+            ids[1] = rec.y;
+          }
+        } else if (tid < 32) {
           cp_async<16>(sd + tid * 16, scale + row0 + tid * 4, 16);
         } else if (tid < 64) {
           cp_async<16>(sd + 512 + (tid - 32) * 16, penalty + row0 + (tid - 32) * 4,
@@ -330,7 +348,8 @@ ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
     const uint8_t* sd = side + (e % kIvfStages) * L::kSideBytes;
     const float* sc = reinterpret_cast<const float*>(sd);
     const float* pn = sc + kIvfTile;
-    const float bias = reinterpret_cast<const float*>(sd + 1024)[qq];
+    const float bias =
+        kFlat ? 0.f : reinterpret_cast<const float*>(sd + 1024)[qq];
     const int* ids = reinterpret_cast<const int*>(sd + 1024 + QB * 4);
     float* S = reinterpret_cast<float*>(L::kDecode ? dec : st);
     __syncthreads();  // every warp is done reading the region S aliases
@@ -344,17 +363,22 @@ ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
         const int col = col0 + 8 * j + 2 * t + h;
         const float d1 = __int2float_rn(acc[4 * j + h] - off1);
         const float d2 = __int2float_rn(acc[4 * j + 2 + h] - off2);
-        S[qq * kIvfTile + col] = __fadd_rn(
-            __fadd_rn(__fmul_rn(__fmaf_rn(rho_q, d2, d1), sc[col]), pn[col]),
-            bias);
+        const float s =
+            __fadd_rn(__fmul_rn(__fmaf_rn(rho_q, d2, d1), sc[col]), pn[col]);
+        if constexpr (kFlat)
+          S[qq * kIvfTile + col] =
+              ids[0] * kIvfTile + col < n ? s : -INFINITY;
+        else
+          S[qq * kIvfTile + col] = __fadd_rn(s, bias);
       }
     __syncthreads();
     if (out_scores) {
+      // IVF: schedule position ids[1]; flat: the row itself
+      const size_t at = (size_t)ids[kFlat ? 0 : 1] * kIvfTile;
       for (int i = tid; i < QB * kIvfTile; i += kIvfThreads) {
         const int r = i / kIvfTile;
-        if (q0 + r < q)
-          out_scores[(size_t)(q0 + r) * n_out + (size_t)ids[1] * kIvfTile +
-                     i % kIvfTile] = S[i];
+        if (q0 + r < q && at + i % kIvfTile < n_out)
+          out_scores[(size_t)(q0 + r) * n_out + at + i % kIvfTile] = S[i];
       }
     } else {
       const int t0 = ids[0] * kIvfTile;
@@ -368,175 +392,48 @@ ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
   store_partials<QB, kIvfThreads>(bs, bi, q0, q, kpad, part_s, part_i);
 }
 
-// The merge orders candidates by (score descending, flat slot ascending):
-// a total order on the live candidates (slots are unique), under which the
-// first k are the k best with first-index ties, whatever order the runs'
-// lists are merged in.
-__device__ __forceinline__ bool ranks_before(float sa, int ia, float sb,
-                                             int ib) {
-  return sa > sb || (sa == sb && ia < ib);
-}
-
-// Output i (< k) of the merge of two sorted lists of k, a and b: the merge
-// path's co-rank, a binary search for how many of the first i outputs come
-// from a (ties, which only the -inf / -1 padding has, from a first).
-// tests/test_torch_ivf_prep.py mirrors it.
-__device__ __forceinline__ void merge_path_at(const float* as, const int* ai,
-                                              const float* bs, const int* bi,
-                                              int k, int i, float* cs,
-                                              int* ci) {
-  int lo = 0, hi = i, a, b;
-  while (true) {
-    a = (lo + hi) >> 1;
-    b = i - a;
-    if (a > 0 && b < k && ranks_before(bs[b], bi[b], as[a - 1], ai[a - 1]))
-      hi = a - 1;
-    else if (b > 0 && a < k && !ranks_before(bs[b - 1], bi[b - 1], as[a], ai[a]))
-      lo = a + 1;
-    else
-      break;
-  }
-  const bool take_a = a < k && (b >= k || !ranks_before(bs[b], bi[b], as[a], ai[a]));
-  cs[i] = take_a ? as[a] : bs[b];
-  ci[i] = take_a ? ai[a] : bi[b];
-}
-
-constexpr int kMergeSlots = kMergeBatch + kMergeBatch / 2 + 2;
-
-// Merge n sorted lists of k from global memory (list j at s + j * stride)
-// into one, in shared memory slots of k (ls / li): batches of kMergeBatch
-// lists merged pairwise in a tree, every output of a level computed by its
-// own thread (merge_path_at), each batch's result merged into the running
-// list.  Returns the running list's slot.  Every thread calls.
-__device__ int merge_lists(const float* s, const int* i, size_t stride, int n,
-                           int k, float* ls, int* li) {
-  const int tid = threadIdx.x;
-  int run = kMergeSlots - 2, next = kMergeSlots - 1;
-  for (int e = tid; e < k; e += kMergeThreads) {
-    ls[run * k + e] = -INFINITY;
-    li[run * k + e] = -1;
-  }
-  for (int r0 = 0; r0 < n; r0 += kMergeBatch) {
-    int cnt = min(kMergeBatch, n - r0);
-    for (int x = tid; x < cnt * k; x += kMergeThreads) {
-      const int j = x / k, e = x - j * k;
-      ls[x] = __ldcg(s + (size_t)(r0 + j) * stride + e);
-      li[x] = __ldcg(i + (size_t)(r0 + j) * stride + e);
-    }
-    __syncthreads();
-    int src = 0, dst = kMergeBatch;
-    while (cnt > 1) {
-      const int pairs = cnt >> 1;
-      for (int x = tid; x < pairs * k; x += kMergeThreads) {
-        const int p = x / k, o = x - p * k;
-        const int a0 = (src + 2 * p) * k, b0 = a0 + k, c0 = (dst + p) * k;
-        merge_path_at(ls + a0, li + a0, ls + b0, li + b0, k, o, ls + c0,
-                      li + c0);
-      }
-      if (cnt & 1)
-        for (int e = tid; e < k; e += kMergeThreads) {
-          ls[(dst + pairs) * k + e] = ls[(src + cnt - 1) * k + e];
-          li[(dst + pairs) * k + e] = li[(src + cnt - 1) * k + e];
-        }
-      __syncthreads();
-      cnt = pairs + (cnt & 1);
-      const int t = src;
-      src = dst;
-      dst = t;
-    }
-    for (int o = tid; o < k; o += kMergeThreads)
-      merge_path_at(ls + run * k, li + run * k, ls + src * k, li + src * k, k,
-                    o, ls + next * k, li + next * k);
-    __syncthreads();
-    const int t = run;
-    run = next;
-    next = t;
-  }
-  __syncthreads();
-  return run;
-}
-
-// The merge, grid (q, groups): CTA (q, g) merges the runs' lists of group
-// g (a contiguous share) into one, writes it to grp_s / grp_i [q, groups,
-// k], and the group's last CTA to finish (a counter a query, zeroed by the
-// prologue) merges the groups' lists and writes the k best times qs1.
-__global__ void __launch_bounds__(kMergeThreads)
-ivf_merge(const float* __restrict__ part_s, const int* __restrict__ part_i,
-          const float* __restrict__ qs1, int n_runs, int k, int kpad,
-          int groups, float* grp_s, int* grp_i, int* count,
-          float* __restrict__ out_s, int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char merge_lists_smem[];
-  __shared__ int last;
-  float* ls = reinterpret_cast<float*>(merge_lists_smem);
-  int* li = reinterpret_cast<int*>(ls + kMergeSlots * k);
-  const int tid = threadIdx.x, qi = blockIdx.x, g = blockIdx.y;
-  const int r0 = run_begin(n_runs, groups, g);
-  const int r1 = run_begin(n_runs, groups, g + 1);
-  const size_t base = ((size_t)qi * n_runs + r0) * kpad;
-  int slot = merge_lists(part_s + base, part_i + base, kpad, r1 - r0, k, ls, li);
-  if (groups > 1) {
-    const size_t mine = ((size_t)qi * groups + g) * k;
-    for (int e = tid; e < k; e += kMergeThreads) {
-      grp_s[mine + e] = ls[slot * k + e];
-      grp_i[mine + e] = li[slot * k + e];
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) last = atomicAdd(count + qi, 1) == groups - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    const size_t all = (size_t)qi * groups * k;
-    slot = merge_lists(grp_s + all, grp_i + all, k, groups, k, ls, li);
-  }
-  const float s1 = qs1[qi];
-  for (int e = tid; e < k; e += kMergeThreads) {
-    out_s[(size_t)qi * k + e] = __fmul_rn(ls[slot * k + e], s1);
-    out_i[(size_t)qi * k + e] = li[slot * k + e];
-  }
-}
-
-// Everything one call of a digit scan reads and writes.
+// Everything one call of an IVF digit scan reads and writes.
 struct IvfDigitCall {
   PrepArgs prep;
   const void* V;
   const float* scale;
   const float* penalty;
   int k, runs;
-  float* part_s;
-  int* part_i;
-  float* grp_s;  // [q, cdiv(runs, kMergeBatch), k]
-  int* grp_i;
-  float* out_s;
-  int* out_i;
+  MergeArgs merge;  // merge.count: prep.merge_count
   float* out_scores;
 };
 
-template <class Tiles, int QB>
+template <class Tiles, int QB, class Source>
 cudaError_t ivf_scan_attr(int kpad, size_t* bytes) {
   *bytes = IvfLayout<Tiles, QB>::bytes(kpad);
-  return cudaFuncSetAttribute(ivf_digit_scan<Tiles, QB>,
+  return cudaFuncSetAttribute(ivf_digit_scan<Tiles, QB, Source>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*bytes);
 }
 
-template <class Tiles, int QB>
-cudaError_t launch_ivf_scan_qb(const IvfDigitCall& c, int kpad,
-                               cudaStream_t st) {
+// The scan launch of an IVF call (p: its prologue's outputs) or, with
+// Source FlatSource, of a flat call (p.q, p.d, the digits, rho and qoff
+// set; n rows).
+template <class Tiles, int QB, class Source>
+cudaError_t launch_ivf_scan_qb(const PrepArgs& p, const void* V,
+                               const float* scale, const float* penalty,
+                               int k, int runs, int n, const MergeArgs& m,
+                               float* out_scores, int kpad, cudaStream_t st) {
   size_t bytes;
-  cudaError_t err = ivf_scan_attr<Tiles, QB>(kpad, &bytes);
+  cudaError_t err = ivf_scan_attr<Tiles, QB, Source>(kpad, &bytes);
   if (err != cudaSuccess) return err;
-  const PrepArgs& p = c.prep;
-  dim3 grid((p.q + QB - 1) / QB, c.runs);
-  ivf_digit_scan<Tiles, QB><<<grid, kIvfThreads, bytes, st>>>(
-      static_cast<const uint8_t*>(c.V), c.scale, c.penalty, p.digits, p.rho,
-      p.qoff, p.table, p.mem, p.mem_count, p.d, p.q, c.k, kpad, p.nlist, p.tpc,
-      p.max_sched, c.part_s, c.part_i, c.out_scores);
+  const size_t n_out =
+      Source::kFlat ? (size_t)n : (size_t)p.max_sched * kIvfTile;
+  dim3 grid((p.q + QB - 1) / QB, runs);
+  ivf_digit_scan<Tiles, QB, Source><<<grid, kIvfThreads, bytes, st>>>(
+      static_cast<const uint8_t*>(V), scale, penalty, p.digits, p.rho,
+      p.qoff, p.table, p.mem, p.mem_count, p.d, p.q, k, kpad, p.nlist, p.tpc,
+      p.max_sched, n, n_out, m.part_s, m.part_i, out_scores);
   return cudaGetLastError();
 }
 
-// The C entries' body.  stages 1: the prologue alone; otherwise the scan
-// and, unless out_scores is set, the merge after it.
+// The IVF C entries' body.  stages 1: the prologue alone; otherwise the
+// scan and, unless out_scores is set, the merge after it.
 template <class Tiles>
 int launch_ivf_digit(const IvfDigitCall& c, int stages, cudaStream_t st) {
   cudaError_t err = launch_ivf_prep(c.prep, st);
@@ -544,50 +441,45 @@ int launch_ivf_digit(const IvfDigitCall& c, int stages, cudaStream_t st) {
   const int kpad = c.out_scores ? 0 : round_up(c.k, 32);
   switch (c.prep.qb) {
     case 8:
-      err = launch_ivf_scan_qb<Tiles, 8>(c, kpad, st);
+      err = launch_ivf_scan_qb<Tiles, 8, IvfSource>(
+          c.prep, c.V, c.scale, c.penalty, c.k, c.runs, 0, c.merge,
+          c.out_scores, kpad, st);
       break;
     case 32:
-      err = launch_ivf_scan_qb<Tiles, 32>(c, kpad, st);
+      err = launch_ivf_scan_qb<Tiles, 32, IvfSource>(
+          c.prep, c.V, c.scale, c.penalty, c.k, c.runs, 0, c.merge,
+          c.out_scores, kpad, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || c.out_scores) return (int)err;
-  const int groups = (c.runs + kMergeBatch - 1) / kMergeBatch;
-  ivf_merge<<<dim3(c.prep.q, groups), kMergeThreads,
-              (size_t)kMergeSlots * c.k * 8, st>>>(
-      c.part_s, c.part_i, c.prep.qs1, c.runs, c.k, kpad, groups, c.grp_s,
-      c.grp_i, c.prep.merge_count, c.out_s, c.out_i);
-  return (int)cudaGetLastError();
+  return (int)launch_tree_merge(c.merge, c.prep.qs1, c.prep.q, c.runs, c.k,
+                                kpad, st);
 }
 
-// The scan's shared memory and CTAs a multiprocessor at query block qb and
-// k (out[0], out[1]).
-template <class Tiles>
-int ivf_digit_config(int qb, int k, int* out) {
+// The shared memory (out[0]) and CTAs a multiprocessor (out[1]) of the
+// scan instance <Tiles, QB, Source> at k.
+template <class Tiles, int QB, class Source>
+int ring_config(int k, int* out) {
   const int kpad = k > 128 ? 0 : round_up(k, 32);
   size_t bytes = 0;
-  cudaError_t err;
-  const void* fn;
-  switch (qb) {
-    case 8:
-      err = ivf_scan_attr<Tiles, 8>(kpad, &bytes);
-      fn = (const void*)ivf_digit_scan<Tiles, 8>;
-      break;
-    case 32:
-      err = ivf_scan_attr<Tiles, 32>(kpad, &bytes);
-      fn = (const void*)ivf_digit_scan<Tiles, 32>;
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  cudaError_t err = ivf_scan_attr<Tiles, QB, Source>(kpad, &bytes);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kIvfThreads,
-                                                      bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, ivf_digit_scan<Tiles, QB, Source>, kIvfThreads, bytes);
   out[0] = (int)bytes;
   out[1] = ctas;
   return (int)err;
+}
+
+// The IVF digit scans' ring_config at query block qb (8 or 32).
+template <class Tiles>
+int ivf_digit_config(int qb, int k, int* out) {
+  if (qb == 8) return ring_config<Tiles, 8, IvfSource>(k, out);
+  if (qb == 32) return ring_config<Tiles, 32, IvfSource>(k, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

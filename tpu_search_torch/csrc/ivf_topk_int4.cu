@@ -40,9 +40,10 @@ extern "C" int ivf_topk_int4(
        static_cast<int*>(merge_count)},
       blocks, static_cast<const float*>(scale),
       static_cast<const float*>(penalty), k, runs,
-      static_cast<float*>(part_s), static_cast<int*>(part_i),
-      static_cast<float*>(grp_s), static_cast<int*>(grp_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i),
+      {static_cast<float*>(part_s), static_cast<int*>(part_i),
+       static_cast<float*>(grp_s), static_cast<int*>(grp_i),
+       static_cast<int*>(merge_count), static_cast<float*>(out_s),
+       static_cast<int*>(out_i)},
       static_cast<float*>(scores)};
   return launch_ivf_digit<NibbleTiles>(c, prologue_only ? 1 : 3,
                                     static_cast<cudaStream_t>(stream));

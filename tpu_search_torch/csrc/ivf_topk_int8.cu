@@ -15,7 +15,7 @@
 
 // queries [q, d] f32, probe [q, nprobe] int32, fills [nlist] int32, cbias
 // [q, nprobe] f32 or null; scale, penalty [n] f32; the scratch as
-// ops/ivf_scan.py _DigitWork lays it out; out_s / out_i [q, k], or with
+// ops/ivf_scan.py _digit_call lays it out; out_s / out_i [q, k], or with
 // scores set (k > 128) scores [q, max_sched * 128] (-inf filled).
 // prologue_only: run the prologue alone.  Requires d % 16 == 0.
 extern "C" int ivf_topk_int8(
@@ -39,9 +39,10 @@ extern "C" int ivf_topk_int8(
        static_cast<int*>(merge_count)},
       blocks, static_cast<const float*>(scale),
       static_cast<const float*>(penalty), k, runs,
-      static_cast<float*>(part_s), static_cast<int*>(part_i),
-      static_cast<float*>(grp_s), static_cast<int*>(grp_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i),
+      {static_cast<float*>(part_s), static_cast<int*>(part_i),
+       static_cast<float*>(grp_s), static_cast<int*>(grp_i),
+       static_cast<int*>(merge_count), static_cast<float*>(out_s),
+       static_cast<int*>(out_i)},
       static_cast<float*>(scores)};
   return launch_ivf_digit<RowTiles>(c, prologue_only ? 1 : 3,
                                     static_cast<cudaStream_t>(stream));

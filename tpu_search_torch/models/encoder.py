@@ -24,8 +24,9 @@ shape buckets.
   gate: 16 synthetic sequences through the bf16 and the int8 FFN must
   agree to a minimum embedding cosine of 0.999.  The verdict is cached as
   ``int8_ffn_check.cuda.json`` next to the checkpoint (the JAX package's
-  ``int8_ffn_check.json`` judges a different kernel).  An exception in
-  the gate propagates; only a measured cosine below the threshold selects
+  ``int8_ffn_check.json`` judges a different kernel); an unreadable
+  marker is measured again and rewritten.  An exception in the gate's
+  forward propagates; only a measured cosine below the threshold selects
   the bf16 FFN, and that choice is logged.
 """
 
@@ -172,11 +173,13 @@ class EmbeddingGenerator:
         self, model_dir: Path, threshold: float = INT8_GATE_THRESHOLD
     ) -> bool:
         marker = Path(model_dir) / INT8_GATE_FILE
-        if marker.exists():
-            cached = json.loads(marker.read_text())
-            if cached.get("threshold") == threshold:
-                self.int8_gate = cached
-                return bool(cached.get("ok"))
+        try:
+            cached = json.loads(marker.read_text()) if marker.exists() else {}
+        except (OSError, ValueError):
+            cached = {}  # unreadable: measure again and rewrite it
+        if isinstance(cached, dict) and cached.get("threshold") == threshold:
+            self.int8_gate = cached
+            return bool(cached.get("ok"))
         cfg = self._model_config
         rng = np.random.default_rng(0)
         ids = torch.from_numpy(

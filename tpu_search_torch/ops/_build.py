@@ -40,6 +40,7 @@ __all__ = [
     "build_all",
     "check",
     "library",
+    "multiprocessors",
     "reset_launches",
 ]
 
@@ -65,6 +66,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.RLock()
+_SMS: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
@@ -164,3 +166,17 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def multiprocessors(device) -> int:
+    """The streaming multiprocessors of a CUDA device; cached, so a scan's
+    wrapper asks the driver once a device, not once a call."""
+    import torch
+
+    device = torch.device(device)
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]

@@ -47,8 +47,7 @@ def c_entry(kernel: str, entry: str, argtypes) -> ctypes._CFuncPtr:
 def split_rows(n: int, q: int, q_block: int, device) -> Tuple[int, int]:
     """``(n_splits, rows_per_split)``: about four CTAs a streaming
     multiprocessor over all query blocks, ranges a multiple of the tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    target = max(1, (4 * sms) // cdiv(q, q_block))
+    target = max(1, (4 * _build.multiprocessors(device)) // cdiv(q, q_block))
     rows_per_split = round_up(max(1, cdiv(n, target)), _TILE)
     return cdiv(n, rows_per_split), rows_per_split
 

@@ -1,13 +1,21 @@
 """Masked top-k over an int4 corpus: wrapper of the hand-written CUDA kernel.
 
 Kernel: ``csrc/flat_topk_int4.cu`` (replaces ``pallas_flat_topk_dma_int4``
-of ``tpu_search/ops/pallas_topk_dma.py``).  The corpus is nibble-pair
-byte rows ``[ceil(N/2), D]`` uint8 (``ops/int4_pack.py``), rows numbered in
-logical order.  The query digits, ``rho``, the nibble bias offsets and the
-final ``* qs1`` are plain PyTorch here, as the JAX package computes them in
-XLA outside ``pl.pallas_call``.  CPU tensors take
-``flat_topk_int4_plain``; a CUDA tensor launches the kernel or raises.
-``k > 128`` runs the kernel's scores-only mode and a stable sort.
+of ``tpu_search/ops/pallas_topk_dma.py``, with the XLA around it).  The
+corpus is nibble-pair byte rows ``[ceil(N/2), D]`` uint8
+(``ops/int4_pack.py``), rows numbered in logical order.  On the card a
+search is one C call of three launches, nothing of PyTorch's between
+them: the prologue writes the query digits, ``rho``, ``qs1`` and the
+nibble offsets (its plain twin :func:`flat_digit_prep_plain`:
+``quantize_queries`` and ``query_nibble_offsets``, as the JAX package
+computes them in XLA outside ``pl.pallas_call``), the scan (at Q > 8 the
+``cp.async`` ring of ``csrc/ivf_digit_scan.cuh`` over every 128-row tile,
+runs sized from the card; at Q <= 8 ``digit_partial`` of
+``csrc/digit_scan.cuh`` over fixed row ranges, :func:`split_rows`) and the
+tree merge, which multiplies by ``qs1`` (``csrc/flat_int4_scan.cuh``).
+CPU tensors take ``flat_topk_int4_plain``; a CUDA tensor launches the
+kernel or raises.  ``k > 128`` runs the prologue and the scan's
+scores-only mode, then a stable sort.
 """
 
 from __future__ import annotations
@@ -17,20 +25,98 @@ from typing import Optional, Tuple
 
 import torch
 
-from .flat_topk import check_scan_args
-from .flat_topk_int8 import run_digit_scan
+from ..utils.shapes import cdiv, round_up
+from . import _build
+from .flat_topk import MAX_K, c_entry, check_scan_args, split_rows
+from .ring_scan import (
+    Scratch,
+    digit_block,
+    merge_parts,
+    scan_config,
+    scan_runs,
+)
 from .topk_scan import (
     flat_topk_int4_plain,
     quantize_queries,
     query_nibble_offsets,
+    select_topk,
 )
 
-__all__ = ["flat_topk_int4_scan"]
+__all__ = ["flat_digit_prep", "flat_digit_prep_plain", "flat_topk_int4_scan"]
 
+_TILE = 128
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _P, _P, _P]
+# nibbles, scale, penalty, queries; n, d, q, k, qb, runs, rows_per_split,
+# prologue_only; the scratch (_parts), out_s, out_i, scores, stream
+_ARGTYPES = [_P] * 4 + [_I] * 8 + [_P] * 13
+_PREP_NAMES = ("digits", "rho", "qs1", "qoff")
+
+
+def flat_digit_prep_plain(queries: torch.Tensor) -> dict:
+    """What the prologue kernel writes: ``digits [2Q, D]`` int8, ``rho``
+    and ``qs1 [Q]`` f32 (``quantize_queries``), ``qoff [2Q]`` int32
+    (``query_nibble_offsets``)."""
+    q_i8, rho, qs1 = quantize_queries(queries)
+    return {"digits": q_i8, "rho": rho, "qs1": qs1,
+            "qoff": query_nibble_offsets(q_i8)}
+
+
+def _parts(q, d, runs, kpad):
+    i8, i32, f32 = torch.int8, torch.int32, torch.float32
+    return (("digits", i8, (2 * q, d)), ("rho", f32, (q,)), ("qs1", f32, (q,)),
+            ("qoff", i32, (2 * q,)), ("merge_count", i32, (q,)),
+            *merge_parts(q, runs, kpad))
+
+
+def _call(corpus, queries, n, k, rows_per_split=None):
+    """One C call: the prologue, then (``corpus`` = ``(nibbles, scales,
+    penalty)``) the scan and the merge, or with ``corpus`` None the
+    prologue alone.  Returns ``(work, out_s, out_i, scores)`` as
+    ``ops/ivf_scan.py``'s calls."""
+    queries = queries.float().contiguous()
+    q, d = queries.shape
+    tensors = {"queries": queries}
+    if corpus is not None:
+        tensors.update(zip(("nibbles", "scales", "penalty"), corpus))
+    dev = check_scan_args(n, k, **tensors)
+    qb = digit_block(q)
+    if rows_per_split is not None:
+        runs = cdiv(n, rows_per_split)
+    elif qb == 8:  # digit_partial's row ranges
+        runs, rows_per_split = split_rows(n, q, qb, dev)
+    else:  # the ring's runs of tiles
+        runs = scan_runs(scan_config("flat_topk_int4", qb, k)[1], cdiv(q, qb),
+                         cdiv(n, _TILE), dev)
+        rows_per_split = 0
+    kpad = 0 if k > MAX_K else round_up(k, 32)
+    work = Scratch(_parts(q, d, runs, kpad), dev)
+    out_s = out_i = scores = None
+    if corpus is not None and k > MAX_K:
+        scores = torch.empty((q, n), dtype=torch.float32, device=dev)
+    elif corpus is not None:
+        out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (*(corpus or (None, None, None)), queries)]
+    outs = [None if t is None else t.data_ptr()
+            for t in (out_s, out_i, scores)]
+    code = c_entry("flat_topk_int4", "flat_topk_int4", _ARGTYPES)(
+        *ptrs, n, d, q, k, qb, runs, rows_per_split, int(corpus is None),
+        *work.ptrs, *outs,
+        _build.stream_ptr(dev))
+    _build.check(code, "flat_topk_int4")
+    _build.LAUNCHES["flat_topk_int4"] += 1
+    return work, out_s, out_i, scores
+
+
+def flat_digit_prep(queries: torch.Tensor) -> dict:
+    """The prologue kernel alone on a CUDA tensor (the plain twin on a CPU
+    one); outputs as :func:`flat_digit_prep_plain`."""
+    if queries.device.type == "cpu":
+        return flat_digit_prep_plain(queries)
+    work = _call(None, queries, max(1, queries.shape[0]), 1)[0]
+    return {name: work.view(name) for name in _PREP_NAMES}
 
 
 def flat_topk_int4_scan(
@@ -44,8 +130,9 @@ def flat_topk_int4_scan(
     """Top-k over ``N = len(penalty)`` int4 rows (``nibbles``
     ``[ceil(N/2), D]`` uint8), ``scales`` and ``penalty`` (0 / ``-inf``)
     ``[N]`` f32.  Same outputs as ``flat_topk_int8_scan``.
-    ``rows_per_split`` (an even multiple of 128) sets the rows a CTA
-    scans, for the int4 probe; by default ``split_rows`` picks it."""
+    ``rows_per_split`` (an even multiple of 128) sets the rows a CTA scans
+    at Q <= 8 and about them above (``cdiv(N, rows_per_split)`` runs), for
+    the int4 probe; by default the card sizes them."""
     if nibbles.device.type == "cpu":
         return flat_topk_int4_plain(nibbles, scales, penalty, queries, k)
     if nibbles.device.type != "cuda":
@@ -64,11 +151,9 @@ def flat_topk_int4_scan(
         raise ValueError("the int4 CUDA scan needs D % 16 == 0")
     if scales.dtype != torch.float32 or penalty.dtype != torch.float32:
         raise ValueError("scales and penalty must be float32")
-    q_i8, rho, qs1 = quantize_queries(queries)
-    qoff = query_nibble_offsets(q_i8)
-    dev = check_scan_args(n, k, nibbles=nibbles, scales=scales,
-                          penalty=penalty, queries=q_i8, rho=rho, qoff=qoff)
-    head = (nibbles.data_ptr(), scales.data_ptr(), penalty.data_ptr(),
-            q_i8.data_ptr(), rho.data_ptr(), qoff.data_ptr())
-    return run_digit_scan("flat_topk_int4", _ARGTYPES, head, n, d, k, qs1,
-                          dev, rows_per_split)
+    work, out_s, out_i, scores = _call((nibbles, scales, penalty), queries,
+                                       n, k, rows_per_split)
+    if scores is None:
+        return out_s, out_i
+    top, ids = select_topk(scores, k)
+    return top * work.view("qs1")[:, None], ids

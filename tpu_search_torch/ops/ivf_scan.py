@@ -24,11 +24,15 @@ Pallas path (``_ivf_search_pallas_impl``):
   against ``pallas_ivf_topk_int8`` in interpret mode; the XLA grouped path
   multiplies by ``1 / qs1`` instead, a 1e-4-level difference.)
 
-The int8 / int4 scans on the card are one C call of three launches: a
-prologue kernel that writes the query digits, the bias, the schedule and
-each query block's member list (its plain twin :func:`ivf_digit_prep_plain`
-is composed of the functions above), the scan, and a merge that multiplies
-by ``qs1``; nothing of PyTorch's runs between them (``csrc/ivf_digit_scan.cuh``).
+Each scan on the card is one C call of three launches: a prologue kernel
+(``csrc/ivf_prep.cuh``) that writes the schedule, the probe table and each
+query block's member list, with the query digits and the bias for the
+int8 / int4 scans (plain twin :func:`ivf_digit_prep_plain`) or the bf16
+cast of the queries for bf16 blocks (:func:`ivf_float_prep_plain`), both
+composed of the functions above; the scan (``csrc/ivf_digit_scan.cuh``,
+``csrc/ivf_float_scan.cuh``); and the tree merge (``csrc/run_merge.cuh``),
+which multiplies the int8 / int4 scores by ``qs1``.  Nothing of
+PyTorch's runs between them, and the scratch is one ``torch.empty``.
 
 CPU tensors take the plain versions; a CUDA tensor launches the kernel or
 raises.  ``k > MAX_K`` runs each kernel's scores-only mode (the masked
@@ -39,23 +43,31 @@ k > 128 to its XLA path.
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..utils.shapes import cdiv, round_up
 from . import _build
 from .flat_topk import MAX_K, c_entry, check_scan_args
+from .ring_scan import (
+    Scratch,
+    digit_block,
+    merge_parts,
+    scan_config,
+    scan_runs,
+)
 from .topk_scan import quantize_queries, query_nibble_offsets
 
 __all__ = [
+    "FLOAT_CUTOFF",
     "IVF_TILE",
     "build_probe_schedule",
-    "digit_block",
-    "digit_scan_config",
+    "float_block",
     "ivf_digit_prep",
     "ivf_digit_prep_plain",
+    "ivf_float_prep",
+    "ivf_float_prep_plain",
     "ivf_topk_int4_plain",
     "ivf_topk_int4_scan",
     "ivf_topk_int8_plain",
@@ -73,15 +85,22 @@ IVF_TILE = 128
 # transient float copies).
 _PLAIN_ROWS = 65536
 
+# Queries a query block of the bf16 scan at Q above this: 32 (wgmma, N
+# 32), else 16 (mma.sync); the f32 scan takes 16 at every Q (FMAs).
+FLOAT_CUTOFF = 16
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    "ivf_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                 _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # blocks, penalty, queries, probe, fills; d, q, k, nlist, nprobe, cap,
+    # max_sched, qb, runs, is_bf16; alpha; prologue_only; the scratch
+    # (qcast at bf16, then _schedule_parts), out_s, out_i, scores, stream
+    "ivf_topk": [_P] * 5 + [_I] * 10 + [_F, _I] + [_P] * 16,
     # corpus, scale, penalty, queries, probe, fills, cbias; d, q, k, nlist,
     # nprobe, cap, max_sched, qb, runs, prologue_only; the scratch
-    # (_digit_parts), out_s, out_i, scores, stream
+    # (the query digits, then _schedule_parts), out_s, out_i, scores,
+    # stream
     "ivf_topk_int8": [_P] * 7 + [_I] * 10 + [_P] * 19,
     "ivf_topk_int4": [_P] * 7 + [_I] * 10 + [_P] * 19,
 }
@@ -259,17 +278,7 @@ def ivf_topk_int4_plain(nibbles, scales, penalty, fills, probe_ids, queries,
                         2 * half, cbias, query_nibble_offsets, tile_n)
 
 
-# -- the kernels -----------------------------------------------------------
-
-
-def _split_entries(max_sched: int, q_blocks: int, device) -> Tuple[int, int]:
-    """``(entries_per_split, n_splits)``: about four CTAs a streaming
-    multiprocessor over all query blocks, each a contiguous run of
-    schedule entries (so the merge in split order keeps first-index ties)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    target = max(1, (4 * sms) // q_blocks)
-    eps = max(1, cdiv(max_sched, target))
-    return eps, cdiv(max_sched, eps)
+# -- the kernels: prologue, scan and merge in one C call ---------------------
 
 
 def _check_ivf_args(penalty, fills, probe_ids, queries, nlist, cap, d):
@@ -285,56 +294,171 @@ def _check_ivf_args(penalty, fills, probe_ids, queries, nlist, cap, d):
         raise ValueError(f"cap ({cap}) must be a multiple of {IVF_TILE}")
 
 
-class _Launch:
-    """The schedule and scratch of one kernel launch."""
-
-    def __init__(self, probe_ids, fills, cap, q, k, qb, dev):
-        nlist = fills.shape[0]
-        self.tile_idx, self.clusters, self.n_sched = build_probe_schedule(
-            probe_ids, fills.to(torch.int32), cap, IVF_TILE)
-        self.n_sched = self.n_sched.reshape(1).contiguous()
-        self.pos = probe_positions(probe_ids, nlist)
-        self.max_sched = self.tile_idx.shape[0] - 1
-        self.eps, self.n_splits = _split_entries(
-            self.max_sched, cdiv(q, qb), dev)
-        self.scores = self.part_s = self.part_i = None
-        self.out_s = self.out_i = None
-        if k > MAX_K:
-            self.scores = torch.full((q, self.max_sched * IVF_TILE),
-                                     float("-inf"), dtype=torch.float32,
-                                     device=dev)
-        else:
-            kpad = round_up(k, 32)
-            self.part_s = torch.empty((q, self.n_splits, kpad),
-                                      dtype=torch.float32, device=dev)
-            self.part_i = torch.empty((q, self.n_splits, kpad),
-                                      dtype=torch.int32, device=dev)
-            self.out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
-            self.out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-
-    def sched_ptrs(self):
-        return (self.tile_idx.data_ptr(), self.clusters.data_ptr(),
-                self.n_sched.data_ptr(), self.pos.data_ptr())
-
-    def tail(self):
-        return (self.max_sched, self.eps, self.n_splits) + tuple(
-            None if t is None else t.data_ptr()
-            for t in (self.part_s, self.part_i, self.out_s, self.out_i,
-                      self.scores))
-
-    def result(self, k):
-        if self.scores is None:
-            return self.out_s, self.out_i
-        rows, _ = _schedule_rows(self.tile_idx, self.n_sched[0], IVF_TILE)
-        return _select(self.scores, rows, k)
+def float_block(q: int, bf16: bool) -> int:
+    """Queries a scan CTA of the bf16 / f32 scan at Q = q: bf16 32 above
+    :data:`FLOAT_CUTOFF` (wgmma's N), else 16 (one mma.sync m16 block);
+    f32 16."""
+    return 32 if bf16 and q > FLOAT_CUTOFF else 16
 
 
-def _run(kernel, head, launch, k, dev):
+def _schedule_parts(q, nlist, max_sched, q_blocks, runs, kpad):
+    """The prologue's schedule, table and member lists, the merge's
+    counters and the runs' and groups' lists, in the C entries' order."""
+    i32, f32 = torch.int32, torch.float32
+    return (("table", f32, (q, nlist)), ("tile_idx", i32, (max_sched + 1,)),
+            ("clusters", i32, (max_sched + 1,)), ("n_sched", i32, (1,)),
+            ("members", i32, (q_blocks, max_sched, 2)),
+            ("member_count", i32, (q_blocks,)), ("merge_count", i32, (q,)),
+            *merge_parts(q, runs, kpad))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _ivf_call(kernel, corpus, fills, probe_ids, queries, k, cap, qb,
+              config_head, extra_parts, head, tail, cbias=None):
+    """One C call of an IVF scan: the prologue, then (``corpus`` the
+    tensors it scans, by name) the scan and the merge, or with ``corpus``
+    None the prologue alone.  ``config_head`` are the arguments of the
+    kernel's config entry before ``qb``; ``extra_parts(q, d)`` the scratch
+    parts before the schedule's; ``head(d, q, nlist, nprobe, max_sched, runs)``
+    the entry's arguments before ``prologue_only``, ``tail(work)`` the
+    scratch addresses.  Returns ``(work, out_s, out_i, scores)``: the scratch
+    (:class:`Scratch`), the ``[Q, k]`` results (k <= 128) or the masked
+    ``[Q, max_sched * 128]`` scores (k > 128)."""
+    q, nprobe = probe_ids.shape
+    nlist, d = fills.shape[0], queries.shape[1]
+    tensors = {"queries": queries, "probe_ids": probe_ids, "fills": fills,
+               **(corpus or {})}
+    if cbias is not None:
+        tensors["cbias"] = cbias
+    dev = check_scan_args(nlist * cap, min(k, nlist * cap), **tensors)
+    q_blocks = cdiv(q, qb)
+    max_sched = min(q * nprobe, nlist) * (cap // IVF_TILE)
+    kpad = 0 if k > MAX_K else round_up(k, 32)
+    ctas = scan_config(kernel, qb, k, *config_head)[1]
+    runs = scan_runs(ctas, q_blocks, max_sched, dev)
+    work = Scratch((*extra_parts(q, d),
+                    *_schedule_parts(q, nlist, max_sched, q_blocks, runs,
+                                     kpad)), dev)
+    out_s = out_i = scores = None
+    if corpus is not None and k > MAX_K:
+        scores = torch.full((q, max_sched * IVF_TILE), float("-inf"),
+                            dtype=torch.float32, device=dev)
+    elif corpus is not None:
+        out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     code = c_entry(kernel, kernel, _ARGTYPES[kernel])(
-        *head, *launch.tail(), _build.stream_ptr(dev))
+        *head(d, q, nlist, nprobe, max_sched, runs), int(corpus is None),
+        *tail(work), _ptr(out_s), _ptr(out_i), _ptr(scores),
+        _build.stream_ptr(dev))
     _build.check(code, kernel)
     _build.LAUNCHES[kernel] += 1
-    return launch.result(k)
+    return work, out_s, out_i, scores
+
+
+def _prep_result(parts: dict, names) -> dict:
+    """The prologue's outputs as compared: ``names`` as they are, then the
+    schedule with entries past ``n_sched`` and member entries past each
+    block's count zeroed."""
+    n_sched = parts["n_sched"].reshape(())
+    dev = n_sched.device
+    live = torch.arange(parts["tile_idx"].shape[0], device=dev) < n_sched
+    counts = parts["member_count"]
+    listed = (torch.arange(parts["members"].shape[1], device=dev)[None, :]
+              < counts[:, None])
+    return {
+        **{name: parts.get(name) for name in names},
+        "table": parts["table"], "n_sched": n_sched,
+        "tile_idx": torch.where(live, parts["tile_idx"], 0),
+        "clusters": torch.where(live, parts["clusters"], 0),
+        "members": torch.where(listed[..., None], parts["members"], 0),
+        "member_count": counts,
+    }
+
+
+def _plain_schedule(probe_ids, fills, cap, qb, table):
+    """The plain twin's schedule, member lists and ``table`` as the
+    prologue writes them (see :func:`ivf_digit_prep_plain`)."""
+    q = probe_ids.shape[0]
+    nlist = fills.shape[0]
+    tile_idx, clusters, n_sched = build_probe_schedule(
+        probe_ids, fills.to(torch.int32), cap, IVF_TILE)
+    pos = probe_positions(probe_ids, nlist)
+    n = int(n_sched)
+    blocks = cdiv(q, qb)
+    members = torch.zeros((blocks, tile_idx.shape[0] - 1, 2),
+                          dtype=torch.int32, device=probe_ids.device)
+    counts = torch.zeros((blocks,), dtype=torch.int32,
+                         device=probe_ids.device)
+    for b in range(blocks):
+        hit = (pos[b * qb: (b + 1) * qb][:, clusters[:n].long()] >= 0).any(0)
+        js = torch.nonzero(hit).flatten()
+        members[b, : js.shape[0], 0] = tile_idx[js]
+        members[b, : js.shape[0], 1] = js.to(torch.int32)
+        counts[b] = js.shape[0]
+    return {"table": table(pos), "tile_idx": tile_idx, "clusters": clusters,
+            "n_sched": n_sched, "members": members, "member_count": counts}
+
+
+# -- the bf16 / f32 scan ---------------------------------------------------------
+
+
+def ivf_float_prep_plain(probe_ids, fills, queries, cap, bf16=True) -> dict:
+    """What the bf16 / f32 scan's prologue kernel writes, from the plain
+    pieces: ``qcast`` (the queries as bf16 for bf16 blocks, else None),
+    ``build_probe_schedule`` (``tile_idx``, ``clusters``, ``n_sched``),
+    ``probe_positions`` (``table [Q, nlist]``: 0 where the query probes
+    the cluster, ``-inf`` elsewhere) and the member lists of each block of
+    :func:`float_block` queries (``members``, ``member_count``, as
+    :func:`ivf_digit_prep_plain`'s)."""
+    q = probe_ids.shape[0]
+
+    def table(pos):
+        return torch.where(pos >= 0, 0.0, float("-inf")).to(torch.float32)
+
+    out = _plain_schedule(probe_ids, fills, cap, float_block(q, bf16), table)
+    out["qcast"] = queries.float().to(torch.bfloat16) if bf16 else None
+    return _prep_result(out, ("qcast",))
+
+
+def _float_call(blocks, penalty, fills, probe_ids, queries, k, alpha, cap,
+                bf16):
+    """One C call of the bf16 / f32 scan (``blocks`` None: the prologue
+    alone, for a dtype ``bf16``)."""
+    qb = float_block(probe_ids.shape[0], bf16)
+    probe_ids = probe_ids.to(torch.int32).contiguous()
+    fills = fills.to(torch.int32).contiguous()
+    queries = queries.float().contiguous()
+    corpus = None
+    if blocks is not None:
+        corpus = {"blocks": blocks, "penalty": penalty}
+
+    def extra(q, d):
+        return (("qcast", torch.bfloat16, (q, d)),) if bf16 else ()
+
+    def head(d, q, nlist, nprobe, max_sched, runs):
+        return (_ptr(blocks), _ptr(penalty), queries.data_ptr(),
+                probe_ids.data_ptr(), fills.data_ptr(), d, q, k, nlist,
+                nprobe, cap, max_sched, qb, runs, int(bf16), float(alpha))
+
+    def tail(work):
+        return ([None] if not bf16 else []) + work.ptrs
+
+    return _ivf_call("ivf_topk", corpus, fills, probe_ids, queries, k, cap,
+                     qb, (int(bf16),), extra, head, tail)
+
+
+def ivf_float_prep(probe_ids, fills, queries, cap, bf16=True) -> dict:
+    """The prologue kernel of the bf16 / f32 scan alone, on CUDA tensors
+    (the plain twin on CPU ones); outputs as :func:`ivf_float_prep_plain`."""
+    if probe_ids.device.type == "cpu":
+        return ivf_float_prep_plain(probe_ids, fills, queries, cap, bf16)
+    work = _float_call(None, None, fills, probe_ids, queries, 1, 1.0, cap,
+                       bf16)[0]
+    parts = {name: work.view(name) for name in work.parts}
+    return _prep_result(parts, ("qcast",))
 
 
 def ivf_topk_scan(
@@ -359,167 +483,54 @@ def ivf_topk_scan(
     _check_ivf_args(penalty, fills, probe_ids, queries, nlist, cap, d)
     if d % 8:
         raise ValueError("the CUDA scan needs D % 8 == 0")
-    queries = queries.to(blocks.dtype).contiguous()
-    probe_ids = probe_ids.to(torch.int32).contiguous()
-    q = queries.shape[0]
-    dev = check_scan_args(nlist * cap, min(k, nlist * cap), blocks=blocks,
-                          penalty=penalty, queries=queries)
-    launch = _Launch(probe_ids, fills, cap, q, k, 16 if q <= 16 else 32, dev)
-    head = (blocks.data_ptr(), penalty.data_ptr(), queries.data_ptr(),
-            *launch.sched_ptrs(), nlist * cap, d, q, k, nlist,
-            int(blocks.dtype == torch.bfloat16), float(alpha))
-    return _run("ivf_topk", head, launch, k, dev)
+    work, out_s, out_i, scores = _float_call(
+        blocks, penalty, fills, probe_ids, queries, k, alpha, cap,
+        blocks.dtype == torch.bfloat16)
+    if scores is None:
+        return out_s, out_i
+    rows, _ = _schedule_rows(work.view("tile_idx"), work.view("n_sched")[0],
+                             IVF_TILE)
+    return _select(scores, rows, k)
 
 
-# -- the digit scans: prologue, scan and merge in one C call -------------------
-
-# Runs' lists a merge CTA takes (csrc/ivf_digit_scan.cuh kMergeBatch).
-_MERGE_BATCH = 16
-# Runs' lists a merge CTA takes (csrc/ivf_digit_scan.cuh kMergeBatch).
-_MERGE_BATCH = 16
-
-
-def _digit_parts(q, d, nlist, max_sched, q_blocks, runs, kpad):
-    """The digit scans' scratch, in the C entries' argument order: ``(name,
-    dtype, shape)`` a part."""
-    groups = cdiv(runs, _MERGE_BATCH)
-    i8, i32, f32 = torch.int8, torch.int32, torch.float32
-    return (("digits", i8, (2 * q, d)), ("rho", f32, (q,)),
-            ("qs1", f32, (q,)), ("qoff", i32, (2 * q,)),
-            ("table", f32, (q, nlist)), ("tile_idx", i32, (max_sched + 1,)),
-            ("clusters", i32, (max_sched + 1,)), ("n_sched", i32, (1,)),
-            ("members", i32, (q_blocks, max_sched, 2)),
-            ("member_count", i32, (q_blocks,)), ("merge_count", i32, (q,)),
-            ("part_s", f32, (q, runs, kpad)), ("part_i", i32, (q, runs, kpad)),
-            ("group_s", f32, (q, groups, kpad)),
-            ("group_i", i32, (q, groups, kpad)))
-
-
-_ALIGN = 256
-_ELEMENT_BYTES = {torch.int8: 1, torch.int32: 4, torch.float32: 4}
-_SMS: Dict[int, int] = {}
-_CONFIG: Dict[Tuple[str, int, int], Tuple[int, int]] = {}
-
-
-def digit_block(q: int) -> int:
-    """Queries a scan CTA of the digit scans (the kernels' QB) at Q = q:
-    32 above 8 (wgmma's 64 rows are 32 queries' two digits), else one
-    mma.sync block of 8."""
-    return 8 if q <= 8 else 32
-
-
-def digit_scan_config(kernel: str, qb: int, k: int) -> Tuple[int, int]:
-    """``(shared memory bytes, CTAs a multiprocessor)`` of the scan CTA of
-    ``kernel`` (``ivf_topk_int8`` / ``ivf_topk_int4``) at query block
-    ``qb`` and ``k`` (any k > 128: the scores-only mode), on the current
-    CUDA device; cached."""
-    kpad = 0 if k > MAX_K else round_up(k, 32)
-    key = (kernel, qb, kpad)
-    if key not in _CONFIG:
-        out = (ctypes.c_int * 2)()
-        fn = c_entry(kernel, f"{kernel}_config", [_I, _I, _P])
-        _build.check(fn(qb, k, ctypes.addressof(out)), kernel)
-        _CONFIG[key] = (out[0], out[1])
-    return _CONFIG[key]
-
-
-def _runs(kernel, qb, k, q_blocks, max_sched, dev) -> int:
-    """Runs a query block: the card's multiprocessors x the scan's CTAs a
-    multiprocessor over the query blocks, at most one an entry."""
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    ctas = digit_scan_config(kernel, qb, k)[1]
-    return max(1, min(_SMS[index] * max(ctas, 1) // q_blocks, max_sched))
-
-
-class _DigitWork:
-    """A digit-scan call's scratch: one ``torch.empty`` byte buffer cut
-    into the parts of :func:`_digit_parts`, each on a 256-byte boundary;
-    ``ptrs`` their addresses in order, :meth:`view` a part as a tensor."""
-
-    def __init__(self, sizes, dev):
-        self.parts, total = {}, 0
-        for name, dtype, shape in _digit_parts(*sizes):
-            nbytes = math.prod(shape) * _ELEMENT_BYTES[dtype]
-            self.parts[name] = (dtype, shape, total, nbytes)
-            total += cdiv(nbytes, _ALIGN) * _ALIGN
-        self.buf = torch.empty((total,), dtype=torch.uint8, device=dev)
-        base = self.buf.data_ptr()
-        self.ptrs = [base + off for _, _, off, _ in self.parts.values()]
-
-    def view(self, name: str) -> torch.Tensor:
-        dtype, shape, off, nbytes = self.parts[name]
-        return self.buf[off: off + nbytes].view(dtype).view(shape)
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+# -- the digit scans ---------------------------------------------------------------
 
 
 def _digit_call(kernel, corpus, fills, probe_ids, queries, k, cbias, cap):
     """One C call of a digit scan: the prologue, then (``corpus`` =
     ``(blocks, scales, penalty)``) the scan and the merge, or with
-    ``corpus`` None the prologue alone.  Returns ``(work, out_s, out_i,
-    scores)``: the scratch (:class:`_DigitWork`), the ``[Q, k]`` results
-    (k <= 128) or the masked ``[Q, max_sched * 128]`` scores (k > 128)."""
-    q, nprobe = probe_ids.shape
-    nlist, d = fills.shape[0], queries.shape[1]
+    ``corpus`` None the prologue alone; as :func:`_ivf_call`."""
+    q = probe_ids.shape[0]
     probe_ids = probe_ids.to(torch.int32).contiguous()
     fills = fills.to(torch.int32).contiguous()
     queries = queries.float().contiguous()
-    tensors = {"queries": queries, "probe_ids": probe_ids, "fills": fills}
     if cbias is not None:
-        cbias = tensors["cbias"] = cbias.float().contiguous()
+        cbias = cbias.float().contiguous()
+    named = None
     if corpus is not None:
-        tensors.update(zip(("blocks", "scales", "penalty"), corpus))
-    dev = check_scan_args(nlist * cap, min(k, nlist * cap), **tensors)
-    qb = digit_block(q)
-    q_blocks = cdiv(q, qb)
-    max_sched = min(q * nprobe, nlist) * (cap // IVF_TILE)
-    kpad = 0 if k > MAX_K else round_up(k, 32)
-    runs = _runs(kernel, qb, k, q_blocks, max_sched, dev)
-    work = _DigitWork((q, d, nlist, max_sched, q_blocks, runs, kpad), dev)
-    out_s = out_i = scores = None
-    if corpus is not None and k > MAX_K:
-        scores = torch.full((q, max_sched * IVF_TILE), float("-inf"),
-                            dtype=torch.float32, device=dev)
-    elif corpus is not None:
-        out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
-        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    parts = list(work.ptrs)
-    if kernel == "ivf_topk_int8":
-        parts[3] = None  # no nibble offsets
-    head = (None, None, None) if corpus is None else corpus
-    code = c_entry(kernel, kernel, _ARGTYPES[kernel])(
-        *map(_ptr, head), queries.data_ptr(), probe_ids.data_ptr(),
-        fills.data_ptr(), _ptr(cbias), d, q, k, nlist, nprobe, cap,
-        max_sched, qb, runs, int(corpus is None), *parts,
-        _ptr(out_s), _ptr(out_i), _ptr(scores), _build.stream_ptr(dev))
-    _build.check(code, kernel)
-    _build.LAUNCHES[kernel] += 1
-    return work, out_s, out_i, scores
+        named = dict(zip(("blocks", "scales", "penalty"), corpus))
+
+    def extra(q, d):
+        i8, i32, f32 = torch.int8, torch.int32, torch.float32
+        return (("digits", i8, (2 * q, d)), ("rho", f32, (q,)),
+                ("qs1", f32, (q,)), ("qoff", i32, (2 * q,)))
+
+    def head(d, q, nlist, nprobe, max_sched, runs):
+        return (*map(_ptr, corpus or (None, None, None)), queries.data_ptr(),
+                probe_ids.data_ptr(), fills.data_ptr(), _ptr(cbias), d, q, k,
+                nlist, nprobe, cap, max_sched, digit_block(q), runs)
+
+    def tail(work):
+        ptrs = list(work.ptrs)
+        if kernel == "ivf_topk_int8":
+            ptrs[3] = None  # no nibble offsets
+        return ptrs
+
+    return _ivf_call(kernel, named, fills, probe_ids, queries, k, cap,
+                     digit_block(q), (), extra, head, tail, cbias)
 
 
-def _prep_result(parts: dict, int4: bool) -> dict:
-    """The prologue's outputs as compared: schedule entries past ``n_sched``
-    and member entries past each block's count zeroed."""
-    n_sched = parts["n_sched"].reshape(())
-    dev = n_sched.device
-    live = torch.arange(parts["tile_idx"].shape[0], device=dev) < n_sched
-    counts = parts["member_count"]
-    listed = (torch.arange(parts["members"].shape[1], device=dev)[None, :]
-              < counts[:, None])
-    return {
-        "digits": parts["digits"], "rho": parts["rho"], "qs1": parts["qs1"],
-        "qoff": parts["qoff"] if int4 else None, "table": parts["table"],
-        "n_sched": n_sched,
-        "tile_idx": torch.where(live, parts["tile_idx"], 0),
-        "clusters": torch.where(live, parts["clusters"], 0),
-        "members": torch.where(listed[..., None], parts["members"], 0),
-        "member_count": counts,
-    }
+_DIGIT_NAMES = ("digits", "rho", "qs1", "qoff")
 
 
 def ivf_digit_prep_plain(probe_ids, fills, queries, cbias, cap,
@@ -534,32 +545,17 @@ def ivf_digit_prep_plain(probe_ids, fills, queries, cbias, cap,
     j)`` of each schedule entry ``j`` one of its queries probes, ascending,
     and ``member_count``."""
     q = probe_ids.shape[0]
-    nlist = fills.shape[0]
-    qb = digit_block(q)
     q_i8, rho, qs1 = quantize_queries(queries)
-    tile_idx, clusters, n_sched = build_probe_schedule(
-        probe_ids, fills.to(torch.int32), cap, IVF_TILE)
-    pos = probe_positions(probe_ids, nlist)
     bias = _bias_pre(cbias, qs1, probe_ids)
-    table = torch.where(pos >= 0, bias.gather(1, pos.clamp(min=0).long()),
-                        float("-inf"))
-    n = int(n_sched)
-    blocks = cdiv(q, qb)
-    members = torch.zeros((blocks, tile_idx.shape[0] - 1, 2),
-                          dtype=torch.int32, device=probe_ids.device)
-    counts = torch.zeros((blocks,), dtype=torch.int32,
-                         device=probe_ids.device)
-    for b in range(blocks):
-        hit = (pos[b * qb: (b + 1) * qb][:, clusters[:n].long()] >= 0).any(0)
-        js = torch.nonzero(hit).flatten()
-        members[b, : js.shape[0], 0] = tile_idx[js]
-        members[b, : js.shape[0], 1] = js.to(torch.int32)
-        counts[b] = js.shape[0]
-    return _prep_result({
-        "digits": q_i8, "rho": rho, "qs1": qs1,
-        "qoff": query_nibble_offsets(q_i8), "table": table,
-        "tile_idx": tile_idx, "clusters": clusters, "n_sched": n_sched,
-        "members": members, "member_count": counts}, int4)
+
+    def table(pos):
+        return torch.where(pos >= 0, bias.gather(1, pos.clamp(min=0).long()),
+                           float("-inf"))
+
+    out = _plain_schedule(probe_ids, fills, cap, digit_block(q), table)
+    out.update(digits=q_i8, rho=rho, qs1=qs1,
+               qoff=query_nibble_offsets(q_i8) if int4 else None)
+    return _prep_result(out, _DIGIT_NAMES)
 
 
 def ivf_digit_prep(probe_ids, fills, queries, cbias, cap,
@@ -572,7 +568,10 @@ def ivf_digit_prep(probe_ids, fills, queries, cbias, cap,
     kernel = "ivf_topk_int4" if int4 else "ivf_topk_int8"
     work = _digit_call(kernel, None, fills, probe_ids, queries, 1, cbias,
                        cap)[0]
-    return _prep_result({name: work.view(name) for name in work.parts}, int4)
+    parts = {name: work.view(name) for name in work.parts}
+    if not int4:
+        parts["qoff"] = None
+    return _prep_result(parts, _DIGIT_NAMES)
 
 
 def _digit_scan(kernel, blocks, scales, penalty, fills, probe_ids, queries,
