@@ -372,7 +372,7 @@ def short_kernel_name(name: str) -> str:
 # fails the build: the int8 products must be wgmma's alone.
 REDESIGNED = ("mpnet_attention", "mpnet_attention_bhsd", "int8_gemm",
               "int8_ffn_ln", "flash_attention", "ivf_topk", "ivf_topk_int8",
-              "ivf_topk_int4", "flat_topk_int4")
+              "ivf_topk_int4", "flat_topk_int4", "flat_topk_int8")
 SASS_RULES = {
     "mpnet_attention_bhsd": (("attention_bhsd_kernel",), False),
     "int8_gemm": (("gemm_kernel",), True),
@@ -383,10 +383,11 @@ SASS_RULES = {
 
 # The ring-fed scans, by demangled kernel name: the digit scans (bodies in
 # csrc/ivf_digit_scan.cuh; the IVF int8 / int4 scans, and the flat int4
-# scan at Q > 8) multiply with wgmma (GMMA) at Q > 8 and with mma.sync
-# (IMMA) at Q <= 8 (the flat int4 scan there: digit_partial); the bf16 IVF
-# scan (csrc/ivf_float_scan.cuh) with wgmma at its query block of 32 and
-# with mma.sync (HMMA) at 16.
+# and int8 row scans at Q > 8) multiply with wgmma (GMMA) at Q > 8 and with
+# mma.sync (IMMA) at Q <= 8 (the flat scans there: digit_partial, which
+# the int8 word layout also runs above); the bf16 IVF scan
+# (csrc/ivf_float_scan.cuh) with wgmma at its query block of 32 and with
+# mma.sync (HMMA) at 16.
 DIGIT_SASS_RULES = {
     name: {"GMMA": (f"ivf_digit_scan<{tiles}, 32, IvfSource>",),
            "IMMA": (f"ivf_digit_scan<{tiles}, 8, IvfSource>",)}
@@ -396,6 +397,10 @@ DIGIT_SASS_RULES = {
 DIGIT_SASS_RULES["flat_topk_int4"] = {
     "GMMA": ("ivf_digit_scan<NibbleTiles, 32, FlatSource>",),
     "IMMA": ("digit_partial<NibbleStage, 8>",)}
+DIGIT_SASS_RULES["flat_topk_int8"] = {
+    "GMMA": ("ivf_digit_scan<RowTiles, 32, FlatSource>",),
+    "IMMA": ("digit_partial<RowStage, 8>", "digit_partial<WordStage, 8>",
+             "digit_partial<WordStage, 32>")}
 DIGIT_SASS_RULES["ivf_topk"] = {"GMMA": ("ivf_float_scan<Bf16Rows, 32>",),
                                 "HMMA": ("ivf_float_scan<Bf16Rows, 16>",)}
 MMA_KINDS = ("GMMA", "IMMA", "HMMA")
@@ -683,22 +688,32 @@ def check_v1_cases() -> float:
 
 
 def check_flat_prep(queries) -> None:
-    """The flat int4 scan's prologue kernel against its plain twin on the
-    same queries: digits, rho, qs1 and nibble offsets equal, bit for bit."""
+    """The flat int4 and int8 scans' prologue kernels against their plain
+    twins on the same queries: digits, rho, qs1 and (int4) nibble offsets
+    equal, bit for bit."""
     import torch
 
     from tpu_search_torch.ops.flat_topk_int4 import (
         flat_digit_prep,
         flat_digit_prep_plain,
     )
+    from tpu_search_torch.ops.flat_topk_int8 import (
+        flat_int8_prep,
+        flat_int8_prep_plain,
+    )
 
-    got, want = flat_digit_prep(queries), flat_digit_prep_plain(queries)
-    torch.cuda.synchronize()
-    bad = [key for key, value in want.items()
-           if not torch.equal(got[key], value)]
-    print(f"[flat_prep] Q={queries.shape[0]} equal={not bad}", flush=True)
-    if bad:
-        fail(f"the flat int4 prologue differs from its plain twin in {bad}")
+    twins = (("int4", flat_digit_prep, flat_digit_prep_plain),
+             ("int8", flat_int8_prep, flat_int8_prep_plain))
+    for tag, kernel, plain in twins:
+        got, want = kernel(queries), plain(queries)
+        torch.cuda.synchronize()
+        bad = [key for key, value in want.items()
+               if not torch.equal(got[key], value)]
+        print(f"[flat_prep] {tag} Q={queries.shape[0]} equal={not bad}",
+              flush=True)
+        if bad:
+            fail(f"the flat {tag} prologue differs from its plain twin in "
+                 f"{bad}")
 
 
 def check_quant_topk(results: dict) -> None:
@@ -785,18 +800,21 @@ def check_quant_topk(results: dict) -> None:
                          f"Q={q} k={k}")
                 entry = results.setdefault(name, {"max_abs_err": 0.0})
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                if q == 1 and k == 10:
-                    _, calls = device_breakdown(f"{tag} N={n} Q=1 k=10",
+                if q == 1 and k <= 128:
+                    # the device split a launch, at k 10 and k 128
+                    _, calls = device_breakdown(f"{tag} N={n} Q=1 k={k}",
                                                 lambda: kernel(queries, k))
-                    if name == "flat_topk_int4":
-                        check_launches(tag, calls)
-                    if tag != "flat_topk_int8 words":
-                        row_bytes = d if name == "flat_topk_int8" else d // 2
-                        bound_ms, by = bound(
-                            n * (row_bytes + 8) + 2 * q * d + q * k * 8,
-                            4 * q * n * d, "int8")
-                        entry.update(ms=kms, plain_ms=pms, bound_ms=bound_ms,
-                                     bound_by=by, library_ms=None)
+                    check_launches(tag, calls)
+                if q == 1 and k == 10:
+                    row_bytes = d if name == "flat_topk_int8" else d // 2
+                    bound_ms, by = bound(
+                        n * (row_bytes + 8) + 2 * q * d + q * k * 8,
+                        4 * q * n * d, "int8")
+                    # the word layout's numbers ride in the entry's "words"
+                    timed = (entry.setdefault("words", {})
+                             if tag == "flat_topk_int8 words" else entry)
+                    timed.update(ms=kms, plain_ms=pms, bound_ms=bound_ms,
+                                 bound_by=by, library_ms=None)
 
 
 def attention_inputs(gen, shape, nh, s, dev):
@@ -2913,6 +2931,8 @@ def main() -> None:
             "bound_ms": results[name]["bound_ms"],
             "bound_by": results[name]["bound_by"],
             "library_ms": results[name]["library_ms"],
+            **({"words": results[name]["words"]}
+               if "words" in results[name] else {}),
         }
         for name in _build.KERNELS
     ]}

@@ -30,9 +30,11 @@ empty, shorter than the grid and many times longer (nlist 4,099), and on
 an exact tie at k = 128; the bf16 / f32 IVF scan's prologue equal to its
 plain twin on the same cases, and the scan within 1e-4 at Q 1 to 128,
 nprobe 8 and 32, k 10, 128 and 200 (both query blocks, both metrics); the
-flat int4 scan's prologue equal to its plain twin.  The ``[B, S, H]``
-attention also at S 512 with hd 32 and on a one-row query, with rows
-padded by -inf and by the f32 min; ``int8_gemm`` also at M, N and K off its
+flat int4 and int8 scans' prologues equal to their plain twins, the int8
+scan exact in both layouts at Q 1 to 130, and every flat digit scan at
+most three launches a call at Q 1, 9 and 33 (torch.profiler).  The
+``[B, S, H]`` attention also at S 512 with hd 32 and on a one-row query,
+with rows padded by -inf and by the f32 min; ``int8_gemm`` also at M, N and K off its
 wgmma tiles (K 8 and 312); ``int8_ffn_ln`` also at M 1, 127, 129 and 4,097
 (the edges of its 128-row tiles) and with row maxima in I 1,200's partial
 last column tile.
@@ -432,6 +434,8 @@ QUANT_CASES = [
     (4133, 1, 1, None), (4133, 17, 10, None), (1000, 130, 128, None),
     (20000, 3, 10, (2000, 19000)), (300, 2, 5, (0, 300)),
     (4133, 9, 200, None), (777, 2, 777, (100, 700)),
+    (4133, 9, 128, None), (20000, 33, 128, (2000, 19000)),
+    (4133, 33, 200, None),
 ]
 
 
@@ -482,6 +486,59 @@ def test_int8_kernel(dev, words, n, q, k, masked):
     assert_same_quant(got, want, pen)
     if masked is None and k > 1:
         assert got[1][0, :2].tolist() == [3, 7]
+
+
+def launches_a_call(fn, calls=4):
+    """Device events a call of ``fn`` (torch.profiler), and the kernels'
+    names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_search_torch.utils.device_profile import _device_events
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    return len(events) / calls, {e.name for e in events}
+
+
+@pytest.mark.parametrize("layout", ["int8 rows", "int8 words", "int4"])
+@pytest.mark.parametrize("q", [1, 9, 33])
+def test_flat_digit_scans_launch_three_kernels(dev, layout, q):
+    """A flat digit scan at k <= 128 is one C call of three launches:
+    the prologue, the scan and the tree merge, no PyTorch op between."""
+    from tpu_search_torch.index.flat import quantize_rows_int8
+    from tpu_search_torch.ops.flat_topk_int4 import flat_topk_int4_scan
+    from tpu_search_torch.ops.flat_topk_int8 import flat_topk_int8_scan
+    from tpu_search_torch.ops.int4_pack import (
+        nibble_rows_to_bytes,
+        quantize_rows_int4,
+    )
+    from tpu_search_torch.ops.int8_pack import pack_int8_rows
+
+    v, queries, pen = quant_inputs(dev, 20000, 128, q, None, q)
+    words = layout == "int8 words"
+    if layout == "int4":
+        u, scales = quantize_rows_int4(v)
+        corpus = nibble_rows_to_bytes(u)
+    else:
+        rows, scales = quantize_rows_int8(v)
+        corpus = pack_int8_rows(rows) if words else rows
+
+    def call():
+        if layout == "int4":
+            return flat_topk_int4_scan(corpus, scales, pen, queries, 10)
+        return flat_topk_int8_scan(corpus, scales, pen, queries, 10,
+                                   words=words)
+
+    per_call, names = launches_a_call(call)
+    assert per_call <= 3
+    assert any("digit_prep" in name for name in names)
+    assert any("tree_merge" in name for name in names)
 
 
 @pytest.mark.parametrize("n,q,k,masked", QUANT_CASES)
@@ -722,6 +779,25 @@ def test_ivf_float_prep_kernel_equals_plain(dev, name, bf16):
             assert got[key] is None
         else:
             assert torch.equal(got[key].cpu(), value), key
+
+
+@pytest.mark.parametrize("name", sorted(ivf_prep_cases.CASES))
+def test_flat_int8_prep_kernel_equals_plain(dev, name):
+    """The flat int8 scan's prologue kernel (no nibble offsets) against
+    its plain twin, bit for bit, on the queries of the IVF prologue
+    cases."""
+    from tpu_search_torch.ops.flat_topk_int8 import (
+        flat_int8_prep,
+        flat_int8_prep_plain,
+    )
+
+    queries = torch.from_numpy(ivf_prep_cases.make_case(name)[2])
+    want = flat_int8_prep_plain(queries)
+    got = flat_int8_prep(queries.to(dev))
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        assert torch.equal(got[key].cpu(), value), key
 
 
 @pytest.mark.parametrize("name", sorted(ivf_prep_cases.CASES))

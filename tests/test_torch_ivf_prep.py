@@ -24,6 +24,10 @@
   JAX's ``quantize_queries`` and ``query_nibble_offsets`` under
   ``jax.jit``, bit for bit; the flat scan modelled alike (the corpus's
   128-row tiles split into runs) equals ``flat_topk_int4_plain``.
+- The flat int8 scan's prologue twin ``flat_int8_prep_plain`` against
+  JAX's ``quantize_queries`` under ``jax.jit``, bit for bit; the scan
+  modelled alike, in both corpus layouts, equals ``flat_topk_int8_plain``
+  and the JAX ``_int8_call`` in interpret mode.
 """
 
 import jax
@@ -36,9 +40,18 @@ from ivf_prep_cases import CASES, make_case
 from tpu_search.ops.pallas_ivf_scan import build_probe_schedule as jax_schedule
 from tpu_search.ops.topk_scan import quantize_queries as jax_quantize
 from tpu_search.ops.topk_scan import query_nibble_offsets as jax_offsets
+from tpu_search.ops.pallas_topk_dma import (
+    pallas_flat_topk_dma_int8,
+    pallas_flat_topk_dma_int8_packed,
+)
+from tpu_search_torch.index.flat import quantize_rows_int8
 from tpu_search_torch.ops.flat_topk_int4 import (
     flat_digit_prep,
     flat_digit_prep_plain,
+)
+from tpu_search_torch.ops.flat_topk_int8 import (
+    flat_int8_prep,
+    flat_int8_prep_plain,
 )
 from tpu_search_torch.ops.int4_pack import (
     nibble_rows_to_bytes,
@@ -57,7 +70,12 @@ from tpu_search_torch.ops.ivf_scan import (
     ivf_topk_plain,
 )
 from tpu_search_torch.ops.ring_scan import digit_block
-from tpu_search_torch.ops.topk_scan import flat_topk_int4_plain
+from tpu_search_torch.ops.int8_pack import pack_int8_rows, unpack_int8_rows
+from tpu_search_torch.ops.topk_scan import (
+    digit_scores,
+    flat_topk_int4_plain,
+    flat_topk_int8_plain,
+)
 
 T = torch.from_numpy
 MERGE_BATCH = 16  # csrc/run_merge.cuh kMergeBatch
@@ -331,6 +349,19 @@ def test_flat_prep_on_cpu_is_the_twin():
         assert torch.equal(got[key], want[key])
 
 
+def _flat_model(scores, rows, tiles, runs, k, split):
+    """One query's flat scan modelled over the padded ``scores`` of
+    ``tiles`` 128-row tiles: balanced runs of tiles (the ring) or ranges
+    of a fixed number of tiles (digit_partial; the last one short), then
+    the merge."""
+    if split == "runs":
+        return _model(scores, rows, list(range(tiles)), min(runs, tiles), k)
+    per = -(-tiles // runs)  # tiles a range
+    return merge_model([_model(scores, rows,
+                               list(range(t0, min(tiles, t0 + per))), 1, k)
+                        for t0 in range(0, tiles, per)], k)
+
+
 @pytest.mark.parametrize("n,q,runs", [(1000, 1, 1), (1000, 3, 4),
                                       (4133, 9, 33), (300, 2, 7)])
 @pytest.mark.parametrize("k", [1, 10, 128])
@@ -340,8 +371,6 @@ def test_flat_scan_model_equals_plain(n, q, runs, k, split):
     n -inf), split into balanced runs (the ring, Q > 8) or ranges of a
     fixed number of tiles (digit_partial, Q <= 8), then the merge; times
     qs1 after it."""
-    from tpu_search_torch.ops.topk_scan import digit_scores
-
     rng = np.random.default_rng(n + q + runs)
     v = rng.standard_normal((n, 64)).astype(np.float32)
     v[7 % n] = v[3 % n]
@@ -362,15 +391,91 @@ def test_flat_scan_model_equals_plain(n, q, runs, k, split):
     rows = torch.arange(tiles * IVF_TILE)
     want_s, want_i = flat_topk_int4_plain(nib, scales, pen, T(queries), k)
     for qi in range(q):
-        if split == "runs":
-            got = _model(padded[qi], rows, list(range(tiles)),
-                         min(runs, tiles), k)
-        else:
-            per = -(-tiles // runs)  # tiles a range; the last one short
-            got = merge_model([_model(padded[qi], rows,
-                                      list(range(t0, min(tiles, t0 + per))),
-                                      1, k)
-                               for t0 in range(0, tiles, per)], k)
+        got = _flat_model(padded[qi], rows, tiles, runs, k, split)
         got_s = torch.tensor([s for s, _ in got]) * prep["qs1"][qi]
         assert got_s.tolist() == want_s[qi].tolist()
         assert [i for _, i in got] == want_i[qi].tolist()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_flat_int8_prep_twin_equals_jax(name):
+    """The int8 flat scan's prologue twin (no nibble offsets) against
+    jitted JAX ``quantize_queries``, bit for bit."""
+    queries = make_case(name)[2]
+    got = flat_int8_prep_plain(T(queries))
+    q_i8, rho, qs1 = jax.jit(jax_quantize)(jnp.asarray(queries))
+    assert got.keys() == {"digits", "rho", "qs1"}
+    np.testing.assert_array_equal(got["digits"].numpy(), np.asarray(q_i8))
+    np.testing.assert_array_equal(_bits(got["rho"].numpy()), _bits(rho))
+    np.testing.assert_array_equal(_bits(got["qs1"].numpy()), _bits(qs1))
+
+
+def test_flat_int8_prep_on_cpu_is_the_twin():
+    queries = T(make_case("nlist9_q33_all_probed")[2])
+    got, want = flat_int8_prep(queries), flat_int8_prep_plain(queries)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert torch.equal(got[key], want[key])
+
+
+_JAX_TILE = 256
+
+
+def _jax_int8(corpus, scales, live, queries, k, words):
+    """The JAX ``_int8_call`` (through its two entry points) in interpret
+    mode, the corpus padded with masked rows to whole tiles."""
+    n = live.shape[0]
+    pad = -(-n // _JAX_TILE) * _JAX_TILE - n
+    fn = (pallas_flat_topk_dma_int8_packed if words
+          else pallas_flat_topk_dma_int8)
+    corpus = np.pad(corpus, ((0, pad // 4 if words else pad), (0, 0)))
+    s, i = fn(jnp.asarray(corpus), jnp.asarray(np.pad(scales, (0, pad))),
+              jnp.asarray(np.pad(live, (0, pad))), jnp.asarray(queries), k,
+              tile_n=_JAX_TILE, interpret=True)
+    return np.asarray(s), np.asarray(i)
+
+
+@pytest.mark.parametrize("words", [False, True])
+@pytest.mark.parametrize("n,q,runs", [(1000, 1, 1), (1000, 3, 4),
+                                      (4133, 9, 33), (300, 2, 7)])
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_flat_int8_scan_model_equals_plain(n, q, runs, k, words):
+    """The flat int8 scan modelled (the prologue twin's digits, exact
+    dots, every 128-row tile an entry, rows past n -inf) in runs of tiles
+    (the ring) and in row ranges (digit_partial), then the merge, then
+    times qs1: equal to ``flat_topk_int8_plain`` and to the JAX
+    ``_int8_call`` in interpret mode, in the row layout and (through
+    ``unpack_int8_rows``) the word layout, with a planted tie."""
+    if words:
+        n -= n % 4  # the word layout holds whole words
+    rng = np.random.default_rng(n + q + runs)
+    v = rng.standard_normal((n, 64)).astype(np.float32)
+    v[7 % n] = v[3 % n]
+    i8, scales = quantize_rows_int8(T(v))
+    corpus = pack_int8_rows(i8) if words else i8
+    rows = unpack_int8_rows(corpus) if words else corpus
+    live = rng.random(n) > 0.1
+    live[[3 % n, 7 % n]] = True
+    pen = T(np.where(live, 0.0, -np.inf).astype(np.float32))
+    queries = rng.standard_normal((q, 64)).astype(np.float32)
+    queries[0] = v[3 % n]
+    prep = flat_int8_prep_plain(T(queries))
+    scores = digit_scores(prep["digits"].double() @ rows.double().T,
+                          prep["rho"], scales, pen)
+    tiles = -(-n // IVF_TILE)
+    padded = torch.full((q, tiles * IVF_TILE), float("-inf"))
+    padded[:, :n] = scores
+    ids = torch.arange(tiles * IVF_TILE)
+    want_s, want_i = flat_topk_int8_plain(i8, scales, pen, T(queries), k)
+    jax_s, jax_i = _jax_int8(corpus.numpy(), scales.numpy(), live, queries,
+                             k, words)
+    np.testing.assert_array_equal(jax_i, want_i.numpy())
+    np.testing.assert_array_equal(_bits(jax_s), _bits(want_s.numpy()))
+    for qi in range(q):
+        for split in ("runs", "ranges"):
+            got = _flat_model(padded[qi], ids, tiles, runs, k, split)
+            got_s = torch.tensor([s for s, _ in got]) * prep["qs1"][qi]
+            assert got_s.tolist() == want_s[qi].tolist()
+            assert [i for _, i in got] == want_i[qi].tolist()
+    if k > 1:
+        assert want_i[0, :2].tolist() == [3 % n, 7 % n]

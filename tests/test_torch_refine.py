@@ -96,6 +96,45 @@ def test_topk_all_matches(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_topk_all_scans_only_the_written_slots(dtype, monkeypatch):
+    """``topk_all`` scans ``round_up(count, 128)`` rows (at least k), not
+    the capacity, and returns what the JAX store's scan over the whole
+    capacity returns, before and after an add and a compact."""
+    import tpu_search_torch.index.refine as refine
+
+    name = "flat_topk_int8_scan" if dtype == "int8" else "flat_topk_scan"
+    scan, seen = getattr(refine, name), []
+
+    def spy(corpus, *args):
+        seen.append(corpus.shape[0])
+        return scan(corpus, *args)
+
+    monkeypatch.setattr(refine, name, spy)
+    j, t = stores(dtype)
+    q = rows(6, 3)
+    rng = np.random.default_rng(8)
+    for step in ("start", "add", "compact"):
+        if step == "add":
+            more = rows(7, 50)
+            j.append(jnp.asarray(more), 50)
+            t.append(more, 50)
+        elif step == "compact":
+            keep = np.arange(0, t.count, 2)
+            j.compact(keep)
+            t.compact(keep)
+        live = rng.random(t.count) > 0.2
+        for k in (1, 10, 128):
+            ws, wi = j.topk_all(q, live, k)
+            gs, gi = t.topk_all(q, live, k)
+            np.testing.assert_array_equal(gi, wi)
+            if dtype == "int8":
+                np.testing.assert_array_equal(gs, ws)
+            else:
+                np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-6)
+            assert seen[-1] == max(-(-t.count // 128) * 128, k) < t.capacity
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
 def test_compact_and_sections_both_ways(tmp_path, dtype):
     j, t = stores(dtype)
     keep = np.arange(0, 300, 3)

@@ -356,6 +356,25 @@ def test_digit_sass_rule(text, faults):
         assert want in fault
 
 
+@pytest.mark.parametrize("drop,imma_free,faults", [
+    (None, None, []),
+    ("ivf_digit_scan<RowTiles, 32, FlatSource>", None, ["no kernel named"]),
+    (None, "digit_partial<WordStage, 32>", ["holds no IMMA"]),
+])
+def test_flat_int8_sass_rule(drop, imma_free, faults):
+    """The flat int8 scan's rule: wgmma in the row ring, mma.sync in each
+    digit_partial instance of both layouts, by demangled name."""
+    rule = chip_smoke.DIGIT_SASS_RULES["flat_topk_int8"]
+    by_name = {name: (kind == "GMMA", kind == "IMMA" and name != imma_free,
+                      False)
+               for kind, names in rule.items() for name in names
+               if name != drop}
+    got = chip_smoke.mma_faults(by_name, rule)
+    assert len(got) == len(faults)
+    for fault, want in zip(got, faults):
+        assert want in fault
+
+
 FLOAT_SASS = """
 \t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_8Bf16RowsELi32EEEvPKh
         /*0100*/                   HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], R24 ;

@@ -14,13 +14,13 @@ copy with one constant changed); it is copied under
 its own kernels there.  Cases, at ``chip_smoke.py``'s shapes (1M x 768,
 nlist 1024, its IVF corpus and indexes; the flat int4 corpus of its
 quantized phase): ``ivf_topk`` (bf16 at nprobe 8 and 32, f32 at 32) and
-the IVF int8 / int4 scans at ``chip_smoke.IVF_CASES``, and
-``flat_topk_int4`` at Q 1 to 128 and k 10, 128 and 200.  Each case prints one JSON line: both trees'
-CUDA-event ms a call (two turns each), device busy ms and launches a call
-(torch.profiler), and whether the outputs agree (the float scan within
-``chip_smoke.TOL``, ids equal outside near-ties; the digit scans
-exactly).  The card's name and power limit come first.  Needs one CUDA
-device.
+the IVF int8 / int4 scans at ``chip_smoke.IVF_CASES``; ``flat_topk_int4``
+and ``flat_topk_int8`` (rows and words) at Q 1 to 128 and k 10, 128 and
+200.  Each case prints one JSON line: both trees' CUDA-event ms a call
+(two turns each), device busy ms and launches a call (torch.profiler),
+and whether the outputs agree (the float scan within ``chip_smoke.TOL``,
+ids equal outside near-ties; the digit scans exactly).  The card's name
+and power limit come first.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -152,6 +152,42 @@ def run_flat_int4(other_pkg, emit) -> None:
                     lambda: other(nib, scales, pen, queries, k), True, emit)
 
 
+def run_flat_int8(other_pkg, emit) -> None:
+    import importlib
+
+    import torch
+
+    from ..index.flat import quantize_rows_int8
+    from ..ops.flat_topk_int8 import flat_topk_int8_scan
+    from ..ops.int8_pack import pack_int8_rows
+
+    other = importlib.import_module(
+        other_pkg.__name__ + ".ops.flat_topk_int8").flat_topk_int8_scan
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n, d = 1_000_000, 768
+    v = torch.randn((n, d), generator=gen, device=dev)
+    v = v / v.norm(dim=1, keepdim=True)
+    rows, scales = quantize_rows_int8(v)
+    words = pack_int8_rows(rows)
+    del v
+    live = torch.rand((n,), generator=gen, device=dev) >= 0.10
+    pen = torch.where(live, 0.0, float("-inf"))
+    for q in (1, 8, 16, 32, 128):
+        queries = torch.randn((q, d), generator=gen, device=dev)
+        queries = queries / queries.norm(dim=1, keepdim=True)
+        for k in (10, 128, 200):
+            if k > 128 and q > 8:
+                continue
+            for layout, corpus in (("rows", rows), ("words", words)):
+                is_words = layout == "words"
+                compare(f"flat_topk_int8_scan {layout} N={n} Q={q} k={k}",
+                        lambda: flat_topk_int8_scan(corpus, scales, pen,
+                                                    queries, k, is_words),
+                        lambda: other(corpus, scales, pen, queries, k,
+                                      is_words), True, emit)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", required=True, type=Path)
@@ -180,6 +216,7 @@ def main(argv=None) -> None:
     other_pkg = load_other(args.other)
     run_ivf(other_pkg, emit)
     run_flat_int4(other_pkg, emit)
+    run_flat_int8(other_pkg, emit)
 
 
 if __name__ == "__main__":

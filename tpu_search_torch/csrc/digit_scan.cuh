@@ -1,7 +1,8 @@
 // Masked top-k over an int8-coded corpus with two-digit int8 queries:
-// the body shared by flat_topk_int8.cu (int8 rows, or the JAX package's
-// word-packed int8 layout) and flat_topk_int4.cu at Q <= 8 (biased
-// nibbles; flat_int4_scan.cuh merges its partial lists).
+// digit_partial, the row-range scan of the flat digit scans
+// (flat_digit_scan.cuh composes them): flat_topk_int8.cu (int8 rows, or
+// the JAX package's word-packed int8 layout; at Q > 8 the word layout
+// only) and flat_topk_int4.cu at Q <= 8 (biased nibbles).
 //
 // Contract (that of the TPU kernels _kernel_int8 / _kernel_int4 and of
 // ops/topk_scan.py flat_topk_int8_plain / flat_topk_int4_plain):
@@ -10,7 +11,7 @@
 //   score[q,r] = fma(rho[q], d2, d1) * scale[r] + penalty[r]
 // penalty 0 (live row) or -inf (masked row).  The k best per query,
 // descending, first-index ties, slots past the live rows -inf / -1.  The
-// query scale qs1 > 0 multiplies the selected scores outside the kernel.
+// query scale qs1 > 0 multiplies the selected scores in the merge.
 // The epilogue writes out __fmaf_rn / __fmul_rn / __fadd_rn, so its
 // rounding does not depend on nvcc's -fmad.
 //
@@ -21,7 +22,8 @@
 // Design (the shape of flat_topk.cu): the TPU kernels walk the corpus in
 // one sequential grid with a running top-k; here N splits into row ranges,
 // one CTA per (query block, range), each with partial lists in shared
-// memory behind a k-th-best gate (topk_select.cuh), then merge_topk.
+// memory behind a k-th-best gate (topk_select.cuh), then run_merge.cuh's
+// tree merge.
 //  - A query block is QB = 8 or 32 queries.  Its digits form the A operand
 //    of mma.sync m16n8k32 s8 x s8 -> s32, arranged per m-tile of 16 rows
 //    as 8 queries' digit 1 (rows 0-7) then the same 8 queries' digit 2
@@ -35,7 +37,8 @@
 //    chunk (or the next tile's first) into registers before the current
 //    chunk's MMAs, and the tile's row scales and penalties before its
 //    first chunk: the HBM reads overlap the compute.
-// Not yet done (later work): cp.async/TMA multi-stage buffering and wgmma.
+// The cp.async ring and wgmma are ivf_digit_scan.cuh's, which the flat
+// row and nibble scans take at Q > 8 where it reads faster.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +46,7 @@
 #include <stdint.h>
 
 #include "int8_mma.cuh"
+#include "smem_cap.cuh"
 #include "topk_select.cuh"
 
 namespace {
@@ -269,35 +273,15 @@ cudaError_t launch_digit_qb(const void* V, const float* scale,
                             cudaStream_t stream) {
   const int kpad = out_scores ? 0 : round_up(k, 32);
   const size_t bytes = digit_smem_bytes(QB, round_up(d, kChunk), kpad);
-  cudaError_t err = cudaFuncSetAttribute(
-      digit_partial<Stage, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  static size_t caps[kCapDevices] = {};
+  cudaError_t err = raise_smem_cap(
+      (const void*)digit_partial<Stage, QB>, bytes, caps);
   if (err != cudaSuccess) return err;
   dim3 grid((q + QB - 1) / QB, n_splits);
   digit_partial<Stage, QB><<<grid, kThreads, bytes, stream>>>(
       V, scale, penalty, digits, rho, qoff, n, d, q, k, kpad, rows_per_split,
       part_s, part_i, out_scores);
   return cudaGetLastError();
-}
-
-// The whole scan: partial lists then the merge, or with out_scores set
-// (k > 128) the masked [q, n] scores only.
-template <class Stage>
-int launch_digit_scan(const void* V, const float* scale, const float* penalty,
-                      const int8_t* digits, const float* rho, const int* qoff,
-                      int n, int d, int q, int k, int n_splits,
-                      int rows_per_split, float* part_s, int* part_i,
-                      float* out_s, int* out_i, float* out_scores,
-                      cudaStream_t st) {
-  cudaError_t err =
-      q <= 8 ? launch_digit_qb<Stage, 8>(V, scale, penalty, digits, rho, qoff,
-                                         n, d, q, k, n_splits, rows_per_split,
-                                         part_s, part_i, out_scores, st)
-             : launch_digit_qb<Stage, 32>(V, scale, penalty, digits, rho, qoff,
-                                          n, d, q, k, n_splits, rows_per_split,
-                                          part_s, part_i, out_scores, st);
-  if (err != cudaSuccess || out_scores) return (int)err;
-  return (int)launch_merge(part_s, part_i, q, n_splits, k, out_s, out_i, st);
 }
 
 }  // namespace

@@ -22,10 +22,11 @@
 // Bound on the H100: 1M x 768 int4 is 0.384 GB of nibbles (plus 8 bytes a
 // row of scale and penalty), 0.117 ms at 3.35 TB/s; at small Q the bytes.
 //
-// Design: flat_int4_scan.cuh (the prologue, the scan and the merge, three
-// launches of this one call).
+// Design: flat_digit_scan.cuh (the prologue, the scan and the merge, three
+// launches of this one call): digit_partial<NibbleStage, 8> at Q <= 8, the
+// ring ivf_digit_scan<NibbleTiles, 32, FlatSource> above.
 
-#include "flat_int4_scan.cuh"
+#include "flat_digit_scan.cuh"
 
 // nibbles [ceil(n/2), d] uint8; scale, penalty [n] f32; queries [q, d] f32;
 // the scratch as ops/flat_topk_int4.py lays it out: digits [2q, d] int8,
@@ -45,8 +46,8 @@ extern "C" int flat_topk_int4(const void* nibbles, const void* scale,
                               void* grp_i, void* out_s, void* out_i,
                               void* scores, void* stream) {
   const FlatDigitCall c = {
-      static_cast<const float*>(queries), q, d, n, k, qb, runs,
-      rows_per_split, nibbles,
+      static_cast<const float*>(queries), q, d, n, k, runs, rows_per_split,
+      nibbles,
       static_cast<const float*>(scale), static_cast<const float*>(penalty),
       static_cast<int8_t*>(digits), static_cast<float*>(rho),
       static_cast<float*>(qs1), static_cast<int*>(qoff),
@@ -55,8 +56,15 @@ extern "C" int flat_topk_int4(const void* nibbles, const void* scale,
        static_cast<int*>(merge_count), static_cast<float*>(out_s),
        static_cast<int*>(out_i)},
       static_cast<float*>(scores)};
-  return launch_flat_int4(c, prologue_only != 0,
-                          static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch_flat_digit(
+      c, prologue_only != 0,
+      [&](int kpad) {
+        if (qb == 8) return flat_partial<NibbleStage, 8>(c, st);
+        if (qb == 32) return flat_ring<NibbleTiles>(c, kpad, st);
+        return cudaErrorInvalidValue;
+      },
+      st);
 }
 
 // The ring scan's shared memory (out[0], bytes) and CTAs a multiprocessor

@@ -26,7 +26,7 @@
 //                  to the top-k in logical row order (the TPU probe's
 //                  ``local`` map, :113) -> partial lists, then merge_topk;
 //   full      (5): the production scan and merge of flat_topk_int4.cu
-//                  (flat_int4_scan.cuh: at Q <= 8 digit_partial over the
+//                  (flat_digit_scan.cuh: at Q <= 8 digit_partial over the
 //                  given row ranges, then the tree merge) on the given
 //                  digits -> top-k.
 // Contract of the scores and the top-k: digit_scan.cuh.  A CTA owns
@@ -38,7 +38,7 @@
 // Bound on the H100: 1M x 768 int4 is 0.403 GB of nibbles (plus 8 bytes a
 // row of scale and penalty), 0.120 ms at 3.35 TB/s.
 
-#include "flat_int4_scan.cuh"
+#include "flat_digit_scan.cuh"
 
 namespace {
 
@@ -367,14 +367,16 @@ extern "C" int int4_probe(const void* nibbles, const void* scale,
       err = cudaMemsetAsync(count, 0, (size_t)q * sizeof(int), st);
       if (err != cudaSuccess) return (int)err;
       const FlatDigitCall c = {
-          nullptr, q, d, n, k, kQB, n_splits, rows_per_split, nibbles, sc, pn,
+          nullptr, q, d, n, k, n_splits, rows_per_split, nibbles, sc, pn,
           const_cast<int8_t*>(dg), const_cast<float*>(rh), nullptr,
           const_cast<int*>(qo),
           {ps, pi, static_cast<float*>(grp_s), static_cast<int*>(grp_i),
            static_cast<int*>(count), static_cast<float*>(out_s),
            static_cast<int*>(out_i)},
           nullptr};
-      return launch_flat_int4(c, false, st);
+      return launch_flat_digit(
+          c, false, [&](int) { return flat_partial<NibbleStage, kQB>(c, st); },
+          st);
     }
     default:
       return (int)cudaErrorInvalidValue;

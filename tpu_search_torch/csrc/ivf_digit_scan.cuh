@@ -1,8 +1,8 @@
 // The digit scans fed by a cp.async ring: the IVF int8 / int4 scans
-// (ivf_topk_int8.cu, ivf_topk_int4.cu) and, at Q > 8, the flat int4 scan
-// (flat_int4_scan.cuh), each three launches of one C call: a prologue
-// (ivf_prep.cuh), the scan and the merge (run_merge.cuh), with nothing of
-// PyTorch's between them.
+// (ivf_topk_int8.cu, ivf_topk_int4.cu) and, at Q > 8, the flat int4 and
+// int8 row scans (flat_digit_scan.cuh), each three launches of one C
+// call: a prologue (ivf_prep.cuh), the scan and the merge (run_merge.cuh),
+// with nothing of PyTorch's between them.
 //
 // Contract (the TPU kernels _kernel_ivf_int8 / _kernel_ivf_int4 of
 // tpu_search/ops/pallas_ivf_scan.py and ops/ivf_scan.py's plain versions):
@@ -15,8 +15,9 @@
 // each selected score times qs1 (__fmul_rn, as top * qs1[:, None]); with
 // out_scores set (k > 128) the masked scores of every schedule position
 // instead, [q, max_sched * 128], for a stable sort outside.  The flat scan
-// (FlatSource, the TPU kernel _kernel_int4 of ops/pallas_topk_dma.py and
-// ops/topk_scan.py flat_topk_int4_plain) is the same scan over every
+// (FlatSource, the TPU kernels _kernel_int4 / _kernel_int8 of
+// ops/pallas_topk_dma.py, ops/topk_scan.py flat_topk_int4_plain /
+// flat_topk_int8_plain) is the same scan over every
 // 128-row tile of an n-row corpus, without the bias, rows past n scoring
 // -inf (their bytes, scales and penalties never read); its scores-only
 // mode writes [q, n].
@@ -70,6 +71,7 @@
 #include "int8_wgmma.cuh"
 #include "ivf_prep.cuh"
 #include "run_merge.cuh"
+#include "smem_cap.cuh"
 #include "topk_select.cuh"
 
 namespace {
@@ -405,10 +407,10 @@ struct IvfDigitCall {
 
 template <class Tiles, int QB, class Source>
 cudaError_t ivf_scan_attr(int kpad, size_t* bytes) {
+  static size_t caps[kCapDevices] = {};
   *bytes = IvfLayout<Tiles, QB>::bytes(kpad);
-  return cudaFuncSetAttribute(ivf_digit_scan<Tiles, QB, Source>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*bytes);
+  return raise_smem_cap((const void*)ivf_digit_scan<Tiles, QB, Source>,
+                        *bytes, caps);
 }
 
 // The scan launch of an IVF call (p: its prologue's outputs) or, with

@@ -1,6 +1,7 @@
 // The run split and the merge of the ring-fed scans (ivf_digit_scan.cuh:
-// the IVF int8 / int4 scans and the flat int4 scan; ivf_float_scan.cuh:
-// the IVF bf16 / f32 scan).
+// the IVF int8 / int4 scans and the flat int4 and int8 row scans;
+// ivf_float_scan.cuh: the IVF bf16 / f32 scan) and of digit_partial's row
+// ranges (flat_digit_scan.cuh).
 //
 // A scan CTA takes the contiguous run [n r / runs, n (r + 1) / runs) of
 // its query block's n entries (run_begin) and leaves, per query, a sorted

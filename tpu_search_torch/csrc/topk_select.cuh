@@ -1,7 +1,7 @@
 // Top-k selection shared by the scan kernels (flat_topk.cu,
 // flat_topk_int8.cu, flat_topk_int4.cu, the IVF scans and the probes);
-// merge_topk serves flat_topk.cu, flat_topk_int8.cu and the probes (the
-// ring-fed scans merge with run_merge.cuh).
+// merge_topk serves flat_topk.cu and the probes (the flat digit scans and
+// the ring-fed scans merge with run_merge.cuh).
 //
 // A scan CTA keeps, per query, a list of the k best (score, row id) pairs
 // of its row range in shared memory, sorted by score descending and id

@@ -32,6 +32,7 @@ from ..devices.capability import resolve_device
 from ..ops.flat_topk import flat_topk_scan
 from ..ops.flat_topk_int8 import flat_topk_int8_scan
 from ..ops.topk_scan import select_topk
+from ..utils.shapes import round_up
 from .flat import quantize_rows_int8
 
 __all__ = ["REFINE_DTYPES", "RefineStore", "refine_rescore"]
@@ -154,18 +155,21 @@ class RefineStore:
         if self.rows is None or self.count == 0:
             return (np.full((q, k), -np.inf, np.float32),
                     np.full((q, k), -1, np.int64))
-        live = np.zeros((self.capacity,), np.bool_)
+        # Slots past count are dead: scan only what is needed, as
+        # FlatIndex.search does.
+        n_scan = min(self.capacity, max(round_up(self.count, 128), k))
+        live = np.zeros((n_scan,), np.bool_)
         n = min(self.count, len(live_mask))
         live[:n] = np.asarray(live_mask, np.bool_)[:n]
         live = torch.from_numpy(live).to(self.device)
         qt = torch.as_tensor(np.asarray(queries, np.float32), device=self.device)
         if self.dtype == "int8":
             penalty = torch.where(live, 0.0, float("-inf"))
-            scores, ids = flat_topk_int8_scan(self.rows, self.scales, penalty,
-                                              qt, k)
+            scores, ids = flat_topk_int8_scan(
+                self.rows[:n_scan], self.scales[:n_scan], penalty, qt, k)
         else:
             penalty = torch.where(live, 0.0, float("inf"))
-            scores, ids = flat_topk_scan(self.rows, penalty, qt, k)
+            scores, ids = flat_topk_scan(self.rows[:n_scan], penalty, qt, k)
         scores = scores.cpu().numpy()
         out_ids = ids.cpu().numpy().astype(np.int64)
         out_ids[~np.isfinite(scores)] = -1

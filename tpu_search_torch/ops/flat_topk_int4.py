@@ -12,7 +12,7 @@ computes them in XLA outside ``pl.pallas_call``), the scan (at Q > 8 the
 ``cp.async`` ring of ``csrc/ivf_digit_scan.cuh`` over every 128-row tile,
 runs sized from the card; at Q <= 8 ``digit_partial`` of
 ``csrc/digit_scan.cuh`` over fixed row ranges, :func:`split_rows`) and the
-tree merge, which multiplies by ``qs1`` (``csrc/flat_int4_scan.cuh``).
+tree merge, which multiplies by ``qs1`` (``csrc/flat_digit_scan.cuh``).
 CPU tensors take ``flat_topk_int4_plain``; a CUDA tensor launches the
 kernel or raises.  ``k > 128`` runs the prologue and the scan's
 scores-only mode, then a stable sort.
@@ -25,16 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils.shapes import cdiv, round_up
-from . import _build
-from .flat_topk import MAX_K, c_entry, check_scan_args, split_rows
-from .ring_scan import (
-    Scratch,
-    digit_block,
-    merge_parts,
-    scan_config,
-    scan_runs,
-)
+from .ring_scan import flat_digit_call, merge_parts
 from .topk_scan import (
     flat_topk_int4_plain,
     quantize_queries,
@@ -44,7 +35,6 @@ from .topk_scan import (
 
 __all__ = ["flat_digit_prep", "flat_digit_prep_plain", "flat_topk_int4_scan"]
 
-_TILE = 128
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # nibbles, scale, penalty, queries; n, d, q, k, qb, runs, rows_per_split,
@@ -70,44 +60,9 @@ def _parts(q, d, runs, kpad):
 
 
 def _call(corpus, queries, n, k, rows_per_split=None):
-    """One C call: the prologue, then (``corpus`` = ``(nibbles, scales,
-    penalty)``) the scan and the merge, or with ``corpus`` None the
-    prologue alone.  Returns ``(work, out_s, out_i, scores)`` as
-    ``ops/ivf_scan.py``'s calls."""
-    queries = queries.float().contiguous()
-    q, d = queries.shape
-    tensors = {"queries": queries}
-    if corpus is not None:
-        tensors.update(zip(("nibbles", "scales", "penalty"), corpus))
-    dev = check_scan_args(n, k, **tensors)
-    qb = digit_block(q)
-    if rows_per_split is not None:
-        runs = cdiv(n, rows_per_split)
-    elif qb == 8:  # digit_partial's row ranges
-        runs, rows_per_split = split_rows(n, q, qb, dev)
-    else:  # the ring's runs of tiles
-        runs = scan_runs(scan_config("flat_topk_int4", qb, k)[1], cdiv(q, qb),
-                         cdiv(n, _TILE), dev)
-        rows_per_split = 0
-    kpad = 0 if k > MAX_K else round_up(k, 32)
-    work = Scratch(_parts(q, d, runs, kpad), dev)
-    out_s = out_i = scores = None
-    if corpus is not None and k > MAX_K:
-        scores = torch.empty((q, n), dtype=torch.float32, device=dev)
-    elif corpus is not None:
-        out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
-        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    ptrs = [None if t is None else t.data_ptr()
-            for t in (*(corpus or (None, None, None)), queries)]
-    outs = [None if t is None else t.data_ptr()
-            for t in (out_s, out_i, scores)]
-    code = c_entry("flat_topk_int4", "flat_topk_int4", _ARGTYPES)(
-        *ptrs, n, d, q, k, qb, runs, rows_per_split, int(corpus is None),
-        *work.ptrs, *outs,
-        _build.stream_ptr(dev))
-    _build.check(code, "flat_topk_int4")
-    _build.LAUNCHES["flat_topk_int4"] += 1
-    return work, out_s, out_i, scores
+    """One C call (:func:`flat_digit_call`): the ring above Q 8."""
+    return flat_digit_call("flat_topk_int4", _ARGTYPES, corpus, queries, n,
+                           k, _parts, True, rows_per_split=rows_per_split)
 
 
 def flat_digit_prep(queries: torch.Tensor) -> dict:

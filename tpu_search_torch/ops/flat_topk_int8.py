@@ -2,13 +2,21 @@
 
 Kernel: ``csrc/flat_topk_int8.cu`` (replaces ``pallas_flat_topk_dma_int8``
 and ``pallas_flat_topk_dma_int8_packed`` of
-``tpu_search/ops/pallas_topk_dma.py``).  It reads ``[N, D]`` int8 rows
-(the index's layout) or the JAX package's ``[N/4, D]`` int32 word layout
-(``ops/int8_pack.py``).  The query digits, ``rho`` and the final ``* qs1``
-are plain PyTorch here, as the JAX package computes them in XLA outside
-``pl.pallas_call``.  CPU tensors take ``flat_topk_int8_plain``; a CUDA
-tensor launches the kernel or raises.  ``k > 128`` runs the kernel's
-scores-only mode and a stable sort.
+``tpu_search/ops/pallas_topk_dma.py``, with the XLA around them).  It reads
+``[N, D]`` int8 rows (the index's layout) or the JAX package's
+``[N/4, D]`` int32 word layout (``ops/int8_pack.py``).  On the card a
+search is one C call of three launches, nothing of PyTorch's between them
+(``csrc/flat_digit_scan.cuh``): the prologue writes the query digits,
+``rho`` and ``qs1`` (its plain twin :func:`flat_int8_prep_plain`:
+``quantize_queries``, as the JAX package computes them in XLA outside
+``pl.pallas_call``), the scan (``digit_partial`` of ``csrc/digit_scan.cuh``
+over fixed row ranges, :func:`split_rows`, at Q <= 8 and for the words
+above; for the rows above Q 8 the ``cp.async`` ring of
+``csrc/ivf_digit_scan.cuh`` over every 128-row tile, runs sized from the
+card) and the tree merge, which multiplies by ``qs1``.  CPU tensors take
+``flat_topk_int8_plain``; a CUDA tensor launches the kernel or raises.
+``k > 128`` runs the prologue and the scan's scores-only mode, then a
+stable sort.
 """
 
 from __future__ import annotations
@@ -18,18 +26,41 @@ from typing import Tuple
 
 import torch
 
-from ..utils.shapes import round_up
-from . import _build
-from .flat_topk import MAX_K, c_entry, check_scan_args, split_rows
 from .int8_pack import unpack_int8_rows
+from .ring_scan import flat_digit_call, merge_parts
 from .topk_scan import flat_topk_int8_plain, quantize_queries, select_topk
 
-__all__ = ["flat_topk_int8_scan", "run_digit_scan"]
+__all__ = ["flat_int8_prep", "flat_int8_prep_plain", "flat_topk_int8_scan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _P, _P, _P]
+# vectors, scale, penalty, queries; n, d, q, k, qb, runs, rows_per_split,
+# prologue_only, words; the scratch (_parts), out_s, out_i, scores, stream
+_ARGTYPES = [_P] * 4 + [_I] * 9 + [_P] * 12
+_PREP_NAMES = ("digits", "rho", "qs1")
+
+
+def flat_int8_prep_plain(queries: torch.Tensor) -> dict:
+    """What the prologue kernel writes: ``digits [2Q, D]`` int8, ``rho``
+    and ``qs1 [Q]`` f32 (``quantize_queries``)."""
+    return dict(zip(_PREP_NAMES, quantize_queries(queries)))
+
+
+def _parts(q, d, runs, kpad):
+    i8, i32, f32 = torch.int8, torch.int32, torch.float32
+    return (("digits", i8, (2 * q, d)), ("rho", f32, (q,)), ("qs1", f32, (q,)),
+            ("merge_count", i32, (q,)), *merge_parts(q, runs, kpad))
+
+
+def flat_int8_prep(queries: torch.Tensor) -> dict:
+    """The prologue kernel alone on a CUDA tensor (the plain twin on a CPU
+    one); outputs as :func:`flat_int8_prep_plain`."""
+    if queries.device.type == "cpu":
+        return flat_int8_prep_plain(queries)
+    work = flat_digit_call("flat_topk_int8", _ARGTYPES, None, queries,
+                           max(1, queries.shape[0]), 1, _parts, False,
+                           (0,))[0]
+    return {name: work.view(name) for name in _PREP_NAMES}
 
 
 def flat_topk_int8_scan(
@@ -57,7 +88,6 @@ def flat_topk_int8_scan(
         raise ValueError("vectors and queries must be 2-D")
     n = vectors.shape[0] * (4 if words else 1)
     d = vectors.shape[1]
-    q = queries.shape[0]
     if queries.shape[1] != d or scales.shape != (n,) or penalty.shape != (n,):
         raise ValueError("shape mismatch between corpus, scales, penalty "
                          "and queries")
@@ -65,40 +95,10 @@ def flat_topk_int8_scan(
         raise ValueError("the int8 CUDA scan needs D % 16 == 0")
     if scales.dtype != torch.float32 or penalty.dtype != torch.float32:
         raise ValueError("scales and penalty must be float32")
-    q_i8, rho, qs1 = quantize_queries(queries)
-    dev = check_scan_args(n, k, vectors=vectors, scales=scales,
-                          penalty=penalty, queries=q_i8, rho=rho)
-    head = (vectors.data_ptr(), int(words), scales.data_ptr(),
-            penalty.data_ptr(), q_i8.data_ptr(), rho.data_ptr())
-    return run_digit_scan("flat_topk_int8", _ARGTYPES, head, n, d, k, qs1,
-                          dev)
-
-
-def run_digit_scan(kernel, argtypes, head, n, d, k, qs1, dev):
-    """Launch ``csrc/<kernel>.cu`` (``digit_scan.cuh``'s C signature after
-    the ``head`` pointers) and finish its output: select for ``k > 128``
-    (scores-only mode), then multiply by ``qs1``."""
-    q = qs1.shape[0]
-    n_splits, rows_per_split = split_rows(n, q, 8 if q <= 8 else 32, dev)
-    part_s = part_i = out_s = out_i = scores = None
-    if k > MAX_K:
-        scores = torch.empty((q, n), dtype=torch.float32, device=dev)
-    else:
-        kpad = round_up(k, 32)
-        part_s = torch.empty((q, n_splits, kpad), dtype=torch.float32,
-                             device=dev)
-        part_i = torch.empty((q, n_splits, kpad), dtype=torch.int32,
-                             device=dev)
-        out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
-        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    ptrs = [None if t is None else t.data_ptr()
-            for t in (part_s, part_i, out_s, out_i, scores)]
-    code = c_entry(kernel, kernel, argtypes)(
-        *head, n, d, q, k, n_splits, rows_per_split, *ptrs,
-        _build.stream_ptr(dev),
-    )
-    _build.check(code, kernel)
-    _build.LAUNCHES[kernel] += 1
-    if scores is not None:
-        out_s, out_i = select_topk(scores, k)
-    return out_s * qs1[:, None], out_i
+    work, out_s, out_i, scores = flat_digit_call(
+        "flat_topk_int8", _ARGTYPES, (vectors, scales, penalty), queries, n,
+        k, _parts, not words, (int(words),))
+    if scores is None:
+        return out_s, out_i
+    top, ids = select_topk(scores, k)
+    return top * work.view("qs1")[:, None], ids
