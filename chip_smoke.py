@@ -5,12 +5,11 @@
 Phases, each printing its numbers on its own line:
   1. build the CUDA kernels from ``tpu_search_torch/csrc`` (one ``nvcc``
      per source, all started together), print the registers and spills
-     ptxas reports for the seven kernels redesigned for Hopper
-     (``mpnet_attention``, ``mpnet_attention_bhsd``, ``int8_gemm``,
-     ``int8_ffn_ln``, ``flash_attention``, ``ivf_topk_int8``,
-     ``ivf_topk_int4``), check in their SASS that the
-     int8 products (``int8_gemm``, both GEMMs of ``int8_ffn_ln``, which
-     ``int8_ffn_fused`` runs too) are wgmma's alone and that
+     ptxas reports for the sources of the kernels redesigned for Hopper
+     (``REDESIGNED``), check in their SASS that the
+     int8 products (``int8_gemm``, and ``int8_ffn_ln``'s GEMMs, which
+     ``int8_ffn_in``, ``int8_ffn_out`` and ``int8_ffn_fused`` run too)
+     are wgmma's alone and that
      ``flash_attention``'s and ``mpnet_attention_bhsd``'s q k^T issue
      wgmma, that the IVF digit scans multiply with wgmma at Q > 8 and
      mma.sync at Q <= 8, and print the card's name and power limit;
@@ -71,8 +70,9 @@ The ``[B, S, H]`` attention prints its shared memory and SDPA's time at
 every shape, the flash and ``[B, heads, S, hd]`` kernels their shared
 memory, CTAs a multiprocessor and SDPA's time; ``int8_gemm`` prints
 TOP/s, ``torch._int_mm``'s time and both of its tiles' times at the
-bench's two shapes, ``int8_ffn_fused`` its TOP/s and each of its
-launches' device time (torch.profiler) at the bench's shape;
+bench's two shapes, ``int8_ffn_in`` and ``int8_ffn_fused`` their TOP/s,
+and these two and ``int8_ffn_out`` each of their launches' device time
+(torch.profiler) at the bench's shape;
 ``int8_ffn_ln`` at H 768 prints its effective TOP/s, each of its
 launches' device time and, as yardsticks it never calls, the port's bf16
 FFN half on the same inputs and ``torch._int_mm`` of its two products.  The
@@ -206,9 +206,9 @@ SOURCES = {
                              "tpu_search/ops/pallas_mpnet_attention.py:252"),
     "int8_gemm": ("tpu_search_torch/csrc/int8_gemm.cu",
                   "tpu_search/ops/pallas_int8_gemm.py:646"),
-    "int8_ffn_in": ("tpu_search_torch/csrc/int8_ffn_in.cu",
+    "int8_ffn_in": ("tpu_search_torch/csrc/int8_ffn_ln.cu",
                     "tpu_search/ops/pallas_int8_gemm.py:158"),
-    "int8_ffn_out": ("tpu_search_torch/csrc/int8_ffn_out.cu",
+    "int8_ffn_out": ("tpu_search_torch/csrc/int8_ffn_ln.cu",
                      "tpu_search/ops/pallas_int8_gemm.py:275"),
     "int8_ffn_fused": ("tpu_search_torch/csrc/int8_ffn_ln.cu",
                        "tpu_search/ops/pallas_int8_gemm.py:578"),
@@ -366,17 +366,18 @@ def short_kernel_name(name: str) -> str:
 
 # -- phase 1: the build report of the kernels redesigned for Hopper ----------
 
-# The kernels whose ptxas report (registers, spills) the build phase
-# prints, and for each the kernels (by name) whose SASS must multiply with
-# wgmma (GMMA), and whether any mma.sync int8 product (IMMA) in the source
-# fails the build: the int8 products must be wgmma's alone.
+# The kernels whose source's ptxas report (registers, spills) the build
+# phase prints, and for each source the kernels (by name) whose SASS must
+# multiply with wgmma (GMMA), and whether any mma.sync int8 product (IMMA)
+# in the source fails the build: the int8 products must be wgmma's alone.
 REDESIGNED = ("mpnet_attention", "mpnet_attention_bhsd", "int8_gemm",
               "int8_ffn_ln", "flash_attention", "ivf_topk", "ivf_topk_int8",
-              "ivf_topk_int4", "flat_topk_int4", "flat_topk_int8")
+              "ivf_topk_int4", "flat_topk_int4", "flat_topk_int8",
+              "int8_ffn_in", "int8_ffn_out", "int8_ffn_fused")
 SASS_RULES = {
     "mpnet_attention_bhsd": (("attention_bhsd_kernel",), False),
     "int8_gemm": (("gemm_kernel",), True),
-    "int8_ffn_ln": (("ffn_gemm1", "ffn_gemm2"), True),
+    "int8_ffn_ln": (("ffn_gemm1", "ffn_gemm2", "ffn_out_cq"), True),
     "flash_attention": (("flash_kernel",), False),
 }
 
@@ -499,12 +500,20 @@ def short_name(kernel: str) -> str:
                   r"\(anonymous namespace\))::", "", kernel).split("(")[0]
 
 
+def library_of(name: str) -> str:
+    """The source (library) of kernel ``name``: its own, but the int8 FFN's
+    pieces are exports of ``int8_ffn_ln.cu``."""
+    from tpu_search_torch.ops.int8_gemm import _LIBRARY
+
+    return _LIBRARY.get(name, name)
+
+
 def check_build(logs: dict) -> None:
     """Print registers and spills of the redesigned kernels, and fail
     unless their SASS keeps ``SASS_RULES`` and ``DIGIT_SASS_RULES``."""
     from tpu_search_torch.ops import _build
 
-    for name in REDESIGNED:
+    for name in dict.fromkeys(library_of(n) for n in REDESIGNED):
         entries = ptxas_entries(logs.get(name, ""))
         if not entries:
             print(f"[build] ptxas {name}: not compiled in this run", flush=True)
@@ -1713,6 +1722,9 @@ def check_int8_gemm(results: dict) -> None:
                                      f"{2 * m * h * inter / lib / 1e9:.1f}")
                         if name == "int8_ffn_fused":
                             line += f" tops={4 * m * h * inter / kms / 1e9:.1f}"
+                        if name == "int8_ffn_in":
+                            line += f" tops={2 * m * h * inter / kms / 1e9:.1f}"
+                        if name != "int8_gemm":
                             launch_split(name, f"M={m} H={h} I={inter}",
                                          kernel)
                         results[name] = {"ms": kms, "plain_ms": pms,

@@ -34,8 +34,10 @@ flat int4 and int8 scans' prologues equal to their plain twins, the int8
 scan exact in both layouts at Q 1 to 130, and every flat digit scan at
 most three launches a call at Q 1, 9 and 33 (torch.profiler).  The
 ``[B, S, H]`` attention also at S 512 with hd 32 and on a one-row query,
-with rows padded by -inf and by the f32 min; ``int8_gemm`` also at M, N and K off its
-wgmma tiles (K 8 and 312); ``int8_ffn_ln`` also at M 1, 127, 129 and 4,097
+with rows padded by -inf and by the f32 min; ``int8_gemm`` and ``int8_ffn_in`` also at
+M, N and K off their wgmma tiles (K 8 and 312); ``int8_ffn_out`` also at M
+4,097, N 264 and K 8 and 312, its planted inputs run twice (for the
+producer's proxy fence); ``int8_ffn_ln`` also at M 1, 127, 129 and 4,097
 (the edges of its 128-row tiles) and with row maxima in I 1,200's partial
 last column tile.
 """
@@ -261,7 +263,7 @@ def test_int8_gemm_kernel(dev, m, k, n, gelu, out):
 
 
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+@pytest.mark.parametrize("m,k,n", INT8_GEMM_SHAPES)
 def test_int8_ffn_in_kernel(dev, m, k, n, out):
     from tpu_search_torch.ops.int8_gemm import int8_ffn_in, int8_ffn_in_plain
 
@@ -291,8 +293,12 @@ def ffn_out_operands(dev, m, k, n, h_dtype, res_dtype, seed):
     (torch.float32, torch.float32, torch.float32),
     (torch.bfloat16, torch.float32, torch.float32),
     (torch.float32, torch.bfloat16, torch.bfloat16)])
+# ffn_out_cq's tiles are 128 x 256 in 128-deep K chunks: N off the tile
+# (312, 264), K off the 16-byte copies of w (8, 312), M off the row tile
+# (37, 129, 4,097).
 @pytest.mark.parametrize("m,k,n", [(37, 1200, 312), (128, 3072, 768),
-                                   (200, 4096, 1024), (9, 8, 8)])
+                                   (200, 4096, 1024), (9, 8, 8),
+                                   (4097, 3072, 768), (129, 312, 264)])
 def test_int8_ffn_out_kernel(dev, m, k, n, h_dtype, res_dtype, out):
     from tpu_search_torch.ops.int8_gemm import int8_ffn_out, int8_ffn_out_plain
 
@@ -307,7 +313,9 @@ def test_int8_ffn_out_kernel(dev, m, k, n, h_dtype, res_dtype, out):
 @pytest.mark.parametrize("k,n", [(3072, 768), (1200, 312)])
 def test_int8_ffn_out_kernel_planted_rounding(dev, kind, k, n):
     """h on .5 steps (``ties``) and on the multiply-vs-divide discriminator
-    (``mul_div``): a fault there moves most codes."""
+    (``mul_div``): a fault there moves most codes.  Run twice: a missing
+    proxy fence between the producer's code stores and wgmma would read
+    stale codes only now and then."""
     from chip_smoke import planted_rows
     from tpu_search_torch.ops.int8_gemm import int8_ffn_out, int8_ffn_out_plain
 
@@ -315,10 +323,11 @@ def test_int8_ffn_out_kernel_planted_rounding(dev, kind, k, n):
     _, _, w, sw, bias, res = ffn_out_operands(dev, 64, k, n, torch.float32,
                                               torch.float32, 5)
     ops = (h, h.amax(dim=1, keepdim=True), w, sw, bias, res)
-    got = int8_ffn_out(*ops, out_dtype=torch.float32)
     ref = int8_ffn_out_plain(*ops, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    assert_int8_close(got, ref)
+    for _ in range(2):
+        got = int8_ffn_out(*ops, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert_int8_close(got, ref)
 
 
 def fused_operands(dev, m, h, inter, res_dtype, seed):

@@ -292,6 +292,36 @@ def test_sass_rules_name_the_redesigned_kernels():
             assert f"{kernel}(" in src
 
 
+def test_int8_ffn_pieces_build_from_int8_ffn_ln():
+    """``int8_ffn_in``, ``int8_ffn_out`` and ``int8_ffn_fused`` are exports
+    of ``int8_ffn_ln.cu`` in the wrappers' library map, the smoke run's
+    sources and its build report; no source of their own is built, and no
+    file of the port names one."""
+    from tpu_search_torch.ops import _build, int8_gemm
+
+    pieces = ("int8_ffn_in", "int8_ffn_out", "int8_ffn_fused")
+    for name in pieces:
+        assert int8_gemm._LIBRARY[name] == "int8_ffn_ln"
+        assert chip_smoke.library_of(name) == "int8_ffn_ln"
+        assert chip_smoke.SOURCES[name][0] == (
+            "tpu_search_torch/csrc/int8_ffn_ln.cu")
+        assert name in chip_smoke.REDESIGNED
+        assert name in _build.KERNELS
+    assert "int8_ffn_ln" in _build.LIBRARIES
+    own = {"int8_ffn_in", "int8_ffn_out"}
+    assert not own & set(_build.LIBRARIES)
+    gone = [f"{name}.cu" for name in sorted(own)]
+    root = chip_smoke.ROOT
+    files = [root / "chip_smoke.py", root / "README.md",
+             *(root / "tpu_search_torch").rglob("*.py"),
+             *(root / "tpu_search_torch" / "csrc").iterdir(),
+             *(p for p in (root / "tests").glob("test_torch_*.py")
+               if p.name != "test_torch_smoke_tools.py")]
+    for path in files:
+        text = path.read_text()
+        assert not [g for g in gone if g in text], path
+
+
 @pytest.mark.parametrize("kernel,want", [
     ("void <unnamed>::ffn_gemm2<(bool)1, (int)256, (int)128>(const signed "
      "char *, int)", "ffn_gemm2<1, 256, 128>"),

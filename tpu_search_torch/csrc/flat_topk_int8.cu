@@ -26,7 +26,7 @@
 // qs1.  The scan: digit_partial<Stage, 8> at Q <= 8 in both layouts; above
 // Q 8 the rows take the ring ivf_digit_scan<RowTiles, 32, FlatSource>, the
 // words digit_partial<WordStage, 32> (no ring stage decodes words).  On an
-// H100 at 1M x 768, 10 % masked (benchmarks/compare_scans.py against a
+// H100 at 1M x 768, 10 % masked (benchmarks/compare_trees.py against a
 // copy with the rows on digit_partial<RowStage, 32> above Q 8), the ring
 // against that read 0.426 / 0.466 ms at Q 16 and k 10, 0.502 / 0.579 at
 // Q 32, 1.522 / 1.537 at Q 128, and at k 128 0.919 / 2.058, 1.479 / 3.573,

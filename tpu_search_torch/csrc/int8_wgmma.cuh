@@ -1,5 +1,6 @@
-// The wgmma main loop of the int8 GEMMs (int8_gemm.cu, and both products
-// of int8_ffn_ln.cu): one CTA computes
+// The wgmma main loop of the int8 GEMMs (int8_gemm.cu, and the products
+// of int8_ffn_ln.cu, whose ffn_out_cq writes the A operand from its
+// consumers): one CTA computes
 // a [128, BN] tile (BN 128 or 256) of x [M, K] . w [N, K]^T (int8 rows,
 // exact int32 sums) with wgmma.mma_async m64nBNk32 s8 x s8 -> s32
 // (sm_90a).

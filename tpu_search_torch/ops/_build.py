@@ -17,8 +17,9 @@ or asks it for ``cuTensorMapEncodeTiled``.
 Each wrapper counts its own launches in :data:`LAUNCHES`, one key a kernel
 of :data:`KERNELS`, so a run can show that the main path went through the
 kernels.  Each kernel's export is in the library of its name, except
-``int8_ffn_fused``'s, which runs ``int8_ffn_ln``'s launches and is in that
-library.
+``int8_ffn_in``'s, ``int8_ffn_out``'s and ``int8_ffn_fused``'s, which run
+on ``int8_ffn_ln``'s GEMM loops and are in that library
+(``ops/int8_gemm._LIBRARY``).
 """
 
 from __future__ import annotations

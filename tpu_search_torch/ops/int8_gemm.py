@@ -6,9 +6,12 @@
 - :func:`int8_gemm` (:646): ``((x_q . w) * sx) * sw + bias``, optional
   tanh-gelu (``csrc/int8_gemm.cu``);
 - :func:`int8_ffn_in` (:158): the same with gelu, plus each row's max
-  ``|y|`` over the f32 ``y`` (``csrc/int8_ffn_in.cu``);
+  ``|y|`` over the f32 ``y``: ``int8_ffn_ln``'s GEMM1 with ``h`` in the
+  output dtype (``csrc/int8_ffn_ln.cu``);
 - :func:`int8_ffn_out` (:275): requantizes ``h`` with those maxima, GEMM,
-  bias and residual (``csrc/int8_ffn_out.cu``);
+  bias and residual: ``int8_ffn_ln``'s GEMM2 loop on 128 x 256 tiles whose
+  consumers quantize ``h`` into shared memory, so that the int8 copy of
+  ``h`` never exists in device memory (``csrc/int8_ffn_ln.cu``);
 - :func:`int8_ffn_fused` (:578): the whole FFN in one call, whose GEMM1,
   requantize and GEMM2 are ``int8_ffn_ln``'s launches
   (``csrc/int8_ffn_ln.cu``); ``h`` passes through device memory.
@@ -67,9 +70,10 @@ _ARGTYPES = {
     "int8_ffn_out": [_P] * 7 + [_I] * 6 + [_P],
     "int8_ffn_fused": [_P] * 10 + [_I] * 3 + [_P] * 3 + [_I] * 2 + [_P],
 }
-# The library of each export: its own, but int8_ffn_fused runs int8_ffn_ln's
-# launches.
-_LIBRARY = {"int8_ffn_fused": "int8_ffn_ln"}
+# The library of each export: its own, but the FFN's pieces are exports of
+# int8_ffn_ln's library, on its GEMM loops.
+_LIBRARY = {name: "int8_ffn_ln"
+            for name in ("int8_ffn_in", "int8_ffn_out", "int8_ffn_fused")}
 
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,7 +218,7 @@ def int8_ffn_in(x_q: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
         return int8_ffn_in_plain(x_q, w, sx, sw, bias, out_dtype)
     dev, m, n, k, sxf, swf, bf = _gemm_args(x_q, w, sx, sw, bias)
     h = torch.empty((m, n), dtype=out_dtype, device=dev)
-    amax = torch.zeros((m,), dtype=torch.int32, device=dev)
+    amax = torch.empty((m,), dtype=torch.int32, device=dev)  # zeroed there
     code = _fn("int8_ffn_in")(
         x_q.data_ptr(), w.data_ptr(), sxf.data_ptr(), swf.data_ptr(),
         bf.data_ptr(), h.data_ptr(), amax.data_ptr(), m, n, k,
