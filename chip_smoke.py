@@ -41,7 +41,23 @@ Phases, each printing its numbers on its own line:
      kernels were launched, with the launch counts set to 0 just before
      the path and read just after.  The IVF paths warm up on 10 files, not
      1, so that their first add trains the default 100 lists (the JAX
-     package's rule: a first batch smaller than nlist shrinks nlist);
+     package's rule: a first batch smaller than nlist shrinks nlist).
+     Searches in process run the fused path (``api/fused.py``: one CUDA
+     graph a window shape, replayed), whose replays count their kernels'
+     launches.  After the flat bf16 path's CLI check comes ``[warm]``: an
+     in-process ``QueryServer`` on its engine answers the 20 queries one
+     at a time (each equal to the in-process answer: the same ids,
+     similarities within ``WARM_EXACT``), then from 8 and 32 client
+     threads (ids equal outside near-ties, similarities within
+     ``WARM_TOL``), the 20 and the 16 unfiltered alone, printing p50, p90
+     and queries/s; a window of 1 and of 9 queries captured anew, replayed
+     and run eagerly (equal, and the device memory each capture
+     reserved); a conversation indexed through the server's worker found
+     at rank 1 through the socket, then removed and gone; a replay's
+     device split (torch.profiler); the flat scan over the capacity
+     against over the rows, and a capture's time.  The flat int8 and the
+     IVF int4 paths end with their 16 probes one at a time through the
+     warm server, each equal to the in-process answer;
   4. the BERT family at full width with random seeded weights: an
      all-MiniLM-L6-v2 embedder (flat bf16, 200 conversations, the same
      searches and CLI check), then on its index three rerank paths through
@@ -60,7 +76,12 @@ Phases, each printing its numbers on its own line:
   6. the two scan probes (``tpu_search_torch.benchmarks.int4_probe`` and
      ``.scan_overhead_probe``), the entry points of ``int4_probe`` and
      ``scan_overhead_probe``: every variant against its plain version at a
-     small N, then every variant timed at 1M x 768.
+     small N, then every variant timed at 1M x 768;
+  7. the watcher daemon: ``cli start`` on the card watching an empty
+     projects directory, 20 conversations copied in and indexed by the
+     daemon, ``cli search --json`` answered through its warm server (run
+     with a model name that does not exist, so no local engine could
+     answer), ``cli stop`` and ``cli status``.
 Phase 3 ends on the flat bf16 path's encoder (all-mpnet-base-v2 at full
 width, the int8 FFN through its gate) run through
 ``forward(attention_impl="flash")`` at B 128, S 384, the entry point of
@@ -300,22 +321,15 @@ def bound(nbytes: float, ops: float, kind: str):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def device_breakdown(tag: str, fn, calls: int = 20):
-    """Where one call of a scan wrapper spends the card's time: the device
-    time per call of each kernel it launches (torch.profiler), against the
-    wall time per call; the rest of the wall is the card waiting on the
-    host's launches.  Returns ``(device busy ms, launches a call)``.  A
-    window in which the profiler recorded no device event (it happens now
-    and then after many windows in one process) is profiled again, at most
-    twice."""
+def profiled_events(tag: str, fn, calls: int):
+    """The device events of ``calls`` calls of ``fn`` (torch.profiler) and
+    the wall time a call.  A window in which the profiler recorded no
+    device event (it happens now and then after many windows in one
+    process) is profiled again, at most twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_search_torch.utils.device_profile import (
-        _by_kernel,
-        _device_events,
-        busy_seconds,
-    )
+    from tpu_search_torch.utils.device_profile import _device_events
 
     fn()
     torch.cuda.synchronize()
@@ -328,13 +342,22 @@ def device_breakdown(tag: str, fn, calls: int = 20):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / calls
         try:
-            events = _device_events(prof)
-            break
+            return _device_events(prof), wall
         except RuntimeError:
             if attempt == 2:
                 raise
             print(f"[profile] {tag}: no device events, profiled again",
                   flush=True)
+
+
+def device_breakdown(tag: str, fn, calls: int = 20):
+    """Where one call of a scan wrapper spends the card's time: the device
+    time per call of each kernel it launches (torch.profiler), against the
+    wall time per call; the rest of the wall is the card waiting on the
+    host's launches.  Returns ``(device busy ms, launches a call)``."""
+    from tpu_search_torch.utils.device_profile import _by_kernel, busy_seconds
+
+    events, wall = profiled_events(tag, fn, calls)
     busy = busy_seconds((e.time_range.start, e.time_range.end)
                         for e in events) / calls
     kernels = _by_kernel(events)
@@ -1299,22 +1322,10 @@ def launch_split(name: str, tag: str, call, calls: int = 5) -> None:
     ``name``'s wrapper (torch.profiler, as ``device_breakdown``), over
     ``calls`` calls: each kernel's mean, its share of their sum (one call:
     each kernel launches once) and the launches recorded."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from tpu_search_torch.utils.device_profile import _by_kernel
 
-    from tpu_search_torch.utils.device_profile import (
-        _by_kernel,
-        _device_events,
-    )
-
-    call()
-    torch.cuda.synchronize()
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    split = kernel_split(_by_kernel(_device_events(prof)))
+    events, _ = profiled_events(f"{name} {tag}", call, calls)
+    split = kernel_split(_by_kernel(events))
     total = sum(ms for _, ms, _ in split)
     print(f"[{name}] launches {tag} calls={calls} device_ms={total:.4f} "
           + " ".join(f"{kernel}={ms:.4f}({ms / total:.1%},n={n})"
@@ -2085,13 +2096,11 @@ def index_path(engine, files, tag: str, dtype: str, warm_files: int = 1):
     return total, after_index
 
 
-def search_path(engine, total: int, tag: str, check_hit):
-    """The 20 queries (16 probes' own text, 2 ``--project``, 2
-    ``--has-code``) in a cold and a warm pass; ``check_hit(results, want,
-    text, filters)`` returns an error or None for each query with a known
-    answer (outside the timed call).  Returns the probes."""
+def probe_queries(engine, total: int):
+    """``(probes, queries)``: 16 probe chunks drawn from the first
+    ``PROBE_POOL`` ids, and the 20 queries ``(text, filters, want)``: the 16
+    probes' own text, 2 ``--project``, 2 ``--has-code``."""
     import numpy as np
-    import torch
 
     storage = engine.storage
     pool = min(total, PROBE_POOL)
@@ -2103,6 +2112,19 @@ def search_path(engine, total: int, tag: str, check_hit):
     queries += [(probes[i].text, {"project_name": project[-6:]}, probes[i].id)
                 for i in range(2)]
     queries += [(probes[i].text, {"has_code": True}, None) for i in (2, 3)]
+    return probes, queries
+
+
+def search_path(engine, total: int, tag: str, check_hit):
+    """The 20 queries of :func:`probe_queries` in a cold and a warm pass;
+    ``check_hit(results, want, text, filters)`` returns an error or None for
+    each query with a known answer (outside the timed call).  Returns the
+    probes."""
+    import numpy as np
+    import torch
+
+    probes, queries = probe_queries(engine, total)
+    project = engine.storage.get_all_projects()[0]
 
     # Two passes over the same queries: the first meets each query
     # shape and filter for the first time, the second is warm.
@@ -2250,7 +2272,7 @@ def run_main_path(work: Path, files) -> dict:
     from tpu_search_torch.ops import _build
 
     engine = SearchEngine(str(work / "data"), model_name="smoke-mpnet",
-                          device="cuda")
+                          use_warm_server=False, device="cuda")
     total, after_index = index_path(engine, files, "bfloat16", "bfloat16")
     probes = search_path(engine, total, "bfloat16", rank_one)
     launches = dict(_build.LAUNCHES)
@@ -2265,7 +2287,444 @@ def run_main_path(work: Path, files) -> dict:
     if not cos > 0.999:
         fail("CUDA encoder disagrees with the plain CPU encoder")
     check_cli(engine, work / "data", probes[4].text, "bfloat16", {})
-    return launches, run_flash_encoder(engine)
+    warm = run_warm_path(engine, work, total)
+    return launches, run_flash_encoder(engine), warm
+
+
+# The warm phase: one in-process QueryServer on the flat bf16 path's warm
+# engine, its answers held against the in-process fused answers.  One at
+# a time the two run the same program (batch 1, q_pad 8, the query's own
+# sequence bucket), so they must agree to WARM_EXACT.  A concurrent
+# window encodes at another batch and sequence bucket (the longest query
+# of the window sets it), where cuBLAS may sum in another order: there
+# ids agree outside near-ties and similarities within WARM_TOL, the port's
+# bf16-compute tolerance against the JAX package (tests/test_torch_engine).
+WARM_EXACT, WARM_TOL = 1e-6, 5e-3
+# (client threads, rounds): of the 20 queries, then of the 16 unfiltered
+# alone (a filtered window computes its SQLite mask on the server's one
+# dispatch thread, 75-90 ms on this index, and holds every window behind it)
+WARM_CLIENTS = ((8, 4), (32, 2))
+WARM_UNFILTERED_CLIENTS = ((8, 5), (32, 3))
+
+
+def answer_error(got, want, tol):
+    """None when ``got`` (a response's results) matches ``want`` (the
+    in-process results): the same length, each rank's similarity within
+    ``tol``, an id that differs only in a near-tie (its in-process score,
+    or for an id past the in-process top k the last score, within
+    ``2 tol``)."""
+    if len(got) != len(want):
+        return f"{len(got)} results, in process {len(want)}"
+    want_by_id = {r["chunk_id"]: r["similarity"] for r in want}
+    for rank, (a, b) in enumerate(zip(got, want)):
+        if abs(a["similarity"] - b["similarity"]) > tol:
+            return (f"rank {rank + 1}: similarity {a['similarity']} against "
+                    f"{b['similarity']}")
+        if a["chunk_id"] != b["chunk_id"]:
+            other = want_by_id.get(a["chunk_id"], want[-1]["similarity"])
+            if abs(other - b["similarity"]) > 2 * tol:
+                return (f"rank {rank + 1}: {a['chunk_id']} against "
+                        f"{b['chunk_id']}, not a near-tie")
+    return None
+
+
+def max_sim_gap(got, want) -> float:
+    return max((abs(a["similarity"] - b["similarity"])
+                for a, b in zip(got, want)), default=0.0)
+
+
+def warm_one_at_a_time(data_dir: Path, queries, reference, tag: str):
+    """Each query once through one persistent ``QueryClient``; every answer
+    must equal the in-process one (same ids, similarities within
+    ``WARM_EXACT``).  Returns the latencies (ms)."""
+    from tpu_search_torch.interfaces.query_server import QueryClient
+
+    times = []
+    with QueryClient(str(data_dir), timeout=120) as client:
+        for (text, filters, _), want in zip(queries, reference):
+            t0 = time.perf_counter()
+            response = client.request({"op": "search", "query": text,
+                                       "filters": filters, "top_k": 10})
+            times.append(((time.perf_counter() - t0) * 1e3, bool(filters)))
+            if not response.get("ok"):
+                fail(f"warm search failed on the {tag} path: {response}")
+            got = response["results"]
+            ids_equal = [r["chunk_id"] for r in got] == [
+                r["chunk_id"] for r in want]
+            if not ids_equal or max_sim_gap(got, want) > WARM_EXACT:
+                fail(f"warm answer differs from in process on the {tag} "
+                     f"path: {[r['chunk_id'] for r in got]} against "
+                     f"{[r['chunk_id'] for r in want]}, similarity gap "
+                     f"{max_sim_gap(got, want):.3e}")
+    return times
+
+
+def warm_concurrent(data_dir: Path, queries, reference, clients: int,
+                    rounds: int):
+    """``clients`` threads, each with its own ``QueryClient``, each sending
+    the queries ``rounds`` times from its own offset.  Returns
+    ``(latencies ms, wall s, worst similarity gap)``; fails on an answer
+    outside :func:`answer_error`'s gate."""
+    import threading
+
+    from tpu_search_torch.interfaces.query_server import QueryClient
+
+    times, errors, gaps = [], [], [0.0]
+    lock = threading.Lock()
+    start = threading.Barrier(clients + 1)
+
+    def client(c):
+        mine, worst = [], 0.0
+        with QueryClient(str(data_dir), timeout=120) as qc:
+            start.wait(timeout=120)
+            for r in range(rounds):
+                for j in range(len(queries)):
+                    i = (c + j + r) % len(queries)
+                    text, filters, _ = queries[i]
+                    t0 = time.perf_counter()
+                    response = qc.request({"op": "search", "query": text,
+                                           "filters": filters, "top_k": 10})
+                    mine.append(((time.perf_counter() - t0) * 1e3,
+                                 bool(filters)))
+                    error = (response.get("error") if not response.get("ok")
+                             else answer_error(response["results"],
+                                               reference[i], WARM_TOL))
+                    if error:
+                        with lock:
+                            errors.append(f"query {i}: {error}")
+                        return
+                    worst = max(worst, max_sim_gap(response["results"],
+                                                   reference[i]))
+        with lock:
+            times.extend(mine)
+            gaps.append(worst)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait(timeout=120)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or errors:
+        fail(f"{clients} warm clients: {errors[:3] or 'a client hung'}")
+    return times, wall, max(gaps)
+
+
+def print_latency(tag: str, what: str, times, wall=None) -> None:
+    """p50 / p90 / max of ``(ms, filtered)`` latencies, all and by kind,
+    and queries/s (over ``wall``, else one client's: 1 / mean)."""
+    import numpy as np
+
+    ms = [t for t, _ in times]
+    qps = len(ms) / wall if wall else 1e3 / float(np.mean(ms))
+    parts = []
+    for kind, sel in (("all", (False, True)), ("unfiltered", (False,)),
+                      ("filtered", (True,))):
+        got = [t for t, filtered in times if filtered in sel]
+        if got:
+            parts.append(f"{kind}: n={len(got)} p50_ms={np.median(got):.3f} "
+                         f"p90_ms={np.percentile(got, 90):.3f} "
+                         f"max_ms={max(got):.3f}")
+    print(f"[warm] path={tag} {what} queries_per_s={qps:.1f} "
+          + "; ".join(parts), flush=True)
+
+
+def graph_against_eager(engine, texts) -> None:
+    """The window of 1 (q_pad 8) and of 9 queries (q_pad 32), each captured
+    anew (the device memory its capture reserved is printed), replayed as
+    a CUDA graph and run eagerly (``api.fused.run_eager``, no user path
+    calls it): the packed outputs must be equal."""
+    import torch
+
+    from tpu_search_torch.api.fused import run_eager
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    cfg = SearchConfig(top_k=10)
+    engine._fused.clear()  # each window captures anew: its pool's size
+    for q in (1, 9):
+        window = engine._fused_window(texts[:q], None, cfg)
+        captures = engine._fused.captures
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        pending = engine._fused_dispatch_many(texts[:q], None, cfg)
+        pending.event.synchronize()
+        pool_mb = (torch.cuda.memory_reserved() - reserved) / 2**20
+        eager = run_eager(window).cpu()
+        gap = float((pending.packed - eager).abs().max())
+        equal = bool(torch.equal(pending.packed, eager))
+        print(f"[warm] graph_vs_eager q={q} q_pad={window.q_pad} "
+              f"batch={window.ids.shape[0]} seq={window.ids.shape[1]} "
+              f"packed={tuple(eager.shape)} equal={equal} "
+              f"max_abs_diff={gap:.3e} captured="
+              f"{engine._fused.captures > captures} "
+              f"reserved_mb_added={pool_mb:.1f}", flush=True)
+        if not equal:
+            fail(f"the graph replay differs from the eager run at q={q}")
+
+
+def scan_both_ways(engine) -> None:
+    """The flat bf16 scan at the smoke's index, over the whole capacity
+    (the fused path's choice: a graph stays valid across adds) against
+    over ``round_up(count, 128)`` rows (the classic path's, which would
+    key a graph on the row count), at q_pad 8, k 10; and the capture of a
+    lone query's window, timed after clearing the program cache."""
+    import torch
+
+    from tpu_search_torch.index.flat import flat_scan
+    from tpu_search_torch.storage.hybrid import SearchConfig
+    from tpu_search_torch.utils.shapes import round_up
+
+    index = engine.storage.index
+    scan_key, buffers = index.make_scan_fn()
+    staged = index.scan_staged(None)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    queries = torch.randn((8, index.dim), generator=gen, device="cuda")
+    queries = queries / queries.norm(dim=1, keepdim=True)
+    n_scan = round_up(index.ntotal, 128)
+    cap_ms, rows_ms = paired_ms(
+        lambda: flat_scan(scan_key, buffers, staged, queries, 10),
+        lambda: flat_scan(scan_key, buffers, staged, queries, 10, n_scan),
+        iters=50)
+    bound_ms, by = bound(index.capacity * (index.dim * 2 + 4)
+                         + 8 * index.dim * 2 + 8 * 10 * 8,
+                         2 * 8 * index.capacity * index.dim, "bf16")
+    text = engine.storage.get_chunk_by_id("chunk_000002").text
+    engine._fused.clear()
+    t0 = time.perf_counter()
+    engine._fused_search_many([text], None, SearchConfig(top_k=10))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[warm] scan capacity={index.capacity} rows={n_scan} Q=8 k=10 "
+          f"capacity_ms={cap_ms:.4f} rows_ms={rows_ms:.4f} "
+          f"capacity_bound_ms={bound_ms:.4f} ({by}) "
+          f"recapture_ms={engine._fused.last_capture_ms:.1f} "
+          f"first_search_ms={first_ms:.1f}", flush=True)
+
+
+def profile_replays(engine, texts) -> None:
+    """The host and device split of a warm in-process query (a lone query,
+    its graph replayed): the wall a search, the device busy time a replay
+    and its kernels (torch.profiler sees a replay's kernels; the launch
+    counters are the gate's witness either way)."""
+    from tpu_search_torch.storage.hybrid import SearchConfig
+    from tpu_search_torch.utils.device_profile import _by_kernel, busy_seconds
+
+    cfg = SearchConfig(top_k=10)
+    calls = 10
+    events, wall = profiled_events(
+        "warm replays", lambda: engine._fused_search_many(texts[:1], None, cfg),
+        calls)
+    busy = busy_seconds((e.time_range.start, e.time_range.end)
+                        for e in events) / calls
+    split = kernel_split(_by_kernel(events))
+    top = " ".join(f"{k}={ms * n / calls:.4f}(n={n // calls})"
+                   for k, ms, n in split[:6])
+    print(f"[warm] replay profile: wall_ms_a_search={wall * 1e3:.4f} "
+          f"device_busy_ms_a_replay={busy * 1e3:.4f} "
+          f"device_events_a_replay={len(events) / calls:.1f} "
+          f"kernels_ms_a_replay: {top}", flush=True)
+
+
+def run_warm_path(engine, work: Path, total: int) -> dict:
+    """The warm phase on the flat bf16 path's engine (see ``WARM_EXACT``):
+    an in-process ``QueryServer`` answers the 20 probe queries one at a
+    time, then from 8 and 32 client threads; a graph replay against the
+    eager run at q_pad 8 and 32; staleness (a conversation indexed through
+    the server's worker is found at rank 1, then removed and gone); the
+    scan over the capacity against over the rows, and a capture's time.
+    Returns the launch counts of the whole phase (set to 0 before it)."""
+    import torch
+
+    from tpu_search_torch.interfaces.query_server import QueryServer
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    data = work / "data"
+    _, queries = probe_queries(engine, total)
+    texts = [t for t, f, _ in queries if f is None]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    reference = [engine.search_conversations(t, f, top_k=10)
+                 for t, f, _ in queries]
+    captures = engine._fused.captures
+    server = QueryServer(engine, str(data))
+    server.start()
+    try:
+        times = warm_one_at_a_time(data, queries, reference, "bfloat16")
+        print_latency("bfloat16", "clients=1", times)
+        unfiltered = [i for i, (_, f, _) in enumerate(queries) if f is None]
+        for mix, passes in (("20", WARM_CLIENTS),
+                            ("16 unfiltered", WARM_UNFILTERED_CLIENTS)):
+            keep = range(len(queries)) if mix == "20" else unfiltered
+            for clients, rounds in passes:
+                times, wall, gap = warm_concurrent(
+                    data, [queries[i] for i in keep],
+                    [reference[i] for i in keep], clients, rounds)
+                print_latency("bfloat16", f"queries={mix} clients={clients} "
+                              f"max_similarity_gap={gap:.3e}", times, wall)
+        print(f"[warm] programs={len(engine._fused)} captures during the "
+              f"passes={engine._fused.captures - captures}", flush=True)
+        graph_against_eager(engine, texts)
+        check_staleness(engine, server, work, data)
+    finally:
+        server.stop()
+    launches = dict(_build.LAUNCHES)
+    print(f"[launches] path=warm {launches}", flush=True)
+    if any(launches[k] == 0 for k in path_kernels("bfloat16")):
+        fail(f"the warm path did not run every kernel: {launches}")
+    profile_replays(engine, texts)
+    scan_both_ways(engine)
+    engine._fused_search_many(texts[:1], None, SearchConfig(top_k=10))
+    return launches
+
+
+def check_staleness(engine, server, work: Path, data: Path) -> None:
+    """A new conversation indexed through the server's worker thread (as
+    the watcher indexes) is found through the warm server at rank 1 with
+    similarity ~1; removed the same way, it is gone."""
+    from tpu_search_torch.interfaces.query_server import QueryClient
+
+    path = work / "fresh-projects" / "-root-fresh" / "fresh.jsonl"
+    path.parent.mkdir(parents=True)
+    words = " ".join(f"tok{(37 * j) % 500 + 20}" for j in range(150))
+    path.write_text("".join(json.dumps({
+        "uuid": f"f{i}", "sessionId": "fresh",
+        "timestamp": f"2025-08-01T10:0{i}:00Z",
+        "message": {"role": role, "content": [{"type": "text",
+                                               "text": words}]},
+    }) + "\n" for i, role in enumerate(("user", "assistant"))))
+    storage = engine.storage
+    before = set(storage.chunk_id_to_faiss_id)
+    captures, capacity = engine._fused.captures, storage.index.capacity
+    with contextlib.redirect_stdout(io.StringIO()):
+        server._worker.run(lambda: engine.index_conversations([path]))
+    new = sorted(set(storage.chunk_id_to_faiss_id) - before)
+    if not new:
+        fail("the fresh conversation indexed no chunk")
+    text = storage.get_chunk_by_id(new[0]).text
+    with QueryClient(str(data), timeout=120) as client:
+        got = client.search(text, top_k=10)["results"]
+        if got[0]["chunk_id"] != new[0] or abs(
+                got[0]["similarity"] - 1.0) > 1e-2:
+            fail(f"the fresh chunk {new[0]} is not at rank 1: "
+                 f"{[(r['chunk_id'], r['similarity']) for r in got[:3]]}")
+        server._worker.run(
+            lambda: storage.remove_chunks_for_files([str(path)]))
+        after = client.search(text, top_k=10)["results"]
+    gone = all(r["chunk_id"] not in new for r in after)
+    print(f"[warm] staleness: added {len(new)} chunks, rank 1 {new[0]} "
+          f"sim={got[0]['similarity']:.6f}; removed, gone={gone}; "
+          f"captures={engine._fused.captures - captures} "
+          f"capacity {capacity} -> {storage.index.capacity}", flush=True)
+    if not gone:
+        fail("a removed chunk still comes back from the warm server")
+
+
+def warm_exact_pass(engine, data: Path, probes, tag: str, kernel: str):
+    """The 16 probes one at a time through an in-process ``QueryServer`` on
+    a quantized path's engine, each answer equal to the in-process one,
+    with the path's scan kernel launched in graph replays."""
+    from tpu_search_torch.interfaces.query_server import QueryServer
+    from tpu_search_torch.ops import _build
+
+    queries = [(p.text, None, p.id) for p in probes]
+    reference = [engine.search_conversations(t, None, top_k=10)
+                 for t, _, _ in queries]
+    _build.reset_launches()
+    server = QueryServer(engine, str(data))
+    server.start()
+    try:
+        times = warm_one_at_a_time(data, queries, reference, tag)
+    finally:
+        server.stop()
+    print_latency(tag, "clients=1", times)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    print(f"[launches] path={tag} warm={launches}", flush=True)
+    if not launches.get(kernel):
+        fail(f"the warm {tag} pass did not launch {kernel}: {launches}")
+
+
+def run_daemon(work: Path, files) -> None:
+    """The watcher daemon on the card, last: ``cli start`` on an empty data
+    directory watching an empty projects directory; 20 conversations copied
+    in are indexed by the daemon; ``cli search --json`` answers through its
+    warm server (run with a model name that does not exist, so a local
+    engine could not have answered); ``cli stop``, then ``cli status``
+    reports it stopped."""
+    from tpu_search_torch.interfaces.query_server import request, socket_path_for
+
+    data = work / "data_daemon"
+    data.mkdir()
+    (data / "models").symlink_to(work / "data" / "models")
+    watched = work / "daemon-projects"
+    project = watched / "-root-daemon"
+    project.mkdir(parents=True)
+    env = dict(os.environ, CLAUDE_SEARCH_MODEL="smoke-mpnet")
+
+    def cli(*args, model_env=env, timeout=300):
+        return subprocess.run(
+            [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
+             "--data-dir", str(data), "--device", "cuda", *args],
+            capture_output=True, text=True, env=model_env, cwd=str(ROOT),
+            timeout=timeout)
+
+    def log_tail() -> str:
+        log = data / "watcher.log"
+        return " | ".join(log.read_text().splitlines()[-8:]) if (
+            log.exists()) else "(no log)"
+
+    t0 = time.perf_counter()
+    proc = cli("start", "--claude-dir", str(watched), "--debounce", "1")
+    if proc.returncode != 0 or "started with PID" not in proc.stdout:
+        fail(f"cli start failed: {proc.stdout[-1000:]} {proc.stderr[-1000:]}")
+    try:
+        deadline = time.time() + 300
+        while not socket_path_for(str(data)).exists():
+            if time.time() > deadline:
+                fail(f"the daemon's query socket never appeared: "
+                     f"{log_tail()}")
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        for f in files[:20]:
+            shutil.copy(f, project / f.name)
+        t1, stats = time.perf_counter(), {}
+        while not stats.get("total_chunks"):
+            if time.time() > deadline:
+                fail(f"the daemon indexed nothing: {stats} {log_tail()}")
+            time.sleep(0.5)
+            response = request(str(data), {"op": "stats"}, timeout=120)
+            stats = (response or {}).get("stats", {})
+        indexed_s = time.perf_counter() - t1
+        chunk = request(str(data), {"op": "get_chunk",
+                                    "chunk_id": "chunk_000003"},
+                        timeout=120)["chunk"]
+        if chunk is None:
+            fail(f"the daemon has no chunk_000003: {stats}")
+        t2 = time.perf_counter()
+        proc = cli("search", chunk["text"], "--top-k", "5", "--json",
+                   model_env=dict(env, CLAUDE_SEARCH_MODEL="no-such-model"))
+        search_s = time.perf_counter() - t2
+        if proc.returncode != 0:
+            fail(f"cli search through the daemon failed: "
+                 f"{proc.stdout[-1000:]} {proc.stderr[-1000:]} {log_tail()}")
+        items = json.loads(proc.stdout)["items"]
+        top = items[0]["uid"] if items else None
+        print(f"[daemon] start_to_socket_s={up_s:.2f} "
+              f"index_20_files_s={indexed_s:.2f} "
+              f"chunks={stats['total_chunks']} search_json_s={search_s:.2f} "
+              f"top={top} sim={items[0]['variables']['similarity']:.6f}",
+              flush=True)
+        if top != "chunk_000003":
+            fail(f"the daemon's search returned {top}, not chunk_000003")
+    finally:
+        stop = cli("stop")
+        status = cli("status")
+    print(f"[daemon] stop rc={stop.returncode} "
+          f"status={status.stdout.strip().splitlines()[0]}", flush=True)
+    if stop.returncode != 0 or "not running" not in status.stdout:
+        fail(f"the daemon did not stop: {stop.stdout} {status.stdout}")
 
 
 # The flash step: all-mpnet-base-v2 at full width over an indexing wave
@@ -2394,7 +2853,7 @@ def run_quant_path(work: Path, files, dtype: str) -> dict:
     os.environ.update(env)
     try:
         engine = SearchEngine(str(data), model_name="smoke-mpnet",
-                              device="cuda")
+                              use_warm_server=False, device="cuda")
         total, after_index = index_path(engine, files, dtype, dtype)
 
         index, slot = engine.storage.index, engine.storage.chunk_id_to_faiss_id
@@ -2429,6 +2888,8 @@ def run_quant_path(work: Path, files, dtype: str) -> dict:
         if dtype == "int4" and gauss < 0.6:
             fail(f"int4 recall@10 on Gaussian rows {gauss:.4f} < 0.6")
         check_cli(engine, data, probes[4].text, dtype, env)
+        if dtype == "int8":
+            warm_exact_pass(engine, data, probes, dtype, "flat_topk_int8")
         return launches
     finally:
         for key in env:
@@ -2472,7 +2933,7 @@ def run_ivf_path(work: Path, files, dtype: str) -> dict:
     os.environ.update(env)
     try:
         engine = SearchEngine(str(data), model_name="smoke-mpnet",
-                              device="cuda")
+                              use_warm_server=False, device="cuda")
         total, _ = index_path(engine, files, tag, dtype, IVF_WARM_FILES)
         index = engine.storage.index
         cal = {k: v for k, v in (index._quant_cal or {}).items()
@@ -2518,6 +2979,8 @@ def run_ivf_path(work: Path, files, dtype: str) -> dict:
             fail(f"the {tag} path did not run {wanted}: {launches}")
         check_cli(engine, data, probes[4].text, tag, env)
         check_cli_optimize(data, tag, env)
+        if dtype == "int4":
+            warm_exact_pass(engine, data, probes, tag, "ivf_topk_int4")
         return launches
     finally:
         for key in env:
@@ -2544,7 +3007,7 @@ def run_bert_path(work: Path, files):
     print(f"[setup] path={tag} checkpoints seconds="
           f"{time.perf_counter() - t0:.2f}", flush=True)
     engine = SearchEngine(str(data), model_name="all-MiniLM-L6-v2",
-                          device="cuda")
+                          use_warm_server=False, device="cuda")
     total, after_index = index_path(engine, files, tag, "bfloat16")
     gaps = []
     probes = search_path(engine, total, tag, bf16_tie_hit(gaps))
@@ -2907,7 +3370,7 @@ def main() -> None:
                                     config.vocab_size - 5)
         print(f"[setup] checkpoint+{N_CONVERSATIONS} conversations "
               f"seconds={time.perf_counter() - t0:.2f}", flush=True)
-        launches = dict(zip(("bfloat16", "flash_encoder"),
+        launches = dict(zip(("bfloat16", "flash_encoder", "warm"),
                             run_main_path(work, files)))
         for dtype in ("int8", "int4"):
             launches[dtype] = run_quant_path(
@@ -2927,6 +3390,7 @@ def main() -> None:
             for k in launches["rerank_fixture"]}
         launches["int8_bench"] = run_int8_bench()
         launches["probes"] = run_probes(results)
+        run_daemon(work, files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

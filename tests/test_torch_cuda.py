@@ -39,7 +39,11 @@ M, N and K off their wgmma tiles (K 8 and 312); ``int8_ffn_out`` also at M
 4,097, N 264 and K 8 and 312, its planted inputs run twice (for the
 producer's proxy fence); ``int8_ffn_ln`` also at M 1, 127, 129 and 4,097
 (the edges of its 128-row tiles) and with row maxima in I 1,200's partial
-last column tile.
+last column tile.  The fused query path's CUDA graphs (all-mpnet-base-v2's
+widths at two layers): a replay equal to the eager run of the same window
+at 1, 8, 9 and 32 queries, filtered or not; rows added and removed between
+two replays of one graph seen, with no new capture; 8 threads dispatching
+one graph at once, each collecting its own result.
 """
 
 import math
@@ -1137,3 +1141,128 @@ def test_int8_ffn_epilogue_rounds_once(dev, site):
     out = int8_ffn_ln(*args, eps=0.0)
     ref = int8_ffn_ln_plain(*args, eps=0.0)
     assert torch.equal(out, ref)
+
+
+# -- the fused query path as CUDA graphs -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def graph_engine(tmp_path_factory):
+    """A flat bf16 engine on the card: all-mpnet-base-v2's widths at two
+    layers (random, seeded), 12 synthetic conversations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.models.convert import save_checkpoint
+    from tpu_search_torch.models.mpnet import MPNetConfig, init_params
+    from tpu_search_torch.utils.synthetic import write_conversations
+
+    root = tmp_path_factory.mktemp("graphs")
+    config = MPNetConfig(num_layers=2, vocab_size=512)
+    model_dir = root / "data" / "models" / "graph-mpnet"
+    model_dir.mkdir(parents=True)
+    save_checkpoint(str(model_dir / "model.tpu.npz"), init_params(config, 9),
+                    config)
+    (model_dir / "vocab.txt").write_text("\n".join(
+        ["<s>", "<pad>", "</s>", "[UNK]", "<mask>"]
+        + [f"tok{i}" for i in range(config.vocab_size - 5)]) + "\n")
+    files = write_conversations(root, 14, config.vocab_size - 5)
+    engine = SearchEngine(str(root / "data"), model_name="graph-mpnet",
+                          use_warm_server=False, device="cuda")
+    engine.index_conversations(files[:12])
+    return engine, files[12:]
+
+
+def _probe_texts(engine, n):
+    storage = engine.storage
+    ids = sorted(storage.chunk_id_to_faiss_id)[:n]
+    return [storage.get_chunk_by_id(cid).text for cid in ids], ids
+
+
+@pytest.mark.parametrize("q", [1, 8, 9, 32])
+def test_fused_graph_replay_equals_eager(dev, graph_engine, q):
+    """A replayed window equals the same window run eagerly (no graph),
+    at q_pad 8 and 32, unfiltered and filtered."""
+    from tpu_search_torch.api.fused import Window, run_eager
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    engine, _ = graph_engine
+    texts, _ = _probe_texts(engine, q)
+    for filters in (None, {"has_code": True}):
+        cfg = SearchConfig(top_k=10)
+        for _ in range(2):  # the capture, then a replay of the cached graph
+            window = engine._fused_window(texts, filters, cfg)
+            assert isinstance(window, Window)
+            pending = engine._fused_dispatch_many(texts, filters, cfg)
+            pending.event.synchronize()
+            eager = run_eager(window).cpu()
+            assert torch.equal(pending.packed, eager)
+
+
+def test_fused_graph_sees_an_add_and_a_remove(dev, graph_engine):
+    """Rows added and removed between two replays of one graph are seen by
+    the second (the scan reads the capacity and a staged penalty), with no
+    new capture while the capacity holds."""
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    engine, (first, second) = graph_engine
+    storage = engine.storage
+    cfg = SearchConfig(top_k=5)
+    capacity = storage.index.capacity
+
+    def add(path):
+        before = set(storage.chunk_id_to_faiss_id)
+        engine.index_conversations([path])
+        new_ids = sorted(set(storage.chunk_id_to_faiss_id) - before)
+        assert new_ids
+        return new_ids[0]
+
+    def top(text):
+        return [(r.chunk_id, r.similarity) for r in
+                engine._fused_search_many([text], None, cfg)[0]]
+
+    new_id = add(first)
+    text = storage.get_chunk_by_id(new_id).text
+    got = top(text)  # may capture this text's sequence bucket
+    assert got[0][0] == new_id and abs(got[0][1] - 1.0) < 1e-2
+    captures = engine._fused.captures
+    other = add(second)  # an add between two replays of text's graph
+    assert top(text)[0][0] == new_id
+    assert engine._fused.captures == captures
+    assert top(storage.get_chunk_by_id(other).text)[0][0] == other
+    captures = engine._fused.captures  # other's bucket may have captured
+    storage.remove_chunks_for_files([str(first)])  # a remove
+    assert new_id not in [cid for cid, _ in top(text)]
+    assert engine._fused.captures == captures  # same graphs, replayed
+    assert storage.index.capacity == capacity
+
+
+def test_fused_graph_concurrent_dispatches(dev, graph_engine):
+    """8 threads dispatch windows of one graph at once; each collects its
+    own result, equal to the same query's result alone."""
+    import threading
+
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    engine, _ = graph_engine
+    cfg = SearchConfig(top_k=5)
+    texts = [f"tok{i} tok{i + 5} tok{i + 9}" for i in range(8)]
+    alone = [[(r.chunk_id, r.similarity) for r in
+              engine._fused_search_many([t], None, cfg)[0]] for t in texts]
+    got = [None] * len(texts)
+    start = threading.Barrier(len(texts))
+
+    def client(i):
+        start.wait(timeout=60)
+        pending = engine._fused_dispatch_many([texts[i]], None, cfg)
+        got[i] = [(r.chunk_id, r.similarity)
+                  for r in engine._fused_collect(pending, cfg)[0]]
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(texts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert got == alone

@@ -31,8 +31,6 @@ EXCEPTIONS = {
     ("devices", "log_device_status"): "as GPUCapability",
     ("devices", "quick_accelerator_check"): "as GPUCapability",
     ("interfaces", "mcp_server"): "not ported yet (ROADMAP Queue 1)",
-    ("interfaces", "watcher"): "not ported yet (ROADMAP Queue 1)",
-    ("interfaces", "fswatch"): "not ported yet (ROADMAP Queue 1)",
 }
 # Subpackages of tpu_search the port does not have, and why.
 MISSING_PACKAGES = {

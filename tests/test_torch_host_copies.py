@@ -129,6 +129,8 @@ def test_filters_identical(tmp_path):
 @pytest.mark.parametrize("module", [
     "tpu_search_torch",
     "tpu_search_torch.interfaces.cli",
+    "tpu_search_torch.interfaces.query_server",
+    "tpu_search_torch.interfaces.watcher",
     "tpu_search_torch.models.cross_encoder",
     "chip_smoke",
 ])
@@ -142,6 +144,19 @@ def test_port_imports_no_jax_click_or_ml_dtypes(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", [
+    "interfaces/query_server.py",
+    "interfaces/fswatch.py",
+    "storage/filters.py",
+])
+def test_verbatim_copies(path):
+    """The warm server's wire protocol and socket path, the file watcher
+    and the filter compiler are shared with the JAX package, not forked:
+    the port's files are its files, byte for byte."""
+    ref = (REPO / "tpu_search" / path).read_bytes()
+    assert (REPO / "tpu_search_torch" / path).read_bytes() == ref
 
 
 def test_cuda_without_cuda_raises(monkeypatch, tmp_path):

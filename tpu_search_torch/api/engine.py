@@ -8,19 +8,23 @@ and storage per engine, driving
   of about 2048 chunks whose embeddings stay on the device from the
   encoder into the index, parse + chunk of upcoming files on one
   background thread, and one retry round for failed files;
-- ``search_conversations``: embed the query, run the masked scan (exact
-  on a flat index, the probe scan on an IVF one), hydrate from SQLite;
-  with ``rerank`` (or ``CLAUDE_SEARCH_RERANK=1``) fetch ``top_k * factor``
-  (at most 100) and reorder them with the cross-encoder
-  (``models/cross_encoder.py``; ``CLAUDE_SEARCH_RERANK_MODEL``,
-  ``CLAUDE_SEARCH_RERANK_FACTOR``);
+- ``search_conversations``: the watcher daemon's warm query server when
+  one listens on ``<data_dir>/query.sock`` (``use_warm_server``), else the
+  fused path (``api/fused.py``: token ids in, encode + normalize + masked
+  scan as one CUDA graph replay, one packed array back; exact on a flat
+  index, the probe scan on an IVF one), else the classic path (embed,
+  then scan) for the hashing encoder and more than 32 queries; hydrate
+  from SQLite; with ``rerank`` (or ``CLAUDE_SEARCH_RERANK=1``) fetch
+  ``top_k * factor`` (at most 100) and reorder them with the
+  cross-encoder (``models/cross_encoder.py``;
+  ``CLAUDE_SEARCH_RERANK_MODEL``, ``CLAUDE_SEARCH_RERANK_FACTOR``);
 - ``optimize``: storage maintenance (vacuum, compact, rebalance, nprobe
   tuning, calibration);
-- ``get_index_stats``.
+- ``get_index_stats``, warm-server-first.
 
-Not ported yet: the warm query server and the fused one-dispatch query
-path.  The device is explicit: ``device`` argument, else
-``CLAUDE_SEARCH_DEVICE``, else ``cuda``.
+The device is explicit: ``device`` argument, else ``CLAUDE_SEARCH_DEVICE``,
+else ``cuda``.  An error of the fused path (a capture, a build, a launch)
+propagates; it never falls back to the classic path.
 """
 
 from __future__ import annotations
@@ -35,7 +39,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from ..devices.capability import resolve_device
+from ..index.flat import FlatIndex, flat_scan
+from ..index.ivf import IVFIndex, ivf_scan
 from ..ingest.chunker import ChunkingConfig, ConversationChunker
 from ..ingest.parser import JSONLParser
 from ..models.cross_encoder import (
@@ -44,8 +52,14 @@ from ..models.cross_encoder import (
     resolve_reranker_name,
 )
 from ..models.encoder import EmbeddingConfig, EmbeddingGenerator
-from ..storage.hybrid import HybridStorage, SearchConfig, StorageConfig
+from ..storage.hybrid import (
+    HybridStorage,
+    SearchConfig,
+    StorageConfig,
+    resolve_nprobe,
+)
 from ..utils.profiling import PhaseTimer
+from .fused import FusedPrograms, Window
 
 logger = logging.getLogger(__name__)
 
@@ -64,6 +78,19 @@ DEFAULT_DATA_DIR = "~/.claude-semantic-search/data"
 # 0 parses and chunks each file on the calling thread (serial ingest).
 _EMBED_WAVE_CHUNKS = int(os.environ.get("CLAUDE_SEARCH_EMBED_WAVE", 2048))
 _PREFETCH_FILES = int(os.environ.get("CLAUDE_SEARCH_PREFETCH_FILES", 256))
+
+
+class _FusedPending:
+    """In-flight fused query: its packed output on its way to the host
+    (``event`` marks the copy done; None on the CPU)."""
+
+    __slots__ = ("packed", "k_eff", "q", "event")
+
+    def __init__(self, packed, k_eff: int, q: int, event=None) -> None:
+        self.packed = packed
+        self.k_eff = k_eff
+        self.q = q
+        self.event = event
 
 
 def format_search_result(result) -> Dict[str, Any]:
@@ -180,9 +207,10 @@ class SearchEngine:
     ) -> None:
         """The JAX engine's parameters, in its order, then ``device``
         (keyword only: ``cuda`` or ``cpu``, else ``CLAUDE_SEARCH_DEVICE``,
-        else ``cuda``).  ``use_gpu`` and ``use_warm_server`` are kept as
-        attributes; the warm query server is not ported, so the second
-        changes nothing yet."""
+        else ``cuda``).  ``use_gpu`` is kept as an attribute;
+        ``use_warm_server`` routes searches and stats through a listening
+        warm server first (False inside the daemon, which is that
+        server)."""
         if model_name is None:
             model_name = os.environ.get(
                 "CLAUDE_SEARCH_MODEL", "all-mpnet-base-v2"
@@ -193,6 +221,10 @@ class SearchEngine:
         self.use_warm_server = use_warm_server
         self._timer = PhaseTimer()
         self._chunk_lock = threading.Lock()
+        # One warm-server connection per thread (QueryClient is not
+        # thread-safe), and the fused programs (CUDA graphs on the card).
+        self._warm_clients = threading.local()
+        self._fused = FusedPrograms()
         self.parser = JSONLParser()
         self.chunker = ConversationChunker(ChunkingConfig())
         self.embedder = EmbeddingGenerator(
@@ -502,21 +534,150 @@ class SearchEngine:
         rerank_model: Optional[str] = None,
         rerank_factor: Optional[int] = None,
     ) -> List[Dict[str, Any]]:
-        """Embed the query and run the filter-masked top-k scan; with
-        ``rerank`` (``None`` defers to ``CLAUDE_SEARCH_RERANK``) reorder the
-        top ``top_k * rerank_factor`` with the cross-encoder."""
+        """Embed the query and run the filter-masked top-k scan: through
+        the warm server when one listens, else the fused path, else the
+        classic one; with ``rerank`` (``None`` defers to
+        ``CLAUDE_SEARCH_RERANK``) reorder the top ``top_k * rerank_factor``
+        with the cross-encoder."""
         spec = self._rerank_spec(rerank, rerank_model, rerank_factor)
+        if self.use_warm_server:
+            payload: Dict[str, Any] = {
+                "op": "search", "query": query, "filters": filters,
+                "top_k": top_k,
+            }
+            if spec:
+                payload["rerank"] = spec
+            response = self._warm_request(payload)
+            if response is not None and response.get("ok"):
+                return response["results"]
         self._open()
         fetch_k = rerank_fetch_k(top_k, spec) if spec else top_k
         cfg = SearchConfig(top_k=fetch_k, include_metadata=True,
                            include_text=True, nprobe=self._default_nprobe)
-        query_embedding = self.embedder.generate_single_embedding(query)
-        results = self.storage.search(query_embedding, cfg, filters)
+        results = self._fused_search(query, filters, cfg)
+        if results is None:
+            query_embedding = self.embedder.generate_single_embedding(query)
+            results = self.storage.search(query_embedding, cfg, filters)
         formatted = [format_search_result(r) for r in results]
         if spec:
             formatted = self.rerank_results(query, formatted, top_k,
                                             model=spec["model"])
         return formatted
+
+    # -- the fused query path ------------------------------------------------
+
+    def _fused_search(
+        self, query: str, filters: Optional[Dict[str, Any]],
+        cfg: SearchConfig,
+    ) -> Optional[List[Any]]:
+        """One query through :meth:`_fused_search_many`."""
+        many = self._fused_search_many([query], filters, cfg)
+        return None if many is None else many[0]
+
+    def _fused_search_many(
+        self, queries: List[str], filters: Optional[Dict[str, Any]],
+        cfg: SearchConfig,
+    ) -> Optional[List[List[Any]]]:
+        """Dispatch and collect in one call (the warm server splits them:
+        :meth:`_fused_dispatch_many` on its worker thread,
+        :meth:`_fused_collect` on its finisher pool)."""
+        pending = self._fused_dispatch_many(queries, filters, cfg)
+        if pending is None or isinstance(pending, list):
+            return pending
+        return self._fused_collect(pending, cfg)
+
+    def _fused_window(
+        self, queries: List[str], filters: Optional[Dict[str, Any]],
+        cfg: SearchConfig,
+    ):
+        """The window :meth:`_fused_dispatch_many` runs (``api.fused.
+        Window``), or its structural answer: None where the fused path
+        does not apply (the hashing encoder, an empty or untrained index,
+        more than 32 queries, ids past 2^24, which f32 packing would
+        round), ``[[] ...]`` when the filter matches nothing or ``k`` is
+        0."""
+        q = len(queries)
+        if q == 0:
+            return []
+        if q > 32:
+            return None
+        index = self.storage.index
+        if index is None or index.ntotal == 0:
+            return None
+        is_ivf = isinstance(index, IVFIndex)
+        if not is_ivf and not isinstance(index, FlatIndex):
+            return None
+        if is_ivf and index.centroids is None:
+            return None
+        if (index.ntotal if is_ivf else index.capacity) >= (1 << 24):
+            return None
+        parts = self.embedder.fused_parts()
+        if parts is None:
+            return None
+        model, device, normalize, int8_ffn = parts
+
+        fmask = self.storage.filter_mask(filters)
+        if fmask is not None and not fmask.any():
+            return [[] for _ in range(q)]
+        if is_ivf:
+            nprobe = resolve_nprobe(cfg.nprobe, index)
+            k_eff = min(cfg.top_k,
+                        min(nprobe, index.nlist) * index._cluster_capacity)
+            scan, (scan_key, buffers) = ivf_scan, index.make_scan_fn(nprobe)
+        else:
+            k_eff = min(cfg.top_k, index.capacity)
+            scan, (scan_key, buffers) = flat_scan, index.make_scan_fn()
+        if k_eff <= 0:
+            return [[] for _ in range(q)]
+        ids, mask = self.embedder.pack_batch(queries)
+        return Window(
+            model=model, ids=ids, mask=mask, q_pad=8 if q <= 8 else 32,
+            staged=index.scan_staged(fmask),
+            normalize=normalize, int8_ffn=int8_ffn,
+            store_normalize=self.storage.config.normalize_embeddings,
+            scan=scan, scan_key=scan_key, buffers=buffers, k=k_eff,
+            device=device)
+
+    def _fused_dispatch_many(
+        self, queries: List[str], filters: Optional[Dict[str, Any]],
+        cfg: SearchConfig,
+    ):
+        """The one-dispatch query path for up to 32 queries sharing a
+        filter: token ids go to the device, encode -> normalize -> pad to
+        ``q_pad`` -> masked scan -> top-k run as one program
+        (``api/fused.py``; a CUDA graph replay on the card), and one packed
+        ``[q_pad, 2k]`` array comes back.  Returns
+        :meth:`_fused_window`'s structural answers (None, ``[[] ...]``),
+        else a :class:`_FusedPending` for :meth:`_fused_collect`.  Any
+        other failure raises."""
+        window = self._fused_window(queries, filters, cfg)
+        if not isinstance(window, Window):
+            return window
+        packed, event = self._fused.dispatch(window)
+        return _FusedPending(packed=packed, k_eff=window.k, q=len(queries),
+                             event=event)
+
+    @staticmethod
+    def _fused_fetch(pending) -> Tuple[np.ndarray, np.ndarray]:
+        """Wait for a dispatch's packed output: ``(scores [q, k],
+        ids [q, k] int64)``, id ``-1`` where the score is not finite."""
+        if pending.event is not None:
+            pending.event.synchronize()
+        packed = pending.packed.numpy()
+        k_eff, q = pending.k_eff, pending.q
+        scores = packed[:q, :k_eff]
+        out_ids = np.rint(packed[:q, k_eff:]).astype(np.int64)
+        out_ids[~np.isfinite(scores)] = -1
+        return scores, out_ids
+
+    def _fused_collect(self, pending, cfg: SearchConfig):
+        """Fetch and hydrate a :meth:`_fused_dispatch_many` result."""
+        return self.storage.hydrate_results(*self._fused_fetch(pending), cfg)
+
+    def _fused_collect_wire(self, pending, cfg: SearchConfig):
+        """Fetch and hydrate straight into pre-serialized result fragments
+        (``HybridStorage.hydrate_wire``), the warm server's fast path."""
+        return self.storage.hydrate_wire(*self._fused_fetch(pending), cfg)
 
     # -- cross-encoder reranking ---------------------------------------------
 
@@ -606,8 +767,33 @@ class SearchEngine:
     # -- stats ---------------------------------------------------------------
 
     def get_index_stats(self) -> Dict[str, Any]:
+        """Index statistics, from the warm server when one listens (its
+        engine is already open)."""
+        if self.use_warm_server:
+            response = self._warm_request({"op": "stats"})
+            if response is not None and response.get("ok"):
+                return response["stats"]
         self.storage.initialize()
         return self.storage.get_stats()
+
+    def _warm_request(
+        self, payload: Dict[str, Any]
+    ) -> Optional[Dict[str, Any]]:
+        """Send one request to the warm server down this thread's
+        persistent connection; None when no server is listening (the
+        caller then serves locally)."""
+        from ..interfaces.query_server import QueryClient, socket_path_for
+
+        client = getattr(self._warm_clients, "client", None)
+        if client is None or client._path != str(
+            socket_path_for(str(self.data_dir))
+        ):
+            client = QueryClient(str(self.data_dir))
+            self._warm_clients.client = client
+        try:
+            return client.request(payload)
+        except (OSError, ValueError):
+            return None
 
 
 # Reference-compatible name.

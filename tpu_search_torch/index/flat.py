@@ -20,6 +20,10 @@ Counterpart of ``tpu_search/index/flat.py``:
   ``-inf``), cached per predicate digest until the next mutation, and runs
   the exact top-k scan of the storage dtype (``ops.flat_topk*``: the CUDA
   kernels on the card, their plain versions on the CPU), any k;
+- ``make_scan_fn`` / ``scan_staged`` hand the fused query path
+  (``api/fused.py``) the same scan as a function over device tensors,
+  over the whole capacity, so a CUDA graph built on it stays valid across
+  adds and removes;
 - ``save``/``load`` speak TPUSIDX2, so both packages read each other's
   files.
 """
@@ -45,7 +49,7 @@ from ..ops.int4_pack import (
 from ..ops.topk_scan import INV127, absmax_scales, row_penalty, row_sq_norms
 from ..utils.shapes import next_pow2, round_up
 
-__all__ = ["FlatIndex", "quantize_rows_int8"]
+__all__ = ["FlatIndex", "flat_scan", "quantize_rows_int8"]
 
 _MIN_CAPACITY = 1024
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -60,6 +64,26 @@ def quantize_rows_int8(vectors: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     v = vectors.float()
     scales = absmax_scales(v, INV127)
     return torch.round(v / scales[:, None]).to(torch.int8), scales
+
+
+def flat_scan(scan_key: tuple, buffers: tuple, staged: tuple,
+              queries: torch.Tensor, k: int, rows: Optional[int] = None):
+    """The exact top-k scan of :meth:`FlatIndex.make_scan_fn`: ``buffers``
+    ``(vectors, scales)``, ``staged`` ``(penalty,)``, ``queries [Q, D]``
+    f32 on the index's device; the first ``rows`` slots (default all).
+    ``(scores [Q, k] f32, ids [Q, k] int32)`` on the device."""
+    _, dtype, metric = scan_key
+    vectors, scales = buffers
+    (penalty,) = staged
+    n = penalty.shape[0] if rows is None else rows
+    if dtype == "int8":
+        return flat_topk_int8_scan(vectors[:n], scales[:n], penalty[:n],
+                                   queries, k)
+    if dtype == "int4":
+        return flat_topk_int4_scan(vectors[: (n + 1) // 2], scales[:n],
+                                   penalty[:n], queries, k)
+    return flat_topk_scan(vectors[:n], penalty[:n], queries, k,
+                          2.0 if metric == "l2" else 1.0)
 
 
 class FlatIndex:
@@ -286,22 +310,12 @@ class FlatIndex:
             return (np.full(shape, -np.inf, dtype=np.float32),
                     np.full(shape, -1, dtype=np.int64))
         k_eff = min(k, self._capacity)
-        penalty = self._penalty(mask)
         # Rows past the assigned slots are dead: scan only what is needed.
         n_scan = min(self._capacity, max(round_up(self._count, 128), k_eff))
         qt = torch.from_numpy(queries).to(self.device)
-        if self.dtype == "int8":
-            scores, ids = flat_topk_int8_scan(
-                self._vectors[:n_scan], self._scales[:n_scan],
-                penalty[:n_scan], qt, k_eff)
-        elif self.dtype == "int4":
-            scores, ids = flat_topk_int4_scan(
-                self._vectors[: (n_scan + 1) // 2], self._scales[:n_scan],
-                penalty[:n_scan], qt, k_eff)
-        else:
-            scores, ids = flat_topk_scan(
-                self._vectors[:n_scan], penalty[:n_scan], qt, k_eff,
-                2.0 if self.metric == "l2" else 1.0)
+        scan_key, buffers = self.make_scan_fn()
+        scores, ids = flat_scan(scan_key, buffers, self.scan_staged(mask),
+                                qt, k_eff, n_scan)
         scores = scores.cpu().numpy()
         ids = ids.cpu().numpy().astype(np.int64)
         if k_eff < k:
@@ -309,6 +323,22 @@ class FlatIndex:
             scores = np.pad(scores, pad, constant_values=-np.inf)
             ids = np.pad(ids, pad, constant_values=-1)
         return scores, ids
+
+    # -- the fused query path ------------------------------------------------
+
+    def make_scan_fn(self) -> Tuple[tuple, tuple]:
+        """``(scan_key, buffers)`` for :func:`flat_scan`, the fused query
+        path's scan: ``buffers`` are the tensors it reads in place (a
+        program built on them is valid until they move: growth, compact,
+        clear), the penalty changes between calls (:meth:`scan_staged`).
+        The fused path scans the whole capacity (dead slots carry the
+        penalty), so an add or a remove needs no new program."""
+        return ("flat", self.dtype, self.metric), (self._vectors, self._scales)
+
+    def scan_staged(self, mask: Optional[np.ndarray] = None) -> tuple:
+        """``(penalty [capacity] f32,)`` of validity & the predicate
+        ``mask`` (cached per mask until the next mutation)."""
+        return (self._penalty(mask),)
 
     # -- persistence -----------------------------------------------------------
 

@@ -19,7 +19,10 @@ Counterpart of ``tpu_search/index/ivf.py``:
 - training is the port's balanced k-means; ``rebalance``, ``tune_nprobe``
   and the deployed-recall calibration are the JAX package's, step for
   step; ``save`` / ``load`` speak TPUSIDX2 with the JAX package's header
-  keys, so both packages read each other's files.
+  keys, so both packages read each other's files;
+- ``make_scan_fn`` / ``scan_staged`` hand the fused query path
+  (``api/fused.py``) the whole search (centroid scan, probe scan, refine)
+  as one function over device tensors.
 
 The device programs of the JAX package (``_scatter_rows``, ``_grow_blocks``,
 ``_permute_slots``, ...) are plain PyTorch here and update the block
@@ -49,12 +52,14 @@ from ..ops.ivf_scan import (
 from ..ops.kmeans import assign_clusters, kmeans
 from ..utils.shapes import round_up
 from .flat import quantize_rows_int8
+from .refine import refine_rescore
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
     "IVFIndex",
     "deployed_quant_calibration",
+    "ivf_scan",
     "ivf_index_from_numpy",
     "nprobe_ladder",
     "probe_clusters",
@@ -90,6 +95,41 @@ def probe_clusters(
     if metric == "l2":
         cs = 2.0 * cs - (centroids * centroids).sum(dim=-1)[None, :]
     return cs, torch.topk(cs, nprobe, dim=1).indices.to(torch.int32)
+
+
+def ivf_scan(scan_key: tuple, buffers: tuple, staged: tuple,
+             queries: torch.Tensor, k: int):
+    """The search of :meth:`IVFIndex.make_scan_fn` on the device: the
+    centroid scan, the probe scan of the storage dtype over ``staged``
+    ``(penalty [nlist, cap], fills [nlist])``, the slot -> id map, and with
+    a refine tier stage 1 at ``k * refine_factor`` (at most the probed
+    reach) re-ranked by the refine rows.  ``buffers`` = ``(centroids,
+    blocks, block ids, scales, refine rows, refine scales)``.  Returns
+    ``(scores [Q, k] f32, ids [Q, k])``, ``-inf`` / ``-1`` past the
+    candidates; ``k`` is at most the reach."""
+    _, dtype, metric, nprobe, by_residual, refine_factor = scan_key
+    dcent, dblocks, dids, dscale, rrows, rscales = buffers
+    penalty, fills = staged
+    k_s = k
+    if rrows is not None:
+        reach = nprobe * dscale.shape[1]
+        k_s = max(k, min(k * refine_factor, reach))
+    cs, probe = probe_clusters(queries, dcent, metric, nprobe)
+    cbias = torch.gather(cs, 1, probe.long()) if by_residual else None
+    if dtype == "int4":
+        scores, pos = ivf_topk_int4_scan(dblocks, dscale, penalty, fills,
+                                         probe, queries, k_s, cbias)
+    elif dtype == "int8":
+        scores, pos = ivf_topk_int8_scan(dblocks, dscale, penalty, fills,
+                                         probe, queries, k_s, cbias)
+    else:
+        scores, pos = ivf_topk_scan(dblocks, penalty, fills, probe, queries,
+                                    k_s, 2.0 if metric == "l2" else 1.0)
+    ids = dids.reshape(-1)[pos.clamp(min=0).long()]
+    ids = torch.where(torch.isfinite(scores), ids, torch.full_like(ids, -1))
+    if rrows is not None:
+        scores, ids = refine_rescore(rrows, rscales, queries, ids, k)
+    return scores, ids
 
 
 def nprobe_ladder(search_fn, queries: np.ndarray, nlist: int, k: int,
@@ -962,21 +1002,11 @@ class IVFIndex:
             shape = (q, max(k, 0))
             return (np.full(shape, -np.inf, dtype=np.float32),
                     np.full(shape, -1, dtype=np.int64))
-        nprobe_eff = min(nprobe, self.nlist)
-        reach = nprobe_eff * self._cluster_capacity
-        refine = self._refine_store()
-        if refine is not None and refine.count > 0:
-            k_s = max(min(k, reach), min(k * self.refine_factor, reach))
-        else:
-            refine = None
-            k_s = min(k, reach)
+        k_eff = min(k, min(nprobe, self.nlist) * self._cluster_capacity)
         qt = torch.from_numpy(queries).to(self.device)
-        scores, ids = self._scan(qt, nprobe_eff, k_s, self._penalty(mask))
-        if refine is not None:
-            k_eff = min(k, k_s)
-            scores, ids = refine.rescore(qt, ids, k_eff)
-        else:
-            k_eff = k_s
+        scan_key, buffers = self.make_scan_fn(nprobe)
+        scores, ids = ivf_scan(scan_key, buffers, self.scan_staged(mask),
+                               qt, k_eff)
         scores = scores.cpu().numpy()
         ids = ids.cpu().numpy().astype(np.int64)
         ids[~np.isfinite(scores)] = -1
@@ -987,26 +1017,38 @@ class IVFIndex:
         return scores, ids
 
     def _scan(self, qt, nprobe, k, penalty):
-        """Centroid scan + probe scan on the device -> (scores, ids)."""
-        cs, probe = probe_clusters(qt, self._dcent, self.metric, nprobe)
-        fills = self._device_fills()
-        cbias = (torch.gather(cs, 1, probe.long()) if self.by_residual
-                 else None)
-        if self.dtype == "int4":
-            scores, pos = ivf_topk_int4_scan(self._dblocks, self._dscale,
-                                             penalty, fills, probe, qt, k,
-                                             cbias)
-        elif self.dtype == "int8":
-            scores, pos = ivf_topk_int8_scan(self._dblocks, self._dscale,
-                                             penalty, fills, probe, qt, k,
-                                             cbias)
-        else:
-            scores, pos = ivf_topk_scan(self._dblocks, penalty, fills, probe,
-                                        qt, k,
-                                        2.0 if self.metric == "l2" else 1.0)
-        ids = self._dids.reshape(-1)[pos.clamp(min=0).long()]
-        return scores, torch.where(torch.isfinite(scores), ids,
-                                   torch.full_like(ids, -1))
+        """Stage 1 alone (the centroid and probe scans, no refine tier) at
+        ``nprobe <= nlist`` -> ``(scores, ids)`` on the device."""
+        scan_key = ("ivf", self.dtype, self.metric, nprobe, self.by_residual,
+                    0)
+        buffers = (self._dcent, self._dblocks, self._dids, self._dscale,
+                   None, None)
+        return ivf_scan(scan_key, buffers, (penalty, self._device_fills()),
+                        qt, k)
+
+    def make_scan_fn(self, nprobe: int) -> Tuple[tuple, tuple]:
+        """``(scan_key, buffers)`` for :func:`ivf_scan` at ``nprobe``: the
+        key holds what a program bakes in (dtype, metric, nprobe, residual
+        encoding, the refine factor), ``buffers`` the tensors it reads in
+        place (valid until they move: growth, rebalance, compact, train);
+        the penalty and the fills change between calls
+        (:meth:`scan_staged`).  The refine rows join once the tier holds
+        rows."""
+        refine = self._refine_store()
+        rows = scales = None
+        if refine is not None and refine.count > 0:
+            rows, scales = refine.rows, refine.scales
+        scan_key = ("ivf", self.dtype, self.metric, min(nprobe, self.nlist),
+                    self.by_residual,
+                    self.refine_factor if rows is not None else 0)
+        return scan_key, (self._dcent, self._dblocks, self._dids,
+                          self._dscale, rows, scales)
+
+    def scan_staged(self, mask: Optional[np.ndarray] = None) -> tuple:
+        """``(penalty [nlist, cap] f32, fills [nlist] int32)``: validity &
+        the predicate ``mask`` in block layout (``device_block_mask``,
+        cached per mask until the next mutation) and the cluster fills."""
+        return self._penalty(mask), self._device_fills()
 
     # -- persistence ---------------------------------------------------------
 

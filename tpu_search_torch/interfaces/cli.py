@@ -1,5 +1,6 @@
-"""Command line for the port: ``index``, ``search``, ``stats`` and
-``optimize``.
+"""Command line for the port: ``index``, ``search``, ``stats``,
+``optimize`` and the watcher daemon's ``watch``, ``start``, ``stop`` and
+``status``.
 
 Same flags and output as those commands of the JAX package's CLI
 (``tpu_search/interfaces/cli.py``), on ``argparse``::
@@ -8,9 +9,14 @@ Same flags and output as those commands of the JAX package's CLI
     python -m tpu_search_torch.interfaces.cli --data-dir D search "query" --json
     python -m tpu_search_torch.interfaces.cli --data-dir D stats
     python -m tpu_search_torch.interfaces.cli --data-dir D optimize
+    python -m tpu_search_torch.interfaces.cli --data-dir D start --claude-dir P
+    python -m tpu_search_torch.interfaces.cli --data-dir D status
+    python -m tpu_search_torch.interfaces.cli --data-dir D stop
 
 ``--device`` (or ``CLAUDE_SEARCH_DEVICE``) picks ``cuda`` (default) or
-``cpu``.  ``search --rerank`` reorders the top ``top_k * --rerank-factor``
+``cpu``, for the daemon too.  While a daemon runs on the data directory,
+``search`` and ``stats`` go through its warm query server.  ``--http-port``
+is refused: the HTTP front is not ported yet.  ``search --rerank`` reorders the top ``top_k * --rerank-factor``
 with the cross-encoder ``--rerank-model`` (defaults:
 ``CLAUDE_SEARCH_RERANK``, ``_RERANK_FACTOR``, ``_RERANK_MODEL``).
 """
@@ -201,6 +207,64 @@ def cmd_optimize(engine: SearchEngine, args) -> None:
         print("   • Index saved")
 
 
+def cmd_watch(args) -> None:
+    """Watch for changes and index them: in the foreground, or with
+    ``--daemon`` as the background daemon (``start``)."""
+    if args.daemon:
+        cmd_start(args)
+        return
+    from .watcher import run_watcher
+
+    print("🔍 Starting file watcher...")
+    print(f"   • Watching: {args.claude_dir}")
+    print(f"   • Data directory: {resolve_data_dir(args.data_dir)}")
+    print(f"   • Debounce interval: {args.debounce} seconds")
+    print("   • Press Ctrl+C to stop")
+    print()
+    try:
+        run_watcher(data_dir=args.data_dir, claude_dir=args.claude_dir,
+                    debounce_seconds=args.debounce, use_gpu=args.gpu,
+                    http_port=args.http_port, device=args.device)
+    except KeyboardInterrupt:
+        print("\n👋 File watcher stopped")
+    except Exception as exc:
+        print(f"❌ Watcher failed: {exc}")
+        sys.exit(1)
+
+
+def cmd_start(args) -> None:
+    """Start the watcher daemon (a fresh interpreter)."""
+    from .watcher import start_daemon
+
+    start_daemon(data_dir=args.data_dir, claude_dir=args.claude_dir,
+                 debounce_seconds=args.debounce, use_gpu=args.gpu,
+                 http_port=args.http_port, device=args.device)
+
+
+def cmd_stop(args) -> None:
+    from .watcher import stop_daemon
+
+    stop_daemon(data_dir=args.data_dir)
+
+
+def cmd_status(args) -> None:
+    from .watcher import daemon_status
+
+    daemon_status(data_dir=args.data_dir)
+
+
+def _watch_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--claude-dir", default="~/.claude/projects",
+                   help="Claude projects directory to watch")
+    p.add_argument("--debounce", type=int, default=5,
+                   help="Debounce interval in seconds (default: 5)")
+    p.add_argument("--gpu", action="store_true",
+                   help="Kept for the JAX CLI's flags (the device is "
+                   "--device)")
+    p.add_argument("--http-port", type=int, default=None,
+                   help="Refused: the HTTP search API is not ported yet")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="tpu_search_torch",
@@ -253,6 +317,22 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("optimize", help="Run storage maintenance: vacuum, "
                        "compact, rebalance, tune nprobe")
     p.set_defaults(func=cmd_optimize)
+
+    # The daemon commands take no engine: the daemon builds its own.
+    p = sub.add_parser("watch", help="Watch Claude conversations for "
+                       "changes and auto-index them")
+    _watch_flags(p)
+    p.add_argument("--daemon", action="store_true",
+                   help="Run as background daemon")
+    p.set_defaults(func=cmd_watch, engine=False)
+    p = sub.add_parser("start", help="Start the file watcher daemon")
+    _watch_flags(p)
+    p.set_defaults(func=cmd_start, engine=False)
+    p = sub.add_parser("stop", help="Stop the file watcher daemon")
+    p.set_defaults(func=cmd_stop, engine=False)
+    p = sub.add_parser("status", help="Check the status of the file "
+                       "watcher daemon")
+    p.set_defaults(func=cmd_status, engine=False)
     return parser
 
 
@@ -262,6 +342,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
     )
     args = build_parser().parse_args(argv)
+    if not getattr(args, "engine", True):
+        args.func(args)
+        return
     engine = SearchEngine(resolve_data_dir(args.data_dir), device=args.device)
     args.func(engine, args)
 

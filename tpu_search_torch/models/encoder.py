@@ -35,6 +35,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -103,6 +104,10 @@ class EmbeddingGenerator:
         self._device: Optional[torch.device] = None
         self._int8_ffn = False
         self.int8_gate: Dict[str, Any] = {}
+        # The native WordPiece handle encodes into one shared buffer, so
+        # one thread tokenizes at a time (the warm server's dispatch
+        # thread and an in-process search may both tokenize).
+        self._tokenize_lock = threading.Lock()
 
     # -- model loading -------------------------------------------------------
 
@@ -300,12 +305,49 @@ class EmbeddingGenerator:
         prompt = self._prompt_for("query")
         return self._encode_texts([prompt + text if prompt else text])[0]
 
+    def pack_batch(
+        self, texts: Sequence[str]
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Tokenize queries (the query-side prompt applies) into
+        ``(ids int64, mask int32)`` host arrays, the sequence padded to its
+        ``SEQ_BUCKETS`` bucket and the rows to their ``BATCH_BUCKETS``
+        bucket; pad rows carry one live token, so the masked mean never
+        divides by zero.  The fused query path ships these, not
+        embeddings, to the device."""
+        prompt = self._prompt_for("query")
+        if prompt:
+            texts = [prompt + t for t in texts]
+        encoded = self._tokenize(texts)
+        seq_pad = bucket_size(max(len(s) for s in encoded), SEQ_BUCKETS)
+        batch_pad = bucket_size(len(encoded), BATCH_BUCKETS)
+        ids = np.full((batch_pad, seq_pad), self._tokenizer.pad_id,
+                      dtype=np.int64)
+        mask = np.zeros((batch_pad, seq_pad), dtype=np.int32)
+        for row, seq in enumerate(encoded):
+            ids[row, : len(seq)] = seq
+            mask[row, : len(seq)] = 1
+        mask[len(encoded):, 0] = 1
+        return ids, mask
+
+    def _tokenize(self, texts: Sequence[str]) -> List[List[int]]:
+        with self._tokenize_lock:
+            return [self._tokenizer.encode(t, self.config.max_seq_length)
+                    for t in texts]
+
+    def fused_parts(self) -> Optional[tuple]:
+        """``(model, device, normalize, int8_ffn)`` for composing the
+        encoder into a larger program (the fused query path), the int8 FFN
+        as the load-time gate resolved it.  None for the hashing encoder:
+        it runs on the host, so there is nothing to fuse."""
+        if self._hash_encoder is not None or self._model is None:
+            return None
+        return (self._model, self._device,
+                self.config.normalize_embeddings, self._int8_ffn)
+
     def _encode_batches(self, texts: Sequence[str]):
         """Tokenize, order longest-first, encode each bucketed batch.
         Returns ``[(batch_idx, n_live, [Bpad, dim] f32 device tensor)]``."""
-        encoded = [
-            self._tokenizer.encode(t, self.config.max_seq_length) for t in texts
-        ]
+        encoded = self._tokenize(texts)
         order = sorted(
             range(len(encoded)), key=lambda i: len(encoded[i]), reverse=True
         )

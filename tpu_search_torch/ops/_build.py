@@ -16,7 +16,9 @@ or asks it for ``cuTensorMapEncodeTiled``.
 
 Each wrapper counts its own launches in :data:`LAUNCHES`, one key a kernel
 of :data:`KERNELS`, so a run can show that the main path went through the
-kernels.  Each kernel's export is in the library of its name, except
+kernels.  A CUDA graph replay (``api/fused.py``) launches without calling
+the wrappers: it adds the counts its capture recorded, and the capture,
+which launches nothing, leaves the counts as they were.  Each kernel's export is in the library of its name, except
 ``int8_ffn_in``'s, ``int8_ffn_out``'s and ``int8_ffn_fused``'s, which run
 on ``int8_ffn_ln``'s GEMM loops and are in that library
 (``ops/int8_gemm._LIBRARY``).

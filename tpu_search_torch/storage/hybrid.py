@@ -9,6 +9,12 @@ package's, so one data directory serves both packages.  Filters compile
 to a predicate mask fused into the scan; hits are hydrated with one
 batched SQL query.
 
+The warm server's hits hydrate through :meth:`HybridStorage.hydrate_wire`
+into pre-serialized result fragments, cached per vector id
+(``CLAUDE_SEARCH_WIRE_CACHE`` entries, FIFO) until ``_data_version``
+moves: every write and every maintenance step that moves index buffers
+(compact, rebalance, calibration, growth) bumps it.
+
 Not ported yet, and refused rather than ignored: product quantization on
 IVF (``storage_dtype="pq"`` with ``index_type="ivf"``), OPQ
 (``pq_opq``) and sharding over several devices.
@@ -16,8 +22,11 @@ IVF (``storage_dtype="pq"`` with ``index_type="ivf"``), OPQ
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
+import os
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 from time import monotonic
@@ -40,7 +49,7 @@ from .metadata import MetadataStore
 logger = logging.getLogger(__name__)
 
 __all__ = ["StorageConfig", "SearchConfig", "SearchResult", "HybridStorage",
-           "resolve_nprobe"]
+           "normalize_queries", "resolve_nprobe"]
 
 
 @dataclass
@@ -86,6 +95,13 @@ class SearchConfig:
     # IVF probe count; 0 = auto: the index's measured-recall nprobe_hint,
     # else 8.
     nprobe: int = 0
+
+
+def normalize_queries(queries: torch.Tensor) -> torch.Tensor:
+    """Unit rows, ``q / (|q| + 1e-8)``: the query normalize of both search
+    paths (the classic scan on the host, the fused program on the
+    index's device), one op so that the two agree on the CPU."""
+    return queries / (torch.linalg.norm(queries, dim=1, keepdim=True) + 1e-8)
 
 
 def resolve_nprobe(cfg_nprobe: int, index: object) -> int:
@@ -143,6 +159,15 @@ class HybridStorage:
         self._device: Optional[torch.device] = None
         self._last_save = 0.0
         self._initialized = False
+        # vec_id -> pre-serialized result JSON (hydrate_wire); any mutation
+        # bumps _data_version and the cache clears on the next hydrate.
+        self._data_version = 0
+        self._wire_cache: Dict[int, bytes] = {}
+        self._wire_cache_version = -1
+        # One read of the shared SQLite connection at a time: concurrent
+        # reads on one connection can come back short, and the warm
+        # server hydrates on several finisher threads.
+        self._read_lock = threading.Lock()
         self.timer = PhaseTimer()
         self.total_chunks = 0
         self.embedding_dim = self.config.embedding_dim
@@ -228,6 +253,7 @@ class HybridStorage:
         self.config.embedding_dim = embedding_dim
         self.embedding_dim = embedding_dim
         self.index = self._build_index()
+        self._data_version += 1
 
     def initialize(self) -> None:
         """Open SQLite, create or load the index, rebuild the id maps."""
@@ -279,6 +305,7 @@ class HybridStorage:
         self.chunk_id_to_faiss_id = fwd
         self.faiss_id_to_chunk_id = rev
         self.total_chunks = len(fwd)
+        self._data_version += 1
 
     def _recover_missing_vectors(self) -> None:
         """Metadata rows whose vectors the loaded index lacks (a crash
@@ -309,6 +336,7 @@ class HybridStorage:
         the normalize and the index append."""
         if not chunks:
             return
+        self._data_version += 1
         if embeddings is None:
             with_emb = [c for c in chunks if c.embedding is not None]
             if not with_emb:
@@ -366,6 +394,7 @@ class HybridStorage:
             return False
         ran = bool(maybe(skew_threshold=self.config.ivf_rebalance_skew))
         if ran:
+            self._data_version += 1
             stats = self.index.padding_stats()
             self.logger.info(
                 "IVF layout skew exceeded %.1fx mean fill; rebalanced "
@@ -393,6 +422,7 @@ class HybridStorage:
                 if at and 0.75 * at <= live <= 1.25 * at:
                     return False
         report = calibrate(target_recall=self.config.pq_target_recall)
+        self._data_version += 1
         if report.get("calibrated"):
             self.logger.info(
                 "Quantization calibrated: deployed recall@10 %.3f (target "
@@ -456,9 +486,7 @@ class HybridStorage:
         if self.index is None or self.index.ntotal == 0 or nq == 0:
             return [[] for _ in range(nq)]
         if self.config.normalize_embeddings:
-            queries = queries / (
-                np.linalg.norm(queries, axis=1, keepdims=True) + 1e-8
-            )
+            queries = normalize_queries(torch.from_numpy(queries)).numpy()
         mask = self.filter_mask(filters)
         if mask is not None and not mask.any():
             return [[] for _ in range(nq)]
@@ -472,7 +500,9 @@ class HybridStorage:
     ) -> Optional[np.ndarray]:
         if self.index is None:
             return None
-        return mask_for_filters(self.meta._conn(), filters, self.index.ntotal)
+        with self._read_lock:
+            return mask_for_filters(self.meta._conn(), filters,
+                                    self.index.ntotal)
 
     def hydrate_results(
         self,
@@ -481,7 +511,7 @@ class HybridStorage:
         config: Optional[SearchConfig] = None,
     ) -> List[List[SearchResult]]:
         cfg = config or SearchConfig()
-        rows = self.meta.rows_for_vec_ids(
+        rows = self._rows_for_vec_ids(
             np.unique(all_ids[all_ids >= 0]).tolist()
         )
         out: List[List[SearchResult]] = []
@@ -514,7 +544,92 @@ class HybridStorage:
             out.append(results)
         return out
 
+    def _rows_for_vec_ids(self, vec_ids: List[int]) -> Dict[int, Dict]:
+        with self._read_lock:
+            return self.meta.rows_for_vec_ids(vec_ids)
+
+    # Fragment-cache bound: fragments average ~0.5-2 KB (the chunk text
+    # dominates), so 128k entries hold ~100-250 MB of host RAM of hot
+    # result rows.  FIFO eviction (dicts keep insertion order).
+    WIRE_CACHE_MAX = int(
+        os.environ.get("CLAUDE_SEARCH_WIRE_CACHE", "131072")
+    )
+
+    def hydrate_wire(
+        self,
+        all_scores: np.ndarray,
+        all_ids: np.ndarray,
+        config: Optional[SearchConfig] = None,
+    ) -> List[List[bytes]]:
+        """Scan output -> per-query lists of pre-serialized result JSON
+        fragments (bytes), the warm server's response fast path.  Each
+        result row serializes once into a cached fragment (everything but
+        the similarity, spliced per hit), so a response assembles by byte
+        joins.  The same hits and keys as :meth:`hydrate_results` +
+        ``format_search_result`` (the similarity leads, which JSON
+        clients cannot observe).  Any storage mutation bumps
+        ``_data_version`` and the cache clears here."""
+        cfg = config or SearchConfig()
+        wanted = [int(v) for v in np.unique(all_ids[all_ids >= 0])]
+        # Under the read lock: the SQLite read, and the cache, which the
+        # server's finisher threads fill and evict concurrently (each
+        # takes its own tails, so another's eviction cannot drop a hit).
+        with self._read_lock:
+            cache = self._wire_cache
+            if self._wire_cache_version != self._data_version:
+                cache.clear()
+                self._wire_cache_version = self._data_version
+            need = [v for v in wanted if v not in cache]
+            rows = self.meta.rows_for_vec_ids(need) if need else {}
+            for vid, row in rows.items():
+                meta = json.loads(row["metadata"]) if row["metadata"] else {}
+                static = {
+                    "chunk_id": row["id"],
+                    "text": row["text"],
+                    "metadata": meta,
+                    "project": meta.get("project_name", "unknown"),
+                    "session": meta.get("session_id", "unknown"),
+                    "timestamp": meta.get("timestamp", "unknown"),
+                    "has_code": meta.get("has_code", False),
+                }
+                # [1:] drops the opening brace; the similarity splice
+                # below opens the object again.
+                cache[int(vid)] = json.dumps(
+                    static, separators=(",", ":")
+                )[1:].encode("utf-8")
+            tails = {v: cache[v] for v in wanted if v in cache}
+            if len(cache) > self.WIRE_CACHE_MAX:
+                drop = len(cache) - self.WIRE_CACHE_MAX
+                for key in list(itertools.islice(iter(cache), drop)):
+                    del cache[key]
+
+        l2 = self.index is not None and self.index.metric == "l2"
+        threshold = cfg.similarity_threshold
+        out: List[List[bytes]] = []
+        for qi in range(all_scores.shape[0]):
+            frags: List[bytes] = []
+            for score, vec_id in zip(all_scores[qi], all_ids[qi]):
+                if vec_id < 0:
+                    continue
+                sim = -float(score) if l2 else float(score)
+                if not l2 and sim < threshold:
+                    continue
+                tail = tails.get(int(vec_id))
+                if tail is None:
+                    continue  # the row went meanwhile: skip, as hydrate does
+                frags.append(
+                    b'{"similarity":%s,%s' % (repr(sim).encode("ascii"), tail)
+                )
+                if len(frags) >= cfg.top_k:
+                    break
+            out.append(frags)
+        return out
+
     # -- point reads ---------------------------------------------------------
+
+    def _get_chunk_data(self, chunk_id: str) -> Optional[Dict[str, Any]]:
+        """The chunk's SQLite row (the warm server's ``get_chunk`` op)."""
+        return self.meta.get_chunk_row(chunk_id)
 
     @staticmethod
     def _row_to_chunk(row: Dict[str, Any]) -> Chunk:
@@ -544,6 +659,7 @@ class HybridStorage:
             removed = self.meta.delete_chunks_for_files(file_paths)
         if not removed:
             return 0
+        self._data_version += 1
         vec_ids = []
         for chunk_id, vec_id in removed:
             self.chunk_id_to_faiss_id.pop(chunk_id, None)
@@ -557,6 +673,7 @@ class HybridStorage:
         return len(removed)
 
     def clear_all_data(self) -> None:
+        self._data_version += 1
         self.meta.clear()
         if self.index is not None:
             self.index.clear()
@@ -601,6 +718,7 @@ class HybridStorage:
                 if removed:
                     self.logger.info("Tombstoned %d orphaned vectors", removed)
         if self.index is not None and self.index.live != self.index.ntotal:
+            self._data_version += 1
             mapping = self.index.compact()
             self.meta.update_vec_ids(mapping)
             self._rebuild_id_mappings()
