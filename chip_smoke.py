@@ -394,7 +394,8 @@ def short_kernel_name(name: str) -> str:
 # multiply with wgmma (GMMA), and whether any mma.sync int8 product (IMMA)
 # in the source fails the build: the int8 products must be wgmma's alone.
 REDESIGNED = ("mpnet_attention", "mpnet_attention_bhsd", "int8_gemm",
-              "int8_ffn_ln", "flash_attention", "ivf_topk", "ivf_topk_int8",
+              "int8_ffn_ln", "flash_attention", "flat_topk", "ivf_topk",
+              "ivf_topk_int8",
               "ivf_topk_int4", "flat_topk_int4", "flat_topk_int8",
               "int8_ffn_in", "int8_ffn_out", "int8_ffn_fused")
 SASS_RULES = {
@@ -409,8 +410,8 @@ SASS_RULES = {
 # csrc/ivf_digit_scan.cuh; the IVF int8 / int4 scans, and the flat int4
 # and int8 row scans at Q > 8) multiply with wgmma (GMMA) at Q > 8 and with
 # mma.sync (IMMA) at Q <= 8 (the flat scans there: digit_partial, which
-# the int8 word layout also runs above); the bf16 IVF scan
-# (csrc/ivf_float_scan.cuh) with wgmma at its query block of 32 and with
+# the int8 word layout also runs above); the bf16 IVF and flat scans
+# (csrc/ivf_float_scan.cuh) with wgmma at their query block of 32 and with
 # mma.sync (HMMA) at 16.
 DIGIT_SASS_RULES = {
     name: {"GMMA": (f"ivf_digit_scan<{tiles}, 32, IvfSource>",),
@@ -425,8 +426,12 @@ DIGIT_SASS_RULES["flat_topk_int8"] = {
     "GMMA": ("ivf_digit_scan<RowTiles, 32, FlatSource>",),
     "IMMA": ("digit_partial<RowStage, 8>", "digit_partial<WordStage, 8>",
              "digit_partial<WordStage, 32>")}
-DIGIT_SASS_RULES["ivf_topk"] = {"GMMA": ("ivf_float_scan<Bf16Rows, 32>",),
-                                "HMMA": ("ivf_float_scan<Bf16Rows, 16>",)}
+DIGIT_SASS_RULES["ivf_topk"] = {
+    "GMMA": ("ivf_float_scan<Bf16Rows, 32, IvfSource>",),
+    "HMMA": ("ivf_float_scan<Bf16Rows, 16, IvfSource>",)}
+DIGIT_SASS_RULES["flat_topk"] = {
+    "GMMA": ("ivf_float_scan<Bf16Rows, 32, FlatSource>",),
+    "HMMA": ("ivf_float_scan<Bf16Rows, 16, FlatSource>",)}
 MMA_KINDS = ("GMMA", "IMMA", "HMMA")
 
 
@@ -576,81 +581,138 @@ def check_build(logs: dict) -> None:
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
-def check_flat_topk(results: dict) -> None:
+def flat_bound(n: int, d: int, q: int, k: int, bf16: bool = True):
+    """The flat bf16 / f32 scan's bound: the rows and penalties, the f32
+    queries read once and the top k written, against its products."""
+    return bound(n * (d * (2 if bf16 else 4) + 4) + q * d * 4 + q * k * 8,
+                 2 * q * n * d, "bf16" if bf16 else "f32")
+
+
+def unit_rows(gen, n: int, d: int):
+    import torch
+
+    v = torch.randn((n, d), generator=gen, device=gen.device)
+    return v / v.norm(dim=1, keepdim=True)
+
+
+def check_flat_case(tag: str, vecs, penalty, queries, k: int, alpha: float,
+                    iters: int = 20):
+    """The flat scan against its plain version on one case (scores within
+    the tolerance, ids equal outside ties of it, every id scoring what the
+    kernel says, no masked row), then both timed in turns.  Returns
+    ``(max error, kernel ms, plain ms)``."""
     import torch
 
     from tpu_search_torch.ops.flat_topk import flat_topk_scan
-    from tpu_search_torch.ops.topk_scan import flat_topk_plain, row_penalty
+    from tpu_search_torch.ops.topk_scan import flat_topk_plain
+
+    tol = TOL["flat_topk"]
+    ks, ki = flat_topk_scan(vecs, penalty, queries, k, alpha)
+    ps, pi = flat_topk_plain(vecs, penalty, queries, k, alpha)
+    torch.cuda.synchronize()
+    err = float((ks - ps).abs().max())
+    # ids: every kernel id must score what the kernel says it does
+    full = alpha * (queries.to(vecs.dtype).float() @ vecs.float().T)
+    got = (full - penalty[None, :]).gather(1, ki.long().clamp(min=0))
+    id_err = float((got - ks).abs().max())
+    if not bool(torch.isfinite(penalty[ki.long()]).all()):
+        fail(f"flat_topk returned a masked row ({tag})")
+    tie_ok = bool(((ki == pi) | ((ks - ps).abs() <= tol)).all())
+    kms, pms = paired_ms(
+        lambda: flat_topk_scan(vecs, penalty, queries, k, alpha),
+        lambda: flat_topk_plain(vecs, penalty, queries, k, alpha),
+        iters=iters)
+    print(f"[flat_topk] {tag} max_abs_err={err:.3e} id_score_err={id_err:.3e} "
+          f"id_agreement={float((ki == pi).float().mean()):.6f} "
+          f"kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
+    if ks.shape != (queries.shape[0], k) or max(err, id_err) > tol \
+            or not tie_ok:
+        fail(f"flat_topk disagrees at {tag}")
+    return max(err, id_err), kms, pms
+
+
+def check_flat_topk(results: dict) -> None:
+    """The flat bf16 / f32 scan against its plain version: at the fused
+    path's shape (the smoke index's capacity, 32,768 x 768 bf16, its
+    17,024 live rows and the +inf tail, Q 8 and 32, k 10), at 1M x 768
+    (10 % masked; Q 1, 8, 128; k 10, 128, and the scores mode above), on
+    the v1 cases; its prologue against its plain twin; at k <= 128 at most
+    three launches a call."""
+    import torch
+
+    from tpu_search_torch.ops.flat_topk import (
+        flat_float_prep,
+        flat_float_prep_plain,
+        flat_topk_scan,
+    )
+    from tpu_search_torch.ops.topk_scan import row_penalty
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    n, d = 1_000_000, 768
-    vecs = torch.randn((n, d), generator=gen, device=dev)
-    vecs = (vecs / vecs.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    print_scan_config("flat_topk")
+    d, worst = 768, 0.0
+    for q in (1, 8, 33):
+        queries = unit_rows(gen, q, d)
+        for bf16 in (True, False):
+            got, want = flat_float_prep(queries, bf16), \
+                flat_float_prep_plain(queries, bf16)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(got[key], want[key]) if bf16 or
+                        key != "qcast" else got[key] is None for key in want)
+            print(f"[flat_prep] float bf16={bf16} Q={q} equal={equal}",
+                  flush=True)
+            if not equal:
+                fail("the flat float prologue differs from its plain twin")
+
+    # The fused path's shape: the capacity scanned whole, dead slots +inf.
+    cap, live = 32_768, 17_024
+    vecs = unit_rows(gen, cap, d).to(torch.bfloat16)
+    penalty = torch.full((cap,), float("inf"), device=dev)
+    penalty[:live] = 0.0
+    fused = {}
+    for q in (8, 32):
+        queries = unit_rows(gen, q, d)
+        err, kms, pms = check_flat_case(
+            f"fused N={cap} live={live} D={d} Q={q} k=10", vecs, penalty,
+            queries, 10, 1.0, iters=50)
+        worst = max(worst, err)
+        dms, calls = device_breakdown(
+            f"flat_topk fused N={cap} Q={q} k=10",
+            lambda: flat_topk_scan(vecs, penalty, queries, 10))
+        check_launches("flat_topk", calls)
+        bound_ms, by = flat_bound(cap, d, q, 10)
+        print(f"[flat_topk] fused N={cap} Q={q} k=10 device_ms_a_call="
+              f"{dms:.4f} launches_a_call={calls:.1f} bound_ms={bound_ms:.4f} "
+              f"({by}) wrapper_ms={kms:.4f}", flush=True)
+        fused[f"Q{q}"] = {"ms": kms, "plain_ms": pms, "device_ms": dms,
+                          "launches_a_call": calls, "bound_ms": bound_ms}
+    del vecs, penalty
+
+    n = 1_000_000
+    vecs = unit_rows(gen, n, d).to(torch.bfloat16)
     mask = torch.rand((n,), generator=gen, device=dev) >= 0.10
     penalty, alpha = row_penalty(mask, "ip")
-    worst = 0.0
     for q in (1, 8, 128):
-        queries = torch.randn((q, d), generator=gen, device=dev)
-        queries = queries / queries.norm(dim=1, keepdim=True)
+        queries = unit_rows(gen, q, d)
         for k in (10, 128):
-            ks, ki = flat_topk_scan(vecs, penalty, queries, k, alpha)
-            ps, pi = flat_topk_plain(vecs, penalty, queries, k, alpha)
-            torch.cuda.synchronize()
-            err = float((ks - ps).abs().max())
-            # ids: every kernel id must score what the kernel says it does
-            full = queries.to(torch.bfloat16).float() @ vecs.float().T
-            full = full - penalty[None, :]
-            got = full.gather(1, ki.long().clamp(min=0))
-            id_err = float((got - ks).abs().max())
-            if not bool(mask[ki.long()].all()):
-                fail("flat_topk returned a masked row")
-            same = float((ki == pi).float().mean())
-            tie_ok = bool(((ki == pi) | ((ks - ps).abs() <= TOL["flat_topk"])
-                           ).all())
-            kms, pms = paired_ms(
-                lambda: flat_topk_scan(vecs, penalty, queries, k, alpha),
-                lambda: flat_topk_plain(vecs, penalty, queries, k, alpha),
-                iters=20,
-            )
-            print(f"[flat_topk] N={n} D={d} Q={q} k={k} max_abs_err={err:.3e} "
-                  f"id_score_err={id_err:.3e} id_agreement={same:.6f} "
-                  f"kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
-            if err > TOL["flat_topk"] or id_err > TOL["flat_topk"] or not tie_ok:
-                fail(f"flat_topk disagrees at Q={q} k={k}")
-            worst = max(worst, err, id_err)
+            err, kms, pms = check_flat_case(f"N={n} D={d} Q={q} k={k}", vecs,
+                                            penalty, queries, k, alpha)
+            worst = max(worst, err)
+            _, calls = device_breakdown(
+                f"flat_topk N={n} Q={q} k={k}",
+                lambda: flat_topk_scan(vecs, penalty, queries, k, alpha))
+            check_launches("flat_topk", calls)
             if q == 1 and k == 10:
-                # corpus, penalty and queries read once, the top k written
-                bound_ms, by = bound(n * d * 2 + n * 4 + q * d * 2 + q * k * 8,
-                                     2 * q * n * d, "bf16")
+                bound_ms, by = flat_bound(n, d, q, k)
                 # no single PyTorch call masks, scores and selects
                 results["flat_topk"] = {"ms": kms, "plain_ms": pms,
                                         "bound_ms": bound_ms, "bound_by": by,
-                                        "library_ms": None}
-                device_breakdown(
-                    f"flat_topk N={n} Q=1 k=10",
-                    lambda: flat_topk_scan(vecs, penalty, queries, k, alpha))
+                                        "library_ms": None, "fused": fused}
     # k > 128: the scores-only mode, then a stable sort.
     for q, k in ((1, 200), (1, 1000), (8, 1000)):
-        queries = torch.randn((q, d), generator=gen, device=dev)
-        queries = queries / queries.norm(dim=1, keepdim=True)
-        ks, ki = flat_topk_scan(vecs, penalty, queries, k, alpha)
-        ps, pi = flat_topk_plain(vecs, penalty, queries, k, alpha)
-        torch.cuda.synchronize()
-        err = float((ks - ps).abs().max())
-        tie_ok = bool(((ki == pi) | ((ks - ps).abs() <= TOL["flat_topk"])
-                       ).all())
-        kms, pms = paired_ms(
-            lambda: flat_topk_scan(vecs, penalty, queries, k, alpha),
-            lambda: flat_topk_plain(vecs, penalty, queries, k, alpha),
-            iters=5,
-        )
-        print(f"[flat_topk] N={n} D={d} Q={q} k={k} (scores mode) "
-              f"max_abs_err={err:.3e} "
-              f"id_agreement={float((ki == pi).float().mean()):.6f} "
-              f"kernel_ms={kms:.4f} plain_ms={pms:.4f}", flush=True)
-        if ks.shape != (q, k) or err > TOL["flat_topk"] or not tie_ok:
-            fail(f"flat_topk scores mode disagrees at Q={q} k={k}")
+        queries = unit_rows(gen, q, d)
+        err, _, _ = check_flat_case(f"N={n} D={d} Q={q} k={k} (scores mode)",
+                                    vecs, penalty, queries, k, alpha, iters=5)
         worst = max(worst, err)
     del vecs
     worst = max(worst, check_v1_cases())
@@ -1818,18 +1880,18 @@ def build_ivf_indexes(rows, dead):
 def print_scan_config(name: str) -> None:
     """Shared memory and CTAs a multiprocessor of a ring scan's scan CTA
     at each query block and k: the digit scans at 8 (mma.sync) and 32
-    (wgmma); the bf16 scan at 16 (mma.sync) and 32 (wgmma), the f32 scan
-    at 16."""
+    (wgmma); the bf16 scans (IVF and flat) at 16 (mma.sync) and 32
+    (wgmma), the f32 scans at 16."""
     from tpu_search_torch.ops.ring_scan import scan_config
 
-    blocks = {"ivf_topk": [(True, 16), (True, 32), (False, 16)],
-              "flat_topk_int4": [(True, 32)]}.get(name, [(True, 8), (True, 32)])
+    floats = name in ("ivf_topk", "flat_topk")
+    blocks = [(True, 16), (True, 32), (False, 16)] if floats else (
+        {"flat_topk_int4": [(True, 32)]}.get(name, [(True, 8), (True, 32)]))
     for bf16, qb in blocks:
-        head = (int(bf16),) if name == "ivf_topk" else ()
+        head = (int(bf16),) if floats else ()
         for k in (10, 128, 200):
             smem, ctas = scan_config(name, qb, k, *head)
-            kind = "" if name != "ivf_topk" else (
-                " bf16" if bf16 else " f32")
+            kind = "" if not floats else (" bf16" if bf16 else " f32")
             print(f"[{name}] scan{kind} QB={qb} k={k} shared_memory_bytes="
                   f"{smem} ctas_per_multiprocessor={ctas}", flush=True)
 
@@ -2488,9 +2550,7 @@ def scan_both_ways(engine) -> None:
         lambda: flat_scan(scan_key, buffers, staged, queries, 10),
         lambda: flat_scan(scan_key, buffers, staged, queries, 10, n_scan),
         iters=50)
-    bound_ms, by = bound(index.capacity * (index.dim * 2 + 4)
-                         + 8 * index.dim * 2 + 8 * 10 * 8,
-                         2 * 8 * index.capacity * index.dim, "bf16")
+    bound_ms, by = flat_bound(index.capacity, index.dim, 8, 10)
     text = engine.storage.get_chunk_by_id("chunk_000002").text
     engine._fused.clear()
     t0 = time.perf_counter()
@@ -2501,6 +2561,11 @@ def scan_both_ways(engine) -> None:
           f"capacity_bound_ms={bound_ms:.4f} ({by}) "
           f"recapture_ms={engine._fused.last_capture_ms:.1f} "
           f"first_search_ms={first_ms:.1f}", flush=True)
+
+
+# The launches of one flat bf16 / f32 scan call (csrc/flat_topk.cu): the
+# prologue, the ring scan and the tree merge.
+FLAT_SCAN_KERNELS = ("float_prep", "ivf_float_scan", "tree_merge")
 
 
 def profile_replays(engine, texts) -> None:
@@ -2521,10 +2586,13 @@ def profile_replays(engine, texts) -> None:
     split = kernel_split(_by_kernel(events))
     top = " ".join(f"{k}={ms * n / calls:.4f}(n={n // calls})"
                    for k, ms, n in split[:6])
+    scan = " ".join(f"{k}={ms * n / calls:.4f}(n={n / calls:g})"
+                    for k, ms, n in split if k in FLAT_SCAN_KERNELS)
     print(f"[warm] replay profile: wall_ms_a_search={wall * 1e3:.4f} "
           f"device_busy_ms_a_replay={busy * 1e3:.4f} "
           f"device_events_a_replay={len(events) / calls:.1f} "
-          f"kernels_ms_a_replay: {top}", flush=True)
+          f"kernels_ms_a_replay: {top} flat_scan_ms_a_replay: {scan}",
+          flush=True)
 
 
 def run_warm_path(engine, work: Path, total: int) -> dict:
@@ -3407,8 +3475,8 @@ def main() -> None:
             "bound_ms": results[name]["bound_ms"],
             "bound_by": results[name]["bound_by"],
             "library_ms": results[name]["library_ms"],
-            **({"words": results[name]["words"]}
-               if "words" in results[name] else {}),
+            **{key: results[name][key] for key in ("words", "fused")
+               if key in results[name]},
         }
         for name in _build.KERNELS
     ]}

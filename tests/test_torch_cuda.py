@@ -32,7 +32,12 @@ plain twin on the same cases, and the scan within 1e-4 at Q 1 to 128,
 nprobe 8 and 32, k 10, 128 and 200 (both query blocks, both metrics); the
 flat int4 and int8 scans' prologues equal to their plain twins, the int8
 scan exact in both layouts at Q 1 to 130, and every flat digit scan at
-most three launches a call at Q 1, 9 and 33 (torch.profiler).  The
+most three launches a call at Q 1, 9 and 33 (torch.profiler: the most a
+call over three windows after a warm-up, a window with no device event
+left out); the flat bf16 / f32 ring scan within 1e-4 at Q 1 to 128, k 1
+to 128 and its scores mode at 129 and 200, ip and l2, N off the tile grid
+and a capacity with a +inf tail, a planted tie and every row masked, its
+prologue equal to its plain twin and at most three launches a call.  The
 ``[B, S, H]`` attention also at S 512 with hd 32 and on a one-row query,
 with rows padded by -inf and by the f32 min; ``int8_gemm`` and ``int8_ffn_in`` also at
 M, N and K off their wgmma tiles (K 8 and 312); ``int8_ffn_out`` also at M
@@ -441,6 +446,112 @@ def test_flat_topk_scores_mode(dev, dtype, k):
     assert ki[0, :2].tolist() == [2, 9]
 
 
+# (rows, live prefix): N off the 128-row grid, and a capacity whose slots
+# past the live prefix carry +inf (the fused path's scan of the whole
+# capacity, runs that end in all-masked tiles).
+FLAT_SHAPES = [(4133, None), (2944, 1000)]
+
+
+def flat_inputs(dev, n, live, q, dtype, metric, seed, d=96):
+    """Rows with a planted exact tie (row 7 a copy of row 3, query 0 row
+    3), about 30 % masked and ``live`` a live prefix; the penalty and
+    alpha of ``metric``."""
+    from tpu_search_torch.ops.topk_scan import row_penalty, row_sq_norms
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+    v[7] = v[3]
+    mask = torch.rand((n,), generator=gen, device=dev) < 0.7
+    mask[3] = mask[7] = True
+    if live is not None:
+        mask[live:] = False
+    queries = torch.randn((q, d), generator=gen, device=dev)
+    queries[0] = v[3].float()
+    pen, alpha = row_penalty(mask, metric, row_sq_norms(v))
+    return v, pen, queries, alpha
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 10, 128, 129, 200])
+@pytest.mark.parametrize("q", [1, 8, 16, 17, 32, 40, 128])
+def test_flat_topk_ring_kernel(dev, q, k, dtype):
+    """The ring scan (both query blocks of bf16 rows, f32 rows) and its
+    scores mode above k 128 against the plain version, on both shapes of
+    ``FLAT_SHAPES`` (ip on one, l2 on the other, swapped with Q's
+    parity): scores within 1e-4, ids equal outside ties of 1e-4, the
+    planted tie lower id first, no masked row, -inf / -1 past the live
+    rows."""
+    from tpu_search_torch.ops.flat_topk import flat_topk_scan
+    from tpu_search_torch.ops.topk_scan import flat_topk_plain
+
+    metrics = ("ip", "l2") if q % 2 else ("l2", "ip")
+    for (n, live), metric in zip(FLAT_SHAPES, metrics):
+        v, pen, queries, alpha = flat_inputs(dev, n, live, q, dtype, metric,
+                                             n + q + k)
+        ks, ki = flat_topk_scan(v, pen, queries, k, alpha)
+        ps, pi = flat_topk_plain(v, pen, queries, k, alpha)
+        torch.cuda.synchronize()
+        assert ks.shape == (q, k) and ki.shape == (q, k)
+        assert torch.equal(torch.isfinite(ks), torch.isfinite(ps))
+        assert torch.allclose(ks, ps, atol=1e-4, rtol=1e-5, equal_nan=True)
+        assert bool(((ki == pi) | ((ks - ps).abs() <= 1e-4)).all())
+        assert bool((ki[~torch.isfinite(ks)] == -1).all())
+        assert bool(torch.isfinite(pen[ki[ki >= 0].long()]).all())
+        assert ki[0, : min(k, 2)].tolist() == [3, 7][: min(k, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q,k", [(1, 10), (40, 128), (8, 200)])
+def test_flat_topk_every_row_masked(dev, q, k, dtype):
+    """A corpus with every row masked: -inf and id -1 in every slot."""
+    from tpu_search_torch.ops.flat_topk import flat_topk_scan
+
+    v = torch.randn((1000, 64), device=dev).to(dtype)
+    pen = torch.full((1000,), float("inf"), device=dev)
+    s, i = flat_topk_scan(v, pen, torch.randn((q, 64), device=dev), k)
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(s).all()) and bool((i == -1).all())
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("name", sorted(ivf_prep_cases.CASES))
+def test_flat_float_prep_kernel_equals_plain(dev, name, bf16):
+    """The flat bf16 / f32 scan's prologue kernel against its plain twin,
+    bit for bit, on the queries of the IVF prologue cases."""
+    from tpu_search_torch.ops.flat_topk import (
+        flat_float_prep,
+        flat_float_prep_plain,
+    )
+
+    queries = torch.from_numpy(ivf_prep_cases.make_case(name)[2])
+    want = flat_float_prep_plain(queries, bf16)
+    got = flat_float_prep(queries.to(dev), bf16)
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        if value is None:
+            assert got[key] is None
+        else:
+            assert torch.equal(got[key].cpu(), value), key
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q", [1, 9, 33])
+def test_flat_topk_launches_three_kernels(dev, q, dtype):
+    """The flat bf16 / f32 scan at k <= 128 is one C call of three
+    launches: the prologue, the ring scan and the tree merge, no PyTorch
+    op between them."""
+    from tpu_search_torch.ops.flat_topk import flat_topk_scan
+
+    v, pen, queries, alpha = flat_inputs(dev, 20000, 17000, q, dtype, "ip",
+                                         q)
+    per_call, names = launches_a_call(
+        lambda: flat_topk_scan(v, pen, queries, 10, alpha))
+    assert per_call <= 3
+    for kernel in ("float_prep", "ivf_float_scan", "tree_merge"):
+        assert any(kernel in name for name in names), kernel
+
+
 # (n, q, k, masked rows): odd N, several query blocks, a masked row range
 # longer than a CTA's range (all-masked CTAs), every row masked.
 QUANT_CASES = [
@@ -501,22 +612,30 @@ def test_int8_kernel(dev, words, n, q, k, masked):
         assert got[1][0, :2].tolist() == [3, 7]
 
 
-def launches_a_call(fn, calls=4):
-    """Device events a call of ``fn`` (torch.profiler), and the kernels'
-    names."""
+def launches_a_call(fn, calls=4, windows=3):
+    """Device events a call of ``fn`` (torch.profiler), the most over
+    ``windows`` windows of ``calls`` calls after a warm-up, and the
+    kernels' names.  A window in which the profiler recorded no device
+    event (it happens now and then) is left out; at least one must record
+    some."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from tpu_search_torch.utils.device_profile import _device_events
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    return len(events) / calls, {e.name for e in events}
+    counts, names = [], set()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            counts.append(len(events) / calls)
+            names |= {e.name for e in events}
+    assert counts, "no profiler window recorded a device event"
+    return max(counts), names
 
 
 @pytest.mark.parametrize("layout", ["int8 rows", "int8 words", "int4"])

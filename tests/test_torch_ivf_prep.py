@@ -14,6 +14,9 @@
   tree, then into the running list, ordered by score descending and flat
   slot ascending), equals ``_select`` over the whole schedule on planted
   ties.
+- Every scan's group selection, ``warp_merge`` of ``csrc/topk_select.cuh``
+  modelled lane for lane (bitonic sort, then each side's rank in the
+  other), gives the list that one insertion a candidate gives.
 - The bf16 / f32 scan's prologue twin ``ivf_float_prep_plain`` against
   JAX's ``build_probe_schedule`` under ``jax.jit`` and the bf16 cast of
   the queries, bit for bit, with the member lists of its query blocks;
@@ -118,6 +121,79 @@ def merge_model(lists, k):
             level = merged + level[len(merged) * 2:]
         run = [merge_path_at(run, level[0], k, i) for i in range(k)]
     return run
+
+
+def warp_merge_model(lst, cands, live):
+    """The kernel's warp_merge (``csrc/topk_select.cuh``) lane for lane:
+    the 32 candidates (dead ones as (-inf, INT_MAX)) through the bitonic
+    network, then each candidate's and each listed entry's place by the
+    same binary searches."""
+    k = len(lst)
+    c = [x if ok else (float("-inf"), 0x7FFFFFFF)
+         for x, ok in zip(cands, live)]
+    size = 2
+    while size <= 32:
+        stride = size // 2
+        while stride:
+            nxt = list(c)
+            for lane in range(32):
+                other = c[lane ^ stride]
+                best_here = ((lane & size) == 0) == ((lane & stride) == 0)
+                if (ranks_before(other, c[lane]) == best_here
+                        and other != c[lane]):
+                    nxt[lane] = other
+            c = nxt
+            stride //= 2
+        size *= 2
+    out = [None] * (k + 32)
+    for lane in range(32):
+        before, step = 0, 64
+        while step:
+            if before + step <= k and ranks_before(lst[before + step - 1],
+                                                   c[lane]):
+                before += step
+            step //= 2
+        if before < k and ranks_before(lst[before], c[lane]):
+            before += 1
+        out[lane + before] = c[lane]
+    for j in range(k):
+        n, step = 0, 16
+        while step:
+            if ranks_before(c[n + step - 1], lst[j]):
+                n += step
+            step //= 2
+        if n < 32 and ranks_before(c[n], lst[j]):
+            n += 1
+        out[j + n] = lst[j]
+    return out[:k]
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 32, 100, 128])
+@pytest.mark.parametrize("fill", ["full", "partial", "empty"])
+def test_warp_merge_equals_insertion(k, fill):
+    """The scans' batch selection (``warp_merge``, where more than three of
+    a group of 32 beat the gate) gives the list the one-at-a-time
+    insertion gives: the k best of the list and the candidates that beat
+    its k-th best, by score descending and id ascending, on planted ties
+    between candidates and with the list."""
+    rng = np.random.default_rng(k)
+    for trial in range(20):
+        n_listed = {"full": k, "partial": k // 2, "empty": 0}[fill]
+        scores = np.round(rng.standard_normal(n_listed), 1).tolist()
+        listed = sorted(zip(scores, rng.choice(1000, n_listed,
+                                              replace=False).tolist()),
+                        key=lambda e: (-e[0], e[1]))
+        lst = listed + [(float("-inf"), -1)] * (k - n_listed)
+        cs = np.round(rng.standard_normal(32) + 0.5, 1)
+        cs[trial % 32] = lst[0][0]  # a tie with the best listed entry
+        cands = list(zip(cs.tolist(), range(1000, 1032)))
+        live = [ranks_before(x, lst[-1]) and x[0] > lst[-1][0]
+                for x in cands]
+        if sum(live) <= 3:
+            continue
+        want = sorted(lst + [x for x, ok in zip(cands, live) if ok],
+                      key=lambda e: (-e[0], e[1]))[:k]
+        assert warp_merge_model(lst, cands, live) == want
 
 
 def _bits(a):

@@ -406,32 +406,36 @@ def test_flat_int8_sass_rule(drop, imma_free, faults):
 
 
 FLOAT_SASS = """
-\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_8Bf16RowsELi32EEEvPKh
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_8Bf16RowsELi32ENS_SOURCEEEEvPKh
         /*0100*/                   HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], R24 ;
-\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_8Bf16RowsELi16EEEvPKh
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_8Bf16RowsELi16ENS_SOURCEEEEvPKh
         /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
-\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_7F32RowsELi16EEEvPKh
+\t\tFunction : _ZN41_GLOBAL__N__14ivf_float_scanINS_7F32RowsELi16ENS_SOURCEEEEvPKh
         /*0100*/                   FFMA R4, R8, R12, R4 ;
 """
 
 
+@pytest.mark.parametrize("kernel,source", [("ivf_topk", "9IvfSource"),
+                                           ("flat_topk", "10FlatSource")])
 @pytest.mark.parametrize("text,faults", [
     (FLOAT_SASS, []),
     (FLOAT_SASS.replace("HGMMA.64x32x16", "HMMA.16816"), ["holds no GMMA"]),
     (FLOAT_SASS.replace("HMMA.16816.F32.BF16 R4", "FFMA R4"),
      ["holds no HMMA"]),
 ])
-def test_float_sass_rule(text, faults):
-    """The bf16 IVF scan's rule: wgmma at query block 32, mma.sync (HMMA)
-    at 16; the f32 scan's FMAs need no rule."""
-    counts = chip_smoke.sass_counts(text)
+def test_float_sass_rule(text, faults, kernel, source):
+    """The bf16 IVF and flat scans' rule (one kernel template over its
+    source of tiles): wgmma at query block 32, mma.sync (HMMA) at 16; the
+    f32 scan's FMAs need no rule."""
+    counts = chip_smoke.sass_counts(text.replace("SOURCE", source))
     by_name = {}
     for mangled, c in counts.items():
         rows = "Bf16Rows" if "Bf16Rows" in mangled else "F32Rows"
         qb = re.search(r"ELi(\d+)E", mangled).group(1)
-        by_name[f"ivf_float_scan<{rows}, {qb}>"] = c
+        src = re.search(r"ENS_\d+(\w+?Source)E", mangled).group(1)
+        by_name[f"ivf_float_scan<{rows}, {qb}, {src}>"] = c
     got = chip_smoke.mma_faults(by_name,
-                                chip_smoke.DIGIT_SASS_RULES["ivf_topk"])
+                                chip_smoke.DIGIT_SASS_RULES[kernel])
     assert len(got) == len(faults)
     for fault, want in zip(got, faults):
         assert want in fault

@@ -4,7 +4,7 @@ turns, and check they agree.
     git archive <commit> tpu_search_torch | tar -x -C <dir>
     python -m tpu_search_torch.benchmarks.compare_trees --other NAME=<dir>
         [--other NAME=<dir> ...] [--family scans|int8 ...] [--case NAME ...]
-        [--no-bench] [--out FILE]
+        [--no-bench] [--out FILE]      (families: flat, scans, int8)
 
 Run from the repository's root: it reuses ``chip_smoke.py``'s corpora,
 operands and timers.  Each ``<dir>`` holds another tree's
@@ -13,8 +13,13 @@ copied under ``build/compare/<NAME>`` as the package
 ``tpu_search_torch_<NAME>`` and builds its own kernels there, every tree's
 side by side.
 
-Families (``--family``, both by default):
+Families (``--family``, all by default):
 
+- ``flat``: ``flat_topk_scan`` over bf16 and f32 rows (ip): at the fused
+  path's shape (the smoke index's capacity of 32,768 slots x 768, its
+  17,024 live rows and the +inf tail, Q 8 and 32, k 10) and at 1M x 768,
+  10 % masked, Q 1, 8 and 128, k 10, 128 and 200; within 1e-4, ids equal
+  outside near-ties.
 - ``scans``, at ``chip_smoke.py``'s shapes (1M x 768, nlist 1024, its IVF
   corpus and indexes; the flat int4 corpus of its quantized phase):
   ``ivf_topk`` (bf16 at nprobe 8 and 32, f32 at 32) and the IVF int8 /
@@ -189,6 +194,37 @@ def unit_corpus(n: int, d: int, gen):
     return v / v.norm(dim=1, keepdim=True)
 
 
+def run_flat(pkgs: dict, run: Runner) -> None:
+    import torch
+
+    scans = modules(pkgs, "ops.flat_topk")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    d = 768
+    cap, live = 32_768, 17_024
+    fused = unit_corpus(cap, d, gen)
+    fused_pen = torch.full((cap,), float("inf"), device="cuda")
+    fused_pen[:live] = 0.0
+    n = 1_000_000
+    big = unit_corpus(n, d, gen)
+    pen = torch.where(torch.rand((n,), generator=gen, device="cuda") >= 0.10,
+                      0.0, float("inf"))
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases = [(fused.to(dtype), fused_pen, cap, q, 10) for q in (8, 32)]
+        rows = big.to(dtype)
+        cases += [(rows, pen, n, q, k) for q in (1, 8, 128)
+                  for k in (10, 128, 200)]
+        for vecs, penalty, rows_n, q, k in cases:
+            queries = unit_corpus(q, d, gen)
+            live_tag = f" live={live}" if rows_n == cap else ""
+            run(f"flat_topk_scan {tag} N={rows_n}{live_tag} Q={q} k={k}",
+                {tree: (lambda s=s, vecs=vecs, penalty=penalty,
+                        queries=queries, k=k:
+                        s.flat_topk_scan(vecs, penalty, queries, k))
+                 for tree, s in scans.items()}, near)
+        del rows, cases
+
+
 def run_flat_int4(pkgs: dict, run: Runner) -> None:
     import torch
 
@@ -295,7 +331,7 @@ def main(argv=None) -> None:
     parser.add_argument("--other", action="append", required=True,
                         metavar="NAME=DIR")
     parser.add_argument("--family", action="append",
-                        choices=("scans", "int8"))
+                        choices=("flat", "scans", "int8"))
     parser.add_argument("--case", action="append", default=[])
     parser.add_argument("--no-bench", action="store_true")
     parser.add_argument("--out", type=Path, default=None)
@@ -330,7 +366,9 @@ def main(argv=None) -> None:
         list(pool.map(lambda build: build.build_all(),
                       modules(pkgs, "ops._build").values()))
     run = Runner(emit, args.case)
-    families = args.family or ["scans", "int8"]
+    families = args.family or ["flat", "scans", "int8"]
+    if "flat" in families:
+        run_flat(pkgs, run)
     if "scans" in families:
         run_ivf(pkgs, run)
         run_flat_int4(pkgs, run)

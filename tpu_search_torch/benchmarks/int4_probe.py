@@ -56,7 +56,7 @@ import torch
 
 from ..devices.capability import resolve_device
 from ..ops import _build
-from ..ops.flat_topk import c_entry, check_scan_args
+from ..ops.ring_scan import c_entry, check_scan_args
 from ..ops.flat_topk_int4 import flat_topk_int4_scan
 from ..ops.int4_pack import bytes_to_nibble_rows
 from ..ops.ring_scan import MERGE_BATCH

@@ -8,8 +8,9 @@ k 10, random unit rows, nothing masked) in the variants of
 ``csrc/scan_overhead_probe.cu``, built from the scan pieces of
 ``csrc/float_scan.cuh``:
 
-- ``prod``: the structure of the production ``flat_topk.cu``: synchronous
-  tile loads, the k-th-best gate and the partial top-k;
+- ``prod``: the first design of ``flat_topk.cu`` (it now runs the
+  ``cp.async`` ring of ``csrc/ivf_float_scan.cuh``): synchronous tile
+  loads, the k-th-best gate and the partial top-k over fixed row ranges;
 - ``nomerge``: the gate off, each query's max score folded instead;
 - ``slot2``, ``slot3``, ``slot4``: the tile chunks streamed through a
   ``cp.async`` ring of that depth, merge on (the TPU probe's 2-, 3- and
@@ -48,7 +49,7 @@ import torch
 
 from ..devices.capability import resolve_device
 from ..ops import _build
-from ..ops.flat_topk import c_entry, check_scan_args
+from ..ops.ring_scan import c_entry, check_scan_args
 from ..ops.topk_scan import flat_topk_plain
 from ..utils.shapes import cdiv, round_up
 from .int4_probe import CPU_ROWS, HBM_BYTES_PER_S, timed

@@ -19,7 +19,7 @@
 // for int8, 0.5 B for int4; 2 x Q x N x D int8 ops sit far under the
 // ~590 op/byte int8 ridge), so HBM bandwidth.
 //
-// Design (the shape of flat_topk.cu): the TPU kernels walk the corpus in
+// Design (fixed row ranges): the TPU kernels walk the corpus in
 // one sequential grid with a running top-k; here N splits into row ranges,
 // one CTA per (query block, range), each with partial lists in shared
 // memory behind a k-th-best gate (topk_select.cuh), then run_merge.cuh's

@@ -1,5 +1,6 @@
-// The tile products of the flat bf16 / f32 scans: flat_topk.cu (the flat
-// index) and scan_overhead_probe.cu.  The IVF probe scan has its own
+// The tile products of the first flat bf16 / f32 scan, kept for
+// scan_overhead_probe.cu, which measures that design against cp.async
+// rings.  The production flat and IVF scans have their own
 // (ivf_float_scan.cuh).
 //
 // A CTA stages its query block (16 or 32 queries) in shared memory once;

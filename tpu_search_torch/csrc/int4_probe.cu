@@ -39,6 +39,7 @@
 // row of scale and penalty), 0.120 ms at 3.35 TB/s.
 
 #include "flat_digit_scan.cuh"
+#include "probe_select.cuh"
 
 namespace {
 

@@ -64,7 +64,8 @@
 //    nibbles in registers.
 //  - Selection: the tile's scores go to shared memory (aliasing the stage
 //    just multiplied) and one warp a query offers them to its sorted list
-//    behind a k-th-best gate (topk_select.cuh consume_tile).
+//    behind a k-th-best gate (topk_select.cuh consume_tile, a group of 32
+//    at once where more than 3 pass: warp_merge).
 //  - Merge: run_merge.cuh's tree merge, then * qs1.
 #pragma once
 
@@ -384,8 +385,8 @@ ivf_digit_scan(const uint8_t* __restrict__ V, const float* __restrict__ scale,
       }
     } else {
       const int t0 = ids[0] * kIvfTile;
-      consume_tile<QB, kIvfTile, kIvfThreads>(S, q0, q, t0, t0 + kIvfTile, 0,
-                                              k, kpad, bs, bi, nullptr);
+      consume_tile<QB, kIvfTile, kIvfThreads>(
+          S, q0, q, t0, t0 + kIvfTile, 0, k, kpad, bs, bi, nullptr);
     }
   }
   cp_async_wait<0>();

@@ -1,8 +1,10 @@
-// The IVF bf16 / f32 probe scan (ivf_topk.cu) as three launches of one C
-// call: the prologue (ivf_prep.cuh, without digits: the schedule, the
-// probe table, the member lists and, for bf16 blocks, the queries cast to
-// bf16), the scan and the merge (run_merge.cuh), with nothing of
-// PyTorch's between them.
+// The bf16 / f32 scans fed by a cp.async ring: the IVF probe scan
+// (ivf_topk.cu) and the flat scan (flat_topk.cu), each three launches of
+// one C call: a prologue (ivf_prep.cuh: for the IVF scan ivf_prep without
+// digits, the schedule, the probe table, the member lists and, for bf16
+// blocks, the queries cast to bf16; for the flat scan float_prep, the cast
+// and the merge's counters), the scan and the merge (run_merge.cuh), with
+// nothing of PyTorch's between them.
 //
 // Contract (the TPU kernel _kernel_ivf of tpu_search/ops/pallas_ivf_scan.py
 // and ops/ivf_scan.py ivf_topk_plain): for query q and a row of a
@@ -14,7 +16,11 @@
 // by a select; the k best per query, descending, first-index (lowest
 // flat slot) ties, -inf / -1 past the candidates; with out_scores set (k
 // > 128) the masked scores of every schedule position instead, [q,
-// max_sched * 128], for a stable sort outside.
+// max_sched * 128], for a stable sort outside.  The flat scan (FlatSource,
+// the TPU kernel _kernel of ops/pallas_topk_dma.py, ops/topk_scan.py
+// flat_topk_plain) is the same scan over every 128-row tile of an n-row
+// corpus, without the probe table, rows past n scoring -inf (their bytes
+// and penalties never read); its scores-only mode writes [q, n].
 //
 // What bounds it on the H100: the bytes of the scheduled tiles (2 D + 4 B
 // a row for bf16, 4 D + 4 for f32), at nprobe 32 and Q 1 about 50 MB (15
@@ -26,7 +32,7 @@
 //  - Grid (query blocks, runs), runs = multiprocessors x CTAs a
 //    multiprocessor / query blocks; a CTA takes a contiguous run of its
 //    block's member list (run_begin), so it never visits an entry none of
-//    its queries probes.
+//    its queries probes (flat: a contiguous run of the corpus's tiles).
 //  - A 3-stage cp.async ring over (entry, 128-byte chunk of a row) pairs,
 //    128-byte swizzled K-major: the tile's 128 rows (bf16: 64 dims, f32:
 //    32) and the block's QB query rows of the same dims, which ride with
@@ -49,7 +55,8 @@
 //  - Epilogue and selection: the tile's scores go to shared memory
 //    (aliasing the stage just multiplied), and one warp a query offers
 //    them to its sorted list behind a k-th-best gate (topk_select.cuh
-//    consume_tile); the run's lists go to part_s / part_i for the tree
+//    consume_tile, a group of 32 at once where more than 3 pass:
+//    warp_merge); the run's lists go to part_s / part_i for the tree
 //    merge, which here multiplies by nothing.
 #pragma once
 
@@ -77,6 +84,11 @@ struct F32Rows {
 template <bool kBf16, int QB>
 struct FloatLayout {
   static constexpr bool kWgmma = kBf16 && QB == 32;
+  // The launch bound's CTAs a multiprocessor: bf16 at QB 16 three, as its
+  // shared memory allows (80 registers; left to ptxas it spilled 68 bytes
+  // at 80 once warp_merge joined the selection, and read 5-8 % slower at
+  // 1M rows on an H100); the other instances as ptxas chooses.
+  static constexpr int kMinCtas = kBf16 && QB == 16 ? 3 : 1;
   static constexpr int kTileBytes = kIvfTile * kIvfChunk;
   static constexpr int kStageBytes = kTileBytes + QB * kIvfChunk;
   static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
@@ -120,18 +132,23 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// One query block's run of its member list.  V the blocks as 128-row
-// tiles of row_bytes a row; Qv the queries [q, d] in the blocks' dtype;
-// table [q, nlist] (0 / -inf), mem / mem_count from the prologue.
-template <class Rows, int QB>
-__global__ void __launch_bounds__(kIvfThreads)
+// One query block's run of its entries.  V the corpus as 128-row tiles
+// of row_bytes a row; Qv the queries [q, d] in the corpus dtype;
+// IvfSource: table [q, nlist] (0 / -inf), mem / mem_count from the
+// prologue; FlatSource: the n rows' tiles (table, mem and mem_count
+// unused).  out_scores [q, n_out].
+template <class Rows, int QB, class Source>
+__global__ void __launch_bounds__(kIvfThreads,
+                                  FloatLayout<Rows::kBf16, QB>::kMinCtas)
 ivf_float_scan(const uint8_t* __restrict__ V, const float* __restrict__ penalty,
                const uint8_t* __restrict__ Qv, const float* __restrict__ table,
                const int2* __restrict__ mem, const int* __restrict__ mem_count,
                int row_bytes, int q, int k, int kpad, int nlist, int tpc,
-               int max_sched, float alpha, float* __restrict__ part_s,
-               int* __restrict__ part_i, float* __restrict__ out_scores) {
+               int max_sched, int n, size_t n_out, float alpha,
+               float* __restrict__ part_s, int* __restrict__ part_i,
+               float* __restrict__ out_scores) {
   constexpr bool kBf16 = Rows::kBf16;
+  constexpr bool kFlat = Source::kFlat;
   using L = FloatLayout<kBf16, QB>;
   extern __shared__ __align__(1024) unsigned char float_smem[];
   uint8_t* ring =
@@ -144,12 +161,14 @@ ivf_float_scan(const uint8_t* __restrict__ V, const float* __restrict__ penalty,
   const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
   const int blk = blockIdx.x, q0 = blk * QB;
   const int nkc = (row_bytes + kIvfChunk - 1) / kIvfChunk;
-  const int n_mem = mem_count[blk];
+  const int n_mem = kFlat ? (n + kIvfTile - 1) / kIvfTile : mem_count[blk];
   const int e0 = run_begin(n_mem, gridDim.y, blockIdx.y);
   const int n_ent = run_begin(n_mem, gridDim.y, blockIdx.y + 1) - e0;
   const int n_items = n_ent * nkc;
-  const int2* recs = mem + (size_t)blk * max_sched + e0;
-  const size_t n_out = (size_t)max_sched * kIvfTile;
+  const int2* recs = kFlat ? nullptr : mem + (size_t)blk * max_sched + e0;
+  auto record = [&](int e) {
+    return kFlat ? make_int2(e0 + e, e0 + e) : recs[e];
+  };
 
   if (!out_scores)
     for (int i = tid; i < QB * kpad; i += kIvfThreads) {
@@ -160,21 +179,22 @@ ivf_float_scan(const uint8_t* __restrict__ V, const float* __restrict__ penalty,
   // Issue item v (entry v / nkc, chunk v % nkc) into stage v % kIvfStages,
   // and a commit group (empty past the run).  rec_next is read one entry
   // ahead of its use.
-  int2 rec = make_int2(0, 0), rec_next = n_ent ? recs[0] : rec;
+  int2 rec = make_int2(0, 0), rec_next = n_ent ? record(0) : rec;
   int rec_e = -1;
   auto issue = [&](int v) {
     if (v < n_items) {
       const int e = v / nkc, kc = (v - e * nkc) * kIvfChunk;
       if (e != rec_e) {
         rec = rec_next;
-        rec_next = e + 1 < n_ent ? recs[e + 1] : rec;
+        rec_next = e + 1 < n_ent ? record(e + 1) : rec;
         rec_e = e;
       }
       uint8_t* st = ring + (v % kIvfStages) * L::kStageBytes;
       const uint8_t* rows = V + (size_t)rec.x * kIvfTile * row_bytes;
       for (int i = tid; i < kIvfTile * 8; i += kIvfThreads) {
         const int r = i >> 3, c = i & 7, kb = kc + c * 16;
-        const bool ok = kb < row_bytes;
+        // flat: the bytes of rows past n are never read
+        const bool ok = kb < row_bytes && (!kFlat || rec.x * kIvfTile + r < n);
         cp_async<16>(st + r * 128 + ((c ^ (r & 7)) << 4),
                      ok ? rows + (size_t)r * row_bytes + kb : V, ok ? 16 : 0);
       }
@@ -187,7 +207,18 @@ ivf_float_scan(const uint8_t* __restrict__ V, const float* __restrict__ penalty,
       }
       if (kc == 0) {
         uint8_t* sd = side + (e % kIvfStages) * L::kSideBytes;
-        if (tid < 32) {
+        if (kFlat) {
+          // row by row: n need not be a multiple of 4
+          if (tid < kIvfTile) {
+            const size_t row = (size_t)rec.x * kIvfTile + tid;
+            const bool ok = row < (size_t)n;
+            cp_async4(sd + tid * 4, ok ? penalty + row : penalty, ok ? 4 : 0);
+          } else if (tid == kIvfTile) {
+            int* ids = reinterpret_cast<int*>(sd + 512 + QB * 4);
+            ids[0] = rec.x;
+            ids[1] = rec.y;
+          }
+        } else if (tid < 32) {
           cp_async<16>(sd + tid * 16,
                        penalty + (size_t)rec.x * kIvfTile + tid * 4, 16);
         } else if (tid < 32 + QB) {
@@ -278,10 +309,13 @@ ivf_float_scan(const uint8_t* __restrict__ V, const float* __restrict__ penalty,
     const float* probed = pn + kIvfTile;  // 0, or -inf: not probed
     const int* ids = reinterpret_cast<const int*>(sd + 512 + QB * 4);
     float* S = reinterpret_cast<float*>(st);
+    // IVF: -inf where the query does not probe the tile's cluster; flat:
+    // -inf past the n rows
     auto put = [&](int qq, int row, float s) {
+      const bool live = kFlat ? ids[0] * kIvfTile + row < n
+                              : probed[qq] != -INFINITY;
       S[qq * kIvfTile + row] =
-          probed[qq] == -INFINITY ? -INFINITY
-                                  : __fsub_rn(__fmul_rn(s, alpha), pn[row]);
+          live ? __fsub_rn(__fmul_rn(s, alpha), pn[row]) : -INFINITY;
     };
     __syncthreads();  // every warp is done reading the region S aliases
     if constexpr (L::kWgmma) {
@@ -305,16 +339,17 @@ ivf_float_scan(const uint8_t* __restrict__ V, const float* __restrict__ penalty,
     }
     __syncthreads();
     if (out_scores) {
+      // IVF: schedule position ids[1]; flat: the tile itself
       const size_t at = (size_t)ids[1] * kIvfTile;
       for (int i = tid; i < QB * kIvfTile; i += kIvfThreads) {
         const int r = i / kIvfTile;
-        if (q0 + r < q)
+        if (q0 + r < q && at + i % kIvfTile < n_out)
           out_scores[(size_t)(q0 + r) * n_out + at + i % kIvfTile] = S[i];
       }
     } else {
       const int t0 = ids[0] * kIvfTile;
-      consume_tile<QB, kIvfTile, kIvfThreads>(S, q0, q, t0, t0 + kIvfTile, 0,
-                                              k, kpad, bs, bi, nullptr);
+      consume_tile<QB, kIvfTile, kIvfThreads>(
+          S, q0, q, t0, t0 + kIvfTile, 0, k, kpad, bs, bi, nullptr);
     }
   }
   cp_async_wait<0>();
@@ -323,42 +358,36 @@ ivf_float_scan(const uint8_t* __restrict__ V, const float* __restrict__ penalty,
   store_partials<QB, kIvfThreads>(bs, bi, q0, q, kpad, part_s, part_i);
 }
 
-// Everything one call of the float scan reads and writes.
-struct IvfFloatCall {
-  PrepArgs prep;  // digits null; qcast set for bf16 blocks
-  const void* V;
-  const float* penalty;
-  int is_bf16;
-  float alpha;
-  int k, runs;
-  MergeArgs merge;  // merge.count: prep.merge_count
-  float* out_scores;
-};
-
-template <class Rows, int QB>
+template <class Rows, int QB, class Source>
 cudaError_t float_scan_attr(int kpad, size_t* bytes) {
+  static size_t caps[kCapDevices] = {};
   *bytes = FloatLayout<Rows::kBf16, QB>::bytes(kpad);
-  return cudaFuncSetAttribute(ivf_float_scan<Rows, QB>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*bytes);
+  return raise_smem_cap((const void*)ivf_float_scan<Rows, QB, Source>, *bytes,
+                        caps);
 }
 
-template <class Rows, int QB>
-cudaError_t launch_float_scan_qb(const IvfFloatCall& c, int kpad,
-                                 cudaStream_t st) {
+// The scan launch of an IVF call (p: its prologue's outputs) or, with
+// Source FlatSource, of a flat call over n rows (p.q, p.d, p.queries and,
+// for bf16 rows, p.qcast set).
+template <class Rows, int QB, class Source>
+cudaError_t launch_float_scan_qb(const PrepArgs& p, const void* V,
+                                 const float* penalty, float alpha, int k,
+                                 int runs, int n, const MergeArgs& m,
+                                 float* out_scores, int kpad, cudaStream_t st) {
   constexpr bool kBf16 = Rows::kBf16;
   size_t bytes;
-  cudaError_t err = float_scan_attr<Rows, QB>(kpad, &bytes);
+  cudaError_t err = float_scan_attr<Rows, QB, Source>(kpad, &bytes);
   if (err != cudaSuccess) return err;
-  const PrepArgs& p = c.prep;
   const void* qv = kBf16 ? static_cast<const void*>(p.qcast)
                          : static_cast<const void*>(p.queries);
-  dim3 grid((p.q + QB - 1) / QB, c.runs);
-  ivf_float_scan<Rows, QB><<<grid, kIvfThreads, bytes, st>>>(
-      static_cast<const uint8_t*>(c.V), c.penalty,
+  const size_t n_out =
+      Source::kFlat ? (size_t)n : (size_t)p.max_sched * kIvfTile;
+  dim3 grid((p.q + QB - 1) / QB, runs);
+  ivf_float_scan<Rows, QB, Source><<<grid, kIvfThreads, bytes, st>>>(
+      static_cast<const uint8_t*>(V), penalty,
       static_cast<const uint8_t*>(qv), p.table, p.mem, p.mem_count,
-      p.d * (kBf16 ? 2 : 4), p.q, c.k, kpad, p.nlist, p.tpc, p.max_sched,
-      c.alpha, c.merge.part_s, c.merge.part_i, c.out_scores);
+      p.d * (kBf16 ? 2 : 4), p.q, k, kpad, p.nlist, p.tpc, p.max_sched, n,
+      n_out, alpha, m.part_s, m.part_i, out_scores);
   return cudaGetLastError();
 }
 
@@ -374,33 +403,34 @@ cudaError_t float_dispatch(int is_bf16, int qb, Fn&& fn) {
   return cudaErrorInvalidValue;
 }
 
-// The C entry's body.  stages 1: the prologue alone; otherwise the scan
-// and, unless out_scores is set, the merge after it.
-inline int launch_ivf_float(const IvfFloatCall& c, int stages,
+// The scan of a call at (is_bf16, qb) over Source, then unless out_scores
+// is set the tree merge (merge.count zeroed before).
+template <class Source>
+int launch_float_scan_merge(const PrepArgs& p, int is_bf16, const void* V,
+                            const float* penalty, float alpha, int k, int runs,
+                            int n, const MergeArgs& m, float* out_scores,
                             cudaStream_t st) {
-  cudaError_t err = launch_ivf_prep(c.prep, st);
-  if (err != cudaSuccess || stages == 1) return (int)err;
-  const int kpad = c.out_scores ? 0 : round_up(c.k, 32);
-  err = float_dispatch(c.is_bf16, c.prep.qb, [&](auto rows, auto qb) {
-    return launch_float_scan_qb<decltype(rows), decltype(qb)::value>(c, kpad,
-                                                                     st);
+  const int kpad = out_scores ? 0 : round_up(k, 32);
+  cudaError_t err = float_dispatch(is_bf16, p.qb, [&](auto rows, auto qb) {
+    return launch_float_scan_qb<decltype(rows), decltype(qb)::value, Source>(
+        p, V, penalty, alpha, k, runs, n, m, out_scores, kpad, st);
   });
-  if (err != cudaSuccess || c.out_scores) return (int)err;
-  return (int)launch_tree_merge(c.merge, nullptr, c.prep.q, c.runs, c.k, kpad,
-                                st);
+  if (err != cudaSuccess || out_scores) return (int)err;
+  return (int)launch_tree_merge(m, nullptr, p.q, runs, k, kpad, st);
 }
 
 // The scan's shared memory and CTAs a multiprocessor at (is_bf16, qb, k)
-// (out[0], out[1]).
-inline int ivf_float_config(int is_bf16, int qb, int k, int* out) {
+// over Source (out[0], out[1]).
+template <class Source>
+int float_config(int is_bf16, int qb, int k, int* out) {
   const int kpad = k > 128 ? 0 : round_up(k, 32);
   size_t bytes = 0;
   const void* fn = nullptr;
   cudaError_t err = float_dispatch(is_bf16, qb, [&](auto rows, auto b) {
     using R = decltype(rows);
     constexpr int kQ = decltype(b)::value;
-    fn = (const void*)ivf_float_scan<R, kQ>;
-    return float_scan_attr<R, kQ>(kpad, &bytes);
+    fn = (const void*)ivf_float_scan<R, kQ, Source>;
+    return float_scan_attr<R, kQ, Source>(kpad, &bytes);
   });
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;

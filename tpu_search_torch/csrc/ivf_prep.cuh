@@ -7,7 +7,9 @@
 // (the bf16 / f32 IVF scan), composed of build_probe_schedule,
 // probe_positions, quantize_queries, query_nibble_offsets and _bias_pre,
 // and ops/flat_topk_int4.py flat_digit_prep_plain (the flat int4 scan:
-// the digits alone, digit_prep below); the kernels match them bit for bit.
+// the digits alone, digit_prep below), and ops/flat_topk.py
+// flat_float_prep_plain (the flat bf16 / f32 scan: float_prep below, the
+// bf16 cast alone); the kernels match them bit for bit.
 //
 // ivf_prep, one CTA a query block (the scan's QB queries), each writing:
 //  - with digits set, the query digits (prep_digits, a warp a query), bit
@@ -259,6 +261,33 @@ digit_prep(const float* __restrict__ queries, int q, int d, int8_t* digits,
   if (qi >= q) return;
   prep_digits(queries, q, d, qi, digits, rho, qs1, qoff);
   if ((threadIdx.x & 31) == 0) merge_count[qi] = 0;
+}
+
+// The flat bf16 / f32 scan's prologue: with qcast set (bf16 rows) the
+// queries rounded to bf16 (__float2bfloat16_rn, as Tensor.to(torch.bfloat16))
+// [q, d], and zeros in the merge's counters.  A thread four elements.
+__global__ void __launch_bounds__(kPrepThreads)
+float_prep(const float4* __restrict__ queries, int q, int d4,
+           __nv_bfloat162* qcast, int* merge_count) {
+  const int i = blockIdx.x * kPrepThreads + threadIdx.x;
+  if (i < q) merge_count[i] = 0;
+  if (!qcast || i >= q * d4) return;
+  const float4 v = queries[i];
+  qcast[2 * i] = __floats2bfloat162_rn(v.x, v.y);
+  qcast[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// d % 4 == 0; qcast null: the counters alone.
+inline cudaError_t launch_float_prep(const float* queries, int q, int d,
+                                     __nv_bfloat16* qcast, int* merge_count,
+                                     cudaStream_t stream) {
+  const int cast = qcast ? q * (d / 4) : 0;
+  const int items = cast > q ? cast : q;
+  float_prep<<<(items + kPrepThreads - 1) / kPrepThreads, kPrepThreads, 0,
+               stream>>>(reinterpret_cast<const float4*>(queries), q, d / 4,
+                         reinterpret_cast<__nv_bfloat162*>(qcast),
+                         merge_count);
+  return cudaGetLastError();
 }
 
 inline cudaError_t launch_digit_prep(const float* queries, int q, int d,

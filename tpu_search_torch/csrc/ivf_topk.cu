@@ -12,6 +12,33 @@
 
 #include "ivf_float_scan.cuh"
 
+namespace {
+
+// Everything one call of the float scan reads and writes.
+struct IvfFloatCall {
+  PrepArgs prep;  // digits null; qcast set for bf16 blocks
+  const void* V;
+  const float* penalty;
+  int is_bf16;
+  float alpha;
+  int k, runs;
+  MergeArgs merge;  // merge.count: prep.merge_count
+  float* out_scores;
+};
+
+// The IVF C entry's body.  stages 1: the prologue alone; otherwise the
+// scan and, unless out_scores is set, the merge after it.
+inline int launch_ivf_float(const IvfFloatCall& c, int stages,
+                            cudaStream_t st) {
+  cudaError_t err = launch_ivf_prep(c.prep, st);
+  if (err != cudaSuccess || stages == 1) return (int)err;
+  return launch_float_scan_merge<IvfSource>(c.prep, c.is_bf16, c.V, c.penalty,
+                                            c.alpha, c.k, c.runs, 0, c.merge,
+                                            c.out_scores, st);
+}
+
+}  // namespace
+
 // blocks [nlist, cap, d] (bf16 if is_bf16 else f32); penalty [n] f32;
 // queries [q, d] f32; probe [q, nprobe] int32; fills [nlist] int32; the
 // scratch as ops/ivf_scan.py lays it out: qcast [q, d] bf16 (bf16 blocks;
@@ -65,5 +92,5 @@ extern "C" int ivf_topk(const void* blocks, const void* penalty,
 // The scan's shared memory (out[0], bytes) and CTAs a multiprocessor
 // (out[1]) at (is_bf16, qb, k).
 extern "C" int ivf_topk_config(int is_bf16, int qb, int k, void* out) {
-  return ivf_float_config(is_bf16, qb, k, static_cast<int*>(out));
+  return float_config<IvfSource>(is_bf16, qb, k, static_cast<int*>(out));
 }

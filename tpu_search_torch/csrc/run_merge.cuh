@@ -1,7 +1,7 @@
 // The run split and the merge of the ring-fed scans (ivf_digit_scan.cuh:
 // the IVF int8 / int4 scans and the flat int4 and int8 row scans;
-// ivf_float_scan.cuh: the IVF bf16 / f32 scan) and of digit_partial's row
-// ranges (flat_digit_scan.cuh).
+// ivf_float_scan.cuh: the IVF and flat bf16 / f32 scans) and of
+// digit_partial's row ranges (flat_digit_scan.cuh).
 //
 // A scan CTA takes the contiguous run [n r / runs, n (r + 1) / runs) of
 // its query block's n entries (run_begin) and leaves, per query, a sorted
@@ -25,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "topk_select.cuh"
+
 namespace {
 
 constexpr int kMergeThreads = 256;
@@ -35,11 +37,6 @@ constexpr int kMergeSlots = kMergeBatch + kMergeBatch / 2 + 2;
 // covering [0, n), empty at n = 0.
 __device__ __forceinline__ int run_begin(int n, int runs, int r) {
   return (int)(((long long)n * r) / runs);
-}
-
-__device__ __forceinline__ bool ranks_before(float sa, int ia, float sb,
-                                             int ib) {
-  return sa > sb || (sa == sb && ia < ib);
 }
 
 // Output i (< k) of the merge of two sorted lists of k, a and b: the merge

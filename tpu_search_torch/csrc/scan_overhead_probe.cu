@@ -1,15 +1,18 @@
 // The fixed and per-tile costs of the bf16 flat scan at 1M x 768:
-// variants of flat_topk.cu's partial_topk, each a template instance of the
-// pieces in float_scan.cuh and topk_select.cuh, built here so that the
-// production kernel's own instantiation stays as it is.
+// variants of the first flat_topk.cu's partial_topk (synchronous tile loads
+// over fixed row ranges; the production scan has since moved onto the
+// cp.async ring of ivf_float_scan.cuh), each a template instance of the
+// pieces in float_scan.cuh and topk_select.cuh.
 //
 // Replaces: benchmarks/scan_overhead_probe.py, build (:136; pallas_call
 // :142, kernel make_kernel :54), the TPU probe of pallas_flat_topk_dma.
 //
 // Variants (slots, merge):
-//   prod    (0, 1): partial_topk's structure: tile_dots stages each
+//   prod    (0, 1): that partial_topk: tile_dots stages each
 //                   128-row x 64-dim chunk with synchronous 16-byte loads,
-//                   then the k-th-best gate and the partial top-k;
+//                   then the k-th-best gate and the partial top-k
+//                   (probe_select.cuh's offer_each, one insertion a
+//                   candidate);
 //   nomerge (0, 0): the same products with the gate off: the max of each
 //                   query's scores over the CTA's rows is folded instead
 //                   -> fold[q, split];
@@ -27,6 +30,7 @@
 // ms at 3.35 TB/s; 2 x 8 x 1M x 768 flops are far under the bf16 ridge.
 
 #include "float_scan.cuh"
+#include "probe_select.cuh"
 
 namespace {
 
@@ -101,8 +105,11 @@ __device__ void finish_tile(float* S, const float* __restrict__ penalty,
   }
   __syncthreads();
   if constexpr (kMerge) {
-    consume_tile<kQB, kTile, kThreads>(S, q0, q, t0, row_end, n, k, kpad, bs,
-                                       bi, nullptr);
+    for (int qq = warp; qq < kQB && q0 + qq < q; qq += kThreads / 32)
+#pragma unroll 1
+      for (int j = 0; j < kTile / 32; ++j)
+        offer_each(bs + qq * kpad, bi + qq * kpad, k,
+                   S[qq * kTile + j * 32 + lane], t0 + j * 32 + lane, lane);
   } else {
     for (int qq = warp; qq < kQB && q0 + qq < q; qq += kThreads / 32) {
       float m = -INFINITY;

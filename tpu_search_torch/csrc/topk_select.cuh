@@ -1,15 +1,23 @@
 // Top-k selection shared by the scan kernels (flat_topk.cu,
-// flat_topk_int8.cu, flat_topk_int4.cu, the IVF scans and the probes);
-// merge_topk serves flat_topk.cu and the probes (the flat digit scans and
-// the ring-fed scans merge with run_merge.cuh).
+// flat_topk_int8.cu, flat_topk_int4.cu, the IVF scans and int4_probe.cu);
+// their partial lists merge in run_merge.cuh (the probes' merge_topk:
+// probe_select.cuh).
 //
 // A scan CTA keeps, per query, a list of the k best (score, row id) pairs
 // of its row range in shared memory, sorted by score descending and id
 // ascending.  Candidates arrive 32 at a time, one per lane with ids
 // ascending with the lane, and rows are visited in increasing order, so a
 // strict '>' against the k-th best keeps the first-index tie order of the
-// TPU kernels' _select_topk.  merge_topk then folds the per-range lists of
-// one query in range order, which keeps that order across ranges.
+// TPU kernels' _select_topk; the merges keep that order across ranges.
+//
+// Where more than kBatchAt of 32 candidates beat the gate (a range's first
+// tiles, whose lists are still filling: about 35 insertions a query for
+// k 10 over one 128-row tile), warp_merge takes them in one step, sorted
+// in registers and merged by rank; fewer go in one warp_insert each.  The
+// result is the same list either way.  Against one warp_insert a candidate
+// on an H100 (1M rows, Q 1 and 8): digit_partial 17-27 % faster at k 128,
+// within 3 % at k 10 on int8 / int4 rows, 1-5 % slower on the int8 word
+// layout at k 10; the IVF ring scans 1.6-1.8x faster at Q 128, k 128.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +28,16 @@
 namespace {
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The selection's total order: score descending, then row id ascending.
+__device__ __forceinline__ bool ranks_before(float sa, int ia, float sb,
+                                             int ib) {
+  return sa > sb || (sa == sb && ia < ib);
+}
+
+// Candidates beating the gate above which warp_offer merges a group at
+// once.
+constexpr int kBatchAt = 3;
 
 // Insert (s, id) into a list sorted by (score desc, id asc) of length k
 // (k <= 128), held in shared memory.  Precondition: s > ls[k-1] and id is
@@ -56,12 +74,83 @@ __device__ void warp_insert(float* ls, int* li, int k, float s, int id,
   __syncwarp();
 }
 
+// Merge the candidates of the lanes with live set (each beats the k-th
+// best, and its id is above every listed id of equal score) into the
+// sorted list of k (k <= 128) in one step: a bitonic sort of the 32 in
+// registers (lane 0 the best), then each candidate's and each listed
+// entry's new place, its rank plus the count of the other side's entries
+// that rank before it.  Warp-cooperative.
+__device__ void warp_merge(float* ls, int* li, int k, float s, int id,
+                           bool live, int lane) {
+  if (!live) {  // ranks after every entry, padding included
+    s = -INFINITY;
+    id = 0x7fffffff;
+  }
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float os = __shfl_xor_sync(kFull, s, stride);
+      const int oi = __shfl_xor_sync(kFull, id, stride);
+      const bool best_here = ((lane & size) == 0) == ((lane & stride) == 0);
+      if (ranks_before(os, oi, s, id) == best_here && (os != s || oi != id)) {
+        s = os;
+        id = oi;
+      }
+    }
+  // this candidate's place: its rank plus the listed entries before it
+  int before = 0;
+#pragma unroll
+  for (int step = 64; step > 0; step >>= 1)
+    if (before + step <= k &&
+        ranks_before(ls[before + step - 1], li[before + step - 1], s, id))
+      before += step;
+  if (before < k && ranks_before(ls[before], li[before], s, id)) ++before;
+  const int place = lane + before;
+  // listed entry j = 32 r + lane: j plus the candidates before it
+  float es[4];
+  int ei[4], ep[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = r * 32 + lane;
+    es[r] = j < k ? ls[j] : -INFINITY;
+    ei[r] = j < k ? li[j] : 0x7fffffff;
+    int c = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+      const float cs = __shfl_sync(kFull, s, c + step - 1);
+      const int ci = __shfl_sync(kFull, id, c + step - 1);
+      if (ranks_before(cs, ci, es[r], ei[r])) c += step;
+    }
+    const float cs = __shfl_sync(kFull, s, c);
+    const int ci = __shfl_sync(kFull, id, c);
+    if (c < 32 && ranks_before(cs, ci, es[r], ei[r])) ++c;
+    ep[r] = j + c;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (r * 32 + lane < k && ep[r] < k) {
+      ls[ep[r]] = es[r];
+      li[ep[r]] = ei[r];
+    }
+  if (place < k) {
+    ls[place] = s;
+    li[place] = id;
+  }
+  __syncwarp();
+}
+
 // Offer 32 candidates (one per lane, ids ascending with the lane) to a
 // sorted list.  Returns false when none of them beat the k-th best.
 __device__ bool warp_offer(float* ls, int* li, int k, float s, int id,
                            int lane) {
   unsigned m = __ballot_sync(kFull, s > ls[k - 1]);
   if (!m) return false;
+  if (__popc(m) > kBatchAt) {
+    warp_merge(ls, li, k, s, id, (m >> lane) & 1u, lane);
+    return true;
+  }
   while (m) {
     const int b = __ffs(m) - 1;
     m &= m - 1;
@@ -70,61 +159,6 @@ __device__ bool warp_offer(float* ls, int* li, int k, float s, int id,
     if (sb > ls[k - 1]) warp_insert(ls, li, k, sb, ib, lane);
   }
   return true;
-}
-
-// One warp per query: merge the per-range partial lists, in range order.
-// part_s / part_i are [q, n_splits, kpad]; out_s / out_i are [q, k].
-__global__ void merge_topk(const float* __restrict__ part_s,
-                           const int* __restrict__ part_i, int n_splits, int k,
-                           int kpad, float* __restrict__ out_s,
-                           int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char merge_smem[];
-  float* ls = reinterpret_cast<float*>(merge_smem);
-  int* li = reinterpret_cast<int*>(ls + kpad);
-  const int qi = blockIdx.x, lane = threadIdx.x;
-  for (int e = lane; e < kpad; e += 32) {
-    ls[e] = -INFINITY;
-    li[e] = -1;
-  }
-  __syncwarp();
-  const size_t base = (size_t)qi * n_splits * kpad;
-  for (int s0 = 0; s0 < n_splits; s0 += 32) {
-    // One load brings the best score of 32 lists.  A sorted list whose
-    // best does not beat the current k-th best adds nothing, so only the
-    // others are read, still in range order.
-    const int own = s0 + lane;
-    const float head =
-        own < n_splits ? part_s[base + (size_t)own * kpad] : -INFINITY;
-    unsigned live = __ballot_sync(kFull, head > ls[k - 1]);
-    while (live) {
-      const int b = __ffs(live) - 1;
-      live &= live - 1;
-      if (!(__shfl_sync(kFull, head, b) > ls[k - 1])) continue;
-      const float* cs = part_s + base + (size_t)(s0 + b) * kpad;
-      const int* ci = part_i + base + (size_t)(s0 + b) * kpad;
-      for (int b0 = 0; b0 < k; b0 += 32) {
-        const int e = b0 + lane;
-        const float s = e < k ? cs[e] : -INFINITY;
-        const int id = e < k ? ci[e] : -1;
-        // Once a group of 32 misses, the rest of the list misses too.
-        if (!warp_offer(ls, li, k, s, id, lane)) break;
-      }
-    }
-  }
-  for (int e = lane; e < k; e += 32) {
-    out_s[(size_t)qi * k + e] = ls[e];
-    out_i[(size_t)qi * k + e] = li[e];
-  }
-}
-
-// Launch merge_topk over q queries; returns cudaGetLastError().
-inline cudaError_t launch_merge(const float* part_s, const int* part_i,
-                                int q, int n_splits, int k, float* out_s,
-                                int* out_i, cudaStream_t stream) {
-  const int kpad = round_up(k, 32);
-  merge_topk<<<q, 32, (size_t)kpad * 8, stream>>>(part_s, part_i, n_splits,
-                                                  k, kpad, out_s, out_i);
-  return cudaGetLastError();
 }
 
 // The per-query tail of a scan CTA's tile: the tile's QB x 128 scores

@@ -49,10 +49,14 @@ import torch
 
 from ..utils.shapes import cdiv, round_up
 from . import _build
-from .flat_topk import MAX_K, c_entry, check_scan_args
 from .ring_scan import (
+    FLOAT_CUTOFF,
+    MAX_K,
     Scratch,
+    c_entry,
+    check_scan_args,
     digit_block,
+    float_block,
     merge_parts,
     scan_config,
     scan_runs,
@@ -84,10 +88,6 @@ IVF_TILE = 128
 # Scheduled rows scored per block of the plain versions (bounds their
 # transient float copies).
 _PLAIN_ROWS = 65536
-
-# Queries a query block of the bf16 scan at Q above this: 32 (wgmma, N
-# 32), else 16 (mma.sync); the f32 scan takes 16 at every Q (FMAs).
-FLOAT_CUTOFF = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -292,13 +292,6 @@ def _check_ivf_args(penalty, fills, probe_ids, queries, nlist, cap, d):
         raise ValueError("probe_ids must be [Q, nprobe]")
     if cap % IVF_TILE:
         raise ValueError(f"cap ({cap}) must be a multiple of {IVF_TILE}")
-
-
-def float_block(q: int, bf16: bool) -> int:
-    """Queries a scan CTA of the bf16 / f32 scan at Q = q: bf16 32 above
-    :data:`FLOAT_CUTOFF` (wgmma's N), else 16 (one mma.sync m16 block);
-    f32 16."""
-    return 32 if bf16 and q > FLOAT_CUTOFF else 16
 
 
 def _schedule_parts(q, nlist, max_sched, q_blocks, runs, kpad):

@@ -1,16 +1,18 @@
 """Host side of the ring-fed scans: how one is sized and its scratch laid out.
 
 The IVF scans (``ops/ivf_scan.py``: ``csrc/ivf_topk.cu``,
-``ivf_topk_int8.cu``, ``ivf_topk_int4.cu``) and the flat digit scans
+``ivf_topk_int8.cu``, ``ivf_topk_int4.cu``), the flat bf16 / f32 scan
+(``ops/flat_topk.py``: ``csrc/flat_topk.cu``) and the flat digit scans
 (``ops/flat_topk_int8.py``, ``ops/flat_topk_int4.py``:
 ``csrc/flat_topk_int8.cu``, ``csrc/flat_topk_int4.cu``) each run as one C
 call of three launches: a prologue, a scan CTA (fed by a ``cp.async`` ring
-over contiguous runs of 128-row tiles, or for the flat scans
+over contiguous runs of 128-row tiles, or for the flat digit scans
 ``digit_partial`` over fixed row ranges) and the tree merge of
-``csrc/run_merge.cuh`` over the runs' top-k lists.  Each wrapper asks its
-library's ``<kernel>_config`` entry for the scan CTA's shared memory and
-CTAs a multiprocessor (:func:`scan_config`), sizes the runs from that and
-the card (:func:`scan_runs`), and cuts its scratch from one ``torch.empty``
+``csrc/run_merge.cuh`` over the runs' top-k lists.  Each wrapper checks its
+tensors (:func:`check_scan_args`), asks its library's ``<kernel>_config``
+entry (:func:`c_entry`) for the scan CTA's shared memory and CTAs a
+multiprocessor (:func:`scan_config`), sizes the runs from that and the card
+(:func:`scan_runs`), and cuts its scratch from one ``torch.empty``
 (:class:`Scratch`, with the merge's parts from :func:`merge_parts`).
 :func:`flat_digit_call` makes a flat digit scan's C call.
 """
@@ -25,18 +27,66 @@ import torch
 
 from ..utils.shapes import cdiv, round_up
 from . import _build
-from .flat_topk import MAX_K, c_entry, check_scan_args, split_rows
 
-__all__ = ["MERGE_BATCH", "Scratch", "digit_block", "flat_digit_call",
-           "merge_parts", "scan_config", "scan_runs"]
+__all__ = ["FLOAT_CUTOFF", "MAX_K", "MERGE_BATCH", "Scratch", "TILE",
+           "c_entry", "check_scan_args", "digit_block", "flat_digit_call",
+           "float_block", "merge_parts", "scan_config", "scan_runs",
+           "split_rows"]
 
+# The largest k a scan selects itself; above it the scores-only mode.
+MAX_K = 128
 # Runs' lists a merge CTA takes (csrc/run_merge.cuh kMergeBatch).
 MERGE_BATCH = 16
+# Rows a tile of every scan.
+TILE = 128
+# Queries a query block of the bf16 scans at Q above this: 32 (wgmma, N
+# 32), else 16 (mma.sync); the f32 scans take 16 at every Q (FMAs).
+FLOAT_CUTOFF = 16
 
 _ALIGN = 256
-_TILE = 128
 _ELEMENT_BYTES = {torch.int8: 1, torch.int32: 4, torch.float32: 4,
                   torch.bfloat16: 2}
+
+
+def c_entry(kernel: str, entry: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``entry`` of ``csrc/<kernel>.cu``, typed."""
+    fn = getattr(_build.library(kernel), entry)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_scan_args(n: int, k: int, **tensors: torch.Tensor) -> torch.device:
+    """Raise unless every tensor lies on one CUDA device, contiguous and
+    16-byte aligned, and ``1 <= k <= n``."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, corpus on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} outside 1..{n} (corpus rows)")
+    return dev
+
+
+def split_rows(n: int, q: int, q_block: int, device) -> Tuple[int, int]:
+    """``(n_splits, rows_per_split)`` of the fixed row ranges of
+    ``digit_partial``: about four CTAs a streaming multiprocessor over all
+    query blocks, ranges a multiple of the tile."""
+    target = max(1, (4 * _build.multiprocessors(device)) // cdiv(q, q_block))
+    rows_per_split = round_up(max(1, cdiv(n, target)), TILE)
+    return cdiv(n, rows_per_split), rows_per_split
+
+
+def float_block(q: int, bf16: bool) -> int:
+    """Queries a scan CTA of the bf16 / f32 scans at Q = q: bf16 32 above
+    :data:`FLOAT_CUTOFF` (wgmma's N), else 16 (one mma.sync m16 block);
+    f32 16."""
+    return 32 if bf16 and q > FLOAT_CUTOFF else 16
 
 
 class Scratch:
@@ -129,7 +179,7 @@ def flat_digit_call(kernel, argtypes, corpus, queries, n, k, parts, ring,
         runs = cdiv(n, rows_per_split)
     elif ring:
         runs = scan_runs(scan_config(kernel, qb, k)[1], cdiv(q, qb),
-                         cdiv(n, _TILE), dev)
+                         cdiv(n, TILE), dev)
         rows_per_split = 0
     else:
         runs, rows_per_split = split_rows(n, q, qb, dev)
