@@ -57,7 +57,20 @@ Phases, each printing its numbers on its own line:
      device split (torch.profiler); the flat scan over the capacity
      against over the rows, and a capture's time.  The flat int8 and the
      IVF int4 paths end with their 16 probes one at a time through the
-     warm server, each equal to the in-process answer;
+     warm server, each equal to the in-process answer.  After ``[warm]``
+     the flat bf16 directory is served by the product's other entry
+     points, each in its own process, with the launch counts that process
+     writes at exit (``CLAUDE_SEARCH_LAUNCH_LOG``) and its CUDA context
+     checked: ``[http]``, ``cli serve --port 0`` (its routes; the 16
+     unfiltered probes one at a time, each equal to the in-process answer,
+     then from 8 client threads within ``WARM_TOL``; a ``project``
+     filter; p50 / p90, queries/s); ``[mcp]``, the MCP stdio server (the
+     handshake, five tools, each probe's own text at Result 1 with
+     similarity >= 0.999, ``related_to`` + ``same_session``, the other
+     tools, -32601 for an unknown tool, a tool call's p50); ``[cli]``,
+     ``search --chunk-id``, ``--related-to --same-session`` (the
+     session's other chunks in time order), ``--related-to`` with a query
+     (that session only) and ``stats --gpu`` (the card's name);
   4. the BERT family at full width with random seeded weights: an
      all-MiniLM-L6-v2 embedder (flat bf16, 200 conversations, the same
      searches and CLI check), then on its index three rerank paths through
@@ -77,11 +90,19 @@ Phases, each printing its numbers on its own line:
      ``.scan_overhead_probe``), the entry points of ``int4_probe`` and
      ``scan_overhead_probe``: every variant against its plain version at a
      small N, then every variant timed at 1M x 768;
-  7. the watcher daemon: ``cli start`` on the card watching an empty
-     projects directory, 20 conversations copied in and indexed by the
-     daemon, ``cli search --json`` answered through its warm server (run
-     with a model name that does not exist, so no local engine could
-     answer), ``cli stop`` and ``cli status``.
+  7. the watcher daemon: ``cli start --http-port P`` on the card watching
+     an empty projects directory, 20 conversations copied in and indexed
+     by the daemon, ``cli search --json`` answered through its warm server
+     (run with a model name that does not exist, so no local engine could
+     answer) and ``/v1/search`` through its HTTP front (``chunk_000003``
+     at rank 1, 16 calls timed), ``cli stop`` and ``cli status``;
+  8. ``[storage]``, on a copy of the flat int8 path's directory:
+     ``delete_chunks_by_session`` gone from the next fused search,
+     ``backup`` then ``restore`` into a fresh engine with the 16 probe
+     answers unchanged, ``models/setup.py --from-dir`` on a small random
+     HF-format MPNet verified on the card, and ``index --trace`` whose
+     ``torch.profiler`` trace names kernels of ``mpnet_attention.cu`` and
+     ``int8_ffn_ln.cu``.
 Phase 3 ends on the flat bf16 path's encoder (all-mpnet-base-v2 at full
 width, the int8 FFN through its gate) run through
 ``forward(attention_impl="flash")`` at B 128, S 384, the entry point of
@@ -126,6 +147,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2329,7 +2351,9 @@ def path_kernels(tag: str):
 
 def run_main_path(work: Path, files) -> dict:
     """Index and search on the GPU with the default bf16 storage, then the
-    flash step on its encoder; return the kernel launch counts of each."""
+    warm phase, ``serve`` and the MCP server on its directory, the CLI's
+    other reads, and the flash step on its encoder; return the kernel
+    launch counts of each."""
     from tpu_search_torch.api.engine import SearchEngine
     from tpu_search_torch.ops import _build
 
@@ -2350,7 +2374,13 @@ def run_main_path(work: Path, files) -> dict:
         fail("CUDA encoder disagrees with the plain CPU encoder")
     check_cli(engine, work / "data", probes[4].text, "bfloat16", {})
     warm = run_warm_path(engine, work, total)
-    return launches, run_flash_encoder(engine), warm
+    # The servers load the directory from disk: give them this engine's
+    # state (the warm phase's add and remove may be newer than the file).
+    engine.storage.save_index()
+    served = {"http": run_http(engine, work, probes),
+              "mcp": run_mcp(engine, work, probes)}
+    run_cli_surface(engine, work, probes)
+    return launches, run_flash_encoder(engine), warm, served
 
 
 # The warm phase: one in-process QueryServer on the flat bf16 path's warm
@@ -2475,9 +2505,11 @@ def warm_concurrent(data_dir: Path, queries, reference, clients: int,
     return times, wall, max(gaps)
 
 
-def print_latency(tag: str, what: str, times, wall=None) -> None:
+def print_latency(tag: str, what: str, times, wall=None,
+                  phase: str = "warm") -> None:
     """p50 / p90 / max of ``(ms, filtered)`` latencies, all and by kind,
-    and queries/s (over ``wall``, else one client's: 1 / mean)."""
+    and queries/s (over ``wall``, else one client's: 1 / mean), on a
+    ``[phase]`` line."""
     import numpy as np
 
     ms = [t for t, _ in times]
@@ -2490,7 +2522,7 @@ def print_latency(tag: str, what: str, times, wall=None) -> None:
             parts.append(f"{kind}: n={len(got)} p50_ms={np.median(got):.3f} "
                          f"p90_ms={np.percentile(got, 90):.3f} "
                          f"max_ms={max(got):.3f}")
-    print(f"[warm] path={tag} {what} queries_per_s={qps:.1f} "
+    print(f"[{phase}] path={tag} {what} queries_per_s={qps:.1f} "
           + "; ".join(parts), flush=True)
 
 
@@ -2720,7 +2752,12 @@ def run_daemon(work: Path, files) -> None:
     in are indexed by the daemon; ``cli search --json`` answers through its
     warm server (run with a model name that does not exist, so a local
     engine could not have answered); ``cli stop``, then ``cli status``
-    reports it stopped."""
+    reports it stopped.  The daemon also serves the HTTP front (``start
+    --http-port``, a port found free by binding to 0): after the 20 files,
+    ``/v1/search`` answers ``chunk_000003`` at rank 1, ``DAEMON_HTTP_CALLS``
+    times, timed."""
+    import socket
+
     from tpu_search_torch.interfaces.query_server import request, socket_path_for
 
     data = work / "data_daemon"
@@ -2743,8 +2780,12 @@ def run_daemon(work: Path, files) -> None:
         return " | ".join(log.read_text().splitlines()[-8:]) if (
             log.exists()) else "(no log)"
 
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        http_port = sock.getsockname()[1]
     t0 = time.perf_counter()
-    proc = cli("start", "--claude-dir", str(watched), "--debounce", "1")
+    proc = cli("start", "--claude-dir", str(watched), "--debounce", "1",
+               "--http-port", str(http_port))
     if proc.returncode != 0 or "started with PID" not in proc.stdout:
         fail(f"cli start failed: {proc.stdout[-1000:]} {proc.stderr[-1000:]}")
     try:
@@ -2786,6 +2827,16 @@ def run_daemon(work: Path, files) -> None:
               flush=True)
         if top != "chunk_000003":
             fail(f"the daemon's search returned {top}, not chunk_000003")
+        times = []
+        for _ in range(DAEMON_HTTP_CALLS):
+            t3 = time.perf_counter()
+            hits = http_search(http_port, chunk["text"], top_k=5)["results"]
+            times.append(((time.perf_counter() - t3) * 1e3, False))
+            if not hits or hits[0]["chunk_id"] != "chunk_000003":
+                fail(f"the daemon's HTTP front answered {hits[:1]}")
+        print_latency("daemon_http", f"port={http_port} top=chunk_000003 "
+                      f"sim={hits[0]['similarity']:.6f}", times,
+                      phase="daemon")
     finally:
         stop = cli("stop")
         status = cli("status")
@@ -2793,6 +2844,510 @@ def run_daemon(work: Path, files) -> None:
           f"status={status.stdout.strip().splitlines()[0]}", flush=True)
     if stop.returncode != 0 or "not running" not in status.stdout:
         fail(f"the daemon did not stop: {stop.stdout} {status.stdout}")
+
+
+# -- the product surface: HTTP, MCP, the CLI's SQL-only reads, storage ------
+
+
+def compute_apps():
+    """``[(pid, used MiB)]`` of ``nvidia-smi --query-compute-apps`` and the
+    card's used memory (MiB)."""
+    def smi(query: str) -> str:
+        return subprocess.run(["nvidia-smi", query, "--format=csv,noheader,"
+                               "nounits"], capture_output=True, text=True,
+                              check=True).stdout
+    apps = [tuple(int(x) for x in line.split(","))
+            for line in smi("--query-compute-apps=pid,used_memory").splitlines()
+            if line.strip()]
+    used = int(smi("--query-gpu=memory.used").splitlines()[0])
+    return apps, used
+
+
+def check_cuda_context(tag: str, pid: int, running, after) -> None:
+    """The server held a CUDA context: its PID among nvidia-smi's compute
+    apps while it ran, or, where nvidia-smi reports every process under
+    one PID (a container whose PIDs it cannot see: ``1 /process_api``),
+    the card's used memory dropping by at least ``CONTEXT_MIB`` when it
+    exited."""
+    (apps, used), (_, used_after) = running, after
+    freed = used - used_after
+    listed = pid in {p for p, _ in apps}
+    print(f"[{tag}] nvidia-smi compute apps while serving (pid, MiB)={apps} "
+          f"server pid={pid} listed={listed} card MiB serving={used} "
+          f"after exit={used_after} freed={freed}", flush=True)
+    if not listed and freed < CONTEXT_MIB:
+        fail(f"the {tag} server shows no CUDA context: pid {pid} not in "
+             f"{apps}, {freed} MiB freed at its exit")
+
+
+# A CUDA context alone takes ~500 MiB on an H100; the servers also hold the
+# encoder and the index.
+CONTEXT_MIB = 256
+
+
+def start_server(cmd, env, log: Path, **popen):
+    """Start ``cmd`` with stderr into ``log``; returns ``(proc, lines)``,
+    ``lines`` a queue of its stdout lines (a reader thread fills it)."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen(cmd, env=env, cwd=str(ROOT), text=True,
+                            stdout=subprocess.PIPE, stderr=log.open("w"),
+                            **popen)
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return proc, lines
+
+
+def next_line(lines, log: Path, timeout: float = 300.0) -> str:
+    import queue
+
+    try:
+        line = lines.get(timeout=timeout)
+    except queue.Empty:
+        line = None
+    if line is None:
+        fail(f"the server stopped answering: "
+             f"{' | '.join(log.read_text().splitlines()[-8:])}")
+    return line
+
+
+def stop_server(proc, sig=signal.SIGINT) -> int:
+    if proc.poll() is None:
+        proc.send_signal(sig)
+    try:
+        return proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait(timeout=30)
+
+
+def served_launches(tag: str, log: Path) -> dict:
+    """The launch counts a server process wrote at exit
+    (``CLAUDE_SEARCH_LAUNCH_LOG``); fails unless it launched every kernel
+    of the flat bf16 path."""
+    if not log.exists():
+        fail(f"the {tag} server wrote no launch counts")
+    launches = json.loads(log.read_text())
+    print(f"[launches] path={tag} {launches}", flush=True)
+    if any(launches[k] == 0 for k in path_kernels("bfloat16")):
+        fail(f"the {tag} server did not launch every kernel: {launches}")
+    return launches
+
+
+def http_get(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def http_search(port: int, text: str, top_k: int = 10, **filters):
+    from urllib.parse import urlencode
+
+    query = urlencode({"q": text, "top_k": top_k, **filters})
+    return http_get(port, f"/v1/search?{query}")
+
+
+def http_concurrent(port: int, queries, reference, clients: int,
+                    rounds: int):
+    """``clients`` threads sending the unfiltered ``queries`` ``rounds``
+    times from their own offsets; answers within :func:`answer_error`'s
+    gate.  Returns ``(latencies, wall s, worst similarity gap)``."""
+    import threading
+
+    times, errors, gaps = [], [], [0.0]
+    lock = threading.Lock()
+    start = threading.Barrier(clients + 1)
+
+    def client(c):
+        mine, worst = [], 0.0
+        start.wait(timeout=120)
+        for r in range(rounds):
+            for j in range(len(queries)):
+                i = (c + j + r) % len(queries)
+                t0 = time.perf_counter()
+                response = http_search(port, queries[i])
+                mine.append(((time.perf_counter() - t0) * 1e3, False))
+                error = (response.get("error") if not response.get("ok")
+                         else answer_error(response["results"], reference[i],
+                                           WARM_TOL))
+                if error:
+                    with lock:
+                        errors.append(f"query {i}: {error}")
+                    return
+                worst = max(worst, max_sim_gap(response["results"],
+                                               reference[i]))
+        with lock:
+            times.extend(mine)
+            gaps.append(worst)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait(timeout=120)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or errors:
+        fail(f"{clients} HTTP clients: {errors[:3] or 'a client hung'}")
+    return times, wall, max(gaps)
+
+
+def run_http(engine, work: Path, probes) -> dict:
+    """``cli serve --port 0`` on the flat bf16 directory: its routes; the
+    16 probes one at a time, twice (the first pass meets each query shape
+    for the first time; each answer equal to the in-process one: ids,
+    similarities within ``WARM_EXACT``), then from 8 client threads (ids
+    equal outside near-ties, similarities within ``WARM_TOL``); a
+    ``project`` filter; its CUDA context; the launches of the server
+    process (its warm-up search included)."""
+    data = work / "data"
+    texts = [p.text for p in probes]
+    reference = [engine.search_conversations(t, top_k=10) for t in texts]
+    project = engine.storage.get_all_projects()[0]
+    launch_log, log = work / "launches_http.json", work / "serve.log"
+    env = dict(os.environ, CLAUDE_SEARCH_MODEL="smoke-mpnet",
+               CLAUDE_SEARCH_LAUNCH_LOG=str(launch_log))
+    t0 = time.perf_counter()
+    proc, lines = start_server(
+        [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
+         "--data-dir", str(data), "--device", "cuda", "serve", "--port", "0"],
+        env, log)
+    try:
+        port = None
+        while port is None:
+            match = re.search(r"Search API on http://127\.0\.0\.1:(\d+)",
+                              next_line(lines, log))
+            port = int(match.group(1)) if match else None
+        up_s = time.perf_counter() - t0
+        health = http_get(port, "/healthz")
+        stats = http_get(port, "/v1/stats")["stats"]
+        projects = http_get(port, "/v1/projects")["projects"]
+        chunk = http_get(port, f"/v1/chunks/{probes[0].id}")["chunk"]
+        if not (health["model_loaded"] and stats["total_chunks"]
+                == engine.storage.total_chunks and project in projects
+                and chunk["text"] == probes[0].text):
+            fail(f"serve routes: {health} {stats} {projects} {chunk['id']}")
+        for name in ("cold", "warm"):  # cold: first captures of the shapes
+            times = []
+            for text, want in zip(texts, reference):
+                t1 = time.perf_counter()
+                got = http_search(port, text)
+                times.append(((time.perf_counter() - t1) * 1e3, False))
+                if not got.get("ok") or [r["chunk_id"] for r in got[
+                        "results"]] != [r["chunk_id"] for r in want] or (
+                        max_sim_gap(got["results"], want) > WARM_EXACT):
+                    fail(f"serve answer differs from in process: {got}")
+            print_latency("http", f"clients=1 pass={name}", times,
+                          phase="http")
+        times, wall, gap = http_concurrent(port, texts, reference, 8, 2)
+        print_latency("http", f"clients=8 max_similarity_gap={gap:.3e}",
+                      times, wall, phase="http")
+        filtered = http_search(port, texts[0], project=project[-6:])
+        if not filtered["results"] or any(
+                r["project"] != project for r in filtered["results"]):
+            fail(f"serve project filter: {filtered}")
+        running = compute_apps()
+    finally:
+        rc = stop_server(proc)
+    check_cuda_context("http", proc.pid, running, compute_apps())
+    print(f"[http] start_to_banner_s={up_s:.2f} routes ok, 16 probes equal, "
+          f"project filter ok, exit rc={rc}", flush=True)
+    if rc != 0:
+        fail(f"serve exited with {rc}: {log.read_text()[-1000:]}")
+    return served_launches("http", launch_log)
+
+
+def mcp_text(response) -> str:
+    if "error" in response:
+        fail(f"MCP error: {response['error']}")
+    return response["result"]["content"][0]["text"]
+
+
+def run_mcp(engine, work: Path, probes) -> dict:
+    """The MCP stdio server on the flat bf16 directory: the handshake, the
+    five tools, each probe's own text at Result 1 (similarity >= 0.999),
+    ``related_to`` + ``same_session``, the other tools, -32601 for an
+    unknown tool, its CUDA context, and its launches."""
+    storage = engine.storage
+    launch_log, log = work / "launches_mcp.json", work / "mcp.log"
+    env = dict(os.environ, CLAUDE_SEARCH_DATA_DIR=str(work / "data"),
+               CLAUDE_SEARCH_DEVICE="cuda", CLAUDE_SEARCH_MODEL="smoke-mpnet",
+               CLAUDE_SEARCH_LAUNCH_LOG=str(launch_log))
+    proc, lines = start_server(
+        [sys.executable, "-m", "tpu_search_torch.interfaces.mcp_server"],
+        env, log, stdin=subprocess.PIPE)
+    ids = itertools.count()
+
+    def rpc(method, params=None, notify=False):
+        msg = {"jsonrpc": "2.0", "method": method, "params": params or {}}
+        if not notify:
+            msg["id"] = next(ids)
+        proc.stdin.write(json.dumps(msg) + "\n")
+        proc.stdin.flush()
+        return None if notify else json.loads(next_line(lines, log))
+
+    def tool(name, **arguments):
+        return rpc("tools/call", {"name": name, "arguments": arguments})
+
+    try:
+        init = rpc("initialize", {"protocolVersion": "2024-11-05"})
+        rpc("notifications/initialized", notify=True)
+        tools = [t["name"] for t in rpc("tools/list")["result"]["tools"]]
+        pong = rpc("ping")
+        if (init["result"]["serverInfo"]["name"] != "claude-search"
+                or len(tools) != 5 or pong.get("result") != {}):
+            fail(f"MCP handshake: {init} {tools} {pong}")
+        times, sims = [], []
+        for probe in probes:
+            t0 = time.perf_counter()
+            text = mcp_text(tool("claude_semantic_search", query=probe.text,
+                                 top_k=5))
+            times.append(((time.perf_counter() - t0) * 1e3, False))
+            top = re.search(r"### Result 1 \[Similarity: ([0-9.]+)\]\n"
+                            r"\*\*Chunk ID\*\*: (\S+)", text)
+            if top is None or top.group(2) != probe.id or float(
+                    top.group(1)) < 0.999:
+                fail(f"MCP search for {probe.id}: {text[:300]}")
+            sims.append(float(top.group(1)))
+        running = compute_apps()
+        session = storage._get_chunk_data(probes[0].id)["session_id"]
+        want = {c.id for c in storage.get_chunks_by_session(session)} - {
+            probes[0].id}
+        text = mcp_text(tool("claude_semantic_search", related_to=probes[0].id,
+                             same_session=True, top_k=1000))
+        got = set(re.findall(r"\*\*Chunk ID\*\*: (\S+)", text))
+        if got != want or set(re.findall(r"\*\*Session\*\*: (\S+)", text)) != {
+                session}:
+            fail(f"MCP same_session: {sorted(got ^ want)[:5]}")
+        card = mcp_text(tool("get_chunk_by_id", chunk_id=probes[1].id))
+        listing = mcp_text(tool("list_projects"))
+        stats = mcp_text(tool("get_stats"))
+        status = mcp_text(tool("get_status"))
+        if (probes[1].text not in card
+                or storage.get_all_projects()[0] not in listing
+                or f"Total chunks: {storage.total_chunks:,}" not in stats
+                or "Daemon running" not in status):
+            fail(f"MCP tools: {card[:100]} {listing[:100]} {stats[:200]} "
+                 f"{status}")
+        unknown = tool("no_such_tool")
+        if unknown.get("error", {}).get("code") != -32601:
+            fail(f"MCP unknown tool: {unknown}")
+        proc.stdin.close()
+        rc = proc.wait(timeout=120)
+    finally:
+        stop_server(proc, signal.SIGTERM)
+    check_cuda_context("mcp", proc.pid, running, compute_apps())
+    print_latency("mcp", f"tool=claude_semantic_search min_similarity="
+                  f"{min(sims):.3f}", times, phase="mcp")
+    print(f"[mcp] tools={tools} same_session={len(got)} chunks, other tools "
+          f"ok, unknown tool -32601, exit rc={rc}", flush=True)
+    if rc != 0:
+        fail(f"the MCP server exited with {rc}: {log.read_text()[-1000:]}")
+    return served_launches("mcp", launch_log)
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """``os.environ`` with ``values`` for the block."""
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def run_main(main, argv, **env) -> str:
+    """An entry point's ``main(argv)`` in this process with ``env`` set;
+    returns its stdout, fails on a non-zero exit."""
+    out = io.StringIO()
+    try:
+        with env_set(**env), contextlib.redirect_stdout(out):
+            main(argv)
+    except SystemExit as exc:
+        if exc.code:
+            fail(f"{argv[:6]} exited {exc.code}: {out.getvalue()[-1000:]}")
+    return out.getvalue()
+
+
+def run_cli_surface(engine, work: Path, probes) -> None:
+    """The CLI's SQL-only reads and ``stats --gpu`` on the flat bf16
+    directory, through the CLI's ``main`` in this process: ``--chunk-id``,
+    ``--related-to --same-session`` (the session's other chunks in time
+    order), a semantic search ``--related-to`` (that session only)."""
+    import torch
+
+    from tpu_search_torch.interfaces.cli import main
+
+    storage = engine.storage
+    probe = probes[2]
+    session = storage._get_chunk_data(probe.id)["session_id"]
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        out = run_main(main, ["--data-dir", str(work / "data"), "--device",
+                              "cuda", *args],
+                       CLAUDE_SEARCH_MODEL="smoke-mpnet")
+        return out, time.perf_counter() - t0
+
+    out, chunk_s = cli("search", "--chunk-id", probe.id, "--json")
+    items = json.loads(out)["items"]
+    if [i["uid"] for i in items] != [probe.id] or items[0]["text"] != (
+            probe.text):
+        fail(f"search --chunk-id: {out[:300]}")
+    out, related_s = cli("search", "--related-to", probe.id,
+                         "--same-session", "--top-k", "1000", "--json")
+    items = json.loads(out)["items"]
+    want = [c.id for c in storage.get_chunks_by_session(session)
+            if c.id != probe.id]
+    stamps = [i["variables"]["timestamp"] for i in items]
+    if [i["uid"] for i in items] != want or stamps != sorted(stamps):
+        fail(f"search --related-to --same-session: {[i['uid'] for i in items]}"
+             f" against {want}")
+    out, semantic_s = cli("search", probes[3].text, "--related-to", probe.id,
+                          "--json")
+    items = json.loads(out)["items"]
+    if not items or {i["variables"]["session"] for i in items} != {session}:
+        fail(f"search --related-to: {out[:300]}")
+    out, stats_s = cli("stats", "--gpu")
+    if torch.cuda.get_device_name(0) not in out:
+        fail(f"stats --gpu names no card: {out}")
+    print(f"[cli] surface: --chunk-id {chunk_s:.2f}s, --related-to "
+          f"--same-session {len(want)} chunks in time order {related_s:.2f}s, "
+          f"semantic --related-to {len(items)} hits one session "
+          f"{semantic_s:.2f}s, stats --gpu {stats_s:.2f}s", flush=True)
+
+
+def run_storage(work: Path, files) -> dict:
+    """Last, on a copy of the flat int8 path's directory:
+    ``delete_chunks_by_session`` seen by the fused search (graph replays of
+    the int8 scan), ``backup`` then ``restore`` into a fresh engine with the
+    probe answers unchanged; ``setup-models --from-dir`` on a small random
+    HF-format MPNet verified on the card; ``index --trace`` naming the
+    encoder kernels.  Returns the launch counts of the delete's searches."""
+    import torch
+
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.models import setup as model_setup
+    from tpu_search_torch.models.mpnet import MPNetConfig
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.utils.synthetic import write_hf_model
+
+    data = work / "data_storage"
+    shutil.copytree(work / "data_int8", data, symlinks=True)
+    engine = SearchEngine(str(data), model_name="smoke-mpnet",
+                          use_warm_server=False, device="cuda")
+    engine._open()
+    storage = engine.storage
+    probes, _ = probe_queries(engine, storage.total_chunks)
+    session = storage._get_chunk_data(probes[0].id)["session_id"]
+    engine.search_conversations(probes[0].text, top_k=10)  # captured
+    t0 = time.perf_counter()
+    removed = storage.delete_chunks_by_session(session)
+    _build.reset_launches()
+    after = engine.search_conversations(probes[0].text, top_k=10)
+    launches = dict(_build.LAUNCHES)
+    if not removed or not after or any(r["session"] == session
+                                       for r in after):
+        fail(f"delete_chunks_by_session({session}) removed {removed}, the "
+             f"fused search still returns it: {after[:2]}")
+    if not launches["flat_topk_int8"]:
+        fail(f"the search after the delete ran no int8 scan: {launches}")
+    delete_s = time.perf_counter() - t0
+    before = [engine.search_conversations(p.text, top_k=10) for p in probes]
+    t0 = time.perf_counter()
+    storage.backup(str(work / "backup"))
+    fresh = work / "data_restored"
+    fresh.mkdir()
+    (fresh / "models").symlink_to(work / "data" / "models")
+    restored = SearchEngine(str(fresh), model_name="smoke-mpnet",
+                            use_warm_server=False, device="cuda")
+    restored._open()
+    restored.storage.restore(str(work / "backup"))
+    restore_s = time.perf_counter() - t0
+    if restored.storage.index.device.type != "cuda":
+        fail("restore loaded the index off the card")
+    for probe, want in zip(probes, before):
+        got = restored.search_conversations(probe.text, top_k=10)
+        if [r["chunk_id"] for r in got] != [r["chunk_id"] for r in want] or (
+                max_sim_gap(got, want) > WARM_EXACT):
+            fail(f"restored answers differ for {probe.id}")
+    print(f"[storage] delete_chunks_by_session removed={removed} gone from "
+          f"the fused search, seconds={delete_s:.2f}; backup+restore "
+          f"seconds={restore_s:.2f}, 16 probes equal after restore",
+          flush=True)
+    del engine, restored
+    torch.cuda.empty_cache()
+
+    hf = work / "hf-smoke"
+    write_hf_model(hf, MPNetConfig(vocab_size=1000, num_layers=2), seed=11)
+    t0 = time.perf_counter()
+    out = run_main(model_setup.main, ["--from-dir", str(hf), "--model",
+                                      "smoke-hf", "--device", "cuda"],
+                   CLAUDE_SEARCH_DATA_DIR=str(work / "data_setup"))
+    verified = [line for line in out.splitlines()
+                if line.startswith("Verification")]
+    print(f"[storage] setup-models --from-dir seconds="
+          f"{time.perf_counter() - t0:.2f} {verified}", flush=True)
+    if not verified or "on cuda" not in verified[0] or (
+            "norms ok=True" not in verified[0]):
+        fail(f"setup-models: {out[-1000:]}")
+    check_index_trace(work, files)
+    return launches
+
+
+def global_names(source: str) -> set:
+    """The ``__global__`` functions of ``csrc/<source>.cu``."""
+    text = (ROOT / "tpu_search_torch" / "csrc" / f"{source}.cu").read_text()
+    return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*"
+                          r"\)\s*)?(\w+)\s*\(", text))
+
+
+def check_index_trace(work: Path, files) -> None:
+    """``index --trace DIR`` on 5 conversations writes a trace whose
+    device kernels include ``mpnet_attention.cu``'s and
+    ``int8_ffn_ln.cu``'s."""
+    data, projects = work / "data_trace", work / "trace-projects" / "-root-t"
+    data.mkdir()
+    (data / "models").symlink_to(work / "data" / "models")
+    projects.mkdir(parents=True)
+    for f in files[:5]:
+        shutil.copy(f, projects / f.name)
+    from tpu_search_torch.interfaces.cli import main
+
+    t0 = time.perf_counter()
+    run_main(main, ["--data-dir", str(data), "--device", "cuda", "index",
+                    "--claude-dir", str(projects.parent), "--trace",
+                    str(work / "trace")], CLAUDE_SEARCH_MODEL="smoke-mpnet")
+    events = json.loads((work / "trace" / "trace.json").read_text())[
+        "traceEvents"]
+    kernels = {short_kernel_name(e["name"]) for e in events
+               if e.get("cat") == "kernel"}
+    found = {src: sorted(global_names(src) & kernels)
+             for src in ("mpnet_attention", "int8_ffn_ln")}
+    print(f"[storage] index --trace seconds={time.perf_counter() - t0:.2f} "
+          f"device kernels={len(kernels)} of the encoder sources: {found}",
+          flush=True)
+    if not all(found.values()):
+        fail(f"the trace names no kernel of {found}: {sorted(kernels)[:20]}")
+
+
+DAEMON_HTTP_CALLS = 16
 
 
 # The flash step: all-mpnet-base-v2 at full width over an indexing wave
@@ -3438,7 +3993,7 @@ def main() -> None:
                                     config.vocab_size - 5)
         print(f"[setup] checkpoint+{N_CONVERSATIONS} conversations "
               f"seconds={time.perf_counter() - t0:.2f}", flush=True)
-        launches = dict(zip(("bfloat16", "flash_encoder", "warm"),
+        launches = dict(zip(("bfloat16", "flash_encoder", "warm", "served"),
                             run_main_path(work, files)))
         for dtype in ("int8", "int4"):
             launches[dtype] = run_quant_path(
@@ -3459,6 +4014,7 @@ def main() -> None:
         launches["int8_bench"] = run_int8_bench()
         launches["probes"] = run_probes(results)
         run_daemon(work, files)
+        launches["storage"] = run_storage(work, files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

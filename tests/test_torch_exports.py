@@ -15,8 +15,6 @@ import tpu_search
 
 # (package, name): why the port does not export it.
 EXCEPTIONS = {
-    ("", "EmbeddingStats"): "not ported yet (ROADMAP Queue 1 item 4)",
-    ("models", "EmbeddingStats"): "not ported yet (ROADMAP Queue 1 item 4)",
     ("models", "encode"): "MPNetModel.forward",
     ("models", "forward_hidden"): "MPNetModel.forward_hidden",
     ("models", "classify"): "MPNetModel.classify",
@@ -30,7 +28,6 @@ EXCEPTIONS = {
     ("devices", "get_device_summary"): "as GPUCapability",
     ("devices", "log_device_status"): "as GPUCapability",
     ("devices", "quick_accelerator_check"): "as GPUCapability",
-    ("interfaces", "mcp_server"): "not ported yet (ROADMAP Queue 1)",
 }
 # Subpackages of tpu_search the port does not have, and why.
 MISSING_PACKAGES = {

@@ -130,8 +130,12 @@ def test_filters_identical(tmp_path):
     "tpu_search_torch",
     "tpu_search_torch.interfaces.cli",
     "tpu_search_torch.interfaces.query_server",
+    "tpu_search_torch.interfaces.http_server",
+    "tpu_search_torch.interfaces.mcp_server",
     "tpu_search_torch.interfaces.watcher",
     "tpu_search_torch.models.cross_encoder",
+    "tpu_search_torch.models.setup",
+    "tpu_search_torch.utils.profiling",
     "chip_smoke",
 ])
 def test_port_imports_no_jax_click_or_ml_dtypes(module):
@@ -148,13 +152,16 @@ def test_port_imports_no_jax_click_or_ml_dtypes(module):
 
 @pytest.mark.parametrize("path", [
     "interfaces/query_server.py",
+    "interfaces/http_server.py",
+    "interfaces/mcp_server.py",
     "interfaces/fswatch.py",
     "storage/filters.py",
 ])
 def test_verbatim_copies(path):
-    """The warm server's wire protocol and socket path, the file watcher
-    and the filter compiler are shared with the JAX package, not forked:
-    the port's files are its files, byte for byte."""
+    """The warm server's wire protocol and socket path, its HTTP front,
+    the MCP stdio server, the file watcher and the filter compiler are
+    shared with the JAX package, not forked: the port's files are its
+    files, byte for byte."""
     ref = (REPO / "tpu_search" / path).read_bytes()
     assert (REPO / "tpu_search_torch" / path).read_bytes() == ref
 

@@ -2,12 +2,14 @@
 verbatim fswatch copy: the cases of ``tests/test_watcher.py`` pointed at
 the port (debounce, event filtering, PID-file lifecycle, a live
 inotify/polling round), the spawn case as "start the daemon after torch
-has initialized in the parent", ``http_port`` refused, and the daemon
-indexing a new file and answering searches through its warm server on
-the CPU.  Every wait has a deadline."""
+has initialized in the parent", the start-up order (the watch before the
+socket), and the daemon indexing a new file and answering searches
+through its warm server and its HTTP front on the CPU.  Every wait has a
+deadline."""
 
 import os
 import time
+from types import SimpleNamespace
 from unittest.mock import MagicMock, patch
 
 import pytest
@@ -190,21 +192,105 @@ class TestDaemonSpawn:
         assert "already running" in capsys.readouterr().out
 
 
-class TestPortOnly:
-    def test_http_port_refused(self, tmp_path, capsys):
-        from tpu_search_torch.interfaces import cli
-        from tpu_search_torch.interfaces import watcher as W
+def _free_port() -> int:
+    import socket
 
-        with pytest.raises(NotImplementedError, match="HTTP"):
-            ConversationWatcher(data_dir=str(tmp_path), http_port=8765)
-        with pytest.raises(NotImplementedError, match="HTTP"):
-            W.start_daemon(str(tmp_path), str(tmp_path), http_port=8765)
-        with pytest.raises(NotImplementedError, match="HTTP"):
-            W.run_watcher(str(tmp_path), str(tmp_path), http_port=8765)
-        with pytest.raises(NotImplementedError, match="HTTP"):
-            cli.main(["--data-dir", str(tmp_path), "start",
-                      "--claude-dir", str(tmp_path), "--http-port", "8765"])
-        assert not (tmp_path / "watcher.pid").exists()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _write_conversation(path, session: str, text: str) -> None:
+    import json
+
+    path.write_text("".join(
+        json.dumps({
+            "uuid": f"u{i}", "sessionId": session,
+            "timestamp": f"2025-07-01T09:0{i}:00Z",
+            "message": {"role": role, "content": [
+                {"type": "text", "text": text}]},
+        }) + "\n"
+        for i, role in enumerate(("user", "assistant"))))
+
+
+class TestPortOnly:
+    def test_watch_starts_before_the_socket_binds(self, tmp_path):
+        """The start-up order: the watch is alive, and the handler routes
+        indexing to the server's worker, before ``QueryServer.start``
+        binds the socket, so a file written once the socket is visible
+        always raises an event."""
+        from tpu_search_torch.interfaces import watcher as W
+        from tpu_search_torch.interfaces.query_server import QueryServer
+
+        claude = tmp_path / "projects"
+        claude.mkdir()
+        watcher = ConversationWatcher(data_dir=str(tmp_path / "data"),
+                                      debounce_seconds=1)
+        seen = {}
+        original = QueryServer.start
+
+        def start(server):
+            seen["watch_alive"] = (watcher.watch is not None
+                                   and watcher.watch.is_alive)
+            seen["executor_set"] = watcher.handler.executor is not None
+            original(server)
+
+        def stop_loop(_seconds):
+            raise KeyboardInterrupt
+
+        with patch("tpu_search_torch.interfaces.watcher.SearchEngine"), \
+                patch.object(QueryServer, "start", start), \
+                patch.object(W, "time", SimpleNamespace(sleep=stop_loop)):
+            watcher.start_watching(str(claude))
+        assert seen == {"watch_alive": True, "executor_set": True}
+        assert watcher.query_server is None and not watcher.watch.is_alive
+
+    def test_daemon_http_port_serves_new_files(
+        self, tmp_path, monkeypatch, capsys
+    ):
+        """``start --http-port P`` on the CPU: the daemon's HTTP front
+        answers ``/v1/search`` with a file written right after the query
+        socket appears."""
+        import json
+        import urllib.request
+
+        from tpu_search_torch.interfaces import cli
+        from tpu_search_torch.interfaces.query_server import socket_path_for
+
+        claude = tmp_path / "projects" / "-root-proj"
+        claude.mkdir(parents=True)
+        data = tmp_path / "data"
+        port = _free_port()
+        monkeypatch.setenv("CLAUDE_SEARCH_MODEL", "hash-768")
+        cli.main(["--data-dir", str(data), "--device", "cpu", "start",
+                  "--claude-dir", str(tmp_path / "projects"),
+                  "--debounce", "1", "--http-port", str(port)])
+        assert "started with PID" in capsys.readouterr().out
+        try:
+            deadline = time.time() + 60
+            while not socket_path_for(str(data)).exists():
+                assert time.time() < deadline, "no query socket"
+                time.sleep(0.1)
+            _write_conversation(claude / "s7.jsonl", "s7",
+                                "an airship conversation about blimps " * 3)
+            url = f"http://127.0.0.1:{port}/v1/search?q=blimps&top_k=3"
+            deadline = time.time() + 60
+            while True:
+                try:
+                    with urllib.request.urlopen(url, timeout=30) as resp:
+                        body = json.loads(resp.read())
+                except OSError:
+                    body = {}
+                if body.get("results"):
+                    break
+                assert time.time() < deadline, f"never served: {body}"
+                time.sleep(0.2)
+            assert body["ok"] and body["results"][0]["session"] == "s7"
+        finally:
+            cli.main(["--data-dir", str(data), "stop"])
+        capsys.readouterr()
+        cli.main(["--data-dir", str(data), "status"])
+        assert "not running" in capsys.readouterr().out
 
     def test_daemon_indexes_and_serves_warm_searches(
         self, tmp_path, monkeypatch, capsys

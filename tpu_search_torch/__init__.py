@@ -17,7 +17,7 @@ from .index.flat import FlatIndex
 from .index.ivf import IVFIndex
 from .ingest.chunker import Chunk, ChunkingConfig, ConversationChunker
 from .ingest.parser import Conversation, JSONLParser, Message
-from .models.encoder import EmbeddingConfig, EmbeddingGenerator
+from .models.encoder import EmbeddingConfig, EmbeddingGenerator, EmbeddingStats
 from .models.mpnet import MPNetConfig
 from .storage.hybrid import (
     HybridStorage,
@@ -33,6 +33,7 @@ __all__ = [
     "ConversationChunker",
     "EmbeddingConfig",
     "EmbeddingGenerator",
+    "EmbeddingStats",
     "FlatIndex",
     "HybridStorage",
     "IVFIndex",

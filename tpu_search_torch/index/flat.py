@@ -377,10 +377,7 @@ class FlatIndex:
         from .serialize import is_streamed_file, read_file, upload_rows
 
         if not is_streamed_file(path):
-            raise NotImplementedError(
-                f"{path} is not a TPUSIDX2 file; the round-1 npz format is "
-                f"not ported"
-            )
+            return cls._load_legacy_npz(path, device=device)
         header, arrays = read_file(path)
         if header.get("kind", "flat") != "flat":
             raise ValueError(
@@ -411,4 +408,27 @@ class FlatIndex:
             index._scales = torch.from_numpy(scales).to(index.device)
         index._capacity = capacity
         index._count = count
+        return index
+
+    @classmethod
+    def _load_legacy_npz(
+        cls, path: str, device: Optional[torch.device] = None
+    ) -> "FlatIndex":
+        """The round-1 npz format (``header`` JSON, f32 ``vectors``,
+        ``valid``), kept for old data directories: its rows re-add through
+        this index's quantizers, which store the JAX package's bits."""
+        import json
+
+        with np.load(path, allow_pickle=False) as data:
+            header = json.loads(str(data["header"]))
+            vectors = np.asarray(data["vectors"], dtype=np.float32)
+            valid = np.asarray(data["valid"]).astype(np.bool_)
+        index = cls(dim=header["dim"], metric=header["metric"],
+                    dtype=header["dtype"], device=device)
+        count = header["count"]
+        if count:
+            index.add(vectors[:count])
+            index._valid[:count] = torch.from_numpy(valid[:count]).to(
+                index.device)
+            index._mutated()
         return index

@@ -1135,13 +1135,38 @@ class IVFIndex:
         from .serialize import is_streamed_file, read_file
 
         if not is_streamed_file(path):
-            raise NotImplementedError(
-                f"{path} is not a TPUSIDX2 file; the round-1 npz format is "
-                f"not ported")
+            return cls._load_legacy_npz(path, device=device)
         header, arrays = read_file(path)
         if header.get("kind") != "ivf":
             raise ValueError(f"{path} holds a {header.get('kind')!r} index")
         return ivf_index_from_numpy(header, arrays, device, disk=True)
+
+    @classmethod
+    def _load_legacy_npz(
+        cls, path: str, device: Optional[torch.device] = None
+    ) -> "IVFIndex":
+        """The round-1 npz format (host-padded f32 blocks ``[nlist, cap,
+        D]`` of raw rows, ``ids``, ``valid``, ``fill``, ``centroids``),
+        stored in the header's float dtype as the JAX package loads it."""
+        import json
+
+        with np.load(path, allow_pickle=False) as data:
+            header = json.loads(str(data["header"]))
+            arrays = {key: np.asarray(data[key]) for key in (
+                "centroids", "vectors", "ids", "valid", "fill")}
+        if header["dtype"] not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"{path}: round-1 IVF files hold float rows, not "
+                f"{header['dtype']!r}")
+        header = {**header, "by_residual": False}  # raw rows
+        stored = torch.from_numpy(arrays.pop("vectors")).to(
+            _DTYPES[header["dtype"]])
+        arrays["blocks"] = (stored.view(torch.int16).numpy()
+                            if header["dtype"] == "bfloat16"
+                            else stored.numpy())
+        arrays["sq"] = stored.float().square().sum(-1).numpy()
+        arrays["scale"] = np.ones(stored.shape[:2], np.float32)
+        return ivf_index_from_numpy(header, arrays, device)
 
 
 def _words_to_nibble_bytes(words: np.ndarray) -> np.ndarray:

@@ -1,13 +1,16 @@
 """Index factory: build or load the right index kind.
 
 Counterpart of ``tpu_search/index/registry.py``; ``load_index`` peeks the
-``kind`` in a TPUSIDX2 header.
+``kind`` in a TPUSIDX2 header or in a round-1 npz file's.
 """
 
 from __future__ import annotations
 
+import json
+import zipfile
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .flat import FlatIndex
@@ -40,16 +43,23 @@ def create_index(  # noqa: ann - returns any index engine (union)
     raise ValueError(f"Unknown index type: {kind}")
 
 
+def _peek_kind(path: str) -> str:
+    from .serialize import is_streamed_file, read_file
+
+    if is_streamed_file(path):
+        header, _ = read_file(path)
+        return header.get("kind", "flat")
+    # The round-1 npz format.
+    with zipfile.ZipFile(path) as zf:
+        with zf.open("header.npy") as fh:
+            header = json.loads(str(np.load(fh)))
+    return header.get("kind", "flat")
+
+
 def load_index(  # noqa: ann - returns any index engine (union)
     path: str, device: Optional[torch.device] = None
 ):
-    from .serialize import is_streamed_file, read_file
-
-    if not is_streamed_file(path):
-        raise NotImplementedError(
-            f"{path} is not a TPUSIDX2 file; the round-1 npz format is not "
-            f"ported")
-    kind = read_file(path)[0].get("kind", "flat")
+    kind = _peek_kind(path)
     if kind == "flat":
         return FlatIndex.load(path, device=device)
     if kind == "ivf":

@@ -7,12 +7,15 @@ the daemon spawned as a fresh interpreter, PID/log files in the data dir,
 SIGTERM/SIGINT handling, stale-PID cleanup, model-load timeout, and status
 with log tail.  The daemon hosts the warm query server
 (``interfaces/query_server.py``) on its engine, so searches from the CLI
-hit its warm model and index on the device.  Uses the native fswatch
-backend (inotify/polling) instead of the watchdog package.
+hit its warm model and index on the device, and with ``http_port`` the
+HTTP front (``interfaces/http_server.py``) serves the same worker.  Uses
+the native fswatch backend (inotify/polling) instead of the watchdog
+package.
 
 The engine runs on ``device`` (``cuda`` or ``cpu``; else
-``CLAUDE_SEARCH_DEVICE``, else ``cuda``).  ``http_port`` raises
-``NotImplementedError``: the HTTP front is not ported yet.
+``CLAUDE_SEARCH_DEVICE``, else ``cuda``).  The watch starts before the
+query socket binds, so no file written after the socket appears goes
+unseen.
 """
 
 from __future__ import annotations
@@ -139,7 +142,6 @@ class ConversationWatcher:
         http_port: Optional[int] = None,
         device: Optional[str] = None,
     ) -> None:
-        _refuse_http(http_port)
         self.data_dir = resolve_data_dir(data_dir)
         self.debounce_seconds = debounce_seconds
         self.use_gpu = use_gpu
@@ -153,6 +155,7 @@ class ConversationWatcher:
         self.cli_instance: Optional[SearchEngine] = None
         self.handler: Optional[ConversationFileHandler] = None
         self.query_server = None  # started with watching; serves warm queries
+        self.http_frontend = None  # optional HTTP face on the same worker
         self.watch: Optional[Watch] = None
         self.is_running = False
         self.pid_file = Path(self.data_dir) / "watcher.pid"
@@ -208,19 +211,46 @@ class ConversationWatcher:
             signal.signal(signal.SIGALRM, old_handler)
 
         # The daemon doubles as the warm query server: CLI/MCP searches hit
-        # this process's hot model+index instead of cold-starting.
+        # this process's hot model+index instead of cold-starting.  The
+        # watch starts before the socket binds, so a file written once the
+        # socket is visible always raises an event; a debounced reindex
+        # that fires before the worker exists waits for it.
         from .query_server import QueryServer
 
         self.query_server = QueryServer(self.cli_instance, self.data_dir)
+        bound = threading.Event()
+
+        def run_on_worker(fn):
+            bound.wait()
+            server = self.query_server
+            worker = server._worker if server is not None else None
+            return worker.run(fn) if worker is not None else fn()
+
+        self.handler.executor = run_on_worker
+        self.watch = create_watch(str(claude_path), self.handler.on_event)
+        self.watch.start()
         try:
             self.query_server.start()
-            self.handler.executor = self.query_server._worker.run
         except OSError as exc:
             logger.warning("Query server failed to start: %s", exc)
             self.query_server = None
+        finally:
+            bound.set()
 
-        self.watch = create_watch(str(claude_path), self.handler.on_event)
-        self.watch.start()
+        # Optional HTTP face on the SAME worker: searches over HTTP share
+        # embed batches with socket clients and serialize against reindexing.
+        if self.http_port is not None and self.query_server is not None:
+            from .http_server import HttpFrontend
+
+            try:
+                self.http_frontend = HttpFrontend(
+                    worker=self.query_server._worker, port=self.http_port
+                )
+                self.http_frontend.start()
+            except OSError as exc:
+                logger.warning("HTTP front-end failed to start: %s", exc)
+                self.http_frontend = None
+
         self.is_running = True
         logger.info("File watcher started. Monitoring for changes...")
         try:
@@ -232,6 +262,9 @@ class ConversationWatcher:
             self.stop_watching()
 
     def stop_watching(self) -> None:
+        if self.http_frontend is not None:
+            self.http_frontend.stop()
+            self.http_frontend = None
         if self.query_server is not None:
             self.query_server.stop()
             self.query_server = None
@@ -351,13 +384,6 @@ class ConversationWatcher:
 # -- module-level entry points (reference: src/watcher.py:336-435) -----------
 
 
-def _refuse_http(http_port: Optional[int]) -> None:
-    if http_port is not None:
-        raise NotImplementedError(
-            "http_port: the HTTP search front is not ported yet"
-        )
-
-
 def run_watcher(
     data_dir: Optional[str] = None,
     claude_dir: str = "~/.claude/projects",
@@ -417,6 +443,8 @@ def start_daemon(
     ]
     if use_gpu:
         cmd.append("--gpu")
+    if http_port is not None:
+        cmd += ["--http-port", str(http_port)]
     if device is not None:
         cmd += ["--device", device]
     # The child must find this package even when running uninstalled from a
@@ -523,6 +551,7 @@ def _child_main(argv: Optional[list] = None) -> None:
     parser.add_argument("--claude-dir", default="~/.claude/projects")
     parser.add_argument("--debounce", type=int, default=5)
     parser.add_argument("--gpu", action="store_true")
+    parser.add_argument("--http-port", type=int, default=None)
     parser.add_argument("--device", default=None, choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
 
@@ -530,7 +559,8 @@ def _child_main(argv: Optional[list] = None) -> None:
         resolve_data_dir(args.data_dir),
         args.debounce,
         args.gpu,
-        device=args.device,
+        args.http_port,
+        args.device,
     )
     if args.daemon_child:
         watcher.start_daemon(args.claude_dir)

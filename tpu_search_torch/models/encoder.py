@@ -37,7 +37,7 @@ import logging
 import os
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -60,7 +60,7 @@ from .tokenizer import WordPieceTokenizer
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["EmbeddingConfig", "EmbeddingGenerator"]
+__all__ = ["EmbeddingConfig", "EmbeddingGenerator", "EmbeddingStats"]
 
 SEQ_BUCKETS = (64, 128, 256, 384)
 BATCH_BUCKETS = (1, 8, 32, 128, 512)
@@ -86,6 +86,19 @@ class EmbeddingConfig:
     # it; CLAUDE_SEARCH_INT8_FFN=1/0 overrides both.
     quantize_ffn: Optional[bool] = None
     apply_prompts: bool = True
+
+
+@dataclass
+class EmbeddingStats:
+    """What :meth:`EmbeddingGenerator.get_embedding_stats` reports (the
+    JAX package's fields)."""
+
+    total_chunks: int = 0
+    total_tokens: int = 0
+    generation_time: float = 0.0
+    average_chunk_length: float = 0.0
+    throughput_chunks_per_second: float = 0.0
+    model_info: Dict[str, Any] = field(default_factory=dict)
 
 
 class EmbeddingGenerator:
@@ -394,6 +407,184 @@ class EmbeddingGenerator:
                                    device=self._device)
             out.index_copy_(0, rows, vecs[:n_live].float())
         return out
+
+    # -- similarity utilities (the JAX package's, on the host) ---------------
+
+    def compute_similarity(self, a: np.ndarray, b: np.ndarray) -> float:
+        return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    def compute_similarity_matrix(
+        self, embeddings: List[np.ndarray]
+    ) -> np.ndarray:
+        mat = np.asarray(embeddings, dtype=np.float32)
+        norms = np.linalg.norm(mat, axis=1, keepdims=True)
+        unit = mat / np.clip(norms, 1e-12, None)
+        return unit @ unit.T
+
+    def find_similar_chunks(
+        self,
+        query_embedding: np.ndarray,
+        chunk_embeddings: List[np.ndarray],
+        top_k: int = 5,
+    ) -> List[Tuple[int, float]]:
+        sims = [(i, self.compute_similarity(query_embedding, e))
+                for i, e in enumerate(chunk_embeddings)]
+        sims.sort(key=lambda pair: pair[1], reverse=True)
+        return sims[:top_k]
+
+    # -- stats and persistence (the JAX package's npz layout) ----------------
+
+    def get_embedding_stats(self, chunks: List[Chunk]) -> EmbeddingStats:
+        if not chunks:
+            return EmbeddingStats()
+        return EmbeddingStats(
+            total_chunks=len(chunks),
+            total_tokens=sum(len(c.text.split()) for c in chunks),
+            average_chunk_length=float(np.mean([len(c.text) for c in chunks])),
+            model_info=self.get_model_info(),
+        )
+
+    def save_embeddings(self, chunks: List[Chunk], file_path: str) -> None:
+        """The chunks that carry an embedding, as one object array
+        ``embeddings`` of ``{chunk_id, embedding, text, metadata}``."""
+        rows = [{"chunk_id": c.id, "embedding": c.embedding, "text": c.text,
+                 "metadata": c.metadata} for c in chunks if c.embedding]
+        np.savez_compressed(file_path,
+                            embeddings=np.asarray(rows, dtype=object))
+        self.logger.info("Saved %d embeddings to %s", len(rows), file_path)
+
+    def load_embeddings(self, file_path: str) -> List[Chunk]:
+        data = np.load(file_path, allow_pickle=True)
+        chunks = [Chunk(id=item["chunk_id"], text=item["text"],
+                        metadata=item["metadata"],
+                        embedding=item["embedding"])
+                  for item in data["embeddings"]]
+        self.logger.info("Loaded %d embeddings from %s", len(chunks),
+                         file_path)
+        return chunks
+
+    def validate_embeddings(self, chunks: List[Chunk]) -> Dict[str, Any]:
+        results: Dict[str, Any] = {
+            "total_chunks": len(chunks),
+            "chunks_with_embeddings": 0,
+            "embedding_dimension": None,
+            "embedding_stats": {},
+            "issues": [],
+        }
+        embeddings = []
+        for chunk in chunks:
+            if not chunk.embedding:
+                results["issues"].append(
+                    f"Missing embedding for chunk {chunk.id}")
+                continue
+            results["chunks_with_embeddings"] += 1
+            embeddings.append(np.asarray(chunk.embedding))
+            if results["embedding_dimension"] is None:
+                results["embedding_dimension"] = len(chunk.embedding)
+            elif results["embedding_dimension"] != len(chunk.embedding):
+                results["issues"].append(
+                    f"Inconsistent embedding dimension for chunk {chunk.id}")
+        if not embeddings:
+            return results
+        if len({len(e) for e in embeddings}) == 1:
+            arr = np.asarray(embeddings)
+            norms = np.linalg.norm(arr, axis=1)
+            results["embedding_stats"] = {
+                "mean": np.mean(arr, axis=0).tolist(),
+                "std": np.std(arr, axis=0).tolist(),
+                "min": np.min(arr, axis=0).tolist(),
+                "max": np.max(arr, axis=0).tolist(),
+                "norm_mean": float(np.mean(norms)),
+                "norm_std": float(np.std(norms)),
+            }
+        else:
+            norms = [np.linalg.norm(e) for e in embeddings]
+            results["embedding_stats"] = {
+                "norm_mean": float(np.mean(norms)),
+                "norm_std": float(np.std(norms)),
+                "note": "Embeddings have different dimensions",
+            }
+        return results
+
+    # -- device facts and timing ---------------------------------------------
+
+    def benchmark_model(
+        self, test_texts: List[str], warmup_runs: int = 3
+    ) -> Dict[str, Any]:
+        """Encode ``test_texts`` at each batch size up to their count, on
+        the encoder's device, timed between device synchronizations."""
+        if not self.is_model_loaded:
+            self.load_model()
+
+        def sync() -> None:
+            if self._device is not None and self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+
+        for _ in range(warmup_runs):
+            self._encode_texts(test_texts[: min(5, len(test_texts))])
+        results = {}
+        saved = self.config.batch_size
+        try:
+            for batch_size in (1, 4, 8, 16, 32, 128):
+                if batch_size > len(test_texts):
+                    continue
+                self.config.batch_size = batch_size
+                sync()
+                start = time.perf_counter()
+                self._encode_texts(test_texts)
+                sync()
+                total = time.perf_counter() - start
+                results[f"batch_size_{batch_size}"] = {
+                    "total_time": total,
+                    "throughput": len(test_texts) / total,
+                    "avg_time_per_text": total / len(test_texts),
+                }
+        finally:
+            self.config.batch_size = saved
+        return {
+            "model_name": self.config.model_name,
+            "device": str(self._device),
+            "embedding_dimension": self._embedding_dim,
+            "test_texts_count": len(test_texts),
+            "performance": results,
+            "memory_info": self._memory_info(),
+        }
+
+    def _memory_info(self) -> Dict[str, Any]:
+        """The CUDA device's name and memory (bytes); empty off CUDA."""
+        if self._device is None or self._device.type != "cuda":
+            return {}
+        free, total = torch.cuda.mem_get_info(self._device)
+        return {
+            "device_name": torch.cuda.get_device_name(self._device),
+            "bytes_in_use": torch.cuda.memory_allocated(self._device),
+            "bytes_limit": int(total),
+            "bytes_free": int(free),
+            "peak_bytes_in_use": torch.cuda.max_memory_allocated(
+                self._device),
+        }
+
+    def get_model_info(self) -> Dict[str, Any]:
+        if not self.is_model_loaded:
+            return {}
+        info: Dict[str, Any] = {
+            "model_name": self.config.model_name,
+            "embedding_dimension": self._embedding_dim,
+            "max_seq_length": self.config.max_seq_length,
+            "device": str(self._device),
+            "batch_size": self.config.batch_size,
+            "use_gpu": self.is_using_gpu,
+            "compute_dtype": self.config.compute_dtype,
+            "gpu_available": torch.cuda.is_available(),
+        }
+        if self._prompts:
+            info["prompts"] = dict(self._prompts)
+            info["default_prompt_name"] = self._default_prompt_name
+        return info
+
+    @property
+    def is_using_gpu(self) -> bool:
+        return self._device is not None and self._device.type == "cuda"
 
 
 def load_model_dir(model_dir: Path, name: str) -> Tuple[Dict[str, Any],

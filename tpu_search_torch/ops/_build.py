@@ -18,7 +18,11 @@ Each wrapper counts its own launches in :data:`LAUNCHES`, one key a kernel
 of :data:`KERNELS`, so a run can show that the main path went through the
 kernels.  A CUDA graph replay (``api/fused.py``) launches without calling
 the wrappers: it adds the counts its capture recorded, and the capture,
-which launches nothing, leaves the counts as they were.  Each kernel's export is in the library of its name, except
+which launches nothing, leaves the counts as they were.  A process that
+serves searches for another (``cli serve``, the MCP server) writes its
+counts as JSON to ``$CLAUDE_SEARCH_LAUNCH_LOG`` when it exits, where that
+variable is set, so its caller can read which kernels it launched.
+Each kernel's export is in the library of its name, except
 ``int8_ffn_in``'s, ``int8_ffn_out``'s and ``int8_ffn_fused``'s, which run
 on ``int8_ffn_ln``'s GEMM loops and are in that library
 (``ops/int8_gemm._LIBRARY``).
@@ -26,8 +30,10 @@ on ``int8_ffn_ln``'s GEMM loops and are in that library
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -75,6 +81,14 @@ _SMS: Dict[int, int] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _write_launch_log(path: str) -> None:
+    Path(path).write_text(json.dumps(LAUNCHES))
+
+
+if os.environ.get("CLAUDE_SEARCH_LAUNCH_LOG"):
+    atexit.register(_write_launch_log, os.environ["CLAUDE_SEARCH_LAUNCH_LOG"])
 
 
 def _nvcc() -> str:

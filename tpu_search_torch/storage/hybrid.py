@@ -43,7 +43,7 @@ from ..devices.capability import (
 from ..index.registry import create_index, load_index
 from ..ingest.chunker import Chunk
 from ..utils.profiling import PhaseTimer
-from .filters import mask_for_filters
+from .filters import mask_for_filters, matches_filters
 from .metadata import MetadataStore
 
 logger = logging.getLogger(__name__)
@@ -254,6 +254,11 @@ class HybridStorage:
         self.embedding_dim = embedding_dim
         self.index = self._build_index()
         self._data_version += 1
+
+    def initialize_metadata(self) -> None:
+        """Open only SQLite: enough for chunk-by-id, session and project
+        reads without loading the vector index onto the device."""
+        self.meta.open()
 
     def initialize(self) -> None:
         """Open SQLite, create or load the index, rebuild the id maps."""
@@ -631,6 +636,11 @@ class HybridStorage:
         """The chunk's SQLite row (the warm server's ``get_chunk`` op)."""
         return self.meta.get_chunk_row(chunk_id)
 
+    def _matches_filters(
+        self, chunk_data: Dict[str, Any], filters: Dict[str, Any]
+    ) -> bool:
+        return matches_filters(chunk_data, filters)
+
     @staticmethod
     def _row_to_chunk(row: Dict[str, Any]) -> Chunk:
         return Chunk(
@@ -644,10 +654,35 @@ class HybridStorage:
         row = self.meta.get_chunk_row(chunk_id)
         return self._row_to_chunk(row) if row else None
 
+    def get_chunks_by_session(self, session_id: str) -> List[Chunk]:
+        return [self._row_to_chunk(r)
+                for r in self.meta.rows_for_session(session_id)]
+
+    def get_chunks_by_project(self, project_name: str) -> List[Chunk]:
+        return [self._row_to_chunk(r)
+                for r in self.meta.rows_for_project(project_name)]
+
     def get_all_projects(self) -> List[str]:
         return self.meta.all_projects()
 
     # -- deletion ------------------------------------------------------------
+
+    def delete_chunk(self, chunk_id: str) -> bool:
+        """Drop one chunk's row and tombstone its vector."""
+        vec_id = self.chunk_id_to_faiss_id.get(chunk_id)
+        if vec_id is None or self.meta.delete_chunk(chunk_id) is None:
+            return False
+        self._data_version += 1
+        self.chunk_id_to_faiss_id.pop(chunk_id, None)
+        self.faiss_id_to_chunk_id.pop(vec_id, None)
+        if self.index is not None:
+            self.index.remove([vec_id])  # compacted by optimize()
+        self.total_chunks = max(0, self.total_chunks - 1)
+        return True
+
+    def delete_chunks_by_session(self, session_id: str) -> int:
+        rows = self.meta.rows_for_session(session_id)
+        return sum(1 for r in rows if self.delete_chunk(r["id"]))
 
     def remove_chunks_for_file(self, file_path: str) -> int:
         return self.remove_chunks_for_files([file_path])
@@ -701,6 +736,30 @@ class HybridStorage:
             return
         self.index.save(str(self.index_path))
         self._last_save = monotonic()
+
+    def backup(self, backup_dir: str) -> None:
+        """The index (TPUSIDX2) and an online copy of the SQLite file into
+        ``backup_dir``, under the names a data directory uses."""
+        dest = Path(backup_dir)
+        dest.mkdir(parents=True, exist_ok=True)
+        if self.index is not None and self.index.ntotal > 0:
+            self.index.save(str(dest / self.config.index_name))
+        if self.db_path.exists() and self.meta.db is not None:
+            self.meta.backup_to(str(dest / self.config.db_name))
+        self.logger.info("Backup created in %s", dest)
+
+    def restore(self, backup_dir: str) -> None:
+        """Load a backup (of either package) onto this storage's device."""
+        src = Path(backup_dir)
+        index_file = src / self.config.index_name
+        if index_file.exists():
+            self.index = load_index(str(index_file), device=self.device)
+            self.embedding_dim = self.config.embedding_dim = self.index.dim
+        db_file = src / self.config.db_name
+        if db_file.exists():
+            self.meta.restore_from(str(db_file))
+        self._rebuild_id_mappings()  # bumps _data_version
+        self.logger.info("Restored from backup in %s", src)
 
     def optimize(self) -> None:
         """Vacuum SQLite, tombstone orphaned vectors (live slots without a

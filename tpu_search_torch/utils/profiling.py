@@ -1,14 +1,20 @@
-"""Per-phase wall-time accounting for the indexing stats (the
-``PhaseTimer`` of ``tpu_search/utils/profiling.py``)."""
+"""Per-phase wall-time accounting for the indexing stats, and device
+traces (the ``PhaseTimer`` and ``device_trace`` of
+``tpu_search/utils/profiling.py``; the traces come from ``torch.profiler``
+in place of ``jax.profiler``)."""
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
-__all__ = ["PhaseTimer"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["PhaseTimer", "device_trace"]
 
 
 @dataclass
@@ -49,3 +55,27 @@ class PhaseTimer:
         for name, seconds in other.phases.items():
             self.phases[name] = self.phases.get(name, 0.0) + seconds
             self.counts[name] = self.counts.get(name, 0) + other.counts[name]
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Record a ``torch.profiler`` trace of the block (host and, where
+    CUDA is available, device activity) into ``log_dir/trace.json``, a
+    Chrome trace Perfetto opens; a no-op when ``log_dir`` is empty."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("Device trace written to %s", path)

@@ -14,7 +14,7 @@ import numpy as np
 from ..models.mpnet import MPNetConfig
 
 __all__ = ["BERT_CONFIGS", "N_CONVERSATIONS", "write_bert_model",
-           "write_conversations", "write_model"]
+           "write_conversations", "write_hf_model", "write_model"]
 
 # The count of the ``benchmarks/index_e2e.py`` recipe: 1,000 conversations,
 # the first indexed as a warm-up.
@@ -76,6 +76,57 @@ def write_model(model_dir: Path):
     vocab = specials + [f"tok{i}" for i in range(config.vocab_size - 5)]
     (model_dir / "vocab.txt").write_text("\n".join(vocab) + "\n")
     return config
+
+
+def write_hf_model(model_dir: Path, config: MPNetConfig, seed: int) -> None:
+    """An MPNet model directory as the HF hub ships one, from
+    ``init_params(config, seed)``: ``pytorch_model.bin`` (``MPNetModel``
+    key names, ``[out, in]`` weights), ``config.json`` and the
+    ``vocab.txt`` of :func:`write_model`, for ``models/setup.py
+    --from-dir``."""
+    import torch
+
+    from ..models.mpnet import init_params
+
+    params = init_params(config, seed)
+    emb, layers = params["embeddings"], params["layers"]
+    names = {"q_w": "attention.attn.q", "k_w": "attention.attn.k",
+             "v_w": "attention.attn.v", "o_w": "attention.attn.o",
+             "ff_in_w": "intermediate.dense", "ff_out_w": "output.dense"}
+    norms = {"attn_ln": "attention.LayerNorm", "ff_ln": "output.LayerNorm"}
+    sd = {
+        "embeddings.word_embeddings.weight": emb["word"],
+        "embeddings.position_embeddings.weight": emb["position"],
+        "embeddings.LayerNorm.weight": emb["ln_scale"],
+        "embeddings.LayerNorm.bias": emb["ln_bias"],
+        "encoder.relative_attention_bias.weight": params["rel_bias"],
+    }
+    for n in range(config.num_layers):
+        pre = f"encoder.layer.{n}."
+        for key, name in names.items():
+            sd[pre + name + ".weight"] = layers[key][n].T
+            sd[pre + name + ".bias"] = layers[key[:-1] + "b"][n]
+        for key, name in norms.items():
+            sd[pre + name + ".weight"] = layers[key + "_scale"][n]
+            sd[pre + name + ".bias"] = layers[key + "_bias"][n]
+    model_dir.mkdir(parents=True, exist_ok=True)
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                for k, v in sd.items()}, model_dir / "pytorch_model.bin")
+    (model_dir / "config.json").write_text(json.dumps({
+        "model_type": "mpnet", "architectures": ["MPNetModel"],
+        "vocab_size": config.vocab_size, "hidden_size": config.hidden_size,
+        "num_hidden_layers": config.num_layers,
+        "num_attention_heads": config.num_heads,
+        "intermediate_size": config.intermediate_size,
+        "max_position_embeddings": config.max_position,
+        "layer_norm_eps": config.layer_norm_eps,
+        "pad_token_id": config.pad_token_id,
+        "relative_attention_num_buckets":
+            config.relative_attention_num_buckets,
+    }))
+    specials = ["<s>", "<pad>", "</s>", "[UNK]", "<mask>"]
+    vocab = specials + [f"tok{i}" for i in range(config.vocab_size - 5)]
+    (model_dir / "vocab.txt").write_text("\n".join(vocab) + "\n")
 
 
 def _bert(**fields) -> MPNetConfig:
