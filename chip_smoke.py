@@ -27,14 +27,22 @@ Phases, each printing its numbers on its own line:
      (scores mode), with the int8 / int4 scans' prologue kernel against its
      plain twin (``[ivf_prep]``) at every case and each scan's shared
      memory and CTAs a multiprocessor; and the IVF index against the flat
-     exact scan at nprobe = nlist, and its ``tune_nprobe(0.95)``;
+     exact scan at nprobe = nlist, and its ``tune_nprobe(0.95)``; then
+     ``[pq]``, the PQ tier on the same corpus (no kernel of its own: plain
+     PyTorch, as the JAX package scores pq outside its Pallas kernels):
+     pq_m 192 indexes without OPQ, with it and with an int8 refine tier,
+     each scan gated against a float64 table lookup on 8 queries
+     (``PQ_TOL``), recall@10 against the exact f32 scan, and the scan's
+     ms, device ms, launches and peak memory at Q 1, 8 and 128 beside the
+     bytes bound of the probed codes;
   3. drive the main path at the full width of all-mpnet-base-v2 with
      random seeded weights, on six storage paths, each a fresh data
      directory: flat bf16 (1,000 conversations), flat
      ``CLAUDE_SEARCH_STORAGE_DTYPE=int8`` and ``=int4`` (200 each), then
-     ``CLAUDE_SEARCH_INDEX_TYPE=ivf`` with bf16 (1,000), int8 and int4
-     (200 each; int4 with its automatic int8 refine tier and deployed-
-     recall calibration).  Each indexes synthetic conversations through
+     ``CLAUDE_SEARCH_INDEX_TYPE=ivf`` with bf16 (1,000), int8, int4 and pq
+     (200 each; int4 and pq with their automatic int8 refine tier and
+     deployed-recall calibration, pq after ``tune_pq_config``), and pq
+     once more with ``CLAUDE_SEARCH_PQ_OPQ=1`` (index, search, the CLI).  Each indexes synthetic conversations through
      ``SearchEngine.index_conversations``, searches in process (filtered
      too, and at ``top_k=200``) and through the CLI in a subprocess (the
      IVF paths also run ``optimize`` through the CLI), and checks that its
@@ -56,8 +64,8 @@ Phases, each printing its numbers on its own line:
      at rank 1 through the socket, then removed and gone; a replay's
      device split (torch.profiler); the flat scan over the capacity
      against over the rows, and a capture's time.  The flat int8 and the
-     IVF int4 paths end with their 16 probes one at a time through the
-     warm server, each equal to the in-process answer.  After ``[warm]``
+     IVF int4 and pq paths end with their 16 probes one at a time through
+     the warm server, each equal to the in-process answer.  After ``[warm]``
      the flat bf16 directory is served by the product's other entry
      points, each in its own process, with the launch counts that process
      writes at exit (``CLAUDE_SEARCH_LAUNCH_LOG``) and its CUDA context
@@ -2098,6 +2106,166 @@ def check_ivf(results: dict) -> None:
         fail(f"tune_nprobe did not reach recall 0.95: {report}")
 
 
+PQ_M, PQ_NPROBE, PQ_CASES = 192, 32, (1, 8, 128)
+# The [pq] scan against its float64 table lookup: f32 entries summed in
+# another order (192 of them, each under 0.1) and f32 centroid scores.
+PQ_TOL = 1e-4
+
+
+def pq_table_lookup(index, queries, probe, k: int):
+    """An independent reference of the pq probe scan: for each query, the
+    float64 ADC table lookup ``sum_m LUT[m, code[n, m]]`` (the tables from
+    ``q``, ``q @ R`` under OPQ, and the books in float64) over the rows of
+    its probed clusters, plus the query's float64 centroid score, live
+    rows only; ``(scores [Q, k] f64, ids [Q, k])``."""
+    import torch
+
+    m, _, dsub = index._pq_books.shape
+    cap = index._cluster_capacity
+    q64 = queries.double()
+    cs = q64 @ index._dcent.double().T
+    qr = q64 @ index._pq_rot.double() if index._pq_rot is not None else q64
+    lut = torch.einsum("qmd,mkd->qmk", qr.reshape(-1, m, dsub),
+                       index._pq_books.double())
+    sub = torch.arange(m, device=queries.device)
+    out_s, out_i = [], []
+    for i in range(queries.shape[0]):
+        cl = probe[i].long()
+        b = index._dblocks[cl]  # [nprobe, cap/2, M]
+        codes = torch.stack([b & 0x0F, b >> 4], dim=2).reshape(
+            cl.shape[0], cap, m).long()
+        scores = lut[i][sub, codes].sum(dim=-1) + cs[i, cl][:, None]
+        scores = torch.where(index._dvalid[cl], scores,
+                             torch.full_like(scores, float("-inf")))
+        top, pos = torch.topk(scores.reshape(-1), k)
+        slot = cl[pos // cap] * cap + pos % cap
+        out_s.append(top)
+        out_i.append(torch.where(torch.isfinite(top),
+                                 index._dids.reshape(-1)[slot].long(),
+                                 torch.full_like(slot, -1)))
+    return torch.stack(out_s), torch.stack(out_i)
+
+
+def check_pq() -> None:
+    """The PQ tier at the IVF kernels' shape (``ivf_corpus``: 1M x 768
+    clustered unit rows, nlist 1024, 10 % tombstoned): pq_m 192 indexes
+    trained through ``IVFIndex.add`` (the coarse quantizer, then the books
+    at the default sample; without OPQ, with it, and with an int8 refine
+    tier at factor 4), each scan gated against :func:`pq_table_lookup` on
+    8 queries (scores within ``PQ_TOL``, ids equal outside ties), recall@10
+    against the exact f32 flat scan at nprobe 32 and 256 beside the share of
+    the true top 10 in the probed lists (reported, not gated), and the scan's
+    CUDA-event ms, device ms, launches a call and peak memory at Q 1, 8 and
+    128, k 10, nprobe 32, beside the bytes bound (the probed codes)."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.index.ivf import IVFIndex, ivf_scan, probe_clusters
+
+    dev = torch.device("cuda")
+    rows = ivf_corpus(dev)
+    dead = np.random.default_rng(22).choice(IVF_N, IVF_N // 10, replace=False)
+    indexes = {}
+    for tag, kwargs in (("pq", {}), ("pq_opq", {"opq": True}),
+                        ("pq_refine", {"refine_dtype": "int8",
+                                       "refine_factor": 4})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = IVFIndex(768, dtype="pq", nlist=IVF_NLIST, pq_m=PQ_M,
+                         device=dev, **kwargs)
+        index.add(rows)
+        index.remove(dead)
+        torch.cuda.synchronize()
+        print(f"[pq_build] {tag} rows={index.ntotal} live={index.live} "
+              f"pq_m={index.pq_m} opq={index._pq_rot is not None} "
+              f"refine={index.refine_dtype} seconds="
+              f"{time.perf_counter() - t0:.2f} cap={index._cluster_capacity} "
+              f"bytes_per_row={index.pq_m // 2} padding="
+              f"{json.dumps(index.padding_stats())}", flush=True)
+        indexes[tag] = index
+    qrng = np.random.default_rng(24)
+    live = np.setdiff1d(np.arange(IVF_N), dead)
+
+    # The gate: each codec's scan against the float64 table lookup.
+    for tag in ("pq", "pq_opq"):
+        index = indexes[tag]
+        queries = rows[torch.from_numpy(qrng.choice(live, 8, replace=False))
+                       .to(dev)]
+        for k in (10, 128):
+            _, probe = probe_clusters(queries, index._dcent, "ip", PQ_NPROBE)
+            ks, ki = index._scan(queries, PQ_NPROBE, k, index._penalty(None))
+            rs, ri = pq_table_lookup(index, queries, probe, k)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(rs)
+            same_fin = bool(torch.equal(torch.isfinite(ks), fin))
+            err = float((ks[fin].double() - rs[fin]).abs().max()) if (
+                same_fin) else float("inf")
+            ties = bool(((ki.long() == ri)
+                         | ((ks.double() - rs).abs() <= PQ_TOL)).all())
+            ok = same_fin and err <= PQ_TOL and ties
+            print(f"[pq] gate {tag} Q=8 k={k} nprobe={PQ_NPROBE} vs the "
+                  f"float64 table lookup: max_abs_err={err:.3e} "
+                  f"id_agreement={float((ki.long() == ri).float().mean()):.4f}"
+                  f" ids_equal_outside_ties={ties} ok={ok}", flush=True)
+            if not ok:
+                fail(f"the {tag} scan disagrees with the float64 table "
+                     f"lookup at k={k}")
+
+    # Recall@10 against the exact f32 flat scan of the live rows.
+    qs = rows[torch.from_numpy(qrng.choice(live, 64, replace=False)).to(dev)]
+    alive = torch.ones(IVF_N, dtype=torch.bool, device=dev)
+    alive[torch.from_numpy(dead).to(dev)] = False
+    exact = torch.cat([qs @ rows[c0: c0 + 262144].T
+                       for c0 in range(0, IVF_N, 262144)], dim=1)
+    exact = torch.where(alive[None], exact, float("-inf"))
+    truth = torch.topk(exact, 10, dim=1).indices.cpu().numpy()
+    del exact
+    qs_host = qs.cpu().numpy()
+    for nprobe in (PQ_NPROBE, 8 * PQ_NPROBE):
+        for tag, index in indexes.items():
+            # The probe loss alone: the share of the true top 10 that lies
+            # in the probed lists.
+            _, probe = probe_clusters(qs, index._dcent, "ip", nprobe)
+            home = index._slot_cluster[truth]
+            ceiling = float(np.mean([np.isin(h, p).mean() for h, p in
+                                     zip(home, probe.cpu().numpy())]))
+            _, got = index.search(qs_host, 10, nprobe=nprobe)
+            recall = float(np.mean([len(set(g) & set(t)) / 10
+                                    for g, t in zip(got, truth)]))
+            print(f"[pq] recall@10 {tag} nprobe={nprobe} refine_factor="
+                  f"{index.refine_factor if index._refine else 0} vs exact "
+                  f"f32 flat scan: {recall:.4f} (probed lists hold "
+                  f"{ceiling:.4f} of the true top 10)", flush=True)
+
+    # The scan's times on the plain codec: the whole device search
+    # (centroid scan, tables, probe scan, slot -> id map).
+    index = indexes["pq"]
+    del indexes, rows
+    scan_key, buffers = index.make_scan_fn(PQ_NPROBE)
+    staged = index.scan_staged(None)
+    cap = index._cluster_capacity
+    for q in PQ_CASES:
+        queries = torch.from_numpy(qs_host[np.arange(q) % 64]).to(dev)
+
+        def call():
+            return ivf_scan(scan_key, buffers, staged, queries, 10)
+
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+        ms = cuda_ms(call, iters=10)
+        dms, launches = device_breakdown(f"pq Q={q} k=10", call, calls=5)
+        bound_ms, by = bound(q * PQ_NPROBE * cap * PQ_M / 2, 0, "f32")
+        print(f"[pq] scan N={IVF_N} nlist={IVF_NLIST} cap={cap} pq_m={PQ_M} "
+              f"nprobe={PQ_NPROBE} Q={q} k=10 ms={ms:.4f} device_ms={dms:.4f} "
+              f"launches_per_call={launches:.1f} peak_mb={peak_mb:.1f} "
+              f"bound_ms={bound_ms:.5f} bound_by={by}", flush=True)
+
+
 # -- phase 3: the main path -----------------------------------------------------
 
 
@@ -3535,24 +3703,29 @@ def check_cli_optimize(data_dir: Path, tag: str, env_extra: dict) -> None:
         fail(f"CLI optimize failed: {proc.stderr[-2000:]}")
 
 
-def run_ivf_path(work: Path, files, dtype: str) -> dict:
+def run_ivf_path(work: Path, files, dtype: str, opq: bool = False) -> dict:
     """The main path with ``CLAUDE_SEARCH_INDEX_TYPE=ivf`` and
-    ``CLAUDE_SEARCH_STORAGE_DTYPE=dtype`` in a fresh data directory: index
-    (auto-train, rebalance, nprobe autotune; int4 with its refine tier and
-    calibration), search (filtered, and at ``top_k=200``), the CLI on the
-    saved index, ``optimize`` through the CLI.  Returns the launch counts
-    of that run (set to 0 after the warm-up)."""
+    ``CLAUDE_SEARCH_STORAGE_DTYPE=dtype`` (with ``opq``,
+    ``CLAUDE_SEARCH_PQ_OPQ=1``) in a fresh data directory: index
+    (auto-train, rebalance, nprobe autotune; int4 and pq with their refine
+    tier and calibration, pq through ``tune_pq_config``), search (filtered,
+    and at ``top_k=200``), the CLI on the saved index, ``optimize`` through
+    the CLI (not with ``opq``), and for int4 and pq the warm server's
+    answers.  Returns the launch counts of that run (set to 0 after the
+    warm-up)."""
     import torch
 
     from tpu_search_torch.api.engine import SearchEngine
     from tpu_search_torch.ops import _build
 
-    tag = f"ivf_{dtype}"
+    tag = f"ivf_{dtype}" + ("_opq" if opq else "")
     data = work / f"data_{tag}"
     data.mkdir()
     (data / "models").symlink_to(work / "data" / "models")
     env = {"CLAUDE_SEARCH_INDEX_TYPE": "ivf",
            "CLAUDE_SEARCH_STORAGE_DTYPE": dtype}
+    if opq:
+        env["CLAUDE_SEARCH_PQ_OPQ"] = "1"
     os.environ.update(env)
     try:
         engine = SearchEngine(str(data), model_name="smoke-mpnet",
@@ -3567,18 +3740,38 @@ def run_ivf_path(work: Path, files, dtype: str) -> dict:
               f"{index.nprobe_hint} refine={index.refine_dtype} "
               f"refine_factor={index.refine_factor} calibration="
               f"{json.dumps(cal)}", flush=True)
-        if dtype == "int4" and not cal.get("calibrated"):
-            fail(f"the int4 IVF path did not calibrate: {cal}")
+        if dtype == "pq":
+            print(f"[ivf] path={tag} pq_m={index.pq_m} opq={index.opq} "
+                  f"rotation={index._pq_rot is not None} pq_auto="
+                  f"{index.pq_auto} tune={json.dumps(index._pq_tune_report)}",
+                  flush=True)
+            if opq != (index._pq_rot is not None) or index.pq_auto == opq:
+                fail(f"the {tag} path built pq_auto={index.pq_auto} "
+                     f"rotation={index._pq_rot is not None}")
+            if not opq and index._pq_tune_report is None:
+                fail(f"the {tag} path did not run tune_pq_config")
+        if dtype in ("int4", "pq") and not opq and not cal.get("calibrated"):
+            fail(f"the {tag} path did not calibrate: {cal}")
         slot = engine.storage.chunk_id_to_faiss_id
 
         def sigma(chunk_id):
             vid = slot[chunk_id]
             if index._refine is not None:  # refine rows score the result
-                scale = float(index._refine.scales[vid])
-            else:
-                scale = float(index._dscale[int(index._slot_cluster[vid]),
-                                            int(index._slot_pos[vid])])
-            return scale / math.sqrt(12.0)
+                return float(index._refine.scales[vid]) / math.sqrt(12.0)
+            cap = index._cluster_capacity
+            fi = int(index._slot_cluster[vid]) * cap + int(
+                index._slot_pos[vid])
+            if dtype == "pq":
+                # A pq row scores a unit query at most |x - decode(x)| off
+                # its row x (Cauchy-Schwarz): half of it here makes the tie
+                # bound at least the two rows' errors added.
+                x = torch.from_numpy(engine.embedder._encode_texts(
+                    [engine.storage.get_chunk_by_id(chunk_id).text])).cuda()
+                x = x / x.norm()
+                rec = index._gather_dequant(
+                    torch.tensor([fi], device="cuda"), index._dcent)
+                return float((x - rec).norm()) / 2.0
+            return float(index._dscale.reshape(-1)[fi]) / math.sqrt(12.0)
 
         gaps = []
         check = rank_one if dtype == "bfloat16" else tie_hit(
@@ -3596,14 +3789,20 @@ def run_ivf_path(work: Path, files, dtype: str) -> dict:
         launches = dict(_build.LAUNCHES)
         print(f"[launches] path={tag} index+search={launches}", flush=True)
         wanted = [k for k, path in PATH_OF.items() if path == tag]
-        if dtype == "int4":
+        if dtype == "pq":  # no kernel scans pq: the encoder's run
+            wanted += ["mpnet_attention", "int8_ffn_ln"]
+        if dtype in ("int4", "pq") and not opq:
             wanted.append("flat_topk_int8")  # the calibration's truth scan
         if any(launches[k] == 0 for k in wanted):
             fail(f"the {tag} path did not run {wanted}: {launches}")
         check_cli(engine, data, probes[4].text, tag, env)
+        if opq:
+            return launches
         check_cli_optimize(data, tag, env)
-        if dtype == "int4":
-            warm_exact_pass(engine, data, probes, tag, "ivf_topk_int4")
+        if dtype in ("int4", "pq"):
+            warm_exact_pass(engine, data, probes, tag,
+                            "ivf_topk_int4" if dtype == "int4"
+                            else "mpnet_attention")
         return launches
     finally:
         for key in env:
@@ -3946,6 +4145,15 @@ def run_probes(results: dict) -> dict:
 # -- main ----------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def timed_phase(name: str):
+    """Prints the seconds a phase of ``main`` took."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[phase] {name} seconds={time.perf_counter() - t0:.2f}",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -3970,14 +4178,13 @@ def main() -> None:
     print(smi, flush=True)
 
     results: dict = {}
-    check_flat_topk(results)
-    check_quant_topk(results)
-    check_attention(results)
-    check_attention_bhsd(results)
-    check_flash_attention(results)
-    check_int8_ffn(results)
-    check_int8_gemm(results)
-    check_ivf(results)
+    for check in (check_flat_topk, check_quant_topk, check_attention,
+                  check_attention_bhsd, check_flash_attention, check_int8_ffn,
+                  check_int8_gemm, check_ivf):
+        with timed_phase(check.__name__):
+            check(results)
+    with timed_phase("check_pq"):
+        check_pq()
 
     from tpu_search_torch.utils.synthetic import (
         N_CONVERSATIONS,
@@ -3993,28 +4200,42 @@ def main() -> None:
                                     config.vocab_size - 5)
         print(f"[setup] checkpoint+{N_CONVERSATIONS} conversations "
               f"seconds={time.perf_counter() - t0:.2f}", flush=True)
-        launches = dict(zip(("bfloat16", "flash_encoder", "warm", "served"),
-                            run_main_path(work, files)))
+        with timed_phase("main_path"):
+            launches = dict(zip(
+                ("bfloat16", "flash_encoder", "warm", "served"),
+                run_main_path(work, files)))
         for dtype in ("int8", "int4"):
-            launches[dtype] = run_quant_path(
-                work, files[: N_QUANT_CONVERSATIONS + 1], dtype)
+            with timed_phase(dtype):
+                launches[dtype] = run_quant_path(
+                    work, files[: N_QUANT_CONVERSATIONS + 1], dtype)
         for dtype, n in (("bfloat16", N_CONVERSATIONS),
                          ("int8", N_IVF_QUANT_CONVERSATIONS),
-                         ("int4", N_IVF_QUANT_CONVERSATIONS)):
-            launches[f"ivf_{dtype}"] = run_ivf_path(
-                work, files[: n + IVF_WARM_FILES], dtype)
-        engine, data, probes, launches["minilm"] = run_bert_path(
-            work, files[: N_BERT_CONVERSATIONS + 1])
+                         ("int4", N_IVF_QUANT_CONVERSATIONS),
+                         ("pq", N_IVF_QUANT_CONVERSATIONS)):
+            with timed_phase(f"ivf_{dtype}"):
+                launches[f"ivf_{dtype}"] = run_ivf_path(
+                    work, files[: n + IVF_WARM_FILES], dtype)
+        with timed_phase("ivf_pq_opq"):
+            run_ivf_path(work, files[: N_IVF_QUANT_CONVERSATIONS
+                                     + IVF_WARM_FILES], "pq", opq=True)
+        with timed_phase("minilm"):
+            engine, data, probes, launches["minilm"] = run_bert_path(
+                work, files[: N_BERT_CONVERSATIONS + 1])
         for tag, model, kernels in RERANK_PATHS:
-            launches[tag] = run_rerank_path(engine, data, probes, tag, model,
-                                            kernels)
+            with timed_phase(tag):
+                launches[tag] = run_rerank_path(engine, data, probes, tag,
+                                                model, kernels)
         launches["rerank"] = {
             k: launches["rerank_tinybert"][k] + launches["rerank_fixture"][k]
             for k in launches["rerank_fixture"]}
-        launches["int8_bench"] = run_int8_bench()
-        launches["probes"] = run_probes(results)
-        run_daemon(work, files)
-        launches["storage"] = run_storage(work, files)
+        with timed_phase("int8_bench"):
+            launches["int8_bench"] = run_int8_bench()
+        with timed_phase("probes"):
+            launches["probes"] = run_probes(results)
+        with timed_phase("daemon"):
+            run_daemon(work, files)
+        with timed_phase("storage"):
+            launches["storage"] = run_storage(work, files)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -11,7 +11,7 @@ rounding, as ``test_torch_engine.py``), 2e-2 (int8: residuals against
 different centroids quantize differently) and 5e-3 (int4: the refine
 tier's int8 rows are the same in both); ids equal outside near-ties.
 Also: the env knobs validated as the JAX engine validates them, ``pq``
-on IVF and OPQ refused, ``optimize`` through the engine and the CLI.
+on IVF and OPQ end to end, ``optimize`` through the engine and the CLI.
 """
 
 import json
@@ -153,16 +153,53 @@ def test_ivf_env_knobs_reach_storage(tmp_path, monkeypatch):
         "ivf", 0.9, "bfloat16", 6, 16)
 
 
+def _pq_engine_end_to_end(root, monkeypatch, opq: str) -> None:
+    files = write_transcripts(root)
+    write_model(root / "data" / "models")
+    env = dict(ENV, CLAUDE_SEARCH_STORAGE_DTYPE="pq", CLAUDE_SEARCH_PQ_OPQ=opq)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    engine = SearchEngine(str(root / "data"), model_name="tiny-mpnet",
+                          device="cpu")
+    assert engine.storage.config.pq_opq is (opq == "1")
+    stats = engine.index_conversations(files)
+    assert stats["errors"] == [] and stats["chunks_indexed"] > 6
+    index = engine.storage.index
+    assert isinstance(index, IVFIndex) and index.dtype == "pq"
+    assert index.opq is (opq == "1") and (index._pq_rot is not None) is (
+        opq == "1")
+    assert index.pq_auto is (opq == "0")
+    assert index.refine_dtype == ("int8" if opq == "0" else "none")
+    info = engine.get_index_stats()
+    assert info["storage_dtype"] == "pq"
+    assert ("pq_tune" in info) is (opq == "0")
+    storage = engine.storage
+    for chunk_id in list(storage.chunk_id_to_faiss_id)[:4]:
+        text = storage.get_chunk_by_id(chunk_id).text
+        hits = engine.search_conversations(text, top_k=5)
+        assert chunk_id in [r["chunk_id"] for r in hits]
+    storage.save_index()
+    run_env = dict(os.environ, CLAUDE_SEARCH_MODEL="tiny-mpnet")
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
+         "--data-dir", str(root / "data"), "--device", "cpu", "search",
+         QUERIES[1], "--top-k", "5", "--json"],
+        cwd=str(REPO), capture_output=True, text=True, env=run_env,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    want = engine.search_conversations(QUERIES[1], top_k=5)
+    assert [i["uid"] for i in json.loads(out.stdout)["items"]] == [
+        r["chunk_id"] for r in want]
+
+
 def test_pq_on_ivf_and_opq_refused(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError):
-        HybridStorage(StorageConfig(data_dir=str(tmp_path), device="cpu",
-                                    index_type="ivf", storage_dtype="pq"))
-    with pytest.raises(NotImplementedError):
-        HybridStorage(StorageConfig(data_dir=str(tmp_path), device="cpu",
-                                    index_type="ivf", pq_opq=True))
-    monkeypatch.setenv("CLAUDE_SEARCH_PQ_OPQ", "1")
-    with pytest.raises(NotImplementedError):
-        SearchEngine(str(tmp_path), model_name="tiny-mpnet", device="cpu")
+    """No longer refused: ``CLAUDE_SEARCH_STORAGE_DTYPE=pq`` on IVF (with
+    the PQ auto-config: tuned knobs and the int8 refine tier) and
+    ``CLAUDE_SEARCH_PQ_OPQ=1`` (a manual OPQ operating point) build a pq
+    index end to end on the CPU engine; its self-searches find their own
+    chunk, and the CLI on the saved index answers as in process."""
+    for opq in ("0", "1"):
+        _pq_engine_end_to_end(tmp_path / f"opq{opq}", monkeypatch, opq)
 
 
 @pytest.mark.parametrize("index_type,refine,normalize,want", [

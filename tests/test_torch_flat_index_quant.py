@@ -250,12 +250,32 @@ def test_effective_dtype_matches_jax(tmp_path, dtype, normalize, index_type,
 
 
 def test_ivf_and_pq_on_ivf_stay_refused(tmp_path):
-    # The IVF index is ported (tests/test_torch_engine_ivf.py); what stays
-    # refused is its product quantization: pq on IVF, and OPQ.
-    for kwargs in ({"storage_dtype": "pq"}, {"pq_opq": True}):
-        with pytest.raises(NotImplementedError):
-            HybridStorage(StorageConfig(data_dir=str(tmp_path), device="cpu",
-                                        index_type="ivf", **kwargs))
+    """Product quantization on IVF is ported: the pq and OPQ settings reach
+    the IVF index as the JAX package's storage hands them on (pq_auto
+    only without OPQ or a refine choice; OPQ only for pq)."""
+    from tpu_search.storage.hybrid import HybridStorage as JaxHybridStorage
+    from tpu_search.storage.hybrid import StorageConfig as JaxStorageConfig
+
+    for i, kwargs in enumerate(({"storage_dtype": "pq"},
+                                {"storage_dtype": "pq", "pq_opq": True},
+                                {"storage_dtype": "pq",
+                                 "refine_dtype": "bfloat16"},
+                                {"storage_dtype": "int4", "pq_opq": True})):
+        conf = dict(index_type="ivf", embedding_dim=32, ivf_nlist=4,
+                    device="cpu", **kwargs)
+        port = HybridStorage(StorageConfig(data_dir=str(tmp_path / f"p{i}"),
+                                           **conf))
+        port.initialize()
+        ref = JaxHybridStorage(JaxStorageConfig(
+            data_dir=str(tmp_path / f"j{i}"), **conf))
+        ref.initialize()
+        got, want = port.index, ref.index
+        assert (got.dtype, got.pq_m, got.opq, got.pq_auto, got.refine_dtype,
+                got.by_residual) == (want.dtype, want.pq_m, want.opq,
+                                     want.pq_auto, want.refine_dtype,
+                                     want.by_residual)
+        port.close()
+        ref.close()
 
 
 @pytest.mark.parametrize("env,value", [

@@ -299,10 +299,11 @@ def test_empty_and_trained_empty_round_trip(tmp_path):
 
 
 def test_refused_and_device_defaults(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        IVFIndex(D, dtype="pq", device="cpu")
-    with pytest.raises(NotImplementedError):
-        IVFIndex(D, dtype="int8", opq=True, device="cpu")
+    # pq is ported (tests/test_torch_ivf_pq.py); as in the JAX package, opq
+    # and pq_m hold for pq alone.
+    index = IVFIndex(D, dtype="int8", opq=True, pq_m=16, device="cpu")
+    assert (index.opq, index.pq_m) == (False, 0)
+    assert IVFIndex(D, dtype="pq", device="cpu").pq_m == D // 4
     with pytest.raises(ValueError):
         IVFIndex(D, dtype="int8", metric="l2", device="cpu")
     monkeypatch.setenv("CLAUDE_SEARCH_DEVICE", "cpu")

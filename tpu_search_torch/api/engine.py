@@ -154,11 +154,11 @@ def _storage_env() -> Dict[str, Any]:
       the measured hint, else 8), returned under ``nprobe``;
     - ``CLAUDE_SEARCH_AUTOTUNE_RECALL`` = nprobe tuning target (float,
       <= 0 off).
+    - ``CLAUDE_SEARCH_PQ_OPQ`` = 0|1, the OPQ rotation of
+      ``storage_dtype="pq"`` (``pq_opq``);
     - ``CLAUDE_SEARCH_SHARD_DEVICES`` = device count (integer, 0 = auto),
       passed on as ``shard_devices``; the storage layer refuses more than
-      one device (multi-GPU is not ported).
-    ``CLAUDE_SEARCH_PQ_OPQ=1`` raises ``NotImplementedError`` (OPQ is not
-    ported); the storage layer refuses ``pq`` on IVF."""
+      one device (multi-GPU is not ported)."""
     kwargs: Dict[str, Any] = {}
     for env, key, allowed in (
         ("CLAUDE_SEARCH_INDEX_TYPE", "index_type", ("flat", "ivf", "hnsw")),
@@ -169,8 +169,9 @@ def _storage_env() -> Dict[str, Any]:
         value = _env_choice(env, allowed)
         if value:
             kwargs[key] = value
-    if _env_choice("CLAUDE_SEARCH_PQ_OPQ", ("0", "1")) == "1":
-        raise NotImplementedError("CLAUDE_SEARCH_PQ_OPQ=1: OPQ is not ported")
+    opq = _env_choice("CLAUDE_SEARCH_PQ_OPQ", ("0", "1"))
+    if opq:
+        kwargs["pq_opq"] = opq == "1"
     for env, key, kind, what in (
         ("CLAUDE_SEARCH_REFINE_FACTOR", "refine_factor", int, "an integer"),
         ("CLAUDE_SEARCH_NPROBE", "nprobe", int, "an integer"),

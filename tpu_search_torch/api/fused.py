@@ -25,7 +25,8 @@ A graph bakes in addresses, so a program is keyed on everything it bakes
 in: the encoder (its identity, config and compute dtype), the normalize
 steps, the int8 FFN choice, the batch and sequence buckets, ``q_pad``,
 ``k``, the scan key, the address, shape and dtype of every device tensor
-the scan reads in place, and the shape and dtype of the staged ones.  An
+the scan reads in place (an IVF pq index's codebooks and OPQ rotation
+among them), and the shape and dtype of the staged ones.  An
 index whose buffers moved (growth, compact, rebalance) gets a new
 program; the old one ages out of the bound.
 

@@ -6,20 +6,25 @@ Counterpart of ``tpu_search/index/ivf.py``:
   (bf16 / f32 rows, int8 rows, or int4 as ``[nlist, cap/2, D]`` uint8
   nibble-pair bytes with rows in logical order, the TPUSIDX2 layout; the
   JAX package's ``[nlist, cap/8, D]`` int32 words are a TPU DMA layout
-  and are not carried over).  Clusters are padded to a capacity that is a
-  multiple of 256 (``_SLOT_ALIGN``), grown by ``_GROWTH``;
-- int8 and int4 rows are residuals against their centroid by default
-  (``by_residual``), quantized to the JAX package's bits;
+  and are not carried over).  ``pq`` blocks are the int4 layout with ``M``
+  code columns (``[nlist, cap/2, M]``, raw codes 0..15, ``ops/pq.py``).
+  Clusters are padded to a capacity that is a multiple of 256
+  (``_SLOT_ALIGN``), grown by ``_GROWTH``;
+- int8, int4 and pq rows are residuals against their centroid by default
+  (``by_residual``), quantized to the JAX package's bits; pq rows encode
+  through codebooks trained with the coarse quantizer (with ``opq``, the
+  rotated residual), or, with ``pq_auto``, through the knobs
+  :func:`tune_pq_config` measures;
 - a search scores the centroids, takes the top ``nprobe`` clusters, and
   runs the probe scan of the storage dtype (``ops.ivf_scan``: the CUDA
   kernels on the card, their plain versions on the CPU) over the fill
   prefix of each probed cluster; ids come back as flat slots and map
   through the block ids.  An int8 / bf16 refine tier (``index.refine``)
   re-ranks an over-fetched stage 1;
-- training is the port's balanced k-means; ``rebalance``, ``tune_nprobe``
-  and the deployed-recall calibration are the JAX package's, step for
-  step; ``save`` / ``load`` speak TPUSIDX2 with the JAX package's header
-  keys, so both packages read each other's files;
+- training is the port's balanced k-means; ``rebalance``, ``tune_nprobe``,
+  the PQ auto-config and the deployed-recall calibration are the JAX
+  package's, step for step; ``save`` / ``load`` speak TPUSIDX2 with the
+  JAX package's header keys, so both packages read each other's files;
 - ``make_scan_fn`` / ``scan_staged`` hand the fused query path
   (``api/fused.py``) the whole search (centroid scan, probe scan, refine)
   as one function over device tensors.
@@ -28,8 +33,9 @@ The device programs of the JAX package (``_scatter_rows``, ``_grow_blocks``,
 ``_permute_slots``, ...) are plain PyTorch here and update the block
 tensors in place where that saves a copy (scatters, tombstones).  Host
 metadata (``[nlist, cap]`` ids / validity, per-id slot lookups) is numpy,
-as in the JAX package.  Product quantization (``dtype="pq"``) and OPQ are
-not ported and raise ``NotImplementedError``.
+as in the JAX package.  The pq probe scan (``ops.pq.ivf_pq_topk``) is plain
+PyTorch on every device: the JAX package scores pq outside any Pallas
+kernel too.
 """
 
 from __future__ import annotations
@@ -50,6 +56,15 @@ from ..ops.ivf_scan import (
     ivf_topk_scan,
 )
 from ..ops.kmeans import assign_clusters, kmeans
+from ..ops.pq import (
+    decode_pq,
+    encode_pq,
+    ivf_pq_topk,
+    mm_f32,
+    pq_query_lut,
+    train_opq_for_ivf,
+    train_pq_for_ivf,
+)
 from ..utils.shapes import round_up
 from .flat import quantize_rows_int8
 from .refine import refine_rescore
@@ -58,11 +73,14 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "IVFIndex",
+    "PQ_TUNE_REPORT_KEYS",
+    "apply_pq_tune",
     "deployed_quant_calibration",
     "ivf_scan",
     "ivf_index_from_numpy",
     "nprobe_ladder",
     "probe_clusters",
+    "tune_pq_config",
 ]
 
 _MIN_CLUSTER_CAPACITY = 256
@@ -75,8 +93,11 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "int8": torch.int8,
     "int4": torch.uint8,
+    "pq": torch.uint8,
 }
-_QUANTIZED = ("int8", "int4")
+_QUANTIZED = ("int8", "int4", "pq")
+# Nibble-pair byte blocks: int4 rows of D columns, pq codes of M columns.
+_NIBBLE = ("int4", "pq")
 assert _SLOT_ALIGN % IVF_TILE == 0
 
 
@@ -104,11 +125,14 @@ def ivf_scan(scan_key: tuple, buffers: tuple, staged: tuple,
     ``(penalty [nlist, cap], fills [nlist])``, the slot -> id map, and with
     a refine tier stage 1 at ``k * refine_factor`` (at most the probed
     reach) re-ranked by the refine rows.  ``buffers`` = ``(centroids,
-    blocks, block ids, scales, refine rows, refine scales)``.  Returns
-    ``(scores [Q, k] f32, ids [Q, k])``, ``-inf`` / ``-1`` past the
-    candidates; ``k`` is at most the reach."""
-    _, dtype, metric, nprobe, by_residual, refine_factor = scan_key
-    dcent, dblocks, dids, dscale, rrows, rscales = buffers
+    blocks, block ids, scales, refine rows, refine scales)``, then for pq
+    the codebooks and the OPQ rotation (None without OPQ).  pq scores are
+    the ADC lookup from the tables of ``q`` (``q @ R`` under OPQ) plus the
+    query's own centroid score for residual codes.  Returns ``(scores [Q,
+    k] f32, ids [Q, k])``, ``-inf`` / ``-1`` past the candidates; ``k`` is
+    at most the reach."""
+    _, dtype, metric, nprobe, by_residual, refine_factor = scan_key[:6]
+    dcent, dblocks, dids, dscale, rrows, rscales = buffers[:6]
     penalty, fills = staged
     k_s = k
     if rrows is not None:
@@ -116,7 +140,12 @@ def ivf_scan(scan_key: tuple, buffers: tuple, staged: tuple,
         k_s = max(k, min(k * refine_factor, reach))
     cs, probe = probe_clusters(queries, dcent, metric, nprobe)
     cbias = torch.gather(cs, 1, probe.long()) if by_residual else None
-    if dtype == "int4":
+    if dtype == "pq":
+        books, rot = buffers[6:8]
+        scores, pos = ivf_pq_topk(dblocks, penalty, probe,
+                                  pq_query_lut(queries, books, rot), k_s,
+                                  cbias)
+    elif dtype == "int4":
         scores, pos = ivf_topk_int4_scan(dblocks, dscale, penalty, fills,
                                          probe, queries, k_s, cbias)
     elif dtype == "int8":
@@ -157,6 +186,165 @@ def nprobe_ladder(search_fn, queries: np.ndarray, nlist: int, k: int,
             return nprobe, r
         nprobe *= 2
     return nlist, 1.0
+
+
+PQ_TUNE_REPORT_KEYS = (
+    "pq_m", "opq", "recall", "refine_factor", "refine_recall", "target",
+    "sampled", "report",
+)
+
+
+def apply_pq_tune(index: "IVFIndex", cfg: Dict) -> None:
+    """Install a :func:`tune_pq_config` result: its knobs, books and
+    rotation, and the report.  The refine factor only ever rises on an
+    index that has the tier; an empty index without one gets the int8
+    tier; a populated one cannot (its rows would backfill from lossy
+    decodes), which is logged."""
+    index.pq_m = cfg["pq_m"]
+    index.opq = cfg["opq"]
+    index._pq_books = cfg["books"]
+    index._pq_rot = cfg["rot"]
+    index._pq_tune_report = {key: cfg[key] for key in PQ_TUNE_REPORT_KEYS}
+    if not cfg["refine_factor"]:
+        return
+    if index.refine_dtype != "none":
+        index.refine_factor = max(index.refine_factor, cfg["refine_factor"])
+    elif index._count == 0:
+        index.refine_dtype = "int8"
+        index.refine_factor = cfg["refine_factor"]
+    else:
+        logger.warning(
+            "PQ retune wants an int8 refine tier (measured codec recall "
+            "%.3f < target %.3f) but refine cannot be enabled on a "
+            "populated index (rows would backfill from lossy decodes). "
+            "Reindex with refine_dtype='int8' to add it.",
+            cfg["recall"], index.pq_target_recall)
+
+
+def tune_pq_config(
+    vectors: Union[np.ndarray, torch.Tensor],
+    centroids: Union[np.ndarray, torch.Tensor],
+    metric: str,
+    *,
+    dim: int,
+    by_residual: bool,
+    target_recall: float = 0.9,
+    k: int = 10,
+    n_queries: int = 64,
+    sample: int = 65536,
+    seed: int = 0,
+    candidates: Optional[Tuple[int, ...]] = None,
+    try_opq: bool = True,
+    refine_ladder: Tuple[int, ...] = (4, 8, 16, 32),
+) -> Dict:
+    """Measured-recall choice of the PQ knobs at train time, the JAX
+    function step for step: the code-rate recall@k of a sample of the
+    training rows (an exhaustive in-sample scan, no probe loss) against
+    their exact top k, escalating ``pq_m = dim/4`` plain, then with OPQ,
+    then ``dim/2`` the same way, until it meets ``target_recall``; OPQ is
+    kept when it meets the target or beats the best by more than 0.005.
+    Short of the target, the smallest int8 refine factor of
+    ``refine_ladder`` that closes the gap (the ADC top ``k * f``
+    re-ranked by int8 rows, as the refine tier does).  Returns the chosen
+    config with its trained ``books`` / ``rot`` and the trail
+    (``report``)."""
+    if metric != "ip":
+        raise ValueError("tune_pq_config supports metric='ip' only")
+    rng = np.random.default_rng(seed)
+    rows = torch.as_tensor(vectors).float()
+    dev = rows.device
+    n = rows.shape[0]
+    if n > sample:
+        idx = np.sort(rng.choice(n, sample, replace=False))
+        rows = rows[torch.from_numpy(idx).to(dev)]
+        n = sample
+    q_n = min(n_queries, n)
+    qidx = rng.choice(n, q_n, replace=False)
+    queries = rows[torch.from_numpy(qidx).to(dev)]
+    k_eff = min(k, n)
+    truth = torch.topk(mm_f32(queries, rows.T), k_eff, dim=1).indices
+    truth = truth.cpu().numpy()
+
+    cents = torch.as_tensor(centroids).to(device=dev, dtype=torch.float32)
+    cent_rows = cents[assign_clusters(rows, cents, metric).long()]
+    resid = rows - cent_rows if by_residual else rows
+    cscore = (mm_f32(queries, cent_rows.T) if by_residual
+              else torch.zeros((q_n, n), dtype=torch.float32, device=dev))
+
+    def _recall(got_ids: np.ndarray) -> float:
+        return float(np.mean([
+            len(set(got_ids[i].tolist()) & set(truth[i].tolist())) / k_eff
+            for i in range(q_n)]))
+
+    def _top(scores: torch.Tensor) -> np.ndarray:
+        return torch.topk(scores, k_eff, dim=1).indices.cpu().numpy()
+
+    def _adc_scores(books, rot) -> torch.Tensor:
+        xr = mm_f32(resid, rot) if rot is not None else resid
+        recon = decode_pq(encode_pq(xr, books), books)
+        q_r = mm_f32(queries, rot) if rot is not None else queries
+        return cscore + mm_f32(q_r, recon.T)
+
+    if candidates is None:
+        candidates = tuple(
+            m for m in (dim // 4, dim // 2) if m > 0 and dim % m == 0
+        ) or (dim,)
+
+    report = []
+    best = None  # (recall, m, opq, rot, books, adc)
+    for m in candidates:
+        books = train_pq_for_ivf(rows, cents, metric, m,
+                                 by_residual=by_residual, seed=seed,
+                                 sample=sample)
+        adc = _adc_scores(books, None)
+        r_plain = _recall(_top(adc))
+        report.append({"pq_m": m, "opq": False, "recall": r_plain})
+        if best is None or r_plain > best[0]:
+            best = (r_plain, m, False, None, books, adc)
+        if r_plain >= target_recall:
+            break
+        if try_opq:
+            rot, books_o = train_opq_for_ivf(rows, cents, metric, m,
+                                             by_residual=by_residual,
+                                             seed=seed)
+            adc_o = _adc_scores(books_o, rot)
+            r_opq = _recall(_top(adc_o))
+            report.append({"pq_m": m, "opq": True, "recall": r_opq})
+            # Meeting the target trumps the hysteresis: an OPQ config
+            # that clears the bar is adopted, not merely noted.
+            if r_opq >= target_recall or r_opq > best[0] + 0.005:
+                best = (r_opq, m, True, rot, books_o, adc_o)
+            if r_opq >= target_recall:
+                break
+
+    recall, m, opq, rot, books, adc = best
+    chosen = {
+        "pq_m": int(m), "opq": bool(opq), "rot": rot, "books": books,
+        "recall": float(recall), "refine_factor": 0, "refine_recall": None,
+        "target": float(target_recall), "sampled": int(n), "report": report,
+    }
+    if recall >= target_recall:
+        return chosen
+
+    # The codec alone misses the target: re-rank the ADC top k * f by the
+    # rows' int8 reconstruction, as the refine tier does on the device.
+    scale = rows.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
+    rows8 = torch.round(rows / scale) * scale
+    for f in refine_ladder:
+        fetch = min(k_eff * f, n)
+        cand = torch.topk(adc, fetch, dim=1).indices  # [q, fetch]
+        rescored = torch.bmm(rows8[cand].double(),
+                             queries.double()[:, :, None])[..., 0].float()
+        sel = torch.topk(rescored, k_eff, dim=1).indices
+        got = torch.gather(cand, 1, sel).cpu().numpy()
+        r_ref = _recall(got)
+        report.append({"pq_m": int(m), "opq": bool(opq),
+                       "refine_factor": int(f), "recall": r_ref})
+        chosen["refine_factor"] = int(f)
+        chosen["refine_recall"] = float(r_ref)
+        if r_ref >= target_recall:
+            break
+    return chosen
 
 
 def deployed_quant_calibration(
@@ -304,12 +492,7 @@ class IVFIndex:
     ) -> None:
         if metric not in ("ip", "l2"):
             raise ValueError(f"Unknown metric: {metric}")
-        if dtype == "pq" or pq_m:
-            raise NotImplementedError(
-                "product quantization (dtype='pq') is not ported")
-        if opq:
-            raise NotImplementedError("OPQ is not ported")
-        if pq_auto and dtype == "int4" and refine_dtype == "none":
+        if pq_auto and dtype in _NIBBLE and refine_dtype == "none":
             # The int8 refine tier is both the calibration's escalation
             # lever and its truth source, and cannot be enabled later.
             refine_dtype = "int8"
@@ -333,13 +516,24 @@ class IVFIndex:
             raise ValueError(
                 f"{dtype} IVF storage supports metric='ip' only (same "
                 "contract as FlatIndex)")
-        self.pq_m = 0
-        self.opq = False
+        if dtype == "pq":
+            # M subspaces x 16 centroids, M/2 bytes a row; M = dim/4 by
+            # default (96 bytes at 768-d).
+            pq_m = pq_m or max(1, dim // 4)
+            if dim % pq_m:
+                raise ValueError(f"pq_m={pq_m} must divide dim={dim}")
+        self.pq_m = pq_m if dtype == "pq" else 0
+        self._pq_books: Optional[torch.Tensor] = None  # [M, 16, dsub] f32
+        # OPQ: codes store the rotated residual, queries rotate before the
+        # tables are built.
+        self.opq = bool(opq) and dtype == "pq"
+        self._pq_rot: Optional[torch.Tensor] = None  # [D, D] f32
         self.refine_dtype = refine_dtype
         self.refine_factor = max(1, int(refine_factor))
         self._refine = None
-        self.pq_auto = bool(pq_auto) and dtype == "int4"
+        self.pq_auto = bool(pq_auto) and dtype in _NIBBLE
         self.pq_target_recall = float(pq_target_recall)
+        self._pq_tune_report: Optional[Dict] = None
         self._quant_cal: Optional[Dict] = None
         self.dim = dim
         self.metric = metric
@@ -383,6 +577,11 @@ class IVFIndex:
     # -- size accounting -----------------------------------------------------
 
     @property
+    def _cols(self) -> int:
+        """Block columns: D vector dims, or M code columns for pq."""
+        return self.pq_m if self.dtype == "pq" else self.dim
+
+    @property
     def ntotal(self) -> int:
         return self._count
 
@@ -422,7 +621,9 @@ class IVFIndex:
     ) -> None:
         """Fit the coarse quantizer (balanced k-means on the device), with
         a generator seeded from ``seed``; ``init_idx`` / ``noise`` replace
-        its random numbers (see ``ops.kmeans.kmeans``)."""
+        its random numbers (see ``ops.kmeans.kmeans``).  pq indexes then
+        fit their codebooks (and OPQ rotation) to the residuals, or with
+        ``pq_auto`` install what :func:`tune_pq_config` measures."""
         n = vectors.shape[0]
         if n < self.nlist:
             raise ValueError(
@@ -435,11 +636,26 @@ class IVFIndex:
             init_idx=init_idx, noise=noise)
         self._dcent = centroids.contiguous()
         self.centroids = centroids.cpu().numpy()
+        if self.dtype != "pq":
+            return
+        if self.pq_auto:
+            apply_pq_tune(self, tune_pq_config(
+                dv, self._dcent, self.metric, dim=self.dim,
+                by_residual=self.by_residual,
+                target_recall=self.pq_target_recall, seed=self.seed))
+        elif self.opq:
+            self._pq_rot, self._pq_books = train_opq_for_ivf(
+                dv, self._dcent, self.metric, self.pq_m,
+                by_residual=self.by_residual, seed=self.seed)
+        else:
+            self._pq_books = train_pq_for_ivf(
+                dv, self._dcent, self.metric, self.pq_m,
+                by_residual=self.by_residual, seed=self.seed)
 
     # -- device block management ----------------------------------------------
 
     def _block_rows(self, cap: int) -> int:
-        return cap // 2 if self.dtype == "int4" else cap
+        return cap // 2 if self.dtype in _NIBBLE else cap
 
     def _materialize(self) -> None:
         """Allocate the device blocks at the current capacity."""
@@ -450,7 +666,7 @@ class IVFIndex:
         if self._dblocks is None and cap:
             dev = self.device
             self._dblocks = torch.zeros(
-                (self.nlist, self._block_rows(cap), self.dim),
+                (self.nlist, self._block_rows(cap), self._cols),
                 dtype=_DTYPES[self.dtype], device=dev)
             self._dids = torch.full((self.nlist, cap), -1, dtype=torch.int32,
                                     device=dev)
@@ -506,9 +722,10 @@ class IVFIndex:
     def _scatter_rows(self, clusters, slots, vecs, ids, valid, scales=None):
         """Land a batch of rows at ``(clusters, slots)`` in place.  Float
         rows quantize here (int8 / int4, as residuals against their
-        cluster's centroid with ``by_residual``); rows already in storage
-        form (int8 rows, or uint8 biased nibbles for int4) adopt
-        ``scales`` as they are.  The JAX ``_scatter_rows_impl``."""
+        cluster's centroid with ``by_residual``; pq encodes through the
+        codebooks); rows already in storage form (int8 rows, uint8 biased
+        nibbles for int4, uint8 codes for pq) adopt ``scales`` as they are.
+        The JAX ``_scatter_rows_impl``."""
         dev = self.device
         cl = torch.as_tensor(clusters, device=dev).long()
         sl = torch.as_tensor(slots, device=dev).long()
@@ -518,23 +735,29 @@ class IVFIndex:
         quantized = self.dtype in _QUANTIZED
         pre = quantized and vecs.dtype == _DTYPES[self.dtype]
         cent = self._dcent[cl] if self.by_residual else None
-        if pre:
-            stored = vecs
-            scale = torch.as_tensor(scales, dtype=torch.float32, device=dev)
-        elif quantized:
-            target = vecs.float() - cent if cent is not None else vecs.float()
-            quant = quantize_rows_int4 if self.dtype == "int4" else quantize_rows_int8
-            stored, scale = quant(target)
-        else:
-            stored = vecs.to(_DTYPES[self.dtype])
+        if self.dtype == "pq":
+            stored = vecs if pre else self._encode_pq_rows(vecs, cent)
             scale = torch.ones((cl.shape[0],), dtype=torch.float32, device=dev)
-        if quantized:
+            # The JAX store's |v|^2 of a pq slot reads its codes as biased
+            # nibbles (never used: pq scores ip only).
+            dequant = stored.float() - NIBBLE_BIAS
+        elif quantized:
+            if pre:
+                stored = vecs
+                scale = torch.as_tensor(scales, dtype=torch.float32, device=dev)
+            else:
+                target = vecs.float() - cent if cent is not None else vecs.float()
+                quant = (quantize_rows_int4 if self.dtype == "int4"
+                         else quantize_rows_int8)
+                stored, scale = quant(target)
             codes = stored.float() - NIBBLE_BIAS if self.dtype == "int4" else stored
             dequant = (_fma(codes, scale[:, None], cent) if cent is not None
                        else codes.float() * scale[:, None])
         else:
+            stored = vecs.to(_DTYPES[self.dtype])
+            scale = torch.ones((cl.shape[0],), dtype=torch.float32, device=dev)
             dequant = stored.float()
-        if self.dtype == "int4":
+        if self.dtype in _NIBBLE:
             byte = sl // 2
             for parity, keep, shift in ((0, 0xF0, 0), (1, 0x0F, 4)):
                 sel = (sl % 2) == parity
@@ -549,13 +772,24 @@ class IVFIndex:
         self._dscale[cl, sl] = scale
         self._mutated()
 
+    def _encode_pq_rows(self, vecs: torch.Tensor,
+                        cent: Optional[torch.Tensor]) -> torch.Tensor:
+        """[B, D] float rows -> [B, M] uint8 codes: the residual against
+        ``cent`` (None: the row), times the OPQ rotation, through the books
+        (the JAX ``_encode_pq_rows``)."""
+        v = vecs.float() - cent if cent is not None else vecs.float()
+        if self._pq_rot is not None:
+            v = mm_f32(v, self._pq_rot)
+        return encode_pq(v, self._pq_books)
+
     def _flat_blocks(self) -> torch.Tensor:
-        return self._dblocks.reshape(-1, self.dim)
+        return self._dblocks.reshape(-1, self._cols)
 
     def _gather_stored(self, fi: torch.Tensor):
-        """Flat slots -> rows in storage form (int4: uint8 nibbles) and
-        their scales (the rebalance's move pass for raw rows)."""
-        if self.dtype == "int4":
+        """Flat slots -> rows in storage form (int4: uint8 nibbles, pq:
+        uint8 codes) and their scales (the rebalance's move pass for raw
+        rows)."""
+        if self.dtype in _NIBBLE:
             b = self._flat_blocks()[fi // 2]
             rows = torch.where((fi % 2 == 1)[:, None], b >> 4, b & 0x0F)
         else:
@@ -564,8 +798,17 @@ class IVFIndex:
 
     def _gather_dequant(self, fi: torch.Tensor, centroids=None) -> torch.Tensor:
         """Flat slots -> dequantized f32 rows (``stored * scale``, plus the
-        slot's centroid for residual rows, one rounding as XLA's FMA)."""
+        slot's centroid for residual rows, one rounding as XLA's FMA; pq
+        codes decode through the books, out of the OPQ space, then add the
+        centroid, as the JAX ``_gather_decode_pq``)."""
         rows, scale = self._gather_stored(fi)
+        if self.dtype == "pq":
+            out = decode_pq(rows, self._pq_books)
+            if self._pq_rot is not None:
+                out = mm_f32(out, self._pq_rot.T)
+            if centroids is not None:
+                out = out + centroids[fi // self._cluster_capacity]
+            return out
         codes = rows.float() - NIBBLE_BIAS if self.dtype == "int4" else rows.float()
         if centroids is not None:
             return _fma(codes, scale[:, None],
@@ -736,18 +979,18 @@ class IVFIndex:
         a group of clusters at a time."""
         dev = self.device
         p = torch.from_numpy(perm).long().to(dev)
-        cap = self._cluster_capacity
-        if self.dtype == "int4":
-            g = max(1, min(self.nlist, (64 << 20) // (cap * self.dim)))
+        cap, cols = self._cluster_capacity, self._cols
+        if self.dtype in _NIBBLE:
+            g = max(1, min(self.nlist, (64 << 20) // (cap * cols)))
             for c0 in range(0, self.nlist, g):
                 blk = self._dblocks[c0: c0 + g]
                 u = torch.stack([blk & 0x0F, blk >> 4], dim=2).reshape(
-                    blk.shape[0], cap, self.dim)
-                u = torch.gather(u, 1, p[c0: c0 + g, :, None].expand(-1, -1, self.dim))
+                    blk.shape[0], cap, cols)
+                u = torch.gather(u, 1, p[c0: c0 + g, :, None].expand(-1, -1, cols))
                 self._dblocks[c0: c0 + g] = u[:, 0::2] | (u[:, 1::2] << 4)
         else:
             self._dblocks = torch.gather(
-                self._dblocks, 1, p[:, :, None].expand(-1, -1, self.dim))
+                self._dblocks, 1, p[:, :, None].expand(-1, -1, cols))
         self._dsq = torch.gather(self._dsq, 1, p)
         self._dscale = torch.gather(self._dscale, 1, p)
         self._dvalid = torch.gather(self._dvalid, 1, p)
@@ -908,8 +1151,10 @@ class IVFIndex:
         live row out under the new centroids, ids preserved, in chunks of
         ``_LOAD_CHUNK_ROWS``.  Residual rows reconstruct against the old
         centroids and re-encode against the new ones; raw int8 / int4 rows
-        move with their scales.  ``init_idx`` / ``noise`` go to
-        :meth:`train`.  Returns ``padding_stats()``."""
+        move with their scales; pq rows decode through the old codec and
+        encode through the books retrained with the new centroids.
+        ``init_idx`` / ``noise`` go to :meth:`train`.  Returns
+        ``padding_stats()``."""
         if self._count == 0 or self._fill is None:
             return self.padding_stats()
         cc, pp = np.nonzero(self._valid)
@@ -969,7 +1214,7 @@ class IVFIndex:
         self._slot_pos[ids64] = slots
         for c0 in range(0, live, chunk):
             sel = torch.arange(c0, min(live, c0 + chunk), device=dev)
-            if by_res:
+            if by_res or self.dtype == "pq":
                 stored, scales = recon(sel), None
             else:
                 stored, scales = old._gather_stored(flat_idx[sel])
@@ -1016,21 +1261,30 @@ class IVFIndex:
             ids = np.pad(ids, pad, constant_values=-1)
         return scores, ids
 
+    def _codec(self) -> tuple:
+        """The pq scan's extra key entry and buffers: OPQ on or off, and
+        ``(books, rotation or None)``; nothing for the other dtypes."""
+        if self.dtype != "pq":
+            return (), ()
+        return (self._pq_rot is not None,), (self._pq_books, self._pq_rot)
+
     def _scan(self, qt, nprobe, k, penalty):
         """Stage 1 alone (the centroid and probe scans, no refine tier) at
         ``nprobe <= nlist`` -> ``(scores, ids)`` on the device."""
+        key, books = self._codec()
         scan_key = ("ivf", self.dtype, self.metric, nprobe, self.by_residual,
-                    0)
+                    0, *key)
         buffers = (self._dcent, self._dblocks, self._dids, self._dscale,
-                   None, None)
+                   None, None, *books)
         return ivf_scan(scan_key, buffers, (penalty, self._device_fills()),
                         qt, k)
 
     def make_scan_fn(self, nprobe: int) -> Tuple[tuple, tuple]:
         """``(scan_key, buffers)`` for :func:`ivf_scan` at ``nprobe``: the
         key holds what a program bakes in (dtype, metric, nprobe, residual
-        encoding, the refine factor), ``buffers`` the tensors it reads in
-        place (valid until they move: growth, rebalance, compact, train);
+        encoding, the refine factor; for pq whether OPQ rotates),
+        ``buffers`` the tensors it reads in place (valid until they move:
+        growth, rebalance, compact, train; pq adds its books and rotation);
         the penalty and the fills change between calls
         (:meth:`scan_staged`).  The refine rows join once the tier holds
         rows."""
@@ -1038,11 +1292,12 @@ class IVFIndex:
         rows = scales = None
         if refine is not None and refine.count > 0:
             rows, scales = refine.rows, refine.scales
+        key, books = self._codec()
         scan_key = ("ivf", self.dtype, self.metric, min(nprobe, self.nlist),
                     self.by_residual,
-                    self.refine_factor if rows is not None else 0)
+                    self.refine_factor if rows is not None else 0, *key)
         return scan_key, (self._dcent, self._dblocks, self._dids,
-                          self._dscale, rows, scales)
+                          self._dscale, rows, scales, *books)
 
     def scan_staged(self, mask: Optional[np.ndarray] = None) -> tuple:
         """``(penalty [nlist, cap] f32, fills [nlist] int32)``: validity &
@@ -1054,10 +1309,10 @@ class IVFIndex:
 
     def _dense_rows(self) -> torch.Tensor:
         """Every cluster's fill prefix, dense, on the device: ``[total, D]``
-        rows, or for int4 ``ceil(fill / 2)`` byte rows a cluster with the
-        unused high nibble of an odd fill cleared."""
+        rows, or for int4 / pq ``ceil(fill / 2)`` byte rows a cluster with
+        the unused high nibble of an odd fill cleared."""
         fill = torch.from_numpy(self._fill.astype(np.int64)).to(self.device)
-        if self.dtype != "int4":
+        if self.dtype not in _NIBBLE:
             keep = torch.arange(self._cluster_capacity,
                                 device=self.device)[None, :] < fill[:, None]
             return self._dblocks[keep]
@@ -1072,9 +1327,10 @@ class IVFIndex:
 
     def save(self, path: str) -> None:
         """TPUSIDX2 file with the JAX package's header keys and sections:
-        dense per-cluster prefixes in the storage dtype (int4: nibble-pair
-        byte rows, ``ceil(fill / 2)`` a cluster), ids, validity, fills,
-        centroids, scales (int8 / int4) and the refine rows."""
+        dense per-cluster prefixes in the storage dtype (int4 / pq:
+        nibble-pair byte rows, ``ceil(fill / 2)`` a cluster), ids,
+        validity, fills, centroids, scales (int8 / int4), the pq books and
+        OPQ rotation, and the refine rows."""
         from .serialize import tensor_section, write_file
 
         header = {
@@ -1089,7 +1345,12 @@ class IVFIndex:
             "nprobe_hint": int(self.nprobe_hint),
             "nprobe_tuned_live": int(self._tuned_live),
         }
-        if self.dtype == "int4":
+        if self.dtype == "pq":
+            header["pq_m"] = self.pq_m
+            header["opq"] = bool(self._pq_rot is not None)
+            if self._pq_tune_report is not None:
+                header["pq_tune"] = self._pq_tune_report
+        if self.dtype in _NIBBLE:
             header["pq_auto"] = bool(self.pq_auto)
             header["pq_target_recall"] = float(self.pq_target_recall)
         if self._quant_cal is not None:
@@ -1100,7 +1361,7 @@ class IVFIndex:
         fill = (self._fill if self._fill is not None
                 else np.zeros((self.nlist,), np.int32))
         total = int(fill.sum())
-        vec_dtype = "uint8" if self.dtype == "int4" else self.dtype
+        vec_dtype = "uint8" if self.dtype in _NIBBLE else self.dtype
         if total:
             keep = np.arange(self._cluster_capacity)[None, :] < fill[:, None]
             dense_ids = self._ids[keep].astype(np.int32)
@@ -1112,7 +1373,7 @@ class IVFIndex:
         else:
             dense_ids = np.empty((0,), np.int32)
             dense_valid = np.empty((0,), np.uint8)
-            vectors = ("vectors", vec_dtype, (0, self.dim), iter(()))
+            vectors = ("vectors", vec_dtype, (0, self._cols), iter(()))
             scales = np.empty((0,), np.float32)
         centroids = (self.centroids if self.centroids is not None
                      else np.empty((0, self.dim), np.float32))
@@ -1124,8 +1385,14 @@ class IVFIndex:
             ("centroids", "float32", tuple(centroids.shape),
              iter([np.ascontiguousarray(centroids, np.float32)])),
         ]
-        if self.dtype in _QUANTIZED:
+        if self.dtype in ("int8", "int4"):
             sections.append(("scales", "float32", (total,), iter([scales])))
+        if self.dtype == "pq" and self._pq_books is not None:
+            for name, t in (("pq_books", self._pq_books),
+                            ("pq_rot", self._pq_rot)):
+                if t is not None:
+                    arr = np.ascontiguousarray(t.cpu().numpy(), np.float32)
+                    sections.append((name, "float32", arr.shape, iter([arr])))
         if self._refine is not None and self._refine.count:
             sections.extend(self._refine.sections())
         write_file(path, header, sections)
@@ -1185,15 +1452,16 @@ def ivf_index_from_numpy(header: Dict, arrays: Dict, device=None,
     """An :class:`IVFIndex` from state given as numpy arrays.
 
     ``disk=True``: the TPUSIDX2 sections (dense per-cluster prefixes,
-    ``ids``, ``valid``, ``fill``, ``centroids``, ``scales``, the refine
-    sections), as :meth:`IVFIndex.load` reads them.  Otherwise a JAX
-    ``IVFIndex``'s device state: ``centroids``, ``blocks`` (``[nlist, cap,
-    D]``; int4 as the JAX ``[nlist, cap/8, D]`` int32 words), ``ids``,
-    ``valid``, ``fill``, ``sq``, ``scale``, and ``refine_rows`` /
-    ``refine_scales`` when the index has a refine tier, with ``header``
-    carrying the TPUSIDX2 header keys (``count`` and ``cluster_capacity``
-    included).  bf16 arrays may be any 2-byte numpy type (their bit
-    patterns are taken)."""
+    ``ids``, ``valid``, ``fill``, ``centroids``, ``scales``, ``pq_books``,
+    ``pq_rot``, the refine sections), as :meth:`IVFIndex.load` reads them.
+    Otherwise a JAX ``IVFIndex``'s device state: ``centroids``, ``blocks``
+    (``[nlist, cap, D]``; int4 as the JAX ``[nlist, cap/8, D]`` int32
+    words, pq as ``[nlist, cap/8, M]`` words), ``ids``, ``valid``,
+    ``fill``, ``sq``, ``scale``, ``pq_books`` / ``pq_rot`` for pq, and
+    ``refine_rows`` / ``refine_scales`` when the index has a refine tier,
+    with ``header`` carrying the TPUSIDX2 header keys (``count`` and
+    ``cluster_capacity`` included).  bf16 arrays may be any 2-byte numpy
+    type (their bit patterns are taken)."""
     index = IVFIndex(
         dim=header["dim"],
         metric=header["metric"],
@@ -1210,6 +1478,12 @@ def ivf_index_from_numpy(header: Dict, arrays: Dict, device=None,
     )
     if header.get("quant_cal") is not None:
         index._quant_cal = dict(header["quant_cal"])
+    if header.get("pq_tune") is not None:
+        index._pq_tune_report = dict(header["pq_tune"])
+    for name, attr in (("pq_books", "_pq_books"), ("pq_rot", "_pq_rot")):
+        if name in arrays:
+            setattr(index, attr, torch.from_numpy(
+                np.array(arrays[name], np.float32)).to(index.device))
     index.nprobe_hint = int(header.get("nprobe_hint", 0))
     index._tuned_live = int(header.get("nprobe_tuned_live", 0))
     if np.asarray(arrays["centroids"]).shape[0]:
@@ -1244,7 +1518,7 @@ def ivf_index_from_numpy(header: Dict, arrays: Dict, device=None,
                                   live_c.astype(np.int32),
                                   live_p.astype(np.int32))
         blocks = np.asarray(arrays["blocks"])
-        if index.dtype == "int4":
+        if index.dtype in _NIBBLE:
             blocks = _words_to_nibble_bytes(blocks)
         elif index.dtype == "bfloat16":
             blocks = blocks.view(np.uint16).view(np.int16)
@@ -1276,7 +1550,7 @@ def ivf_index_from_numpy(header: Dict, arrays: Dict, device=None,
     index._materialize()
     vecs = arrays["vectors"]
     scales = arrays.get("scales")
-    if index.dtype == "int4":
+    if index.dtype in _NIBBLE:
         # Dense row r of cluster c sits at byte row bcum[c] + pos // 2,
         # nibble pos % 2.
         bcum = np.zeros((nlist,), np.int64)
@@ -1285,7 +1559,7 @@ def ivf_index_from_numpy(header: Dict, arrays: Dict, device=None,
         stop = min(total, start + _LOAD_CHUNK_ROWS)
         c = cluster_of[start:stop]
         p = pos_of[start:stop]
-        if index.dtype == "int4":
+        if index.dtype in _NIBBLE:
             brows = np.asarray(vecs[bcum[c] + p // 2])
             rows = torch.from_numpy(np.where(
                 (p % 2 == 1)[:, None], brows >> 4, brows & 0xF

@@ -1,10 +1,11 @@
 """Hybrid storage: a device-resident vector index + SQLite metadata.
 
 Counterpart of ``tpu_search/storage/hybrid.py``: a flat or IVF index
-(``index_type``) in float32, bfloat16, int8 or int4 storage, the IVF one
-with its refine tier, skew-triggered rebalance, nprobe autotune and, for
-int4, the deployed-recall calibration, run after every write batch as in
-the JAX package.  The SQLite schema and the index file name are the JAX
+(``index_type``) in float32, bfloat16, int8 or int4 storage, or product
+quantization on IVF (``storage_dtype="pq"``, with OPQ under ``pq_opq``),
+the IVF one with its refine tier, skew-triggered rebalance, nprobe
+autotune and, for int4 and pq, the deployed-recall calibration, run after
+every write batch as in the JAX package.  The SQLite schema and the index file name are the JAX
 package's, so one data directory serves both packages.  Filters compile
 to a predicate mask fused into the scan; hits are hydrated with one
 batched SQL query.
@@ -15,9 +16,8 @@ into pre-serialized result fragments, cached per vector id
 moves: every write and every maintenance step that moves index buffers
 (compact, rebalance, calibration, growth) bumps it.
 
-Not ported yet, and refused rather than ignored: product quantization on
-IVF (``storage_dtype="pq"`` with ``index_type="ivf"``), OPQ
-(``pq_opq``) and sharding over several devices.
+Not ported yet, and refused rather than ignored: sharding over several
+devices.
 """
 
 from __future__ import annotations
@@ -66,10 +66,13 @@ class StorageConfig:
     # optimize() and the write path tune IVF nprobe to the smallest value
     # meeting this recall@10 against a full-probe scan (<= 0: off).
     ivf_autotune_recall: float = 0.95
-    pq_opq: bool = False  # OPQ: not ported, refused
-    # Quantization auto-config: an int4 IVF index gets an int8 refine tier
-    # and the deployed-recall calibration against pq_target_recall, unless
-    # the refine knobs were set by hand.
+    # OPQ rotation for storage_dtype="pq" (FAISS OPQMatrix pretransform).
+    pq_opq: bool = False
+    # Quantization auto-config: a pq IVF index picks pq_m / OPQ / the int8
+    # refine factor by measured recall at train time (tune_pq_config); pq
+    # and int4 IVF indexes get an int8 refine tier and the deployed-recall
+    # calibration against pq_target_recall, unless OPQ or the refine knobs
+    # were set by hand.
     pq_auto: bool = True
     pq_target_recall: float = 0.9
     # "float32" | "bfloat16" | "int8" | "int4" | "pq" (int8/int4/pq are
@@ -124,12 +127,6 @@ class SearchResult:
 def _check_supported(config: StorageConfig) -> None:
     if config.index_type not in ("flat", "ivf"):
         raise ValueError(f"Unknown index type: {config.index_type}")
-    if config.index_type == "ivf" and config.storage_dtype == "pq":
-        raise NotImplementedError(
-            "storage_dtype='pq' on an IVF index (product quantization) is "
-            "not ported")
-    if config.pq_opq:
-        raise NotImplementedError("OPQ (pq_opq) is not ported")
     if config.shard_devices > 1:
         raise NotImplementedError("sharding over several devices is not ported")
 
@@ -243,6 +240,7 @@ class HybridStorage:
             dtype=self._effective_dtype(),
             device=self.device,
             nlist=self.config.ivf_nlist,
+            opq=self.config.pq_opq,
             refine_dtype=self._effective_refine(),
             refine_factor=self.config.refine_factor,
             pq_auto=self._effective_pq_auto(),
@@ -814,6 +812,14 @@ class HybridStorage:
         nprobe_hint = getattr(self.index, "nprobe_hint", 0)
         if nprobe_hint:
             stats["ivf_nprobe_tuned"] = int(nprobe_hint)
+        pq_tune = getattr(self.index, "_pq_tune_report", None)
+        if pq_tune:
+            stats["pq_tune"] = {
+                key: pq_tune[key]
+                for key in ("pq_m", "opq", "recall", "refine_factor",
+                            "refine_recall", "target")
+                if key in pq_tune
+            }
         quant_cal = getattr(self.index, "_quant_cal", None)
         if quant_cal:
             stats["quant_cal"] = {
