@@ -34,7 +34,18 @@ Phases, each printing its numbers on its own line:
      each scan gated against a float64 table lookup on 8 queries
      (``PQ_TOL``), recall@10 against the exact f32 scan, and the scan's
      ms, device ms, launches and peak memory at Q 1, 8 and 128 beside the
-     bytes bound of the probed codes;
+     bytes bound of the probed codes; then ``[sharded]``, the sharded
+     exact index (``parallel.ShardedFlatIndex``) over 4 shards that share
+     the card (``build_mesh(n_data=4, devices=[cuda:0] * 4)``) at 1M x
+     768 unit rows, 10 % tombstoned, bf16, f32, f32 l2, int8 and int4: each
+     against the single-device ``FlatIndex`` on the same rows at Q 1, 8,
+     128 and k 10, 128, 200 (scores within ``SHARDED_REL_TOL``, ids equal
+     outside exact ties) and against its shards' plain versions and the
+     same merge, the wrapper's ms, device ms, kernel calls and device
+     launches a call, the merge's share and the single-device ms at k 10,
+     beside the card's name and power limit; then a search under a
+     one-rank NCCL group (``initialize_distributed``), which gathers and
+     answers alike;
   3. drive the main path at the full width of all-mpnet-base-v2 with
      random seeded weights, on six storage paths, each a fresh data
      directory: flat bf16 (1,000 conversations), flat
@@ -63,7 +74,14 @@ Phases, each printing its numbers on its own line:
      reserved); a conversation indexed through the server's worker found
      at rank 1 through the socket, then removed and gone; a replay's
      device split (torch.profiler); the flat scan over the capacity
-     against over the rows, and a capture's time.  The flat int8 and the
+     against over the rows, and a capture's time.  Then
+     ``[sharded_serving]``: the flat bf16 directory's index loaded with
+     ``ShardedFlatIndex.load`` over the 4 co-located shards into the same
+     engine, the 20 queries through the fused path (one graph a window
+     shape, the 4 shard scans and the merge in it) and the classic path,
+     the 16 unfiltered through the warm server, and the sharded index
+     saved and loaded into a single-device ``FlatIndex``: every answer
+     equal to the single-device one.  The flat int8 and the
      IVF int4 and pq paths end with their 16 probes one at a time through
      the warm server, each equal to the in-process answer.  After ``[warm]``
      the flat bf16 directory is served by the product's other entry
@@ -141,7 +159,14 @@ and 512, hd 64, 32 and 26) with padded rows and a trained-scale bias.
 The second line from the end is the kernel summary JSON, with each
 kernel's launch count from the path that runs it; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
-The script takes no arguments.
+
+    python3 chip_smoke.py --cross-card
+
+on a machine of two or more cards builds the kernels and runs only
+``[cross_card]`` (``check_cross_card``): the sharded index with one shard
+on each card, against one card, and an engine that shards over every
+card, on the classic path; the last line is the same
+``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -2266,6 +2291,550 @@ def check_pq() -> None:
               f"bound_ms={bound_ms:.5f} bound_by={by}", flush=True)
 
 
+# -- [sharded]: the sharded exact index, its shards co-located on the card --
+
+# 1M unit rows over 4 shards on cuda:0 (250,000 rows a shard), 10 %
+# tombstoned; the dtype / metric cases and the (Q, k) grid.  A row's score
+# is one dot product in the same kernel on a shard and on one device, so
+# scores are expected bit for bit; SHARDED_REL_TOL holds them where not.
+SHARDED_N, SHARDED_SHARDS = 1_000_000, 4
+SHARDED_CASES = (("bfloat16", "ip"), ("float32", "ip"), ("float32", "l2"),
+                 ("int8", "ip"), ("int4", "ip"))
+SHARDED_QS, SHARDED_KS = (1, 8, 128), (10, 128, 200)
+SHARDED_REL_TOL = 1e-6
+
+
+# The wrapper whose C calls a shard's scan counts, by storage dtype.
+KERNEL_OF = {"bfloat16": "flat_topk", "float32": "flat_topk",
+             "int8": "flat_topk_int8", "int4": "flat_topk_int4"}
+
+
+def free_port() -> int:
+    """A free local TCP port (its socket closed before the group binds)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def topk_error(got, want, rel_tol: float):
+    """``(max abs error, max relative error, None or a fault)`` of
+    ``(scores, ids)`` against ``want``: ids equal outside exact ties, i.e.
+    a differing id must score, in ``want``, what ``got`` says (within
+    ``rel_tol``; past ``want``'s k, ``want``'s last score)."""
+    import numpy as np
+
+    (gs, gi), (ws, wi) = got, want
+    fin = np.isfinite(ws)
+    if not np.array_equal(np.isfinite(gs), fin):
+        return 0.0, 0.0, "a different number of live results"
+    diff = np.abs(np.where(fin, gs - ws, 0.0))
+    rel = diff / np.maximum(np.abs(np.where(fin, ws, 1.0)), 1e-30)
+    for r in range(gi.shape[0]):
+        scored = dict(zip(wi[r].tolist(), ws[r].tolist()))
+        for j in np.nonzero(gi[r] != wi[r])[0]:
+            other = scored.get(int(gi[r, j]), ws[r, -1])
+            if abs(other - gs[r, j]) > rel_tol * max(abs(gs[r, j]), 1e-30):
+                return float(diff.max()), float(rel.max()), (
+                    f"query {r} rank {j}: id {gi[r, j]} against {wi[r, j]}, "
+                    f"not a tie")
+    return float(diff.max()), float(rel.max()), None
+
+
+def sharded_plain(index, queries, k: int):
+    """The 4-shard scan with every shard's plain version in place of its
+    kernel, on the card, then the same merge."""
+    import torch
+
+    from tpu_search_torch.ops.topk_scan import (
+        flat_topk_int4_plain,
+        flat_topk_int8_plain,
+        flat_topk_plain,
+    )
+    from tpu_search_torch.parallel.sharded_index import merge_shards
+
+    penalties = index.device_mask(None)
+    scores, ids = [], []
+    for shard, penalty in zip(index._shards.values(), penalties):
+        if index.dtype == "int8":
+            ps, pi = flat_topk_int8_plain(shard._vectors, shard._scales,
+                                          penalty, queries, k)
+        elif index.dtype == "int4":
+            ps, pi = flat_topk_int4_plain(shard._vectors, shard._scales,
+                                          penalty, queries, k)
+        else:
+            ps, pi = flat_topk_plain(shard._vectors, penalty, queries, k,
+                                     2.0 if index.metric == "l2" else 1.0)
+        scores.append(ps)
+        ids.append(pi)
+    return merge_shards(scores, ids, k, index.n_shards)
+
+
+def check_sharded() -> None:
+    """``[sharded]``: a ``ShardedFlatIndex`` over ``build_mesh(n_data=4,
+    devices=[cuda:0] * 4)`` at 1M x 768 (10 % tombstoned) in each of
+    ``SHARDED_CASES``, held against the single-device ``FlatIndex`` on the
+    same rows at Q 1, 8, 128 and k 10, 128, 200 (scores within
+    ``SHARDED_REL_TOL`` relative, ids equal outside exact ties) and
+    against its shards' plain versions and the same merge at Q 8, k 10
+    and Q 128, k 200; per case and Q at k 10: the wrapper's ms and device
+    ms, its kernels' C calls (one a shard) and device launches a call, the
+    merge's ms and share, and the single-device index's ms.  Then a
+    one-rank NCCL group (``initialize_distributed``): a search with it up
+    gathers (``all_gather`` runs) and answers as without it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_search_torch.index.flat import FlatIndex, flat_scan
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel import (
+        ShardedFlatIndex,
+        build_mesh,
+        initialize_distributed,
+        process_count,
+    )
+    from tpu_search_torch.parallel.sharded_index import (
+        merge_shards,
+        sharded_scan,
+    )
+
+    dev = torch.device("cuda")
+    card = card_name()
+    mesh = build_mesh(n_data=SHARDED_SHARDS, devices=[dev] * SHARDED_SHARDS)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = unit_rows(gen, SHARDED_N, 768)
+    dead = np.random.default_rng(32).choice(SHARDED_N, SHARDED_N // 10,
+                                            replace=False)
+    queries = {q: unit_rows(gen, q, 768) for q in SHARDED_QS}
+    kept = {}
+    for dtype, metric in SHARDED_CASES:
+        tag = f"{dtype}_{metric}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = ShardedFlatIndex.from_device_vectors(
+            rows, mesh, metric=metric, dtype=dtype)
+        sharded.remove(dead)
+        single = FlatIndex(768, metric=metric, dtype=dtype, device=dev)
+        single.add(rows)
+        single.remove(dead)
+        torch.cuda.synchronize()
+        print(f"[sharded_build] case={tag} rows={sharded.ntotal} "
+              f"live={sharded.live} shards={sharded.n_shards} "
+              f"local_capacity={sharded._local_capacity} "
+              f"seconds={time.perf_counter() - t0:.2f}", flush=True)
+        if sharded.live != single.live:
+            fail(f"[sharded] {tag}: {sharded.live} live rows, one device "
+                 f"{single.live}")
+        worst_abs = worst_rel = 0.0
+        for q, k in itertools.product(SHARDED_QS, SHARDED_KS):
+            qs = queries[q].cpu().numpy()
+            got, want = sharded.search(qs, k), single.search(qs, k)
+            err, rel, fault = topk_error(got, want, SHARDED_REL_TOL)
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            if fault or rel > SHARDED_REL_TOL:
+                fail(f"[sharded] {tag} Q={q} k={k} disagrees with one "
+                     f"device: {fault or f'relative error {rel:.3e}'}")
+            if dtype == "bfloat16" and (q, k) == (8, 10):
+                kept = {"index": sharded, "queries": qs, "answer": got}
+        scores = "bit for bit" if worst_abs == 0.0 else "within tolerance"
+        print(f"[sharded] case={tag} against_one_device "
+              f"max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e} "
+              f"scores={scores} (Q {SHARDED_QS}, k {SHARDED_KS})",
+              flush=True)
+        for q, k in ((8, 10), (128, 200)):
+            scan_key, buffers = sharded.make_scan_fn()
+            staged = sharded.device_mask(None)
+            ks, ki = sharded_scan(scan_key, buffers, staged, queries[q], k)
+            ps, pi = sharded_plain(sharded, queries[q], k)
+            torch.cuda.synchronize()
+            exact = dtype in ("int8", "int4")
+            tol = 0.0 if exact else TOL["flat_topk"]
+            err, _, fault = topk_error(
+                (ks.cpu().numpy(), ki.cpu().numpy()),
+                (ps.cpu().numpy(), pi.cpu().numpy()), 1e-5 if not exact
+                else 0.0)
+            print(f"[sharded] case={tag} Q={q} k={k} against_plain "
+                  f"max_abs_err={err:.3e} tol={tol:.1e}", flush=True)
+            if fault or err > tol:
+                fail(f"[sharded] {tag} Q={q} k={k} disagrees with its "
+                     f"plain version: {fault or err}")
+        scan_key, buffers = sharded.make_scan_fn()
+        staged = sharded.device_mask(None)
+        skey, sbuf = single.make_scan_fn()
+        sstaged = single.scan_staged(None)
+        for q in SHARDED_QS:
+            qt = queries[q]
+
+            def call():
+                return sharded_scan(scan_key, buffers, staged, qt, 10)
+
+            def one():
+                return flat_scan(skey, sbuf, sstaged, qt, 10)
+
+            parts = [flat_scan(("flat", dtype, metric),
+                               buffers[2 * i: 2 * i + 2], (staged[i],), qt,
+                               10) for i in range(SHARDED_SHARDS)]
+            part_s = [p[0] for p in parts]
+            part_i = [p[1] for p in parts]
+
+            def merge():
+                return merge_shards(part_s, part_i, 10, SHARDED_SHARDS)
+
+            before = _build.LAUNCHES[KERNEL_OF[dtype]]
+            call()
+            calls_per = _build.LAUNCHES[KERNEL_OF[dtype]] - before
+            ms, single_ms = paired_ms(call, one)
+            merge_ms = cuda_ms(merge)
+            dms, launches = device_breakdown(f"sharded {tag} Q={q} k=10",
+                                             call, calls=10)
+            print(f"[sharded] case={tag} shards={SHARDED_SHARDS} "
+                  f"rows={SHARDED_N} Q={q} k=10 wrapper_ms={ms:.4f} "
+                  f"device_ms={dms:.4f} kernel_calls_per_call={calls_per} "
+                  f"device_launches_per_call={launches:.1f} "
+                  f"merge_ms={merge_ms:.4f} merge_share="
+                  f"{merge_ms / ms:.3f} single_device_ms={single_ms:.4f} "
+                  f"card=\"{card}\"", flush=True)
+            if calls_per != SHARDED_SHARDS:
+                fail(f"[sharded] {tag}: {calls_per} kernel calls a search, "
+                     f"want one a shard")
+        del sharded, single
+        torch.cuda.empty_cache()
+
+    # The process group: one rank, NCCL, a free local port.
+    t0 = time.perf_counter()
+    initialize_distributed(coordinator_address=f"localhost:{free_port()}",
+                           num_processes=1, process_id=0)
+    init_s = time.perf_counter() - t0
+    try:
+        if dist.get_backend() != "nccl" or process_count() != 1:
+            fail(f"[sharded] the group is {dist.get_backend()} with "
+                 f"{process_count()} ranks")
+        gathers = [0]
+        real = dist.all_gather
+
+        def counted(*args, **kwargs):
+            gathers[0] += 1
+            return real(*args, **kwargs)
+
+        dist.all_gather = counted
+        try:
+            index = kept["index"]
+            got = index.search(kept["queries"], 10)
+        finally:
+            dist.all_gather = real
+        same = all(np.array_equal(a, b) for a, b in zip(got, kept["answer"]))
+        print(f"[sharded] process_group backend={dist.get_backend()} "
+              f"ranks={process_count()} init_seconds={init_s:.3f} "
+              f"all_gather_calls={gathers[0]} same_answer={same}",
+              flush=True)
+        if not gathers[0] or not same:
+            fail("[sharded] the search under the one-rank group did not "
+                 "gather, or answered otherwise")
+    finally:
+        dist.destroy_process_group()
+    kept.clear()
+    torch.cuda.empty_cache()
+
+
+def sharded_answers_error(got_all, want_all, tag: str) -> None:
+    """Fails unless each answer equals the single-device one: the same
+    ids (an id may differ only in an exact tie), similarities within
+    ``WARM_EXACT``."""
+    for i, (got, want) in enumerate(zip(got_all, want_all)):
+        error = answer_error(got, want, WARM_EXACT)
+        if error:
+            fail(f"[sharded_serving] {tag} query {i}: {error}")
+
+
+def run_sharded_serving(engine, work: Path, total: int) -> None:
+    """The flat bf16 path's index (saved first: the warm phase added and
+    removed a conversation) loaded with ``ShardedFlatIndex.load`` over 4
+    shards on cuda:0 into its engine's storage: the 20 probe queries
+    through ``search_conversations`` twice, cold and warm, timed beside a
+    pass on the single-device index just before, with a lone query's
+    replay profiled on both (the fused path: one CUDA graph a window
+    shape, the 4 shard scans and the merge inside), and through the
+    classic path (the same embedding against both indexes), each equal to
+    the single-device answer; the warm server's answers to the 16
+    unfiltered probes one at a time, each equal to the in-process one;
+    the sharded index saved and loaded into a single-device ``FlatIndex``,
+    answering as before.  The single-device index is put back at the end."""
+    import torch
+
+    from tpu_search_torch.index.flat import FlatIndex
+    from tpu_search_torch.interfaces.query_server import QueryServer
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel import ShardedFlatIndex, build_mesh
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    dev = torch.device("cuda")
+    storage = engine.storage
+    data = work / "data"
+    storage.save_index()
+    _, queries = probe_queries(engine, total)
+
+    def timed_pass():
+        times, answers = [], []
+        for text, filters, _ in queries:
+            t1 = time.perf_counter()
+            answers.append(engine.search_conversations(text, filters,
+                                                       top_k=10))
+            times.append(((time.perf_counter() - t1) * 1e3, bool(filters)))
+        return times, answers
+
+    single = storage.index
+    times, want = timed_pass()
+    print_latency("bfloat16", "one device, fused in process", times,
+                  phase="sharded_serving")
+    texts = [t for t, f, _ in queries if f is None]
+    profile_replays(engine, texts, phase="sharded_serving one device")
+    cfg = SearchConfig(top_k=10, include_metadata=True, include_text=True)
+    embeddings = [engine.embedder.generate_single_embedding(t)
+                  for t, _, _ in queries]
+    want_classic = [storage.search(e, cfg, f)
+                    for e, (_, f, _) in zip(embeddings, queries)]
+
+    mesh = build_mesh(n_data=SHARDED_SHARDS, devices=[dev] * SHARDED_SHARDS)
+    t0 = time.perf_counter()
+    sharded = ShardedFlatIndex.load(str(storage.index_path), mesh)
+    print(f"[sharded_serving] load rows={sharded.ntotal} live={sharded.live} "
+          f"shards={sharded.n_shards} local_capacity="
+          f"{sharded._local_capacity} seconds="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    storage.index = sharded
+    storage._data_version += 1
+    try:
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        captures = engine._fused.captures
+        window = engine._fused_window([queries[0][0]], None, cfg)
+        if window is None or window.scan_key[0] != "sharded_flat":
+            fail("[sharded_serving] the fused path declined the co-located "
+                 "shards")
+        cold, got = timed_pass()
+        warm, again = timed_pass()
+        fused_launches = dict(_build.LAUNCHES)
+        new = engine._fused.captures - captures
+        replay = {}
+        for program in engine._fused._programs.values():
+            if program.launches.get("flat_topk") == SHARDED_SHARDS:
+                replay = program.launches
+        print(f"[sharded_serving] fused captures={new} "
+              f"programs={len(engine._fused)} replay_launches={replay} "
+              f"launches={fused_launches}", flush=True)
+        for what, times in (("cold", cold), ("warm", warm)):
+            print_latency("sharded_bfloat16", f"fused in process {what}",
+                          times, phase="sharded_serving")
+        if not replay or fused_launches["flat_topk"] == 0:
+            fail("[sharded_serving] no fused replay ran the 4 shard scans")
+        sharded_answers_error(got, want, "fused")
+        sharded_answers_error(again, want, "fused, warm")
+        profile_replays(engine, texts, phase="sharded_serving 4 shards")
+        got_classic = [storage.search(e, cfg, f)
+                       for e, (_, f, _) in zip(embeddings, queries)]
+        for i, (a, b) in enumerate(zip(got_classic, want_classic)):
+            error = answer_error(
+                [{"chunk_id": r.chunk_id, "similarity": r.similarity}
+                 for r in a],
+                [{"chunk_id": r.chunk_id, "similarity": r.similarity}
+                 for r in b], WARM_EXACT)
+            if error:
+                fail(f"[sharded_serving] classic query {i}: {error}")
+
+        unfiltered = [(q, a) for q, a in zip(queries, got) if q[1] is None]
+        server = QueryServer(engine, str(data))
+        server.start()
+        try:
+            times = warm_one_at_a_time(data, [q for q, _ in unfiltered],
+                                       [a for _, a in unfiltered],
+                                       "sharded_bfloat16")
+        finally:
+            server.stop()
+        print_latency("sharded_bfloat16", "warm server clients=1", times,
+                      phase="sharded_serving")
+        launches = dict(_build.LAUNCHES)
+        print(f"[launches] path=sharded_serving {launches}", flush=True)
+        if any(launches[k] == 0 for k in path_kernels("bfloat16")):
+            fail(f"the sharded serving path did not run every kernel: "
+                 f"{launches}")
+
+        path = work / "sharded_save.tpuidx"
+        sharded.save(str(path))
+        storage.index = FlatIndex.load(str(path), device=dev)
+        storage._data_version += 1
+        back = [engine.search_conversations(t, f, top_k=10)
+                for t, f, _ in queries]
+        sharded_answers_error(back, want, "saved sharded, loaded on one "
+                              "device")
+        print(f"[sharded_serving] answers equal to one device: fused=20 "
+              f"classic=20 warm={len(unfiltered)} after_save_load=20 "
+              f"card=\"{card_name()}\"", flush=True)
+    finally:
+        storage.index = single
+        storage._data_version += 1
+        engine._fused.clear()
+        torch.cuda.empty_cache()
+
+
+# -- --cross-card: one shard on each card of the machine -------------------------
+
+CROSS_CARD_CONVERSATIONS = 200
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Mean host milliseconds of ``fn`` (a call that ends on the host)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def check_cross_card() -> None:
+    """``[cross_card]`` (``--cross-card``, two or more cards): the sharded
+    index with one shard on each card, ``build_mesh`` over every card.
+    The scan at 1M x 768 (10 % tombstoned) in each of ``SHARDED_CASES``
+    against the single-device ``FlatIndex`` on cuda:0 at Q 1, 8, 128 and
+    k 10, 128, unfiltered and under a half-density mask (scores within
+    ``SHARDED_REL_TOL``, ids equal outside exact ties): each shard's rows
+    on its own card, one kernel call a shard a search, cuda:0 the current
+    device after each, and the search's host ms beside the single
+    device's.  Then an engine with ``CLAUDE_SEARCH_SHARD_DEVICES`` set to
+    the card count indexes 200 conversations: the fused window declines,
+    ``search_conversations`` answers the 20 probe queries on the classic
+    path, and each answer equals the saved index's, loaded on cuda:0
+    alone, on the same embedding (ids outside exact ties, similarities
+    within ``WARM_EXACT``)."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.devices import platform_devices
+    from tpu_search_torch.index.flat import FlatIndex
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel import ShardedFlatIndex, build_mesh
+    from tpu_search_torch.storage.hybrid import SearchConfig
+    from tpu_search_torch.utils.synthetic import (
+        write_conversations,
+        write_model,
+    )
+
+    devices = platform_devices("cuda")
+    if len(devices) < 2:
+        fail(f"--cross-card needs two or more cards, have {len(devices)}")
+    dev = devices[0]
+    card = f"{card_name()} x{len(devices)}"
+    mesh = build_mesh(n_data=len(devices), devices=devices)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = unit_rows(gen, SHARDED_N, 768)
+    dead = np.random.default_rng(32).choice(SHARDED_N, SHARDED_N // 10,
+                                            replace=False)
+    mask = np.random.default_rng(33).random(SHARDED_N) < 0.5
+    queries = {q: unit_rows(gen, q, 768).cpu().numpy() for q in SHARDED_QS}
+    for dtype, metric in SHARDED_CASES:
+        tag = f"{dtype}_{metric}"
+        sharded = ShardedFlatIndex.from_device_vectors(
+            rows, mesh, metric=metric, dtype=dtype)
+        sharded.remove(dead)
+        single = FlatIndex(768, metric=metric, dtype=dtype, device=dev)
+        single.add(rows)
+        single.remove(dead)
+        cards = [str(sh._vectors.device) for sh in sharded._shards.values()]
+        if cards != [str(d) for d in devices]:
+            fail(f"[cross_card] {tag}: shards on {cards}")
+        worst = 0.0
+        for q, k, m in itertools.product(SHARDED_QS, (10, 128), (None, mask)):
+            before = _build.LAUNCHES[KERNEL_OF[dtype]]
+            got = sharded.search(queries[q], k, mask=m)
+            calls = _build.LAUNCHES[KERNEL_OF[dtype]] - before
+            _, rel, fault = topk_error(got, single.search(queries[q], k,
+                                                          mask=m),
+                                       SHARDED_REL_TOL)
+            worst = max(worst, rel)
+            where = f"Q={q} k={k} masked={m is not None}"
+            if fault or rel > SHARDED_REL_TOL:
+                fail(f"[cross_card] {tag} {where} disagrees with one "
+                     f"device: {fault or f'relative error {rel:.3e}'}")
+            if calls != len(devices):
+                fail(f"[cross_card] {tag} {where}: {calls} kernel calls, "
+                     f"want one a shard")
+            if torch.cuda.current_device() != dev.index:
+                fail(f"[cross_card] {tag} {where}: the current device is "
+                     f"cuda:{torch.cuda.current_device()} after a search")
+        times = {q: (host_ms(lambda: sharded.search(queries[q], 10)),
+                     host_ms(lambda: single.search(queries[q], 10)))
+                 for q in SHARDED_QS}
+        print(f"[cross_card] case={tag} shards={len(devices)} "
+              f"rows={SHARDED_N} against_one_device max_rel_err={worst:.3e} "
+              f"(Q {SHARDED_QS}, k (10, 128), unfiltered and masked) "
+              + " ".join(f"Q={q} k=10 search_ms={a:.4f} "
+                         f"single_device_ms={b:.4f}"
+                         for q, (a, b) in times.items())
+              + f' card="{card}"', flush=True)
+        del sharded, single
+        for d in devices:
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cross_"))
+    try:
+        config = write_model(work / "data" / "models" / "smoke-mpnet")
+        files = write_conversations(work, CROSS_CARD_CONVERSATIONS + 1,
+                                    config.vocab_size - 5)
+        with env_set(CLAUDE_SEARCH_SHARD_DEVICES=str(len(devices))):
+            engine = SearchEngine(str(work / "data"),
+                                  model_name="smoke-mpnet",
+                                  use_warm_server=False, device="cuda")
+            total, _ = index_path(engine, files, "cross_card", "bfloat16")
+        storage = engine.storage
+        index = storage.index
+        if not isinstance(index, ShardedFlatIndex) or (
+                index.n_shards != len(devices)):
+            fail(f"[cross_card] shard_devices={len(devices)} built "
+                 f"{index!r}, not a sharded index over the cards")
+        _, probes = probe_queries(engine, total)
+        cfg = SearchConfig(top_k=10, include_metadata=True, include_text=True)
+        if engine._fused_window([probes[0][0]], None, cfg) is not None:
+            fail("[cross_card] the fused window took shards on several "
+                 "cards")
+        answers = [engine.search_conversations(t, f, top_k=10)
+                   for t, f, _ in probes]
+        embeddings = [engine.embedder.generate_single_embedding(t)
+                      for t, _, _ in probes]
+
+        def classic():
+            return [[{"chunk_id": r.chunk_id, "similarity": r.similarity}
+                     for r in storage.search(e, cfg, f)]
+                    for e, (_, f, _) in zip(embeddings, probes)]
+
+        got = classic()
+        storage.save_index()
+        storage.index = FlatIndex.load(str(storage.index_path), device=dev)
+        storage._data_version += 1
+        want = classic()
+        for i, (a, g, w) in enumerate(zip(answers, got, want)):
+            error = (answer_error(a, g, WARM_EXACT)
+                     or answer_error(g, w, WARM_EXACT))
+            if error or not g:
+                fail(f"[cross_card] query {i}: {error or 'no results'}")
+        print(f"[cross_card] engine shards={index.n_shards} "
+              f"chunks={total} fused=declined classic answers equal to one "
+              f"device: {len(probes)} card=\"{card}\"", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # -- phase 3: the main path -----------------------------------------------------
 
 
@@ -2542,6 +3111,7 @@ def run_main_path(work: Path, files) -> dict:
         fail("CUDA encoder disagrees with the plain CPU encoder")
     check_cli(engine, work / "data", probes[4].text, "bfloat16", {})
     warm = run_warm_path(engine, work, total)
+    run_sharded_serving(engine, work, total)
     # The servers load the directory from disk: give them this engine's
     # state (the warm phase's add and remove may be newer than the file).
     engine.storage.save_index()
@@ -2768,7 +3338,7 @@ def scan_both_ways(engine) -> None:
 FLAT_SCAN_KERNELS = ("float_prep", "ivf_float_scan", "tree_merge")
 
 
-def profile_replays(engine, texts) -> None:
+def profile_replays(engine, texts, phase: str = "warm") -> None:
     """The host and device split of a warm in-process query (a lone query,
     its graph replayed): the wall a search, the device busy time a replay
     and its kernels (torch.profiler sees a replay's kernels; the launch
@@ -2788,7 +3358,7 @@ def profile_replays(engine, texts) -> None:
                    for k, ms, n in split[:6])
     scan = " ".join(f"{k}={ms * n / calls:.4f}(n={n / calls:g})"
                     for k, ms, n in split if k in FLAT_SCAN_KERNELS)
-    print(f"[warm] replay profile: wall_ms_a_search={wall * 1e3:.4f} "
+    print(f"[{phase}] replay profile: wall_ms_a_search={wall * 1e3:.4f} "
           f"device_busy_ms_a_replay={busy * 1e3:.4f} "
           f"device_events_a_replay={len(events) / calls:.1f} "
           f"kernels_ms_a_replay: {top} flat_scan_ms_a_replay: {scan}",
@@ -4159,6 +4729,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    cross_card = sys.argv[1:] == ["--cross-card"]
+    if sys.argv[1:] and not cross_card:
+        fail(f"unknown arguments {sys.argv[1:]} (only --cross-card)")
     # Every f32 product of the plain versions in full f32, not TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4170,12 +4743,16 @@ def main() -> None:
     print(f"[build] sources={list(_build.LIBRARIES)} "
           f"seconds={time.perf_counter() - t0:.2f}", flush=True)
     check_build(built["logs"])
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_name(), flush=True)
+    if cross_card:
+        with timed_phase("check_cross_card"):
+            check_cross_card()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return
 
     results: dict = {}
     for check in (check_flat_topk, check_quant_topk, check_attention,
@@ -4185,6 +4762,8 @@ def main() -> None:
             check(results)
     with timed_phase("check_pq"):
         check_pq()
+    with timed_phase("check_sharded"):
+        check_sharded()
 
     from tpu_search_torch.utils.synthetic import (
         N_CONVERSATIONS,

@@ -9,8 +9,9 @@ its environment knobs as the JAX engine does:
   lookahead change neither the chunk ids nor the stored vectors, bit for
   bit;
 - ``CLAUDE_SEARCH_SHARD_DEVICES`` raises the JAX engine's ``ValueError`` on
-  a non-integer, and a count above 1 reaches the storage layer, which
-  refuses it (multi-GPU is not ported).
+  a non-integer; 8 shards a flat store over the 8 CPU devices in both
+  packages, and an IVF store over them raises the port's
+  ``NotImplementedError`` (sharded IVF is not ported).
 """
 
 import inspect
@@ -108,9 +109,24 @@ def test_shard_devices_is_validated_as_in_jax(tmp_path, monkeypatch):
                      device="cpu")
     assert str(port_err.value) == str(jax_err.value)
     monkeypatch.setenv("CLAUDE_SEARCH_SHARD_DEVICES", "8")
-    with pytest.raises(NotImplementedError, match="several devices"):
-        SearchEngine(str(tmp_path / "port8"), model_name="hash-768",
-                     device="cpu")
+    jax8 = JaxSearchEngine(str(tmp_path / "jax8"), model_name="hash-768",
+                           use_warm_server=False)
+    port8 = SearchEngine(str(tmp_path / "port8"), model_name="hash-768",
+                         device="cpu")
+    for engine in (jax8, port8):
+        assert engine.storage.config.shard_devices == 8
+        engine.storage.initialize()
+        index = engine.storage.index
+        assert type(index).__name__ == "ShardedFlatIndex"
+        assert index.n_shards == 8
+        engine.storage.close()
+    monkeypatch.setenv("CLAUDE_SEARCH_INDEX_TYPE", "ivf")
+    ivf8 = SearchEngine(str(tmp_path / "ivf8"), model_name="hash-768",
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="sharded IVF"):
+        ivf8.storage.initialize()
+    ivf8.storage.close()
+    monkeypatch.delenv("CLAUDE_SEARCH_INDEX_TYPE")
     for value in ("0", "1"):
         monkeypatch.setenv("CLAUDE_SEARCH_SHARD_DEVICES", value)
         engine = SearchEngine(str(tmp_path / f"port{value}"),

@@ -1,7 +1,8 @@
 """The port's fused query path (``SearchEngine._fused_search_many``,
 ``api/fused.py``) on the CPU, with the tiny checkpoint of
 ``test_torch_engine.py``, on flat bf16, int8 and int4 and on IVF int4 with
-its refine tier:
+its refine tier (``tests/test_torch_fused_sharded.py`` runs the same
+cases on sharded stores):
 
 - against the port's classic path (embed, then ``HybridStorage.
   search_many``) on the same engine: equal ids, similarities within 1e-6;
@@ -37,7 +38,8 @@ from tpu_search_torch.storage.hybrid import SearchConfig
 
 SIM_EQ = 1e-6
 TOL = {("flat", "bfloat16"): 5e-3, ("flat", "int8"): 2e-2,
-       ("flat", "int4"): 2e-2, ("ivf", "int4"): 5e-3}
+       ("flat", "int4"): 2e-2, ("ivf", "int4"): 5e-3,
+       ("sharded", "bfloat16"): 5e-3, ("sharded", "int8"): 2e-2}
 QUERIES = [f"tok{i} tok{(i + 3) % 59} tok{(i + 7) % 59}" for i in range(32)]
 WINDOWS = (1, 8, 9, 32)
 FILTERS = (None, {"has_code": True})
@@ -47,12 +49,15 @@ def _env(kind: str, dtype: str) -> dict:
     env = {"CLAUDE_SEARCH_STORAGE_DTYPE": dtype}
     if kind == "ivf":
         env.update(CLAUDE_SEARCH_INDEX_TYPE="ivf", CLAUDE_SEARCH_NPROBE="64")
+    if kind == "sharded":
+        env.update(CLAUDE_SEARCH_SHARD_DEVICES="8")
     return env
 
 
-@pytest.fixture(scope="module", params=sorted(TOL))
-def engines(request, tmp_path_factory):
-    kind, dtype = request.param
+def make_engines(config, tmp_path_factory):
+    """A JAX and a port engine of ``config`` (kind, dtype) over the same
+    transcripts."""
+    kind, dtype = config
     root = tmp_path_factory.mktemp(f"fused_{kind}_{dtype}")
     files = write_transcripts(root)
     for name in ("jax", "port"):
@@ -69,7 +74,18 @@ def engines(request, tmp_path_factory):
     for engine in (jax_engine, port_engine):
         engine.index_conversations(files)
     assert port_engine.storage.index.dtype == dtype
+    sharded = kind == "sharded"
+    for engine in (jax_engine, port_engine):
+        index = engine.storage.index
+        assert (type(index).__name__ == "ShardedFlatIndex") == sharded
+        assert getattr(index, "n_shards", 8) == 8
     return (kind, dtype), root, jax_engine, port_engine
+
+
+@pytest.fixture(scope="module",
+                params=sorted(k for k in TOL if k[0] != "sharded"))
+def engines(request, tmp_path_factory):
+    return make_engines(request.param, tmp_path_factory)
 
 
 def classic(engine, queries, filters, cfg):
@@ -207,7 +223,8 @@ def test_fused_error_propagates(engines, monkeypatch):
     def broken(*args, **kwargs):
         raise RuntimeError("injected scan fault")
 
-    name = "ivf_scan" if config[0] == "ivf" else "flat_scan"
+    name = {"ivf": "ivf_scan", "sharded": "sharded_scan"}.get(config[0],
+                                                             "flat_scan")
     monkeypatch.setattr(engine_mod, name, broken)
     calls = []
     monkeypatch.setattr(port_engine.storage, "search",
@@ -255,3 +272,4 @@ def test_concurrent_fused_searches_match_sequential(engines):
         t.join(timeout=300)
     assert not any(t.is_alive() for t in threads)
     assert wrong == []
+

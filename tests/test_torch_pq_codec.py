@@ -16,7 +16,7 @@
   ``test_fused_scan_fn_matches_classic`` calls the JAX package's fused-path
   function ``ivf_scan_fn_for``; here it holds the port's ``make_scan_fn``
   / ``ivf_scan`` to ``search`` instead.  Its ``TestSharded`` stays out
-  until multi-GPU sharding is ported.
+  until sharded IVF is ported.
 """
 
 import contextlib
@@ -40,7 +40,7 @@ def port_cases(name: str, replace=(), drop=(), overrides=None) -> dict:
     classes, to collect here."""
     source = (Path(__file__).parent / f"{name}.py").read_text()
     source = source.replace("tpu_search.", "tpu_search_torch.")
-    source = source.replace("@pytest.mark.slow\n", "")
+    source = re.sub(r"^[ \t]*@pytest\.mark\.slow\n", "", source, flags=re.M)
     source = re.sub(r"^pytestmark = pytest\.mark\.slow.*$", "", source,
                     flags=re.M)
     for old, new in replace:

@@ -3,13 +3,10 @@ query_server.py``, a verbatim copy of the JAX package's): the cases of
 ``tests/test_query_server.py`` pointed at the port's modules, with the
 port's engine on the CPU (socket protocol, request ids, shutdown
 delivery, engine routing, batching, partial failure, pipelined fused
-serving).
-
-Left out: ``TestShardedServing`` (serving over an index sharded on
-several devices), which waits for multi-device support (ROADMAP Queue 1
-item 6).  Added: the port's ``_warm_request`` against a ``QueryServer`` on
-a JAX engine returns that engine's local results (one wire protocol, one
-socket path for both packages).
+serving, serving over a flat index sharded over 8 CPU shards).  Added:
+the port's ``_warm_request`` against a ``QueryServer`` on a JAX engine
+returns that engine's local results (one wire protocol, one socket path
+for both packages).
 
 Every socket carries a timeout and every thread join a bound.
 """
@@ -75,9 +72,10 @@ def _write_transcript(tmp_path):
     return claude_dir / "s1.jsonl"
 
 
-def _real_engine(tmp_path):
+def _real_engine(tmp_path, **storage):
     """The port's engine on the CPU over a tiny random MPNet (the JAX
-    test's checkpoint shape, written by the port's converter)."""
+    test's checkpoint shape, written by the port's converter), with
+    ``storage``'s ``StorageConfig`` fields set before it indexes."""
     from tpu_search_torch.api.engine import SearchEngine
     from tpu_search_torch.models.convert import save_checkpoint
     from tpu_search_torch.models.mpnet import MPNetConfig, init_params
@@ -99,6 +97,8 @@ def _real_engine(tmp_path):
         data_dir=str(tmp_path), model_name="tiny-mpnet",
         use_warm_server=False, device="cpu",
     )
+    for key, value in storage.items():
+        setattr(engine.storage.config, key, value)
     engine.index_conversations([str(_write_transcript(tmp_path))])
     return engine
 
@@ -669,6 +669,56 @@ class TestPipelinedFusedServing:
             assert worker.run(lambda: 42) == 42
         finally:
             worker.stop()
+
+
+class TestShardedServing:
+    """Warm server -> UDS socket -> HybridStorage sharded over 8 CPU
+    shards: the same QueryServer code over a ShardedFlatIndex, each
+    window one fused program (the encode, the 8 shard scans, the merge)."""
+
+    @pytest.fixture
+    def sharded_engine(self, tmp_path):
+        from tpu_search_torch.api.fused import Window
+        from tpu_search_torch.parallel.sharded_index import ShardedFlatIndex
+        from tpu_search_torch.storage.hybrid import SearchConfig
+
+        engine = _real_engine(tmp_path, shard_devices=8,
+                              storage_dtype="float32")
+        assert isinstance(engine.storage.index, ShardedFlatIndex)
+        assert engine.storage.index.n_shards == 8
+        window = engine._fused_window(["tok1 tok2"], None,
+                                      SearchConfig(top_k=3))
+        assert isinstance(window, Window)
+        assert window.scan_key[0] == "sharded_flat"
+        return engine
+
+    def test_socket_search_over_sharded_index(
+        self, sharded_engine, tmp_path
+    ):
+        server = QueryServer(sharded_engine, str(tmp_path))
+        server.start()
+        try:
+            queries = [f"tok{i} tok{i+1} tok{i+2}" for i in range(4)]
+            # Ground truth from the in-process path on the same engine.
+            expected = {
+                q: [
+                    r["chunk_id"]
+                    for r in sharded_engine.search_conversations(q, top_k=3)
+                ]
+                for q in queries
+            }
+            for q in queries:
+                response = request(
+                    str(tmp_path),
+                    {"op": "search", "query": q, "top_k": 3, "id": q},
+                    timeout=240.0,
+                )
+                assert response and response.get("ok"), response
+                assert response["id"] == q
+                got = [r["chunk_id"] for r in response["results"]]
+                assert got == expected[q], (q, got, expected[q])
+        finally:
+            server.stop()
 
 
 class TestCrossPackage:

@@ -52,6 +52,7 @@ from ..models.cross_encoder import (
     resolve_reranker_name,
 )
 from ..models.encoder import EmbeddingConfig, EmbeddingGenerator
+from ..parallel.sharded_index import ShardedFlatIndex, sharded_scan
 from ..storage.hybrid import (
     HybridStorage,
     SearchConfig,
@@ -156,9 +157,10 @@ def _storage_env() -> Dict[str, Any]:
       <= 0 off).
     - ``CLAUDE_SEARCH_PQ_OPQ`` = 0|1, the OPQ rotation of
       ``storage_dtype="pq"`` (``pq_opq``);
-    - ``CLAUDE_SEARCH_SHARD_DEVICES`` = device count (integer, 0 = auto),
-      passed on as ``shard_devices``; the storage layer refuses more than
-      one device (multi-GPU is not ported)."""
+    - ``CLAUDE_SEARCH_SHARD_DEVICES`` = device count (integer, 0 = auto:
+      one device for now), passed on as ``shard_devices``: a flat index
+      shards over that many devices (``parallel.ShardedFlatIndex``); the storage layer refuses
+      an IVF index over several (sharded IVF is not ported)."""
     kwargs: Dict[str, Any] = {}
     for env, key, allowed in (
         ("CLAUDE_SEARCH_INDEX_TYPE", "index_type", ("flat", "ivf", "hnsw")),
@@ -226,6 +228,8 @@ class SearchEngine:
         # thread-safe), and the fused programs (CUDA graphs on the card).
         self._warm_clients = threading.local()
         self._fused = FusedPrograms()
+        self._warned_unfused = False  # logged once: a sharded index that
+        # spans devices searches on the classic path
         self.parser = JSONLParser()
         self.chunker = ConversationChunker(ChunkingConfig())
         self.embedder = EmbeddingGenerator(
@@ -596,7 +600,10 @@ class SearchEngine:
         does not apply (the hashing encoder, an empty or untrained index,
         more than 32 queries, ids past 2^24, which f32 packing would
         round), ``[[] ...]`` when the filter matches nothing or ``k`` is
-        0."""
+        0.  A sharded index fuses when every shard lies on the encoder's
+        device (one program: the encode, each shard's scan, the merge);
+        over several devices or processes it is None, and the classic
+        path serves on the same scan kernels."""
         q = len(queries)
         if q == 0:
             return []
@@ -606,16 +613,26 @@ class SearchEngine:
         if index is None or index.ntotal == 0:
             return None
         is_ivf = isinstance(index, IVFIndex)
-        if not is_ivf and not isinstance(index, FlatIndex):
+        is_sharded = isinstance(index, ShardedFlatIndex)
+        if not (is_ivf or is_sharded or isinstance(index, FlatIndex)):
             return None
         if is_ivf and index.centroids is None:
             return None
+        # capacity: S x the local capacity for a sharded index.
         if (index.ntotal if is_ivf else index.capacity) >= (1 << 24):
             return None
         parts = self.embedder.fused_parts()
         if parts is None:
             return None
         model, device, normalize, int8_ffn = parts
+        if is_sharded and not index.colocated(device):
+            if not self._warned_unfused:
+                self._warned_unfused = True
+                logger.info(
+                    "Sharded index spans devices or processes (%s): the "
+                    "fused query path serves one device only; searching "
+                    "on the classic path", index.mesh)
+            return None
 
         fmask = self.storage.filter_mask(filters)
         if fmask is not None and not fmask.any():
@@ -625,6 +642,9 @@ class SearchEngine:
             k_eff = min(cfg.top_k,
                         min(nprobe, index.nlist) * index._cluster_capacity)
             scan, (scan_key, buffers) = ivf_scan, index.make_scan_fn(nprobe)
+        elif is_sharded:
+            k_eff = min(cfg.top_k, index._local_capacity)
+            scan, (scan_key, buffers) = sharded_scan, index.make_scan_fn()
         else:
             k_eff = min(cfg.top_k, index.capacity)
             scan, (scan_key, buffers) = flat_scan, index.make_scan_fn()

@@ -5,7 +5,9 @@ window's batch bucket (1, 8 or 32 rows) and sequence bucket (the
 encoder's own pooling and L2 normalize), the storage's normalize, f32, pad
 to ``q_pad`` rows (8 or 32, the scans' query blocks), the masked scan of
 the index (``FlatIndex.make_scan_fn`` / ``IVFIndex.make_scan_fn``: the
-flat, int8, int4 or IVF kernels, with the refine tier) and one packed
+flat, int8, int4 or IVF kernels, with the refine tier; or
+``ShardedFlatIndex.make_scan_fn`` with every shard on the encoder's
+device: each shard's flat scan and the merge) and one packed
 output ``[scores | ids as f32]``.  A lone query encodes one row, not
 ``q_pad``.
 

@@ -11,6 +11,7 @@ from .capability import (
     DeviceCapability,
     assess_device_capability,
     calculate_optimal_batch_size,
+    platform_devices,
     resolve_device,
 )
 
@@ -18,5 +19,6 @@ __all__ = [
     "DeviceCapability",
     "assess_device_capability",
     "calculate_optimal_batch_size",
+    "platform_devices",
     "resolve_device",
 ]

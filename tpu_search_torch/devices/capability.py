@@ -4,12 +4,20 @@ Counterpart of ``tpu_search/devices/capability.py``.  The port takes its
 device explicitly: ``cuda`` by default, ``cpu`` on request (argument or
 ``CLAUDE_SEARCH_DEVICE=cpu``).  Asking for ``cuda`` on a machine without
 one raises; nothing falls back to the CPU on its own.
+
+:func:`platform_devices` lists the devices a sharded index may span
+(``StorageConfig.shard_devices`` counts them): every CUDA device, or on
+the CPU as many as ``XLA_FLAGS``' ``--xla_force_host_platform_device_count``
+asks for, each the one host ``torch.device("cpu")``, so that the CPU sees
+the device count the JAX package's CPU mesh has under the same
+environment.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import re
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -21,8 +29,14 @@ __all__ = [
     "DeviceCapability",
     "assess_device_capability",
     "calculate_optimal_batch_size",
+    "platform_devices",
     "resolve_device",
+    "restrict_cuda_devices",
 ]
+
+# CUDA device ordinals this process may use (``initialize_distributed``'s
+# ``local_device_ids``); None: all of them.
+_LOCAL_CUDA_IDS: Optional[List[int]] = None
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -40,6 +54,32 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return dev
+
+
+def restrict_cuda_devices(ids: Optional[List[int]]) -> None:
+    """Limit :func:`platform_devices` ``("cuda")`` to these ordinals (None:
+    every device)."""
+    global _LOCAL_CUDA_IDS
+    _LOCAL_CUDA_IDS = None if ids is None else [int(i) for i in ids]
+
+
+def platform_devices(platform: str) -> List[torch.device]:
+    """This process's devices of ``platform`` (``"cuda"`` or ``"cpu"``), in
+    order.  The CPU counts ``--xla_force_host_platform_device_count`` in
+    ``XLA_FLAGS`` (default 1) and repeats the host device that many
+    times: the shards of a CPU mesh share the host's memory."""
+    if platform == "cuda":
+        if not torch.cuda.is_available():
+            return []
+        ids = _LOCAL_CUDA_IDS
+        if ids is None:
+            ids = list(range(torch.cuda.device_count()))
+        return [torch.device("cuda", i) for i in ids]
+    if platform == "cpu":
+        found = re.findall(r"--xla_force_host_platform_device_count=(\d+)",
+                           os.environ.get("XLA_FLAGS", ""))
+        return [torch.device("cpu")] * (int(found[-1]) if found else 1)
+    raise ValueError(f"unsupported platform {platform!r}")
 
 
 @dataclass

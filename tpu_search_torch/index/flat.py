@@ -49,7 +49,7 @@ from ..ops.int4_pack import (
 from ..ops.topk_scan import INV127, absmax_scales, row_penalty, row_sq_norms
 from ..utils.shapes import next_pow2, round_up
 
-__all__ = ["FlatIndex", "flat_scan", "quantize_rows_int8"]
+__all__ = ["FlatIndex", "dequantize_rows", "flat_scan", "quantize_rows_int8"]
 
 _MIN_CAPACITY = 1024
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,6 +64,22 @@ def quantize_rows_int8(vectors: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     v = vectors.float()
     scales = absmax_scales(v, INV127)
     return torch.round(v / scales[:, None]).to(torch.int8), scales
+
+
+def dequantize_rows(dtype: str, stored: torch.Tensor,
+                    scales: Optional[torch.Tensor], rows: int) -> torch.Tensor:
+    """The first ``rows`` rows of ``stored``, in ``dtype``'s layout (int8
+    rows, int4 nibble-pair bytes, bf16 / f32 rows), as f32; int8 / int4
+    times their per-row ``scales``: the JAX package's f32 products, bit for
+    bit."""
+    if dtype == "int8":
+        q = stored[:rows].float()
+    elif dtype == "int4":
+        nib = bytes_to_nibble_rows(stored[: (rows + 1) // 2])
+        q = nib[:rows].float() - NIBBLE_BIAS
+    else:
+        return stored[:rows].float()
+    return q * scales[:rows, None]
 
 
 def flat_scan(scan_key: tuple, buffers: tuple, staged: tuple,
@@ -167,6 +183,7 @@ class FlatIndex:
                 scales[: self._capacity] = self._scales
         self._vectors, self._valid, self._scales = vecs, valid, scales
         self._capacity = target
+        self._mutated()  # cached penalties have the old capacity
 
     def _write_nibbles(self, u: torch.Tensor, start: int) -> None:
         """Write ``[n, D]`` biased nibbles at logical slot ``start``: an odd
@@ -228,17 +245,14 @@ class FlatIndex:
         self._mutated()
         return n_live
 
-    def _rows_f32(self) -> torch.Tensor:
-        """The first ``count`` rows as f32 (dequantized for int8/int4)."""
-        count = self._count
-        if self.dtype == "int8":
-            q = self._vectors[:count].float()
-        elif self.dtype == "int4":
-            nib = bytes_to_nibble_rows(self._vectors[: (count + 1) // 2])
-            q = nib[:count].float() - NIBBLE_BIAS
-        else:
-            return self._vectors[:count].float()
-        return q * self._scales[:count, None]
+    def _rows_f32(self, a: int = 0, b: Optional[int] = None) -> torch.Tensor:
+        """Slots ``[a, b)`` (default: the first ``count``) as f32,
+        dequantized for int8/int4; ``a`` even."""
+        b = self._count if b is None else b
+        half = self.dtype == "int4"
+        return dequantize_rows(
+            self.dtype, self._vectors[a // 2 if half else a:],
+            None if self._scales is None else self._scales[a:], b - a)
 
     def compact(self) -> Dict[int, int]:
         """Drop tombstones, renumber contiguously; returns old -> new."""

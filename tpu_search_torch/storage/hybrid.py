@@ -16,8 +16,14 @@ into pre-serialized result fragments, cached per vector id
 moves: every write and every maintenance step that moves index buffers
 (compact, rebalance, calibration, growth) bumps it.
 
-Not ported yet, and refused rather than ignored: sharding over several
-devices.
+With ``shard_devices`` N > 1 (the first N devices of the storage's
+platform, on the CPU as many as ``XLA_FLAGS`` gives the JAX package's CPU
+mesh) a flat index is a ``parallel.ShardedFlatIndex`` over them, built,
+loaded and restored as in the JAX package.  Auto (0) keeps one device,
+where the JAX package shards over every accelerator: shards on several
+cards are not yet proven on a machine of several cards.  Refused rather
+than ignored: an IVF index over several devices (sharded IVF is not
+ported).
 """
 
 from __future__ import annotations
@@ -38,10 +44,13 @@ import torch
 from ..devices.capability import (
     DeviceCapability,
     assess_device_capability,
+    platform_devices,
     resolve_device,
 )
 from ..index.registry import create_index, load_index
 from ..ingest.chunker import Chunk
+from ..parallel.mesh import build_mesh
+from ..parallel.sharded_index import ShardedFlatIndex
 from ..utils.profiling import PhaseTimer
 from .filters import mask_for_filters, matches_filters
 from .metadata import MetadataStore
@@ -86,7 +95,7 @@ class StorageConfig:
     auto_save: bool = True
     save_interval_s: float = 0.0  # min seconds between auto-saves
     device: Optional[str] = None  # None -> $CLAUDE_SEARCH_DEVICE -> "cuda"
-    shard_devices: int = 0  # 0 / 1: one device
+    shard_devices: int = 0  # 0 auto (one device for now), 1 one, N shard
 
 
 @dataclass
@@ -127,8 +136,6 @@ class SearchResult:
 def _check_supported(config: StorageConfig) -> None:
     if config.index_type not in ("flat", "ivf"):
         raise ValueError(f"Unknown index type: {config.index_type}")
-    if config.shard_devices > 1:
-        raise NotImplementedError("sharding over several devices is not ported")
 
 
 class HybridStorage:
@@ -149,7 +156,7 @@ class HybridStorage:
         self.db_path = self.data_dir / self.config.db_name
         self.index_path = self.data_dir / self.config.index_name
         self.meta = MetadataStore(str(self.db_path))
-        self.index = None  # FlatIndex | IVFIndex
+        self.index = None  # FlatIndex | IVFIndex | ShardedFlatIndex
         self.chunk_id_to_faiss_id: Dict[str, int] = {}
         self.faiss_id_to_chunk_id: Dict[int, str] = {}
         self._capability: Optional[DeviceCapability] = None
@@ -231,8 +238,47 @@ class HybridStorage:
             and self.config.refine_dtype == "none"
         )
 
+    def _index_mesh(self):
+        """The mesh to shard the index over, or None for one device: the
+        JAX package's rule over the storage platform's devices
+        (``devices.platform_devices``) for N > 1.  Auto (0) keeps one
+        device: JAX's shards over every accelerator, but shards on several
+        cards are unproven until a machine of several cards runs
+        ``chip_smoke.py --cross-card``."""
+        n = self.config.shard_devices
+        if n <= 1:
+            return None
+        devices = platform_devices(self.device.type)
+        if len(devices) < n:
+            self.logger.warning(
+                "shard_devices=%d but only %d devices; not sharding",
+                n, len(devices))
+            return None
+        devices = devices[:n]
+        if self.config.index_type == "ivf":
+            raise NotImplementedError(
+                "sharded IVF (index_type='ivf' over several devices) is not "
+                "ported; use shard_devices=1 or index_type='flat'")
+        return build_mesh(n_data=len(devices), n_model=1, devices=devices)
+
+    def _load_index(self, path: str):
+        """An index file onto this storage's device or mesh."""
+        mesh = self._index_mesh()
+        if mesh is None:
+            return load_index(path, device=self.device)
+        return ShardedFlatIndex.load(path, mesh=mesh,
+                                     dtype=self._effective_dtype())
+
     def _build_index(self):
         _check_supported(self.config)
+        mesh = self._index_mesh()
+        if mesh is not None:
+            self.logger.info("Sharded flat index over %d devices",
+                             mesh.shape["data"])
+            return ShardedFlatIndex(
+                dim=self.embedding_dim, mesh=mesh,
+                metric="ip" if self.config.normalize_embeddings else "l2",
+                dtype=self._effective_dtype())
         return create_index(
             self.config.index_type,
             dim=self.embedding_dim,
@@ -265,8 +311,7 @@ class HybridStorage:
         self.meta.open()
         if self.index_path.exists():
             try:
-                self.index = load_index(str(self.index_path),
-                                        device=self.device)
+                self.index = self._load_index(str(self.index_path))
             except (OSError, ValueError, KeyError) as exc:
                 self.logger.warning("Could not load existing index: %s", exc)
                 self.index = None
@@ -751,7 +796,7 @@ class HybridStorage:
         src = Path(backup_dir)
         index_file = src / self.config.index_name
         if index_file.exists():
-            self.index = load_index(str(index_file), device=self.device)
+            self.index = self._load_index(str(index_file))
             self.embedding_dim = self.config.embedding_dim = self.index.dim
         db_file = src / self.config.db_name
         if db_file.exists():
