@@ -45,7 +45,16 @@ Phases, each printing its numbers on its own line:
      launches a call, the merge's share and the single-device ms at k 10,
      beside the card's name and power limit; then a search under a
      one-rank NCCL group (``initialize_distributed``), which gathers and
-     answers alike;
+     answers alike; then ``[sharded_ivf]``, the sharded IVF index
+     (``parallel.ShardedIVFIndex``) over the same 4 shards at the IVF
+     scans' size (1M x 768 clustered unit rows, nlist 1024, 10 %
+     tombstoned) in bf16, f32, f32 l2, int8, int4, int4 with its int8
+     refine tier and pq: each against a single-device ``IVFIndex`` with the
+     same centroids (and books) at Q 1, 8, 128, k 10 and Q 8, k 128,
+     nprobe 32, each shard's scan against its plain twin, the kernels' C
+     calls (one a shard) and device launches a call, the wrapper's ms and
+     device ms beside the single device's, the merge's and the rescore's
+     ms; and a refined search under a one-rank NCCL group;
   3. drive the main path at the full width of all-mpnet-base-v2 with
      random seeded weights, on six storage paths, each a fresh data
      directory: flat bf16 (1,000 conversations), flat
@@ -81,7 +90,10 @@ Phases, each printing its numbers on its own line:
      shape, the 4 shard scans and the merge in it) and the classic path,
      the 16 unfiltered through the warm server, and the sharded index
      saved and loaded into a single-device ``FlatIndex``: every answer
-     equal to the single-device one.  The flat int8 and the
+     equal to the single-device one; the IVF int4 path does the same
+     with its index (with its int8 refine tier) loaded by
+     ``ShardedIVFIndex.load``, its fused replays running the 4 shard
+     scans, the merge and the rescore.  The flat int8 and the
      IVF int4 and pq paths end with their 16 probes one at a time through
      the warm server, each equal to the in-process answer.  After ``[warm]``
      the flat bf16 directory is served by the product's other entry
@@ -164,9 +176,9 @@ kernel's launch count from the path that runs it; the last line is
 
 on a machine of two or more cards builds the kernels and runs only
 ``[cross_card]`` (``check_cross_card``): the sharded index with one shard
-on each card, against one card, and an engine that shards over every
-card, on the classic path; the last line is the same
-``{"ok": true, ...}``.
+on each card, against one card (flat in five cases, and IVF int4 with its
+int8 refine tier), and an engine that shards over every card, on the
+classic path; the last line is the same ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -187,6 +199,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -2307,6 +2320,8 @@ SHARDED_REL_TOL = 1e-6
 # The wrapper whose C calls a shard's scan counts, by storage dtype.
 KERNEL_OF = {"bfloat16": "flat_topk", "float32": "flat_topk",
              "int8": "flat_topk_int8", "int4": "flat_topk_int4"}
+# The scan kernel of each path [sharded_serving] loads over 4 shards.
+PATH_KERNEL = {"bfloat16": "flat_topk", "ivf_int4": "ivf_topk_int4"}
 
 
 def free_port() -> int:
@@ -2547,6 +2562,303 @@ def check_sharded() -> None:
     torch.cuda.empty_cache()
 
 
+# -- [sharded_ivf]: the sharded IVF index, its shards co-located on the card --
+
+# The [ivf] phase's corpus and lists over 4 shards on cuda:0; the dtype /
+# metric / refine cases (pq at the [pq] phase's pq_m), the Q grid at k 10
+# and nprobe 32.  A row's score comes from the same kernel on a shard and
+# on one device; SHARDED_REL_TOL holds the scores where they differ.
+SIVF_CASES = (("bfloat16", "ip", {}), ("float32", "ip", {}),
+              ("float32", "l2", {}), ("int8", "ip", {}), ("int4", "ip", {}),
+              ("int4", "ip", {"refine_dtype": "int8", "refine_factor": 4}),
+              ("pq", "ip", {"pq_m": PQ_M}))
+SIVF_QS, SIVF_NPROBE = (1, 8, 128), 32
+# The wrapper whose C calls a shard's IVF scan counts (pq: none, plain).
+IVF_KERNEL_OF = {"bfloat16": "ivf_topk", "float32": "ivf_topk",
+                 "int8": "ivf_topk_int8", "int4": "ivf_topk_int4"}
+
+
+def sivf_tag(dtype: str, metric: str, extra: dict) -> str:
+    return f"{dtype}_{metric}" + ("_refine" if extra.get("refine_dtype")
+                                  else "")
+
+
+def shard_scan_against_plain(index, queries, k: int, tag: str) -> float:
+    """Each shard's probe scan (the kernel's wrapper, one C call) against
+    its plain twin on the same inputs: int8 / int4 exact, bf16 blocks
+    within ``TOL["ivf_topk"]``, f32 within ``IVF_F32_TOL`` (ids equal
+    outside near-ties); pq's plain scan against its float64 table lookup
+    within ``PQ_TOL``.  Returns the worst error."""
+    import torch
+
+    from tpu_search_torch.index.ivf import probe_clusters
+    from tpu_search_torch.ops import ivf_scan
+
+    worst = 0.0
+    staged = index.scan_staged(None)
+    for i, shard in enumerate(index._shards.values()):
+        penalty, fills = staged[2 * i], staged[2 * i + 1]
+        cs, probe = probe_clusters(queries, shard._dcent, index.metric,
+                                   SIVF_NPROBE)
+        cbias = torch.gather(cs, 1, probe.long()) if index.by_residual else (
+            None)
+        if index.dtype == "pq":
+            _, books = shard._codec()
+            from tpu_search_torch.ops.pq import ivf_pq_topk, pq_query_lut
+
+            ks, ki = ivf_pq_topk(shard._dblocks, penalty, probe,
+                                 pq_query_lut(queries, *books), k, cbias)
+            ki = shard._dids.reshape(-1)[ki.clamp(min=0).long()]
+            rs, ri = pq_table_lookup(shard, queries, probe, k)
+            fin = torch.isfinite(rs)
+            err = float((ks[fin].double() - rs[fin]).abs().max())
+            ok = bool(torch.equal(torch.isfinite(ks), fin)) and (
+                err <= PQ_TOL) and bool(
+                    ((ki.long() == ri) | ((ks.double() - rs).abs()
+                                          <= PQ_TOL)).all())
+        else:
+            if index.dtype in ("bfloat16", "float32"):
+                args = (shard._dblocks, penalty, fills, probe, queries, k,
+                        2.0 if index.metric == "l2" else 1.0)
+                scan, plain = ivf_scan.ivf_topk_scan, ivf_scan.ivf_topk_plain
+            else:
+                args = (shard._dblocks, shard._dscale, penalty, fills, probe,
+                        queries, k, cbias)
+                scan, plain = ((ivf_scan.ivf_topk_int8_scan,
+                                ivf_scan.ivf_topk_int8_plain)
+                               if index.dtype == "int8" else
+                               (ivf_scan.ivf_topk_int4_scan,
+                                ivf_scan.ivf_topk_int4_plain))
+            ks, ki = scan(*args)
+            ps, pi = plain(*args)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(ps)
+            same_fin = bool(torch.equal(torch.isfinite(ks), fin))
+            err = (float((ks[fin] - ps[fin]).abs().max())
+                   if same_fin and bool(fin.any()) else
+                   (0.0 if same_fin else float("inf")))
+            if index.dtype in ("int8", "int4"):
+                ok = bool(torch.equal(ks, ps)) and bool(torch.equal(ki, pi))
+            else:
+                tol = (IVF_F32_TOL if index.dtype == "float32"
+                       else TOL["ivf_topk"])
+                ok = err <= tol and bool(
+                    ((ki == pi) | ((ks - ps).abs() <= tol)).all())
+        worst = max(worst, err)
+        if not ok:
+            fail(f"[sharded_ivf] {tag} shard {i} Q={queries.shape[0]} k={k}: "
+                 f"the scan disagrees with its plain version ({err:.3e})")
+    return worst
+
+
+def check_sharded_ivf() -> None:
+    """``[sharded_ivf]``: a ``ShardedIVFIndex`` over ``build_mesh(n_data=4,
+    devices=[cuda:0] * 4)`` at the ``[ivf]`` phase's size (1M x 768
+    clustered unit rows, nlist 1024, 10 % tombstoned) in each of
+    ``SIVF_CASES``, sharing one set of centroids (and pq books) with a
+    single-device ``IVFIndex`` on the same rows: the two against each other
+    at Q 1, 8, 128, k 10 and Q 8, k 128, nprobe 32 (scores within
+    ``SHARDED_REL_TOL`` relative, reported bit for bit where they are; ids
+    equal outside exact ties); each shard's scan against its plain twin at
+    Q 8 and 128 (:func:`shard_scan_against_plain`); per case and Q at k 10:
+    the kernels' C calls a search (one a shard), the wrapper's ms and
+    device ms and device launches a call beside the single-device index's
+    ms, the merge's ms and, with the refine tier, the rescore's.  Then a
+    one-rank NCCL group: a search with it up gathers and answers alike."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_search_torch.index.ivf import IVFIndex, ivf_scan
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.pq import train_pq_for_ivf
+    from tpu_search_torch.parallel import (
+        ShardedIVFIndex,
+        build_mesh,
+        initialize_distributed,
+    )
+    from tpu_search_torch.parallel.sharded_ivf import (
+        merge_global,
+        sharded_ivf_scan,
+    )
+    from tpu_search_torch.parallel.sharded_refine import (
+        sharded_refine_rescore,
+    )
+
+    dev = torch.device("cuda")
+    card = card_name()
+    mesh = build_mesh(n_data=SHARDED_SHARDS, devices=[dev] * SHARDED_SHARDS)
+    rows = ivf_corpus(dev)
+    dead = np.random.default_rng(22).choice(IVF_N, IVF_N // 10, replace=False)
+    live = np.setdiff1d(np.arange(IVF_N), dead)
+    qrng = np.random.default_rng(25)
+    queries = {q: rows[torch.from_numpy(qrng.choice(live, q, replace=False))
+                       .to(dev)] for q in SIVF_QS}
+    t0 = time.perf_counter()
+    trainer = IVFIndex(768, nlist=IVF_NLIST, device=dev)
+    trainer.train(rows[:500_000])
+    centroids = trainer.centroids
+    books = train_pq_for_ivf(rows[:500_000], trainer._dcent, "ip", PQ_M,
+                             by_residual=True, seed=0)
+    del trainer
+    torch.cuda.synchronize()
+    print(f"[sharded_ivf] trained nlist={IVF_NLIST} books pq_m={PQ_M} "
+          f"seconds={time.perf_counter() - t0:.2f}", flush=True)
+    kept = {}
+    for dtype, metric, extra in SIVF_CASES:
+        tag = sivf_tag(dtype, metric, extra)
+        built = []
+        for make in (
+                lambda: IVFIndex(768, metric=metric, dtype=dtype,
+                                 nlist=IVF_NLIST, device=dev, **extra),
+                lambda: ShardedIVFIndex(768, mesh, metric=metric, dtype=dtype,
+                                        nlist=IVF_NLIST, **extra)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index = make()
+            index.centroids = centroids
+            if dtype == "pq":
+                index._pq_books = books
+            index.add(rows)
+            index.remove(dead)
+            torch.cuda.synchronize()
+            built.append(time.perf_counter() - t0)
+            if isinstance(index, ShardedIVFIndex):
+                sharded = index
+            else:
+                single = index
+        print(f"[sharded_ivf_build] case={tag} rows={sharded.ntotal} "
+              f"live={sharded.live} shards={sharded.n_shards} "
+              f"local_capacity={sharded._local_capacity} one_device_cap="
+              f"{single._cluster_capacity} seconds={built[1]:.2f} "
+              f"one_device_seconds={built[0]:.2f} max_shard_fill="
+              f"{sharded.padding_stats()['max_shard_fill']}", flush=True)
+        if sharded.live != single.live:
+            fail(f"[sharded_ivf] {tag}: {sharded.live} live rows, one "
+                 f"device {single.live}")
+        worst_abs = worst_rel = 0.0
+        for q, k in [(q, 10) for q in SIVF_QS] + [(8, 128)]:
+            qs = queries[q].cpu().numpy()
+            got = sharded.search(qs, k, nprobe=SIVF_NPROBE)
+            want = single.search(qs, k, nprobe=SIVF_NPROBE)
+            err, rel, fault = topk_error(got, want, SHARDED_REL_TOL)
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            if fault or rel > SHARDED_REL_TOL:
+                fail(f"[sharded_ivf] {tag} Q={q} k={k} disagrees with one "
+                     f"device: {fault or f'relative error {rel:.3e}'}")
+            if tag == "int4_ip_refine" and (q, k) == (8, 10):
+                kept = {"index": sharded, "queries": qs, "answer": got}
+        scores = "bit for bit" if worst_abs == 0.0 else "within tolerance"
+        print(f"[sharded_ivf] case={tag} against_one_device "
+              f"max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e} "
+              f"scores={scores} (Q {SIVF_QS} k 10, Q 8 k 128, nprobe "
+              f"{SIVF_NPROBE})", flush=True)
+        plain_err = max(shard_scan_against_plain(sharded, queries[q], 10, tag)
+                        for q in (8, 128))
+        print(f"[sharded_ivf] case={tag} shard scans against their plain "
+              f"versions (Q 8, 128, k 10): max_abs_err={plain_err:.3e}",
+              flush=True)
+        scan_key, buffers = sharded.make_scan_fn(SIVF_NPROBE)
+        staged = sharded.scan_staged(None)
+        skey, sbuf = single.make_scan_fn(SIVF_NPROBE)
+        sstaged = single.scan_staged(None)
+        kernel = IVF_KERNEL_OF.get(dtype)
+        for q in SIVF_QS:
+            qt = queries[q]
+
+            def call():
+                return sharded_ivf_scan(scan_key, buffers, staged, qt, 10)
+
+            def one():
+                return ivf_scan(skey, sbuf, sstaged, qt, 10)
+
+            coarse = scan_key[:8] + (0,) + scan_key[9:]
+            k_coarse = 10 if not scan_key[8] else max(10, min(
+                10 * scan_key[8], SIVF_NPROBE * sharded._local_capacity))
+            stride = 6 if dtype == "pq" else 4
+            parts = [sharded_ivf_scan(
+                coarse[:2] + ((s,),) + coarse[3:],
+                buffers[stride * i: stride * (i + 1)],
+                staged[2 * i: 2 * i + 2], qt, k_coarse)
+                for i, s in enumerate(sharded._shards)]
+            part_s = [p[0] for p in parts]
+            part_i = [p[1] for p in parts]
+
+            def merge():
+                return merge_global(part_s, part_i, k_coarse)
+
+            merge_ms = cuda_ms(merge)
+            rescore = ""
+            if scan_key[8]:
+                merged = merge()[1]
+
+                def rescore_call():
+                    return sharded_refine_rescore(
+                        buffers[stride * SHARDED_SHARDS:],
+                        tuple(sharded._shards), SHARDED_SHARDS, False, qt,
+                        merged, 10)
+
+                r_ms = cuda_ms(rescore_call)
+                rescore = f"rescore_ms={r_ms:.4f} "
+            before = dict(_build.LAUNCHES)
+            call()
+            calls_per = (_build.LAUNCHES[kernel] - before[kernel]
+                         if kernel else 0)
+            ms, single_ms = paired_ms(call, one)
+            dms, launches = device_breakdown(f"sharded_ivf {tag} Q={q} k=10",
+                                             call, calls=10)
+            print(f"[sharded_ivf] case={tag} shards={SHARDED_SHARDS} "
+                  f"rows={IVF_N} nlist={IVF_NLIST} nprobe={SIVF_NPROBE} "
+                  f"Q={q} k=10 wrapper_ms={ms:.4f} device_ms={dms:.4f} "
+                  f"kernel={kernel} kernel_calls_per_call={calls_per} "
+                  f"device_launches_per_call={launches:.1f} merge_ms="
+                  f"{merge_ms:.4f} merge_share={merge_ms / ms:.3f} {rescore}"
+                  f"single_device_ms={single_ms:.4f} card=\"{card}\"",
+                  flush=True)
+            if kernel and calls_per != SHARDED_SHARDS:
+                fail(f"[sharded_ivf] {tag}: {calls_per} kernel calls a "
+                     f"search, want one a shard")
+        if tag != "int4_ip_refine":
+            del sharded
+        del single
+        torch.cuda.empty_cache()
+
+    # The process group: one rank, NCCL, a free local port.
+    initialize_distributed(coordinator_address=f"localhost:{free_port()}",
+                           num_processes=1, process_id=0)
+    try:
+        calls = {"all_gather": 0, "all_reduce": 0}
+        real = {name: getattr(dist, name) for name in calls}
+
+        def counted(name):
+            def wrapper(*args, **kwargs):
+                calls[name] += 1
+                return real[name](*args, **kwargs)
+            return wrapper
+
+        for name in calls:
+            setattr(dist, name, counted(name))
+        try:
+            index = kept["index"]
+            got = index.search(kept["queries"], 10, nprobe=SIVF_NPROBE)
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        same = all(np.array_equal(a, b) for a, b in zip(got, kept["answer"]))
+        print(f"[sharded_ivf] process_group backend={dist.get_backend()} "
+              f"case=int4_ip_refine all_gather_calls={calls['all_gather']} "
+              f"all_reduce_calls={calls['all_reduce']} same_answer={same}",
+              flush=True)
+        if not calls["all_gather"] or not calls["all_reduce"] or not same:
+            fail("[sharded_ivf] the search under the one-rank group did not "
+                 "gather and reduce, or answered otherwise")
+    finally:
+        dist.destroy_process_group()
+    kept.clear()
+    del rows
+    torch.cuda.empty_cache()
+
+
 def sharded_answers_error(got_all, want_all, tag: str) -> None:
     """Fails unless each answer equals the single-device one: the same
     ids (an id may differ only in an exact tie), similarities within
@@ -2557,30 +2869,43 @@ def sharded_answers_error(got_all, want_all, tag: str) -> None:
             fail(f"[sharded_serving] {tag} query {i}: {error}")
 
 
-def run_sharded_serving(engine, work: Path, total: int) -> None:
-    """The flat bf16 path's index (saved first: the warm phase added and
-    removed a conversation) loaded with ``ShardedFlatIndex.load`` over 4
-    shards on cuda:0 into its engine's storage: the 20 probe queries
-    through ``search_conversations`` twice, cold and warm, timed beside a
-    pass on the single-device index just before, with a lone query's
-    replay profiled on both (the fused path: one CUDA graph a window
-    shape, the 4 shard scans and the merge inside), and through the
-    classic path (the same embedding against both indexes), each equal to
-    the single-device answer; the warm server's answers to the 16
-    unfiltered probes one at a time, each equal to the in-process one;
-    the sharded index saved and loaded into a single-device ``FlatIndex``,
-    answering as before.  The single-device index is put back at the end."""
+def run_sharded_serving(engine, work: Path, total: int,
+                        data: Optional[Path] = None,
+                        tag: str = "bfloat16") -> dict:
+    """The engine's index (saved first: the warm phase added and removed a
+    conversation) loaded over 4 shards on cuda:0 into its storage: the flat
+    bf16 path's with ``ShardedFlatIndex.load``, an IVF path's (``tag``
+    ``ivf_int4``: with its int8 refine tier) with ``ShardedIVFIndex.load``.
+    The 20 probe queries through ``search_conversations`` twice, cold and
+    warm, timed beside a pass on the single-device index just before, with
+    a lone query's replay profiled on both (the fused path: one CUDA graph
+    a window shape, the 4 shard scans, the merge and any rescore inside),
+    and through the classic path (the same embedding against both
+    indexes), each equal to the single-device answer; the warm server's
+    answers to the 16 unfiltered probes one at a time, each equal to the
+    in-process one; the sharded index saved and loaded into a
+    single-device index, answering as before.  The single-device index is
+    put back at the end.  Returns the launch counts of the sharded
+    passes (set to 0 just before them)."""
     import torch
 
-    from tpu_search_torch.index.flat import FlatIndex
+    from tpu_search_torch.index.registry import load_index
     from tpu_search_torch.interfaces.query_server import QueryServer
     from tpu_search_torch.ops import _build
-    from tpu_search_torch.parallel import ShardedFlatIndex, build_mesh
+    from tpu_search_torch.parallel import (
+        ShardedFlatIndex,
+        ShardedIVFIndex,
+        build_mesh,
+    )
     from tpu_search_torch.storage.hybrid import SearchConfig
 
     dev = torch.device("cuda")
     storage = engine.storage
-    data = work / "data"
+    data = data or work / "data"
+    ivf = tag.startswith("ivf")
+    sharded_cls = ShardedIVFIndex if ivf else ShardedFlatIndex
+    kernel = PATH_KERNEL[tag]
+    name = f"sharded_{tag}"
     storage.save_index()
     _, queries = probe_queries(engine, total)
 
@@ -2595,10 +2920,10 @@ def run_sharded_serving(engine, work: Path, total: int) -> None:
 
     single = storage.index
     times, want = timed_pass()
-    print_latency("bfloat16", "one device, fused in process", times,
+    print_latency(tag, "one device, fused in process", times,
                   phase="sharded_serving")
     texts = [t for t, f, _ in queries if f is None]
-    profile_replays(engine, texts, phase="sharded_serving one device")
+    profile_replays(engine, texts, phase=f"sharded_serving {tag} one device")
     cfg = SearchConfig(top_k=10, include_metadata=True, include_text=True)
     embeddings = [engine.embedder.generate_single_embedding(t)
                   for t, _, _ in queries]
@@ -2607,10 +2932,12 @@ def run_sharded_serving(engine, work: Path, total: int) -> None:
 
     mesh = build_mesh(n_data=SHARDED_SHARDS, devices=[dev] * SHARDED_SHARDS)
     t0 = time.perf_counter()
-    sharded = ShardedFlatIndex.load(str(storage.index_path), mesh)
-    print(f"[sharded_serving] load rows={sharded.ntotal} live={sharded.live} "
-          f"shards={sharded.n_shards} local_capacity="
-          f"{sharded._local_capacity} seconds="
+    sharded = sharded_cls.load(str(storage.index_path), mesh)
+    refine = getattr(sharded, "_refine", None)
+    print(f"[sharded_serving] path={tag} load rows={sharded.ntotal} "
+          f"live={sharded.live} shards={sharded.n_shards} local_capacity="
+          f"{sharded._local_capacity} refine="
+          f"{refine.count if refine is not None else 0} seconds="
           f"{time.perf_counter() - t0:.3f}", flush=True)
     storage.index = sharded
     storage._data_version += 1
@@ -2619,28 +2946,35 @@ def run_sharded_serving(engine, work: Path, total: int) -> None:
         torch.cuda.synchronize()
         captures = engine._fused.captures
         window = engine._fused_window([queries[0][0]], None, cfg)
-        if window is None or window.scan_key[0] != "sharded_flat":
-            fail("[sharded_serving] the fused path declined the co-located "
-                 "shards")
+        want_key = "sharded_ivf" if ivf else "sharded_flat"
+        if window is None or window.scan_key[0] != want_key:
+            fail(f"[sharded_serving] {tag}: the fused path declined the "
+                 f"co-located shards")
+        if ivf and refine is not None and refine.count and (
+                not window.scan_key[8]):
+            fail(f"[sharded_serving] {tag}: the fused window left out the "
+                 f"refine tier")
         cold, got = timed_pass()
         warm, again = timed_pass()
         fused_launches = dict(_build.LAUNCHES)
         new = engine._fused.captures - captures
         replay = {}
         for program in engine._fused._programs.values():
-            if program.launches.get("flat_topk") == SHARDED_SHARDS:
+            if program.launches.get(kernel) == SHARDED_SHARDS:
                 replay = program.launches
-        print(f"[sharded_serving] fused captures={new} "
+        print(f"[sharded_serving] path={tag} fused captures={new} "
               f"programs={len(engine._fused)} replay_launches={replay} "
               f"launches={fused_launches}", flush=True)
         for what, times in (("cold", cold), ("warm", warm)):
-            print_latency("sharded_bfloat16", f"fused in process {what}",
-                          times, phase="sharded_serving")
-        if not replay or fused_launches["flat_topk"] == 0:
-            fail("[sharded_serving] no fused replay ran the 4 shard scans")
-        sharded_answers_error(got, want, "fused")
-        sharded_answers_error(again, want, "fused, warm")
-        profile_replays(engine, texts, phase="sharded_serving 4 shards")
+            print_latency(name, f"fused in process {what}", times,
+                          phase="sharded_serving")
+        if not replay or fused_launches[kernel] == 0:
+            fail(f"[sharded_serving] {tag}: no fused replay ran the 4 shard "
+                 f"scans")
+        sharded_answers_error(got, want, f"{tag} fused")
+        sharded_answers_error(again, want, f"{tag} fused, warm")
+        profile_replays(engine, texts,
+                        phase=f"sharded_serving {tag} 4 shards")
         got_classic = [storage.search(e, cfg, f)
                        for e, (_, f, _) in zip(embeddings, queries)]
         for i, (a, b) in enumerate(zip(got_classic, want_classic)):
@@ -2650,36 +2984,36 @@ def run_sharded_serving(engine, work: Path, total: int) -> None:
                 [{"chunk_id": r.chunk_id, "similarity": r.similarity}
                  for r in b], WARM_EXACT)
             if error:
-                fail(f"[sharded_serving] classic query {i}: {error}")
+                fail(f"[sharded_serving] {tag} classic query {i}: {error}")
 
         unfiltered = [(q, a) for q, a in zip(queries, got) if q[1] is None]
         server = QueryServer(engine, str(data))
         server.start()
         try:
             times = warm_one_at_a_time(data, [q for q, _ in unfiltered],
-                                       [a for _, a in unfiltered],
-                                       "sharded_bfloat16")
+                                       [a for _, a in unfiltered], name)
         finally:
             server.stop()
-        print_latency("sharded_bfloat16", "warm server clients=1", times,
+        print_latency(name, "warm server clients=1", times,
                       phase="sharded_serving")
         launches = dict(_build.LAUNCHES)
-        print(f"[launches] path=sharded_serving {launches}", flush=True)
-        if any(launches[k] == 0 for k in path_kernels("bfloat16")):
-            fail(f"the sharded serving path did not run every kernel: "
-                 f"{launches}")
+        print(f"[launches] path=sharded_serving_{tag} {launches}", flush=True)
+        if any(launches[k] == 0 for k in path_kernels(tag)):
+            fail(f"the sharded {tag} serving path did not run every "
+                 f"kernel: {launches}")
 
-        path = work / "sharded_save.tpuidx"
+        path = work / f"sharded_save_{tag}.tpuidx"
         sharded.save(str(path))
-        storage.index = FlatIndex.load(str(path), device=dev)
+        storage.index = load_index(str(path), device=dev)
         storage._data_version += 1
         back = [engine.search_conversations(t, f, top_k=10)
                 for t, f, _ in queries]
-        sharded_answers_error(back, want, "saved sharded, loaded on one "
-                              "device")
-        print(f"[sharded_serving] answers equal to one device: fused=20 "
-              f"classic=20 warm={len(unfiltered)} after_save_load=20 "
-              f"card=\"{card_name()}\"", flush=True)
+        sharded_answers_error(back, want, f"{tag} saved sharded, loaded on "
+                              "one device")
+        print(f"[sharded_serving] path={tag} answers equal to one device: "
+              f"fused=20 classic=20 warm={len(unfiltered)} "
+              f"after_save_load=20 card=\"{card_name()}\"", flush=True)
+        return launches
     finally:
         storage.index = single
         storage._data_version += 1
@@ -2786,6 +3120,7 @@ def check_cross_card() -> None:
         for d in devices:
             with torch.cuda.device(d):
                 torch.cuda.empty_cache()
+    check_cross_card_ivf(devices, mesh, card)
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cross_"))
     try:
@@ -2833,6 +3168,77 @@ def check_cross_card() -> None:
               f"device: {len(probes)} card=\"{card}\"", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def check_cross_card_ivf(devices, mesh, card: str) -> None:
+    """``[cross_card]``'s sharded IVF case: an int4 ``ShardedIVFIndex``
+    with its int8 refine tier, one shard a card, at the ``[ivf]`` phase's
+    size (1M x 768 clustered unit rows, nlist 1024, 10 % tombstoned),
+    sharing its centroids with a single-device ``IVFIndex`` on cuda:0: at
+    Q 1, 8, 128, k 10 and 128, nprobe 32, scores within ``SHARDED_REL_TOL``
+    and ids equal outside exact ties, one ``ivf_topk_int4`` call a shard a
+    search, cuda:0 current after each, and the search's host ms beside the
+    single device's."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.index.ivf import IVFIndex
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel import ShardedIVFIndex
+
+    dev = devices[0]
+    rows = ivf_corpus(dev)
+    dead = np.random.default_rng(22).choice(IVF_N, IVF_N // 10, replace=False)
+    kw = {"dtype": "int4", "nlist": IVF_NLIST, "refine_dtype": "int8",
+          "refine_factor": 4}
+    single = IVFIndex(768, device=dev, **kw)
+    single.add(rows)
+    single.remove(dead)
+    sharded = ShardedIVFIndex(768, mesh, **kw)
+    sharded.centroids = single.centroids
+    sharded.add(rows)
+    sharded.remove(dead)
+    cards = [str(sh._dblocks.device) for sh in sharded._shards.values()]
+    if cards != [str(d) for d in devices]:
+        fail(f"[cross_card] sharded IVF: shards on {cards}")
+    qrng = np.random.default_rng(26)
+    live = np.setdiff1d(np.arange(IVF_N), dead)
+    queries = {q: rows[torch.from_numpy(qrng.choice(live, q, replace=False))
+                       .to(dev)].cpu().numpy() for q in SIVF_QS}
+    worst = 0.0
+    for q, k in itertools.product(SIVF_QS, (10, 128)):
+        before = _build.LAUNCHES["ivf_topk_int4"]
+        got = sharded.search(queries[q], k, nprobe=SIVF_NPROBE)
+        calls = _build.LAUNCHES["ivf_topk_int4"] - before
+        _, rel, fault = topk_error(
+            got, single.search(queries[q], k, nprobe=SIVF_NPROBE),
+            SHARDED_REL_TOL)
+        worst = max(worst, rel)
+        if fault or rel > SHARDED_REL_TOL:
+            fail(f"[cross_card] sharded IVF Q={q} k={k} disagrees with one "
+                 f"device: {fault or f'relative error {rel:.3e}'}")
+        if calls != len(devices):
+            fail(f"[cross_card] sharded IVF Q={q} k={k}: {calls} kernel "
+                 f"calls, want one a shard")
+        if torch.cuda.current_device() != dev.index:
+            fail(f"[cross_card] sharded IVF Q={q} k={k}: the current device "
+                 f"is cuda:{torch.cuda.current_device()} after a search")
+    times = {q: (host_ms(lambda: sharded.search(queries[q], 10,
+                                                nprobe=SIVF_NPROBE)),
+                 host_ms(lambda: single.search(queries[q], 10,
+                                               nprobe=SIVF_NPROBE)))
+             for q in SIVF_QS}
+    print(f"[cross_card] case=ivf_int4_refine shards={len(devices)} "
+          f"rows={IVF_N} nlist={IVF_NLIST} against_one_device "
+          f"max_rel_err={worst:.3e} (Q {SIVF_QS}, k (10, 128), nprobe "
+          f"{SIVF_NPROBE}) "
+          + " ".join(f"Q={q} k=10 search_ms={a:.4f} single_device_ms={b:.4f}"
+                     for q, (a, b) in times.items())
+          + f' card="{card}"', flush=True)
+    del sharded, single, rows
+    for d in devices:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
 
 # -- phase 3: the main path -----------------------------------------------------
@@ -4373,6 +4779,13 @@ def run_ivf_path(work: Path, files, dtype: str, opq: bool = False) -> dict:
             warm_exact_pass(engine, data, probes, tag,
                             "ivf_topk_int4" if dtype == "int4"
                             else "mpnet_attention")
+        if dtype == "int4":
+            # The saved index (with its refine tier) over 4 shards: its
+            # fused, classic and warm answers against one device's.
+            sharded = run_sharded_serving(engine, work, total, data=data,
+                                          tag=tag)
+            launches = {k: n + sharded.get(k, 0)
+                        for k, n in launches.items()}
         return launches
     finally:
         for key in env:
@@ -4764,6 +5177,8 @@ def main() -> None:
         check_pq()
     with timed_phase("check_sharded"):
         check_sharded()
+    with timed_phase("check_sharded_ivf"):
+        check_sharded_ivf()
 
     from tpu_search_torch.utils.synthetic import (
         N_CONVERSATIONS,

@@ -9,7 +9,11 @@ per-process load -> search in every dtype, each answer against a local
 reference: the same rows in an 8-shard index held whole by the process,
 which merges in the same shard order, so scores and ids must be equal
 (and for float32 the ids of a plain numpy argsort too).  Removals count
-live rows across both processes.
+live rows across both processes.  Then the sharded IVF index the same way
+(f32 and int8, as ``tests/test_distributed.py`` drives the JAX one), and
+its lifecycle: pq with the int8 refine tier, ``tune_nprobe``, per-process
+files, a skewed add and ``rebalance`` on the loaded index, each answer and
+report equal to the local reference's.
 
 The workers import torch and the port only, never jax; each process has a
 120 s timeout and the test takes a few seconds.  In this process, with no
@@ -108,6 +112,73 @@ for dtype in ("float32", "bfloat16", "int8", "int4"):
     top = loaded.search(vecs[1], k=2)[1][0]
     assert sorted(top.tolist()) == [1, 301], top
 
+# Sharded IVF (the JAX case of tests/test_distributed.py on the port):
+# add -> search -> per-process save -> per-process load -> search, each
+# answer against the same rows in a one-process index over `local`.
+from tpu_search_torch.parallel import ShardedIVFIndex
+
+for dtype in ("float32", "int8"):
+    ivf = ShardedIVFIndex(dim=d, mesh=mesh, dtype=dtype, nlist=4, seed=3)
+    ref = ShardedIVFIndex(dim=d, mesh=local, dtype=dtype, nlist=4, seed=3)
+    assert list(ivf.add(vecs)) == list(ref.add(vecs))
+    np.testing.assert_array_equal(ivf._ids, ref._ids)
+    assert sorted(ivf._shards) == list(range(4 * pid, 4 * pid + 4))
+    got = ivf.search(queries, k=5, nprobe=4)  # exhaustive probe
+    same(got, ref.search(queries, k=5, nprobe=4), "ivf " + dtype)
+    if dtype == "float32":
+        want = np.argsort(-(queries @ vecs.T), axis=1)[:, :5]
+        assert sorted(got[1][0]) == sorted(want[0]), (got[1], want)
+    same(ivf.search(queries, k=4, mask=mask, nprobe=4),
+         ref.search(queries, k=4, mask=mask, nprobe=4), "ivf masked")
+    path = os.path.join(out_dir, f"ivf_{dtype}.tpuidx")
+    ivf.save(path)
+    header, _ = read_file(path + f".host{pid}")
+    assert header["kind"] == "ivf_shards_host"
+    assert header["shard_ids"] == list(range(4 * pid, 4 * pid + 4))
+    loaded = ShardedIVFIndex.load(path, mesh=mesh)
+    assert loaded.ntotal == ivf.ntotal and loaded.live == ivf.live
+    same(loaded.search(queries, k=5, nprobe=4), got, "ivf loaded " + dtype)
+    # The loaded index stays mutable (its host metadata copies, not the
+    # file's read-only maps).
+    new_ids = loaded.add(vecs[:4])
+    assert loaded.remove(new_ids[:2]) == 2
+    assert loaded.search(vecs[0], k=1, nprobe=4)[1][0, 0] == 0
+
+# The whole IVF lifecycle across the two processes: pq with the int8
+# refine tier, the nprobe autotune, per-process files, rebalance.
+kw = dict(dim=d, dtype="pq", nlist=4, seed=3, refine_dtype="int8",
+          refine_factor=8)
+ivf = ShardedIVFIndex(mesh=mesh, **kw)
+ref = ShardedIVFIndex(mesh=local, **kw)
+ivf.add(vecs)
+ref.add(vecs)
+tune = ivf.tune_nprobe(target_recall=0.9, k=5)
+assert tune["tuned"] and tune == ref.tune_nprobe(target_recall=0.9, k=5)
+pre = ivf.search(queries, k=5, nprobe=4)
+same(pre, ref.search(queries, k=5, nprobe=4), "pq refine")
+path = os.path.join(out_dir, "ivf_lifecycle.tpuidx")
+ivf.save(path)
+loaded = ShardedIVFIndex.load(path, mesh=mesh)
+assert loaded.nprobe_hint == ivf.nprobe_hint
+assert (loaded.refine_dtype, loaded.refine_factor) == ("int8", 8)
+assert loaded._refine.count == loaded.live == 300
+same(loaded.search(queries, k=5, nprobe=4), pre, "pq refine loaded")
+hot = vecs[0] + 0.01 * rng.standard_normal((80, d)).astype(np.float32)
+hot /= np.linalg.norm(hot, axis=1, keepdims=True)
+loaded.add(hot)
+ref.add(hot)
+ref.seed = loaded.seed  # a loaded index retrains from the default seed
+report = loaded.rebalance(train_sample=400)
+assert report == ref.rebalance(train_sample=400)
+assert report["filled"] == 380 and loaded.live == 380
+after = loaded.search(queries, k=5, nprobe=4)
+same(after, ref.search(queries, k=5, nprobe=4), "pq refine rebalanced")
+assert list(loaded.search(vecs[5:9], k=1, nprobe=4)[1][:, 0]) == [5, 6, 7, 8]
+path2 = os.path.join(out_dir, "ivf_lifecycle2.tpuidx")
+loaded.save(path2)
+same(ShardedIVFIndex.load(path2, mesh=mesh).search(queries, k=5, nprobe=4),
+     after, "pq refine rebalanced, loaded")
+
 assert "jax" not in sys.modules
 torch.distributed.destroy_process_group()
 print(f"WORKER_{pid}_OK", flush=True)
@@ -154,9 +225,11 @@ def test_two_process_sharded_index(tmp_path):
         assert p.returncode == 0, f"worker {pid} failed:\n{out[-4000:]}"
         assert f"WORKER_{pid}_OK" in out
     # the manifest written once, a file by each process
-    for dtype in ("float32", "bfloat16", "int8", "int4"):
+    for stem in ("dist_float32", "dist_bfloat16", "dist_int8", "dist_int4",
+                 "ivf_float32", "ivf_int8", "ivf_lifecycle",
+                 "ivf_lifecycle2"):
         for name in ("", ".host0", ".host1"):
-            assert (tmp_path / f"dist_{dtype}.tpuidx{name}").exists()
+            assert (tmp_path / f"{stem}.tpuidx{name}").exists()
 
 
 def test_without_a_group(monkeypatch):

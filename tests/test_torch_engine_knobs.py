@@ -10,8 +10,8 @@ its environment knobs as the JAX engine does:
   bit;
 - ``CLAUDE_SEARCH_SHARD_DEVICES`` raises the JAX engine's ``ValueError`` on
   a non-integer; 8 shards a flat store over the 8 CPU devices in both
-  packages, and an IVF store over them raises the port's
-  ``NotImplementedError`` (sharded IVF is not ported).
+  packages, and with ``CLAUDE_SEARCH_INDEX_TYPE=ivf`` the port's engine
+  builds an 8-shard ``ShardedIVFIndex``.
 """
 
 import inspect
@@ -123,8 +123,10 @@ def test_shard_devices_is_validated_as_in_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("CLAUDE_SEARCH_INDEX_TYPE", "ivf")
     ivf8 = SearchEngine(str(tmp_path / "ivf8"), model_name="hash-768",
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded IVF"):
-        ivf8.storage.initialize()
+    ivf8.storage.initialize()
+    index = ivf8.storage.index
+    assert type(index).__name__ == "ShardedIVFIndex"
+    assert index.n_shards == 8
     ivf8.storage.close()
     monkeypatch.delenv("CLAUDE_SEARCH_INDEX_TYPE")
     for value in ("0", "1"):

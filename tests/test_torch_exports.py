@@ -28,9 +28,6 @@ EXCEPTIONS = {
     ("devices", "get_device_summary"): "as GPUCapability",
     ("devices", "log_device_status"): "as GPUCapability",
     ("devices", "quick_accelerator_check"): "as GPUCapability",
-    ("parallel", "ShardedIVFIndex"): "sharded IVF (and its refine tier) is "
-                                     "not ported; HybridStorage refuses "
-                                     "index_type='ivf' over several devices",
     ("parallel", "data_sharding"): "a JAX NamedSharding rule of the "
                                    "data-parallel encode, not ported yet",
     ("parallel", "replicated"): "as data_sharding",

@@ -1,8 +1,9 @@
 """The port's fused query path (``SearchEngine._fused_search_many``,
 ``api/fused.py``) on the CPU, with the tiny checkpoint of
 ``test_torch_engine.py``, on flat bf16, int8 and int4 and on IVF int4 with
-its refine tier (``tests/test_torch_fused_sharded.py`` runs the same
-cases on sharded stores):
+its refine tier (``tests/test_torch_fused_sharded.py`` and
+``tests/test_torch_fused_sharded_ivf.py`` run the same cases on sharded
+flat and IVF stores):
 
 - against the port's classic path (embed, then ``HybridStorage.
   search_many``) on the same engine: equal ids, similarities within 1e-6;
@@ -39,7 +40,8 @@ from tpu_search_torch.storage.hybrid import SearchConfig
 SIM_EQ = 1e-6
 TOL = {("flat", "bfloat16"): 5e-3, ("flat", "int8"): 2e-2,
        ("flat", "int4"): 2e-2, ("ivf", "int4"): 5e-3,
-       ("sharded", "bfloat16"): 5e-3, ("sharded", "int8"): 2e-2}
+       ("sharded", "bfloat16"): 5e-3, ("sharded", "int8"): 2e-2,
+       ("sharded_ivf", "bfloat16"): 5e-3, ("sharded_ivf", "int8"): 2e-2}
 QUERIES = [f"tok{i} tok{(i + 3) % 59} tok{(i + 7) % 59}" for i in range(32)]
 WINDOWS = (1, 8, 9, 32)
 FILTERS = (None, {"has_code": True})
@@ -49,8 +51,10 @@ def _env(kind: str, dtype: str) -> dict:
     env = {"CLAUDE_SEARCH_STORAGE_DTYPE": dtype}
     if kind == "ivf":
         env.update(CLAUDE_SEARCH_INDEX_TYPE="ivf", CLAUDE_SEARCH_NPROBE="64")
-    if kind == "sharded":
+    if kind.startswith("sharded"):
         env.update(CLAUDE_SEARCH_SHARD_DEVICES="8")
+    if kind == "sharded_ivf":
+        env.update(CLAUDE_SEARCH_INDEX_TYPE="ivf", CLAUDE_SEARCH_NPROBE="64")
     return env
 
 
@@ -74,16 +78,17 @@ def make_engines(config, tmp_path_factory):
     for engine in (jax_engine, port_engine):
         engine.index_conversations(files)
     assert port_engine.storage.index.dtype == dtype
-    sharded = kind == "sharded"
+    sharded = {"sharded": "ShardedFlatIndex",
+               "sharded_ivf": "ShardedIVFIndex"}.get(kind)
     for engine in (jax_engine, port_engine):
         index = engine.storage.index
-        assert (type(index).__name__ == "ShardedFlatIndex") == sharded
+        assert (type(index).__name__ == sharded) == bool(sharded)
         assert getattr(index, "n_shards", 8) == 8
     return (kind, dtype), root, jax_engine, port_engine
 
 
-@pytest.fixture(scope="module",
-                params=sorted(k for k in TOL if k[0] != "sharded"))
+@pytest.fixture(scope="module", params=sorted(
+    k for k in TOL if not k[0].startswith("sharded")))
 def engines(request, tmp_path_factory):
     return make_engines(request.param, tmp_path_factory)
 
@@ -223,8 +228,8 @@ def test_fused_error_propagates(engines, monkeypatch):
     def broken(*args, **kwargs):
         raise RuntimeError("injected scan fault")
 
-    name = {"ivf": "ivf_scan", "sharded": "sharded_scan"}.get(config[0],
-                                                             "flat_scan")
+    name = {"ivf": "ivf_scan", "sharded": "sharded_scan",
+            "sharded_ivf": "sharded_ivf_scan"}.get(config[0], "flat_scan")
     monkeypatch.setattr(engine_mod, name, broken)
     calls = []
     monkeypatch.setattr(port_engine.storage, "search",

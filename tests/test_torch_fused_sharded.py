@@ -1,6 +1,7 @@
 """The fused-path cases of ``tests/test_torch_fused_search.py`` on a flat
 index sharded over 8 CPU shards (``CLAUDE_SEARCH_SHARD_DEVICES=8``, bf16
-and int8; the JAX engine shards alike over its 8 virtual CPU devices):
+and int8; the JAX engine shards alike over its 8 virtual CPU devices;
+``tests/test_torch_fused_sharded_ivf.py`` runs them on sharded IVF):
 the port's sharded window against its classic path and against the JAX
 engine's sharded fused search, after an add and a remove, ``hydrate_wire``,
 the structural cases, an error in the sharded scan propagating, and

@@ -15,8 +15,8 @@
   package's time on the CPU).  ``test_opq.py``'s
   ``test_fused_scan_fn_matches_classic`` calls the JAX package's fused-path
   function ``ivf_scan_fn_for``; here it holds the port's ``make_scan_fn``
-  / ``ivf_scan`` to ``search`` instead.  Its ``TestSharded`` stays out
-  until sharded IVF is ported.
+  / ``ivf_scan`` to ``search`` instead.  Its ``TestSharded`` runs on the
+  port's ``ShardedIVFIndex`` over 8 CPU shards.
 """
 
 import contextlib
@@ -98,7 +98,7 @@ def _cpu():
 
 globals().update(port_cases(
     "test_pq_codec", replace=(("jnp.asarray(", "torch.as_tensor("),)))
-_OPQ = port_cases("test_opq", drop=("TestSharded", "TestCodec"))
+_OPQ = port_cases("test_opq", drop=("TestCodec",))
 globals().update(_OPQ)
 TestOPQCodec = port_cases("test_opq")["TestCodec"]
 

@@ -4,9 +4,8 @@ on the CPU (``shard_devices=8``; the host counted 8 times, as
 ``tests/test_storage_sharded.py`` on the port (collected from their source
 with ``tpu_search.`` pointed at ``tpu_search_torch.``).
 
-Left out: ``test_backup_restore_sharded_ivf`` (sharded IVF is not
-ported); in its place the port's refusal of an IVF index over several
-devices, and the JAX warning when fewer devices exist than asked for.
+Added: the JAX warning when fewer devices exist than asked for, auto
+(``shard_devices=0``) keeping one card, and a restore back onto the mesh.
 """
 
 import logging
@@ -31,17 +30,6 @@ globals().update({k: v for k, v in _CASES.items()
 
 
 class TestShardedStorage(_CASES["TestShardedStorage"]):
-    test_backup_restore_sharded_ivf = None  # sharded IVF: not ported
-
-    def test_sharded_ivf_is_refused(self, tmp_path):
-        config = StorageConfig(data_dir=str(tmp_path), embedding_dim=16,
-                               auto_save=False, index_type="ivf",
-                               shard_devices=8)
-        s = HybridStorage(config)
-        with pytest.raises(NotImplementedError, match="sharded IVF"):
-            s.initialize()
-        s.close()
-
     def test_too_few_devices_warns_and_does_not_shard(self, tmp_path, caplog):
         config = StorageConfig(data_dir=str(tmp_path), embedding_dim=16,
                                auto_save=False, shard_devices=9)

@@ -53,6 +53,7 @@ from ..models.cross_encoder import (
 )
 from ..models.encoder import EmbeddingConfig, EmbeddingGenerator
 from ..parallel.sharded_index import ShardedFlatIndex, sharded_scan
+from ..parallel.sharded_ivf import ShardedIVFIndex, sharded_ivf_scan
 from ..storage.hybrid import (
     HybridStorage,
     SearchConfig,
@@ -159,8 +160,8 @@ def _storage_env() -> Dict[str, Any]:
       ``storage_dtype="pq"`` (``pq_opq``);
     - ``CLAUDE_SEARCH_SHARD_DEVICES`` = device count (integer, 0 = auto:
       one device for now), passed on as ``shard_devices``: a flat index
-      shards over that many devices (``parallel.ShardedFlatIndex``); the storage layer refuses
-      an IVF index over several (sharded IVF is not ported)."""
+      shards over that many devices (``parallel.ShardedFlatIndex``), an
+      IVF index too (``parallel.ShardedIVFIndex``)."""
     kwargs: Dict[str, Any] = {}
     for env, key, allowed in (
         ("CLAUDE_SEARCH_INDEX_TYPE", "index_type", ("flat", "ivf", "hnsw")),
@@ -600,10 +601,11 @@ class SearchEngine:
         does not apply (the hashing encoder, an empty or untrained index,
         more than 32 queries, ids past 2^24, which f32 packing would
         round), ``[[] ...]`` when the filter matches nothing or ``k`` is
-        0.  A sharded index fuses when every shard lies on the encoder's
-        device (one program: the encode, each shard's scan, the merge);
-        over several devices or processes it is None, and the classic
-        path serves on the same scan kernels."""
+        0.  A sharded index (flat or IVF) fuses when every shard lies on
+        the encoder's device (one program: the encode, each shard's scan,
+        the merge, an IVF refine tier's rescore); over several devices or
+        processes it is None, and the classic path serves on the same scan
+        kernels."""
         q = len(queries)
         if q == 0:
             return []
@@ -612,8 +614,9 @@ class SearchEngine:
         index = self.storage.index
         if index is None or index.ntotal == 0:
             return None
-        is_ivf = isinstance(index, IVFIndex)
-        is_sharded = isinstance(index, ShardedFlatIndex)
+        sharded_ivf = isinstance(index, ShardedIVFIndex)
+        is_ivf = sharded_ivf or isinstance(index, IVFIndex)
+        is_sharded = sharded_ivf or isinstance(index, ShardedFlatIndex)
         if not (is_ivf or is_sharded or isinstance(index, FlatIndex)):
             return None
         if is_ivf and index.centroids is None:
@@ -637,7 +640,13 @@ class SearchEngine:
         fmask = self.storage.filter_mask(filters)
         if fmask is not None and not fmask.any():
             return [[] for _ in range(q)]
-        if is_ivf:
+        if sharded_ivf:
+            nprobe = resolve_nprobe(cfg.nprobe, index)
+            k_eff = min(cfg.top_k,
+                        min(nprobe, index.nlist) * index._local_capacity)
+            scan, (scan_key, buffers) = (sharded_ivf_scan,
+                                         index.make_scan_fn(nprobe))
+        elif is_ivf:
             nprobe = resolve_nprobe(cfg.nprobe, index)
             k_eff = min(cfg.top_k,
                         min(nprobe, index.nlist) * index._cluster_capacity)

@@ -6,8 +6,9 @@ encoder's own pooling and L2 normalize), the storage's normalize, f32, pad
 to ``q_pad`` rows (8 or 32, the scans' query blocks), the masked scan of
 the index (``FlatIndex.make_scan_fn`` / ``IVFIndex.make_scan_fn``: the
 flat, int8, int4 or IVF kernels, with the refine tier; or
-``ShardedFlatIndex.make_scan_fn`` with every shard on the encoder's
-device: each shard's flat scan and the merge) and one packed
+``ShardedFlatIndex.make_scan_fn`` / ``ShardedIVFIndex.make_scan_fn``
+with every shard on the encoder's device: each shard's scan, the merge
+and an IVF refine tier's rescore) and one packed
 output ``[scores | ids as f32]``.  A lone query encodes one row, not
 ``q_pad``.
 
@@ -16,9 +17,10 @@ output ``[scores | ids as f32]``.  A lone query encodes one row, not
   kernels and fills the lazy caches: the position bias, the scan configs)
   and replayed per window.  Ids and mask reach it through static tensors,
   staged from pinned host memory; the penalty (validity & the filter) and
-  the IVF fills are copied into static tensors before each replay, so a
-  filter never keys a program.  The packed output is copied into pinned
-  host memory right after the replay, and an event marks it done; a lock
+  the IVF fills (every shard's, when sharded) are copied into static
+  tensors before each replay, so a filter never keys a program.  The
+  packed output is copied into pinned host memory right after the
+  replay, and an event marks it done; a lock
   covers staging, replay and that copy, so windows dispatched from
   several threads never share the static tensors.
 - On the CPU the same function runs eagerly (the plain versions).

@@ -826,16 +826,20 @@ class IVFIndex:
         cached = self._penalty_cache.get(key)
         if cached is not None:
             return cached
-        block_mask = self.device_block_mask(mask)
+        penalty = self._penalty_of(self.device_block_mask(mask))
+        if len(self._penalty_cache) >= 8:
+            self._penalty_cache.pop(next(iter(self._penalty_cache)))
+        self._penalty_cache[key] = penalty
+        return penalty
+
+    def _penalty_of(self, block_mask: torch.Tensor) -> torch.Tensor:
+        """The f32 penalty of a ``[nlist, cap]`` bool block mask."""
         if self.dtype in _QUANTIZED:
             penalty = torch.where(block_mask, 0.0, float("-inf"))
         else:
             live = self._dsq if self.metric == "l2" else torch.zeros_like(self._dsq)
             penalty = torch.where(block_mask, live, float("inf"))
-        if len(self._penalty_cache) >= 8:
-            self._penalty_cache.pop(next(iter(self._penalty_cache)))
-        self._penalty_cache[key] = penalty.contiguous()
-        return self._penalty_cache[key]
+        return penalty.contiguous()
 
     def device_block_mask(self, mask: Optional[np.ndarray] = None) -> torch.Tensor:
         """Validity & global-id predicate in block layout (``[nlist, cap]``

@@ -98,6 +98,23 @@ def _current(device: torch.device):
     return contextlib.nullcontext()
 
 
+def colocated(mesh: Mesh, shards: Iterable[int],
+              device: torch.device) -> bool:
+    """Whether ``shards`` are every shard of ``mesh``, held in this process
+    on ``device`` (``cuda`` is the current CUDA device): then one program
+    (one CUDA graph) can run the encode, every shard's scan and the
+    merge."""
+    def ordinal(d):
+        d = torch.device(d)
+        if d.index is None and d.type == "cuda":
+            return d.type, torch.cuda.current_device()
+        return d.type, d.index or 0
+
+    shards = list(shards)
+    return not _gathers(mesh) and len(shards) == mesh.shape["data"] and all(
+        ordinal(mesh.shard_device(s)) == ordinal(device) for s in shards)
+
+
 def merge_shards(scores: List[torch.Tensor], local_ids: List[torch.Tensor],
                  k: int, n_shards: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``lax.top_k`` over the shard-major concatenation of each shard's
@@ -221,19 +238,9 @@ class ShardedFlatIndex:
         return int(t.item())
 
     def colocated(self, device: torch.device) -> bool:
-        """Whether every shard lies on ``device`` in this process, so that
-        one program (one CUDA graph) can run the encode, every shard's
-        scan and the merge (``cuda`` is the current CUDA device)."""
-        def ordinal(d):
-            d = torch.device(d)
-            if d.index is None and d.type == "cuda":
-                return d.type, torch.cuda.current_device()
-            return d.type, d.index or 0
-
-        return not _gathers(self.mesh) and len(self._shards) == (
-            self.n_shards) and all(
-                ordinal(self.mesh.shard_device(s)) == ordinal(device)
-                for s in self._shards)
+        """Whether every shard lies on ``device`` in this process
+        (:func:`colocated`)."""
+        return colocated(self.mesh, self._shards, device)
 
     # -- mutation ------------------------------------------------------------
 

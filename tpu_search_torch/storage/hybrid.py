@@ -18,12 +18,12 @@ moves: every write and every maintenance step that moves index buffers
 
 With ``shard_devices`` N > 1 (the first N devices of the storage's
 platform, on the CPU as many as ``XLA_FLAGS`` gives the JAX package's CPU
-mesh) a flat index is a ``parallel.ShardedFlatIndex`` over them, built,
-loaded and restored as in the JAX package.  Auto (0) keeps one device,
-where the JAX package shards over every accelerator: shards on several
-cards are not yet proven on a machine of several cards.  Refused rather
-than ignored: an IVF index over several devices (sharded IVF is not
-ported).
+mesh) a flat index is a ``parallel.ShardedFlatIndex`` and an IVF index a
+``parallel.ShardedIVFIndex`` (with its refine tier) over them, built,
+loaded and restored as in the JAX package, the IVF maintenance hooks
+unchanged.  Auto (0) keeps one device, where the JAX package shards over
+every accelerator: shards on several cards are not yet proven on a
+machine of several cards.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from ..index.registry import create_index, load_index
 from ..ingest.chunker import Chunk
 from ..parallel.mesh import build_mesh
 from ..parallel.sharded_index import ShardedFlatIndex
+from ..parallel.sharded_ivf import ShardedIVFIndex
 from ..utils.profiling import PhaseTimer
 from .filters import mask_for_filters, matches_filters
 from .metadata import MetadataStore
@@ -156,7 +157,7 @@ class HybridStorage:
         self.db_path = self.data_dir / self.config.db_name
         self.index_path = self.data_dir / self.config.index_name
         self.meta = MetadataStore(str(self.db_path))
-        self.index = None  # FlatIndex | IVFIndex | ShardedFlatIndex
+        self.index = None  # (Sharded)FlatIndex | (Sharded)IVFIndex
         self.chunk_id_to_faiss_id: Dict[str, int] = {}
         self.faiss_id_to_chunk_id: Dict[int, str] = {}
         self._capability: Optional[DeviceCapability] = None
@@ -255,30 +256,42 @@ class HybridStorage:
                 n, len(devices))
             return None
         devices = devices[:n]
-        if self.config.index_type == "ivf":
-            raise NotImplementedError(
-                "sharded IVF (index_type='ivf' over several devices) is not "
-                "ported; use shard_devices=1 or index_type='flat'")
         return build_mesh(n_data=len(devices), n_model=1, devices=devices)
 
     def _load_index(self, path: str):
-        """An index file onto this storage's device or mesh."""
+        """An index file onto this storage's device or mesh (an IVF file
+        through the sharded IVF loader: its dense per-cluster rows are not
+        in the flat loader's id order)."""
         mesh = self._index_mesh()
         if mesh is None:
             return load_index(path, device=self.device)
+        if self.config.index_type == "ivf":
+            return ShardedIVFIndex.load(path, mesh=mesh)
         return ShardedFlatIndex.load(path, mesh=mesh,
                                      dtype=self._effective_dtype())
 
     def _build_index(self):
         _check_supported(self.config)
         mesh = self._index_mesh()
-        if mesh is not None:
+        metric = "ip" if self.config.normalize_embeddings else "l2"
+        if mesh is not None and self.config.index_type == "flat":
             self.logger.info("Sharded flat index over %d devices",
                              mesh.shape["data"])
             return ShardedFlatIndex(
-                dim=self.embedding_dim, mesh=mesh,
-                metric="ip" if self.config.normalize_embeddings else "l2",
+                dim=self.embedding_dim, mesh=mesh, metric=metric,
                 dtype=self._effective_dtype())
+        if mesh is not None:  # index_type "ivf"
+            self.logger.info("Sharded IVF index over %d devices",
+                             mesh.shape["data"])
+            return ShardedIVFIndex(
+                dim=self.embedding_dim, mesh=mesh, metric=metric,
+                dtype=self._effective_dtype(),
+                nlist=self.config.ivf_nlist,
+                opq=self.config.pq_opq,
+                refine_dtype=self._effective_refine(),
+                refine_factor=self.config.refine_factor,
+                pq_auto=self._effective_pq_auto(),
+                pq_target_recall=self.config.pq_target_recall)
         return create_index(
             self.config.index_type,
             dim=self.embedding_dim,
