@@ -140,7 +140,20 @@ Phases, each printing its numbers on its own line:
      answers unchanged, ``models/setup.py --from-dir`` on a small random
      HF-format MPNet verified on the card, and ``index --trace`` whose
      ``torch.profiler`` trace names kernels of ``mpnet_attention.cu`` and
-     ``int8_ffn_ln.cu``.
+     ``int8_ffn_ln.cu``;
+  9. ``[train]`` (``check_train``): the training step at
+     all-mpnet-base-v2's full width (seeded random weights, bf16 compute
+     over f32 masters), 32 query/doc pairs at S 64 / 256: each parameter's
+     gradient with the kernels against the plain attention's (cosine >=
+     ``TRAIN_GRAD_COS``), 5 AdamW steps at ``TRAIN_LR`` on one fixed batch
+     (the loss falling; ms a step, pairs/s, tokens/s, peak MB, the
+     backward's 24 launches a step), 4 data shards on cuda:0 against one,
+     save / load / resume, the fine-tuned checkpoint served by
+     ``SearchEngine`` (8 self-searches at rank 1), a one-rank NCCL group
+     giving the same step; ``[f32_encoder]``: ``EmbeddingGenerator`` at
+     f32 compute on the card (``mpnet_attention_f32.cu``) against the CPU
+     encoder, cosine >= ``F32_ENCODER_COS``; ``[dryrun]``: the port's
+     ``parallel.dryrun.dryrun_multichip(4)`` on 4 x cuda:0.
 Phase 3 ends on the flat bf16 path's encoder (all-mpnet-base-v2 at full
 width, the int8 FFN through its gate) run through
 ``forward(attention_impl="flash")`` at B 128, S 384, the entry point of
@@ -167,7 +180,13 @@ and at H 312 / I 1200 and H 1024 / I 4096 with a ragged M, bf16 and f32
 outputs, and on planted requantization inputs; ``int8_ffn_ln`` at 0 ulps
 from its plain version on ``planted_epilogue``'s inputs, whose LayerNorm
 statistics are exact; the stock-flash kernel at ``FLASH_SHAPES`` (S 384
-and 512, hd 64, 32 and 26) with padded rows and a trained-scale bias.
+and 512, hd 64, 32 and 26) with padded rows and a trained-scale bias;
+``[attention_grad]``, the attention's backward kernel
+(``mpnet_attention_bwd.cu``) against its plain twin and against autograd of
+the plain forward at ``GRAD_SHAPES`` in bf16 and f32 (dQ, dK, dV and dBias
+gated; ms, device ms, launches, the bound and SDPA's forward + backward),
+and ``[attention_f32]``, the f32 forward (``mpnet_attention_f32.cu``)
+against its plain twin at ``F32_SHAPES``.
 The second line from the end is the kernel summary JSON, with each
 kernel's launch count from the path that runs it; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -177,8 +196,9 @@ kernel's launch count from the path that runs it; the last line is
 on a machine of two or more cards builds the kernels and runs only
 ``[cross_card]`` (``check_cross_card``): the sharded index with one shard
 on each card, against one card (flat in five cases, and IVF int4 with its
-int8 refine tier), and an engine that shards over every card, on the
-classic path; the last line is the same ``{"ok": true, ...}``.
+int8 refine tier), an engine that shards over every card, on the
+classic path, and a dp train step with one data shard a card against one
+card; the last line is the same ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -308,6 +328,14 @@ SOURCES = {
                    "benchmarks/int4_probe.py:199"),
     "scan_overhead_probe": ("tpu_search_torch/csrc/scan_overhead_probe.cu",
                             "benchmarks/scan_overhead_probe.py:136"),
+    "mpnet_attention_f32": ("tpu_search_torch/csrc/mpnet_attention_f32.cu",
+                            "none: the JAX package runs f32 attention "
+                            "through its dense XLA graph, "
+                            "tpu_search/models/mpnet.py:276-281"),
+    "mpnet_attention_bwd": ("tpu_search_torch/csrc/mpnet_attention_bwd.cu",
+                            "none: the JAX package trains through XLA's "
+                            "differentiation of its dense attention, "
+                            "tpu_search/models/mpnet.py:276-281"),
 }
 # The path whose run counts each kernel's launches ("rerank": the TinyBERT
 # and the tiny-overlap rerank paths together).
@@ -318,7 +346,8 @@ PATH_OF = {"flat_topk": "bfloat16", "mpnet_attention": "bfloat16",
            "mpnet_attention_bhsd": "rerank", "int8_gemm": "int8_bench",
            "int8_ffn_in": "int8_bench", "int8_ffn_out": "int8_bench",
            "int8_ffn_fused": "int8_bench", "flash_attention": "flash_encoder",
-           "int4_probe": "probes", "scan_overhead_probe": "probes"}
+           "int4_probe": "probes", "scan_overhead_probe": "probes",
+           "mpnet_attention_f32": "f32_encoder", "mpnet_attention_bwd": "train"}
 # The rerank paths: (tag, reranker, kernels it must launch).  All run on
 # the all-MiniLM-L6-v2 index; the reranker sees top_k * factor candidates.
 RERANK_PATHS = (
@@ -1216,15 +1245,270 @@ def check_flash_attention(results: dict) -> None:
     results["flash_attention"]["max_abs_err"] = worst
 
 
-def sdpa_ms(q, k, v, bias, mask, scale) -> float:
-    """The same attention on ``[B, heads, S, hd]`` inputs through
-    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
-    calls it), with the bias and the key mask folded into one bf16 additive
-    mask outside the timed call."""
+# The attention's gradient kernel (``mpnet_attention_bwd.cu``) and the f32
+# forward (``mpnet_attention_f32.cu``) at the trainer's shapes: all-mpnet-
+# base-v2's [B, S, H] at a chunk bucket (B 32, S 256, H 768, 12 heads) and
+# the TinyBERT width's [B, heads, S, hd] at S 512 (12 heads of 26).
+GRAD_SHAPES = (("bsh", 32, 256, 768, 12), ("bhsd", 32, 512, 312, 12))
+# The backward kernel against its plain twin (``mpnet_attention_bwd_plain``)
+# on the card, each output's max |error| over its largest |value|:
+#  f32: the same f32 arithmetic in another order of sums: 1e-5.
+#  bf16: the same f32 arithmetic on the same bf16 inputs, P rounded to
+#    bf16 for dV at the same site; an output rounded to bf16 may land one
+#    ulp apart (2^-8 of its magnitude), so 2^-7 of the largest, and at most
+#    ATTN_GRAD_ULP_SHARE of outputs more than one bf16 ulp off.  dBias is
+#    f32 in both dtypes: 1e-5.  Against autograd dBias takes its dtype's
+#    gate: the rounded dP reaches it through dS.
+# Against torch autograd of the plain forward, which rounds dP to bf16 where
+# the contract keeps it in f32 (as tests/test_torch_attention_grad.py
+# gates the same pair on the CPU): 2^-5 of the largest |value| in bf16, and
+# at most 1 % of outputs more than 2^-7 of it off; 1e-5 in f32.
+ATTN_GRAD_F32_TOL = 1e-5
+ATTN_GRAD_BF16_TOL = 2.0 ** -7
+ATTN_GRAD_ULP_SHARE = 1e-3
+ATTN_GRAD_AUTO_BF16_TOL = 2.0 ** -5
+ATTN_GRAD_AUTO_SHARE = 0.01
+# The f32 forward against its plain twin: O(1) outputs, f32 sums in another
+# order.
+ATTN_F32_TOL = 1e-5
+
+
+def rel_errors(got, want) -> dict:
+    """Max |error| over the largest |reference|, and the share of elements
+    more than ``ATTN_GRAD_BF16_TOL`` of that scale off."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max().clamp(min=1e-30))
+    err = (got - want).abs() / scale
+    return {"max_rel_err": float(err.max()),
+            "over_tol_share": float((err > ATTN_GRAD_BF16_TOL).float().mean()),
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def grad_gate(errors: dict, dtype: str, auto: bool) -> bool:
+    if dtype == "float32":
+        return errors["max_rel_err"] <= ATTN_GRAD_F32_TOL
+    if auto:
+        return (errors["max_rel_err"] <= ATTN_GRAD_AUTO_BF16_TOL
+                and errors["over_tol_share"] <= ATTN_GRAD_AUTO_SHARE)
+    return errors["max_rel_err"] <= ATTN_GRAD_BF16_TOL
+
+
+def sdpa_grad_ms(q, k, v, bias, mask, grad, scale, nh, layout) -> tuple:
+    """SDPA forward and backward on the same inputs (a yardstick only: the
+    port never calls it), the bias and key mask as one float ``attn_mask``
+    of q's dtype that requires grad; also whether SDPA gave that mask a
+    gradient."""
     import torch
     import torch.nn.functional as F
 
-    add = (bias[None] + mask[:, None, None, :]).to(torch.bfloat16)
+    def heads(t):
+        return heads_of(t, nh) if layout == "bsh" else t
+
+    qq, kk, vv = (heads(t).detach().requires_grad_() for t in (q, k, v))
+    gg = heads(grad)
+    add = (bias[None] + mask[:, None, None, :]).to(q.dtype)
+    add = add.expand(q.shape[0], -1, -1, -1).contiguous().requires_grad_()
+
+    def call():
+        out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=add,
+                                             scale=scale)
+        out.backward(gg)
+
+    ms = cuda_ms(call, 5)
+    return ms, add.grad is not None
+
+
+def check_attention_grad(results: dict) -> None:
+    """``[attention_grad]``: the backward kernel against its plain twin and
+    against torch autograd of the plain forward, on the card, at
+    ``GRAD_SHAPES`` in bf16 and f32 (a batch row fully padded, others with
+    random lengths, the bias trained-scale): each of dQ, dK, dV and dBias
+    gated; ms in turns with the plain version, device ms and launches a
+    call, the bound (bytes of q, k, v, dO and the bias read and dQ, dK, dV
+    and dBias written, or 10 B heads S^2 hd flops with the scores
+    recomputed) and SDPA's forward + backward."""
+    import torch
+
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.mpnet_attention import (
+        MPNetAttention,
+        mpnet_attention_bhsd_plain,
+        mpnet_attention_bwd,
+        mpnet_attention_bwd_plain,
+        mpnet_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    worst = 0.0
+    for layout, b, s, h, nh in GRAD_SHAPES:
+        hd = h // nh
+        shape = (b, s, h) if layout == "bsh" else (b, nh, s, hd)
+        heads_arg = nh if layout == "bsh" else None
+        scale = 1.0 / math.sqrt(hd)
+        for dtype in ("bfloat16", "float32"):
+            tdt = getattr(torch, dtype)
+            q, k, v, bias, mask = attention_inputs(gen, shape, nh, s, dev)
+            q, k, v = (t.to(tdt) for t in (q, k, v))
+            grad = torch.randn(shape, generator=gen, device=dev).to(tdt)
+            tag = f"layout={layout} B={b} S={s} H={h} heads={nh} hd={hd} dtype={dtype}"
+
+            def kernel():
+                return mpnet_attention_bwd(q, k, v, grad, bias, mask, scale,
+                                           heads_arg)
+
+            def plain():
+                return mpnet_attention_bwd_plain(q, k, v, grad, bias, mask,
+                                                 scale, heads_arg)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            # torch autograd of the plain forward on the same inputs
+            leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+            if layout == "bsh":
+                out = mpnet_attention_plain(*leaves, mask, nh, scale)
+            else:
+                out = mpnet_attention_bhsd_plain(*leaves, mask, scale)
+            out.backward(grad)
+            auto = [t.grad for t in leaves]
+            parts = []
+            for name, g, w, a in zip(("dq", "dk", "dv", "dbias"), got, want,
+                                     auto):
+                if not bool(torch.isfinite(g.float()).all()):
+                    fail(f"mpnet_attention_bwd {name} non-finite at {tag}")
+                e_plain, e_auto = rel_errors(g, w), rel_errors(g, a)
+                gate_dtype = "float32" if name == "dbias" else dtype
+                if name != "dbias" and dtype == "bfloat16":
+                    e_plain["over_1ulp_share"] = bf16_ulp_share(g, w)
+                parts.append(
+                    f"{name}_rel={e_plain['max_rel_err']:.3e} "
+                    f"{name}_auto_rel={e_auto['max_rel_err']:.3e} "
+                    f"{name}_auto_share={e_auto['over_tol_share']:.2e}")
+                if not grad_gate(e_plain, gate_dtype, auto=False) or (
+                        e_plain.get("over_1ulp_share", 0.0)
+                        > ATTN_GRAD_ULP_SHARE):
+                    fail(f"mpnet_attention_bwd {name} disagrees with its "
+                         f"plain twin at {tag}: {e_plain}")
+                if not grad_gate(e_auto, dtype, auto=True):
+                    fail(f"mpnet_attention_bwd {name} disagrees with autograd "
+                         f"of the plain forward at {tag}: {e_auto}")
+                worst = max(worst, e_plain["max_abs_err"])
+            del out, leaves, auto
+            kms, pms = paired_ms(kernel, plain, 5)
+            dev_ms, launches = device_breakdown(
+                f"mpnet_attention_bwd {tag}", kernel, 5)
+            lib, lib_bias = sdpa_grad_ms(q, k, v, bias, mask, grad, scale,
+                                         nh, layout)
+            size = 2 if dtype == "bfloat16" else 4
+            nbytes = 7 * b * s * h * size + 2 * nh * s * s * 4 + b * s * 4
+            bound_ms, by = bound(nbytes, 10 * b * nh * s * s * hd,
+                                 "bf16" if dtype == "bfloat16" else "f32")
+            print(f"[attention_grad] {tag} {' '.join(parts)} "
+                  f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+                  f"device_ms={dev_ms:.4f} launches_per_call={launches:.1f} "
+                  f"bound_ms={bound_ms:.4f} bound_by={by} "
+                  f"sdpa_fwd_bwd_ms={lib:.4f} sdpa_bias_grad={lib_bias}",
+                  flush=True)
+            if (layout, dtype) == ("bsh", "bfloat16"):
+                results["mpnet_attention_bwd"] = {
+                    "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": lib}
+            del q, k, v, bias, mask, grad, got, want
+    results["mpnet_attention_bwd"]["max_abs_err"] = worst
+    # With grad, the wrappers' Function runs the same kernels.
+    x = torch.randn((2, 64, 128), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    zb = torch.zeros((2, 64, 64), device=dev)
+    zm = torch.zeros((2, 64), device=dev)
+    before = dict(_build.LAUNCHES)
+    MPNetAttention.apply(x, x, x, zb, zm, 0.125, 2).sum().backward()
+    torch.cuda.synchronize()
+    if (_build.LAUNCHES["mpnet_attention"] - before["mpnet_attention"],
+            _build.LAUNCHES["mpnet_attention_bwd"]
+            - before["mpnet_attention_bwd"]) != (1, 1):
+        fail("MPNetAttention did not launch the forward and backward kernels")
+
+
+# The f32 forward's shapes: the f32 encoder's bucket ([f32_encoder], B 32 at
+# S 128), a chunk bucket and the TinyBERT width at S 512.
+F32_SHAPES = (("bsh", 32, 128, 768, 12), ("bsh", 32, 256, 768, 12),
+              ("bhsd", 32, 512, 312, 12))
+
+
+def check_attention_f32(results: dict) -> None:
+    """``[attention_f32]``: ``mpnet_attention_f32.cu`` through the wrappers
+    (f32 q, k, v) against the plain versions at ``F32_SHAPES`` (a padded
+    and a fully padded row): max error within ``ATTN_F32_TOL``, one launch
+    a call, ms in turns with the plain version, SDPA in f32, the bound (f32
+    FMAs: 4 B heads S^2 hd flops at 67 TFLOP/s, or the bytes)."""
+    import torch
+
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.mpnet_attention import (
+        mpnet_attention,
+        mpnet_attention_bhsd,
+        mpnet_attention_bhsd_plain,
+        mpnet_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+    for layout, b, s, h, nh in F32_SHAPES:
+        hd = h // nh
+        shape = (b, s, h) if layout == "bsh" else (b, nh, s, hd)
+        q, k, v, bias, mask = attention_inputs(gen, shape, nh, s, dev)
+        q, k, v = (t.float() for t in (q, k, v))
+        scale = 1.0 / math.sqrt(hd)
+        if layout == "bsh":
+            def kernel():
+                return mpnet_attention(q, k, v, bias, mask, nh, scale)
+
+            def plain():
+                return mpnet_attention_plain(q, k, v, bias, mask, nh, scale)
+        else:
+            def kernel():
+                return mpnet_attention_bhsd(q, k, v, bias, mask, scale)
+
+            def plain():
+                return mpnet_attention_bhsd_plain(q, k, v, bias, mask, scale)
+
+        before = _build.LAUNCHES["mpnet_attention_f32"]
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        tag = f"layout={layout} B={b} S={s} H={h} heads={nh} hd={hd}"
+        if _build.LAUNCHES["mpnet_attention_f32"] != before + 1:
+            fail(f"the f32 forward did not launch its kernel at {tag}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"mpnet_attention_f32 produced non-finite values at {tag}")
+        err = float((out - ref).abs().max())
+        kms, pms = paired_ms(kernel, plain)
+        lib = sdpa_ms(*(heads_of(t, nh) if layout == "bsh" else t
+                        for t in (q, k, v)), bias, mask, scale)
+        bound_ms, by = bound(4 * b * s * h * 4 + nh * s * s * 4 + b * s * 4,
+                             4 * b * nh * s * s * hd, "f32")
+        print(f"[attention_f32] {tag} max_abs_err={err:.3e} "
+              f"kernel_ms={kms:.4f} plain_ms={pms:.4f} sdpa_ms={lib:.4f} "
+              f"bound_ms={bound_ms:.4f} bound_by={by}", flush=True)
+        if not err <= ATTN_F32_TOL:
+            fail(f"mpnet_attention_f32 disagrees at {tag}: {err}")
+        worst = max(worst, err)
+        if s == 128:
+            results["mpnet_attention_f32"] = {
+                "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": lib}
+        del q, k, v, bias, mask, out, ref
+    results["mpnet_attention_f32"]["max_abs_err"] = worst
+
+
+def sdpa_ms(q, k, v, bias, mask, scale) -> float:
+    """The same attention on ``[B, heads, S, hd]`` inputs through
+    ``F.scaled_dot_product_attention`` (a yardstick only: the port never
+    calls it), with the bias and the key mask folded into one additive
+    mask of q's dtype outside the timed call."""
+    import torch.nn.functional as F
+
+    add = (bias[None] + mask[:, None, None, :]).to(q.dtype)
     return cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=add, scale=scale))
 
@@ -3035,6 +3319,349 @@ def host_ms(fn, iters: int = 10) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+# -- [train], [f32_encoder], [dryrun]: the trainer, f32 compute, the dry run --
+
+# Fine-tuning a retriever on the chunks it indexes: 32 query/doc pairs of
+# all-mpnet-base-v2 at full width (seeded random weights), queries at the
+# query bucket (S 64), documents at a chunk bucket (S 256), bf16 compute
+# over f32 master weights; 5 AdamW steps on one fixed batch.
+TRAIN_PAIRS = 32
+TRAIN_QUERY_S, TRAIN_DOC_S = 64, 256
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+# Each parameter's gradient with the kernels against the same step with the
+# plain attention (autograd of the plain forward) on the card.  k's bias is
+# left out of the cosine: a constant added to every key of a row changes no
+# softmax, so its exact gradient is 0 and both sides hold rounding residue
+# with no direction to compare; its norm is held under TRAIN_NOISE of the
+# largest gradient norm instead.
+TRAIN_GRAD_COS = 0.999
+TRAIN_NOISE = 1e-3
+# The f32 encoder on the card against the same checkpoint on the CPU.
+F32_ENCODER_COS = 0.99999
+
+
+def train_batch(config, dev):
+    """32 query/doc pairs of seeded token ids; each document opens with its
+    query's live tokens, the rest random; random lengths padded with pad
+    ids under mask 0."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(41)
+    pad = config.pad_token_id
+
+    def rows(s, lo):
+        ids = torch.randint(5, config.vocab_size, (TRAIN_PAIRS, s),
+                            generator=gen)
+        lengths = torch.randint(lo, s + 1, (TRAIN_PAIRS,), generator=gen)
+        live = torch.arange(s)[None, :] < lengths[:, None]
+        return torch.where(live, ids, pad), live.to(torch.int32)
+
+    q_ids, q_mask = rows(TRAIN_QUERY_S, 8)
+    d_ids, d_mask = rows(TRAIN_DOC_S, TRAIN_QUERY_S)
+    d_ids[:, :TRAIN_QUERY_S] = torch.where(q_mask.bool(), q_ids,
+                                           d_ids[:, :TRAIN_QUERY_S])
+    return tuple(t.to(dev) for t in (q_ids, q_mask, d_ids, d_mask))
+
+
+def grad_cosines(a: dict, b: dict, what: str) -> float:
+    """The least cosine between the two gradients of each parameter (k's
+    bias held to its noise bound instead, see ``TRAIN_NOISE``)."""
+    top = max(float(g.norm()) for g in b.values())
+    worst = 1.0
+    for name, ga in a.items():
+        gb = b[name]
+        if name.endswith(".k.bias"):
+            if max(float(ga.norm()), float(gb.norm())) > TRAIN_NOISE * top:
+                fail(f"[train] {what}: {name}'s gradient is not residue")
+            continue
+        cos = float((ga * gb).sum() / (ga.norm() * gb.norm()).clamp(
+            min=1e-30))
+        if float(ga.norm()) == float(gb.norm()) == 0.0:
+            cos = 1.0
+        worst = min(worst, cos)
+        if not cos >= TRAIN_GRAD_COS:
+            fail(f"[train] {what}: {name}'s gradient cosine {cos:.6f} < "
+                 f"{TRAIN_GRAD_COS}")
+    return worst
+
+
+def check_train(work: Path) -> dict:
+    """``[train]``: the trainer at all-mpnet-base-v2's width on the card
+    (see ``TRAIN_*``).  Each parameter's gradient with the kernels against
+    the plain attention's (cosine); 5 steps on one fixed batch at lr
+    ``TRAIN_LR``, the loss finite and falling, ms a step, pairs/s,
+    tokens/s, peak MB and the backward's launches (24 a step: 12 layers,
+    queries and documents); 4 data shards on cuda:0 against one device;
+    save, load, resume; the fine-tuned checkpoint loaded by
+    ``SearchEngine`` on the card, indexing 20 conversations, each of 8
+    probes at rank 1 of its own search; a one-rank NCCL group giving the
+    same step.  Returns the launch counts of the 5 steps."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.models.convert import model_from_params
+    from tpu_search_torch.models.mpnet import MPNetConfig, init_params
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel import (
+        build_mesh,
+        infonce_loss,
+        init_train_state,
+        initialize_distributed,
+        load_train_state,
+        make_train_step,
+        save_train_state,
+    )
+    from tpu_search_torch.utils.synthetic import (
+        write_conversations,
+        write_model,
+    )
+
+    dev = torch.device("cuda")
+    config = MPNetConfig()
+    master = model_from_params(init_params(config, 5), config).to(dev)
+    batch = train_batch(config, dev)
+    bf16 = torch.bfloat16
+
+    def grads(plain: bool):
+        model = copy.deepcopy(master)
+        ctx = plain_attention() if plain else contextlib.nullcontext()
+        with ctx:
+            loss = infonce_loss(model, *batch, compute_dtype=bf16)
+            loss.backward()
+        torch.cuda.synchronize()
+        return {n: p.grad for n, p in model.named_parameters()}, float(loss)
+
+    _build.reset_launches()
+    kernel_grads, kernel_loss = grads(False)
+    one_pass = dict(_build.LAUNCHES)
+    plain_grads, plain_loss = grads(True)
+    worst = grad_cosines(kernel_grads, plain_grads, "kernels vs plain")
+    print(f"[train] model=all-mpnet-base-v2 H={config.hidden_size} "
+          f"layers={config.num_layers} pairs={TRAIN_PAIRS} "
+          f"query_S={TRAIN_QUERY_S} doc_S={TRAIN_DOC_S} compute=bfloat16 "
+          f"loss_kernels={kernel_loss:.6f} loss_plain={plain_loss:.6f} "
+          f"min_grad_cosine={worst:.6f} "
+          f"bwd_launches_per_loss={one_pass['mpnet_attention_bwd']} "
+          f"fwd_launches_per_loss={one_pass['mpnet_attention']}", flush=True)
+    if one_pass["mpnet_attention_bwd"] != 2 * config.num_layers:
+        fail(f"[train] the backward ran {one_pass['mpnet_attention_bwd']} "
+             f"times for one loss, want {2 * config.num_layers}")
+    if abs(kernel_loss - plain_loss) > 1e-3 * abs(plain_loss):
+        fail("[train] the loss with the kernels is not the plain one's")
+    del kernel_grads, plain_grads
+
+    one = build_mesh(n_data=1, devices=[dev])
+    state, opt = init_train_state(master, one, learning_rate=TRAIN_LR)
+    step = make_train_step(one, config, opt, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    warm = statistics.mean(times[1:])
+    tokens = TRAIN_PAIRS * (TRAIN_QUERY_S + TRAIN_DOC_S)
+    print(f"[train] steps={TRAIN_STEPS} lr={TRAIN_LR} losses="
+          f"{[round(x, 6) for x in losses]} first_step_ms="
+          f"{times[0] * 1e3:.2f} ms_per_step={warm * 1e3:.2f} "
+          f"pairs_per_s={TRAIN_PAIRS / warm:.1f} tokens_per_s="
+          f"{tokens / warm:.0f} peak_mb={peak:.0f} "
+          f"bwd_launches={launches['mpnet_attention_bwd']} "
+          f"bwd_launches_per_step="
+          f"{launches['mpnet_attention_bwd'] / TRAIN_STEPS:.1f} "
+          f"{card_name()}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not (
+            losses[-1] < losses[0]):
+        fail(f"[train] the loss did not fall over {TRAIN_STEPS} steps: "
+             f"{losses}")
+    if launches["mpnet_attention_bwd"] != TRAIN_STEPS * 2 * config.num_layers:
+        fail(f"[train] {launches['mpnet_attention_bwd']} backward launches "
+             f"in {TRAIN_STEPS} steps")
+
+    # 4 data shards on cuda:0 against one device, one step from one state
+    def one_step(mesh, state_model):
+        st, o = init_train_state(state_model, mesh, learning_rate=TRAIN_LR)
+        st, ls = make_train_step(mesh, config, o, compute_dtype=bf16)(
+            st, *batch)
+        return {n: p.grad for n, p in st.params.named_parameters()}, float(ls)
+
+    g4, l4 = one_step(build_mesh(n_data=4, devices=[dev] * 4), master)
+    g1, l1 = one_step(one, master)
+    worst4 = grad_cosines(g4, g1, "4 shards vs one device")
+    print(f"[train] shards=4 on cuda:0 loss={l4:.6f} one_device_loss="
+          f"{l1:.6f} min_grad_cosine={worst4:.6f}", flush=True)
+    if abs(l4 - l1) > 1e-3 * abs(l1):
+        fail("[train] 4 shards and one device give other losses")
+    del g4, g1
+
+    # save, load, resume
+    ckpt = work / "train_ckpt"
+    save_train_state(state, str(ckpt))
+    fresh, fresh_opt = init_train_state(master, one, learning_rate=TRAIN_LR)
+    restored = load_train_state(str(ckpt), fresh_opt, fresh)
+    same = all(torch.equal(a, b) for a, b in zip(
+        state.params.parameters(), restored.params.parameters()))
+    a_state, a_loss = step(state, *batch)
+    b_state, b_loss = make_train_step(one, config, fresh_opt,
+                                      compute_dtype=bf16)(restored, *batch)
+    diff = max(float((a - b).abs().max()) for (n, a), (_, b) in zip(
+        a_state.params.named_parameters(), b_state.params.named_parameters())
+        if not n.endswith(".k.bias"))
+    print(f"[train] save_load step={restored.step} params_equal={same} "
+          f"resumed_loss={float(b_loss):.6f} continued_loss="
+          f"{float(a_loss):.6f} max_param_diff={diff:.3e}", flush=True)
+    if not same or restored.step != TRAIN_STEPS or b_state.step != (
+            TRAIN_STEPS + 1):
+        fail("[train] the loaded state is not the saved one")
+    if abs(float(a_loss) - float(b_loss)) > 1e-5 * abs(float(a_loss)) or (
+            diff > 1e-2 * TRAIN_LR):
+        fail("[train] the resumed step is not the continued one")
+
+    # the fine-tuned checkpoint served by SearchEngine on the card
+    data = work / "train_data"
+    model_dir = data / "models" / "ft-mpnet"
+    write_model(model_dir)
+    shutil.copy(ckpt / "model.tpu.npz", model_dir / "model.tpu.npz")
+    files = write_conversations(work / "train_conv", 20,
+                                config.vocab_size - 5)
+    engine = SearchEngine(data_dir=str(data), model_name="ft-mpnet",
+                          use_warm_server=False, device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = engine.index_conversations(files)
+    total = engine.storage.index.ntotal
+    probes, _ = probe_queries(engine, total)
+    misses = [rank_one(engine.search_conversations(p.text, top_k=10), p.id,
+                       p.text, None) for p in probes[:8]]
+    misses = [m for m in misses if m]
+    print(f"[train] fine-tuned checkpoint in SearchEngine chunks={total} "
+          f"indexed={stats['chunks_indexed']} self_search_rank1="
+          f"{8 - len(misses)}/8", flush=True)
+    if misses:
+        fail(f"[train] the fine-tuned model's self-search: {misses[0]}")
+    engine.storage.close()
+    del engine
+
+    # a one-rank NCCL group gives the same step
+    g0, l0 = one_step(one, master)
+    initialize_distributed(coordinator_address=f"localhost:{free_port()}",
+                           num_processes=1, process_id=0)
+    try:
+        calls = {"all_gather": 0, "all_reduce": 0}
+        real = dist.all_gather, dist.all_reduce
+
+        def gather(*args, **kwargs):
+            calls["all_gather"] += 1
+            return real[0](*args, **kwargs)
+
+        def reduce(*args, **kwargs):
+            calls["all_reduce"] += 1
+            return real[1](*args, **kwargs)
+
+        dist.all_gather, dist.all_reduce = gather, reduce
+        try:
+            gg, lg = one_step(one, master)
+        finally:
+            dist.all_gather, dist.all_reduce = real
+        worst_g = grad_cosines(gg, g0, "one-rank group vs none")
+        print(f"[train] process_group backend={dist.get_backend()} ranks=1 "
+              f"calls={calls} loss={lg:.6f} without_group={l0:.6f} "
+              f"min_grad_cosine={worst_g:.6f}", flush=True)
+        if calls["all_gather"] != 2 or calls["all_reduce"] != 1 or (
+                abs(lg - l0) > 1e-5 * abs(l0)):
+            fail("[train] the step under a one-rank group did not gather "
+                 "and reduce, or stepped otherwise")
+    finally:
+        dist.destroy_process_group()
+    del master, state, restored, a_state, b_state, g0, gg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_f32_encoder(model_dir: Path) -> dict:
+    """``[f32_encoder]``: ``EmbeddingGenerator(compute_dtype="float32")``
+    on the card (the f32 attention kernel in every layer) against the same
+    checkpoint on the CPU at f32, 64 texts over the 64 and 128 buckets:
+    cosine >= ``F32_ENCODER_COS``.  Returns the launch counts of the card's
+    encode."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.models.encoder import (
+        EmbeddingConfig,
+        EmbeddingGenerator,
+    )
+    from tpu_search_torch.ops import _build
+
+    rng = np.random.default_rng(43)
+    texts = [" ".join(f"tok{i}" for i in rng.integers(0, 30000, n))
+             for n in rng.integers(8, 120, 64)]
+
+    def encoder(device):
+        gen = EmbeddingGenerator(EmbeddingConfig(
+            model_name=model_dir.name, cache_dir=str(model_dir.parent),
+            compute_dtype="float32", device=device, auto_batch_size=False,
+            batch_size=32, show_progress=False))
+        gen.load_model()
+        return gen
+
+    card = encoder("cuda")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = card._encode_texts(texts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    want = encoder("cpu")._encode_texts(texts)
+    cos = float((got * want).sum(axis=1).min())
+    print(f"[f32_encoder] texts={len(texts)} min_cosine={cos:.7f} "
+          f"seconds={seconds:.3f} f32_launches="
+          f"{launches['mpnet_attention_f32']} bf16_launches="
+          f"{launches['mpnet_attention']} int8_ffn={card._int8_ffn}",
+          flush=True)
+    if not cos >= F32_ENCODER_COS:
+        fail(f"[f32_encoder] cosine {cos} < {F32_ENCODER_COS}")
+    if launches["mpnet_attention_f32"] == 0 or launches["mpnet_attention"]:
+        fail(f"[f32_encoder] the f32 encode did not run the f32 kernel "
+             f"alone: {launches}")
+    del card
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_dryrun() -> dict:
+    """``[dryrun]``: the port's ``dryrun_multichip(4)`` on 4 x cuda:0 (a
+    2 x 2 mesh: the train step with dp and tp in f32, the f32 dp encode,
+    the sharded scans and warm serving).  Returns its launch counts."""
+    import torch
+
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel.dryrun import dryrun_multichip
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    line = dryrun_multichip(4, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[dryrun] seconds={time.perf_counter() - t0:.2f} launches="
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if "dryrun_multichip OK" not in line:
+        fail(f"[dryrun] {line}")
+    for name in ("mpnet_attention_f32", "mpnet_attention_bwd"):
+        if not launches[name]:
+            fail(f"[dryrun] the dry run did not launch {name}")
+    return launches
+
+
 def check_cross_card() -> None:
     """``[cross_card]`` (``--cross-card``, two or more cards): the sharded
     index with one shard on each card, ``build_mesh`` over every card.
@@ -3049,7 +3676,7 @@ def check_cross_card() -> None:
     ``search_conversations`` answers the 20 probe queries on the classic
     path, and each answer equals the saved index's, loaded on cuda:0
     alone, on the same embedding (ids outside exact ties, similarities
-    within ``WARM_EXACT``)."""
+    within ``WARM_EXACT``).  Last, ``check_cross_card_train``."""
     import numpy as np
     import torch
 
@@ -3168,6 +3795,7 @@ def check_cross_card() -> None:
               f"device: {len(probes)} card=\"{card}\"", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    check_cross_card_train(devices, card)
 
 
 def check_cross_card_ivf(devices, mesh, card: str) -> None:
@@ -3239,6 +3867,52 @@ def check_cross_card_ivf(devices, mesh, card: str) -> None:
     for d in devices:
         with torch.cuda.device(d):
             torch.cuda.empty_cache()
+
+
+def check_cross_card_train(devices, card: str) -> None:
+    """A dp train step with one data shard on each card (the [train]
+    batch and model, bf16 compute) against the same step on cuda:0 alone:
+    the loss within 1e-3 and each parameter's gradient at cosine >=
+    ``TRAIN_GRAD_COS``."""
+    import copy
+
+    import torch
+
+    from tpu_search_torch.models.convert import model_from_params
+    from tpu_search_torch.models.mpnet import MPNetConfig, init_params
+    from tpu_search_torch.parallel import (
+        build_mesh,
+        init_train_state,
+        make_train_step,
+    )
+
+    config = MPNetConfig()
+    dev = devices[0]
+    master = model_from_params(init_params(config, 5), config).to(dev)
+    batch = train_batch(config, dev)
+
+    def one_step(mesh):
+        state, opt = init_train_state(copy.deepcopy(master), mesh,
+                                      learning_rate=TRAIN_LR)
+        t0 = time.perf_counter()
+        state, loss = make_train_step(mesh, config, opt,
+                                      compute_dtype=torch.bfloat16)(
+            state, *batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return ({n: p.grad for n, p in state.params.named_parameters()},
+                float(loss), seconds)
+
+    n = len(devices) if TRAIN_PAIRS % len(devices) == 0 else 2
+    g_all, l_all, s_all = one_step(build_mesh(n_data=n, devices=devices[:n]))
+    g_one, l_one, s_one = one_step(build_mesh(n_data=1, devices=[dev]))
+    worst = grad_cosines(g_all, g_one, f"{n} cards vs one")
+    print(f"[cross_card] train dp shards={n} loss={l_all:.6f} "
+          f"one_card_loss={l_one:.6f} min_grad_cosine={worst:.6f} "
+          f"step_s={s_all:.3f} one_card_step_s={s_one:.3f} "
+          f'card="{card}"', flush=True)
+    if abs(l_all - l_one) > 1e-3 * abs(l_one):
+        fail("[cross_card] the dp train step's loss is not one card's")
 
 
 # -- phase 3: the main path -----------------------------------------------------
@@ -5169,7 +5843,8 @@ def main() -> None:
 
     results: dict = {}
     for check in (check_flat_topk, check_quant_topk, check_attention,
-                  check_attention_bhsd, check_flash_attention, check_int8_ffn,
+                  check_attention_bhsd, check_flash_attention,
+                  check_attention_grad, check_attention_f32, check_int8_ffn,
                   check_int8_gemm, check_ivf):
         with timed_phase(check.__name__):
             check(results)
@@ -5230,6 +5905,13 @@ def main() -> None:
             run_daemon(work, files)
         with timed_phase("storage"):
             launches["storage"] = run_storage(work, files)
+        with timed_phase("train"):
+            launches["train"] = check_train(work)
+        with timed_phase("f32_encoder"):
+            launches["f32_encoder"] = check_f32_encoder(
+                work / "data" / "models" / "smoke-mpnet")
+        with timed_phase("dryrun"):
+            check_dryrun()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1430,3 +1430,128 @@ def test_pq_search_on_the_card_and_in_a_graph(dev, tmp_path, opq):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+def attention_case(dev, layout, b, s, nh, hd, dtype, seed):
+    """q, k, v and an output gradient in ``layout``, a trained-scale bias
+    and a mask with a row padded by -inf, one by the f32 min and one
+    fully -inf (the forward's uniform row)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, s, nh * hd) if layout == "bsh" else (b, nh, s, hd)
+    q, k, v, grad = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for _ in range(4))
+    bias = 0.5 * torch.randn((nh, s, s), generator=gen, device=dev)
+    mask = torch.zeros((b, s), device=dev)
+    mask[1, s // 3 + 1:] = float("-inf")
+    mask[2, s // 2 + 1:] = torch.finfo(torch.float32).min
+    mask[3] = float("-inf")
+    return q, k, v, grad, bias, mask
+
+
+@pytest.mark.parametrize("layout,s,nh,hd,dtype", [
+    ("bhsd", 100, 3, 13, torch.bfloat16),
+    ("bhsd", 64, 4, 8, torch.float32),
+    ("bhsd", 512, 2, 128, torch.bfloat16),
+    ("bhsd", 17, 2, 26, torch.float32),
+    ("bsh", 200, 2, 64, torch.bfloat16),
+    ("bsh", 33, 4, 32, torch.float32),
+    ("bsh", 1, 2, 64, torch.bfloat16),
+])
+def test_attention_bwd_kernel(dev, layout, s, nh, hd, dtype):
+    """``mpnet_attention_bwd.cu`` against ``mpnet_attention_bwd_plain`` at
+    S off its 16-row and 64-key tiles (1, 17, 33, 100, 200), head dims 8 to
+    128 (13 and 26 not a multiple of 4), both layouts and dtypes, with
+    padded, min-padded and fully -inf rows: one C call, dQ, dK, dV and
+    dBias within ``chip_smoke.grad_gate`` of the plain twin, zero dQ on
+    the -inf row, and no dBias when the bias needs none."""
+    from chip_smoke import grad_gate, rel_errors
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.mpnet_attention import (
+        mpnet_attention_bwd,
+        mpnet_attention_bwd_plain,
+    )
+
+    q, k, v, grad, bias, mask = attention_case(dev, layout, 5, s, nh, hd,
+                                               dtype, s * hd)
+    heads = nh if layout == "bsh" else None
+    scale = 1.0 / math.sqrt(hd)
+    before = _build.LAUNCHES["mpnet_attention_bwd"]
+    got = mpnet_attention_bwd(q, k, v, grad, bias, mask, scale, heads)
+    want = mpnet_attention_bwd_plain(q, k, v, grad, bias, mask, scale, heads)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mpnet_attention_bwd"] == before + 1
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    for what, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        assert torch.isfinite(g.float()).all(), what
+        errors = rel_errors(g, w)
+        assert grad_gate(errors, "float32" if what == "dbias" else name,
+                         auto=False), (what, errors)
+    dq = got[0] if layout == "bhsd" else got[0].reshape(5, s, nh, hd)
+    assert not dq[3].any()
+    assert mpnet_attention_bwd(q, k, v, grad, bias, mask, scale, heads,
+                               bias_grad=False)[3] is None
+
+
+@pytest.mark.parametrize("layout,s,nh,hd", [
+    ("bhsd", 100, 3, 13), ("bhsd", 1, 1, 128), ("bsh", 77, 4, 32),
+    ("bsh", 384, 12, 64),
+])
+def test_attention_f32_kernel(dev, layout, s, nh, hd):
+    """``mpnet_attention_f32.cu`` through the wrappers (f32 q, k, v) against
+    the plain versions at ragged S, with padded and fully -inf rows:
+    within ``chip_smoke.ATTN_F32_TOL``, one launch, finite."""
+    from chip_smoke import ATTN_F32_TOL
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.mpnet_attention import (
+        mpnet_attention,
+        mpnet_attention_bhsd,
+        mpnet_attention_bhsd_plain,
+        mpnet_attention_plain,
+    )
+
+    q, k, v, _, bias, mask = attention_case(dev, layout, 5, s, nh, hd,
+                                            torch.float32, s + hd)
+    scale = 1.0 / math.sqrt(hd)
+    before = _build.LAUNCHES["mpnet_attention_f32"]
+    if layout == "bsh":
+        out = mpnet_attention(q, k, v, bias, mask, nh, scale)
+        ref = mpnet_attention_plain(q, k, v, bias, mask, nh, scale)
+    else:
+        out = mpnet_attention_bhsd(q, k, v, bias, mask, scale)
+        ref = mpnet_attention_bhsd_plain(q, k, v, bias, mask, scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mpnet_attention_f32"] == before + 1
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= ATTN_F32_TOL
+
+
+def test_attention_function_runs_the_kernels_under_grad(dev):
+    """With grad, ``mpnet_attention`` is ``MPNetAttention``: the forward
+    kernel, then the backward kernel, giving autograd's gradient of the
+    plain forward within the gates; without grad, no graph."""
+    from chip_smoke import grad_gate, rel_errors
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.mpnet_attention import (
+        mpnet_attention,
+        mpnet_attention_plain,
+    )
+
+    q, k, v, grad, bias, mask = attention_case(dev, "bsh", 4, 128, 2, 64,
+                                               torch.bfloat16, 7)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    before = dict(_build.LAUNCHES)
+    out = mpnet_attention(*leaves, mask, 2, 0.125)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mpnet_attention"] == before["mpnet_attention"] + 1
+    assert (_build.LAUNCHES["mpnet_attention_bwd"]
+            == before["mpnet_attention_bwd"] + 1)
+    plain = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    mpnet_attention_plain(*plain, mask, 2, 0.125).backward(grad)
+    # autograd rounds dP to bf16, which reaches the f32 dBias through dS:
+    # every gradient takes the bf16 gate against it
+    for a, b in zip(leaves, plain):
+        assert grad_gate(rel_errors(a.grad, b.grad), "bfloat16", auto=True)
+    with torch.no_grad():
+        assert mpnet_attention(*leaves, mask, 2, 0.125).grad_fn is None

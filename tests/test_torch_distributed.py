@@ -15,8 +15,12 @@ its lifecycle: pq with the int8 refine tier, ``tune_nprobe``, per-process
 files, a skewed add and ``rebalance`` on the loaded index, each answer and
 report equal to the local reference's.
 
+Then the training step: two train steps in the two
+processes, two data shards each, against one process's steps on the
+global batch, and the dp encode's global rows on both processes.
+
 The workers import torch and the port only, never jax; each process has a
-120 s timeout and the test takes a few seconds.  In this process, with no
+120 s timeout and each test takes a few seconds.  In this process, with no
 group: process 0 of 1, ``initialize_distributed`` refusing to start
 without its three settings, and ``build_mesh``'s shapes and error messages
 against the JAX function's.
@@ -192,9 +196,75 @@ def _free_port() -> int:
 
 
 def test_two_process_sharded_index(tmp_path):
+    outs = run_workers(tmp_path, WORKER, "worker.py")
+    for pid, out in enumerate(outs):
+        assert f"WORKER_{pid}_OK" in out
+    # the manifest written once, a file by each process
+    for stem in ("dist_float32", "dist_bfloat16", "dist_int8", "dist_int4",
+                 "ivf_float32", "ivf_int8", "ivf_lifecycle",
+                 "ivf_lifecycle2"):
+        for name in ("", ".host0", ".host1"):
+            assert (tmp_path / f"{stem}.tpuidx{name}").exists()
+
+
+TRAIN_WORKER = r"""
+import sys
+import numpy as np
+import torch
+
+pid, port = int(sys.argv[1]), sys.argv[2]
+
+from tpu_search_torch.models.convert import model_from_params
+from tpu_search_torch.models.mpnet import MPNetConfig, init_params
+from tpu_search_torch.parallel import (
+    build_mesh, init_train_state, initialize_distributed,
+    make_sharded_encode, make_train_step,
+)
+
+initialize_distributed(coordinator_address=f"localhost:{port}",
+                       num_processes=2, process_id=pid)
+config = MPNetConfig(vocab_size=64, hidden_size=16, num_layers=2,
+                     num_heads=2, intermediate_size=32, max_position=96)
+model = model_from_params(init_params(config, 3), config)
+rng = np.random.default_rng(0)  # the same global batch on both processes
+qids, dids = (rng.integers(4, 64, size=(8, 10)) for _ in range(2))
+qmask, dmask = np.ones_like(qids), np.ones_like(dids)
+dids[5, 6:], dmask[5, 6:] = config.pad_token_id, 0
+lr = 1e-3
+
+mesh = build_mesh(n_data=4, dcn_data=2)  # process p: shards 2p, 2p + 1
+assert mesh.local_shards() == (2 * pid, 2 * pid + 1)
+state, opt = init_train_state(model, mesh, learning_rate=lr)
+step = make_train_step(mesh, config, opt, compute_dtype=torch.float32)
+# the reference: one process, the global batch on one device
+one = build_mesh(n_data=1, devices=[torch.device("cpu")])
+ref, ref_opt = init_train_state(model, one, learning_rate=lr)
+ref_step = make_train_step(one, config, ref_opt, compute_dtype=torch.float32)
+for _ in range(2):
+    state, loss = step(state, qids, qmask, dids, dmask)
+    ref, ref_loss = ref_step(ref, qids, qmask, dids, dmask)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-6 * float(ref_loss), (
+        float(loss), float(ref_loss))
+worst = max(float((a - b).abs().max()) for a, b in zip(
+    state.params.parameters(), ref.params.parameters()))
+assert worst <= 1e-2 * lr, worst
+# every process returns the global embeddings, equal to one device's
+emb = make_sharded_encode(mesh, config, compute_dtype=torch.float32)(
+    state.params, qids, qmask)
+want = make_sharded_encode(one, config, compute_dtype=torch.float32)(
+    state.params, qids, qmask)
+assert emb.shape == (8, 16)
+assert float((emb - want).abs().max()) <= 1e-5
+assert "jax" not in sys.modules
+torch.distributed.destroy_process_group()
+print(f"TRAIN_WORKER_{pid}_OK worst={worst:.3e}", flush=True)
+"""
+
+
+def run_workers(tmp_path, source: str, name: str) -> list:
     port = _free_port()
-    script = tmp_path / "worker.py"
-    script.write_text(WORKER)
+    script = tmp_path / name
+    script.write_text(source)
     env = {
         "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
         "CLAUDE_SEARCH_DEVICE": "cpu",
@@ -223,13 +293,18 @@ def test_two_process_sharded_index(tmp_path):
                 p.communicate()
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"worker {pid} failed:\n{out[-4000:]}"
-        assert f"WORKER_{pid}_OK" in out
-    # the manifest written once, a file by each process
-    for stem in ("dist_float32", "dist_bfloat16", "dist_int8", "dist_int4",
-                 "ivf_float32", "ivf_int8", "ivf_lifecycle",
-                 "ivf_lifecycle2"):
-        for name in ("", ".host0", ".host1"):
-            assert (tmp_path / f"{stem}.tpuidx{name}").exists()
+    return outs
+
+
+def test_two_process_train_step(tmp_path):
+    """Two gloo processes, two data shards each: two train steps on the
+    global batch equal one process's steps on it (the gathered
+    embeddings' gradient counted once, the parameter gradients summed
+    over the processes: loss within 1e-6, parameters within 1e-2 lr), and
+    the dp encode returns the global rows on both."""
+    outs = run_workers(tmp_path, TRAIN_WORKER, "train_worker.py")
+    for pid, out in enumerate(outs):
+        assert f"TRAIN_WORKER_{pid}_OK" in out
 
 
 def test_without_a_group(monkeypatch):

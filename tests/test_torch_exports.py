@@ -28,21 +28,6 @@ EXCEPTIONS = {
     ("devices", "get_device_summary"): "as GPUCapability",
     ("devices", "log_device_status"): "as GPUCapability",
     ("devices", "quick_accelerator_check"): "as GPUCapability",
-    ("parallel", "data_sharding"): "a JAX NamedSharding rule of the "
-                                   "data-parallel encode, not ported yet",
-    ("parallel", "replicated"): "as data_sharding",
-    ("parallel", "encoder_param_specs"): "the tensor-parallel encoder's "
-                                         "PartitionSpecs, with the train "
-                                         "step, not ported yet",
-    ("parallel", "make_sharded_encode"): "data-parallel encode, not ported "
-                                         "yet",
-    ("parallel", "shard_params"): "as make_sharded_encode",
-    ("parallel", "TrainState"): "the training step, not ported yet",
-    ("parallel", "init_train_state"): "as TrainState",
-    ("parallel", "infonce_loss"): "as TrainState",
-    ("parallel", "make_train_step"): "as TrainState",
-    ("parallel", "save_train_state"): "as TrainState",
-    ("parallel", "load_train_state"): "as TrainState",
 }
 # Subpackages of tpu_search the port does not have, and why.
 MISSING_PACKAGES: dict = {}

@@ -39,6 +39,7 @@ __all__ = [
     "params_from_bert_state_dict",
     "params_from_numpy",
     "params_from_state_dict",
+    "params_to_numpy",
     "save_checkpoint",
 ]
 
@@ -411,6 +412,39 @@ def params_from_numpy(
             value = stacked[i].T if transpose else stacked[i]
             state[f"layers.{i}.{name}"] = t(value)
     return state
+
+
+def params_to_numpy(
+    state, config: Optional[MPNetConfig] = None
+) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: an ``MPNetModel`` (or a
+    mapping of its parameter names to tensors of their shapes, such as
+    AdamW's moments) -> the JAX-layout numpy tree (f32, ``[in, out]``
+    weights, layers stacked), which ``save_checkpoint`` writes and both
+    packages load."""
+    if isinstance(state, torch.nn.Module):
+        config = config or state.config
+        state = dict(state.named_parameters())
+    if config is None:
+        raise ValueError("params_to_numpy needs the model's config")
+
+    def a(name: str) -> np.ndarray:
+        return state[name].detach().float().cpu().numpy()
+
+    emb = {leaf: a(name) for leaf, name in _EMBED_LEAVES.items()}
+    tree: Dict[str, Any] = {"embeddings": emb, "rel_bias": a("rel_bias")}
+    if config.num_labels > 0:
+        emb["tt_table"] = a("tt_table")
+        tree["head"] = {leaf: (a(name).T if transpose else a(name))
+                        for leaf, (name, transpose) in _HEAD_LEAVES.items()}
+    tree["layers"] = {
+        leaf: np.stack([
+            a(f"layers.{i}.{name}").T if transpose
+            else a(f"layers.{i}.{name}")
+            for i in range(config.num_layers)])
+        for leaf, (name, transpose) in _LAYER_LEAVES.items()
+    }
+    return tree
 
 
 def int8_operands_from_numpy(

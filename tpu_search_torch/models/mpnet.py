@@ -27,8 +27,12 @@ statistics and f32 softmax, and bf16 compute selects the tanh gelu.  The
 attention core is ``ops.mpnet_attention`` in the ``[B, S, H]`` layout, or
 ``ops.mpnet_attention_bhsd`` in ``[B, heads, S, hd]`` for the shapes
 :func:`~tpu_search_torch.ops.mpnet_attention.attention_layout` sends there
-(the CUDA kernels on the card, their plain versions on the CPU); with
-``int8_ffn`` the post-attention half of each layer is ``ops.int8_ffn_ln``.
+(the CUDA kernels on the card, their plain versions on the CPU; bf16 and
+f32 on the card; with grad enabled, ``ops.mpnet_attention.MPNetAttention``
+and its backward kernel); with ``int8_ffn`` the post-attention half of each
+layer is ``ops.int8_ffn_ln``.  ``embed``, ``position_bias``, ``key_mask``
+and ``pool`` are the pieces of ``forward`` the tensor-parallel encoder
+(``parallel/encode.py``) runs around its column-split layers.
 
 ``attention_impl`` takes the JAX values.  ``"dense"`` (the default) and
 ``"pallas"`` both run the attention above: the port has one kernel per
@@ -180,6 +184,55 @@ def relative_position_bucket(
     return ret + torch.where(is_small, n, val_if_large)
 
 
+def attention_context(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: torch.Tensor, key_mask_add: torch.Tensor,
+                      num_heads: int, layout: str) -> torch.Tensor:
+    """``[B, S, h]`` projections of ``num_heads`` heads -> their ``[B, S,
+    h]`` context through the attention of ``layout``
+    (:func:`~tpu_search_torch.ops.mpnet_attention.attention_layout`)."""
+    b, s, h = q.shape
+    scale = 1.0 / math.sqrt(h // num_heads)
+    if layout == "bsh":
+        return mpnet_attention(q, k, v, bias, key_mask_add,
+                               num_heads=num_heads, scale=scale)
+
+    def heads(t):
+        return t.reshape(b, s, num_heads, -1).transpose(1, 2).contiguous()
+
+    ctx = mpnet_attention_bhsd(heads(q), heads(k), heads(v), bias,
+                               key_mask_add, scale=scale)
+    return ctx.transpose(1, 2).reshape(b, s, h)
+
+
+def embed_tokens(config: MPNetConfig, input_ids: torch.Tensor,
+                 word: torch.Tensor, position: torch.Tensor,
+                 tt0: torch.Tensor, ln_scale: torch.Tensor,
+                 ln_bias: torch.Tensor,
+                 tt_table: Optional[torch.Tensor] = None,
+                 token_type_ids: Optional[torch.Tensor] = None,
+                 ) -> torch.Tensor:
+    """``word`` (the ids' looked-up rows) + position rows + token-type
+    rows, then the embedding LayerNorm, in f32.  MPNet and XLM-R count
+    positions from ``pad + 1`` (pads keep the pad position), BERT from 0;
+    ``token_type_ids`` select ``tt_table`` rows where there is one, else
+    ``tt0`` is added to every token."""
+    pad = config.pad_token_id
+    if config.arch == "bert":
+        position_ids = torch.arange(
+            input_ids.shape[1], device=input_ids.device
+        ).expand_as(input_ids)
+    else:
+        live = (input_ids != pad).to(torch.int32)
+        position_ids = torch.cumsum(live, dim=1) * live + pad
+    position_ids = position_ids.clamp(max=config.max_position - 1)
+    x = word + F.embedding(position_ids, position)
+    if token_type_ids is not None and tt_table is not None:
+        x = x + tt_table[token_type_ids]
+    else:
+        x = x + tt0[None, None, :]
+    return layer_norm(x, ln_scale, ln_bias, config.layer_norm_eps)
+
+
 class MPNetLayer(nn.Module):
     """One post-LN transformer block."""
 
@@ -232,14 +285,9 @@ class MPNetLayer(nn.Module):
                 heads(self.q(x)), heads(self.k(x)), heads(self.v(x)), bias,
                 segment_ids, segment_ids, scale,
             ).transpose(1, 2).reshape(b, s, h)
-        elif self.layout == "bsh":
-            ctx = mpnet_attention(self.q(x), self.k(x), self.v(x), bias,
-                                  key_mask_add, num_heads=nh, scale=scale)
         else:
-            ctx = mpnet_attention_bhsd(
-                heads(self.q(x)), heads(self.k(x)), heads(self.v(x)), bias,
-                key_mask_add, scale=scale,
-            ).transpose(1, 2).reshape(b, s, h)
+            ctx = attention_context(self.q(x), self.k(x), self.v(x), bias,
+                                    key_mask_add, nh, self.layout)
         attn = self.o(ctx)
         eps = cfg.layer_norm_eps
         if int8_ffn:
@@ -292,7 +340,8 @@ class MPNetModel(nn.Module):
             self.tt_table = nn.Parameter(torch.zeros(2, h))
             self.pooler = nn.Linear(h, h)
             self.classifier = nn.Linear(h, config.num_labels)
-        self._bias_cache: Dict[tuple, torch.Tensor] = {}
+        self._bias_cache: Dict[tuple, Any] = {}
+        self._bucket_cache: Dict[tuple, torch.Tensor] = {}
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -303,27 +352,66 @@ class MPNetModel(nn.Module):
         for layer in self.layers:
             layer.quantize_ffn()
 
-    def position_bias(self, seq_len: int) -> torch.Tensor:
-        """``[heads, S, S]`` f32 bias, shared by the batch and every layer
-        (cached per sequence length); zero for BERT and XLM-R."""
-        dev = self.rel_bias.device
-        key = (seq_len, str(dev))
-        cached = self._bias_cache.get(key)
-        if cached is None and self.config.arch != "mpnet":
-            cached = torch.zeros((self.config.num_heads, seq_len, seq_len),
-                                 device=dev)
-            self._bias_cache[key] = cached
-        elif cached is None:
-            pos = torch.arange(seq_len, dtype=torch.int32, device=dev)
+    def buckets(self, seq_len: int, device) -> torch.Tensor:
+        """The ``[S, S]`` int64 relative-position bucket of each (query,
+        key) pair, cached per sequence length and device."""
+        key = (seq_len, str(device))
+        buckets = self._bucket_cache.get(key)
+        if buckets is None:
+            pos = torch.arange(seq_len, dtype=torch.int32, device=device)
             buckets = relative_position_bucket(
                 pos[None, :] - pos[:, None],
                 self.config.relative_attention_num_buckets,
                 self.config.relative_attention_max_distance,
-            )
-            values = self.rel_bias.detach().float()[buckets.long()]
-            cached = values.permute(2, 0, 1).contiguous()
+            ).long()
+            self._bucket_cache[key] = buckets
+        return buckets
+
+    def position_bias(self, seq_len: int) -> torch.Tensor:
+        """``[heads, S, S]`` f32 bias, shared by the batch and every layer;
+        zero for BERT and XLM-R.  The bucket indices are cached
+        (:meth:`buckets`).  Where grad is enabled and
+        ``rel_bias`` needs it, the bias is gathered from the live
+        ``rel_bias`` (so its gradient is the scatter-add of the bias's by
+        bucket, as ``jax.grad`` of the JAX gather gives); otherwise it is
+        cached, keyed to ``rel_bias``'s storage and version, so an
+        optimizer step or a load gathers anew; the serving path finds the
+        same tensor every call, as its CUDA graphs need."""
+        dev = self.rel_bias.device
+        key = (seq_len, str(dev))
+        if self.config.arch != "mpnet":
+            cached = self._bias_cache.get(key)
+            if cached is None:
+                cached = torch.zeros(
+                    (self.config.num_heads, seq_len, seq_len), device=dev)
+                self._bias_cache[key] = cached
+            return cached
+        buckets = self.buckets(seq_len, dev)
+        rel = self.rel_bias
+        if torch.is_grad_enabled() and rel.requires_grad:
+            return rel.float()[buckets].permute(2, 0, 1).contiguous()
+        # an inference tensor keeps no version, nor can a step change it
+        stamp = (rel.data_ptr(),
+                 None if rel.is_inference() else rel._version)
+        cached = self._bias_cache.get(key)
+        if cached is None or cached[0] != stamp:
+            values = rel.detach().float()[buckets].permute(2, 0, 1)
+            cached = (stamp, values.contiguous())
             self._bias_cache[key] = cached
-        return cached
+        return cached[1]
+
+    def embed(self, input_ids: torch.Tensor,
+              token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The embedding sum after its LayerNorm, ``[B, S, H]`` f32."""
+        return embed_tokens(
+            self.config, input_ids, self.word(input_ids),
+            self.position.weight, self.tt0, self.ln_scale, self.ln_bias,
+            getattr(self, "tt_table", None), token_type_ids)
+
+    def key_mask(self, attention_mask: torch.Tensor) -> torch.Tensor:
+        """The additive ``[B, S]`` f32 key mask of the dense attention."""
+        neg = torch.finfo(torch.float32).min
+        return ((1.0 - attention_mask.float()) * neg).contiguous()
 
     def forward_hidden(self, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor,
@@ -338,22 +426,7 @@ class MPNetModel(nn.Module):
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl={attention_impl!r} is not one "
                              f"of {ATTENTION_IMPLS}")
-        cfg = self.config
-        pad = cfg.pad_token_id
-        if cfg.arch == "bert":
-            position_ids = torch.arange(
-                input_ids.shape[1], device=input_ids.device
-            ).expand_as(input_ids)
-        else:
-            live = (input_ids != pad).to(torch.int32)
-            position_ids = torch.cumsum(live, dim=1) * live + pad
-        position_ids = position_ids.clamp(max=cfg.max_position - 1)
-        x = self.word(input_ids) + self.position(position_ids)
-        if token_type_ids is not None and hasattr(self, "tt_table"):
-            x = x + self.tt_table[token_type_ids]
-        else:
-            x = x + self.tt0[None, None, :]
-        x = layer_norm(x, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
+        x = self.embed(input_ids, token_type_ids)
         x = x.to(self.compute_dtype)
         bias = self.position_bias(input_ids.shape[1])
         segment_ids = key_mask_add = None
@@ -363,8 +436,7 @@ class MPNetModel(nn.Module):
             bias = bias.to(self.compute_dtype)
             segment_ids = attention_mask.to(torch.int32).contiguous()
         else:
-            neg = torch.finfo(torch.float32).min
-            key_mask_add = ((1.0 - attention_mask.float()) * neg).contiguous()
+            key_mask_add = self.key_mask(attention_mask)
         for layer in self.layers:
             x = layer(x, bias, key_mask_add, int8_ffn, attention_impl,
                       segment_ids)
@@ -377,6 +449,12 @@ class MPNetModel(nn.Module):
         config's pooling, then L2 normalization)."""
         hidden = self.forward_hidden(input_ids, attention_mask, int8_ffn,
                                      attention_impl=attention_impl)
+        return self.pool(hidden, attention_mask, normalize)
+
+    def pool(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+             normalize: bool = True) -> torch.Tensor:
+        """The last hidden state -> ``[B, H]`` f32 sentence embeddings:
+        the config's pooling, then (``normalize``) L2 normalization."""
         hidden = hidden.float()
         if self.config.pooling == "cls":
             pooled = hidden[:, 0, :]

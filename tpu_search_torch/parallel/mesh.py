@@ -1,9 +1,10 @@
-"""Device meshes for the sharded index.
+"""Device meshes and the sharding rules.
 
-Counterpart of ``tpu_search/parallel/mesh.py``'s :func:`build_mesh`: a
-``(data, model)`` grid of devices.  The index shards its corpus over the
-``data`` axis; ``model`` (tensor parallelism) is kept for the grid's shape
-and its checks.  Where JAX names a device of any process, each entry here
+Counterpart of ``tpu_search/parallel/mesh.py``: :func:`build_mesh`, a
+``(data, model)`` grid of devices, and the rules that place tensors on it.
+The index shards its corpus over the ``data`` axis, as the data-parallel
+encoder and the trainer shard their batch; the tensor-parallel encoder
+splits its weights over ``model`` (:func:`encoder_param_specs`).  Where JAX names a device of any process, each entry here
 is a ``torch.device`` with the process that owns it: a process addresses
 only its own entries.
 
@@ -16,13 +17,16 @@ only its own entries.
   process.  ``devices`` are this process's own; every process is taken to
   hold the same list, and ``dcn_data`` must be the process count.
 
-``data_sharding``, ``replicated`` and ``encoder_param_specs`` (the
-encoder's and the trainer's sharding rules) are not ported.
+A placement is a :class:`NamedSharding`: the mesh and, for each
+dimension of a tensor, the mesh axis it splits over (``None``: whole), as
+JAX's ``PartitionSpec``; an empty spec is replicated.  PyTorch has no
+GSPMD to read them: ``parallel/encode.py`` and ``parallel/train.py`` cut
+and place the tensors as the specs say.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +34,16 @@ import torch
 from ..devices.capability import platform_devices, resolve_device
 from .distributed import process_count, process_index
 
-__all__ = ["Mesh", "build_mesh"]
+__all__ = [
+    "Mesh",
+    "NamedSharding",
+    "build_mesh",
+    "data_sharding",
+    "encoder_param_specs",
+    "replicated",
+]
+
+Spec = Tuple[Optional[str], ...]
 
 
 class Mesh:
@@ -124,3 +137,58 @@ def build_mesh(
             f"have {len(devices)}")
     grid = _grid(devices, n_data, n_model)
     return Mesh(grid, np.full((n_data, n_model), process_index()))
+
+
+class NamedSharding(NamedTuple):
+    """A placement of a tensor on ``mesh``: ``spec[d]`` is the mesh axis
+    dimension ``d`` splits over, ``None`` (or a dimension past the spec)
+    whole."""
+
+    mesh: Mesh
+    spec: Spec
+
+
+def data_sharding(mesh: Mesh, ndim: int = 2) -> NamedSharding:
+    """Shard the leading axis over 'data', replicate the rest."""
+    return NamedSharding(mesh, ("data",) + (None,) * (ndim - 1))
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+# The port's [out, in] weights (nn.Linear) split as the JAX specs split the
+# [in, out] ones: a column split (q, k, v, ff_in) cuts the output dim, dim 0
+# here; a row split (o, ff_out) the input dim, dim 1 here.
+_LAYER_SPECS = {
+    "q.weight": ("model", None), "q.bias": ("model",),
+    "k.weight": ("model", None), "k.bias": ("model",),
+    "v.weight": ("model", None), "v.bias": ("model",),
+    "o.weight": (None, "model"),
+    "ff_in.weight": ("model", None), "ff_in.bias": ("model",),
+    "ff_out.weight": (None, "model"),
+}
+
+
+def encoder_param_specs(params) -> Dict[str, Spec]:
+    """Each parameter's spec on a ``(data, model)`` mesh, by name
+    (``params``: an ``MPNetModel`` or its ``named_parameters`` names).
+
+    Megatron-style tensor parallelism, as the JAX rules: q, k and v
+    project to heads (split their output, the heads, over 'model'); o
+    projects the heads back (split its input: the partial products are
+    summed); ff_in splits the intermediate dim it writes, ff_out the one
+    it reads; the word table splits its vocab rows.  Biases of split
+    outputs follow their weights; everything else is replicated."""
+    names = ([n for n, _ in params.named_parameters()]
+             if hasattr(params, "named_parameters") else list(params))
+    specs: Dict[str, Spec] = {}
+    for name in names:
+        if name == "word.weight":
+            specs[name] = ("model", None)
+        elif name.startswith("layers."):
+            leaf = name.split(".", 2)[2]
+            specs[name] = _LAYER_SPECS.get(leaf, ())
+        else:
+            specs[name] = ()
+    return specs
