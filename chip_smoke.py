@@ -12,7 +12,9 @@ Phases, each printing its numbers on its own line:
      are wgmma's alone and that
      ``flash_attention``'s and ``mpnet_attention_bhsd``'s q k^T issue
      wgmma, that the IVF digit scans multiply with wgmma at Q > 8 and
-     mma.sync at Q <= 8, and print the card's name and power limit;
+     mma.sync at Q <= 8, that the attention backward's and the f32
+     forward's kernels multiply on the tensor cores (HMMA), and print the
+     card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it (max error, kernel and plain times,
      the least time the card could take, and where one PyTorch call
@@ -148,11 +150,13 @@ Phases, each printing its numbers on its own line:
      ``TRAIN_GRAD_COS``), 5 AdamW steps at ``TRAIN_LR`` on one fixed batch
      (the loss falling; ms a step, pairs/s, tokens/s, peak MB, the
      backward's 24 launches a step), 4 data shards on cuda:0 against one,
-     save / load / resume, the fine-tuned checkpoint served by
-     ``SearchEngine`` (8 self-searches at rank 1), a one-rank NCCL group
-     giving the same step; ``[f32_encoder]``: ``EmbeddingGenerator`` at
-     f32 compute on the card (``mpnet_attention_f32.cu``) against the CPU
-     encoder, cosine >= ``F32_ENCODER_COS``; ``[dryrun]``: the port's
+     save / load / resume, a profiled step (wall, device busy, the
+     attention backward's device ms, the largest kernels), the fine-tuned
+     checkpoint served by ``SearchEngine`` (8 self-searches at rank 1), a
+     one-rank NCCL group giving the same step; ``[f32_encoder]``:
+     ``EmbeddingGenerator`` at f32 compute on the card
+     (``mpnet_attention_f32.cu``) against the CPU encoder, cosine >=
+     ``F32_ENCODER_COS``; ``[dryrun]``: the port's
      ``parallel.dryrun.dryrun_multichip(4)`` on 4 x cuda:0.
 Phase 3 ends on the flat bf16 path's encoder (all-mpnet-base-v2 at full
 width, the int8 FFN through its gate) run through
@@ -184,7 +188,9 @@ and 512, hd 64, 32 and 26) with padded rows and a trained-scale bias;
 ``[attention_grad]``, the attention's backward kernel
 (``mpnet_attention_bwd.cu``) against its plain twin and against autograd of
 the plain forward at ``GRAD_SHAPES`` in bf16 and f32 (dQ, dK, dV and dBias
-gated; ms, device ms, launches, the bound and SDPA's forward + backward),
+gated; ms, device ms, launches, each launch's device time, the bound and
+SDPA's forward + backward; both kernels' SASS must hold HMMA, ``mma.sync``
+on the tensor cores),
 and ``[attention_f32]``, the f32 forward (``mpnet_attention_f32.cu``)
 against its plain twin at ``F32_SHAPES``.
 The second line from the end is the kernel summary JSON, with each
@@ -365,7 +371,8 @@ IVF_WARM_FILES = 10
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W): HBM
 # bytes/s and tensor-core operations/s by operand type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+                  "tf32": 495e12}
 N_QUANT_CONVERSATIONS = 200
 # The probes are drawn from the first PROBE_POOL chunk ids, which hold the
 # same texts on every storage path (each indexes the same files first, the
@@ -492,7 +499,7 @@ def short_kernel_name(name: str) -> str:
 # in the source fails the build: the int8 products must be wgmma's alone.
 REDESIGNED = ("mpnet_attention", "mpnet_attention_bhsd", "int8_gemm",
               "int8_ffn_ln", "flash_attention", "flat_topk", "ivf_topk",
-              "ivf_topk_int8",
+              "mpnet_attention_bwd", "mpnet_attention_f32", "ivf_topk_int8",
               "ivf_topk_int4", "flat_topk_int4", "flat_topk_int8",
               "int8_ffn_in", "int8_ffn_out", "int8_ffn_fused")
 SASS_RULES = {
@@ -500,6 +507,15 @@ SASS_RULES = {
     "int8_gemm": (("gemm_kernel",), True),
     "int8_ffn_ln": (("ffn_gemm1", "ffn_gemm2", "ffn_out_cq"), True),
     "flash_attention": (("flash_kernel",), False),
+}
+
+
+# The tensor-core row / column attention kernels (attention_tc.cuh): every
+# product is an mma.sync (bf16, or 3xTF32 in f32), so each kernel named
+# here must hold HMMA instructions.
+HMMA_SASS_RULES = {
+    "mpnet_attention_bwd": ("bwd_rows", "bwd_cols"),
+    "mpnet_attention_f32": ("attention_f32_tc",),
 }
 
 
@@ -635,7 +651,8 @@ def library_of(name: str) -> str:
 
 def check_build(logs: dict) -> None:
     """Print registers and spills of the redesigned kernels, and fail
-    unless their SASS keeps ``SASS_RULES`` and ``DIGIT_SASS_RULES``."""
+    unless their SASS keeps ``SASS_RULES``, ``HMMA_SASS_RULES`` and
+    ``DIGIT_SASS_RULES``."""
     from tpu_search_torch.ops import _build
 
     for name in dict.fromkeys(library_of(n) for n in REDESIGNED):
@@ -660,6 +677,18 @@ def check_build(logs: dict) -> None:
                   f"gmma_instructions={gmma} imma_instructions={imma}",
                   flush=True)
         faults = sass_faults(counts, wanted, no_imma)
+        if faults:
+            fail(f"{name}'s SASS breaks its rule: {'; '.join(faults)}")
+    for name, wanted in HMMA_SASS_RULES.items():
+        counts = sass_of(name)
+        for (_, _, hmma), kernel in zip(counts.values(),
+                                        demangle(list(counts))):
+            print(f"[build] sass {name} {short_name(kernel)} "
+                  f"hmma_instructions={hmma}", flush=True)
+        faults = [f"no kernel named {part}" for part in wanted
+                  if not any(part in n for n in counts)]
+        faults += [f"{n} holds no HMMA" for n, (_, _, hmma) in counts.items()
+                   if hmma == 0 and any(part in n for part in wanted)]
         if faults:
             fail(f"{name}'s SASS breaks its rule: {'; '.join(faults)}")
     for name, wanted in DIGIT_SASS_RULES.items():
@@ -1324,9 +1353,11 @@ def check_attention_grad(results: dict) -> None:
     ``GRAD_SHAPES`` in bf16 and f32 (a batch row fully padded, others with
     random lengths, the bias trained-scale): each of dQ, dK, dV and dBias
     gated; ms in turns with the plain version, device ms and launches a
-    call, the bound (bytes of q, k, v, dO and the bias read and dQ, dK, dV
-    and dBias written, or 10 B heads S^2 hd flops with the scores
-    recomputed) and SDPA's forward + backward."""
+    call and each launch's device time (``launch_split``), the bound
+    (bytes of q, k, v, dO and the bias read and dQ, dK, dV and dBias
+    written, or 10 B heads S^2 hd flops with the scores recomputed: bf16
+    at 989 TFLOP/s, f32 as the 3xTF32 products the kernel runs, three
+    tf32 products each at 495 TFLOP/s) and SDPA's forward + backward."""
     import torch
 
     from tpu_search_torch.ops import _build
@@ -1397,12 +1428,15 @@ def check_attention_grad(results: dict) -> None:
             kms, pms = paired_ms(kernel, plain, 5)
             dev_ms, launches = device_breakdown(
                 f"mpnet_attention_bwd {tag}", kernel, 5)
+            launch_split("mpnet_attention_bwd", tag, kernel)
             lib, lib_bias = sdpa_grad_ms(q, k, v, bias, mask, grad, scale,
                                          nh, layout)
             size = 2 if dtype == "bfloat16" else 4
             nbytes = 7 * b * s * h * size + 2 * nh * s * s * 4 + b * s * 4
-            bound_ms, by = bound(nbytes, 10 * b * nh * s * s * hd,
-                                 "bf16" if dtype == "bfloat16" else "f32")
+            flops = 10 * b * nh * s * s * hd
+            bound_ms, by = (bound(nbytes, flops, "bf16")
+                            if dtype == "bfloat16"
+                            else bound(nbytes, 3 * flops, "tf32"))
             print(f"[attention_grad] {tag} {' '.join(parts)} "
                   f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
                   f"device_ms={dev_ms:.4f} launches_per_call={launches:.1f} "
@@ -1439,8 +1473,9 @@ def check_attention_f32(results: dict) -> None:
     """``[attention_f32]``: ``mpnet_attention_f32.cu`` through the wrappers
     (f32 q, k, v) against the plain versions at ``F32_SHAPES`` (a padded
     and a fully padded row): max error within ``ATTN_F32_TOL``, one launch
-    a call, ms in turns with the plain version, SDPA in f32, the bound (f32
-    FMAs: 4 B heads S^2 hd flops at 67 TFLOP/s, or the bytes)."""
+    a call, ms in turns with the plain version, SDPA in f32, the bound
+    (4 B heads S^2 hd flops as the 3xTF32 products the kernel runs, three
+    tf32 products each at 495 TFLOP/s, or the bytes)."""
     import torch
 
     from tpu_search_torch.ops import _build
@@ -1486,7 +1521,7 @@ def check_attention_f32(results: dict) -> None:
         lib = sdpa_ms(*(heads_of(t, nh) if layout == "bsh" else t
                         for t in (q, k, v)), bias, mask, scale)
         bound_ms, by = bound(4 * b * s * h * 4 + nh * s * s * 4 + b * s * 4,
-                             4 * b * nh * s * s * hd, "f32")
+                             3 * 4 * b * nh * s * s * hd, "tf32")
         print(f"[attention_f32] {tag} max_abs_err={err:.3e} "
               f"kernel_ms={kms:.4f} plain_ms={pms:.4f} sdpa_ms={lib:.4f} "
               f"bound_ms={bound_ms:.4f} bound_by={by}", flush=True)
@@ -3386,6 +3421,28 @@ def grad_cosines(a: dict, b: dict, what: str) -> float:
     return worst
 
 
+def train_step_profile(call, calls: int = 3) -> None:
+    """Where a warm training step's time goes (torch.profiler over
+    ``calls`` steps): the wall and the device's busy time a step, the
+    attention backward's device ms a step (its three kernels), device
+    launches a step and the five kernels that take the most device time."""
+    from tpu_search_torch.utils.device_profile import _by_kernel, busy_seconds
+
+    events, wall = profiled_events("[train] step", call, calls)
+    busy = busy_seconds((e.time_range.start, e.time_range.end)
+                        for e in events) / calls
+    per_step = {kernel: ms * n / calls
+                for kernel, ms, n in kernel_split(_by_kernel(events))}
+    bwd = sum(per_step.get(k, 0.0)
+              for k in ("bwd_rows", "bwd_cols", "bias_grad_kernel"))
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[train] step_profile calls={calls} wall_ms={wall * 1e3:.2f} "
+          f"device_busy_ms={busy * 1e3:.2f} idle_share={1 - busy / wall:.4f} "
+          f"attention_bwd_device_ms={bwd:.2f} launches_per_step="
+          f"{len(events) / calls:.0f} top_device_ms: "
+          + " ".join(f"{k}={v:.2f}" for k, v in top), flush=True)
+
+
 def check_train(work: Path) -> dict:
     """``[train]``: the trainer at all-mpnet-base-v2's width on the card
     (see ``TRAIN_*``).  Each parameter's gradient with the kernels against
@@ -3393,7 +3450,8 @@ def check_train(work: Path) -> dict:
     ``TRAIN_LR``, the loss finite and falling, ms a step, pairs/s,
     tokens/s, peak MB and the backward's launches (24 a step: 12 layers,
     queries and documents); 4 data shards on cuda:0 against one device;
-    save, load, resume; the fine-tuned checkpoint loaded by
+    save, load, resume; a profiled step (``train_step_profile``); the
+    fine-tuned checkpoint loaded by
     ``SearchEngine`` on the card, indexing 20 conversations, each of 8
     probes at rank 1 of its own search; a one-rank NCCL group giving the
     same step.  Returns the launch counts of the 5 steps."""
@@ -3526,6 +3584,7 @@ def check_train(work: Path) -> dict:
     if abs(float(a_loss) - float(b_loss)) > 1e-5 * abs(float(a_loss)) or (
             diff > 1e-2 * TRAIN_LR):
         fail("[train] the resumed step is not the continued one")
+    train_step_profile(lambda: step(a_state, *batch))
 
     # the fine-tuned checkpoint served by SearchEngine on the card
     data = work / "train_data"

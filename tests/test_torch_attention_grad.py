@@ -204,3 +204,91 @@ def test_function_marks_the_mask_without_gradient():
     out = MPNetAttention.apply(*t, 0.5, None)
     out.backward(torch.from_numpy(do))
     assert t[4].grad is None and t[0].grad is not None
+
+
+def design_bwd(q, k, v, do, bias, mask, scale, ds_split=True, tile=64):
+    """``(dq, dk, dv, dbias)`` by ``csrc/mpnet_attention_bwd.cu``'s
+    arithmetic in plain torch, ``[B, heads, S, hd]`` bf16 operands: every
+    product of bf16 operands exact with f32 sums; m, l and
+    d = sum exp(s - m) dP online over key tiles (rescaled as m grows), so
+    D = d / l is the f32 rowsum(P o dP); P = exp(s - m) / l; dS rounded to
+    bf16 hi + lo (``ds_split``) for ``dS K`` and ``dS^T Q``, each half its
+    own product into one f32 sum, or to one bf16 (the trap)."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s_all = ((qf @ kf.transpose(-1, -2)) * scale + bias[None]) + mask[
+        :, None, None, :]
+    dp_all = dof @ vf.transpose(-1, -2)
+    shape = s_all.shape[:-1]
+    m = torch.full(shape, float("-inf"))
+    l, d = torch.zeros(shape), torch.zeros(shape)
+    for kb in range(0, s_all.shape[-1], tile):
+        st, dpt = s_all[..., kb:kb + tile], dp_all[..., kb:kb + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        shift = torch.where(m_new == float("-inf"), 0.0, m_new)
+        e = torch.exp(st - shift[..., None])
+        f = torch.exp(m - shift)
+        l, d, m = l * f + e.sum(-1), d * f + (e * dpt).sum(-1), m_new
+    safe = torch.isfinite(m)[..., None]
+    big_d = torch.where(safe, (d / l)[..., None], 0.0)
+    p = torch.where(safe, torch.exp(s_all - torch.where(safe, m[..., None],
+                                                        0.0)) / l[..., None],
+                    1.0 / s_all.shape[-1])
+    ds = torch.where(safe, p * (dp_all - big_d), 0.0)
+    hi = ds.to(torch.bfloat16).float()
+    parts = (hi, (ds - hi).to(torch.bfloat16).float()) if ds_split else (hi,)
+    dq = sum(x @ kf for x in parts) * scale
+    dk = sum(x.transpose(-1, -2) @ qf for x in parts) * scale
+    dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ dof
+    return (dq.to(torch.bfloat16), dk.to(torch.bfloat16),
+            dv.to(torch.bfloat16), ds.sum(dim=0))
+
+
+@pytest.mark.parametrize("layout", ["bsh", "bhsd"])
+def test_tensor_core_design_numerics_pass_the_card_gates(layout):
+    """The redesigned backward's arithmetic (``design_bwd``) against
+    ``mpnet_attention_bwd_plain`` under ``chip_smoke.py``'s bf16 gates:
+    dQ, dK and dV within ``ATTN_GRAD_BF16_TOL`` of the largest value and at
+    most ``ATTN_GRAD_ULP_SHARE`` of outputs more than one bf16 ulp off;
+    dBias (f32) within ``ATTN_GRAD_F32_TOL``.  B 2, 4 heads, S 256, hd 64,
+    a key-padded row, a trained-scale bias; inputs in either layout go
+    through the plain twin, the design runs on their heads.  Rounding dS
+    to one bf16 instead of hi + lo breaks the ulp gate on dQ and dK."""
+    from chip_smoke import (
+        ATTN_GRAD_BF16_TOL,
+        ATTN_GRAD_F32_TOL,
+        ATTN_GRAD_ULP_SHARE,
+        bf16_ulp_share,
+        rel_errors,
+    )
+
+    b, nh, s, hd = 2, 4, 256, 64
+    rng = np.random.default_rng(21)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, nh, s, hd)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    bias = torch.from_numpy((rng.standard_normal((nh, s, s)) * 0.5).astype(
+        np.float32))
+    mask = torch.zeros((b, s))
+    mask[1, 150:] = NEG
+    scale = hd ** -0.5
+
+    def to_bsh(t):
+        return t.transpose(1, 2).reshape(b, s, nh * hd)
+
+    if layout == "bsh":
+        want = mpnet_attention_bwd_plain(*(to_bsh(t) for t in (q, k, v, do)),
+                                         bias, mask, scale, nh)
+        want = [t.reshape(b, s, nh, hd).transpose(1, 2) for t in want[:3]] + [
+            want[3]]
+    else:
+        want = mpnet_attention_bwd_plain(q, k, v, do, bias, mask, scale)
+    got = design_bwd(q, k, v, do, bias, mask, scale)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        errors = rel_errors(g, w)
+        if name == "dbias":
+            assert errors["max_rel_err"] <= ATTN_GRAD_F32_TOL, errors
+            continue
+        assert errors["max_rel_err"] <= ATTN_GRAD_BF16_TOL, (name, errors)
+        assert bf16_ulp_share(g, w) <= ATTN_GRAD_ULP_SHARE, name
+    rounded = design_bwd(q, k, v, do, bias, mask, scale, ds_split=False)
+    for name, g, w in zip(("dq", "dk"), rounded, want):
+        assert bf16_ulp_share(g, w) > ATTN_GRAD_ULP_SHARE, name

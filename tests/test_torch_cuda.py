@@ -22,7 +22,7 @@ rows, ragged M and K/N off the 128 grid, and on the planted inputs of
 ``chip_smoke.planted_rows``; ``int8_ffn_ln`` equal to its plain version on
 ``chip_smoke.planted_epilogue``'s inputs; the stock-flash kernel within the
 attention tolerances at S 128 to 512 and head sizes 8 to 128, with padded
-rows; the int4 probe's variants equal to their plain versions and the
+rows (refusing grad); the int4 probe's variants equal to their plain versions and the
 scan-overhead probe's within the flat scan's 1e-4; the IVF int8 / int4
 scans' prologue kernel equal to its plain twin on the cases of
 ``tests/ivf_prep_cases.py``, and both scans exact with the live schedule
@@ -1234,6 +1234,36 @@ def test_flash_attention_refuses_shapes(dev, s, hd):
         flash_attention(q, q, q, ab, seg, seg, 1.0)
 
 
+def test_flash_attention_refuses_grad(dev):
+    """The flash kernel has no backward: with grad enabled and q, k, v or
+    ab requiring it, ``ValueError`` naming the dense mode and no launch;
+    under ``no_grad`` the same inputs launch once, as without grad."""
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, ab = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16)
+                   for shape in ((2, 2, 128, 64),) * 3 + ((2, 128, 128),))
+    seg = torch.ones((2, 128), dtype=torch.int32, device=dev)
+    for i in range(4):
+        args = [q, k, v, ab]
+        args[i] = args[i].clone().requires_grad_()
+        before = _build.LAUNCHES["flash_attention"]
+        with pytest.raises(ValueError, match="dense"):
+            flash_attention(*args, seg, seg, 0.125)
+        assert _build.LAUNCHES["flash_attention"] == before
+        with torch.no_grad():
+            out = flash_attention(*args, seg, seg, 0.125)
+        assert _build.LAUNCHES["flash_attention"] == before + 1
+    ref = flash_attention_plain(q, k, v, ab, seg, seg, 0.125)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref.float()).abs().max()) <= 3e-2
+
+
 def test_int4_probe_variants(dev):
     """Every int4 probe variant equals its plain version (folds, top-k)."""
     from tpu_search_torch.benchmarks import int4_probe
@@ -1456,11 +1486,15 @@ def attention_case(dev, layout, b, s, nh, hd, dtype, seed):
     ("bsh", 200, 2, 64, torch.bfloat16),
     ("bsh", 33, 4, 32, torch.float32),
     ("bsh", 1, 2, 64, torch.bfloat16),
+    ("bhsd", 1500, 1, 128, torch.bfloat16),
+    ("bsh", 777, 2, 48, torch.float32),
 ])
 def test_attention_bwd_kernel(dev, layout, s, nh, hd, dtype):
     """``mpnet_attention_bwd.cu`` against ``mpnet_attention_bwd_plain`` at
-    S off its 16-row and 64-key tiles (1, 17, 33, 100, 200), head dims 8 to
-    128 (13 and 26 not a multiple of 4), both layouts and dtypes, with
+    S off its 64-row and 64 / 32-key tiles (1, 17, 33, 100, 200, 777) and
+    past the old row passes' shared-memory cap (1,500 at hd 128), head dims
+    8 to 128 (13 and 26 not a multiple of 4, 48 padded to 64), both layouts
+    and dtypes, with
     padded, min-padded and fully -inf rows: one C call, dQ, dK, dV and
     dBias within ``chip_smoke.grad_gate`` of the plain twin, zero dQ on
     the -inf row, and no dBias when the bias needs none."""
@@ -1495,12 +1529,13 @@ def test_attention_bwd_kernel(dev, layout, s, nh, hd, dtype):
 
 @pytest.mark.parametrize("layout,s,nh,hd", [
     ("bhsd", 100, 3, 13), ("bhsd", 1, 1, 128), ("bsh", 77, 4, 32),
-    ("bsh", 384, 12, 64),
+    ("bsh", 384, 12, 64), ("bhsd", 3000, 2, 128),
 ])
 def test_attention_f32_kernel(dev, layout, s, nh, hd):
     """``mpnet_attention_f32.cu`` through the wrappers (f32 q, k, v) against
-    the plain versions at ragged S, with padded and fully -inf rows:
-    within ``chip_smoke.ATTN_F32_TOL``, one launch, finite."""
+    the plain versions at ragged S (and S 3,000 at hd 128, past the old
+    row pass's cap), with padded and fully -inf rows: within
+    ``chip_smoke.ATTN_F32_TOL``, one launch, finite."""
     from chip_smoke import ATTN_F32_TOL
     from tpu_search_torch.ops import _build
     from tpu_search_torch.ops.mpnet_attention import (

@@ -186,3 +186,43 @@ def test_other_impls_are_refused():
     ids, mask = model_batch(cfg, 128, seed=7)
     with pytest.raises(ValueError, match="attention_impl"):
         port_hidden(init_params(cfg, 0), cfg, ids, mask, "xla")
+
+
+def test_card_branch_refuses_grad_and_runs_without(monkeypatch):
+    """The card's branch (``_flash_kernel``) with its kernel call patched:
+    with grad enabled and q, k, v or ``ab`` requiring it, ``ValueError``
+    naming the dense mode and no launch; without grad (or under
+    ``no_grad``), one call of the kernel and one count, as before.  The
+    CPU's plain version keeps its autograd."""
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops import flash_attention as fa
+
+    calls = []
+
+    def kernel(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(fa, "_fn", lambda: kernel)
+    monkeypatch.setattr(fa._build, "stream_ptr", lambda device: 0)
+    q, k, v, ab, seg = (torch.from_numpy(x) for x in op_inputs(128, 32, 3))
+    q, k, v, ab = (t.to(torch.bfloat16) for t in (q, k, v, ab))
+    for name in ("q", "k", "v", "ab"):
+        args = {"q": q, "k": k, "v": v, "ab": ab}
+        args[name] = args[name].clone().requires_grad_()
+        with pytest.raises(ValueError, match="dense"):
+            fa._flash_kernel(*args.values(), seg, seg, 0.125)
+        assert not calls
+        with torch.no_grad():
+            out = fa._flash_kernel(*args.values(), seg, seg, 0.125)
+        assert out.shape == q.shape and len(calls) == 1
+        calls.clear()
+    before = _build.LAUNCHES["flash_attention"]
+    fa._flash_kernel(q, k, v, ab, seg, seg, 0.125)
+    assert len(calls) == 1
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    leaf = q.float().requires_grad_()
+    out = flash_attention(leaf, k.float(), v.float(), ab.float(), seg, seg,
+                          0.125)
+    out.sum().backward()
+    assert leaf.grad is not None and torch.isfinite(leaf.grad).all()

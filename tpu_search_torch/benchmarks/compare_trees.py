@@ -3,8 +3,8 @@ turns, and check they agree.
 
     git archive <commit> tpu_search_torch | tar -x -C <dir>
     python -m tpu_search_torch.benchmarks.compare_trees --other NAME=<dir>
-        [--other NAME=<dir> ...] [--family scans|int8 ...] [--case NAME ...]
-        [--no-bench] [--out FILE]      (families: flat, scans, int8)
+        [--other NAME=<dir> ...] [--family FAMILY ...] [--case NAME ...]
+        [--no-bench] [--out FILE]  (families: flat, scans, int8, attention)
 
 Run from the repository's root: it reuses ``chip_smoke.py``'s corpora,
 operands and timers.  Each ``<dir>`` holds another tree's
@@ -36,6 +36,15 @@ Families (``--family``, all by default):
   ``int8_ffn_ln`` (the encoder's layer half), each bit for bit; then,
   unless ``--no-bench``, each tree's int8 bench
   (``int8_gemm_bench.run``), one JSON line each.
+
+- ``attention``, at ``chip_smoke.py``'s shapes and inputs
+  (``attention_inputs``: a trained-scale bias, random key lengths, a
+  fully padded row): ``mpnet_attention_bwd`` at ``GRAD_SHAPES`` in bf16
+  and f32, and the f32 forward (``mpnet_attention`` /
+  ``mpnet_attention_bhsd`` on f32 q, k, v) at ``F32_SHAPES``.  Every
+  tree's output is held to its ``[attention_grad]`` / ``[attention_f32]``
+  gate against this tree's plain twin, not bit for bit: the trees' kernels
+  sum in other orders.
 
 ``--case`` keeps the cases whose names start with one of its values.  Each
 case prints one JSON line: each tree's CUDA-event ms a call in turns (this,
@@ -318,6 +327,79 @@ def run_int8(pkgs: dict, run: Runner) -> None:
          for tree, f in modules(pkgs, "ops.int8_ffn").items()})
 
 
+def grad_ok(got, want, dtype: str) -> bool:
+    """``(dq, dk, dv, dbias)`` inside ``[attention_grad]``'s gate against
+    the plain twin's."""
+    import chip_smoke as cs
+
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if not cs.grad_gate(cs.rel_errors(g, w),
+                            "float32" if name == "dbias" else dtype,
+                            auto=False):
+            return False
+        if (dtype == "bfloat16" and name != "dbias"
+                and cs.bf16_ulp_share(g, w) > cs.ATTN_GRAD_ULP_SHARE):
+            return False
+    return True
+
+
+def run_attention(pkgs: dict, run: Runner) -> None:
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+
+    mods = modules(pkgs, "ops.mpnet_attention")
+    this = mods["this"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for layout, b, s, h, nh in cs.GRAD_SHAPES:
+        hd = h // nh
+        shape = (b, s, h) if layout == "bsh" else (b, nh, s, hd)
+        heads = nh if layout == "bsh" else None
+        scale = 1.0 / math.sqrt(hd)
+        for dtype in ("bfloat16", "float32"):
+            q, k, v, bias, mask = cs.attention_inputs(gen, shape, nh, s, dev)
+            q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+            grad = torch.randn(shape, generator=gen, device=dev).to(q.dtype)
+            args = (q, k, v, grad, bias, mask, scale, heads)
+            want = this.mpnet_attention_bwd_plain(*args)
+
+            def agree(got, mine, want=want, dtype=dtype):
+                return grad_ok(got, want, dtype) and grad_ok(mine, want, dtype)
+
+            run(f"mpnet_attention_bwd {layout} B={b} S={s} H={h} heads={nh} "
+                f"{dtype}",
+                {tree: (lambda m=m, args=args: m.mpnet_attention_bwd(*args))
+                 for tree, m in mods.items()}, agree)
+            del q, k, v, grad, want
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for layout, b, s, h, nh in cs.F32_SHAPES:
+        hd = h // nh
+        shape = (b, s, h) if layout == "bsh" else (b, nh, s, hd)
+        q, k, v, bias, mask = cs.attention_inputs(gen, shape, nh, s, dev)
+        q, k, v = (t.float() for t in (q, k, v))
+        scale = 1.0 / math.sqrt(hd)
+        if layout == "bsh":
+            args = (q, k, v, bias, mask, nh, scale)
+            want = this.mpnet_attention_plain(*args)
+            fn = "mpnet_attention"
+        else:
+            args = (q, k, v, bias, mask, scale)
+            want = this.mpnet_attention_bhsd_plain(*args)
+            fn = "mpnet_attention_bhsd"
+
+        def agree(got, mine, want=want):
+            return all(float((x - want).abs().max()) <= cs.ATTN_F32_TOL
+                       for x in (got, mine))
+
+        run(f"mpnet_attention_f32 {layout} B={b} S={s} H={h} heads={nh}",
+            {tree: (lambda m=m, args=args, fn=fn: getattr(m, fn)(*args))
+             for tree, m in mods.items()}, agree)
+        del q, k, v, want
+
+
 def run_int8_bench(pkgs: dict, emit) -> None:
     for tree, bench in modules(pkgs, "benchmarks.int8_gemm_bench").items():
         result = bench.run("cuda")
@@ -331,7 +413,7 @@ def main(argv=None) -> None:
     parser.add_argument("--other", action="append", required=True,
                         metavar="NAME=DIR")
     parser.add_argument("--family", action="append",
-                        choices=("flat", "scans", "int8"))
+                        choices=("flat", "scans", "int8", "attention"))
     parser.add_argument("--case", action="append", default=[])
     parser.add_argument("--no-bench", action="store_true")
     parser.add_argument("--out", type=Path, default=None)
@@ -366,7 +448,7 @@ def main(argv=None) -> None:
         list(pool.map(lambda build: build.build_all(),
                       modules(pkgs, "ops._build").values()))
     run = Runner(emit, args.case)
-    families = args.family or ["flat", "scans", "int8"]
+    families = args.family or ["flat", "scans", "int8", "attention"]
     if "flat" in families:
         run_flat(pkgs, run)
     if "scans" in families:
@@ -377,6 +459,8 @@ def main(argv=None) -> None:
         run_int8(pkgs, run)
         if not args.no_bench:
             run_int8_bench(pkgs, emit)
+    if "attention" in families:
+        run_attention(pkgs, run)
 
 
 if __name__ == "__main__":

@@ -28,8 +28,12 @@ per batch row.  S must be a multiple of 128 and the head size at most 128,
 as the stock kernel's block sizes require; anything else raises
 ``ValueError`` on every device.
 
-CPU tensors take :func:`flash_attention_plain`; a CUDA tensor launches the
-kernel or raises.
+CPU tensors take :func:`flash_attention_plain` (which autograd
+differentiates); a CUDA tensor launches the kernel or raises.  The kernel
+writes its output outside autograd and has no backward, so on the card a
+call with grad enabled and q, k, v or ``ab`` requiring it raises
+``ValueError`` instead of giving them no gradient: the dense mode
+(``ops.mpnet_attention.MPNetAttention``) is the one with a backward.
 """
 
 from __future__ import annotations
@@ -150,6 +154,19 @@ def flash_attention(
         return flash_attention_plain(q, k, v, ab, q_seg, kv_seg, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    return _flash_kernel(q, k, v, ab, q_seg, kv_seg, sm_scale)
+
+
+def _flash_kernel(q, k, v, ab, q_seg, kv_seg, sm_scale) -> torch.Tensor:
+    """The card's branch of :func:`flash_attention`: ``flash_attention.cu``
+    after the checks, refused under grad (it has no backward)."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q, k, v, ab)):
+        raise ValueError(
+            "flash_attention has no backward on the card: its kernel writes "
+            "outside autograd, so q, k, v and ab would get no gradient; "
+            "train with attention_impl='dense', whose MPNetAttention runs "
+            "the backward kernel, or call it under torch.no_grad()")
     check_flash_shapes(q, k, v, ab, q_seg, kv_seg)
     b, nh, s, hd = q.shape
     for name, t in (("q", q), ("k", k), ("v", v), ("ab", ab)):

@@ -59,8 +59,6 @@ _L = ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]
 _F32_ARGTYPES = [_P] * 6 + [_I] * 4 + [_L] * 3 + [ctypes.c_float, _P]
 _BWD_ARGTYPES = [_P] * 12 + [_I] * 4 + [_L] * 3 + [_I, ctypes.c_float, _P]
-# The row passes' dynamic shared memory cap (csrc/attention_rows.cuh).
-_ROW_SMEM_MAX = 231424
 
 
 def attention_layout(hidden: int, num_heads: int) -> str:
@@ -197,13 +195,6 @@ def _check_operands(q, tensors, bias, key_mask_add, b, nh, s, dtypes,
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
 
 
-def _row_smem(s: int, hd: int, score_blocks: int) -> int:
-    """The row pass's dynamic shared memory (``row_pass_bytes``)."""
-    sld = -(-s // 64) * 64
-    ld = hd | 1
-    return 4 * (score_blocks * 16 * sld + 16 * ld + 64 * ld)
-
-
 def _library_fn(library: str, name: str, argtypes):
     fn = getattr(_build.library(library), name)
     if fn.argtypes is None:
@@ -219,9 +210,6 @@ def _f32_forward(q, k, v, bias, key_mask_add, scale, num_heads):
                     (torch.float32,), "float32")
     if not 1 <= hd <= 128:
         raise ValueError(f"head dim {hd} not in 1..128")
-    if _row_smem(s, hd, 1) > _ROW_SMEM_MAX:
-        raise ValueError(f"sequence {s} too long for the f32 kernel at "
-                         f"head dim {hd}")
     out = torch.empty_like(q)
     code = _library_fn("mpnet_attention_f32", "mpnet_attention_f32",
                        _F32_ARGTYPES)(
@@ -301,8 +289,9 @@ def mpnet_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """``(dq, dk, dv, dbias)``: :func:`mpnet_attention_bwd_plain`'s
     contract, by ``csrc/mpnet_attention_bwd.cu`` on the card (bf16 or f32,
-    either layout, head dim up to 128; one C call of three launches).
-    ``dbias`` is None when ``bias_grad`` is false."""
+    either layout, head dim up to 128, any S; one C call of three launches,
+    two without ``bias_grad``).  ``dbias`` is None when ``bias_grad`` is
+    false, and the call then allocates no ``[B, heads, S, S]`` scratch."""
     if q.device.type == "cpu":
         out = mpnet_attention_bwd_plain(q, k, v, grad_out, bias,
                                         key_mask_add, scale, num_heads)
@@ -315,21 +304,20 @@ def mpnet_attention_bwd(
                     (torch.bfloat16, torch.float32), "bfloat16 or float32")
     if not 1 <= hd <= 128:
         raise ValueError(f"head dim {hd} not in 1..128")
-    if _row_smem(s, hd, 2) > _ROW_SMEM_MAX:
-        raise ValueError(f"sequence {s} too long for the backward kernel at "
-                         f"head dim {hd}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dbias = (torch.empty((nh, s, s), dtype=torch.float32, device=q.device)
-             if bias_grad else None)
-    scratch = torch.empty((2, b, nh, s, s), dtype=torch.float32,
-                          device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dbias = torch.empty((nh, s, s), **f32) if bias_grad else None
+    # each row's (m, l, 1 / l, D), and the f32 dS the bias's batch sum reads
+    stats = torch.empty((b, nh, s, 4), **f32)
+    ds = torch.empty((b, nh, s, s), **f32) if bias_grad else None
     code = _library_fn("mpnet_attention_bwd", "mpnet_attention_bwd",
                        _BWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(),
         bias.data_ptr(), key_mask_add.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
         dbias.data_ptr() if dbias is not None else None,
-        scratch[0].data_ptr(), scratch[1].data_ptr(), b, nh, s, hd,
+        ds.data_ptr() if ds is not None else None, stats.data_ptr(), b, nh,
+        s, hd,
         *strides, int(q.dtype == torch.bfloat16), float(scale),
         _build.stream_ptr(q.device),
     )
@@ -375,7 +363,7 @@ def mpnet_attention(
 ) -> torch.Tensor:
     """``[B, S, H]`` context; see the module docstring for the contract.
     bf16 on the card: head dim 32, 64 or 128, S a multiple of 64 up to
-    512; f32: head dim up to 128, any S the f32 kernel holds."""
+    512; f32: head dim up to 128, any S."""
     if _wants_grad(q, k, v, bias):
         return MPNetAttention.apply(q, k, v, bias, key_mask_add, scale,
                                     num_heads)
