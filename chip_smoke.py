@@ -200,11 +200,20 @@ kernel's launch count from the path that runs it; the last line is
     python3 chip_smoke.py --cross-card
 
 on a machine of two or more cards builds the kernels and runs only
-``[cross_card]`` (``check_cross_card``): the sharded index with one shard
-on each card, against one card (flat in five cases, and IVF int4 with its
-int8 refine tier), an engine that shards over every card, on the
-classic path, and a dp train step with one data shard a card against one
-card; the last line is the same ``{"ok": true, ...}``.
+``[cross_card]`` (``check_cross_card``): each card pair's peer access; an
+engine with ``CLAUDE_SEARCH_SHARD_DEVICES`` unset, whose auto rule shards
+its flat index over every card and whose fused window takes the shards
+(one CUDA graph a card), answering as the classic path and as one card,
+a replay equal to its eager run, an add and a remove seen, its warm
+server equal to in process; the sharded index with one shard on each
+card against one card (flat in five cases, and IVF int4 with its int8
+refine tier); at 1M x 768 in bf16, int8 and IVF int4 + refine,
+``[cross_card_fused]``: the fused window over the cards against the
+classic path on the same cards and one card's fused window (p50, wall,
+graph replays and kernel launches a search, equal answers); and a dp
+train step with one data shard a card against one card; the last line
+is the same ``{"ok": true, ...}``.  Both runs print ``[capability]``,
+the card's report (``devices.assess_gpu_capability``), first.
 """
 
 from __future__ import annotations
@@ -2996,12 +3005,11 @@ def check_sharded_ivf() -> None:
         build_mesh,
         initialize_distributed,
     )
+    from tpu_search_torch.parallel.sharded_index import run_stage
     from tpu_search_torch.parallel.sharded_ivf import (
+        card_plan,
         merge_global,
         sharded_ivf_scan,
-    )
-    from tpu_search_torch.parallel.sharded_refine import (
-        sharded_refine_rescore,
     )
 
     dev = torch.device("cuda")
@@ -3110,12 +3118,10 @@ def check_sharded_ivf() -> None:
             rescore = ""
             if scan_key[8]:
                 merged = merge()[1]
+                plan = card_plan(scan_key, buffers, staged, 10)
 
-                def rescore_call():
-                    return sharded_refine_rescore(
-                        buffers[stride * SHARDED_SHARDS:],
-                        tuple(sharded._shards), SHARDED_SHARDS, False, qt,
-                        merged, 10)
+                def rescore_call():  # the search's rescore stage
+                    return run_stage(plan, plan.stages[1], (qt, merged))
 
                 r_ms = cuda_ms(rescore_call)
                 rescore = f"rescore_ms={r_ms:.4f} "
@@ -3721,143 +3727,348 @@ def check_dryrun() -> dict:
     return launches
 
 
+def peer_access(devices) -> dict:
+    """``torch.cuda.can_device_access_peer`` for each ordered pair of
+    cards, printed on one ``[cross_card]`` line; True when every pair has
+    it."""
+    import torch
+
+    pairs = {f"{a.index}->{b.index}": torch.cuda.can_device_access_peer(
+        a.index, b.index) for a in devices for b in devices if a != b}
+    print(f"[cross_card] peer_access={json.dumps(pairs)} "
+          f"all={all(pairs.values())}", flush=True)
+    return all(pairs.values())
+
+
 def check_cross_card() -> None:
-    """``[cross_card]`` (``--cross-card``, two or more cards): the sharded
-    index with one shard on each card, ``build_mesh`` over every card.
-    The scan at 1M x 768 (10 % tombstoned) in each of ``SHARDED_CASES``
-    against the single-device ``FlatIndex`` on cuda:0 at Q 1, 8, 128 and
-    k 10, 128, unfiltered and under a half-density mask (scores within
-    ``SHARDED_REL_TOL``, ids equal outside exact ties): each shard's rows
-    on its own card, one kernel call a shard a search, cuda:0 the current
-    device after each, and the search's host ms beside the single
-    device's.  Then an engine with ``CLAUDE_SEARCH_SHARD_DEVICES`` set to
-    the card count indexes 200 conversations: the fused window declines,
-    ``search_conversations`` answers the 20 probe queries on the classic
-    path, and each answer equals the saved index's, loaded on cuda:0
-    alone, on the same embedding (ids outside exact ties, similarities
-    within ``WARM_EXACT``).  Last, ``check_cross_card_train``."""
+    """``[cross_card]`` (``--cross-card``, two or more cards), on a mesh
+    with one shard on each card (``build_mesh`` over every card).  First
+    each card pair's peer access, then ``cross_card_engine``: an engine
+    with ``CLAUDE_SEARCH_SHARD_DEVICES`` unset shards over every card,
+    its fused window takes the shards, its answers equal the classic path
+    on the same cards and one card, its warm server equals in process.
+    Then the scan at 1M x 768 (10 % tombstoned) in each of
+    ``SHARDED_CASES`` against the single-device ``FlatIndex`` on cuda:0 at
+    Q 1, 8, 128 and k 10, 128, unfiltered and under a half-density mask
+    (scores within ``SHARDED_REL_TOL``, ids equal outside exact ties):
+    each shard's rows on its own card, one kernel call a shard a search,
+    cuda:0 the current device after each, and the search's host ms beside
+    the single device's; in bf16 and int8 ``cross_card_fused`` times the
+    engine's fused window over those rows.  Then ``check_cross_card_ivf``
+    and ``check_cross_card_train``."""
     import numpy as np
     import torch
 
-    from tpu_search_torch.api.engine import SearchEngine
     from tpu_search_torch.devices import platform_devices
     from tpu_search_torch.index.flat import FlatIndex
     from tpu_search_torch.ops import _build
     from tpu_search_torch.parallel import ShardedFlatIndex, build_mesh
-    from tpu_search_torch.storage.hybrid import SearchConfig
-    from tpu_search_torch.utils.synthetic import (
-        write_conversations,
-        write_model,
-    )
 
     devices = platform_devices("cuda")
     if len(devices) < 2:
         fail(f"--cross-card needs two or more cards, have {len(devices)}")
     dev = devices[0]
     card = f"{card_name()} x{len(devices)}"
+    peer = peer_access(devices)
     mesh = build_mesh(n_data=len(devices), devices=devices)
-    gen = torch.Generator(device=dev).manual_seed(31)
-    rows = unit_rows(gen, SHARDED_N, 768)
-    dead = np.random.default_rng(32).choice(SHARDED_N, SHARDED_N // 10,
-                                            replace=False)
-    mask = np.random.default_rng(33).random(SHARDED_N) < 0.5
-    queries = {q: unit_rows(gen, q, 768).cpu().numpy() for q in SHARDED_QS}
-    for dtype, metric in SHARDED_CASES:
-        tag = f"{dtype}_{metric}"
-        sharded = ShardedFlatIndex.from_device_vectors(
-            rows, mesh, metric=metric, dtype=dtype)
-        sharded.remove(dead)
-        single = FlatIndex(768, metric=metric, dtype=dtype, device=dev)
-        single.add(rows)
-        single.remove(dead)
-        cards = [str(sh._vectors.device) for sh in sharded._shards.values()]
-        if cards != [str(d) for d in devices]:
-            fail(f"[cross_card] {tag}: shards on {cards}")
-        worst = 0.0
-        for q, k, m in itertools.product(SHARDED_QS, (10, 128), (None, mask)):
-            before = _build.LAUNCHES[KERNEL_OF[dtype]]
-            got = sharded.search(queries[q], k, mask=m)
-            calls = _build.LAUNCHES[KERNEL_OF[dtype]] - before
-            _, rel, fault = topk_error(got, single.search(queries[q], k,
-                                                          mask=m),
-                                       SHARDED_REL_TOL)
-            worst = max(worst, rel)
-            where = f"Q={q} k={k} masked={m is not None}"
-            if fault or rel > SHARDED_REL_TOL:
-                fail(f"[cross_card] {tag} {where} disagrees with one "
-                     f"device: {fault or f'relative error {rel:.3e}'}")
-            if calls != len(devices):
-                fail(f"[cross_card] {tag} {where}: {calls} kernel calls, "
-                     f"want one a shard")
-            if torch.cuda.current_device() != dev.index:
-                fail(f"[cross_card] {tag} {where}: the current device is "
-                     f"cuda:{torch.cuda.current_device()} after a search")
-        times = {q: (host_ms(lambda: sharded.search(queries[q], 10)),
-                     host_ms(lambda: single.search(queries[q], 10)))
-                 for q in SHARDED_QS}
-        print(f"[cross_card] case={tag} shards={len(devices)} "
-              f"rows={SHARDED_N} against_one_device max_rel_err={worst:.3e} "
-              f"(Q {SHARDED_QS}, k (10, 128), unfiltered and masked) "
-              + " ".join(f"Q={q} k=10 search_ms={a:.4f} "
-                         f"single_device_ms={b:.4f}"
-                         for q, (a, b) in times.items())
-              + f' card="{card}"', flush=True)
-        del sharded, single
-        for d in devices:
-            with torch.cuda.device(d):
-                torch.cuda.empty_cache()
-    check_cross_card_ivf(devices, mesh, card)
-
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_cross_"))
     try:
-        config = write_model(work / "data" / "models" / "smoke-mpnet")
-        files = write_conversations(work, CROSS_CARD_CONVERSATIONS + 1,
-                                    config.vocab_size - 5)
-        with env_set(CLAUDE_SEARCH_SHARD_DEVICES=str(len(devices))):
-            engine = SearchEngine(str(work / "data"),
-                                  model_name="smoke-mpnet",
-                                  use_warm_server=False, device="cuda")
-            total, _ = index_path(engine, files, "cross_card", "bfloat16")
-        storage = engine.storage
-        index = storage.index
-        if not isinstance(index, ShardedFlatIndex) or (
-                index.n_shards != len(devices)):
-            fail(f"[cross_card] shard_devices={len(devices)} built "
-                 f"{index!r}, not a sharded index over the cards")
-        _, probes = probe_queries(engine, total)
-        cfg = SearchConfig(top_k=10, include_metadata=True, include_text=True)
-        if engine._fused_window([probes[0][0]], None, cfg) is not None:
-            fail("[cross_card] the fused window took shards on several "
-                 "cards")
-        answers = [engine.search_conversations(t, f, top_k=10)
-                   for t, f, _ in probes]
-        embeddings = [engine.embedder.generate_single_embedding(t)
-                      for t, _, _ in probes]
-
-        def classic():
-            return [[{"chunk_id": r.chunk_id, "similarity": r.similarity}
-                     for r in storage.search(e, cfg, f)]
-                    for e, (_, f, _) in zip(embeddings, probes)]
-
-        got = classic()
-        storage.save_index()
-        storage.index = FlatIndex.load(str(storage.index_path), device=dev)
-        storage._data_version += 1
-        want = classic()
-        for i, (a, g, w) in enumerate(zip(answers, got, want)):
-            error = (answer_error(a, g, WARM_EXACT)
-                     or answer_error(g, w, WARM_EXACT))
-            if error or not g:
-                fail(f"[cross_card] query {i}: {error or 'no results'}")
-        print(f"[cross_card] engine shards={index.n_shards} "
-              f"chunks={total} fused=declined classic answers equal to one "
-              f"device: {len(probes)} card=\"{card}\"", flush=True)
+        engine, texts = cross_card_engine(work, devices, card)
+        gen = torch.Generator(device=dev).manual_seed(31)
+        rows = unit_rows(gen, SHARDED_N, 768)
+        dead = np.random.default_rng(32).choice(SHARDED_N, SHARDED_N // 10,
+                                                replace=False)
+        mask = np.random.default_rng(33).random(SHARDED_N) < 0.5
+        queries = {q: unit_rows(gen, q, 768).cpu().numpy()
+                   for q in SHARDED_QS}
+        for dtype, metric in SHARDED_CASES:
+            tag = f"{dtype}_{metric}"
+            sharded = ShardedFlatIndex.from_device_vectors(
+                rows, mesh, metric=metric, dtype=dtype)
+            sharded.remove(dead)
+            single = FlatIndex(768, metric=metric, dtype=dtype, device=dev)
+            single.add(rows)
+            single.remove(dead)
+            cards = [str(sh._vectors.device)
+                     for sh in sharded._shards.values()]
+            if cards != [str(d) for d in devices]:
+                fail(f"[cross_card] {tag}: shards on {cards}")
+            worst = 0.0
+            for q, k, m in itertools.product(SHARDED_QS, (10, 128),
+                                             (None, mask)):
+                before = _build.LAUNCHES[KERNEL_OF[dtype]]
+                got = sharded.search(queries[q], k, mask=m)
+                calls = _build.LAUNCHES[KERNEL_OF[dtype]] - before
+                _, rel, fault = topk_error(got, single.search(queries[q], k,
+                                                              mask=m),
+                                           SHARDED_REL_TOL)
+                worst = max(worst, rel)
+                where = f"Q={q} k={k} masked={m is not None}"
+                if fault or rel > SHARDED_REL_TOL:
+                    fail(f"[cross_card] {tag} {where} disagrees with one "
+                         f"device: {fault or f'relative error {rel:.3e}'}")
+                if calls != len(devices):
+                    fail(f"[cross_card] {tag} {where}: {calls} kernel "
+                         f"calls, want one a shard")
+                if torch.cuda.current_device() != dev.index:
+                    fail(f"[cross_card] {tag} {where}: the current device "
+                         f"is cuda:{torch.cuda.current_device()} after a "
+                         f"search")
+            times = {q: (host_ms(lambda: sharded.search(queries[q], 10)),
+                         host_ms(lambda: single.search(queries[q], 10)))
+                     for q in SHARDED_QS}
+            print(f"[cross_card] case={tag} shards={len(devices)} "
+                  f"rows={SHARDED_N} against_one_device "
+                  f"max_rel_err={worst:.3e} (Q {SHARDED_QS}, k (10, 128), "
+                  f"unfiltered and masked) "
+                  + " ".join(f"Q={q} k=10 search_ms={a:.4f} "
+                             f"single_device_ms={b:.4f}"
+                             for q, (a, b) in times.items())
+                  + f' card="{card}"', flush=True)
+            if dtype in ("bfloat16", "int8"):
+                cross_card_fused(engine, texts, sharded, single, tag, card,
+                                 peer)
+            del sharded, single
+            for d in devices:
+                with torch.cuda.device(d):
+                    torch.cuda.empty_cache()
+        del rows
+        check_cross_card_ivf(devices, mesh, card, engine, texts, peer)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check_cross_card_train(devices, card)
 
 
-def check_cross_card_ivf(devices, mesh, card: str) -> None:
+def cross_card_engine(work: Path, devices, card: str):
+    """``[cross_card]``'s engine phase: an engine with
+    ``CLAUDE_SEARCH_SHARD_DEVICES`` unset (auto) indexes 200 conversations
+    at all-mpnet-base-v2's full width; auto must shard its flat index over
+    every card and the fused window must take the shards (one graph a
+    card, ``Window.plan``).  The 20 probe queries through
+    ``search_conversations`` (fused), each equal to the classic path on
+    the same cards and to the saved index loaded on cuda:0 alone, on the
+    same embedding (ids outside exact ties, similarities within
+    ``WARM_EXACT``); a replay of the window of 1 and of 9 queries equal to
+    its eager run; the warm server's answers to the 16 unfiltered probes,
+    one client, equal to in process (p50 / p90); a conversation added and
+    then removed, each seen by the next fused search.  Returns the engine
+    and the 16 unfiltered probe texts."""
+    import torch
+
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.api.fused import run_eager
+    from tpu_search_torch.index.flat import FlatIndex
+    from tpu_search_torch.interfaces.query_server import QueryServer
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel import ShardedFlatIndex
+    from tpu_search_torch.storage.hybrid import SearchConfig
+    from tpu_search_torch.utils.synthetic import (
+        write_conversations,
+        write_model,
+    )
+
+    dev = devices[0]
+    data = work / "data"
+    config = write_model(data / "models" / "smoke-mpnet")
+    files = write_conversations(work, CROSS_CARD_CONVERSATIONS + 2,
+                                config.vocab_size - 5)
+    os.environ.pop("CLAUDE_SEARCH_SHARD_DEVICES", None)
+    engine = SearchEngine(str(data), model_name="smoke-mpnet",
+                          use_warm_server=False, device="cuda")
+    total, _ = index_path(engine, files[:-1], "cross_card", "bfloat16")
+    storage = engine.storage
+    index = storage.index
+    if not isinstance(index, ShardedFlatIndex) or [
+            str(index.mesh.shard_device(s)) for s in range(index.n_shards)
+    ] != [str(d) for d in devices]:
+        fail(f"[cross_card] auto sharding built {index!r}, not a sharded "
+             f"index with one shard on each card")
+    _, probes = probe_queries(engine, total)
+    cfg = SearchConfig(top_k=10, include_metadata=True, include_text=True)
+    window = engine._fused_window([probes[0][0]], None, cfg)
+    if window is None or window.plan is None:
+        fail("[cross_card] the fused window declined the shards on "
+             f"several cards: {window!r}")
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers = [engine.search_conversations(t, f, top_k=10)
+               for t, f, _ in probes]
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if not (launches.get("flat_topk") and launches.get("mpnet_attention")):
+        fail(f"[cross_card] the fused searches did not run the scan and "
+             f"the encoder kernels: {launches}")
+    graphs = program_graphs(engine)
+    embeddings = [engine.embedder.generate_single_embedding(t)
+                  for t, _, _ in probes]
+
+    def classic():
+        return [[{"chunk_id": r.chunk_id, "similarity": r.similarity}
+                 for r in storage.search(e, cfg, f)]
+                for e, (_, f, _) in zip(embeddings, probes)]
+
+    got = classic()
+    storage.save_index()
+    storage.index = FlatIndex.load(str(storage.index_path), device=dev)
+    storage._data_version += 1
+    want = classic()
+    storage.index = index
+    storage._data_version += 1
+    for i, (a, g, w) in enumerate(zip(answers, got, want)):
+        error = (answer_error(a, g, WARM_EXACT)
+                 or answer_error(g, w, WARM_EXACT))
+        if error or not g:
+            fail(f"[cross_card] query {i}: {error or 'no results'}")
+    print(f"[cross_card] engine auto shards={index.n_shards} chunks={total} "
+          f"fused=taken graphs_a_replay={graphs} answers equal to the "
+          f"classic path on the cards and to one card: {len(probes)} "
+          f"wall_s={wall:.3f} launches={launches} card=\"{card}\"",
+          flush=True)
+
+    texts = [t for t, f, _ in probes if f is None]
+    cfg = SearchConfig(top_k=10)
+    for q in (1, 9):
+        window = engine._fused_window(texts[:q], None, cfg)
+        pending = engine._fused_dispatch_many(texts[:q], None, cfg)
+        pending.event.synchronize()
+        eager = run_eager(window).cpu()
+        equal = bool(torch.equal(pending.packed, eager))
+        print(f"[cross_card] graph_vs_eager q={q} q_pad={window.q_pad} "
+              f"equal={equal} max_abs_diff="
+              f"{float((pending.packed - eager).abs().max()):.3e}",
+              flush=True)
+        if not equal:
+            fail(f"[cross_card] the replay over the cards differs from its "
+                 f"eager run at q={q}")
+
+    unfiltered = [(q, a) for q, a in zip(probes, answers) if q[1] is None]
+    server = QueryServer(engine, str(data))
+    server.start()
+    try:
+        times = warm_one_at_a_time(data, [q for q, _ in unfiltered],
+                                   [a for _, a in unfiltered], "cross_card")
+    finally:
+        server.stop()
+    print_latency(f"cross_card x{len(devices)}", "warm server clients=1",
+                  times, phase="cross_card")
+
+    cfg = SearchConfig(top_k=5)
+    before = set(storage.chunk_id_to_faiss_id)
+    with contextlib.redirect_stdout(io.StringIO()):
+        engine.index_conversations(files[-1:])
+    added = sorted(set(storage.chunk_id_to_faiss_id) - before)
+    if not added:
+        fail("[cross_card] the added conversation indexed no chunk")
+    text = storage.get_chunk_by_id(added[0]).text
+    top = engine._fused_search_many([text], None, cfg)[0]
+    if not top or top[0].chunk_id != added[0]:
+        fail(f"[cross_card] the fused search missed the added chunk "
+             f"{added[0]}: {[r.chunk_id for r in top]}")
+    storage.remove_chunks_for_files([str(files[-1])])
+    top = engine._fused_search_many([text], None, cfg)[0]
+    if any(r.chunk_id in added for r in top):
+        fail("[cross_card] the fused search still finds a removed chunk")
+    print(f"[cross_card] add and remove seen by the next fused search: "
+          f"added={len(added)}", flush=True)
+    return engine, texts
+
+
+def program_graphs(engine) -> int:
+    """CUDA graphs one replay of the engine's newest fused program runs."""
+    program = next(reversed(engine._fused._programs.values()))
+    return sum(graph is not None for *_, graph in program.steps)
+
+
+def cross_card_fused(engine, texts, sharded, single, tag: str, card: str,
+                     peer: bool, nprobe: int = 0) -> None:
+    """``[cross_card_fused]``: the engine's fused window over ``sharded``
+    (one shard a card) against the classic encode-then-``search`` on the
+    same cards and against the fused window over ``single`` (the same
+    rows on cuda:0), each over the 16 probe texts at k 10 after a warm
+    pass: p50 and wall ms, graph replays and kernel launches a search;
+    the answers of each equal to the fused window over the cards (ids
+    outside exact ties, similarities within ``WARM_EXACT``).  For the
+    fused windows also the programs the warm pass captured and the MB it
+    added to each card's reserved memory (the programs' graph pools, and
+    on cuda:0 the cache of the warm eager runs)."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    storage = engine.storage
+    kept = storage.index
+    cfg = SearchConfig(top_k=10, nprobe=nprobe)
+
+    def fused(text):
+        return engine._fused_fetch(
+            engine._fused_dispatch_many([text], None, cfg))
+
+    def classic(text):
+        emb = engine.embedder.generate_single_embedding(text)
+        return storage.index.search(emb[None, :], 10, nprobe=nprobe)
+
+    def run(index, search):
+        storage.index = index
+        storage._data_version += 1
+        engine._fused.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cards = range(torch.cuda.device_count())
+        reserved = [torch.cuda.memory_reserved(d) for d in cards]
+        for text in texts:  # the captures, the lazy caches
+            search(text)
+        torch.cuda.synchronize()
+        pools = ("" if search is not fused else
+                 f" programs={len(engine._fused)} reserved_mb_added="
+                 + ",".join(f"{(torch.cuda.memory_reserved(d) - r) / 2**20:.1f}"
+                            for d, r in zip(cards, reserved)))
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        times, answers = [], []
+        t0 = time.perf_counter()
+        for text in texts:
+            t1 = time.perf_counter()
+            scores, ids = search(text)
+            times.append((time.perf_counter() - t1) * 1e3)
+            answers.append([{"chunk_id": int(i), "similarity": float(s)}
+                            for s, i in zip(scores[0], ids[0]) if i >= 0])
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = sum(_build.LAUNCHES.values()) / len(texts)
+        graphs = program_graphs(engine) if search is fused else 0
+        return answers, (float(np.median(times)), wall, graphs, launches,
+                         pools)
+
+    try:
+        want, over_cards = run(sharded, fused)
+        results = {"fused_over_cards": over_cards}
+        for name, index, search in (("classic_over_cards", sharded, classic),
+                                    ("fused_one_card", single, fused)):
+            got, results[name] = run(index, search)
+            for i, (a, b) in enumerate(zip(got, want)):
+                error = answer_error(a, b, WARM_EXACT)
+                if error or not a:
+                    fail(f"[cross_card_fused] {tag} {name} probe {i}: "
+                         f"{error or 'no results'}")
+    finally:
+        storage.index = kept
+        storage._data_version += 1
+        engine._fused.clear()
+    print(f"[cross_card_fused] case={tag} rows={sharded.ntotal} "
+          f"live={sharded.live} shards={sharded.n_shards} probes="
+          f"{len(texts)} k=10 nprobe={nprobe} peer_access={peer} "
+          + " ".join(f"{name}: p50_ms={p50:.4f} wall_ms={wall:.3f} "
+                     f"graph_replays={graphs} launches={launches:.2f}"
+                     f"{pools};"
+                     for name, (p50, wall, graphs, launches, pools)
+                     in results.items())
+          + f' answers equal card="{card}"', flush=True)
+
+
+def check_cross_card_ivf(devices, mesh, card: str, engine, texts,
+                         peer: bool) -> None:
     """``[cross_card]``'s sharded IVF case: an int4 ``ShardedIVFIndex``
     with its int8 refine tier, one shard a card, at the ``[ivf]`` phase's
     size (1M x 768 clustered unit rows, nlist 1024, 10 % tombstoned),
@@ -3865,7 +4076,7 @@ def check_cross_card_ivf(devices, mesh, card: str) -> None:
     Q 1, 8, 128, k 10 and 128, nprobe 32, scores within ``SHARDED_REL_TOL``
     and ids equal outside exact ties, one ``ivf_topk_int4`` call a shard a
     search, cuda:0 current after each, and the search's host ms beside the
-    single device's."""
+    single device's; then ``cross_card_fused`` over both at nprobe 32."""
     import numpy as np
     import torch
 
@@ -3922,6 +4133,8 @@ def check_cross_card_ivf(devices, mesh, card: str) -> None:
           + " ".join(f"Q={q} k=10 search_ms={a:.4f} single_device_ms={b:.4f}"
                      for q, (a, b) in times.items())
           + f' card="{card}"', flush=True)
+    cross_card_fused(engine, texts, sharded, single, "ivf_int4_refine", card,
+                     peer, nprobe=SIVF_NPROBE)
     del sharded, single, rows
     for d in devices:
         with torch.cuda.device(d):
@@ -5870,6 +6083,23 @@ def timed_phase(name: str):
           flush=True)
 
 
+def check_capability() -> None:
+    """``[capability]``: the device report of the JAX package's contract
+    (``devices.assess_gpu_capability``) on the card must say ``cuda``
+    and that the card can hold the default corpus."""
+    from tpu_search_torch.devices import assess_gpu_capability
+
+    cap = assess_gpu_capability()
+    print(f"[capability] backend={cap.backend} "
+          f"can_use_accelerator={cap.can_use_accelerator} "
+          f"devices={cap.device_count} sm_count={cap.sm_count} "
+          f"memory_free_gb={(cap.memory_free or 0) / 1024**3:.2f} "
+          f"recommended_batch_size={cap.recommended_batch_size} "
+          f"status={cap.status_message!r}", flush=True)
+    if cap.backend != "cuda" or not cap.can_use_accelerator:
+        fail(f"[capability] the card is not reported usable: {cap}")
+
+
 def main() -> None:
     import torch
 
@@ -5890,6 +6120,7 @@ def main() -> None:
           f"seconds={time.perf_counter() - t0:.2f}", flush=True)
     check_build(built["logs"])
     print(card_name(), flush=True)
+    check_capability()
     if cross_card:
         with timed_phase("check_cross_card"):
             check_cross_card()

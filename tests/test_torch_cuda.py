@@ -52,7 +52,10 @@ one graph at once, each collecting its own result.  The pq IVF search (plain
 PyTorch on the card, no kernel of its own): a pq index saved on the CPU and
 loaded on the card answers as on the CPU (scores within 1e-5, ids equal
 outside ties), with and without OPQ, and its search captured in a CUDA
-graph replays equal to the eager run.
+graph replays equal to the eager run.  The fused window over shards on
+several cards (one graph on the encoder's card, one a card, one merge):
+a replay equal to its eager run and to one card's answer, on two cards
+(skipped below two) and with the same program on one card.
 """
 
 import math
@@ -1419,6 +1422,67 @@ def test_fused_graph_concurrent_dispatches(dev, graph_engine):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     assert got == alone
+
+
+def _window_over(engine, tmp_path, devices, texts, cfg):
+    """The engine's flat index saved and loaded as a ``ShardedFlatIndex``
+    with one shard on each of ``devices``; the window of ``texts`` over
+    it, with the sharded scan's card plan even where the shards share a
+    card (the program of several cards, then, on one)."""
+    import dataclasses
+
+    from tpu_search_torch.parallel import ShardedFlatIndex, build_mesh
+    from tpu_search_torch.parallel.sharded_index import card_plan
+
+    storage = engine.storage
+    path = str(tmp_path / "cards.idx")
+    storage.index.save(path)
+    mesh = build_mesh(n_data=len(devices), devices=devices)
+    index = ShardedFlatIndex.load(path, mesh)
+    kept, storage.index = storage.index, index
+    try:
+        window = engine._fused_window(texts, None, cfg)
+    finally:
+        storage.index = kept
+    return index, dataclasses.replace(window, plan=card_plan)
+
+
+@pytest.mark.parametrize("cards", [1, 2])
+def test_fused_window_over_cards(dev, graph_engine, tmp_path, cards):
+    """The window over shards on ``cards`` cards (two shards a card) as
+    the program of several cards: one graph on the encoder's card, one a
+    card, one merge.  A replay equals its eager run bit for bit (twice:
+    the capture, then the cached program) and one card's fused answer
+    (scores within 1e-4, ids equal outside near-ties); a replay adds one
+    scan launch a shard.  ``cards`` 2 skips below two cards."""
+    from tpu_search_torch.api.fused import run_eager
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    engine, _ = graph_engine
+    texts, _ = _probe_texts(engine, 9)
+    cfg = SearchConfig(top_k=10)
+    devices = [torch.device("cuda", i % cards) for i in range(2 * cards)]
+    one = engine._fused_fetch(engine._fused_dispatch_many(texts, None, cfg))
+    index, window = _window_over(engine, tmp_path, devices, texts, cfg)
+    for replay in (False, True):  # the capture, then the cached program
+        before = _build.LAUNCHES["flat_topk"]
+        packed, event = engine._fused.dispatch(window)
+        event.synchronize()
+        if replay:  # a replay adds the captured launches, one a shard
+            assert _build.LAUNCHES["flat_topk"] - before == len(devices)
+        eager = run_eager(window).cpu()
+        assert torch.equal(packed, eager)
+    k = window.k
+    scores, ids = packed[:9, :k].numpy(), packed[:9, k:].long().numpy()
+    assert abs(scores - one[0]).max() <= 1e-4
+    for r in range(9):
+        for j in (ids[r] != one[1][r]).nonzero()[0]:
+            assert abs(scores[r, j] - one[0][r, j]) <= 1e-4
+    assert torch.cuda.current_device() == 0
+    del index
 
 
 @pytest.mark.parametrize("opq", [False, True])

@@ -21,13 +21,6 @@ EXCEPTIONS = {
     ("ops", "flat_topk"): "the JAX scan functions; the port's are "
                           "ops.flat_topk.flat_topk_scan",
     ("ops", "flat_topk_int8"): "ops.flat_topk_int8.flat_topk_int8_scan",
-    ("devices", "GPUCapability"): "the port takes its device explicitly "
-                                  "(resolve_device) and probes no platform",
-    ("devices", "assess_gpu_capability"): "as GPUCapability",
-    ("devices", "estimate_device_memory_requirements"): "as GPUCapability",
-    ("devices", "get_device_summary"): "as GPUCapability",
-    ("devices", "log_device_status"): "as GPUCapability",
-    ("devices", "quick_accelerator_check"): "as GPUCapability",
 }
 # Subpackages of tpu_search the port does not have, and why.
 MISSING_PACKAGES: dict = {}

@@ -39,27 +39,55 @@ class TestShardedStorage(_CASES["TestShardedStorage"]):
         assert "shard_devices=9 but only 8 devices; not sharding" in (
             caplog.text)
 
-    def test_auto_keeps_one_card(self, tmp_path, monkeypatch):
-        """``shard_devices=0`` (auto) on a host of 4 cards keeps the index
-        on one device (shards across cards are not yet proven on a
-        machine of several cards); 4 asks for all of them."""
+    @pytest.mark.parametrize("index_type", ["flat", "ivf"])
+    def test_auto_shards_over_every_card(self, tmp_path, monkeypatch,
+                                         index_type):
+        """The JAX package's rule: ``shard_devices=0`` (auto) on a host of
+        4 cards shards a flat or IVF index over all four, 1 keeps one
+        device and 4 asks for all of them; auto with one card, or on the
+        CPU (however many host devices), keeps one device."""
+        import torch
+
+        from tpu_search_torch.storage import hybrid
+
+        cards = [torch.device("cuda", i) for i in range(4)]
+        for host, device, n, want in (
+                (cards, "cuda", 0, cards), (cards, "cuda", 1, None),
+                (cards, "cuda", 4, cards), (cards[:1], "cuda", 0, None),
+                ([], "cpu", 0, None)):
+            monkeypatch.setattr(hybrid, "platform_devices",
+                                lambda platform, host=host: (
+                                    host if platform == "cuda"
+                                    else [torch.device("cpu")] * 8))
+            config = StorageConfig(data_dir=str(tmp_path / f"{n}{device}"),
+                                   embedding_dim=16, auto_save=False,
+                                   shard_devices=n, index_type=index_type)
+            s = HybridStorage(config)
+            s._device = torch.device(device)  # no card is asked
+            mesh = s._index_mesh()
+            assert (mesh if mesh is None
+                    else list(mesh.devices[:, 0])) == want
+            s.close()
+
+    def test_auto_shards_no_other_index_type(self, tmp_path, monkeypatch):
+        """Any ``index_type`` but flat or IVF keeps one device, auto or
+        not (``hnsw`` resolves to flat before the rule, so the rule is
+        read on the config as set)."""
         import torch
 
         from tpu_search_torch.storage import hybrid
 
         cards = [torch.device("cuda", i) for i in range(4)]
         monkeypatch.setattr(hybrid, "platform_devices",
-                            lambda platform: cards if platform == "cuda"
-                            else [])
-        for n, want in ((0, None), (1, None), (4, cards)):
+                            lambda platform: cards)
+        for n in (0, 4):
             config = StorageConfig(data_dir=str(tmp_path / str(n)),
                                    embedding_dim=16, auto_save=False,
                                    shard_devices=n)
             s = HybridStorage(config)
-            s._device = torch.device("cuda")  # no card is asked
-            mesh = s._index_mesh()
-            assert (mesh if mesh is None
-                    else list(mesh.devices[:, 0])) == want
+            s._device = torch.device("cuda")
+            s.config.index_type = "hnsw"
+            assert s._index_mesh() is None
             s.close()
 
     def test_backup_restore_sharded(self, storage, tmp_path):

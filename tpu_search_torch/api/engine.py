@@ -52,8 +52,12 @@ from ..models.cross_encoder import (
     resolve_reranker_name,
 )
 from ..models.encoder import EmbeddingConfig, EmbeddingGenerator
-from ..parallel.sharded_index import ShardedFlatIndex, sharded_scan
-from ..parallel.sharded_ivf import ShardedIVFIndex, sharded_ivf_scan
+from ..parallel.sharded_index import ShardedFlatIndex, _gathers
+from ..parallel.sharded_index import card_plan as sharded_flat_plan
+from ..parallel.sharded_index import sharded_scan
+from ..parallel.sharded_ivf import ShardedIVFIndex
+from ..parallel.sharded_ivf import card_plan as sharded_ivf_plan
+from ..parallel.sharded_ivf import sharded_ivf_scan
 from ..storage.hybrid import (
     HybridStorage,
     SearchConfig,
@@ -159,9 +163,10 @@ def _storage_env() -> Dict[str, Any]:
     - ``CLAUDE_SEARCH_PQ_OPQ`` = 0|1, the OPQ rotation of
       ``storage_dtype="pq"`` (``pq_opq``);
     - ``CLAUDE_SEARCH_SHARD_DEVICES`` = device count (integer, 0 = auto:
-      one device for now), passed on as ``shard_devices``: a flat index
-      shards over that many devices (``parallel.ShardedFlatIndex``), an
-      IVF index too (``parallel.ShardedIVFIndex``)."""
+      every card when there are two or more), passed on as
+      ``shard_devices``: a flat index shards over that many devices
+      (``parallel.ShardedFlatIndex``), an IVF index too
+      (``parallel.ShardedIVFIndex``)."""
     kwargs: Dict[str, Any] = {}
     for env, key, allowed in (
         ("CLAUDE_SEARCH_INDEX_TYPE", "index_type", ("flat", "ivf", "hnsw")),
@@ -601,10 +606,12 @@ class SearchEngine:
         does not apply (the hashing encoder, an empty or untrained index,
         more than 32 queries, ids past 2^24, which f32 packing would
         round), ``[[] ...]`` when the filter matches nothing or ``k`` is
-        0.  A sharded index (flat or IVF) fuses when every shard lies on
-        the encoder's device (one program: the encode, each shard's scan,
-        the merge, an IVF refine tier's rescore); over several devices or
-        processes it is None, and the classic path serves on the same scan
+        0.  A sharded index (flat or IVF) fuses: with every shard on the
+        encoder's device as one program (the encode, each shard's scan, the
+        merge, an IVF refine tier's rescore); with shards on several cards
+        of this process as one graph a card and stage (the window's
+        ``plan``).  Over a mesh that gathers across processes it is None
+        (logged once), and the classic path serves on the same scan
         kernels."""
         q = len(queries)
         if q == 0:
@@ -628,14 +635,17 @@ class SearchEngine:
         if parts is None:
             return None
         model, device, normalize, int8_ffn = parts
+        plan = None
         if is_sharded and not index.colocated(device):
-            if not self._warned_unfused:
-                self._warned_unfused = True
-                logger.info(
-                    "Sharded index spans devices or processes (%s): the "
-                    "fused query path serves one device only; searching "
-                    "on the classic path", index.mesh)
-            return None
+            if _gathers(index.mesh):
+                if not self._warned_unfused:
+                    self._warned_unfused = True
+                    logger.info(
+                        "Sharded index gathers across processes (%s): the "
+                        "fused query path serves one process only; "
+                        "searching on the classic path", index.mesh)
+                return None
+            plan = sharded_ivf_plan if sharded_ivf else sharded_flat_plan
 
         fmask = self.storage.filter_mask(filters)
         if fmask is not None and not fmask.any():
@@ -666,7 +676,7 @@ class SearchEngine:
             normalize=normalize, int8_ffn=int8_ffn,
             store_normalize=self.storage.config.normalize_embeddings,
             scan=scan, scan_key=scan_key, buffers=buffers, k=k_eff,
-            device=device)
+            device=device, plan=plan)
 
     def _fused_dispatch_many(
         self, queries: List[str], filters: Optional[Dict[str, Any]],

@@ -1,24 +1,29 @@
-"""CUDA device choice and capability report.
-
-The JAX package's platform probes (``GPUCapability``,
-``assess_gpu_capability``, ``estimate_device_memory_requirements``,
-``get_device_summary``, ``log_device_status``, ``quick_accelerator_check``)
-are not carried over: the port takes its device explicitly
-(:func:`resolve_device`) and never probes for one.
-"""
+"""CUDA device choice and capability report."""
 
 from .capability import (
     DeviceCapability,
+    GPUCapability,
     assess_device_capability,
+    assess_gpu_capability,
     calculate_optimal_batch_size,
+    estimate_device_memory_requirements,
+    get_device_summary,
+    log_device_status,
     platform_devices,
+    quick_accelerator_check,
     resolve_device,
 )
 
 __all__ = [
     "DeviceCapability",
+    "GPUCapability",
     "assess_device_capability",
+    "assess_gpu_capability",
     "calculate_optimal_batch_size",
+    "estimate_device_memory_requirements",
+    "get_device_summary",
+    "log_device_status",
     "platform_devices",
+    "quick_accelerator_check",
     "resolve_device",
 ]

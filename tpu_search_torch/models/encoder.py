@@ -174,10 +174,11 @@ class EmbeddingGenerator:
             self._model.quantize_ffn()
 
         if self.config.auto_batch_size and device.type == "cuda":
-            cap = assess_device_capability(device)
+            cap = assess_device_capability(device=device)
             self.config.batch_size = min(
                 128,
-                calculate_optimal_batch_size(cap.memory_free / 1024**3),
+                calculate_optimal_batch_size(cap.memory_free / 1024**3,
+                                             backend="cuda"),
             )
             self.logger.info("Auto-adjusted batch size: %d",
                              self.config.batch_size)

@@ -48,7 +48,18 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
+from dataclasses import dataclass
+from typing import (
+    Callable,
+    Dict,
+    Iterable,
+    Iterator,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+    Union,
+)
 
 import numpy as np
 import torch
@@ -73,7 +84,16 @@ from ..utils.shapes import cdiv, next_pow2, round_up
 from .distributed import process_count, process_index
 from .mesh import Mesh
 
-__all__ = ["ShardedFlatIndex", "merge_shards", "sharded_scan"]
+__all__ = [
+    "CardPlan",
+    "ShardedFlatIndex",
+    "card_plan",
+    "merge_shards",
+    "run_plan",
+    "run_stage",
+    "shards_by_card",
+    "sharded_scan",
+]
 
 _MIN_LOCAL_CAPACITY = 1024
 _DTYPES = ("bfloat16", "float32", "int4", "int8")
@@ -98,21 +118,85 @@ def _current(device: torch.device):
     return contextlib.nullcontext()
 
 
+def _ordinal(device) -> Tuple[str, int]:
+    """``(type, index)`` of a device; a bare ``cuda`` is the current card,
+    a bare ``cpu`` index 0."""
+    device = torch.device(device)
+    if device.index is None and device.type == "cuda":
+        return device.type, torch.cuda.current_device()
+    return device.type, device.index or 0
+
+
 def colocated(mesh: Mesh, shards: Iterable[int],
               device: torch.device) -> bool:
     """Whether ``shards`` are every shard of ``mesh``, held in this process
     on ``device`` (``cuda`` is the current CUDA device): then one program
     (one CUDA graph) can run the encode, every shard's scan and the
     merge."""
-    def ordinal(d):
-        d = torch.device(d)
-        if d.index is None and d.type == "cuda":
-            return d.type, torch.cuda.current_device()
-        return d.type, d.index or 0
-
     shards = list(shards)
     return not _gathers(mesh) and len(shards) == mesh.shape["data"] and all(
-        ordinal(mesh.shard_device(s)) == ordinal(device) for s in shards)
+        _ordinal(mesh.shard_device(s)) == _ordinal(device) for s in shards)
+
+
+def shards_by_card(mesh: Mesh, shards: Sequence[int]
+                   ) -> List[Tuple[torch.device, List[int]]]:
+    """``shards`` grouped by the device that holds them, in order of
+    first appearance: ``(device, positions in shards)`` a card."""
+    groups: Dict[Tuple[str, int], Tuple[torch.device, List[int]]] = {}
+    for i, s in enumerate(shards):
+        device = mesh.shard_device(s)
+        groups.setdefault(_ordinal(device), (device, []))[1].append(i)
+    return list(groups.values())
+
+
+@dataclass(frozen=True)
+class CardPlan:
+    """A search split into stages over the cards that hold the shards.
+    Each stage is ``(card, merge)``: ``card(j, inputs)`` runs on
+    ``cards[j]`` with the stage's inputs there and returns a tuple of
+    tensors on that card; ``merge(outs, inputs)`` runs on
+    ``merge_device`` with every card's outputs (in card order) and the
+    inputs, both moved there, and returns the next stage's inputs, the
+    last stage's ``(scores, ids)``.  The first stage's inputs are
+    ``(queries,)``.  :func:`run_plan` runs it eagerly; ``api/fused.py``
+    captures each card's stage and each merge as a CUDA graph of its
+    own."""
+
+    merge_device: torch.device
+    cards: Tuple[torch.device, ...]
+    stages: Tuple[Tuple[Callable, Callable], ...]
+
+
+def run_stage(plan: CardPlan, stage: Tuple[Callable, Callable],
+              inputs: tuple) -> tuple:
+    """One stage of a :class:`CardPlan` run eagerly: each card's part on
+    the stage's ``inputs`` (on the merge device) moved to that card, then
+    the merge on the merge device."""
+    card, merge = stage
+    outs = []
+    for j, device in enumerate(plan.cards):
+        with _current(device):
+            out = card(j, tuple(t.to(device) for t in inputs))
+        outs.append(tuple(t.to(plan.merge_device) for t in out))
+    return merge(outs, inputs)
+
+
+def run_plan(plan: CardPlan, queries: torch.Tensor):
+    """A :class:`CardPlan` run eagerly, stage by stage."""
+    inputs = (queries.to(plan.merge_device),)
+    for stage in plan.stages:
+        inputs = run_stage(plan, stage, inputs)
+    return inputs
+
+
+def in_shard_order(groups, outs, n: int) -> Tuple[list, list]:
+    """Each card's ``(scores, ids, scores, ids, ...)`` of its shards back
+    in the order of the shards: two lists of ``n``."""
+    scores, ids = [None] * n, [None] * n
+    for (_, positions), out in zip(groups, outs):
+        for m, i in enumerate(positions):
+            scores[i], ids[i] = out[2 * m], out[2 * m + 1]
+    return scores, ids
 
 
 def merge_shards(scores: List[torch.Tensor], local_ids: List[torch.Tensor],
@@ -132,6 +216,36 @@ def merge_shards(scores: List[torch.Tensor], local_ids: List[torch.Tensor],
     return top[:, :k].contiguous(), torch.where(local >= 0, glob, -1)
 
 
+def card_plan(scan_key: tuple, buffers: tuple, staged: tuple, k: int,
+              rows: Optional[int] = None,
+              merge_device: Optional[torch.device] = None) -> CardPlan:
+    """The sharded exact top-k of :meth:`ShardedFlatIndex.make_scan_fn` as
+    a :class:`CardPlan` of one stage: each card scans the shards it holds
+    (``index.flat.flat_scan`` a shard, the first ``rows`` local slots,
+    default all) into ``[Q, k]`` scores and local ids, then
+    :func:`merge_shards` on ``merge_device`` (default the first shard's),
+    after the ranks' ``all_gather`` where the mesh spans processes."""
+    _, mesh, dtype, metric, shards, gather = scan_key
+    groups = shards_by_card(mesh, shards)
+
+    def card(j, inputs):
+        out = []
+        for i in groups[j][1]:
+            out += flat_scan(("flat", dtype, metric),
+                             (buffers[2 * i], buffers[2 * i + 1]),
+                             (staged[i],), inputs[0], k, rows)
+        return tuple(out)
+
+    def merge(outs, inputs):
+        scores, ids = in_shard_order(groups, outs, len(shards))
+        if gather:
+            scores, ids = _all_gather(torch.stack(scores), torch.stack(ids))
+        return merge_shards(scores, ids, k, mesh.shape["data"])
+
+    return CardPlan(merge_device or buffers[0].device,
+                    tuple(d for d, _ in groups), ((card, merge),))
+
+
 def sharded_scan(scan_key: tuple, buffers: tuple, staged: tuple,
                  queries: torch.Tensor, k: int, rows: Optional[int] = None):
     """The sharded exact top-k of :meth:`ShardedFlatIndex.make_scan_fn`
@@ -140,21 +254,9 @@ def sharded_scan(scan_key: tuple, buffers: tuple, staged: tuple,
     ``buffers`` each local shard's ``(vectors, scales)`` in turn,
     ``staged`` each one's penalty, ``queries [Q, D]`` f32; the first
     ``rows`` local slots of each shard (default all).  ``(scores [Q, k]
-    f32, global ids [Q, k] int64)`` on the merge device."""
-    _, mesh, dtype, metric, shards, gather = scan_key
-    merge_device = buffers[0].device
-    scores, ids = [], []
-    for i in range(len(shards)):
-        vectors, scales = buffers[2 * i], buffers[2 * i + 1]
-        with _current(vectors.device):
-            s, local = flat_scan(("flat", dtype, metric), (vectors, scales),
-                                 (staged[i],), queries.to(vectors.device), k,
-                                 rows)
-        scores.append(s.to(merge_device))
-        ids.append(local.to(merge_device))
-    if gather:
-        scores, ids = _all_gather(torch.stack(scores), torch.stack(ids))
-    return merge_shards(scores, ids, k, mesh.shape["data"])
+    f32, global ids [Q, k] int64)`` on the merge device: :func:`card_plan`
+    run eagerly."""
+    return run_plan(card_plan(scan_key, buffers, staged, k, rows), queries)
 
 
 def _all_gather(scores: torch.Tensor, ids: torch.Tensor):

@@ -30,7 +30,8 @@ Counterpart of ``tpu_search/parallel/sharded_ivf.py``'s
   shard-major concatenation (a tie to the lower shard, as ``lax.top_k``
   orders it).  With a refine tier the coarse stage over-fetches
   ``max(k, min(k * refine_factor, nprobe * lcap))`` and
-  ``sharded_refine_rescore`` trims to ``k``.  Over several processes each
+  the rescore (``refine_part`` a card, ``refine_select``) trims to ``k``.
+  Over several processes each
   scans its own shards and the ranks' results meet in one ``all_gather``
   before the merge.
 - **Host metadata** (``[nlist, S * lcap]`` ids and validity, ``[nlist,
@@ -74,12 +75,25 @@ from ..ops.pq import train_opq_for_ivf, train_pq_for_ivf
 from ..utils.shapes import bucket_size, round_up
 from .distributed import process_count, process_index
 from .mesh import Mesh
-from .sharded_index import _all_gather, _current, _gathers, colocated
-from .sharded_refine import ShardedRefineStore, sharded_refine_rescore
+from .sharded_index import (
+    CardPlan,
+    _all_gather,
+    _gathers,
+    colocated,
+    in_shard_order,
+    run_plan,
+    shards_by_card,
+)
+from .sharded_refine import ShardedRefineStore, refine_part, refine_select
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ShardedIVFIndex", "merge_global", "sharded_ivf_scan"]
+__all__ = [
+    "ShardedIVFIndex",
+    "card_plan",
+    "merge_global",
+    "sharded_ivf_scan",
+]
 
 _UPDATE_BUCKETS = (256, 4096, 65536, 1 << 20)
 _SLOT_ALIGN = 256  # per-shard slot granularity
@@ -121,6 +135,75 @@ def merge_global(scores: Sequence[torch.Tensor], ids: Sequence[torch.Tensor],
     return top, torch.where(torch.isfinite(top), out, torch.full_like(out, -1))
 
 
+def card_plan(scan_key: tuple, buffers: tuple, staged: tuple, k: int,
+              merge_device: Optional[torch.device] = None) -> CardPlan:
+    """The search of :meth:`ShardedIVFIndex.make_scan_fn` as a
+    :class:`~tpu_search_torch.parallel.sharded_index.CardPlan`: each card
+    runs the port's ``index.ivf.ivf_scan`` (the centroid scan and the
+    probe scan) over the shards it holds, then :func:`merge_global` on
+    ``merge_device`` (default the first shard's) keeps the top
+    ``k_coarse``.  With a refine tier a second stage follows: each card
+    sums the rescore terms of the candidates its shards own
+    (``refine_part``), and the merge device adds the cards' sums and
+    keeps the top ``k`` (``refine_select``).  Over processes the ranks'
+    results meet in an ``all_gather`` (the rescore in an ``all_reduce``)
+    before each merge."""
+    (_, mesh, shards, gather, dtype, metric, nprobe, by_residual,
+     refine_factor, *codec) = scan_key
+    stride = 6 if dtype == "pq" else 4
+    n_local = len(shards)
+    k_coarse = k
+    if refine_factor:
+        reach = nprobe * buffers[3].shape[1]
+        k_coarse = max(k, min(k * refine_factor, reach))
+    key = ("ivf", dtype, metric, nprobe, by_residual, 0, *codec)
+    groups = shards_by_card(mesh, shards)
+
+    def coarse(j, inputs):
+        out = []
+        for i in groups[j][1]:
+            dcent, blocks, dids, dscale, *books = buffers[stride * i:
+                                                          stride * (i + 1)]
+            out += ivf_scan(key, (dcent, blocks, dids, dscale, None, None,
+                                  *books), staged[2 * i: 2 * i + 2],
+                            inputs[0], k_coarse)
+        return tuple(out)
+
+    def merge(outs, inputs):
+        scores, ids = in_shard_order(groups, outs, n_local)
+        if gather:
+            scores, ids = _all_gather(torch.stack(scores), torch.stack(ids))
+        top, out = merge_global(scores, ids, k_coarse)
+        return (inputs[0], out) if refine_factor else (top, out)
+
+    stages = [(coarse, merge)]
+    if refine_factor:
+        refine = buffers[stride * n_local:]
+
+        def rescore(j, inputs):
+            queries, cand = inputs
+            part = None
+            for i in groups[j][1]:
+                term = refine_part(refine[2 * i], refine[2 * i + 1],
+                                   shards[i], mesh.shape["data"], queries,
+                                   cand)
+                part = term if part is None else part + term
+            return (part,)
+
+        def finish(outs, inputs):
+            full = torch.zeros(inputs[1].shape, dtype=torch.float32,
+                               device=inputs[1].device)
+            for (part,) in outs:
+                full = full + part
+            if gather:
+                dist.all_reduce(full)
+            return refine_select(full, inputs[1], k)
+
+        stages.append((rescore, finish))
+    return CardPlan(merge_device or buffers[1].device,
+                    tuple(d for d, _ in groups), tuple(stages))
+
+
 def sharded_ivf_scan(scan_key: tuple, buffers: tuple, staged: tuple,
                      queries: torch.Tensor, k: int):
     """The search of :meth:`ShardedIVFIndex.make_scan_fn` (the port's form
@@ -130,35 +213,9 @@ def sharded_ivf_scan(scan_key: tuple, buffers: tuple, staged: tuple,
     each local shard's refine ``(rows, scales)``; ``staged`` each local
     shard's ``(penalty, fills)``; ``queries [Q, D]`` f32; ``k`` at most
     ``nprobe * lcap``.  ``(scores [Q, k] f32, global ids [Q, k] int64)`` on
-    the first shard's device, ``-inf`` / ``-1`` past the candidates."""
-    (_, mesh, shards, gather, dtype, metric, nprobe, by_residual,
-     refine_factor, *codec) = scan_key
-    stride = 6 if dtype == "pq" else 4
-    merge_device = buffers[1].device
-    k_coarse = k
-    if refine_factor:
-        reach = nprobe * buffers[3].shape[1]
-        k_coarse = max(k, min(k * refine_factor, reach))
-    key = ("ivf", dtype, metric, nprobe, by_residual, 0, *codec)
-    scores, ids = [], []
-    for i in range(len(shards)):
-        dcent, blocks, dids, dscale, *books = buffers[stride * i:
-                                                      stride * (i + 1)]
-        dev = blocks.device
-        with _current(dev):
-            s, g = ivf_scan(key, (dcent, blocks, dids, dscale, None, None,
-                                  *books), staged[2 * i: 2 * i + 2],
-                            queries.to(dev), k_coarse)
-        scores.append(s.to(merge_device))
-        ids.append(g.to(merge_device))
-    if gather:
-        scores, ids = _all_gather(torch.stack(scores), torch.stack(ids))
-    top, out = merge_global(scores, ids, k_coarse)
-    if refine_factor:
-        top, out = sharded_refine_rescore(
-            buffers[stride * len(shards):], shards, mesh.shape["data"],
-            gather, queries.to(merge_device), out, k)
-    return top, out
+    the first shard's device, ``-inf`` / ``-1`` past the candidates:
+    :func:`card_plan` run eagerly."""
+    return run_plan(card_plan(scan_key, buffers, staged, k), queries)
 
 
 class ShardedIVFIndex:

@@ -15,13 +15,15 @@ which re-rank its coarse merge.
 - **Quantization.**  int8 rows quantize per row as the single-device
   ``RefineStore`` does (``index.flat.quantize_rows_int8``), bit for bit
   with the JAX store; bf16 rows are cast.
-- **Rescore** (:func:`sharded_refine_rescore`): the merged ``[Q, R]``
-  candidate ids; each shard gathers the rows it owns, scores them against
-  the queries with the single-device ``refine_rescore``'s batched product,
-  and zeroes the rest; the partial scores add up on the merge device (and
-  across processes in one ``all_reduce``).  Exactly one term of each sum
-  is not zero, so the scores are the single-device store's on the same
-  rows.  Then the stable top-k, a tie to the earlier candidate.
+- **Rescore** (the second stage of ``sharded_ivf.card_plan``): the
+  merged ``[Q, R]`` candidate ids; each shard gathers the rows it owns,
+  scores them against the queries with the single-device
+  ``refine_rescore``'s batched product, and zeroes the rest
+  (:func:`refine_part`); the partial scores add up on the merge device
+  (and across processes in one ``all_reduce``).  Exactly one term of each
+  sum is not zero, so the scores are the single-device store's on the
+  same rows.  Then the stable top-k, a tie to the earlier candidate
+  (:func:`refine_select`).
 - **Truth scan** (:meth:`ShardedRefineStore.topk_all`): each shard's live
   rows through the port's flat scans (``flat_topk_int8.cu`` /
   ``flat_topk.cu`` on the card), then ``merge_shards``.
@@ -32,7 +34,7 @@ which re-rank its coarse merge.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +51,11 @@ from ..utils.shapes import cdiv, round_up
 from .mesh import Mesh
 from .sharded_index import _all_gather, _current, _gathers, merge_shards
 
-__all__ = ["ShardedRefineStore", "sharded_refine_rescore"]
+__all__ = [
+    "ShardedRefineStore",
+    "refine_part",
+    "refine_select",
+]
 
 # Per-shard slot granularity; the global capacity is S times the local.
 _LOCAL_ALIGN = 512
@@ -67,37 +73,26 @@ def _owned(ids: torch.Tensor, n_shards: int, shard: int, lcap: int):
     return own, safe
 
 
-def sharded_refine_rescore(
-    buffers: Sequence[Optional[torch.Tensor]],
-    shards: Sequence[int],
-    n_shards: int,
-    gather: bool,
-    queries: torch.Tensor,
-    ids: torch.Tensor,
-    k: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Re-rank the merged candidates ``ids [Q, R]`` (global, -1 = none) by
-    the refine rows: ``buffers`` each local shard's ``(rows, scales or
-    None)`` in the order of ``shards``; ``gather``: the ranks' partial
-    scores are summed with ``all_reduce``.  ``(scores [Q, k'], ids [Q,
-    k'])``, ``k' = min(k, R)``, on ``ids``' device, ``-inf`` / ``-1`` past
-    the real candidates."""
-    merge_device = ids.device
-    full = torch.zeros(ids.shape, dtype=torch.float32, device=merge_device)
-    for i, shard in enumerate(shards):
-        rows, scales = buffers[2 * i], buffers[2 * i + 1]
-        dev = rows.device
-        with _current(dev):
-            cand_ids = ids.to(dev)
-            own, safe = _owned(cand_ids, n_shards, shard, rows.shape[0])
-            cand = rows[safe].float()  # [Q, R, D]
-            if scales is not None:
-                cand = cand * scales[safe][..., None]
-            part = torch.bmm(cand, queries.to(dev).float()[:, :, None])[..., 0]
-            part = torch.where(own, part, torch.zeros_like(part))
-        full = full + part.to(merge_device)
-    if gather:
-        dist.all_reduce(full)
+def refine_part(rows: torch.Tensor, scales: Optional[torch.Tensor],
+                shard: int, n_shards: int, queries: torch.Tensor,
+                ids: torch.Tensor) -> torch.Tensor:
+    """One shard's term of the rescore, on its device: the refine rows it
+    owns among the candidates ``ids [Q, R]`` scored against ``queries``
+    with the single-device ``refine_rescore``'s batched product, 0 where
+    it owns no row."""
+    own, safe = _owned(ids, n_shards, shard, rows.shape[0])
+    cand = rows[safe].float()  # [Q, R, D]
+    if scales is not None:
+        cand = cand * scales[safe][..., None]
+    part = torch.bmm(cand, queries.float()[:, :, None])[..., 0]
+    return torch.where(own, part, torch.zeros_like(part))
+
+
+def refine_select(full: torch.Tensor, ids: torch.Tensor,
+                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The summed rescore ``full [Q, R]`` of the candidates ``ids`` ->
+    the stable top ``min(k, R)``, ``-inf`` / ``-1`` past the real
+    candidates."""
     rescored = torch.where(ids >= 0, full,
                            torch.full_like(full, float("-inf")))
     top, pos = select_topk(rescored, min(k, ids.shape[1]))

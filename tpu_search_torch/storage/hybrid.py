@@ -96,7 +96,7 @@ class StorageConfig:
     auto_save: bool = True
     save_interval_s: float = 0.0  # min seconds between auto-saves
     device: Optional[str] = None  # None -> $CLAUDE_SEARCH_DEVICE -> "cuda"
-    shard_devices: int = 0  # 0 auto (one device for now), 1 one, N shard
+    shard_devices: int = 0  # 0 auto (every card, if 2+), 1 one, N shard
 
 
 @dataclass
@@ -183,7 +183,7 @@ class HybridStorage:
     def device(self) -> torch.device:
         if self._device is None:
             self._device = resolve_device(self.config.device)
-            self._capability = assess_device_capability(self._device)
+            self._capability = assess_device_capability(device=self._device)
         return self._device
 
     def _effective_dtype(self) -> str:
@@ -240,22 +240,31 @@ class HybridStorage:
         )
 
     def _index_mesh(self):
-        """The mesh to shard the index over, or None for one device: the
-        JAX package's rule over the storage platform's devices
-        (``devices.platform_devices``) for N > 1.  Auto (0) keeps one
-        device: JAX's shards over every accelerator, but shards on several
-        cards are unproven until a machine of several cards runs
-        ``chip_smoke.py --cross-card``."""
+        """The mesh to shard a flat or IVF index over, or None for one
+        device: the JAX package's rule.  ``shard_devices`` 1 keeps one
+        device; 0 (auto) shards over every card
+        (``devices.platform_devices("cuda")``) when there are two or more,
+        and never over the CPU; N > 1 over the first N devices of the
+        storage's platform."""
+        if self.config.index_type not in ("flat", "ivf"):
+            return None
         n = self.config.shard_devices
-        if n <= 1:
+        if n == 1:
             return None
-        devices = platform_devices(self.device.type)
-        if len(devices) < n:
-            self.logger.warning(
-                "shard_devices=%d but only %d devices; not sharding",
-                n, len(devices))
-            return None
-        devices = devices[:n]
+        if n == 0:
+            if self.device.type != "cuda":
+                return None
+            devices = platform_devices("cuda")
+            if len(devices) <= 1:
+                return None
+        else:
+            devices = platform_devices(self.device.type)
+            if len(devices) < n:
+                self.logger.warning(
+                    "shard_devices=%d but only %d devices; not sharding",
+                    n, len(devices))
+                return None
+            devices = devices[:n]
         return build_mesh(n_data=len(devices), n_model=1, devices=devices)
 
     def _load_index(self, path: str):
