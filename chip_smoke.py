@@ -95,7 +95,13 @@ Phases, each printing its numbers on its own line:
      equal to the single-device one; the IVF int4 path does the same
      with its index (with its int8 refine tier) loaded by
      ``ShardedIVFIndex.load``, its fused replays running the 4 shard
-     scans, the merge and the rescore.  The flat int8 and the
+     scans, the merge and the rescore.  Each then runs its 20 queries
+     again under a one-rank NCCL group (``grouped_window``): the window
+     takes the shards as a plan whose gather (and rescore sum) is a
+     program step between graph replays, every answer equal to the
+     ungrouped window's (ids, ``WARM_EXACT``), a replay equal to its
+     eager run, the collectives a search and the p50 beside the
+     ungrouped.  The flat int8 and the
      IVF int4 and pq paths end with their 16 probes one at a time through
      the warm server, each equal to the in-process answer.  After ``[warm]``
      the flat bf16 directory is served by the product's other entry
@@ -211,9 +217,22 @@ refine tier); at 1M x 768 in bf16, int8 and IVF int4 + refine,
 ``[cross_card_fused]``: the fused window over the cards against the
 classic path on the same cards and one card's fused window (p50, wall,
 graph replays and kernel launches a search, equal answers); and a dp
-train step with one data shard a card against one card; the last line
-is the same ``{"ok": true, ...}``.  Both runs print ``[capability]``,
-the card's report (``devices.assess_gpu_capability``), first.
+train step with one data shard a card against one card.  Then
+``[cross_process]`` (``check_cross_process``, four cards): NCCL across
+processes, each rank a ``chip_smoke.py --cross-process-worker`` process
+on cards of its own (``spawn_ranks``): two ranks on one card must both
+fail, a job one of whose ranks exits must end at once and one whose rank
+hangs at its time limit, no rank left running; then 4 ranks of 1 card and
+2 of 2 (``cross_process_layout``): the sharded flat
+index at 1M x 768 in the five cases and the sharded IVF int4 index with
+its refine tier against one card, per-process save and load, an engine a
+rank sharding over every card of every process whose fused window across
+the processes answers as the classic path and one card, its p50 against
+the classic path at 1M rows, the dp encode and two train steps against
+one card, every answer alike on every rank and each layout's seconds.
+The last line is the same ``{"ok": true, ...}``.  Both runs print
+``[capability]``, the card's report (``devices.assess_gpu_capability``),
+first.
 """
 
 from __future__ import annotations
@@ -434,11 +453,24 @@ def bound(nbytes: float, ops: float, kind: str):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+# Profiled windows in this run: how many, how many were profiled again for
+# want of device events, and the most tries one took (printed at the end
+# by ``print_profile_tries``, so a growing profiler flake shows).
+PROFILE_TRIES = {"windows": 0, "profiled_again": 0, "most_tries": 0}
+
+
+def print_profile_tries() -> None:
+    print("[profile] " + " ".join(f"{k}={v}" for k, v in
+                                  PROFILE_TRIES.items()), flush=True)
+
+
 def profiled_events(tag: str, fn, calls: int):
     """The device events of ``calls`` calls of ``fn`` (torch.profiler) and
     the wall time a call.  A window in which the profiler recorded no
     device event (it happens now and then after many windows in one
-    process) is profiled again, at most twice."""
+    process, three windows in a row in one run) is profiled again, at
+    most five times, each later window waiting a little longer after its
+    calls before it closes; ``PROFILE_TRIES`` counts the tries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -446,7 +478,7 @@ def profiled_events(tag: str, fn, calls: int):
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -454,13 +486,20 @@ def profiled_events(tag: str, fn, calls: int):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / calls
+            time.sleep(0.1 * attempt)
+        PROFILE_TRIES["most_tries"] = max(PROFILE_TRIES["most_tries"],
+                                          attempt + 1)
         try:
-            return _device_events(prof), wall
+            events = _device_events(prof)
         except RuntimeError:
-            if attempt == 2:
+            if attempt == 5:
                 raise
-            print(f"[profile] {tag}: no device events, profiled again",
-                  flush=True)
+            PROFILE_TRIES["profiled_again"] += 1
+            print(f"[profile] {tag}: no device events, profiled again "
+                  f"(try {attempt + 2} of 6)", flush=True)
+            continue
+        PROFILE_TRIES["windows"] += 1
+        return events, wall
 
 
 def device_breakdown(tag: str, fn, calls: int = 20):
@@ -2863,25 +2902,15 @@ def check_sharded() -> None:
         if dist.get_backend() != "nccl" or process_count() != 1:
             fail(f"[sharded] the group is {dist.get_backend()} with "
                  f"{process_count()} ranks")
-        gathers = [0]
-        real = dist.all_gather
-
-        def counted(*args, **kwargs):
-            gathers[0] += 1
-            return real(*args, **kwargs)
-
-        dist.all_gather = counted
-        try:
-            index = kept["index"]
-            got = index.search(kept["queries"], 10)
-        finally:
-            dist.all_gather = real
+        with counted_collectives() as calls:
+            got = kept["index"].search(kept["queries"], 10)
+        gathers = calls.get("all_gather", 0)
         same = all(np.array_equal(a, b) for a, b in zip(got, kept["answer"]))
         print(f"[sharded] process_group backend={dist.get_backend()} "
               f"ranks={process_count()} init_seconds={init_s:.3f} "
-              f"all_gather_calls={gathers[0]} same_answer={same}",
+              f"all_gather_calls={gathers} same_answer={same}",
               flush=True)
-        if not gathers[0] or not same:
+        if not gathers or not same:
             fail("[sharded] the search under the one-rank group did not "
                  "gather, or answered otherwise")
     finally:
@@ -3152,29 +3181,17 @@ def check_sharded_ivf() -> None:
     initialize_distributed(coordinator_address=f"localhost:{free_port()}",
                            num_processes=1, process_id=0)
     try:
-        calls = {"all_gather": 0, "all_reduce": 0}
-        real = {name: getattr(dist, name) for name in calls}
-
-        def counted(name):
-            def wrapper(*args, **kwargs):
-                calls[name] += 1
-                return real[name](*args, **kwargs)
-            return wrapper
-
-        for name in calls:
-            setattr(dist, name, counted(name))
-        try:
-            index = kept["index"]
-            got = index.search(kept["queries"], 10, nprobe=SIVF_NPROBE)
-        finally:
-            for name, fn in real.items():
-                setattr(dist, name, fn)
+        with counted_collectives() as calls:
+            got = kept["index"].search(kept["queries"], 10,
+                                       nprobe=SIVF_NPROBE)
+        gathers, reduces = (calls.get(name, 0)
+                            for name in ("all_gather", "all_reduce"))
         same = all(np.array_equal(a, b) for a, b in zip(got, kept["answer"]))
         print(f"[sharded_ivf] process_group backend={dist.get_backend()} "
-              f"case=int4_ip_refine all_gather_calls={calls['all_gather']} "
-              f"all_reduce_calls={calls['all_reduce']} same_answer={same}",
+              f"case=int4_ip_refine all_gather_calls={gathers} "
+              f"all_reduce_calls={reduces} same_answer={same}",
               flush=True)
-        if not calls["all_gather"] or not calls["all_reduce"] or not same:
+        if not gathers or not reduces or not same:
             fail("[sharded_ivf] the search under the one-rank group did not "
                  "gather and reduce, or answered otherwise")
     finally:
@@ -3300,6 +3317,7 @@ def run_sharded_serving(engine, work: Path, total: int,
         sharded_answers_error(again, want, f"{tag} fused, warm")
         profile_replays(engine, texts,
                         phase=f"sharded_serving {tag} 4 shards")
+        grouped_window(engine, queries, timed_pass, again, warm, tag)
         got_classic = [storage.search(e, cfg, f)
                        for e, (_, f, _) in zip(embeddings, queries)]
         for i, (a, b) in enumerate(zip(got_classic, want_classic)):
@@ -3344,6 +3362,117 @@ def run_sharded_serving(engine, work: Path, total: int,
         storage._data_version += 1
         engine._fused.clear()
         torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Counts the ``torch.distributed`` collectives called in the block
+    (``all_gather``, ``all_reduce``, ``broadcast``), by name."""
+    import torch.distributed as dist
+
+    calls: dict = {}
+    real = {name: getattr(dist, name)
+            for name in ("all_gather", "all_reduce", "broadcast")}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in real:
+        setattr(dist, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def grouped_window(engine, queries, timed_pass, want, ungrouped,
+                   tag: str) -> None:
+    """``[sharded_serving]``'s index under a one-rank NCCL group
+    (``initialize_distributed``): its mesh gathers, so the fused window
+    takes the 4 shards as a ``CardPlan`` whose stages gather the ranks'
+    results as a program step between graph replays (and, IVF + refine,
+    sum the rescore).  The 20 queries in a cold and a warm pass: each
+    answer equal to the same window's without the group (``want``: ids
+    equal, similarities within ``WARM_EXACT``), the collectives a search,
+    p50 beside the ungrouped window's; the window of 1 and of 9 queries
+    replayed against its eager run (the eager run gathers too)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_search_torch.api.fused import run_eager
+    from tpu_search_torch.parallel import initialize_distributed
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    t0 = time.perf_counter()
+    initialize_distributed(coordinator_address=f"localhost:{free_port()}",
+                           num_processes=1, process_id=0)
+    init_s = time.perf_counter() - t0
+    try:
+        cfg = SearchConfig(top_k=10)
+        window = engine._fused_window([queries[0][0]], None, cfg)
+        plan = None if window is None or window.plan is None else (
+            window.plan(window.scan_key, window.buffers, window.staged,
+                        window.k, merge_device=window.device))
+        if plan is None or any(s.collective is None for s in plan.stages):
+            fail(f"[sharded_serving] {tag}: under the one-rank NCCL group "
+                 f"the fused window is not a plan that gathers: {window!r}")
+        captures = engine._fused.captures
+        with counted_collectives() as calls:
+            cold, got = timed_pass()
+            cold_calls = dict(calls)
+            calls.clear()
+            warm, again = timed_pass()
+        gap = 0.0
+        for i, (a, b) in enumerate(zip(got + again, want + want)):
+            if [r["chunk_id"] for r in a] != [r["chunk_id"] for r in b]:
+                fail(f"[sharded_serving] {tag} query {i % len(want)}: the "
+                     f"grouped window's ids differ from the ungrouped")
+            gap = max(gap, max_sim_gap(a, b))
+        if gap > WARM_EXACT:
+            fail(f"[sharded_serving] {tag}: the grouped window is {gap:.3e} "
+                 f"from the ungrouped")
+        texts = [t for t, f, _ in queries if f is None]
+        replay = []
+        for q in (1, 9):
+            window = engine._fused_window(texts[:q], None, cfg)
+            engine._fused_dispatch_many(texts[:q], None, cfg)
+            pending = engine._fused_dispatch_many(texts[:q], None, cfg)
+            pending.event.synchronize()
+            eager = run_eager(window).cpu()
+            equal = bool(torch.equal(pending.packed, eager))
+            replay.append(f"q={q}:equal={equal}:max_abs_diff="
+                          f"{float((pending.packed - eager).abs().max()):.3e}")
+            if not equal:
+                fail(f"[sharded_serving] {tag}: the grouped replay differs "
+                     f"from its eager run at q={q}")
+        n = len(queries)
+        p50 = float(np.median([t for t, _ in warm]))
+        p50_ungrouped = float(np.median([t for t, _ in ungrouped]))
+        print(f"[sharded_serving] path={tag} process_group backend="
+              f"{dist.get_backend()} ranks={dist.get_world_size()} "
+              f"init_seconds={init_s:.3f} window=plan stages="
+              f"{len(plan.stages)} cards={len(plan.cards)} captures="
+              f"{engine._fused.captures - captures} collectives_a_search="
+              + ",".join(f"{k}:{v / n:.2f}" for k, v in sorted(calls.items()))
+              + f" cold_pass_collectives={json.dumps(cold_calls)} "
+              f"max_abs_diff_vs_ungrouped={gap:.3e} ids_equal=True "
+              f"replay_vs_eager={' '.join(replay)} warm_p50_ms={p50:.3f} "
+              f"ungrouped_warm_p50_ms={p50_ungrouped:.3f} seconds="
+              f"{time.perf_counter() - t0:.2f} "
+              f'card="{card_name()}"', flush=True)
+        print_latency(f"sharded_{tag}", "fused under a one-rank NCCL group, "
+                      "warm", warm, phase="sharded_serving")
+        if not calls.get("all_gather"):
+            fail(f"[sharded_serving] {tag}: the grouped searches gathered "
+                 f"nothing")
+    finally:
+        dist.destroy_process_group()
+        engine._fused.clear()
 
 
 # -- --cross-card: one shard on each card of the machine -------------------------
@@ -3621,27 +3750,13 @@ def check_train(work: Path) -> dict:
     initialize_distributed(coordinator_address=f"localhost:{free_port()}",
                            num_processes=1, process_id=0)
     try:
-        calls = {"all_gather": 0, "all_reduce": 0}
-        real = dist.all_gather, dist.all_reduce
-
-        def gather(*args, **kwargs):
-            calls["all_gather"] += 1
-            return real[0](*args, **kwargs)
-
-        def reduce(*args, **kwargs):
-            calls["all_reduce"] += 1
-            return real[1](*args, **kwargs)
-
-        dist.all_gather, dist.all_reduce = gather, reduce
-        try:
+        with counted_collectives() as calls:
             gg, lg = one_step(one, master)
-        finally:
-            dist.all_gather, dist.all_reduce = real
         worst_g = grad_cosines(gg, g0, "one-rank group vs none")
         print(f"[train] process_group backend={dist.get_backend()} ranks=1 "
               f"calls={calls} loss={lg:.6f} without_group={l0:.6f} "
               f"min_grad_cosine={worst_g:.6f}", flush=True)
-        if calls["all_gather"] != 2 or calls["all_reduce"] != 1 or (
+        if calls != {"all_gather": 2, "all_reduce": 1} or (
                 abs(lg - l0) > 1e-5 * abs(l0)):
             fail("[train] the step under a one-rank group did not gather "
                  "and reduce, or stepped otherwise")
@@ -3975,9 +4090,11 @@ def cross_card_engine(work: Path, devices, card: str):
 
 
 def program_graphs(engine) -> int:
-    """CUDA graphs one replay of the engine's newest fused program runs."""
-    program = next(reversed(engine._fused._programs.values()))
-    return sum(graph is not None for *_, graph in program.steps)
+    """CUDA graphs one replay of the engine's newest fused program runs (0
+    with no program: the CPU runs the window eagerly)."""
+    program = next(reversed(engine._fused._programs.values()), None)
+    return 0 if program is None else sum(step.graph is not None
+                                         for step in program.steps)
 
 
 def cross_card_fused(engine, texts, sharded, single, tag: str, card: str,
@@ -4185,6 +4302,697 @@ def check_cross_card_train(devices, card: str) -> None:
           f'card="{card}"', flush=True)
     if abs(l_all - l_one) > 1e-3 * abs(l_one):
         fail("[cross_card] the dp train step's loss is not one card's")
+
+
+# -- [cross_process]: ranks in processes of their own, joined by NCCL ------------
+
+# (ranks, cards a rank) of each layout [cross_process] runs on 4 cards: a
+# rank a card, and two ranks of two cards (the cards' plan and the ranks'
+# gather in one window).
+CROSS_PROCESS_LAYOUTS = ((4, 1), (2, 2))
+# A layout's time limit: ``spawn_ranks`` kills every rank of a job that
+# has not ended by then, as it does the rest when one rank fails.  The
+# process group keeps PyTorch's default timeout, longer than the limit.
+CROSS_PROCESS_WORKER_S = 420
+# ``check_nccl_rules``: the time limit of the duplicate-card and the
+# failing-rank jobs, that of the hanging-rank job (longer than a rank takes
+# to reach the card and join: about 11 s), and how soon after its first
+# rank ends (or its limit) a job must be over.
+NCCL_RULES_S, HANGING_S, JOB_END_MARGIN_S = 60, 40, 5
+# What the workers need beside the parent's environment: NCCL's bootstrap
+# over the loopback interface (the machine has no other network), and a
+# collective that fails tearing its process down.
+CROSS_PROCESS_ENV = {"NCCL_SOCKET_IFNAME": "lo",
+                     "TORCH_NCCL_ASYNC_ERROR_HANDLING": "3"}
+
+
+def spawn_ranks(mode: str, cards_of, work: Path, timeout: float,
+                stop_on_failure: bool = True,
+                platform: str = "cuda", coordinator: Optional[str] = None):
+    """One ``chip_smoke.py --cross-process-worker`` process a rank (rank r
+    on the cards ``cards_of[r]``, joined at ``coordinator``, default
+    ``localhost:<a free port>``), each in a session of its own, its output
+    in a file under ``work``.  Waits until every rank has ended, one has
+    failed (``stop_on_failure``) or ``timeout`` has passed, then kills what
+    is left.  ``[(exit code, output, seconds to its end or None)]`` a
+    rank."""
+    work.mkdir(parents=True, exist_ok=True)
+    coordinator = coordinator or f"localhost:{free_port()}"
+    env = {**os.environ, **CROSS_PROCESS_ENV}
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank, cards in enumerate(cards_of):
+        spec = {"mode": mode, "rank": rank, "ranks": len(cards_of),
+                "cards": list(cards), "coordinator": coordinator,
+                "work": str(work), "platform": platform}
+        logs.append(work / f"{mode}.rank{rank}.log")
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--cross-process-worker", json.dumps(spec)],
+                stdout=out, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                start_new_session=True))
+    ended = [None] * len(procs)
+    try:
+        while True:
+            now = time.perf_counter() - t0
+            for i, p in enumerate(procs):
+                if ended[i] is None and p.poll() is not None:
+                    ended[i] = now
+            if all(e is not None for e in ended) or now > timeout or (
+                    stop_on_failure
+                    and any(p.returncode for p in procs if
+                            p.returncode is not None)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    return [(p.returncode, log.read_text(), e)
+            for p, log, e in zip(procs, logs, ended)]
+
+
+def check_nccl_rules(work: Path) -> None:
+    """``[cross_process]``'s checks of the process group and of the job
+    that ``spawn_ranks`` runs: two ranks asked onto one card must both fail
+    on their own (NCCL refuses a duplicate GPU), not hang; when one rank of
+    two exits after a first collective, the job must end within
+    ``JOB_END_MARGIN_S`` of it, the other rank killed in its next
+    collective; and when one rank hangs in place of its second collective,
+    the job must end at its time limit (``HANGING_S``), both ranks killed.
+    The cards serve the layouts after."""
+    t0 = time.perf_counter()
+    got = spawn_ranks("duplicate", [[0], [0]], work / "duplicate",
+                      NCCL_RULES_S, stop_on_failure=False)
+    codes = [rc for rc, _, _ in got]
+    said = [line.strip() for _, out, _ in got for line in out.splitlines()
+            if "uplicate GPU" in line][:1]
+    print(f"[cross_process] nccl duplicate_card ranks=2 cards=[0, 0] "
+          f"exit_codes={codes} seconds={time.perf_counter() - t0:.1f} "
+          f"error={json.dumps(said[0][:200] if said else None)}",
+          flush=True)
+    if any(rc in (0, None) for rc in codes) or not said:
+        fail("[cross_process] two ranks on one card did not both fail with "
+             "NCCL's duplicate GPU error:\n"
+             + "\n".join(out[-1500:] for _, out, _ in got))
+    t0 = time.perf_counter()
+    got = spawn_ranks("failing", [[0], [1]], work / "failing", NCCL_RULES_S)
+    job_s = time.perf_counter() - t0
+    (rc0, out0, _), (rc1, _, end1) = got
+    print(f"[cross_process] nccl failing_rank ranks=2 rank1_exit={rc1} "
+          f"rank1_seconds={end1} rank0_exit={rc0} job_seconds={job_s:.1f}",
+          flush=True)
+    if (rc1 != 3 or end1 is None or rc0 in (0, None)
+            or "every collective returned" in out0
+            or job_s > end1 + JOB_END_MARGIN_S):
+        fail("[cross_process] the job did not end when a rank exited:\n"
+             f"{out0[-3000:]}")
+    t0 = time.perf_counter()
+    got = spawn_ranks("hanging", [[0], [1]], work / "hanging", HANGING_S)
+    job_s = time.perf_counter() - t0
+    (rc0, out0, end0), (rc1, out1, end1) = got
+    print(f"[cross_process] nccl hanging_rank ranks=2 rank1_exit={rc1} "
+          f"rank0_exit={rc0} ended_on_their_own={[end0, end1]} "
+          f"limit_s={HANGING_S} job_seconds={job_s:.1f}", flush=True)
+    if (rc0 in (0, None) or rc1 in (0, None)
+            or "rank 1 hangs in place of its second collective" not in out1
+            or "every collective returned" in out0
+            or job_s > HANGING_S + JOB_END_MARGIN_S):
+        fail("[cross_process] the job did not end at its limit when a rank "
+             f"hung:\n{out0[-1500:]}\n{out1[-1500:]}")
+
+
+def check_cross_process() -> None:
+    """``[cross_process]`` (``--cross-card``, four cards): serving across
+    processes joined by NCCL.  First ``check_nccl_rules``; then each of
+    ``CROSS_PROCESS_LAYOUTS`` as one worker process a rank
+    (``cross_process_layout``), each rank on its own cards: rank 0's
+    lines printed here, every rank's answers held to the others'
+    (``[digest]`` lines), the layout's seconds."""
+    from tpu_search_torch.devices import platform_devices
+
+    if len(platform_devices("cuda")) < 4:
+        fail("[cross_process] needs four cards")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_procs_"))
+    try:
+        check_nccl_rules(work)
+        for ranks, per in CROSS_PROCESS_LAYOUTS:
+            tag = f"{ranks}x{per}"
+            t0 = time.perf_counter()
+            got = spawn_ranks("layout", [list(range(r * per, (r + 1) * per))
+                                         for r in range(ranks)],
+                              work / tag, CROSS_PROCESS_WORKER_S)
+            seconds = time.perf_counter() - t0
+            for rank, (rc, out, _) in enumerate(got):
+                if rc != 0:
+                    fail(f"[cross_process] layout={tag} rank {rank} exited "
+                         f"{rc} after {seconds:.0f} s:\n{out[-4000:]}")
+            for line in got[0][1].splitlines():
+                if line.startswith(("[cross_process]", "[index]",
+                                    "[warmup]")):
+                    print(line, flush=True)
+            digests = [dict(line.split()[1:3] for line in out.splitlines()
+                            if line.startswith("[digest]"))
+                       for _, out, _ in got]
+            differ = sorted(k for k in digests[0]
+                            if any(d.get(k) != digests[0][k]
+                                   for d in digests[1:]))
+            if not digests[0] or differ or any(
+                    d.keys() != digests[0].keys() for d in digests):
+                fail(f"[cross_process] layout={tag}: the ranks' answers "
+                     f"differ: {differ[:5]}")
+            print(f"[cross_process] layout={tag} ranks={ranks} "
+                  f"cards_a_rank={per} answers_alike_on_every_rank="
+                  f"{len(digests[0])} seconds={seconds:.1f}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def cross_process_worker(spec: dict) -> None:
+    """A rank of ``spawn_ranks``: joins the group (``initialize_distributed``
+    on its cards), then runs ``spec["mode"]``: ``duplicate``, ``failing``
+    and ``hanging`` (``check_nccl_rules``) or ``layout``
+    (``cross_process_layout``)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_search_torch.parallel import initialize_distributed
+
+    os.environ["CLAUDE_SEARCH_DEVICE"] = spec["platform"]
+    t0 = time.perf_counter()
+    initialize_distributed(
+        coordinator_address=spec["coordinator"],
+        num_processes=spec["ranks"], process_id=spec["rank"],
+        local_device_ids=spec["cards"])
+    init_s = time.perf_counter() - t0
+    if spec["mode"] == "layout":
+        cross_process_layout(spec, init_s)
+    else:
+        one = torch.ones(1, device=spec["platform"])
+        dist.all_reduce(one)
+        float(one.sum())  # waits for the collective
+        if spec["mode"] == "failing" and spec["rank"] == 1:
+            print("rank 1 exits after its first collective", flush=True)
+            os._exit(3)
+        if spec["mode"] == "hanging" and spec["rank"] == 1:
+            print("rank 1 hangs in place of its second collective",
+                  flush=True)
+            time.sleep(3600)
+        if spec["mode"] != "duplicate":
+            dist.all_reduce(one)  # rank 1 is gone or hangs
+            float(one.sum())
+        print(f"{spec['mode']}: every collective returned", flush=True)
+    dist.destroy_process_group()
+
+
+def digest(name: str, answer) -> None:
+    """A ``[digest]`` line: a hash of ``answer``'s arrays, which the parent
+    holds equal across the ranks."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for part in answer:
+        h.update(np.ascontiguousarray(part).tobytes())
+    print(f"[digest] {name.replace(' ', '_')} {h.hexdigest()[:16]}",
+          flush=True)
+
+
+def cross_process_layout(spec: dict, init_s: float) -> None:
+    """One layout of ``[cross_process]``, in rank ``spec["rank"]`` of
+    ``spec["ranks"]`` on its cards ``spec["cards"]``, every rank running
+    the same program on the same data; the mesh is every process's cards,
+    process-major (``build_mesh(dcn_data=ranks)``).  Rank 0 holds the
+    answers against one card and prints them; every rank prints a
+    ``[digest]`` of each answer.
+
+    (d) ``cross_process_engine``: an engine a rank, auto sharding over
+    every card of every process, its fused window across the processes;
+    (a) the sharded flat index at ``[cross_card]``'s rows in every one of
+    ``SHARDED_CASES`` against one card's ``FlatIndex``; (b) the sharded
+    IVF int4 index with its int8 refine tier at ``[cross_card]``'s IVF
+    case against one card's ``IVFIndex`` with the same lists; (c) for
+    each case of (a) and for (b) a per-process save, a load and the same
+    answers; (e) ``cross_process_fused`` over (a)'s bf16 rows and (b);
+    (f) ``cross_process_train``."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.devices import platform_devices
+    from tpu_search_torch.index.flat import FlatIndex
+    from tpu_search_torch.index.ivf import IVFIndex
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel import (
+        ShardedFlatIndex,
+        ShardedIVFIndex,
+        build_mesh,
+    )
+
+    rank, ranks = spec["rank"], spec["ranks"]
+    lead = rank == 0
+    devices = platform_devices(spec["platform"])
+    dev = devices[0]
+    tag = f"{ranks}x{len(devices)}"
+    mesh = build_mesh(n_data=ranks * len(devices), dcn_data=ranks,
+                      devices=devices)
+    mine = tuple(range(rank * len(devices), (rank + 1) * len(devices)))
+    if mesh.local_shards() != mine or mesh.processes != ranks:
+        fail(f"[cross_process] rank {rank}: mesh {mesh!r}")
+    work = Path(spec["work"])
+    card = f"{card_name()} x{ranks * len(devices)}" if lead else ""
+    on_card = spec["platform"] == "cuda"
+
+    def say(line: str) -> None:
+        if lead:
+            print(f"[cross_process] layout={tag} {line}", flush=True)
+
+    def calls_of(kernel: str, search) -> tuple:
+        """``search()`` and its wrapper calls of ``kernel`` (one a local
+        shard on the card; the CPU's plain versions count none)."""
+        before = _build.LAUNCHES[kernel]
+        got = search()
+        calls = _build.LAUNCHES[kernel] - before
+        if on_card and calls != len(devices):
+            fail(f"[cross_process] layout={tag} rank {rank}: {calls} "
+                 f"{kernel} calls a search, want one a local shard")
+        return got
+
+    say(f"rank0 init_seconds={init_s:.3f} cards={spec['cards']} "
+        f"shards={mine} of {mesh.shape['data']}")
+    engine, texts = cross_process_engine(spec, work, tag, lead, card)
+
+    # (a) The sharded flat index, made alike on every rank from the seeds.
+    gen = torch.Generator(device=dev).manual_seed(31)
+    rows = unit_rows(gen, SHARDED_N, 768)
+    dead = np.random.default_rng(32).choice(SHARDED_N, SHARDED_N // 10,
+                                            replace=False)
+    mask = np.random.default_rng(33).random(SHARDED_N) < 0.5
+    queries = {q: unit_rows(gen, q, 768).cpu().numpy() for q in SHARDED_QS}
+    for dtype, metric in SHARDED_CASES:
+        case = f"{dtype}_{metric}"
+        sharded = ShardedFlatIndex.from_device_vectors(
+            rows, mesh, metric=metric, dtype=dtype)
+        sharded.remove(dead)
+        on = [str(sh._vectors.device) for sh in sharded._shards.values()]
+        if on != [str(d) for d in devices]:
+            fail(f"[cross_process] {case}: rank {rank}'s shards on {on}")
+        single = None
+        if lead:
+            single = FlatIndex(768, metric=metric, dtype=dtype, device=dev)
+            single.add(rows)
+            single.remove(dead)
+        worst, answers = 0.0, {}
+        for q, k, m in itertools.product(SHARDED_QS, (10, 128),
+                                         (None, mask)):
+            where = f"Q={q} k={k} masked={m is not None}"
+            got = calls_of(KERNEL_OF[dtype], lambda: sharded.search(
+                queries[q], k, mask=m))
+            answers[where] = ((queries[q], k, m), got)
+            digest(f"flat {case} {where}", got)
+            if lead:
+                _, rel, fault = topk_error(got, single.search(
+                    queries[q], k, mask=m), SHARDED_REL_TOL)
+                worst = max(worst, rel)
+                if fault or rel > SHARDED_REL_TOL:
+                    fail(f"[cross_process] {case} {where} disagrees with "
+                         f"one card: {fault or f'relative error {rel:.3e}'}")
+        say(f"case={case} rows={SHARDED_N} shards={sharded.n_shards} "
+            f"against_one_card max_rel_err={worst:.3e} (Q {SHARDED_QS}, k "
+            f"(10, 128), unfiltered and masked) live={sharded.live} "
+            f'card="{card}"')
+        saved_and_loaded(sharded, ShardedFlatIndex, work, case, mesh,
+                         answers, lambda ix, q, k, m: ix.search(
+                             q, k, mask=m), say, rank)
+        if dtype == "bfloat16":
+            cross_process_fused(engine, texts, sharded, case, say, card)
+        del sharded, single
+        if on_card:
+            torch.cuda.empty_cache()
+    del rows
+
+    # (b) The sharded IVF int4 index with its int8 refine tier, its lists
+    # trained once on rank 0's card (the one-card reference) and broadcast.
+    import torch.distributed as dist
+
+    rows = ivf_corpus(dev)
+    dead = np.random.default_rng(22).choice(IVF_N, IVF_N // 10,
+                                            replace=False)
+    kw = {"dtype": "int4", "nlist": IVF_NLIST, "refine_dtype": "int8",
+          "refine_factor": 4}
+    cents = torch.zeros((IVF_NLIST, 768), dtype=torch.float32, device=dev)
+    single = None
+    if lead:
+        single = IVFIndex(768, device=dev, **kw)
+        single.add(rows)
+        single.remove(dead)
+        cents.copy_(torch.from_numpy(single.centroids))
+    dist.broadcast(cents, src=0)
+    sharded = ShardedIVFIndex(768, mesh, **kw)
+    sharded.centroids = cents.cpu().numpy()
+    sharded.add(rows)
+    sharded.remove(dead)
+    qrng = np.random.default_rng(26)
+    live = np.setdiff1d(np.arange(IVF_N), dead)
+    queries = {q: rows[torch.from_numpy(qrng.choice(live, q, replace=False))
+                       .to(dev)].cpu().numpy() for q in SIVF_QS}
+    worst, answers = 0.0, {}
+    for q, k in itertools.product(SIVF_QS, (10, 128)):
+        where = f"Q={q} k={k} masked=False"
+        got = calls_of("ivf_topk_int4", lambda: sharded.search(
+            queries[q], k, nprobe=SIVF_NPROBE))
+        answers[where] = ((queries[q], k, None), got)
+        digest(f"ivf_int4_refine {where}", got)
+        if lead:
+            _, rel, fault = topk_error(got, single.search(
+                queries[q], k, nprobe=SIVF_NPROBE), SHARDED_REL_TOL)
+            worst = max(worst, rel)
+            if fault or rel > SHARDED_REL_TOL:
+                fail(f"[cross_process] ivf_int4_refine {where} disagrees "
+                     f"with one card: {fault or f'relative error {rel:.3e}'}")
+    say(f"case=ivf_int4_refine rows={IVF_N} nlist={IVF_NLIST} shards="
+        f"{sharded.n_shards} refine={sharded._refine.count} against_one_card "
+        f"max_rel_err={worst:.3e} (Q {SIVF_QS}, k (10, 128), nprobe "
+        f'{SIVF_NPROBE}) card="{card}"')
+    saved_and_loaded(sharded, ShardedIVFIndex, work, "ivf_int4_refine", mesh,
+                     answers, lambda ix, q, k, m: ix.search(
+                         q, k, nprobe=SIVF_NPROBE), say, rank)
+    cross_process_fused(engine, texts, sharded, "ivf_int4_refine", say, card,
+                        nprobe=SIVF_NPROBE)
+    del sharded, single, rows
+    if on_card:
+        torch.cuda.empty_cache()
+    cross_process_train(spec, mesh, devices, say, card)
+
+
+def saved_and_loaded(index, cls, work: Path, case: str, mesh, answers,
+                     search, say, rank: int) -> None:
+    """(c): ``index`` saved per process (every rank's ``.host<r>`` file
+    and the manifest in ``work``), loaded over ``mesh`` and asked
+    ``answers``' searches (``where -> ((queries, k, mask), answer)``,
+    ``search(index, queries, k, mask)``) again: the same answers; then
+    the files are deleted."""
+    import numpy as np
+    import torch.distributed as dist
+
+    path = work / f"{case}.tpuidx"
+    t0 = time.perf_counter()
+    index.save(str(path))
+    saved_s = time.perf_counter() - t0
+    hosts = sorted(p.name for p in work.glob(f"{case}.tpuidx.host*"))
+    if len(hosts) != mesh.processes or not path.exists():
+        fail(f"[cross_process] {case}: per-process files {hosts}")
+    t0 = time.perf_counter()
+    loaded = cls.load(str(path), mesh)
+    loaded_s = time.perf_counter() - t0
+    for where, (args, want) in answers.items():
+        got = search(loaded, *args)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"[cross_process] {case} rank {rank}: the loaded index "
+                 f"answers {where} otherwise")
+    say(f"case={case} per_process_save files={hosts} save_seconds="
+        f"{saved_s:.2f} load_seconds={loaded_s:.2f} loaded answers equal: "
+        f"{len(answers)}")
+    dist.barrier()  # every rank has loaded: the files can go
+    Path(f"{path}.host{rank}").unlink()
+    if rank == 0:
+        path.unlink()
+
+
+def cross_process_engine(spec: dict, work: Path, tag: str, lead: bool,
+                         card: str):
+    """(d): an engine on each rank over the same 200 conversations at
+    all-mpnet-base-v2's full width, ``CLAUDE_SEARCH_SHARD_DEVICES`` unset:
+    auto must shard over every card of every process, and the fused window
+    take the shards across the processes (a ``CardPlan`` whose stages
+    gather).  The 20 probe queries through ``search_conversations``, each
+    equal to the classic path across the processes and (rank 0) to one
+    card's window over the same conversations (an engine with
+    ``CLAUDE_SEARCH_SHARD_DEVICES=1``); the window of 1 and of 9 queries
+    replayed against its eager run; a conversation added and then removed,
+    each seen by the next fused search.  Returns the engine and the 16
+    unfiltered probe texts."""
+    import torch
+
+    from tpu_search_torch.api.engine import SearchEngine
+    from tpu_search_torch.api.fused import run_eager
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.parallel import ShardedFlatIndex
+    from tpu_search_torch.storage.hybrid import SearchConfig
+    from tpu_search_torch.utils.synthetic import (
+        write_conversations,
+        write_model,
+    )
+
+    rank, ranks = spec["rank"], spec["ranks"]
+    own = work / f"rank{rank}"
+    config = write_model(own / "data" / "models" / "smoke-mpnet")
+    files = write_conversations(own, CROSS_CARD_CONVERSATIONS + 2,
+                                config.vocab_size - 5)
+    os.environ.pop("CLAUDE_SEARCH_SHARD_DEVICES", None)
+    engine = SearchEngine(str(own / "data"), model_name="smoke-mpnet",
+                          use_warm_server=False, device=spec["platform"])
+    total, _ = index_path(engine, files[:-1], f"cross_process_{tag}",
+                          "bfloat16")
+    storage = engine.storage
+    index = storage.index
+    n_cards = ranks * len(spec["cards"])
+    if not isinstance(index, ShardedFlatIndex) or (
+            index.n_shards, index.mesh.processes) != (n_cards, ranks):
+        fail(f"[cross_process] rank {rank}: auto sharding built {index!r}, "
+             f"not {n_cards} shards over {ranks} processes")
+    _, probes = probe_queries(engine, total)
+    cfg = SearchConfig(top_k=10, include_metadata=True, include_text=True)
+    window = engine._fused_window([probes[0][0]], None, cfg)
+    plan = None if window is None or window.plan is None else window.plan(
+        window.scan_key, window.buffers, window.staged, window.k,
+        merge_device=window.device)
+    if plan is None or plan.stages[0].collective is None:
+        fail(f"[cross_process] rank {rank}: the fused window did not take "
+             f"the shards across the processes: {window!r}")
+    _build.reset_launches()
+    with counted_collectives() as calls:
+        t0 = time.perf_counter()
+        answers = [engine.search_conversations(t, f, top_k=10)
+                   for t, f, _ in probes]
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    embeddings = [engine.embedder.generate_single_embedding(t)
+                  for t, _, _ in probes]
+    classic = [[{"chunk_id": r.chunk_id, "similarity": r.similarity}
+                for r in storage.search(e, cfg, f)]
+               for e, (_, f, _) in zip(embeddings, probes)]
+    for i, (a, c) in enumerate(zip(answers, classic)):
+        digest(f"engine probe {i}", [[r["chunk_id"] for r in a],
+                                     [r["similarity"] for r in a]])
+        error = answer_error(a, c, WARM_EXACT)
+        if error or not a:
+            fail(f"[cross_process] rank {rank} probe {i}: fused against "
+                 f"classic: {error or 'no results'}")
+    if lead:  # one card's window over the same conversations
+        shutil.copytree(own / "data" / "models", own / "one" / "models")
+        os.environ["CLAUDE_SEARCH_SHARD_DEVICES"] = "1"
+        try:
+            one = SearchEngine(str(own / "one"), model_name="smoke-mpnet",
+                               use_warm_server=False,
+                               device=spec["platform"])
+            with contextlib.redirect_stdout(io.StringIO()):
+                one.index_conversations(files[:-1])
+        finally:
+            os.environ.pop("CLAUDE_SEARCH_SHARD_DEVICES", None)
+        for i, (a, (t, f, _)) in enumerate(zip(answers, probes)):
+            error = answer_error(a, one.search_conversations(t, f, top_k=10),
+                                 WARM_EXACT)
+            if error:
+                fail(f"[cross_process] probe {i}: across the processes "
+                     f"against one card: {error}")
+        del one
+    n = len(probes)
+    if lead:
+        print(f"[cross_process] layout={tag} engine auto shards="
+              f"{index.n_shards} processes={ranks} chunks={total} "
+              f"fused=taken stages={len(plan.stages)} cards_a_rank="
+              f"{len(plan.cards)} graphs_a_replay={program_graphs(engine)} "
+              "collectives_a_search=" + ",".join(
+                  f"{k}:{v / n:.2f}" for k, v in sorted(calls.items()))
+              + " answers equal to the classic path across the processes "
+              f"and to one card: {n} wall_s={wall:.3f} launches={launches} "
+              f'card="{card}"', flush=True)
+
+    texts = [t for t, f, _ in probes if f is None]
+    cfg = SearchConfig(top_k=10)
+    for q in (1, 9):
+        window = engine._fused_window(texts[:q], None, cfg)
+        engine._fused_dispatch_many(texts[:q], None, cfg)
+        pending = engine._fused_dispatch_many(texts[:q], None, cfg)
+        if pending.event is not None:
+            pending.event.synchronize()
+        eager = run_eager(window).cpu()
+        equal = bool(torch.equal(pending.packed, eager))
+        if lead:
+            print(f"[cross_process] layout={tag} graph_vs_eager q={q} "
+                  f"q_pad={window.q_pad} equal={equal} max_abs_diff="
+                  f"{float((pending.packed - eager).abs().max()):.3e}",
+                  flush=True)
+        if not equal:
+            fail(f"[cross_process] rank {rank}: the replay across the "
+                 f"processes differs from its eager run at q={q}")
+
+    cfg = SearchConfig(top_k=5)
+    before = set(storage.chunk_id_to_faiss_id)
+    with contextlib.redirect_stdout(io.StringIO()):
+        engine.index_conversations(files[-1:])
+    added = sorted(set(storage.chunk_id_to_faiss_id) - before)
+    if not added:
+        fail("[cross_process] the added conversation indexed no chunk")
+    text = storage.get_chunk_by_id(added[0]).text
+    top = engine._fused_search_many([text], None, cfg)[0]
+    if not top or top[0].chunk_id != added[0]:
+        fail(f"[cross_process] rank {rank}: the fused search missed the "
+             f"added chunk {added[0]}: {[r.chunk_id for r in top]}")
+    storage.remove_chunks_for_files([str(files[-1])])
+    top = engine._fused_search_many([text], None, cfg)[0]
+    if any(r.chunk_id in added for r in top):
+        fail(f"[cross_process] rank {rank}: the fused search still finds a "
+             f"removed chunk")
+    if lead:
+        print(f"[cross_process] layout={tag} add and remove seen by the "
+              f"next fused search: added={len(added)}", flush=True)
+    return engine, texts
+
+
+def cross_process_fused(engine, texts, sharded, case: str, say, card: str,
+                        nprobe: int = 0) -> None:
+    """(e): the engine's fused window over ``sharded`` (1M rows across the
+    processes) against the classic encode-then-``search`` across them,
+    over the 16 probe texts at k 10 after a warm pass: p50 and wall ms,
+    graph replays, collectives and kernel launches a search (``[cross_card
+    _fused]`` gives the window over the same 4 cards in one process); the
+    answers of both equal (ids outside exact ties, similarities within
+    ``WARM_EXACT``)."""
+    import numpy as np
+
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    storage = engine.storage
+    kept = storage.index
+    cfg = SearchConfig(top_k=10, nprobe=nprobe)
+
+    def fused(text):
+        return engine._fused_fetch(
+            engine._fused_dispatch_many([text], None, cfg))
+
+    def classic(text):
+        emb = engine.embedder.generate_single_embedding(text)
+        return storage.index.search(emb[None, :], 10, nprobe=nprobe)
+
+    def run(search):
+        engine._fused.clear()
+        for text in texts:  # the captures, the lazy caches
+            search(text)
+        _build.reset_launches()
+        times, answers = [], []
+        with counted_collectives() as calls:
+            t0 = time.perf_counter()
+            for text in texts:
+                t1 = time.perf_counter()
+                scores, ids = search(text)
+                times.append((time.perf_counter() - t1) * 1e3)
+                answers.append([{"chunk_id": int(i), "similarity": float(s)}
+                                for s, i in zip(scores[0], ids[0]) if i >= 0])
+            wall = (time.perf_counter() - t0) * 1e3
+        n = len(texts)
+        graphs = program_graphs(engine) if search is fused else 0
+        return answers, (f"p50_ms={float(np.median(times)):.4f} wall_ms="
+                         f"{wall:.3f} graph_replays={graphs} launches="
+                         f"{sum(_build.LAUNCHES.values()) / n:.2f} "
+                         "collectives=" + ",".join(
+                             f"{k}:{v / n:.2f}"
+                             for k, v in sorted(calls.items())))
+
+    storage.index = sharded
+    storage._data_version += 1
+    try:
+        want, over = run(fused)
+        got, classic_line = run(classic)
+    finally:
+        storage.index = kept
+        storage._data_version += 1
+        engine._fused.clear()
+    for i, (a, b) in enumerate(zip(got, want)):
+        error = answer_error(a, b, WARM_EXACT)
+        if error or not a:
+            fail(f"[cross_process] {case} probe {i}: classic against the "
+                 f"fused window: {error or 'no results'}")
+    say(f"fused case={case} rows={sharded.ntotal} shards={sharded.n_shards} "
+        f"probes={len(texts)} k=10 nprobe={nprobe} fused_across_processes: "
+        f"{over}; classic_across_processes: {classic_line}; answers equal "
+        f'card="{card}"')
+
+
+def cross_process_train(spec: dict, mesh, devices, say, card: str) -> None:
+    """(f): the dp encode's global rows and two dp train steps across the
+    processes ([train]'s batch and model, bf16 compute, one data shard a
+    card), against one card (rank 0): each step's loss within 1e-3, each
+    parameter's gradient at cosine >= ``TRAIN_GRAD_COS``, and the encode's
+    rows against one card's on the same parameters (least row cosine)."""
+    import copy
+
+    import torch
+
+    from tpu_search_torch.models.convert import model_from_params
+    from tpu_search_torch.models.mpnet import MPNetConfig, init_params
+    from tpu_search_torch.parallel import (
+        build_mesh,
+        init_train_state,
+        make_sharded_encode,
+        make_train_step,
+    )
+
+    config = MPNetConfig()
+    dev = devices[0]
+    master = model_from_params(init_params(config, 5), config).to(dev)
+    batch = train_batch(config, dev)
+
+    def steps(on):
+        state, opt = init_train_state(copy.deepcopy(master), on,
+                                      learning_rate=TRAIN_LR)
+        step = make_train_step(on, config, opt, compute_dtype=torch.bfloat16)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, loss = step(state, *batch)
+            losses.append(float(loss))
+        seconds = (time.perf_counter() - t0) / 2
+        grads = {n: p.grad for n, p in state.params.named_parameters()}
+        return state, losses, grads, seconds
+
+    state, losses, grads, seconds = steps(mesh)
+    digest("train losses", [torch.tensor(losses).numpy()])
+    encode = make_sharded_encode(mesh, config, compute_dtype=torch.bfloat16)
+    emb = encode(state.params, batch[0], batch[1])
+    digest("dp encode", [emb.float().cpu().numpy()])
+    if spec["rank"]:
+        return
+    one = build_mesh(n_data=1, devices=[dev])
+    _, one_losses, one_grads, one_seconds = steps(one)
+    worst = grad_cosines(grads, one_grads, "across processes vs one card")
+    want = make_sharded_encode(one, config, compute_dtype=torch.bfloat16)(
+        state.params, batch[0], batch[1])
+    cos = float(torch.nn.functional.cosine_similarity(emb, want).min())
+    say(f"train dp shards={mesh.shape['data']} losses={losses} "
+        f"one_card_losses={one_losses} min_grad_cosine={worst:.6f} "
+        f"step_s={seconds:.3f} one_card_step_s={one_seconds:.3f} "
+        f"dp_encode rows={emb.shape[0]} min_row_cosine_vs_one_card="
+        f'{cos:.6f} card="{card}"')
+    if any(abs(a - b) > 1e-3 * abs(b) for a, b in zip(losses, one_losses)):
+        fail("[cross_process] the dp train steps' losses are not one card's")
+    if not cos >= TRAIN_GRAD_COS:
+        fail(f"[cross_process] the dp encode's rows are {cos:.6f} from one "
+             f"card's")
 
 
 # -- phase 3: the main path -----------------------------------------------------
@@ -4463,7 +5271,8 @@ def run_main_path(work: Path, files) -> dict:
         fail("CUDA encoder disagrees with the plain CPU encoder")
     check_cli(engine, work / "data", probes[4].text, "bfloat16", {})
     warm = run_warm_path(engine, work, total)
-    run_sharded_serving(engine, work, total)
+    sharded = run_sharded_serving(engine, work, total)
+    launches = {k: n + sharded.get(k, 0) for k, n in launches.items()}
     # The servers load the directory from disk: give them this engine's
     # state (the warm phase's add and remove may be newer than the file).
     engine.storage.save_index()
@@ -6103,15 +6912,18 @@ def check_capability() -> None:
 def main() -> None:
     import torch
 
+    # Every f32 product of the plain versions in full f32, not TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--cross-process-worker"]:  # spawn_ranks's ranks
+        cross_process_worker(json.loads(sys.argv[2]))
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     cross_card = sys.argv[1:] == ["--cross-card"]
     if sys.argv[1:] and not cross_card:
         fail(f"unknown arguments {sys.argv[1:]} (only --cross-card)")
-    # Every f32 product of the plain versions in full f32, not TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, str(ROOT))
     from tpu_search_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -6124,6 +6936,9 @@ def main() -> None:
     if cross_card:
         with timed_phase("check_cross_card"):
             check_cross_card()
+        with timed_phase("check_cross_process"):
+            check_cross_process()
+        print_profile_tries()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
@@ -6223,6 +7038,7 @@ def main() -> None:
         }
         for name in _build.KERNELS
     ]}
+    print_profile_tries()
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

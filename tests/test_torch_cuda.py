@@ -55,7 +55,10 @@ outside ties), with and without OPQ, and its search captured in a CUDA
 graph replays equal to the eager run.  The fused window over shards on
 several cards (one graph on the encoder's card, one a card, one merge):
 a replay equal to its eager run and to one card's answer, on two cards
-(skipped below two) and with the same program on one card.
+(skipped below two) and with the same program on one card; under a
+one-rank NCCL group, the gather a step between graph replays, the capture
+and a replay each equal to the eager run and the window without the group,
+with one gather a window.
 """
 
 import math
@@ -1482,6 +1485,64 @@ def test_fused_window_over_cards(dev, graph_engine, tmp_path, cards):
         for j in (ids[r] != one[1][r]).nonzero()[0]:
             assert abs(scores[r, j] - one[0][r, j]) <= 1e-4
     assert torch.cuda.current_device() == 0
+    del index
+
+
+def test_fused_window_gathering_under_a_one_rank_group(
+        dev, graph_engine, tmp_path, monkeypatch):
+    """The window over two shards on the card under a one-rank NCCL group:
+    the mesh gathers, so the program holds the stage's gather as a step of
+    its own between two graph replays (``_capture_cards``).  The capturing
+    dispatch (answered from the capture's warm pass) and a replay of the
+    cached program each equal the eager run bit for bit and the same window
+    without the group (ids equal, scores within 1e-6), and each makes one
+    gather: an ``all_gather`` of the stage's scores and one of its ids."""
+    import torch.distributed as dist
+
+    from tpu_search_torch.api.fused import run_eager
+    from tpu_search_torch.parallel.sharded_index import gather_ranks
+    from tpu_search_torch.storage.hybrid import SearchConfig
+
+    engine, _ = graph_engine
+    texts, _ = _probe_texts(engine, 9)
+    cfg = SearchConfig(top_k=10)
+    index, window = _window_over(engine, tmp_path, [dev, dev], texts, cfg)
+    ungrouped = run_eager(window).cpu()
+    del index
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/group",
+                            rank=0, world_size=1)
+    calls = []
+    real = dist.all_gather
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    try:
+        index, window = _window_over(engine, tmp_path, [dev, dev], texts,
+                                     cfg)
+        plan = window.plan(window.scan_key, window.buffers, window.staged,
+                           window.k, merge_device=window.device)
+        assert [s.collective for s in plan.stages] == [gather_ranks]
+        monkeypatch.setattr(dist, "all_gather", counted)
+        for replay in (False, True):  # the capture, then the cached program
+            captures = engine._fused.captures
+            calls.clear()
+            packed, event = engine._fused.dispatch(window)
+            event.synchronize()
+            assert len(calls) == 2
+            assert engine._fused.captures == captures + (not replay)
+            calls.clear()
+            eager = run_eager(window).cpu()
+            assert len(calls) == 2  # the eager run gathers too
+            assert torch.equal(packed, eager)
+            k = window.k
+            assert torch.equal(packed[:, k:], ungrouped[:, k:])
+            assert (packed[:, :k] - ungrouped[:, :k]).abs().max() <= 1e-6
+    finally:
+        monkeypatch.undo()
+        dist.destroy_process_group()
+        engine._fused.clear()
     del index
 
 

@@ -19,16 +19,18 @@ Then the training step: two train steps in the two
 processes, two data shards each, against one process's steps on the
 global batch, and the dp encode's global rows on both processes.
 
-The workers import torch and the port only, never jax; each process has a
-120 s timeout and each test takes a few seconds.  In this process, with no
+The workers import torch and the port only, never jax; they meet through
+a ``file://`` rendezvous under the test's directory (``run_workers``),
+each process has a 120 s timeout, a failing worker ends the other, and
+each test takes a few seconds.  In this process, with no
 group: process 0 of 1, ``initialize_distributed`` refusing to start
 without its three settings, and ``build_mesh``'s shapes and error messages
 against the JAX function's.
 """
 
-import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -50,7 +52,7 @@ import os, sys
 import numpy as np
 import torch
 
-pid, port, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+pid, rendezvous, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 
 from tpu_search_torch.index.serialize import read_file
 from tpu_search_torch.parallel import (
@@ -58,9 +60,9 @@ from tpu_search_torch.parallel import (
     process_count, process_index,
 )
 
-initialize_distributed(coordinator_address=f"localhost:{port}",
+initialize_distributed(coordinator_address=rendezvous,
                        num_processes=2, process_id=pid)
-initialize_distributed(coordinator_address=f"localhost:{port}",
+initialize_distributed(coordinator_address=rendezvous,
                        num_processes=2, process_id=pid)  # logged, ignored
 assert is_distributed() and process_count() == 2 and process_index() == pid
 
@@ -189,17 +191,11 @@ print(f"WORKER_{pid}_OK", flush=True)
 """
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_two_process_sharded_index(tmp_path):
     outs = run_workers(tmp_path, WORKER, "worker.py")
     for pid, out in enumerate(outs):
         assert f"WORKER_{pid}_OK" in out
-    # the manifest written once, a file by each process
+    # the manifest, and a file by each process
     for stem in ("dist_float32", "dist_bfloat16", "dist_int8", "dist_int4",
                  "ivf_float32", "ivf_int8", "ivf_lifecycle",
                  "ivf_lifecycle2"):
@@ -212,7 +208,7 @@ import sys
 import numpy as np
 import torch
 
-pid, port = int(sys.argv[1]), sys.argv[2]
+pid, rendezvous = int(sys.argv[1]), sys.argv[2]
 
 from tpu_search_torch.models.convert import model_from_params
 from tpu_search_torch.models.mpnet import MPNetConfig, init_params
@@ -221,7 +217,7 @@ from tpu_search_torch.parallel import (
     make_sharded_encode, make_train_step,
 )
 
-initialize_distributed(coordinator_address=f"localhost:{port}",
+initialize_distributed(coordinator_address=rendezvous,
                        num_processes=2, process_id=pid)
 config = MPNetConfig(vocab_size=64, hidden_size=16, num_layers=2,
                      num_heads=2, intermediate_size=32, max_position=96)
@@ -261,10 +257,17 @@ print(f"TRAIN_WORKER_{pid}_OK worst={worst:.3e}", flush=True)
 """
 
 
-def run_workers(tmp_path, source: str, name: str) -> list:
-    port = _free_port()
+def run_workers(tmp_path, source: str, name: str, args=(), env=None,
+                timeout: float = 120.0) -> list:
+    """Two worker processes running ``source`` with ``pid``, the
+    rendezvous and ``tmp_path`` (then ``args``) as arguments, joined
+    through a ``file://`` rendezvous under ``tmp_path``: parallel test
+    workers cannot meet on it, as they could on a TCP port one picked and
+    released.  A worker that fails ends the other; each has ``timeout``
+    seconds.  Returns their outputs; any failure fails the test."""
     script = tmp_path / name
     script.write_text(source)
+    rendezvous = f"file://{tmp_path / (name + '.rendezvous')}"
     env = {
         "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
         "CLAUDE_SEARCH_DEVICE": "cpu",
@@ -272,25 +275,30 @@ def run_workers(tmp_path, source: str, name: str) -> list:
         "PATH": "/usr/bin:/bin",
         "PYTHONPATH": str(REPO_ROOT),
         "HOME": str(tmp_path),
+        **(env or {}),
     }
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(script), str(pid), str(port), str(tmp_path)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, cwd=REPO_ROOT,
-        )
-        for pid in (0, 1)
-    ]
-    outs = []
+    logs = [tmp_path / f"{name}.{pid}.log" for pid in (0, 1)]
+    procs = []
+    for pid, log in enumerate(logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), str(pid), rendezvous,
+                 str(tmp_path), *map(str, args)],
+                env=env, stdout=out, stderr=subprocess.STDOUT, text=True,
+                cwd=REPO_ROOT))
+    deadline = time.monotonic() + timeout
     try:
-        for p in procs:
-            out, _ = p.communicate(timeout=120)
-            outs.append(out)
+        while any(p.poll() is None for p in procs):
+            failed = any(p.returncode not in (None, 0) for p in procs)
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+    outs = [log.read_text() for log in logs]
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"worker {pid} failed:\n{out[-4000:]}"
     return outs

@@ -12,8 +12,9 @@ Added: the same 8 shards reloaded on two mesh devices (``cpu`` and
 ``cpu:1``, shard by shard in turn), whose fused window takes them as a
 plan of two cards and answers as the co-located window, the classic path
 and the JAX engine's sharded fused search; and a mesh that gathers across
-processes (a one-rank gloo group), whose window still declines, logged
-once, while the classic path answers as one device does.
+processes (a one-rank gloo group), whose window takes the shards with the
+ranks' gather as a step of its plan and answers as the classic path and
+one device (``tests/test_torch_fused_processes.py`` runs two processes).
 """
 
 import contextlib
@@ -116,14 +117,18 @@ def test_sharded_window_over_two_devices_fuses(engines, tmp_path):
             assert_close_results(fused, ref, TOL[config])
 
 
-def test_sharded_window_gathering_across_processes_declines(tmp_path,
-                                                            caplog):
+def test_sharded_window_gathering_across_processes_fuses(tmp_path, caplog):
     """Shards on a mesh that gathers across a process group (here a
-    one-rank gloo group): the fused window is None (logged once) and the
-    classic path answers, equal to one device."""
+    one-rank gloo group): the fused window takes them, a plan whose stage
+    gathers the ranks' results, and answers as the classic path and as
+    one device; nothing declines or logs that the window serves one
+    process."""
     import logging
 
     import torch.distributed as dist
+
+    from tpu_search_torch.api.fused import Window
+    from tpu_search_torch.parallel.sharded_index import gather_ranks
 
     write_model(tmp_path / "port" / "models")
     engine = SearchEngine(str(tmp_path / "port"), model_name="tiny-mpnet",
@@ -139,15 +144,22 @@ def test_sharded_window_gathering_across_processes_declines(tmp_path,
         storage.index = ShardedFlatIndex.load(str(storage.index_path),
                                               two_card_mesh(2))
         with caplog.at_level(logging.INFO, logger=engine_mod.logger.name):
-            assert engine._fused_window(QUERIES[:4], None, cfg) is None
-            assert engine._fused_search_many(QUERIES[:1], None, cfg) is None
-        assert caplog.text.count("fused query path serves one process") == 1
+            window = engine._fused_window(QUERIES[:4], None, cfg)
+            assert isinstance(window, Window)
+            assert window.plan is engine_mod.sharded_flat_plan
+            plan = window.plan(window.scan_key, window.buffers,
+                               window.staged, window.k,
+                               merge_device=window.device)
+            assert [s.collective for s in plan.stages] == [gather_ranks]
+            fused = engine._fused_search_many(QUERIES[:4], None, cfg)
+        assert "serves one process" not in caplog.text
+        assert_equal_results(fused, want)
+        assert_equal_results(classic(engine, QUERIES[:4], None, cfg), want)
         got = [engine.search_conversations(q, top_k=5) for q in QUERIES[:4]]
         for results, ref in zip(got, want):
             assert [r["chunk_id"] for r in results] == [
                 r.chunk_id for r in ref]
             for a, b in zip(results, ref):
                 assert abs(a["similarity"] - b.similarity) <= SIM_EQ
-        assert_equal_results(classic(engine, QUERIES[:4], None, cfg), want)
     finally:
         dist.destroy_process_group()

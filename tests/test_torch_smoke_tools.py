@@ -5,13 +5,15 @@ rounds its half-step ties away from zero or divides by ``amax / 127``
 where the contract multiplies by ``127 / amax``, the int8 GEMM family's
 gates, which must fail an ``int8_ffn_out`` fed the bf16 ``h``'s row max
 and a fused FFN that requantizes the bf16 ``h``, the attention gates,
-which must fail a kernel that skips rounding P before P V, and the
-reranker's logit-order gate.
+which must fail a kernel that skips rounding P before P V, the
+reranker's logit-order gate, and ``[cross_process]``'s launcher of ranks
+(``spawn_ranks``) ending a job one of whose ranks fails or hangs.
 """
 
 import contextlib
 import io
 import re
+import time
 
 import numpy as np
 import pytest
@@ -462,3 +464,39 @@ def test_ivf_f32_gate_separates_f32_from_tf32():
             @ _tf32(rows).astype(np.float64).T)
     assert np.abs(f32 - exact).max() <= chip_smoke.IVF_F32_TOL / 4
     assert np.abs(tf32 - f32).max() > 2 * chip_smoke.IVF_F32_TOL
+
+
+@pytest.mark.parametrize("mode,stop_on_failure", [
+    ("failing", False), ("failing", True), ("hanging", True)])
+def test_spawn_ranks_ends_a_job_whose_rank_fails(tmp_path, mode,
+                                                 stop_on_failure):
+    """``[cross_process]``'s worker launcher on the CPU (gloo, a
+    ``file://`` rendezvous).  In the ``failing`` mode rank 1 exits with 3
+    after a first collective: rank 0's next collective ends it with an
+    error of its own (gloo sees the closed peer; ``stop_on_failure=False``)
+    or the launcher kills it as soon as rank 1 has ended (what
+    ``check_nccl_rules`` asks on the card).  In the ``hanging`` mode rank 1
+    sleeps in place of its second collective: the launcher kills both at
+    the job's time limit.  Either way no rank is left running and each
+    rank's output comes back."""
+    limit = 30 if mode == "hanging" else 120
+    t0 = time.perf_counter()
+    got = chip_smoke.spawn_ranks(
+        mode, [[0], [1]], tmp_path, timeout=limit,
+        stop_on_failure=stop_on_failure, platform="cpu",
+        coordinator=f"file://{tmp_path / 'rendezvous'}")
+    job_s = time.perf_counter() - t0
+    (rc0, out0, end0), (rc1, out1, end1) = got
+    assert rc0 not in (0, None), out0[-2000:]
+    assert "every collective returned" not in out0
+    if mode == "hanging":
+        assert "rank 1 hangs in place of its second collective" in out1
+        assert rc1 not in (0, None) and end0 is None and end1 is None
+        assert limit <= job_s <= limit + chip_smoke.JOB_END_MARGIN_S
+        return
+    assert rc1 == 3 and end1 is not None
+    assert "rank 1 exits after its first collective" in out1
+    if stop_on_failure:
+        assert job_s <= end1 + chip_smoke.JOB_END_MARGIN_S
+    else:
+        assert end0 is not None  # it ended on its own

@@ -5,7 +5,10 @@ on the CPU (``shard_devices=8``; the host counted 8 times, as
 with ``tpu_search.`` pointed at ``tpu_search_torch.``).
 
 Added: the JAX warning when fewer devices exist than asked for, auto
-(``shard_devices=0``) keeping one card, and a restore back onto the mesh.
+(``shard_devices=0``) sharding over every card of the process, and over
+every process's cards under a process group (the same mesh for N equal to
+that global count, and the ``ValueError`` for any other N), and a restore
+back onto the mesh.
 """
 
 import logging
@@ -88,6 +91,52 @@ class TestShardedStorage(_CASES["TestShardedStorage"]):
             s._device = torch.device("cuda")
             s.config.index_type = "hnsw"
             assert s._index_mesh() is None
+            s.close()
+
+    @pytest.mark.parametrize("platform, local", [("cuda", 2), ("cpu", 4)])
+    def test_mesh_over_processes(self, tmp_path, monkeypatch, platform,
+                                 local):
+        """Under a group of 2 processes, each with ``local`` devices
+        (``process_count``, ``process_index`` and ``platform_devices``
+        patched): auto on cards, and N = 2 x ``local`` on either platform,
+        build ``build_mesh(n_data=2 * local, dcn_data=2)`` over this
+        process's devices, process-major (process 1 owns the second
+        half); auto on the CPU keeps one device, 1 keeps one device, and
+        any other N > 1 raises, naming N, the processes and the local
+        count."""
+        import torch
+
+        from tpu_search_torch.parallel import mesh as mesh_mod
+        from tpu_search_torch.storage import hybrid
+
+        devices = [torch.device(platform, i) for i in range(local)]
+        monkeypatch.setattr(hybrid, "platform_devices",
+                            lambda p: devices if p == platform else [])
+        for module in (hybrid, mesh_mod):
+            monkeypatch.setattr(module, "process_count", lambda: 2)
+        monkeypatch.setattr(mesh_mod, "process_index", lambda: 1)
+        total = 2 * local
+        for n in (0, total, 1, 2, total - 1, total + 1):
+            config = StorageConfig(data_dir=str(tmp_path / f"{platform}{n}"),
+                                   embedding_dim=16, auto_save=False,
+                                   shard_devices=n)
+            s = HybridStorage(config)
+            s._device = torch.device(platform)  # no card is asked
+            if n == 1 or (n == 0 and platform == "cpu"):
+                assert s._index_mesh() is None
+            elif n in (0, total):
+                mesh = s._index_mesh()
+                assert mesh.shape == {"data": total, "model": 1}
+                assert mesh.processes == 2
+                assert mesh.ranks[:, 0].tolist() == [0] * local + [1] * local
+                assert list(mesh.devices[:, 0]) == devices * 2
+                assert mesh.local_shards() == tuple(range(local, total))
+            else:
+                with pytest.raises(ValueError) as err:
+                    s._index_mesh()
+                for word in (f"shard_devices={n}", "2 processes",
+                             f"{local} {platform} devices", str(total)):
+                    assert word in str(err.value)
             s.close()
 
     def test_backup_restore_sharded(self, storage, tmp_path):

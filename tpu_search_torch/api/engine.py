@@ -52,7 +52,7 @@ from ..models.cross_encoder import (
     resolve_reranker_name,
 )
 from ..models.encoder import EmbeddingConfig, EmbeddingGenerator
-from ..parallel.sharded_index import ShardedFlatIndex, _gathers
+from ..parallel.sharded_index import ShardedFlatIndex
 from ..parallel.sharded_index import card_plan as sharded_flat_plan
 from ..parallel.sharded_index import sharded_scan
 from ..parallel.sharded_ivf import ShardedIVFIndex
@@ -234,8 +234,6 @@ class SearchEngine:
         # thread-safe), and the fused programs (CUDA graphs on the card).
         self._warm_clients = threading.local()
         self._fused = FusedPrograms()
-        self._warned_unfused = False  # logged once: a sharded index that
-        # spans devices searches on the classic path
         self.parser = JSONLParser()
         self.chunker = ConversationChunker(ChunkingConfig())
         self.embedder = EmbeddingGenerator(
@@ -609,10 +607,21 @@ class SearchEngine:
         0.  A sharded index (flat or IVF) fuses: with every shard on the
         encoder's device as one program (the encode, each shard's scan, the
         merge, an IVF refine tier's rescore); with shards on several cards
-        of this process as one graph a card and stage (the window's
-        ``plan``).  Over a mesh that gathers across processes it is None
-        (logged once), and the classic path serves on the same scan
-        kernels."""
+        of this process, or on a mesh that gathers across processes, as one
+        graph a card and stage (the window's ``plan``), the ranks'
+        collectives run between the graphs.
+
+        Across processes every rank calls :meth:`search_conversations`
+        with the same queries, filters and ``top_k``, after the same
+        writes (the SPMD contract of ``HybridStorage._index_mesh``).  The
+        early returns above must then agree across the ranks, or one rank
+        leaves the window while the others wait in its collective, so each
+        depends on replicated state alone: the query count and ``top_k``
+        (the same calls), the encoder (the same model), the index's global
+        count, capacity, training and nprobe (the same writes on every
+        rank), and the filter's emptiness, which depends on each rank's
+        own SQLite and is therefore taken over every rank
+        (``HybridStorage.matches_nothing``)."""
         q = len(queries)
         if q == 0:
             return []
@@ -637,18 +646,10 @@ class SearchEngine:
         model, device, normalize, int8_ffn = parts
         plan = None
         if is_sharded and not index.colocated(device):
-            if _gathers(index.mesh):
-                if not self._warned_unfused:
-                    self._warned_unfused = True
-                    logger.info(
-                        "Sharded index gathers across processes (%s): the "
-                        "fused query path serves one process only; "
-                        "searching on the classic path", index.mesh)
-                return None
             plan = sharded_ivf_plan if sharded_ivf else sharded_flat_plan
 
         fmask = self.storage.filter_mask(filters)
-        if fmask is not None and not fmask.any():
+        if self.storage.matches_nothing(fmask):
             return [[] for _ in range(q)]
         if sharded_ivf:
             nprobe = resolve_nprobe(cfg.nprobe, index)

@@ -30,6 +30,17 @@ not ``q_pad``.
   the merge device) and writing static outputs, which are copied back to
   static tensors on the merge device for the stage's merge graph; IVF
   with a refine tier has two stages (the probe scans, then the rescore).
+  Over a mesh that gathers across processes a stage's merge is two graphs
+  with the stage's collective between them (an ``all_gather`` of the
+  ranks' top-k lists, an ``all_reduce`` of the rescore): the first graph
+  writes this process's part into static tensors, the collective runs
+  eagerly on them into static tensors the second reads.  A collective is
+  never inside a graph: it runs during each replay, after the copies from
+  the card graphs and before the merge graph, on the merge card's current
+  stream, and a failed one raises out of ``dispatch``.  The capture's warm
+  pass runs the collectives too, so the ranks capture in step, and its
+  output is the capturing window's answer: every window, captured or
+  replayed, runs each collective once, whichever rank captures it.
   Each graph is captured on its own card's stream, and the graphs of one
   program on one card share one memory pool (they replay one after
   another on that card's stream, in the order they were captured): one
@@ -58,11 +69,12 @@ launch error propagates: no caller falls back to another path.
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from collections import Counter, OrderedDict
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,10 +99,11 @@ class Window:
     mask (``B`` the batch bucket), ``q_pad``, the scan (a function of
     ``index.flat`` / ``index.ivf``, its key, the buffers it reads in place
     and the staged tensors that change between calls) and ``k``.  A
-    sharded index whose shards lie on several cards of this process also
-    gives ``plan``, its scan's ``card_plan`` (``parallel.sharded_index`` /
-    ``parallel.sharded_ivf``): the card runs it as one graph a card and
-    stage."""
+    sharded index whose shards lie on several cards of this process, or
+    whose mesh gathers across processes, also gives ``plan``, its scan's
+    ``card_plan`` (``parallel.sharded_index`` / ``parallel.sharded_ivf``):
+    the card runs it as one graph a card and stage, the ranks'
+    collectives between the graphs."""
 
     model: Any
     ids: np.ndarray
@@ -161,28 +174,44 @@ def run_eager(w: Window) -> torch.Tensor:
                      torch.from_numpy(w.mask).to(w.device), w.staged)
 
 
+class _Step(NamedTuple):
+    """One step of a program's replay: copy each of ``srcs`` into its
+    static tensor in ``dsts``, then replay ``graph`` (if any) and run
+    ``collective`` (if any) with ``device`` current."""
+
+    dsts: tuple
+    srcs: tuple
+    device: torch.device
+    graph: Optional[torch.cuda.CUDAGraph]
+    collective: Optional[Callable] = None
+
+
 class _Program:
-    """One captured window: its steps, its static inputs and output, and
-    the kernel launches one replay makes.  A step is ``(dsts, srcs,
-    device, graph)``: copy each source into its static tensor, then replay
-    the graph (if any) on ``device``."""
+    """One captured window: its steps (:class:`_Step`), its static inputs
+    and output, and the kernel launches one replay makes.  ``first`` is the
+    capture's warm output where the program holds a collective: the
+    capturing window's answer, which no replay repeats."""
 
     __slots__ = ("steps", "ids", "mask", "staged", "out", "launches",
-                 "model")
+                 "model", "first")
 
     def __init__(self, steps, ids, mask, staged, out, launches,
-                 model) -> None:
+                 model, first=None) -> None:
         self.steps, self.ids, self.mask = steps, ids, mask
         self.staged, self.out, self.launches = staged, out, launches
         self.model = model  # keeps id(model) in the key unique
+        self.first = first
 
     def replay(self) -> None:
-        for dsts, srcs, device, graph in self.steps:
-            for dst, src in zip(dsts, srcs):
+        for step in self.steps:
+            for dst, src in zip(step.dsts, step.srcs):
                 dst.copy_(src, non_blocking=True)
-            if graph is not None:
-                with torch.cuda.device(device):
-                    graph.replay()
+            if step.graph is not None or step.collective is not None:
+                with torch.cuda.device(step.device):
+                    if step.graph is not None:
+                        step.graph.replay()
+                    if step.collective is not None:
+                        step.collective()
 
 
 class FusedPrograms:
@@ -226,16 +255,19 @@ class FusedPrograms:
                     self._programs.popitem(last=False)
             else:
                 self._programs.move_to_end(key)
-            program.ids.copy_(ids_host, non_blocking=True)
-            program.mask.copy_(mask_host, non_blocking=True)
-            for dst, src in zip(program.staged, w.staged):
-                dst.copy_(src, non_blocking=True)
-            program.replay()
-            for name, n in program.launches.items():
-                _build.LAUNCHES[name] += n
-            packed = torch.empty(program.out.shape, dtype=torch.float32,
+            out, program.first = program.first, None
+            if out is None:
+                program.ids.copy_(ids_host, non_blocking=True)
+                program.mask.copy_(mask_host, non_blocking=True)
+                for dst, src in zip(program.staged, w.staged):
+                    dst.copy_(src, non_blocking=True)
+                program.replay()
+                for name, n in program.launches.items():
+                    _build.LAUNCHES[name] += n
+                out = program.out
+            packed = torch.empty(out.shape, dtype=torch.float32,
                                  pin_memory=True)
-            packed.copy_(program.out, non_blocking=True)
+            packed.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         return packed, event
@@ -294,20 +326,22 @@ class FusedPrograms:
         launches: Counter = Counter()
         graph, _, out = self._graph(
             w.device, lambda: _body(w, ids, mask, static), (), (), launches)
-        return _Program([((), (), w.device, graph)], ids, mask, static, out,
-                        dict(launches), w.model)
+        return _Program([_Step((), (), w.device, graph)], ids, mask, static,
+                        out, dict(launches), w.model)
 
     def _capture_cards(self, w: Window, ids_host, mask_host) -> _Program:
-        """The window over shards on several cards: one graph on the
-        encoder's card (encode -> normalize -> pad -> a static ``[q_pad,
-        D]`` block), then for each stage of the scan's ``CardPlan`` one
-        graph a card, fed by copies of the stage's inputs into that card's
-        static tensors, and one merge graph on the encoder's card, fed by
-        copies of every card's outputs; the graphs on a card share one
-        memory pool.  A copy between cards orders
-        itself after the work on both cards' current streams, so one
-        replay runs the steps in order and the cards' stages side by
-        side."""
+        """The window over shards on several cards, or over a mesh that
+        gathers across processes: one graph on the encoder's card (encode
+        -> normalize -> pad -> a static ``[q_pad, D]`` block), then for
+        each stage of the scan's ``CardPlan`` one graph a card, fed by
+        copies of the stage's inputs into that card's static tensors, and
+        the merge on the encoder's card, fed by copies of every card's
+        outputs: one graph, or where the stage has a collective a graph of
+        this process's part, the collective (run eagerly, into static
+        tensors) and a graph of the merge.  The graphs on a card share one
+        memory pool.  A copy between cards orders itself after the work on
+        both cards' current streams, so one replay runs the steps in order
+        and the cards' stages side by side."""
         merge = w.device
         if merge.index is None:
             merge = torch.device("cuda", torch.cuda.current_device())
@@ -319,30 +353,47 @@ class FusedPrograms:
         pools: dict = {}
         graph, q_warm, q = self._graph(
             merge, lambda: _encode(w, ids, mask), (), (), launches, pools)
-        steps = [((), (), merge, graph)]
+        steps = [_Step((), (), merge, graph)]
         warm, inputs = (q_warm,), (q,)
-        for n, (card, merge_fn) in enumerate(plan.stages):
+        collective = False
+        for n, stage in enumerate(plan.stages):
             merge_in, merge_srcs = [], []
             for j, device in enumerate(plan.cards):
                 card_in = tuple(t.to(device, copy=True) for t in warm)
                 graph, out_warm, out = self._graph(
-                    device, lambda *a, j=j: card(j, a), card_in, card_in,
-                    launches, pools)
-                steps.append((card_in, inputs, device, graph))
+                    device, lambda *a, j=j: stage.card(j, a), card_in,
+                    card_in, launches, pools)
+                steps.append(_Step(card_in, inputs, device, graph))
                 held = tuple(t.to(merge, copy=True) for t in out_warm)
                 merge_in.append(held)
                 merge_srcs.append(out)
+            copies = (tuple(t for held in merge_in for t in held),
+                      tuple(t for out in merge_srcs for t in out))
             last = n == len(plan.stages) - 1
 
-            def merged(outs, ins, merge_fn=merge_fn, last=last):
-                result = merge_fn(outs, ins)
+            def merged(part, ins, merge_fn=stage.merge, last=last):
+                result = merge_fn(part, ins)
                 return _pack(*result) if last else result
 
-            graph, warm, inputs = self._graph(
-                merge, merged, (merge_in, warm), (merge_in, inputs),
+            if stage.collective is None:
+                graph, warm, inputs = self._graph(
+                    merge, lambda outs, ins, local=stage.local,
+                    merged=merged: merged(local(outs, ins), ins),
+                    (merge_in, warm), (merge_in, inputs), launches, pools)
+                steps.append(_Step(*copies, merge, graph))
+                continue
+            collective = True
+            graph, part_warm, part = self._graph(
+                merge, stage.local, (merge_in, warm), (merge_in, inputs),
                 launches, pools)
-            steps.append((tuple(t for held in merge_in for t in held),
-                          tuple(t for out in merge_srcs for t in out),
-                          merge, graph))
+            # The warm pass's collective; its output is the static tensors
+            # the merge graph reads and each replay's collective fills.
+            gathered = stage.collective(part_warm, None)
+            steps.append(_Step(*copies, merge, graph, functools.partial(
+                stage.collective, part, gathered)))
+            graph, warm, inputs = self._graph(
+                merge, merged, (gathered, warm), (gathered, inputs),
+                launches, pools)
+            steps.append(_Step((), (), merge, graph))
         return _Program(steps, ids, mask, static, inputs, dict(launches),
-                        w.model)
+                        w.model, first=warm if collective else None)

@@ -77,7 +77,8 @@ def write_file(
     sections: List[Tuple[str, str, Tuple[int, ...], Iterable[np.ndarray]]],
 ) -> None:
     """Write ``(name, dtype, shape, chunk_iter)`` sections after a JSON
-    header; the file is replaced atomically."""
+    header; the file is replaced atomically (written under a name of this
+    process's own first, so processes writing one path never share it)."""
     meta = []
     offset = 0
     for name, dtype, shape, _ in sections:
@@ -92,7 +93,7 @@ def write_file(
 
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(path.name + ".tmp")
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     try:
         with open(tmp, "wb") as f:
             f.write(MAGIC)

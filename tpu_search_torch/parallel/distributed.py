@@ -15,7 +15,12 @@ merge (``ShardedFlatIndex.search``).  Persistence is per process
 (``ShardedFlatIndex.save``): each writes and reads only its own shards.
 
 The process group runs NCCL when this process's devices are CUDA and gloo
-on the CPU, joined at ``tcp://<coordinator>``.
+on the CPU, joined at ``tcp://<coordinator>`` (a coordinator given with a
+scheme, such as ``file:///shared/rendezvous``, as it is).  On cards each
+process holds its own cards (``local_device_ids``): NCCL refuses two ranks
+on one card.  Every process runs the same program on the same data (the
+JAX package's SPMD contract): the same index writes and the same searches
+in the same order, so that every rank meets every collective.
 """
 
 from __future__ import annotations
@@ -47,12 +52,14 @@ def initialize_distributed(
 ) -> None:
     """Join the job's process group (``torch.distributed``).
 
-    The arguments default to ``TPU_SEARCH_COORDINATOR`` (``host:port``),
+    The arguments default to ``TPU_SEARCH_COORDINATOR`` (``host:port``,
+    or a rendezvous URL such as ``file://<path>``),
     ``TPU_SEARCH_NUM_PROCESSES`` and ``TPU_SEARCH_PROCESS_ID``.  The
     backend is NCCL when the device (``CLAUDE_SEARCH_DEVICE``, default
     ``cuda``) is CUDA, gloo on the CPU; ``local_device_ids`` limits this
-    process to those CUDA ordinals, the first its NCCL device.
-    Idempotent: a second call logs and returns."""
+    process to those CUDA ordinals, the first its NCCL device.  The
+    group keeps PyTorch's default timeout.  Idempotent: a second call
+    logs and returns."""
     if dist.is_initialized():
         logger.info("torch.distributed already initialized: process %d/%d",
                     dist.get_rank(), dist.get_world_size())
@@ -75,9 +82,11 @@ def initialize_distributed(
         if local_device_ids is not None:
             restrict_cuda_devices(list(local_device_ids))
             torch.cuda.set_device(int(local_device_ids[0]))
+    init_method = (coordinator_address if "://" in coordinator_address
+                   else f"tcp://{coordinator_address}")
     dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id)
+        backend, init_method=init_method, world_size=num_processes,
+        rank=process_id)
     logger.info("torch.distributed initialized (%s): process %d/%d",
                 backend, dist.get_rank(), dist.get_world_size())
 

@@ -26,7 +26,10 @@ Counterpart of ``tpu_search/parallel/sharded_index.py``'s
 - Over several processes (a process group as wide as the mesh), each
   process scans its own shards and the ranks' ``[S_local, Q, k]`` results
   meet in one ``all_gather`` before that merge, so the tie order is the
-  one-process order.  A one-rank group gathers too.
+  one-process order.  A one-rank group gathers too.  The gather is a step
+  of its own in the search's :class:`CardPlan` (a :class:`Stage`'s
+  ``collective``), between the part this process holds and the merge, so
+  that the fused window runs it between its graph replays.
 - ``device_mask`` folds validity and the predicate into each shard's
   penalty: the shard's own ``FlatIndex._penalty``, cached per digest of
   its slice of the mask (FIFO of 8) and cleared by every write to the
@@ -40,8 +43,10 @@ Counterpart of ``tpu_search/parallel/sharded_index.py``'s
   ``FlatIndex`` or ``ShardedFlatIndex`` and the reverse; ``dtype=``
   converts between tiers on load.  With more than one process, each
   writes ``<path>.host<p>`` with its own shards in the JAX package's
-  device layout (int8 and int4 as int32 words) and process 0 a
-  ``flat_shards_manifest`` at ``path``; the save ends on a barrier.
+  device layout (int8 and int4 as int32 words) and the
+  ``flat_shards_manifest`` at ``path`` (the same on every process, so a
+  process whose ``path`` is its own, on a disk of its own, can load it);
+  the save ends on a barrier.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from typing import (
     List,
     Optional,
     Sequence,
+    NamedTuple,
     Tuple,
     Union,
 )
@@ -87,12 +93,17 @@ from .mesh import Mesh
 __all__ = [
     "CardPlan",
     "ShardedFlatIndex",
+    "Stage",
+    "all_sum",
+    "any_rank",
     "card_plan",
+    "gather_ranks",
     "merge_shards",
     "run_plan",
     "run_stage",
     "shards_by_card",
     "sharded_scan",
+    "sum_ranks",
 ]
 
 _MIN_LOCAL_CAPACITY = 1024
@@ -149,36 +160,49 @@ def shards_by_card(mesh: Mesh, shards: Sequence[int]
     return list(groups.values())
 
 
+class Stage(NamedTuple):
+    """One stage of a :class:`CardPlan`.  ``card(j, inputs)`` runs on
+    ``cards[j]`` with the stage's inputs there and returns a tuple of
+    tensors on that card; ``local(outs, inputs)`` runs on the merge device
+    with every card's outputs (in card order) and the inputs, both moved
+    there, and returns this process's part (its shards' results in shard
+    order); ``collective(part, out)``, where the mesh gathers across
+    processes, exchanges the ranks' parts into ``out`` (allocated where
+    None) and returns it; ``merge(part, inputs)`` returns the next stage's
+    inputs, the last stage's ``(scores, ids)``."""
+
+    card: Callable
+    local: Callable
+    merge: Callable
+    collective: Optional[Callable] = None
+
+
 @dataclass(frozen=True)
 class CardPlan:
-    """A search split into stages over the cards that hold the shards.
-    Each stage is ``(card, merge)``: ``card(j, inputs)`` runs on
-    ``cards[j]`` with the stage's inputs there and returns a tuple of
-    tensors on that card; ``merge(outs, inputs)`` runs on
-    ``merge_device`` with every card's outputs (in card order) and the
-    inputs, both moved there, and returns the next stage's inputs, the
-    last stage's ``(scores, ids)``.  The first stage's inputs are
+    """A search split into stages (:class:`Stage`) over the cards of this
+    process that hold its shards.  The first stage's inputs are
     ``(queries,)``.  :func:`run_plan` runs it eagerly; ``api/fused.py``
-    captures each card's stage and each merge as a CUDA graph of its
-    own."""
+    captures each card's part, each ``local`` and each ``merge`` as CUDA
+    graphs and runs each ``collective`` eagerly between their replays."""
 
     merge_device: torch.device
     cards: Tuple[torch.device, ...]
-    stages: Tuple[Tuple[Callable, Callable], ...]
+    stages: Tuple[Stage, ...]
 
 
-def run_stage(plan: CardPlan, stage: Tuple[Callable, Callable],
-              inputs: tuple) -> tuple:
+def run_stage(plan: CardPlan, stage: Stage, inputs: tuple) -> tuple:
     """One stage of a :class:`CardPlan` run eagerly: each card's part on
     the stage's ``inputs`` (on the merge device) moved to that card, then
-    the merge on the merge device."""
-    card, merge = stage
+    ``local``, the collective and the merge on the merge device."""
     outs = []
     for j, device in enumerate(plan.cards):
         with _current(device):
-            out = card(j, tuple(t.to(device) for t in inputs))
+            out = stage.card(j, tuple(t.to(device) for t in inputs))
         outs.append(tuple(t.to(plan.merge_device) for t in out))
-    return merge(outs, inputs)
+    part = stage.local(outs, inputs)
+    if stage.collective is not None:
+        part = stage.collective(part, None)
+    return stage.merge(part, inputs)
 
 
 def run_plan(plan: CardPlan, queries: torch.Tensor):
@@ -187,6 +211,49 @@ def run_plan(plan: CardPlan, queries: torch.Tensor):
     for stage in plan.stages:
         inputs = run_stage(plan, stage, inputs)
     return inputs
+
+
+def gather_ranks(part: tuple, out: Optional[tuple] = None) -> tuple:
+    """Each rank's ``[S_local, ...]`` tensors of ``part``, rank-major, into
+    ``out`` (``[S, ...]`` each, allocated where None): the per-shard
+    results in global shard order (each process holds a contiguous run of
+    the shards).  One ``all_gather`` a tensor."""
+    world = dist.get_world_size()
+    if out is None:
+        out = tuple(t.new_empty((world * t.shape[0],) + tuple(t.shape[1:]))
+                    for t in part)
+    for dst, src in zip(out, part):
+        dist.all_gather(list(dst.chunk(world)), src.contiguous())
+    return out
+
+
+def sum_ranks(part: tuple, out: Optional[tuple] = None) -> tuple:
+    """The ranks' ``part`` summed, into ``out`` (``part`` itself where
+    None).  One ``all_reduce`` a tensor."""
+    if out is None:
+        out = part
+    for dst, src in zip(out, part):
+        if dst is not src:
+            dst.copy_(src)
+        dist.all_reduce(dst)
+    return out
+
+
+def all_sum(mesh: Mesh, device: torch.device, value: int) -> int:
+    """``value`` summed over the ranks of the group ``mesh`` gathers over
+    (``value`` itself where it does not gather)."""
+    if not _gathers(mesh):
+        return value
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.all_reduce(t)
+    return int(t.item())
+
+
+def any_rank(mesh: Mesh, device: torch.device, flag: bool) -> bool:
+    """``flag`` on any rank of the group ``mesh`` gathers over (``flag``
+    itself where it does not gather): a decision that every rank must take
+    alike, or one of them would leave a collective the others wait in."""
+    return all_sum(mesh, device, int(flag)) > 0
 
 
 def in_shard_order(groups, outs, n: int) -> Tuple[list, list]:
@@ -222,9 +289,10 @@ def card_plan(scan_key: tuple, buffers: tuple, staged: tuple, k: int,
     """The sharded exact top-k of :meth:`ShardedFlatIndex.make_scan_fn` as
     a :class:`CardPlan` of one stage: each card scans the shards it holds
     (``index.flat.flat_scan`` a shard, the first ``rows`` local slots,
-    default all) into ``[Q, k]`` scores and local ids, then
-    :func:`merge_shards` on ``merge_device`` (default the first shard's),
-    after the ranks' ``all_gather`` where the mesh spans processes."""
+    default all) into ``[Q, k]`` scores and local ids, ``local`` stacks
+    them in shard order, the ranks' ``all_gather`` (:func:`gather_ranks`)
+    follows where the mesh spans processes, then :func:`merge_shards` on
+    ``merge_device`` (default the first shard's)."""
     _, mesh, dtype, metric, shards, gather = scan_key
     groups = shards_by_card(mesh, shards)
 
@@ -236,14 +304,18 @@ def card_plan(scan_key: tuple, buffers: tuple, staged: tuple, k: int,
                              (staged[i],), inputs[0], k, rows)
         return tuple(out)
 
-    def merge(outs, inputs):
+    def local(outs, inputs):
         scores, ids = in_shard_order(groups, outs, len(shards))
-        if gather:
-            scores, ids = _all_gather(torch.stack(scores), torch.stack(ids))
-        return merge_shards(scores, ids, k, mesh.shape["data"])
+        return torch.stack(scores), torch.stack(ids)
+
+    def merge(part, inputs):
+        return merge_shards(list(part[0].unbind(0)), list(part[1].unbind(0)),
+                            k, mesh.shape["data"])
 
     return CardPlan(merge_device or buffers[0].device,
-                    tuple(d for d, _ in groups), ((card, merge),))
+                    tuple(d for d, _ in groups),
+                    (Stage(card, local, merge,
+                           gather_ranks if gather else None),))
 
 
 def sharded_scan(scan_key: tuple, buffers: tuple, staged: tuple,
@@ -257,17 +329,6 @@ def sharded_scan(scan_key: tuple, buffers: tuple, staged: tuple,
     f32, global ids [Q, k] int64)`` on the merge device: :func:`card_plan`
     run eagerly."""
     return run_plan(card_plan(scan_key, buffers, staged, k, rows), queries)
-
-
-def _all_gather(scores: torch.Tensor, ids: torch.Tensor):
-    """Every rank's ``[S_local, Q, k]`` scores and ids, rank-major: the
-    per-shard lists in global shard order."""
-    world = dist.get_world_size()
-    out_s = [torch.empty_like(scores) for _ in range(world)]
-    out_i = [torch.empty_like(ids) for _ in range(world)]
-    dist.all_gather(out_s, scores.contiguous())
-    dist.all_gather(out_i, ids.contiguous())
-    return list(torch.cat(out_s).unbind(0)), list(torch.cat(out_i).unbind(0))
 
 
 def _interleave(parts: List[np.ndarray]) -> np.ndarray:
@@ -332,12 +393,7 @@ class ShardedFlatIndex:
         return self.mesh.shard_device(self.mesh.local_shards()[0])
 
     def _all_sum(self, value: int) -> int:
-        if not _gathers(self.mesh):
-            return value
-        t = torch.tensor([value], dtype=torch.int64,
-                         device=self._merge_device())
-        dist.all_reduce(t)
-        return int(t.item())
+        return all_sum(self.mesh, self._merge_device(), value)
 
     def colocated(self, device: torch.device) -> bool:
         """Whether every shard lies on ``device`` in this process
@@ -628,8 +684,9 @@ class ShardedFlatIndex:
         write_file(self._host_path(path, me),
                    {**base, "kind": "flat_shards_host", "process": me,
                     "shard_ids": owned}, sections)
-        if me == 0:
-            write_file(path, {**base, "kind": "flat_shards_manifest"}, [])
+        # Every process writes the manifest (the same bytes): its path may
+        # be on a disk of its own.
+        write_file(path, {**base, "kind": "flat_shards_manifest"}, [])
         # Every process's file and the manifest exist once save() returns
         # on any process.
         dist.barrier()

@@ -33,7 +33,8 @@ Counterpart of ``tpu_search/parallel/sharded_ivf.py``'s
   the rescore (``refine_part`` a card, ``refine_select``) trims to ``k``.
   Over several processes each
   scans its own shards and the ranks' results meet in one ``all_gather``
-  before the merge.
+  before the merge (the rescore's partial sums in one ``all_reduce``),
+  each a collective step of its own in ``card_plan``.
 - **Host metadata** (``[nlist, S * lcap]`` ids and validity, ``[nlist,
   S]`` fills, per-id slot lookups) is numpy and, over several processes,
   the same on every process (each plans from the same stream).
@@ -42,7 +43,8 @@ Counterpart of ``tpu_search/parallel/sharded_ivf.py``'s
   then shard 1's, ...), so a sharded save loads in either package's
   ``IVFIndex`` or ``ShardedIVFIndex`` and the reverse.  With more than
   one process each writes ``<path>.host<p>`` with its shards in the JAX
-  package's device layout and process 0 an ``ivf_shards_manifest``.
+  package's device layout and the ``ivf_shards_manifest`` (the host
+  metadata, the same on every process) at ``path``.
 """
 
 from __future__ import annotations
@@ -77,12 +79,14 @@ from .distributed import process_count, process_index
 from .mesh import Mesh
 from .sharded_index import (
     CardPlan,
-    _all_gather,
+    Stage,
     _gathers,
     colocated,
+    gather_ranks,
     in_shard_order,
     run_plan,
     shards_by_card,
+    sum_ranks,
 )
 from .sharded_refine import ShardedRefineStore, refine_part, refine_select
 
@@ -140,14 +144,15 @@ def card_plan(scan_key: tuple, buffers: tuple, staged: tuple, k: int,
     """The search of :meth:`ShardedIVFIndex.make_scan_fn` as a
     :class:`~tpu_search_torch.parallel.sharded_index.CardPlan`: each card
     runs the port's ``index.ivf.ivf_scan`` (the centroid scan and the
-    probe scan) over the shards it holds, then :func:`merge_global` on
-    ``merge_device`` (default the first shard's) keeps the top
-    ``k_coarse``.  With a refine tier a second stage follows: each card
-    sums the rescore terms of the candidates its shards own
-    (``refine_part``), and the merge device adds the cards' sums and
-    keeps the top ``k`` (``refine_select``).  Over processes the ranks'
-    results meet in an ``all_gather`` (the rescore in an ``all_reduce``)
-    before each merge."""
+    probe scan) over the shards it holds, ``local`` stacks the results in
+    shard order, then :func:`merge_global` on ``merge_device`` (default the
+    first shard's) keeps the top ``k_coarse``.  With a refine tier a second
+    stage follows: each card sums the rescore terms of the candidates its
+    shards own (``refine_part``), ``local`` adds the cards' sums, and the
+    merge keeps the top ``k`` (``refine_select``).  Over processes each
+    stage's collective step joins the ranks' parts: an ``all_gather`` of
+    the coarse results (:func:`~tpu_search_torch.parallel.sharded_index.
+    gather_ranks`), an ``all_reduce`` of the rescore (``sum_ranks``)."""
     (_, mesh, shards, gather, dtype, metric, nprobe, by_residual,
      refine_factor, *codec) = scan_key
     stride = 6 if dtype == "pq" else 4
@@ -169,14 +174,17 @@ def card_plan(scan_key: tuple, buffers: tuple, staged: tuple, k: int,
                             inputs[0], k_coarse)
         return tuple(out)
 
-    def merge(outs, inputs):
+    def stacked(outs, inputs):
         scores, ids = in_shard_order(groups, outs, n_local)
-        if gather:
-            scores, ids = _all_gather(torch.stack(scores), torch.stack(ids))
-        top, out = merge_global(scores, ids, k_coarse)
+        return torch.stack(scores), torch.stack(ids)
+
+    def merge(part, inputs):
+        top, out = merge_global(part[0].unbind(0), part[1].unbind(0),
+                                k_coarse)
         return (inputs[0], out) if refine_factor else (top, out)
 
-    stages = [(coarse, merge)]
+    stages = [Stage(coarse, stacked, merge,
+                    gather_ranks if gather else None)]
     if refine_factor:
         refine = buffers[stride * n_local:]
 
@@ -190,16 +198,18 @@ def card_plan(scan_key: tuple, buffers: tuple, staged: tuple, k: int,
                 part = term if part is None else part + term
             return (part,)
 
-        def finish(outs, inputs):
+        def summed(outs, inputs):
             full = torch.zeros(inputs[1].shape, dtype=torch.float32,
                                device=inputs[1].device)
             for (part,) in outs:
                 full = full + part
-            if gather:
-                dist.all_reduce(full)
-            return refine_select(full, inputs[1], k)
+            return (full,)
 
-        stages.append((rescore, finish))
+        def finish(part, inputs):
+            return refine_select(part[0], inputs[1], k)
+
+        stages.append(Stage(rescore, summed, finish,
+                            sum_ranks if gather else None))
     return CardPlan(merge_device or buffers[1].device,
                     tuple(d for d, _ in groups), tuple(stages))
 
@@ -1101,8 +1111,9 @@ class ShardedIVFIndex:
     def _save_per_host(self, path: str) -> None:
         """Each process writes its own shards (``<path>.host<p>``, the JAX
         package's device layout: int4 / pq as ``[nlist, lcap / 8, cols]``
-        int32 words) and its refine slices; process 0 the manifest with the
-        host metadata; the save ends on a barrier."""
+        int32 words) and its refine slices, and the manifest with the host
+        metadata (the same bytes on every process, whose ``path`` may be on
+        a disk of its own); the save ends on a barrier."""
         me = process_index()
         lcap = self._local_capacity
         base = {**self._header(), "n_shards": self.n_shards,
@@ -1138,25 +1149,23 @@ class ShardedIVFIndex:
         write_file(self._host_path(path, me),
                    {**base, "kind": "ivf_shards_host", "process": me,
                     "shard_ids": owned}, sections)
-        if me == 0:
-            ids = (self._ids if self._ids is not None
-                   else np.full((self.nlist, 0), -1, np.int32))
-            valid = (self._valid if self._valid is not None
-                     else np.zeros((self.nlist, 0), np.bool_))
-            fill = (self._fill if self._fill is not None
-                    else np.zeros((self.nlist, self.n_shards), np.int32))
-            manifest = [
-                ("ids", "int32", ids.shape,
-                 iter([np.ascontiguousarray(ids, np.int32)])),
-                ("valid", "uint8", valid.shape,
-                 iter([np.ascontiguousarray(valid, np.uint8)])),
-                ("fill", "int32", fill.shape,
-                 iter([np.ascontiguousarray(fill, np.int32)])),
-                self._centroid_section(),
-                *self._codec_sections(),
-            ]
-            write_file(path, {**base, "kind": "ivf_shards_manifest"},
-                       manifest)
+        ids = (self._ids if self._ids is not None
+               else np.full((self.nlist, 0), -1, np.int32))
+        valid = (self._valid if self._valid is not None
+                 else np.zeros((self.nlist, 0), np.bool_))
+        fill = (self._fill if self._fill is not None
+                else np.zeros((self.nlist, self.n_shards), np.int32))
+        manifest = [
+            ("ids", "int32", ids.shape,
+             iter([np.ascontiguousarray(ids, np.int32)])),
+            ("valid", "uint8", valid.shape,
+             iter([np.ascontiguousarray(valid, np.uint8)])),
+            ("fill", "int32", fill.shape,
+             iter([np.ascontiguousarray(fill, np.int32)])),
+            self._centroid_section(),
+            *self._codec_sections(),
+        ]
+        write_file(path, {**base, "kind": "ivf_shards_manifest"}, manifest)
         # Every process's file and the manifest exist once save() returns
         # on any process.
         dist.barrier()

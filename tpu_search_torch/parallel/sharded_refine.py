@@ -49,7 +49,7 @@ from ..ops.flat_topk_int8 import flat_topk_int8_scan
 from ..ops.topk_scan import select_topk
 from ..utils.shapes import cdiv, round_up
 from .mesh import Mesh
-from .sharded_index import _all_gather, _current, _gathers, merge_shards
+from .sharded_index import _current, _gathers, gather_ranks, merge_shards
 
 __all__ = [
     "ShardedRefineStore",
@@ -238,7 +238,8 @@ class ShardedRefineStore:
             scores.append(sc.to(dev0))
             ids.append(li.to(dev0))
         if _gathers(self.mesh):
-            scores, ids = _all_gather(torch.stack(scores), torch.stack(ids))
+            scores, ids = (list(t.unbind(0)) for t in gather_ranks(
+                (torch.stack(scores), torch.stack(ids))))
         top, gids = merge_shards(scores, ids, k_eff, S)
         top = top.cpu().numpy()
         out_ids = gids.cpu().numpy().astype(np.int64)

@@ -21,9 +21,10 @@ platform, on the CPU as many as ``XLA_FLAGS`` gives the JAX package's CPU
 mesh) a flat index is a ``parallel.ShardedFlatIndex`` and an IVF index a
 ``parallel.ShardedIVFIndex`` (with its refine tier) over them, built,
 loaded and restored as in the JAX package, the IVF maintenance hooks
-unchanged.  Auto (0) keeps one device, where the JAX package shards over
-every accelerator: shards on several cards are not yet proven on a
-machine of several cards.
+unchanged.  Auto (0) shards over every card when there are two or more,
+as the JAX package shards over every accelerator; under a process group
+of several ranks, over every card of every process (:meth:`HybridStorage.
+_index_mesh`).
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ from ..devices.capability import (
 )
 from ..index.registry import create_index, load_index
 from ..ingest.chunker import Chunk
+from ..parallel.distributed import process_count
 from ..parallel.mesh import build_mesh
-from ..parallel.sharded_index import ShardedFlatIndex
+from ..parallel.sharded_index import ShardedFlatIndex, any_rank
 from ..parallel.sharded_ivf import ShardedIVFIndex
 from ..utils.profiling import PhaseTimer
 from .filters import mask_for_filters, matches_filters
@@ -245,12 +247,39 @@ class HybridStorage:
         device; 0 (auto) shards over every card
         (``devices.platform_devices("cuda")``) when there are two or more,
         and never over the CPU; N > 1 over the first N devices of the
-        storage's platform."""
+        storage's platform.
+
+        Under a process group of P > 1 ranks the devices are every
+        process's, process-major, as JAX's global ``jax.devices()``: each
+        process holds the same number of its own devices (L), so auto on
+        cards, and an N of P x L, build ``build_mesh(n_data=P * L,
+        dcn_data=P)`` over this process's L devices (process p owns shards
+        ``p * L`` .. ``p * L + L - 1``), and any other N > 1 raises
+        ``ValueError`` (JAX's first N of the global list would leave ranks
+        without shards).  Every rank must then index the same
+        conversations in the same order (JAX's SPMD contract): the ranks'
+        SQLite ids agree, and each hydrates its results from its own."""
         if self.config.index_type not in ("flat", "ivf"):
             return None
         n = self.config.shard_devices
         if n == 1:
             return None
+        procs = process_count()
+        if procs > 1:
+            if n == 0 and self.device.type != "cuda":
+                return None
+            local = platform_devices(self.device.type)
+            total = procs * len(local)
+            if n not in (0, total):
+                raise ValueError(
+                    f"shard_devices={n} under {procs} processes of "
+                    f"{len(local)} {self.device.type} devices each: a mesh "
+                    f"over processes holds every process's devices, "
+                    f"shard_devices=0 or {total}")
+            if total <= 1:
+                return None
+            return build_mesh(n_data=total, n_model=1, devices=local,
+                              dcn_data=procs)
         if n == 0:
             if self.device.type != "cuda":
                 return None
@@ -523,11 +552,27 @@ class HybridStorage:
         return bool(report.get("tuned"))
 
     def _maybe_save(self) -> None:
-        if (
-            self.config.save_interval_s <= 0
-            or monotonic() - self._last_save >= self.config.save_interval_s
-        ):
+        due = (self.config.save_interval_s <= 0
+               or monotonic() - self._last_save >= self.config.save_interval_s)
+        # Over processes the save ends on a barrier: every rank saves when
+        # any rank's interval is up.
+        if self._any_rank(due):
             self.save_index()
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` on any rank where the index gathers across processes
+        (``flag`` itself otherwise): a decision that every rank takes
+        alike, or one would leave a collective the others wait in."""
+        index = self.index
+        if not isinstance(index, (ShardedFlatIndex, ShardedIVFIndex)):
+            return flag
+        return any_rank(index.mesh, index._merge_device(), flag)
+
+    def matches_nothing(self, mask: Optional[np.ndarray]) -> bool:
+        """Whether a filter's mask (:meth:`filter_mask`; None: no filter)
+        selects no row, on any rank: a rank whose own SQLite matched
+        nothing still scans with the others."""
+        return mask is not None and not self._any_rank(bool(mask.any()))
 
     # -- search --------------------------------------------------------------
 
@@ -558,7 +603,7 @@ class HybridStorage:
         if self.config.normalize_embeddings:
             queries = normalize_queries(torch.from_numpy(queries)).numpy()
         mask = self.filter_mask(filters)
-        if mask is not None and not mask.any():
+        if self.matches_nothing(mask):
             return [[] for _ in range(nq)]
         all_scores, all_ids = self.index.search(
             queries, k=cfg.top_k, mask=mask,
