@@ -13,8 +13,8 @@ Phases, each printing its numbers on its own line:
      ``flash_attention``'s and ``mpnet_attention_bhsd``'s q k^T issue
      wgmma, that the IVF digit scans multiply with wgmma at Q > 8 and
      mma.sync at Q <= 8, that the attention backward's and the f32
-     forward's kernels multiply on the tensor cores (HMMA), and print the
-     card's name and power limit;
+     forward's kernels, dense and flash, multiply on the tensor cores
+     (HMMA), and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it (max error, kernel and plain times,
      the least time the card could take, and where one PyTorch call
@@ -162,7 +162,13 @@ Phases, each printing its numbers on its own line:
      one-rank NCCL group giving the same step; ``[f32_encoder]``:
      ``EmbeddingGenerator`` at f32 compute on the card
      (``mpnet_attention_f32.cu``) against the CPU encoder, cosine >=
-     ``F32_ENCODER_COS``; ``[dryrun]``: the port's
+     ``F32_ENCODER_COS``; ``[flash_grad]`` (``check_flash_grad``): the
+     flash mode under autograd at all-mpnet-base-v2's width, the
+     trainer's InfoNCE over 32 pairs at S 128 / 256 in bf16 and f32, with
+     the kernels against the plain forward and backward on the card (the
+     loss, every gradient's cosine, 24 forward and 24 backward launches a
+     step), its ms a step beside the dense mode's, and the f32 flash
+     embeddings against the CPU's; ``[dryrun]``: the port's
      ``parallel.dryrun.dryrun_multichip(4)`` on 4 x cuda:0.
 Phase 3 ends on the flat bf16 path's encoder (all-mpnet-base-v2 at full
 width, the int8 FFN through its gate) run through
@@ -190,7 +196,14 @@ and at H 312 / I 1200 and H 1024 / I 4096 with a ragged M, bf16 and f32
 outputs, and on planted requantization inputs; ``int8_ffn_ln`` at 0 ulps
 from its plain version on ``planted_epilogue``'s inputs, whose LayerNorm
 statistics are exact; the stock-flash kernel at ``FLASH_SHAPES`` (S 384
-and 512, hd 64, 32 and 26) with padded rows and a trained-scale bias;
+and 512, hd 64, 32 and 26) with padded rows and a trained-scale bias, and
+at the same shapes ``[flash_attention_bwd]``, its backward kernel
+(``flash_attention_bwd.cu``) in bf16 and f32 against its plain version
+from the forward's output and residuals (dQ, dK, dV and dab gated; ms,
+device ms, launches, each launch's device time, the bound, SDPA's forward
++ backward, shared memory and CTAs a multiprocessor of both passes), and
+``[flash_attention_f32]``, its f32 forward (``flash_attention_f32.cu``)
+with its residuals, beside SDPA f32;
 ``[attention_grad]``, the attention's backward kernel
 (``mpnet_attention_bwd.cu``) against its plain twin and against autograd of
 the plain forward at ``GRAD_SHAPES`` in bf16 and f32 (dQ, dK, dV and dBias
@@ -370,6 +383,16 @@ SOURCES = {
                             "none: the JAX package trains through XLA's "
                             "differentiation of its dense attention, "
                             "tpu_search/models/mpnet.py:276-281"),
+    "flash_attention_f32": ("tpu_search_torch/csrc/flash_attention_f32.cu",
+                            "tpu_search/models/mpnet.py:262 at f32 compute "
+                            "(jax.experimental.pallas.ops.tpu."
+                            "flash_attention, pallas_call :758)"),
+    "flash_attention_bwd": ("tpu_search_torch/csrc/flash_attention_bwd.cu",
+                            "tpu_search/models/mpnet.py:262 under jax.grad "
+                            "(jax.experimental.pallas.ops.tpu."
+                            "flash_attention: _flash_attention_bwd_dkv :941, "
+                            "pallas_call :1121; _flash_attention_bwd_dq "
+                            ":1287, pallas_call :1456)"),
 }
 # The path whose run counts each kernel's launches ("rerank": the TinyBERT
 # and the tiny-overlap rerank paths together).
@@ -381,7 +404,9 @@ PATH_OF = {"flat_topk": "bfloat16", "mpnet_attention": "bfloat16",
            "int8_ffn_in": "int8_bench", "int8_ffn_out": "int8_bench",
            "int8_ffn_fused": "int8_bench", "flash_attention": "flash_encoder",
            "int4_probe": "probes", "scan_overhead_probe": "probes",
-           "mpnet_attention_f32": "f32_encoder", "mpnet_attention_bwd": "train"}
+           "mpnet_attention_f32": "f32_encoder",
+           "mpnet_attention_bwd": "train", "flash_attention_f32": "flash_grad",
+           "flash_attention_bwd": "flash_grad"}
 # The rerank paths: (tag, reranker, kernels it must launch).  All run on
 # the all-MiniLM-L6-v2 index; the reranker sees top_k * factor candidates.
 RERANK_PATHS = (
@@ -549,7 +574,8 @@ REDESIGNED = ("mpnet_attention", "mpnet_attention_bhsd", "int8_gemm",
               "int8_ffn_ln", "flash_attention", "flat_topk", "ivf_topk",
               "mpnet_attention_bwd", "mpnet_attention_f32", "ivf_topk_int8",
               "ivf_topk_int4", "flat_topk_int4", "flat_topk_int8",
-              "int8_ffn_in", "int8_ffn_out", "int8_ffn_fused")
+              "int8_ffn_in", "int8_ffn_out", "int8_ffn_fused",
+              "flash_attention_bwd", "flash_attention_f32")
 SASS_RULES = {
     "mpnet_attention_bhsd": (("attention_bhsd_kernel",), False),
     "int8_gemm": (("gemm_kernel",), True),
@@ -558,12 +584,15 @@ SASS_RULES = {
 }
 
 
-# The tensor-core row / column attention kernels (attention_tc.cuh): every
+# The tensor-core row / column attention kernels (attention_tc.cuh; the
+# flash mode's f32 forward and backward on it through flash_tc.cuh): every
 # product is an mma.sync (bf16, or 3xTF32 in f32), so each kernel named
 # here must hold HMMA instructions.
 HMMA_SASS_RULES = {
     "mpnet_attention_bwd": ("bwd_rows", "bwd_cols"),
     "mpnet_attention_f32": ("attention_f32_tc",),
+    "flash_attention_bwd": ("bwd_rows", "bwd_cols"),
+    "flash_attention_f32": ("flash_f32_kernel",),
 }
 
 
@@ -1241,14 +1270,13 @@ def flash_inputs(gen, b, s, h, nh, dev):
 def flash_sdpa_ms(q, k, v, ab, seg, scale) -> float:
     """The flash mode's function through ``F.scaled_dot_product_attention``
     (a yardstick only: the port never calls it): ``attn_mask = ab * scale
-    + segment mask``, built in bf16 outside the timed call, so that
+    + segment mask``, built in q's dtype outside the timed call, so that
     ``q k^T * scale + mask = (q k^T + ab) * scale`` on the live pairs."""
     import torch
     import torch.nn.functional as F
 
     same = seg[:, None, :, None] == seg[:, None, None, :]
-    add = torch.where(same, (ab.float() * scale)[None], -1e30).to(
-        torch.bfloat16)
+    add = torch.where(same, (ab.float() * scale)[None], -1e30).to(q.dtype)
     return cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=add, scale=scale))
 
@@ -1320,6 +1348,228 @@ def check_flash_attention(results: dict) -> None:
                 "bound_by": by, "library_ms": lib}
         del q, k, v, ab, seg, out, ref
     results["flash_attention"]["max_abs_err"] = worst
+
+
+def flash_sdpa_grad_ms(q, k, v, ab, seg, grad, scale) -> float:
+    """The flash mode's forward and backward through SDPA (a yardstick
+    only: the port never calls it): ``attn_mask = ab * scale + segment
+    mask`` of q's dtype, ``[B, heads, S, S]``, requiring grad as ``ab``
+    does on the path, built outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    add = torch.where(same, (ab.float() * scale)[None], -1e30).to(q.dtype)
+    add = add.contiguous().requires_grad_()
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def call():
+        out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=add,
+                                             scale=scale)
+        out.backward(grad)
+
+    return cuda_ms(call, 5)
+
+
+# The flash backward (``flash_attention_bwd.cu``) against its plain version
+# (``flash_attention_bwd_plain``) on the card, each output's max |error|
+# over its largest |value|: the same f32 arithmetic at the same rounding
+# sites (p and dS rounded to the compute dtype before the products), sums
+# in another order.  f32: ``ATTN_GRAD_F32_TOL``.  bf16 (dQ, dK, dV and
+# dab all bf16): ``ATTN_GRAD_BF16_TOL`` and at most ``ATTN_GRAD_ULP_SHARE``
+# of entries more than one bf16 ulp off (an f32 value, or a dS, that
+# rounds to bf16 one ulp apart).
+def flash_bwd_errors(got, want, dtype: str) -> dict:
+    errors = rel_errors(got, want)
+    if dtype == "bfloat16":
+        errors["over_1ulp_share"] = bf16_ulp_share(got, want)
+    return errors
+
+
+def flash_bwd_ok(errors: dict, dtype: str) -> bool:
+    if dtype == "float32":
+        return errors["max_rel_err"] <= ATTN_GRAD_F32_TOL
+    return (errors["max_rel_err"] <= ATTN_GRAD_BF16_TOL
+            and errors["over_1ulp_share"] <= ATTN_GRAD_ULP_SHARE)
+
+
+def bwd_occupancy(hd: int, bf16: bool) -> str:
+    """The dynamic shared memory and CTAs a multiprocessor of the flash
+    backward's row and column passes at head size ``hd``."""
+    import ctypes
+
+    from tpu_search_torch.ops import _build
+
+    fn = _build.library("flash_attention_bwd").flash_attention_bwd_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    parts = []
+    for pass_, name in ((0, "rows"), (1, "cols")):
+        nbytes = ctypes.c_int(0)
+        ctas = fn(hd, int(bf16), pass_, ctypes.byref(nbytes))
+        if ctas <= 0:
+            fail(f"flash_attention_bwd {name} cannot run at hd={hd}: "
+                 f"code {-ctas}")
+        parts.append(f"{name}_smem_bytes={nbytes.value} "
+                     f"{name}_ctas_per_sm={ctas}")
+    return " ".join(parts)
+
+
+def check_flash_attention_bwd(results: dict) -> None:
+    """``[flash_attention_bwd]``: the flash backward kernel against its
+    plain version on the card at ``FLASH_SHAPES``, bf16 and f32, from the
+    forward kernel's output and residuals, with padded rows and a
+    trained-scale bias that needs a gradient: dQ, dK, dV and dab gated
+    (``flash_bwd_ok``); ms in turns with the plain version, device ms and
+    launches a call and each launch's device time, the bound (q, k, v, o
+    and dO read and dQ, dK, dV written, ab read and dab written, the
+    segment ids and (m, l) read; or five products of 2 B heads S^2 hd
+    flops: bf16 at 989 TFLOP/s, f32 as the 3xTF32 products the kernel
+    runs, three tf32 products each at 495 TFLOP/s), SDPA's forward +
+    backward with a float mask that requires grad, the passes' shared
+    memory and CTAs a multiprocessor, and the seconds each case took."""
+    import torch
+
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    worst = 0.0
+    for b, s, h, nh in FLASH_SHAPES:
+        hd = h // nh
+        scale = 1.0 / math.sqrt(hd)
+        for dtype in ("bfloat16", "float32"):
+            t0 = time.perf_counter()
+            tdt = getattr(torch, dtype)
+            q, k, v, ab, seg = flash_inputs(gen, b, s, h, nh, dev)
+            q, k, v, ab = (t.to(tdt) for t in (q, k, v, ab))
+            grad = torch.randn(q.shape, generator=gen, device=dev).to(tdt)
+            out, m, l = flash_attention_fwd(q, k, v, ab, seg, seg, scale)
+            tag = (f"B={b} S={s} H={h} heads={nh} hd={hd} dtype={dtype}")
+
+            def kernel():
+                return flash_attention_bwd(q, k, v, ab, seg, seg, out, grad,
+                                           m, l, scale)
+
+            def plain():
+                return flash_attention_bwd_plain(q, k, v, ab, seg, seg, out,
+                                                 grad, m, l, scale)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            parts = []
+            for name, g, w in zip(("dq", "dk", "dv", "dab"), got, want):
+                if not bool(torch.isfinite(g.float()).all()):
+                    fail(f"flash_attention_bwd {name} non-finite at {tag}")
+                errors = flash_bwd_errors(g, w, dtype)
+                parts.append(f"{name}_rel={errors['max_rel_err']:.3e}")
+                if dtype == "bfloat16":
+                    parts.append(f"{name}_over_1ulp="
+                                 f"{errors['over_1ulp_share']:.2e}")
+                if not flash_bwd_ok(errors, dtype):
+                    fail(f"flash_attention_bwd {name} disagrees with its "
+                         f"plain version at {tag}: {errors}")
+                worst = max(worst, errors["max_abs_err"])
+            del got, want
+            kms, pms = paired_ms(kernel, plain, 5)
+            dev_ms, launches = device_breakdown(
+                f"flash_attention_bwd {tag}", kernel, 3)
+            launch_split("flash_attention_bwd", tag, kernel, 3)
+            lib = flash_sdpa_grad_ms(q, k, v, ab, seg, grad, scale)
+            bf16 = dtype == "bfloat16"
+            size = 2 if bf16 else 4
+            nbytes = (8 * b * s * h * size + 2 * nh * s * s * size
+                      + 2 * b * s * 4 + 2 * b * nh * s * 4)
+            flops = 10 * b * nh * s * s * hd
+            bound_ms, by = (bound(nbytes, flops, "bf16") if bf16
+                            else bound(nbytes, 3 * flops, "tf32"))
+            print(f"[flash_attention_bwd] {tag} {' '.join(parts)} "
+                  f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
+                  f"device_ms={dev_ms:.4f} launches_per_call={launches:.1f} "
+                  f"bound_ms={bound_ms:.4f} bound_by={by} "
+                  f"sdpa_fwd_bwd_ms={lib:.4f} {bwd_occupancy(hd, bf16)} "
+                  f"seconds={time.perf_counter() - t0:.2f}", flush=True)
+            if (s, h) == FLASH_SHAPES[0][1:3] and bf16:
+                results["flash_attention_bwd"] = {
+                    "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": lib}
+            del q, k, v, ab, seg, grad, out, m, l
+            torch.cuda.empty_cache()
+    results["flash_attention_bwd"]["max_abs_err"] = worst
+
+
+def check_flash_attention_f32(results: dict) -> None:
+    """``[flash_attention_f32]``: the flash mode's f32 forward kernel
+    against its plain version at ``FLASH_SHAPES`` (f32 q, k, v and ab,
+    padded rows, a trained-scale bias): the output within
+    ``ATTN_F32_TOL``, each row's ``(m, l)`` within it relative to the
+    plain ones, one launch a call; ms in turns with the plain version,
+    SDPA f32, the bound (q, k, v and ab read and out written, or 4 B heads
+    S^2 hd flops as the 3xTF32 products the kernel runs), shared memory and
+    CTAs a multiprocessor."""
+    import torch
+
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+        flash_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    worst = 0.0
+    for b, s, h, nh in FLASH_SHAPES:
+        t0 = time.perf_counter()
+        hd = h // nh
+        q, k, v, ab, seg = flash_inputs(gen, b, s, h, nh, dev)
+        q, k, v, ab = (t.float() for t in (q, k, v, ab))
+        scale = 1.0 / math.sqrt(hd)
+        tag = f"B={b} S={s} H={h} heads={nh} hd={hd}"
+
+        def kernel():
+            return flash_attention(q, k, v, ab, seg, seg, scale)
+
+        def plain():
+            return flash_attention_plain(q, k, v, ab, seg, seg, scale)
+
+        before = _build.LAUNCHES["flash_attention_f32"]
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if _build.LAUNCHES["flash_attention_f32"] != before + 1:
+            fail(f"the f32 flash forward did not launch its kernel at {tag}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"flash_attention_f32 produced non-finite values at {tag}")
+        err = float((out - ref).abs().max())
+        _, m, l = flash_attention_fwd(q, k, v, ab, seg, seg, scale)
+        _, pm, pl = flash_attention_fwd_plain(q, k, v, ab, seg, seg, scale)
+        res_err = max(float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+                      for g, w in ((m, pm), (l, pl)))
+        del m, l, pm, pl
+        kms, pms = paired_ms(kernel, plain)
+        lib = flash_sdpa_ms(q, k, v, ab, seg, scale)
+        nbytes = 4 * b * s * h * 4 + nh * s * s * 4 + 2 * b * s * 4
+        bound_ms, by = bound(nbytes, 3 * 4 * b * nh * s * s * hd, "tf32")
+        print(f"[flash_attention_f32] {tag} max_abs_err={err:.3e} "
+              f"residual_rel_err={res_err:.3e} kernel_ms={kms:.4f} "
+              f"plain_ms={pms:.4f} sdpa_ms={lib:.4f} bound_ms={bound_ms:.4f} "
+              f"bound_by={by} {occupancy('flash_attention_f32', hd)} "
+              f"seconds={time.perf_counter() - t0:.2f}", flush=True)
+        if not (err <= ATTN_F32_TOL and res_err <= ATTN_F32_TOL):
+            fail(f"flash_attention_f32 disagrees at {tag}: {err}, {res_err}")
+        worst = max(worst, err)
+        if (s, h) == FLASH_SHAPES[0][1:3]:
+            results["flash_attention_f32"] = {
+                "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": lib}
+        del q, k, v, ab, seg, out, ref
+        torch.cuda.empty_cache()
+    results["flash_attention_f32"]["max_abs_err"] = worst
 
 
 # The attention's gradient kernel (``mpnet_attention_bwd.cu``) and the f32
@@ -3511,10 +3761,12 @@ TRAIN_NOISE = 1e-3
 F32_ENCODER_COS = 0.99999
 
 
-def train_batch(config, dev):
-    """32 query/doc pairs of seeded token ids; each document opens with its
-    query's live tokens, the rest random; random lengths padded with pad
-    ids under mask 0."""
+def train_batch(config, dev, query_s: int = TRAIN_QUERY_S,
+                doc_s: int = TRAIN_DOC_S):
+    """32 query/doc pairs of seeded token ids (queries of ``query_s``
+    tokens, documents of ``doc_s``); each document opens with its query's
+    live tokens, the rest random; random lengths padded with pad ids under
+    mask 0."""
     import torch
 
     gen = torch.Generator(device="cpu").manual_seed(41)
@@ -3527,20 +3779,30 @@ def train_batch(config, dev):
         live = torch.arange(s)[None, :] < lengths[:, None]
         return torch.where(live, ids, pad), live.to(torch.int32)
 
-    q_ids, q_mask = rows(TRAIN_QUERY_S, 8)
-    d_ids, d_mask = rows(TRAIN_DOC_S, TRAIN_QUERY_S)
-    d_ids[:, :TRAIN_QUERY_S] = torch.where(q_mask.bool(), q_ids,
-                                           d_ids[:, :TRAIN_QUERY_S])
+    q_ids, q_mask = rows(query_s, 8)
+    d_ids, d_mask = rows(doc_s, query_s)
+    d_ids[:, :query_s] = torch.where(q_mask.bool(), q_ids,
+                                     d_ids[:, :query_s])
     return tuple(t.to(dev) for t in (q_ids, q_mask, d_ids, d_mask))
 
 
-def grad_cosines(a: dict, b: dict, what: str) -> float:
+def grad_cosines(a: dict, b: dict, what: str,
+                 k_bias_tol: Optional[float] = None) -> float:
     """The least cosine between the two gradients of each parameter (k's
-    bias held to its noise bound instead, see ``TRAIN_NOISE``)."""
+    bias held to its noise bound instead, see ``TRAIN_NOISE``; with
+    ``k_bias_tol``, its two gradients within that share of the largest
+    |value| of the same layer's q bias gradient in ``b``, see
+    ``FLASH_K_BIAS_TOL``)."""
     top = max(float(g.norm()) for g in b.values())
     worst = 1.0
     for name, ga in a.items():
         gb = b[name]
+        if name.endswith(".k.bias") and k_bias_tol is not None:
+            scale = float(b[name[:-len("k.bias")] + "q.bias"].abs().max())
+            if float((ga - gb).abs().max()) > k_bias_tol * scale:
+                fail(f"[train] {what}: {name}'s gradients differ by more "
+                     f"than {k_bias_tol} of the q bias's scale")
+            continue
         if name.endswith(".k.bias"):
             if max(float(ga.norm()), float(gb.norm())) > TRAIN_NOISE * top:
                 fail(f"[train] {what}: {name}'s gradient is not residue")
@@ -3814,6 +4076,166 @@ def check_f32_encoder(model_dir: Path) -> dict:
         fail(f"[f32_encoder] the f32 encode did not run the f32 kernel "
              f"alone: {launches}")
     del card
+    torch.cuda.empty_cache()
+    return launches
+
+
+# [flash_grad]: the flash mode under autograd at all-mpnet-base-v2's width
+# (seeded random weights, the int8 FFN off: it has no backward), the
+# trainer's InfoNCE over its 32 pairs with queries at S 128 and documents
+# at S 256 (the flash mode takes S in multiples of 128), bf16 and f32
+# compute over f32 masters.  A key projection's bias gets a gradient of
+# zero in exact arithmetic; with the flash mode's dS rounded to bf16 before
+# dK, both sides hold residue of up to 1.7e-2 of the q bias's gradient on
+# the CPU test's model (tests/test_torch_flash_attention_grad.py), so the
+# kernels' and the plain versions' k-bias gradients are held within
+# FLASH_K_BIAS_TOL of the same layer's q bias gradient.
+FLASH_GRAD_QUERY_S, FLASH_GRAD_DOC_S = 128, 256
+FLASH_K_BIAS_TOL = 2.0 ** -5
+FLASH_GRAD_STEPS = 3
+
+
+def flash_infonce(model, batch, dtype, impl: str):
+    """The trainer's InfoNCE (``parallel.train``: its placement of the
+    layers in ``dtype`` by differentiable casts, its contrastive loss)
+    through ``MPNetModel.forward(..., attention_impl=impl)``."""
+    import torch
+
+    from tpu_search_torch.parallel import build_mesh
+    from tpu_search_torch.parallel.encode import place
+    from tpu_search_torch.parallel.train import _contrastive
+
+    mesh = build_mesh(n_data=1, devices=[model.rel_bias.device])
+    placed = place(model, mesh, False, dtype)[0]
+    q_ids, q_mask, d_ids, d_mask = batch
+    q, d = (torch.func.functional_call(model, placed, (ids, mask),
+                                       {"attention_impl": impl})
+            for ids, mask in ((q_ids, q_mask), (d_ids, d_mask)))
+    return _contrastive(q, d, 0.05)
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """The flash mode's forward and backward through their plain versions
+    on the card while inside (the kernels' oracle): ``FlashAttention``
+    calls them in place of the kernels."""
+    from tpu_search_torch.ops import flash_attention as fa
+
+    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd = fa.flash_attention_fwd_plain
+    fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+    try:
+        yield
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+
+
+def check_flash_grad() -> dict:
+    """``[flash_grad]``: the flash mode under autograd on the card (see
+    ``FLASH_GRAD_QUERY_S``).  In bf16 and in f32: one loss and its
+    backward with the kernels against the same with the plain forward and
+    backward (``plain_flash``): the loss within 1e-3, every parameter's
+    gradient at cosine >= ``TRAIN_GRAD_COS`` (k's bias within
+    ``FLASH_K_BIAS_TOL``), 24 forward and 24 backward launches (12 layers,
+    queries and documents); the ms a step (loss, backward, AdamW) over
+    ``FLASH_GRAD_STEPS`` warm steps beside the dense ("pallas") mode's.
+    Then the f32 flash embeddings on the card against the same weights on
+    the CPU in the flash mode (cosine > 0.999).  Returns the launch counts
+    of the two kernel runs."""
+    import copy
+
+    import torch
+
+    from tpu_search_torch.models.convert import model_from_params
+    from tpu_search_torch.models.mpnet import MPNetConfig, init_params
+    from tpu_search_torch.ops import _build
+
+    dev = torch.device("cuda")
+    config = MPNetConfig()
+    master = model_from_params(init_params(config, 5), config).to(dev)
+    batch = train_batch(config, dev, FLASH_GRAD_QUERY_S, FLASH_GRAD_DOC_S)
+    launches = {name: 0 for name in _build.KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        t0 = time.perf_counter()
+        fwd = ("flash_attention" if dtype == torch.bfloat16
+               else "flash_attention_f32")
+
+        def grads(plain: bool):
+            model = copy.deepcopy(master)
+            with plain_flash() if plain else contextlib.nullcontext():
+                loss = flash_infonce(model, batch, dtype, "flash")
+                loss.backward()
+            torch.cuda.synchronize()
+            return ({n: p.grad for n, p in model.named_parameters()},
+                    float(loss.detach()))
+
+        _build.reset_launches()
+        kernel_grads, kernel_loss = grads(False)
+        one = dict(_build.LAUNCHES)
+        for name in launches:
+            launches[name] += one[name]
+        plain_grads, plain_loss = grads(True)
+        what = f"[flash_grad] {dtype} kernels vs plain"
+        worst = grad_cosines(kernel_grads, plain_grads, what,
+                             k_bias_tol=FLASH_K_BIAS_TOL)
+        del kernel_grads, plain_grads
+
+        def step_ms(impl: str) -> float:
+            model = copy.deepcopy(master)
+            opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                flash_infonce(model, batch, dtype, impl).backward()
+                opt.step()
+
+            step()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(FLASH_GRAD_STEPS):
+                step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - start) / FLASH_GRAD_STEPS * 1e3
+
+        flash_ms, pallas_ms = step_ms("flash"), step_ms("pallas")
+        print(f"[flash_grad] model=all-mpnet-base-v2 H={config.hidden_size} "
+              f"layers={config.num_layers} pairs={TRAIN_PAIRS} "
+              f"query_S={FLASH_GRAD_QUERY_S} doc_S={FLASH_GRAD_DOC_S} "
+              f"compute={str(dtype).split('.')[-1]} "
+              f"loss_kernels={kernel_loss:.6f} loss_plain={plain_loss:.6f} "
+              f"min_grad_cosine={worst:.6f} fwd_launches={one[fwd]} "
+              f"bwd_launches={one['flash_attention_bwd']} "
+              f"flash_step_ms={flash_ms:.2f} pallas_step_ms={pallas_ms:.2f} "
+              f"seconds={time.perf_counter() - t0:.2f} {card_name()}",
+              flush=True)
+        want = 2 * config.num_layers
+        other = ("flash_attention_f32" if fwd == "flash_attention"
+                 else "flash_attention")
+        if (one[fwd], one["flash_attention_bwd"], one[other]) != (
+                want, want, 0):
+            fail(f"[flash_grad] {dtype}: launches {one[fwd]} forward, "
+                 f"{one['flash_attention_bwd']} backward, {one[other]} of "
+                 f"the other forward; want {want}, {want}, 0")
+        if not math.isfinite(kernel_loss) or abs(kernel_loss - plain_loss) > (
+                1e-3 * abs(plain_loss)):
+            fail(f"[flash_grad] {dtype}: the loss with the kernels "
+                 f"{kernel_loss} is not the plain one's {plain_loss}")
+
+    # the f32 flash embeddings on the card against the CPU's
+    rows = FLASH_REF_ROWS
+    ids, mask = batch[2][:rows], batch[3][:rows]
+    with torch.no_grad():
+        got = master(ids, mask, attention_impl="flash").cpu()
+        cpu_model = copy.deepcopy(master).to("cpu")
+        ref = cpu_model(ids.cpu(), mask.cpu(), attention_impl="flash")
+    cos = float((got * ref).sum(dim=1).min())
+    print(f"[flash_grad] f32 embeddings rows={rows} S={FLASH_GRAD_DOC_S} "
+          f"cuda_vs_cpu_min_cosine={cos:.7f} "
+          f"finite={bool(torch.isfinite(got).all())}", flush=True)
+    if not cos > 0.999 or not bool(torch.isfinite(got).all()):
+        fail("[flash_grad] the f32 flash embeddings on the card disagree "
+             "with the CPU")
+    del master, cpu_model
     torch.cuda.empty_cache()
     return launches
 
@@ -6949,6 +7371,7 @@ def main() -> None:
     results: dict = {}
     for check in (check_flat_topk, check_quant_topk, check_attention,
                   check_attention_bhsd, check_flash_attention,
+                  check_flash_attention_bwd, check_flash_attention_f32,
                   check_attention_grad, check_attention_f32, check_int8_ffn,
                   check_int8_gemm, check_ivf):
         with timed_phase(check.__name__):
@@ -7015,6 +7438,8 @@ def main() -> None:
         with timed_phase("f32_encoder"):
             launches["f32_encoder"] = check_f32_encoder(
                 work / "data" / "models" / "smoke-mpnet")
+        with timed_phase("flash_grad"):
+            launches["flash_grad"] = check_flash_grad()
         with timed_phase("dryrun"):
             check_dryrun()
     finally:

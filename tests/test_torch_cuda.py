@@ -22,8 +22,11 @@ rows, ragged M and K/N off the 128 grid, and on the planted inputs of
 ``chip_smoke.planted_rows``; ``int8_ffn_ln`` equal to its plain version on
 ``chip_smoke.planted_epilogue``'s inputs; the stock-flash kernel within the
 attention tolerances at S 128 to 512 and head sizes 8 to 128, with padded
-rows (refusing grad); the int4 probe's variants equal to their plain versions and the
-scan-overhead probe's within the flat scan's 1e-4; the IVF int8 / int4
+rows, its f32 forward (``flash_attention_f32.cu``) within 1e-5 with its
+residuals, and its backward (``flash_attention_bwd.cu``) within
+``chip_smoke.flash_bwd_ok`` of the plain version, bf16 and f32, and under
+autograd one launch of each; the int4 probe's variants equal to their
+plain versions and the scan-overhead probe's within the flat scan's 1e-4; the IVF int8 / int4
 scans' prologue kernel equal to its plain twin on the cases of
 ``tests/ivf_prep_cases.py``, and both scans exact with the live schedule
 empty, shorter than the grid and many times longer (nlist 4,099), and on
@@ -1240,34 +1243,128 @@ def test_flash_attention_refuses_shapes(dev, s, hd):
         flash_attention(q, q, q, ab, seg, seg, 1.0)
 
 
-def test_flash_attention_refuses_grad(dev):
-    """The flash kernel has no backward: with grad enabled and q, k, v or
-    ab requiring it, ``ValueError`` naming the dense mode and no launch;
-    under ``no_grad`` the same inputs launch once, as without grad."""
+def flash_case(dev, dtype, s, hd, nh, b, seed):
+    """q, k, v, dO ``[B, heads, S, hd]``, a trained-scale bias and segment
+    ids with a padded tail, a mostly padded row, a fully padded one and one
+    that is all pad but one key (as ``test_flash_attention_kernel``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, nh, s, hd), generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    ab = (2.0 * torch.randn((nh, s, s), generator=gen, device=dev)).to(dtype)
+    seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+    for row, live in ((1, s // 3), (2, 3), (3, 0), (4, 1))[:b - 1]:
+        seg[row, live:] = 0
+    return q, k, v, do, ab, seg
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,hd,nh,b", [
+    (128, 64, 3, 4), (256, 26, 2, 4), (384, 32, 2, 5), (512, 128, 1, 3),
+    (256, 8, 2, 5), (128, 25, 2, 3), (256, 48, 2, 2)])
+def test_flash_attention_bwd_kernel(dev, dtype, s, hd, nh, b):
+    """``flash_attention_bwd.cu`` against ``flash_attention_bwd_plain`` on
+    the card, from one forward's output and residuals: one block (S 128)
+    and several, head sizes 8 to 128 (25 odd, 26 not a multiple of 4, 48
+    padded to 64), padded rows; dQ, dK, dV and dab within
+    ``chip_smoke.flash_bwd_ok``, one C call; no dab without ``ab_grad``,
+    and the same dQ, dK, dV."""
+    from chip_smoke import flash_bwd_errors, flash_bwd_ok
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+
+    q, k, v, do, ab, seg = flash_case(dev, dtype, s, hd, nh, b, s + hd + b)
+    scale = 1.0 / math.sqrt(hd)
+    out, m, l = flash_attention_fwd(q, k, v, ab, seg, seg, scale)
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, ab, seg, seg, out, do, m, l, scale)
+    want = flash_attention_bwd_plain(q, k, v, ab, seg, seg, out, do, m, l,
+                                     scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    for what, g, w in zip(("dq", "dk", "dv", "dab"), got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape, what
+        assert torch.isfinite(g.float()).all(), what
+        errors = flash_bwd_errors(g, w, name)
+        assert flash_bwd_ok(errors, name), (what, errors)
+    bare = flash_attention_bwd(q, k, v, ab, seg, seg, out, do, m, l, scale,
+                               ab_grad=False)
+    torch.cuda.synchronize()
+    assert bare[3] is None
+    for g, w in zip(bare[:3], got[:3]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("s,hd,nh,b", [
+    (128, 64, 3, 4), (256, 26, 2, 4), (384, 32, 2, 5), (512, 128, 1, 3),
+    (256, 8, 2, 5), (128, 13, 2, 3)])
+def test_flash_attention_f32_kernel(dev, s, hd, nh, b):
+    """``flash_attention_f32.cu`` against the plain forward on f32 inputs:
+    the output within ``chip_smoke.ATTN_F32_TOL``, and with residuals each
+    row's ``(m, l)`` within it relative to the plain ones; one launch a
+    call, the same output with and without residuals."""
+    from chip_smoke import ATTN_F32_TOL
     from tpu_search_torch.ops import _build
     from tpu_search_torch.ops.flash_attention import (
         flash_attention,
-        flash_attention_plain,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
     )
 
-    gen = torch.Generator(device=dev).manual_seed(7)
-    q, k, v, ab = (torch.randn(shape, generator=gen, device=dev)
-                   .to(torch.bfloat16)
-                   for shape in ((2, 2, 128, 64),) * 3 + ((2, 128, 128),))
-    seg = torch.ones((2, 128), dtype=torch.int32, device=dev)
-    for i in range(4):
-        args = [q, k, v, ab]
-        args[i] = args[i].clone().requires_grad_()
-        before = _build.LAUNCHES["flash_attention"]
-        with pytest.raises(ValueError, match="dense"):
-            flash_attention(*args, seg, seg, 0.125)
-        assert _build.LAUNCHES["flash_attention"] == before
-        with torch.no_grad():
-            out = flash_attention(*args, seg, seg, 0.125)
-        assert _build.LAUNCHES["flash_attention"] == before + 1
-    ref = flash_attention_plain(q, k, v, ab, seg, seg, 0.125)
+    q, k, v, _, ab, seg = flash_case(dev, torch.float32, s, hd, nh, b, s + hd)
+    scale = 1.0 / math.sqrt(hd)
+    before = _build.LAUNCHES["flash_attention_f32"]
+    out = flash_attention(q, k, v, ab, seg, seg, scale)
+    got = flash_attention_fwd(q, k, v, ab, seg, seg, scale)
+    want = flash_attention_fwd_plain(q, k, v, ab, seg, seg, scale)
     torch.cuda.synchronize()
-    assert float((out.float() - ref.float()).abs().max()) <= 3e-2
+    assert _build.LAUNCHES["flash_attention_f32"] == before + 2
+    assert torch.isfinite(out).all() and torch.equal(out, got[0])
+    assert float((out - want[0]).abs().max()) <= ATTN_F32_TOL
+    for g, w in zip(got[1:], want[1:]):
+        assert float(((g - w).abs() / w.abs().clamp(min=1.0)).max()) <= (
+            ATTN_F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_grad_runs_the_kernels(dev, dtype):
+    """Under grad the flash attention runs its forward kernel of q's dtype
+    with residuals and the backward kernel, once each, and the gradients
+    agree with the plain forward and backward on the card; the bf16
+    forward's residuals agree with the plain ones."""
+    from chip_smoke import flash_bwd_errors, flash_bwd_ok
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+    )
+
+    q, k, v, do, ab, seg = flash_case(dev, dtype, 256, 64, 2, 3, 9)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, ab)]
+    fwd = "flash_attention" if dtype == torch.bfloat16 else (
+        "flash_attention_f32")
+    before = dict(_build.LAUNCHES)
+    flash_attention(*leaves, seg, seg, 0.125).backward(do)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[fwd] == before[fwd] + 1
+    assert (_build.LAUNCHES["flash_attention_bwd"]
+            == before["flash_attention_bwd"] + 1)
+    out, m, l = flash_attention_fwd(q, k, v, ab, seg, seg, 0.125)
+    _, pm, pl = flash_attention_fwd_plain(q, k, v, ab, seg, seg, 0.125)
+    assert float((m - pm).abs().max()) <= 1e-5 * float(pm.abs().max())
+    assert float(((l - pl).abs() / pl).max()) <= 1e-5
+    want = flash_attention_bwd_plain(q, k, v, ab, seg, seg, out, do, m, l,
+                                     0.125)
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    for leaf, w in zip(leaves, want):
+        errors = flash_bwd_errors(leaf.grad, w, name)
+        assert flash_bwd_ok(errors, name), errors
 
 
 def test_int4_probe_variants(dev):

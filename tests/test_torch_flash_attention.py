@@ -188,41 +188,65 @@ def test_other_impls_are_refused():
         port_hidden(init_params(cfg, 0), cfg, ids, mask, "xla")
 
 
-def test_card_branch_refuses_grad_and_runs_without(monkeypatch):
-    """The card's branch (``_flash_kernel``) with its kernel call patched:
-    with grad enabled and q, k, v or ``ab`` requiring it, ``ValueError``
-    naming the dense mode and no launch; without grad (or under
-    ``no_grad``), one call of the kernel and one count, as before.  The
-    CPU's plain version keeps its autograd."""
+def test_card_branch_runs_the_kernels_with_and_without_grad(monkeypatch):
+    """The card's branch with its C calls patched (``_on_card`` true,
+    ``_fn`` recording each call): with grad enabled and q, k, v or ``ab``
+    requiring it, one forward call that writes the residuals ``(m, l)``,
+    then one backward call, which skips the bias's gradient (no ``dab``, no
+    scratch) unless ``ab`` needs one; without grad or under ``no_grad``,
+    one forward call without residuals and one count, as before; bf16 goes
+    to ``flash_attention``, f32 to ``flash_attention_f32``; a head size
+    above the kernels' 128 raises ``ValueError`` naming the limit before
+    any call."""
     from tpu_search_torch.ops import _build
     from tpu_search_torch.ops import flash_attention as fa
 
     calls = []
 
-    def kernel(*args):
-        calls.append(args)
-        return 0
+    def fn(name):
+        def kernel(*args):
+            calls.append((name, args))
+            return 0
+        return kernel
 
-    monkeypatch.setattr(fa, "_fn", lambda: kernel)
+    monkeypatch.setattr(fa, "_fn", fn)
+    monkeypatch.setattr(fa, "_on_card", lambda t: True)
     monkeypatch.setattr(fa._build, "stream_ptr", lambda device: 0)
     q, k, v, ab, seg = (torch.from_numpy(x) for x in op_inputs(128, 32, 3))
-    q, k, v, ab = (t.to(torch.bfloat16) for t in (q, k, v, ab))
-    for name in ("q", "k", "v", "ab"):
-        args = {"q": q, "k": k, "v": v, "ab": ab}
-        args[name] = args[name].clone().requires_grad_()
-        with pytest.raises(ValueError, match="dense"):
-            fa._flash_kernel(*args.values(), seg, seg, 0.125)
-        assert not calls
-        with torch.no_grad():
-            out = fa._flash_kernel(*args.values(), seg, seg, 0.125)
-        assert out.shape == q.shape and len(calls) == 1
+    for dtype, fwd in ((torch.bfloat16, "flash_attention"),
+                       (torch.float32, "flash_attention_f32")):
+        operands = [t.to(dtype) for t in (q, k, v, ab)]
+        for i in range(4):
+            args = list(operands)
+            args[i] = args[i].clone().requires_grad_()
+            before = dict(_build.LAUNCHES)
+            out = fa.flash_attention(*args, seg, seg, 0.125)
+            assert [name for name, _ in calls] == [fwd]
+            assert all(p is not None for p in calls[0][1][7:9])  # m, l
+            out.backward(torch.ones_like(out))
+            assert [name for name, _ in calls] == [fwd, "flash_attention_bwd"]
+            bwd = calls[1][1]
+            assert bwd[20] == int(dtype == torch.bfloat16)
+            # dab and its scratch only where ab needs a gradient
+            assert (bwd[13] is None) == (bwd[14] is None) == (i != 3)
+            assert args[i].grad is not None
+            assert _build.LAUNCHES[fwd] == before[fwd] + 1
+            assert (_build.LAUNCHES["flash_attention_bwd"]
+                    == before["flash_attention_bwd"] + 1)
+            calls.clear()
+            with torch.no_grad():
+                out = fa.flash_attention(*args, seg, seg, 0.125)
+            assert out.shape == q.shape and out.dtype == dtype
+            assert [name for name, _ in calls] == [fwd]
+            assert calls[0][1][7:9] == (None, None)
+            calls.clear()
+        before = _build.LAUNCHES[fwd]
+        fa.flash_attention(*operands, seg, seg, 0.125)
+        assert len(calls) == 1 and _build.LAUNCHES[fwd] == before + 1
         calls.clear()
-    before = _build.LAUNCHES["flash_attention"]
-    fa._flash_kernel(q, k, v, ab, seg, seg, 0.125)
-    assert len(calls) == 1
-    assert _build.LAUNCHES["flash_attention"] == before + 1
-    leaf = q.float().requires_grad_()
-    out = flash_attention(leaf, k.float(), v.float(), ab.float(), seg, seg,
-                          0.125)
-    out.sum().backward()
-    assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
+    big = torch.zeros((1, 2, 128, 160), dtype=torch.bfloat16)
+    big_ab = torch.zeros((2, 128, 128), dtype=torch.bfloat16)
+    one = torch.ones((1, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="128"):
+        fa.flash_attention(big, big, big, big_ab, one, one, 0.1)
+    assert not calls

@@ -14,7 +14,12 @@
 //   S > 128, per 128-key block in order: m' = max(m, max s); p = exp(s -
 //        m'); l' = sum p + exp(m - m') * l; inv = l' == 0 ? 1 : 1 / l';
 //        o = o * (exp(m - m') * l * inv) + (bf16(p) V) * inv;
-//   out = bf16(o).
+//   out = bf16(o); where m_out and l_out are not null (the autograd
+//   forward, ops/flash_attention.py FlashAttention), also each row's final
+//   m and l (the one step's max and sum at S = 128), f32 [b, heads, s]:
+//   the stock kernel's save_residuals, which its backward
+//   (flash_attention_bwd.cu) reads.  Null off the grad path, where the
+//   kernel writes nothing more.
 // q, k, v, out and ab are bf16; ab is one [heads, S, S] tensor shared by
 // the batch (JAX broadcasts the same values to [B, heads, S, S]); segment
 // ids are [B, S] int32.  S % 128 == 0 and 1 <= hd <= 128, as the stock
@@ -121,7 +126,8 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ v,
              const __nv_bfloat16* __restrict__ ab,
              const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-             __nv_bfloat16* __restrict__ out, int s, int nh, int hd,
+             __nv_bfloat16* __restrict__ out, float* __restrict__ m_out,
+             float* __restrict__ l_out, int s, int nh, int hd,
              float scale) {
   using St = Stage<HDP>;
   constexpr int NT = kBK / 8;
@@ -244,6 +250,8 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
         // The stock one-step kernel: p /= l before the bf16 rounding.
         corr[half] = 0.f;
         inv[half] = 1.f;
+        m_prev[half] = m_next[half];
+        l_prev[half] = total;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           sc[nt][half * 2] = __fdiv_rn(sc[nt][half * 2], total);
@@ -279,6 +287,15 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
       }
   }
 
+  if (m_out != nullptr && tig == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const size_t row = ((size_t)b * nh + head) * s + row0 + half * 8;
+      m_out[row] = m_prev[half];
+      l_out[row] = l_prev[half];
+    }
+  }
+
   // Output columns past hd come from the zero padding: never written.
 #pragma unroll
   for (int nt = 0; nt < HDP / 8; ++nt) {
@@ -304,8 +321,8 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HDP, bool kVec16>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ab, const int* q_seg, const int* kv_seg,
-                   void* out, int b, int nh, int s, int hd, float scale,
-                   cudaStream_t stream) {
+                   void* out, float* m_out, float* l_out, int b, int nh,
+                   int s, int hd, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Stage<HDP>::kBytes;
   auto kernel = flash_kernel<HDP, kVec16>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -321,7 +338,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(ab), q_seg, kv_seg,
-      static_cast<__nv_bfloat16*>(out), s, nh, hd, scale);
+      static_cast<__nv_bfloat16*>(out), m_out, l_out, s, nh, hd, scale);
   return cudaGetLastError();
 }
 
@@ -329,13 +346,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <int HDP>
 cudaError_t launch_hdp(const void* q, const void* k, const void* v,
                        const void* ab, const int* q_seg, const int* kv_seg,
-                       void* out, int b, int nh, int s, int hd, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* m_out, float* l_out, int b, int nh,
+                       int s, int hd, float scale, cudaStream_t stream) {
   if (hd % 8 == 0)
-    return launch<HDP, true>(q, k, v, ab, q_seg, kv_seg, out, b, nh, s, hd,
-                             scale, stream);
-  return launch<HDP, false>(q, k, v, ab, q_seg, kv_seg, out, b, nh, s, hd,
-                            scale, stream);
+    return launch<HDP, true>(q, k, v, ab, q_seg, kv_seg, out, m_out, l_out,
+                             b, nh, s, hd, scale, stream);
+  return launch<HDP, false>(q, k, v, ab, q_seg, kv_seg, out, m_out, l_out,
+                            b, nh, s, hd, scale, stream);
 }
 
 // CTAs a multiprocessor of the kernel for head size hd, and its dynamic
@@ -356,20 +373,25 @@ int occupancy_hdp(int hd, int* bytes) {
 }  // namespace
 
 // q, k, v, out: [b, nh, s, hd] bf16; ab: [nh, s, s] bf16; q_seg, kv_seg:
-// [b, s] int32.  Requires s % 128 == 0 and 1 <= hd <= 128.
+// [b, s] int32; m_out, l_out: [b, nh, s] f32, both null or neither.
+// Requires s % 128 == 0 and 1 <= hd <= 128.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* ab, const void* q_seg,
-                               const void* kv_seg, void* out, int b, int nh,
-                               int s, int hd, float scale, void* stream) {
+                               const void* kv_seg, void* out, void* m_out,
+                               void* l_out, int b, int nh, int s, int hd,
+                               float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd < 1 || hd > 128 || s < kBK || s % kBK)
+  if (hd < 1 || hd > 128 || s < kBK || s % kBK ||
+      (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
   const int* qs = static_cast<const int*>(q_seg);
   const int* ks = static_cast<const int*>(kv_seg);
 #define FLASH_CASE(HDP)                                                    \
   case HDP / 16:                                                           \
-    return (int)launch_hdp<HDP>(q, k, v, ab, qs, ks, out, b, nh, s, hd,    \
-                                scale, st);
+    return (int)launch_hdp<HDP>(q, k, v, ab, qs, ks, out, mo, lo, b, nh, s, \
+                                hd, scale, st);
   switch ((hd + 15) / 16) {
     FLASH_HDPS(FLASH_CASE)
     default:

@@ -40,8 +40,10 @@ layout where the JAX package has a dense XLA graph and a Pallas kernel of
 one contract.  ``"flash"`` is the JAX stock flash mode
 (``ops.flash_attention``): the bias rounded to the compute dtype and added
 before the scale, padding as segment ids (a pad query attends to the pad
-keys), S a multiple of 128.  No caller of the port selects it, as no
-caller of the JAX package does.
+keys), S a multiple of 128; under autograd its gradient is the stock
+kernel's VJP (``ops.flash_attention.FlashAttention``), ``rel_bias``'s
+through the bias's cast to the compute dtype.  No caller of the port
+selects it, as no caller of the JAX package does.
 """
 
 from __future__ import annotations

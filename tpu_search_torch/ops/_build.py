@@ -61,7 +61,8 @@ KERNELS = ("flat_topk", "mpnet_attention", "int8_ffn_ln", "flat_topk_int8",
            "flat_topk_int4", "ivf_topk", "ivf_topk_int8", "ivf_topk_int4",
            "mpnet_attention_bhsd", "int8_gemm", "int8_ffn_in", "int8_ffn_out",
            "int8_ffn_fused", "flash_attention", "int4_probe",
-           "scan_overhead_probe", "mpnet_attention_f32", "mpnet_attention_bwd")
+           "scan_overhead_probe", "mpnet_attention_f32", "mpnet_attention_bwd",
+           "flash_attention_f32", "flash_attention_bwd")
 # One library per kernel source.
 LIBRARIES = tuple(sorted(path.stem for path in CSRC.glob("*.cu")))
 
