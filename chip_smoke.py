@@ -11,7 +11,9 @@ Phases, each printing its numbers on its own line:
      ``int8_ffn_in``, ``int8_ffn_out`` and ``int8_ffn_fused`` run too)
      are wgmma's alone and that
      ``flash_attention``'s and ``mpnet_attention_bhsd``'s q k^T issue
-     wgmma, that the IVF digit scans multiply with wgmma at Q > 8 and
+     wgmma, that the flash backward's bf16 passes (``rows_wgmma``,
+     ``cols_wgmma``) multiply with wgmma, that the IVF digit scans
+     multiply with wgmma at Q > 8 and
      mma.sync at Q <= 8, that the attention backward's and the f32
      forward's kernels, dense and flash, multiply on the tensor cores
      (HMMA), and print the card's name and power limit;
@@ -196,12 +198,14 @@ and at H 312 / I 1200 and H 1024 / I 4096 with a ragged M, bf16 and f32
 outputs, and on planted requantization inputs; ``int8_ffn_ln`` at 0 ulps
 from its plain version on ``planted_epilogue``'s inputs, whose LayerNorm
 statistics are exact; the stock-flash kernel at ``FLASH_SHAPES`` (S 384
-and 512, hd 64, 32 and 26) with padded rows and a trained-scale bias, and
-at the same shapes ``[flash_attention_bwd]``, its backward kernel
+and 512, hd 64, 32 and 26) and ``FLASH_WIDE_SHAPES`` (hd 160 at S 128,
+256 at S 256) with padded rows and a trained-scale bias, and at the same
+shapes ``[flash_attention_bwd]``, its backward kernel
 (``flash_attention_bwd.cu``) in bf16 and f32 against its plain version
-from the forward's output and residuals (dQ, dK, dV and dab gated; ms,
-device ms, launches, each launch's device time, the bound, SDPA's forward
-+ backward, shared memory and CTAs a multiprocessor of both passes), and
+from the forward's output and residuals (dQ, dK, dV and dab gated, and
+the same bits from a second call; ms, device ms, launches, each launch's
+device time, the bound, SDPA's forward + backward, shared memory, CTAs a
+multiprocessor, registers and spills of both passes), and
 ``[flash_attention_f32]``, its f32 forward (``flash_attention_f32.cu``)
 with its residuals, beside SDPA f32;
 ``[attention_grad]``, the attention's backward kernel
@@ -581,18 +585,24 @@ SASS_RULES = {
     "int8_gemm": (("gemm_kernel",), True),
     "int8_ffn_ln": (("ffn_gemm1", "ffn_gemm2", "ffn_out_cq"), True),
     "flash_attention": (("flash_kernel",), False),
+    "flash_attention_bwd": (("rows_wgmma", "cols_wgmma"), False),
 }
+# Each redesigned kernel's ptxas report from the build: ``{"<source>
+# <short name>": (registers, spill store bytes, spill load bytes)}``, for
+# the phases that print them beside their times.
+PTXAS: dict = {}
 
 
 # The tensor-core row / column attention kernels (attention_tc.cuh; the
-# flash mode's f32 forward and backward on it through flash_tc.cuh): every
-# product is an mma.sync (bf16, or 3xTF32 in f32), so each kernel named
-# here must hold HMMA instructions.
+# flash mode's f32 forward and backward, and its bf16 forward above hd 128,
+# on it through flash_tc.cuh): every product is an mma.sync (bf16, or
+# 3xTF32 in f32), so each kernel named here must hold HMMA instructions.
 HMMA_SASS_RULES = {
     "mpnet_attention_bwd": ("bwd_rows", "bwd_cols"),
     "mpnet_attention_f32": ("attention_f32_tc",),
     "flash_attention_bwd": ("bwd_rows", "bwd_cols"),
     "flash_attention_f32": ("flash_f32_kernel",),
+    "flash_attention": ("flash_wide_kernel",),
 }
 
 
@@ -738,6 +748,7 @@ def check_build(logs: dict) -> None:
             print(f"[build] ptxas {name}: not compiled in this run", flush=True)
         for (_, regs, stores, loads), kernel in zip(
                 entries, demangle([e[0] for e in entries])):
+            PTXAS[f"{name} {short_name(kernel)}"] = (regs, stores, loads)
             print(f"[build] ptxas {name} {short_name(kernel)} "
                   f"registers={regs} spill_stores={stores} "
                   f"spill_loads={loads}", flush=True)
@@ -1247,6 +1258,10 @@ def check_attention_bhsd(results: dict) -> None:
 # The flash mode's shapes (B, S, H, heads): all-mpnet-base-v2's indexing
 # wave, the MiniLM cross-encoder's rerank bucket, TinyBERT-312's (hd 26).
 FLASH_SHAPES = ((128, 384, 768, 12), (128, 512, 384, 12), (128, 512, 312, 12))
+# Head sizes above 128, as the stock kernel takes them, at a small B: hd
+# 160 (S 128 only: above 128 a head size must be a multiple of 128 at S >
+# 128) and hd 256.
+FLASH_WIDE_SHAPES = ((16, 128, 320, 2), (16, 256, 512, 2))
 
 
 def flash_inputs(gen, b, s, h, nh, dev):
@@ -1301,7 +1316,8 @@ def occupancy(name: str, hd: int) -> str:
 
 def check_flash_attention(results: dict) -> None:
     """The stock-flash kernel against its plain version at the three
-    ``FLASH_SHAPES``, with padded rows and a trained-scale bias."""
+    ``FLASH_SHAPES`` and the two ``FLASH_WIDE_SHAPES``, with padded rows
+    and a trained-scale bias."""
     import torch
 
     from tpu_search_torch.ops.flash_attention import (
@@ -1312,7 +1328,7 @@ def check_flash_attention(results: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(16)
     worst = 0.0
-    for b, s, h, nh in FLASH_SHAPES:
+    for b, s, h, nh in FLASH_SHAPES + FLASH_WIDE_SHAPES:
         hd = h // nh
         q, k, v, ab, seg = flash_inputs(gen, b, s, h, nh, dev)
         scale = 1.0 / math.sqrt(hd)
@@ -1393,41 +1409,66 @@ def flash_bwd_ok(errors: dict, dtype: str) -> bool:
             and errors["over_1ulp_share"] <= ATTN_GRAD_ULP_SHARE)
 
 
-def bwd_occupancy(hd: int, bf16: bool) -> str:
-    """The dynamic shared memory and CTAs a multiprocessor of the flash
-    backward's row and column passes at head size ``hd``."""
+# The flash backward's passes by kernel name (bf16, f32) and the head
+# widths their templates round hd up to.
+BWD_PASSES = {True: ("rows_wgmma", "cols_wgmma"),
+              False: ("bwd_rows", "bwd_cols")}
+
+
+def bwd_width(hd: int, bf16: bool) -> int:
+    if bf16:
+        ld = -(-hd // 8) * 8
+        return next(w for w in (32, 64, 128, 256) if ld <= w)
+    return next(w for w in (16, 32, 64, 128, 256) if hd <= w)
+
+
+def bwd_occupancy(hd: int, s: int, bf16: bool) -> str:
+    """The dynamic shared memory, CTAs a multiprocessor, registers and
+    spill bytes (ptxas, from the build) of the flash backward's row and
+    column passes at head size ``hd`` and sequence length ``s`` (the bf16
+    row pass's tile of the bias's gradient grows with s)."""
     import ctypes
 
     from tpu_search_torch.ops import _build
 
     fn = _build.library("flash_attention_bwd").flash_attention_bwd_occupancy
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
+    width = bwd_width(hd, bf16)
     parts = []
     for pass_, name in ((0, "rows"), (1, "cols")):
         nbytes = ctypes.c_int(0)
-        ctas = fn(hd, int(bf16), pass_, ctypes.byref(nbytes))
+        ctas = fn(hd, s, int(bf16), pass_, ctypes.byref(nbytes))
         if ctas <= 0:
             fail(f"flash_attention_bwd {name} cannot run at hd={hd}: "
                  f"code {-ctas}")
+        kernel = BWD_PASSES[bf16][pass_]
+        key = (f"{kernel}<{width}, 1>" if kernel == "rows_wgmma"
+               else f"{kernel}<{width}>")
+        regs, stores, loads = PTXAS.get(f"flash_attention_bwd {key}",
+                                        ("not_built_here",) * 3)
         parts.append(f"{name}_smem_bytes={nbytes.value} "
-                     f"{name}_ctas_per_sm={ctas}")
+                     f"{name}_ctas_per_sm={ctas} {name}_registers={regs} "
+                     f"{name}_spill_stores={stores} "
+                     f"{name}_spill_loads={loads}")
     return " ".join(parts)
 
 
 def check_flash_attention_bwd(results: dict) -> None:
     """``[flash_attention_bwd]``: the flash backward kernel against its
-    plain version on the card at ``FLASH_SHAPES``, bf16 and f32, from the
-    forward kernel's output and residuals, with padded rows and a
-    trained-scale bias that needs a gradient: dQ, dK, dV and dab gated
-    (``flash_bwd_ok``); ms in turns with the plain version, device ms and
-    launches a call and each launch's device time, the bound (q, k, v, o
-    and dO read and dQ, dK, dV written, ab read and dab written, the
-    segment ids and (m, l) read; or five products of 2 B heads S^2 hd
-    flops: bf16 at 989 TFLOP/s, f32 as the 3xTF32 products the kernel
-    runs, three tf32 products each at 495 TFLOP/s), SDPA's forward +
-    backward with a float mask that requires grad, the passes' shared
-    memory and CTAs a multiprocessor, and the seconds each case took."""
+    plain version on the card at ``FLASH_SHAPES`` and
+    ``FLASH_WIDE_SHAPES``, bf16 and f32, from the forward kernel's output
+    and residuals, with padded rows and a trained-scale bias that needs a
+    gradient: dQ, dK, dV and dab gated (``flash_bwd_ok``), and a second
+    call's bits equal to the first's; ms in turns with the plain version,
+    device ms and launches a call and each launch's (each pass's) device
+    time, the bound (q, k, v, o and dO read and dQ, dK, dV written, ab
+    read and dab written, the segment ids and (m, l) read; or five
+    products of 2 B heads S^2 hd flops: bf16 at 989 TFLOP/s, f32 as the
+    3xTF32 products the kernel runs, three tf32 products each at 495
+    TFLOP/s), SDPA's forward + backward with a float mask that requires
+    grad, the passes' shared memory, CTAs a multiprocessor, registers and
+    spills, and the seconds each case took."""
     import torch
 
     from tpu_search_torch.ops.flash_attention import (
@@ -1439,7 +1480,7 @@ def check_flash_attention_bwd(results: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(24)
     worst = 0.0
-    for b, s, h, nh in FLASH_SHAPES:
+    for b, s, h, nh in FLASH_SHAPES + FLASH_WIDE_SHAPES:
         hd = h // nh
         scale = 1.0 / math.sqrt(hd)
         for dtype in ("bfloat16", "float32"):
@@ -1474,7 +1515,12 @@ def check_flash_attention_bwd(results: dict) -> None:
                     fail(f"flash_attention_bwd {name} disagrees with its "
                          f"plain version at {tag}: {errors}")
                 worst = max(worst, errors["max_abs_err"])
-            del got, want
+            again = kernel()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"flash_attention_bwd gave other bits on a second call "
+                     f"at {tag}")
+            del got, want, again
             kms, pms = paired_ms(kernel, plain, 5)
             dev_ms, launches = device_breakdown(
                 f"flash_attention_bwd {tag}", kernel, 3)
@@ -1491,8 +1537,9 @@ def check_flash_attention_bwd(results: dict) -> None:
                   f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
                   f"device_ms={dev_ms:.4f} launches_per_call={launches:.1f} "
                   f"bound_ms={bound_ms:.4f} bound_by={by} "
-                  f"sdpa_fwd_bwd_ms={lib:.4f} {bwd_occupancy(hd, bf16)} "
-                  f"seconds={time.perf_counter() - t0:.2f}", flush=True)
+                  f"sdpa_fwd_bwd_ms={lib:.4f} {bwd_occupancy(hd, s, bf16)} "
+                  f"repeats=True seconds={time.perf_counter() - t0:.2f}",
+                  flush=True)
             if (s, h) == FLASH_SHAPES[0][1:3] and bf16:
                 results["flash_attention_bwd"] = {
                     "ms": kms, "plain_ms": pms, "bound_ms": bound_ms,
@@ -1504,7 +1551,8 @@ def check_flash_attention_bwd(results: dict) -> None:
 
 def check_flash_attention_f32(results: dict) -> None:
     """``[flash_attention_f32]``: the flash mode's f32 forward kernel
-    against its plain version at ``FLASH_SHAPES`` (f32 q, k, v and ab,
+    against its plain version at ``FLASH_SHAPES`` and
+    ``FLASH_WIDE_SHAPES`` (f32 q, k, v and ab,
     padded rows, a trained-scale bias): the output within
     ``ATTN_F32_TOL``, each row's ``(m, l)`` within it relative to the
     plain ones, one launch a call; ms in turns with the plain version,
@@ -1524,7 +1572,7 @@ def check_flash_attention_f32(results: dict) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(25)
     worst = 0.0
-    for b, s, h, nh in FLASH_SHAPES:
+    for b, s, h, nh in FLASH_SHAPES + FLASH_WIDE_SHAPES:
         t0 = time.perf_counter()
         hd = h // nh
         q, k, v, ab, seg = flash_inputs(gen, b, s, h, nh, dev)

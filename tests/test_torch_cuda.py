@@ -21,11 +21,12 @@ dtype at most, 0.01 on average, 0.1 % over one ulp) on random inputs, zero
 rows, ragged M and K/N off the 128 grid, and on the planted inputs of
 ``chip_smoke.planted_rows``; ``int8_ffn_ln`` equal to its plain version on
 ``chip_smoke.planted_epilogue``'s inputs; the stock-flash kernel within the
-attention tolerances at S 128 to 512 and head sizes 8 to 128, with padded
+attention tolerances at S 128 to 512 and head sizes 8 to 256, with padded
 rows, its f32 forward (``flash_attention_f32.cu``) within 1e-5 with its
 residuals, and its backward (``flash_attention_bwd.cu``) within
-``chip_smoke.flash_bwd_ok`` of the plain version, bf16 and f32, and under
-autograd one launch of each; the int4 probe's variants equal to their
+``chip_smoke.flash_bwd_ok`` of the plain version, bf16 and f32 (S to 1,024,
+B 40), the same bits on a second call, and under autograd one launch of
+each; head sizes the stock kernel refuses refused with its error; the int4 probe's variants equal to their
 plain versions and the scan-overhead probe's within the flat scan's 1e-4; the IVF int8 / int4
 scans' prologue kernel equal to its plain twin on the cases of
 ``tests/ivf_prep_cases.py``, and both scans exact with the live schedule
@@ -1202,11 +1203,13 @@ def test_cross_encoder_fixture_cuda_matches_cpu(dev):
     (128, 64, 3, 4), (256, 26, 2, 4), (384, 32, 2, 4), (512, 128, 2, 4),
     (256, 8, 2, 4), (128, 26, 2, 1), (128, 32, 2, 5), (128, 128, 1, 3),
     (256, 64, 2, 1), (256, 128, 2, 5), (512, 26, 2, 5), (512, 32, 2, 3),
-    (512, 64, 2, 5), (256, 25, 2, 5), (128, 40, 2, 3)])
+    (512, 64, 2, 5), (256, 25, 2, 5), (128, 40, 2, 3), (128, 160, 2, 3),
+    (128, 193, 1, 2), (256, 256, 2, 3)])
 def test_flash_attention_kernel(dev, s, hd, nh, b):
     """The stock-flash kernel against its plain version: one block (S 128)
     and several, head sizes padded to 16 and not (16-byte, 4-byte and, at
-    odd hd, 2-byte row copies), B 1 and odd B, a trained-scale bias, a
+    odd hd, 2-byte row copies), above 128 (the wide kernel: hd 160 and an
+    odd 193 at S 128, 256 at S 256), B 1 and odd B, a trained-scale bias, a
     padded tail, a mostly padded row, a fully padded one and one that is
     all pad but one key."""
     from chip_smoke import attention_ok, bf16_errors
@@ -1232,14 +1235,20 @@ def test_flash_attention_kernel(dev, s, hd, nh, b):
     assert attention_ok(errors, "flash_attention"), errors
 
 
-@pytest.mark.parametrize("s,hd", [(64, 64), (192, 64), (256, 160)])
-def test_flash_attention_refuses_shapes(dev, s, hd):
+@pytest.mark.parametrize("s,hd,error,match", [
+    (64, 64, ValueError, "block_q"), (192, 64, ValueError, "divisible"),
+    (256, 160, NotImplementedError, "multiple of 128"),
+    (128, 320, ValueError, "256")])
+def test_flash_attention_refuses_shapes(dev, s, hd, error, match):
+    """The card refuses what the stock kernel refuses, with its error
+    (a head size above 128 that is not a multiple of 128 at S > 128:
+    NotImplementedError), and a head size above its own limit of 256."""
     from tpu_search_torch.ops.flash_attention import flash_attention
 
     q = torch.zeros((1, 2, s, hd), dtype=torch.bfloat16, device=dev)
     ab = torch.zeros((2, s, s), dtype=torch.bfloat16, device=dev)
     seg = torch.ones((1, s), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
+    with pytest.raises(error, match=match):
         flash_attention(q, q, q, ab, seg, seg, 1.0)
 
 
@@ -1260,12 +1269,15 @@ def flash_case(dev, dtype, s, hd, nh, b, seed):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("s,hd,nh,b", [
     (128, 64, 3, 4), (256, 26, 2, 4), (384, 32, 2, 5), (512, 128, 1, 3),
-    (256, 8, 2, 5), (128, 25, 2, 3), (256, 48, 2, 2)])
+    (256, 8, 2, 5), (128, 25, 2, 3), (256, 48, 2, 2), (128, 160, 2, 3),
+    (256, 256, 1, 3), (256, 64, 2, 40), (1024, 64, 1, 2)])
 def test_flash_attention_bwd_kernel(dev, dtype, s, hd, nh, b):
     """``flash_attention_bwd.cu`` against ``flash_attention_bwd_plain`` on
     the card, from one forward's output and residuals: one block (S 128)
-    and several, head sizes 8 to 128 (25 odd, 26 not a multiple of 4, 48
-    padded to 64), padded rows; dQ, dK, dV and dab within
+    and several, head sizes 8 to 256 (25 odd, 26 not a multiple of 4, 48
+    padded to 64, 160 and 256 split into two column halves), padded rows,
+    B 40 (two batch groups of the bf16 bias's gradient), S 1024 (the bf16
+    row pass's keys in chunks); dQ, dK, dV and dab within
     ``chip_smoke.flash_bwd_ok``, one C call; no dab without ``ab_grad``,
     and the same dQ, dK, dV."""
     from chip_smoke import flash_bwd_errors, flash_bwd_ok
@@ -1301,7 +1313,7 @@ def test_flash_attention_bwd_kernel(dev, dtype, s, hd, nh, b):
 
 @pytest.mark.parametrize("s,hd,nh,b", [
     (128, 64, 3, 4), (256, 26, 2, 4), (384, 32, 2, 5), (512, 128, 1, 3),
-    (256, 8, 2, 5), (128, 13, 2, 3)])
+    (256, 8, 2, 5), (128, 13, 2, 3), (128, 160, 2, 3), (256, 256, 1, 3)])
 def test_flash_attention_f32_kernel(dev, s, hd, nh, b):
     """``flash_attention_f32.cu`` against the plain forward on f32 inputs:
     the output within ``chip_smoke.ATTN_F32_TOL``, and with residuals each
@@ -1328,6 +1340,27 @@ def test_flash_attention_f32_kernel(dev, s, hd, nh, b):
     for g, w in zip(got[1:], want[1:]):
         assert float(((g - w).abs() / w.abs().clamp(min=1.0)).max()) <= (
             ATTN_F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,hd,b", [(384, 64, 40), (256, 256, 3)])
+def test_flash_attention_bwd_repeats(dev, dtype, s, hd, b):
+    """Two calls of the backward give the same bits: no atomics, every
+    sum in a fixed order (the bf16 bias's gradient over two batch groups
+    and their partials at B 40)."""
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    q, k, v, do, ab, seg = flash_case(dev, dtype, s, hd, 2, b, 7)
+    scale = 1.0 / math.sqrt(hd)
+    out, m, l = flash_attention_fwd(q, k, v, ab, seg, seg, scale)
+    first = flash_attention_bwd(q, k, v, ab, seg, seg, out, do, m, l, scale)
+    second = flash_attention_bwd(q, k, v, ab, seg, seg, out, do, m, l, scale)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv", "dab"), first, second):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

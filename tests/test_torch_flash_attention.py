@@ -3,9 +3,12 @@
 - Op level: ``flash_attention`` (its plain version on the CPU) against
   ``jax.experimental.pallas.ops.tpu.flash_attention`` run under
   ``pltpu.force_tpu_interpret_mode()``, in f32, with a bias of trained
-  scale (N(0, 4)) and padded tails.  Tolerance 1e-5 absolute: the same
-  f32 formula, block by block, with sums in another order (read: under
-  5e-7).
+  scale (N(0, 4)) and padded tails, at head sizes 26 to 256 (192 at S
+  128, 256 at S 256: above 128 as the stock kernel takes them).
+  Tolerance 1e-5 absolute: the same f32 formula, block by block, with
+  sums in another order (read: under 5e-7).  In bf16 at the head sizes
+  above 128, the bf16 gate of ``test_torch_flash_attention_grad.py``:
+  2^-9 of the largest |value|, at most 1e-3 of entries over one bf16 ulp.
 - Model level: the port's ``forward_hidden(attention_impl="flash")``
   against JAX ``forward_hidden(..., attention_impl="flash")`` in interpret
   mode, on the MPNet arch with its relative bias scaled to trained size
@@ -44,6 +47,7 @@ from tpu_search_torch.ops.flash_attention import (
 
 OP_TOL = 1e-5
 MODEL_TOL = 1e-5
+BF16_TOL, BF16_SHARE = 2.0 ** -9, 1e-3
 
 
 def op_inputs(s, hd, seed, b=2, nh=2):
@@ -69,7 +73,8 @@ def jax_flash(q, k, v, ab, seg, scale):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize("s,hd", [(128, 32), (256, 26), (256, 32)])
+@pytest.mark.parametrize("s,hd", [(128, 32), (256, 26), (256, 32), (128, 192),
+                                  (256, 256)])
 def test_op_matches_the_stock_kernel(s, hd):
     q, k, v, ab, seg = op_inputs(s, hd, seed=s + hd)
     scale = 1.0 / math.sqrt(hd)
@@ -91,6 +96,31 @@ def test_op_matches_the_stock_kernel(s, hd):
     dense = np.where(live, dense, -np.inf)
     p = np.exp(dense - dense.max(-1, keepdims=True))
     assert np.abs((p / p.sum(-1, keepdims=True)) @ v - ref).max() > 0.1
+
+
+@pytest.mark.parametrize("s,hd", [(128, 192), (256, 256)])
+def test_op_matches_the_stock_kernel_in_bf16(s, hd):
+    q, k, v, ab, seg = op_inputs(s, hd, seed=s + hd + 1)
+    q, k, v, ab = (np.asarray(jnp.asarray(t, jnp.bfloat16).astype(
+        jnp.float32)) for t in (q, k, v, ab))
+    scale = 1.0 / math.sqrt(hd)
+    b, nh = q.shape[:2]
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash_attention(
+            *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)),
+            ab=jnp.broadcast_to(jnp.asarray(ab, jnp.bfloat16),
+                                (b, nh, s, s)),
+            segment_ids=SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg)),
+            sm_scale=scale)
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = flash_attention(*(torch.tensor(t, dtype=torch.bfloat16)
+                            for t in (q, k, v, ab)),
+                          torch.from_numpy(seg), torch.from_numpy(seg), scale)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    err = np.abs(got.float().numpy() - ref)
+    assert err.max() <= BF16_TOL * np.abs(ref).max(), err.max()
+    ulp = np.ldexp(1.0, np.frexp(ref)[1] - 8)
+    assert (err > ulp).mean() <= BF16_SHARE
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():
@@ -195,15 +225,16 @@ def test_card_branch_runs_the_kernels_with_and_without_grad(monkeypatch):
     then one backward call, which skips the bias's gradient (no ``dab``, no
     scratch) unless ``ab`` needs one; without grad or under ``no_grad``,
     one forward call without residuals and one count, as before; bf16 goes
-    to ``flash_attention``, f32 to ``flash_attention_f32``; a head size
-    above the kernels' 128 raises ``ValueError`` naming the limit before
-    any call."""
+    to ``flash_attention``, f32 to ``flash_attention_f32``; the backward
+    asks its workspace's size first; a head size of 160 runs at S 128, and
+    one above the kernels' 256 raises ``ValueError`` naming the limit
+    before any call."""
     from tpu_search_torch.ops import _build
     from tpu_search_torch.ops import flash_attention as fa
 
     calls = []
 
-    def fn(name):
+    def fn(name, source=None):
         def kernel(*args):
             calls.append((name, args))
             return 0
@@ -224,11 +255,12 @@ def test_card_branch_runs_the_kernels_with_and_without_grad(monkeypatch):
             assert [name for name, _ in calls] == [fwd]
             assert all(p is not None for p in calls[0][1][7:9])  # m, l
             out.backward(torch.ones_like(out))
-            assert [name for name, _ in calls] == [fwd, "flash_attention_bwd"]
-            bwd = calls[1][1]
-            assert bwd[20] == int(dtype == torch.bfloat16)
-            # dab and its scratch only where ab needs a gradient
-            assert (bwd[13] is None) == (bwd[14] is None) == (i != 3)
+            assert [name for name, _ in calls] == [
+                fwd, "flash_attention_bwd_workspace", "flash_attention_bwd"]
+            size, bwd = calls[1][1], calls[2][1]
+            assert bwd[21] == size[4] == int(dtype == torch.bfloat16)
+            # dab and its partial sums only where ab needs a gradient
+            assert (bwd[14] is None) == (size[5] == 0) == (i != 3)
             assert args[i].grad is not None
             assert _build.LAUNCHES[fwd] == before[fwd] + 1
             assert (_build.LAUNCHES["flash_attention_bwd"]
@@ -244,9 +276,13 @@ def test_card_branch_runs_the_kernels_with_and_without_grad(monkeypatch):
         fa.flash_attention(*operands, seg, seg, 0.125)
         assert len(calls) == 1 and _build.LAUNCHES[fwd] == before + 1
         calls.clear()
-    big = torch.zeros((1, 2, 128, 160), dtype=torch.bfloat16)
+    wide = torch.zeros((1, 2, 128, 160), dtype=torch.bfloat16)
+    big = torch.zeros((1, 2, 128, 320), dtype=torch.bfloat16)
     big_ab = torch.zeros((2, 128, 128), dtype=torch.bfloat16)
     one = torch.ones((1, 128), dtype=torch.int32)
-    with pytest.raises(ValueError, match="128"):
+    fa.flash_attention(wide, wide, wide, big_ab, one, one, 0.1)
+    assert [name for name, _ in calls] == ["flash_attention"]
+    calls.clear()
+    with pytest.raises(ValueError, match="256"):
         fa.flash_attention(big, big, big, big_ab, one, one, 0.1)
     assert not calls

@@ -38,9 +38,20 @@ cases hand both sides the same bf16 values.
   ``k_b`` is held against ``q_b``'s scale instead, within
   ``MODEL_F32_TOL`` of it in f32 (read: 4.1e-6) and ``K_B_BF16_TOL`` in
   bf16 (read: 1.7e-2; dS rounds to bf16 before its row sums).
-- Head size 160 (above the card kernels' 128): the forward and the
-  gradient against JAX at S 128; at S 256 both packages refuse it
-  (``NotImplementedError``: the stock kernel's tiling).
+- Head sizes above 128, as the stock kernel takes them (the card's
+  kernels take them up to 256): the op level also at hd 192, S 128 and
+  hd 256, S 256, in both dtypes; hd 160 in f32 against JAX at S 128; at S
+  256 both packages refuse 160 (``NotImplementedError``: the stock
+  kernel's tiling).
+- The bias's gradient in the card kernel's order
+  (``grouped_batch_sum``: groups of batch rows, each summed in order, then
+  the groups) from JAX's per-row bf16 dS, against JAX's dab (those rows
+  summed in f32 and rounded once, as above) within the card's gate
+  (``PERF.md`` §2: 2^-7 of the largest |value|, at most 1e-3 of entries
+  over one bf16 ulp), and within 2^-7 of JAX's own gradient of one
+  ``[heads, S, S]`` bias shared by the batch (XLA's transpose of the
+  broadcast, summed in bf16: one ulp off on 1.5 % of entries, so not the
+  share).
 """
 
 import dataclasses
@@ -60,6 +71,7 @@ from tpu_search_torch.models.mpnet import MPNetConfig, init_params
 from tpu_search_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_fwd_plain,
+    grouped_batch_sum,
 )
 
 B, NH = 3, 2
@@ -69,6 +81,7 @@ BF16_SHARE = 1e-3
 MODEL_F32_TOL = 1e-5
 MODEL_BF16_COS = 0.999
 K_B_BF16_TOL = 2.0 ** -5
+GATE_TOL, GATE_SHARE = 2.0 ** -7, 1e-3  # the card's bf16 gradient gate
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -145,7 +158,8 @@ def check(got, want, dtype, what) -> None:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s,hd", [(128, 32), (128, 26), (256, 32), (256, 26)])
+@pytest.mark.parametrize("s,hd", [(128, 32), (128, 26), (256, 32), (256, 26),
+                                  (128, 192), (256, 256)])
 def test_op_gradient_matches_jax(s, hd, dtype):
     inputs = op_inputs(s, hd, seed=s + hd, dtype=dtype)
     want = jax_side(*inputs, dtype)
@@ -162,6 +176,33 @@ def test_op_gradient_matches_jax(s, hd, dtype):
             assert rel_err(g, w) <= F32_TOL, (name, rel_err(g, w))
         else:
             check(g, w, dtype, name)
+
+
+@pytest.mark.parametrize("group", [16, 2])
+def test_grouped_bias_sum_matches_jax(group):
+    """Each batch row's bf16 dS from JAX's VJP, summed in the card's
+    order (one group at B 3 as the kernel runs it; groups of 2 rows to
+    walk more than one), against JAX's gradient of a shared bias."""
+    q, k, v, do, ab, seg = op_inputs(128, 32, seed=33, dtype="bfloat16")
+    rows = jax_side(q, k, v, do, ab, seg, "bfloat16")[4]
+    got = grouped_batch_sum(torch.tensor(rows), group).to(
+        torch.bfloat16).float().numpy()
+    summed = np.asarray(jnp.asarray(rows.sum(axis=0), jnp.bfloat16).astype(
+        jnp.float32))
+    assert rel_err(got, summed) <= GATE_TOL, rel_err(got, summed)
+    assert over_ulp_share(got, summed) <= GATE_SHARE
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ids = jfa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
+    args = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        _, pull = jax.vjp(
+            lambda shared: jfa.flash_attention(
+                *args, ab=jnp.broadcast_to(shared, (B, NH) + ab.shape[1:]),
+                segment_ids=ids, sm_scale=scale),
+            jnp.asarray(ab, jnp.bfloat16))
+        (want,) = pull(jnp.asarray(do, jnp.bfloat16))
+    want = np.asarray(want.astype(jnp.float32))
+    assert rel_err(got, want) <= GATE_TOL, rel_err(got, want)
 
 
 def test_segments_get_no_gradient_and_ab_none_skips_its_gradient():

@@ -4,7 +4,8 @@ turns, and check they agree.
     git archive <commit> tpu_search_torch | tar -x -C <dir>
     python -m tpu_search_torch.benchmarks.compare_trees --other NAME=<dir>
         [--other NAME=<dir> ...] [--family FAMILY ...] [--case NAME ...]
-        [--no-bench] [--out FILE]  (families: flat, scans, int8, attention)
+        [--no-bench] [--out FILE]
+        (families: flat, scans, int8, attention, flash)
 
 Run from the repository's root: it reuses ``chip_smoke.py``'s corpora,
 operands and timers.  Each ``<dir>`` holds another tree's
@@ -45,6 +46,12 @@ Families (``--family``, all by default):
   tree's output is held to its ``[attention_grad]`` / ``[attention_f32]``
   gate against this tree's plain twin, not bit for bit: the trees' kernels
   sum in other orders.
+- ``flash``, the stock flash mode at ``chip_smoke.FLASH_SHAPES`` and
+  inputs (``flash_inputs``): the forward (``flash_attention``) and the
+  backward (``flash_attention_bwd``, from this tree's forward's output
+  and residuals, the bias needing a gradient) in bf16 and f32.  Every
+  tree's output is held to ``[flash_attention]``'s / ``[flash_attention_f32]``'s
+  / ``[flash_attention_bwd]``'s gate against this tree's plain version.
 
 ``--case`` keeps the cases whose names start with one of its values.  Each
 case prints one JSON line: each tree's CUDA-event ms a call in turns (this,
@@ -400,6 +407,56 @@ def run_attention(pkgs: dict, run: Runner) -> None:
         del q, k, v, want
 
 
+def run_flash(pkgs: dict, run: Runner) -> None:
+    import math
+
+    import torch
+
+    import chip_smoke as cs
+
+    mods = modules(pkgs, "ops.flash_attention")
+    this = mods["this"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    for b, s, h, nh in cs.FLASH_SHAPES:
+        hd = h // nh
+        scale = 1.0 / math.sqrt(hd)
+        for dtype in ("bfloat16", "float32"):
+            q, k, v, ab, seg = cs.flash_inputs(gen, b, s, h, nh, dev)
+            q, k, v, ab = (t.to(getattr(torch, dtype)) for t in (q, k, v, ab))
+            grad = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+            tag = f"B={b} S={s} H={h} heads={nh} {dtype}"
+            fwd = (q, k, v, ab, seg, seg, scale)
+            want = this.flash_attention_plain(*fwd)
+
+            def fwd_ok(out, want=want, dtype=dtype):
+                if dtype == "float32":
+                    return float((out - want).abs().max()) <= cs.ATTN_F32_TOL
+                return cs.attention_ok(cs.bf16_errors(out, want),
+                                       "flash_attention")
+
+            run(f"flash_fwd {tag}",
+                {tree: (lambda m=m: m.flash_attention(*fwd))
+                 for tree, m in mods.items()},
+                lambda got, mine, ok=fwd_ok: ok(got) and ok(mine))
+            del want
+            out, m_, l_ = this.flash_attention_fwd(*fwd)
+            bwd = (q, k, v, ab, seg, seg, out, grad, m_, l_, scale)
+            want = this.flash_attention_bwd_plain(*bwd)
+
+            def bwd_ok(got, want=want, dtype=dtype):
+                return all(cs.flash_bwd_ok(cs.flash_bwd_errors(g, w, dtype),
+                                           dtype)
+                           for g, w in zip(got, want))
+
+            run(f"flash_bwd {tag}",
+                {tree: (lambda m=m: m.flash_attention_bwd(*bwd))
+                 for tree, m in mods.items()},
+                lambda got, mine, ok=bwd_ok: ok(got) and ok(mine))
+            del q, k, v, ab, seg, grad, out, m_, l_, want
+            torch.cuda.empty_cache()
+
+
 def run_int8_bench(pkgs: dict, emit) -> None:
     for tree, bench in modules(pkgs, "benchmarks.int8_gemm_bench").items():
         result = bench.run("cuda")
@@ -413,7 +470,8 @@ def main(argv=None) -> None:
     parser.add_argument("--other", action="append", required=True,
                         metavar="NAME=DIR")
     parser.add_argument("--family", action="append",
-                        choices=("flat", "scans", "int8", "attention"))
+                        choices=("flat", "scans", "int8", "attention",
+                                 "flash"))
     parser.add_argument("--case", action="append", default=[])
     parser.add_argument("--no-bench", action="store_true")
     parser.add_argument("--out", type=Path, default=None)
@@ -448,7 +506,8 @@ def main(argv=None) -> None:
         list(pool.map(lambda build: build.build_all(),
                       modules(pkgs, "ops._build").values()))
     run = Runner(emit, args.case)
-    families = args.family or ["flat", "scans", "int8", "attention"]
+    families = args.family or ["flat", "scans", "int8", "attention",
+                               "flash"]
     if "flat" in families:
         run_flat(pkgs, run)
     if "scans" in families:
@@ -461,6 +520,8 @@ def main(argv=None) -> None:
             run_int8_bench(pkgs, emit)
     if "attention" in families:
         run_attention(pkgs, run)
+    if "flash" in families:
+        run_flash(pkgs, run)
 
 
 if __name__ == "__main__":

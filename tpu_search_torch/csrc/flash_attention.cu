@@ -22,11 +22,11 @@
 //   kernel writes nothing more.
 // q, k, v, out and ab are bf16; ab is one [heads, S, S] tensor shared by
 // the batch (JAX broadcasts the same values to [B, heads, S, S]); segment
-// ids are [B, S] int32.  S % 128 == 0 and 1 <= hd <= 128, as the stock
-// kernel's block sizes require.  Every rounding step is written out
-// (__fadd_rn, __fmul_rn, __fdiv_rn), so nvcc's -fmad changes nothing.  The
-// step stays 128 keys: m' sets the scale at which p rounds to bf16, so
-// another step would be another function.
+// ids are [B, S] int32.  S % 128 == 0, as the stock kernel's block sizes
+// require, and 1 <= hd <= 256 (flash::kFlashMaxHd).  Every rounding step
+// is written out (__fadd_rn, __fmul_rn, __fdiv_rn), so nvcc's -fmad
+// changes nothing.  The step stays 128 keys: m' sets the scale at which p
+// rounds to bf16, so another step would be another function.
 //
 // What bounds it on the H100: at B 128, S 384, H 768 (12 heads of 64) it
 // reads q, k, v and ab and writes out once: 4*B*S*H*2 + heads*S^2*2 bytes
@@ -53,10 +53,21 @@
 // tile, one CTA a multiprocessor) read 5-10 % slower at S 384 and 512 and
 // were dropped.  Not yet done (later work): P V by wgmma, TMA, overlap of
 // one step's q k^T with the previous step's softmax.
+//
+// Head sizes 129 to 256 (flash_wide_kernel): q in registers (64 a thread
+// at 256) beside the 128-key step's scores, the output and P V's sums
+// would not fit.  So q waits in shared memory, both products are
+// mma.sync from shared memory (attention_tc.cuh's Bf16Ops: rows_by_rows
+// for q k^T, mix for P V), and each CTA owns 64 of the output's columns
+// (kWideCols): 4 CTAs a row block at hd 256, each recomputing the scores.
+// A step's K rows, the CTA's V columns, the bias tile and the key segment
+// ids load by cp.async and wait, one buffer: 137,728 bytes of shared
+// memory, one CTA a multiprocessor.  A correct kernel, not yet a fast one.
 
 #include <float.h>
 
 #include "attention_twopass.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -318,6 +329,176 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// The wide kernel's shared memory: q [64][kWideLd], the step's K rows
+// [128][kWideLd], its V columns [128][kWideCols + 8], the bias tile and
+// the key segment ids.
+constexpr int kWideHdp = 256;
+constexpr int kWideCols = 64;
+constexpr int kWideLd = kWideHdp + 8;
+constexpr int kWideLdv = kWideCols + 8;
+constexpr int kWideK = kBQ * kWideLd;  // element offsets
+constexpr int kWideV = kWideK + kBK * kWideLd;
+constexpr int kWideAb = kWideV + kBK * kWideLdv;
+constexpr int kWideSeg = kWideAb + kBQ * kAbStride;
+constexpr int kWideBytes = kWideSeg * 2 + kBK * 4;
+
+__global__ void __launch_bounds__(kThreads)
+flash_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ ab,
+                  const int* __restrict__ q_seg,
+                  const int* __restrict__ kv_seg,
+                  __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out, int s,
+                  int nh, int hd, int chunk, float scale) {
+  using Ops = tcattn::Bf16Ops;
+  using T = __nv_bfloat16;
+  constexpr int NT = kBK / 8, OT = kWideCols / 8;
+  extern __shared__ __align__(16) unsigned char smem_wide[];
+  T* qs = reinterpret_cast<T*>(smem_wide);
+  T* ks = qs + kWideK;
+  T* vs = qs + kWideV;
+  T* abs = qs + kWideAb;
+  int* segs = reinterpret_cast<int*>(qs + kWideSeg);
+
+  const int quarters = (hd + kWideCols - 1) / kWideCols;
+  const int col0 = blockIdx.x % quarters * kWideCols;
+  const int q0 = blockIdx.x / quarters * kBQ, head = blockIdx.y,
+            b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3, wr = warp * 16;
+  const int row0 = q0 + wr + g;  // this thread's rows: row0 and row0 + 8
+  const size_t base = ((size_t)b * nh + head) * s * hd;
+  const int seg0 = q_seg[(size_t)b * s + row0];
+  const int seg1 = q_seg[(size_t)b * s + row0 + 8];
+  const int vcols = min(kWideCols, hd - col0);
+
+  // the padding columns (past hd, past the quarter's) stay zero
+  tcattn::zero_smem(smem_wide, kWideBytes, tid);
+  tcattn::stage_rows<T, kBQ>(qs, kWideLd, q + base + (size_t)q0 * hd, hd, kBQ,
+                             hd, chunk, tid);
+
+  float o[OT][4];
+  tcattn::zero(o);
+  float m_prev[2] = {-INFINITY, -INFINITY}, l_prev[2] = {0.f, 0.f};
+  const bool single = s == kBK;
+  for (int j = 0; j < s / kBK; ++j) {
+    const int kb = j * kBK;
+    __syncthreads();  // every warp has left the previous step's tiles
+    tcattn::stage_rows<T, kBK>(ks, kWideLd, k + base + (size_t)kb * hd, hd,
+                               kBK, hd, chunk, tid);
+    tcattn::stage_rows<T, kBK>(vs, kWideLdv, v + base + (size_t)kb * hd + col0,
+                               hd, kBK, vcols, chunk, tid);
+    flash::stage_tile<T, kBQ, kBK>(abs, kAbStride,
+                                   ab + ((size_t)head * s + q0) * s + kb, s,
+                                   tid);
+    flash::stage_ints<kBK>(segs, kv_seg + (size_t)b * s + kb, tid);
+    attn2::cp_async_commit();
+    attn2::cp_async_wait<0>();
+    __syncthreads();
+
+    float sc[NT][4];
+    tcattn::rows_by_rows<Ops, kWideHdp, NT>(sc, qs, ks, kWideLd, wr, lane);
+    flash::score_rows(sc, abs, kAbStride, segs, wr + g, tig, seg0, seg1,
+                      scale);
+    // the step's softmax, as flash_kernel's
+    float corr[2], inv[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(sc[nt][half * 2], sc[nt][half * 2 + 1]));
+      const float m_next = fmaxf(m_prev[half], attn2::quad_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[nt][half * 2 + e] = expf(__fsub_rn(sc[nt][half * 2 + e], m_next));
+          sum = __fadd_rn(sum, sc[nt][half * 2 + e]);
+        }
+      const float total = attn2::quad_sum(sum);
+      if (single) {
+        corr[half] = 0.f;
+        inv[half] = 1.f;
+        l_prev[half] = total;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          sc[nt][half * 2] = __fdiv_rn(sc[nt][half * 2], total);
+          sc[nt][half * 2 + 1] = __fdiv_rn(sc[nt][half * 2 + 1], total);
+        }
+      } else {
+        const float l_corr =
+            __fmul_rn(expf(__fsub_rn(m_prev[half], m_next)), l_prev[half]);
+        const float l_next = __fadd_rn(total, l_corr);
+        inv[half] = l_next == 0.f ? 1.f : __fdiv_rn(1.f, l_next);
+        corr[half] = __fmul_rn(l_corr, inv[half]);
+        l_prev[half] = l_next;
+      }
+      m_prev[half] = m_next;
+    }
+    // o = o * corr + (bf16(p) V) * inv over the quarter's columns
+    float oc[OT][4];
+    tcattn::zero(oc);
+    tcattn::mix<Ops, kWideCols, NT, false>(oc, sc, vs, kWideLdv, lane);
+#pragma unroll
+    for (int nt = 0; nt < OT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[nt][e] = __fadd_rn(__fmul_rn(o[nt][e], corr[e >> 1]),
+                             __fmul_rn(oc[nt][e], inv[e >> 1]));
+  }
+
+  if (m_out != nullptr && col0 == 0 && tig == 0) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const size_t row = ((size_t)b * nh + head) * s + row0 + half * 8;
+      m_out[row] = m_prev[half];
+      l_out[row] = l_prev[half];
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < OT; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = col0 + nt * 8 + tig * 2;
+      __nv_bfloat16* dst = out + base + (size_t)(row0 + half * 8) * hd + col;
+      if (col < hd) dst[0] = __float2bfloat16_rn(o[nt][half * 2]);
+      if (col + 1 < hd) dst[1] = __float2bfloat16_rn(o[nt][half * 2 + 1]);
+    }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const void* ab, const int* q_seg, const int* kv_seg,
+                        void* out, float* m_out, float* l_out, int b, int nh,
+                        int s, int hd, float scale, cudaStream_t stream) {
+  const void* rows[] = {q, k, v};
+  const int chunk = flash::row_chunk(hd, 2, rows, 3);
+  cudaError_t err = tcattn::ring_smem(flash_wide_kernel, kWideBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s / kBQ * ((hd + kWideCols - 1) / kWideCols), nh, b);
+  flash_wide_kernel<<<grid, kThreads, kWideBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(ab), q_seg, kv_seg,
+      static_cast<__nv_bfloat16*>(out), m_out, l_out, s, nh, hd, chunk,
+      scale);
+  return cudaGetLastError();
+}
+
+int occupancy_wide(int* bytes) {
+  *bytes = kWideBytes;
+  int ctas = 0;
+  cudaError_t err = tcattn::ring_smem(flash_wide_kernel, kWideBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, flash_wide_kernel, kThreads, kWideBytes);
+  return err == cudaSuccess ? ctas : -(int)err;
+}
+
 template <int HDP, bool kVec16>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ab, const int* q_seg, const int* kv_seg,
@@ -372,22 +553,29 @@ int occupancy_hdp(int hd, int* bytes) {
 
 }  // namespace
 
-// q, k, v, out: [b, nh, s, hd] bf16; ab: [nh, s, s] bf16; q_seg, kv_seg:
-// [b, s] int32; m_out, l_out: [b, nh, s] f32, both null or neither.
-// Requires s % 128 == 0 and 1 <= hd <= 128.
+// q, k, v, out: [b, nh, s, hd] bf16; ab: [nh, s, s] bf16 (16-byte
+// aligned); q_seg, kv_seg: [b, s] int32 (16-byte aligned above hd 128);
+// m_out, l_out: [b, nh, s] f32, both null or neither.  Requires s % 128 ==
+// 0 and 1 <= hd <= 256.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* ab, const void* q_seg,
                                const void* kv_seg, void* out, void* m_out,
                                void* l_out, int b, int nh, int s, int hd,
                                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd < 1 || hd > 128 || s < kBK || s % kBK ||
+  if (hd < 1 || hd > flash::kFlashMaxHd || s < kBK || s % kBK ||
       (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);
   const int* qs = static_cast<const int*>(q_seg);
   const int* ks = static_cast<const int*>(kv_seg);
+  if (hd > 128) {
+    if (!flash::aligned16(ab) || !flash::aligned16(kv_seg))
+      return (int)cudaErrorMisalignedAddress;
+    return (int)launch_wide(q, k, v, ab, qs, ks, out, mo, lo, b, nh, s, hd,
+                            scale, st);
+  }
 #define FLASH_CASE(HDP)                                                    \
   case HDP / 16:                                                           \
     return (int)launch_hdp<HDP>(q, k, v, ab, qs, ks, out, mo, lo, b, nh, s, \
@@ -405,6 +593,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 // depends on s.
 extern "C" int flash_attention_occupancy(int hd, int* bytes) {
   *bytes = 0;
+  if (hd > 128 && hd <= flash::kFlashMaxHd) return occupancy_wide(bytes);
 #define FLASH_OCC(HDP) \
   case HDP / 16:       \
     return occupancy_hdp<HDP>(hd, bytes);

@@ -19,14 +19,15 @@
 //   out = o; where m_out and l_out are not null, each row's final m and l
 //   (f32 [b, heads, s]: the stock kernel's save_residuals, which the
 //   backward, flash_attention_bwd.cu, reads).
-// The step is the ring's key tile (32 keys above hd 16, 64 at or below),
-// not the stock kernel's 128 keys, and p * inv is formed before the
-// product, not (p V) * inv after it.  In bf16 the 128-key step fixes the
-// scale at which p rounds to bf16, so flash_attention.cu keeps it; in f32
-// p never rounds to a narrower type, so the step and the place of inv
-// change the order of f32 roundings alone (m is the exact row max in
-// either, l the same sum), and the smaller step keeps the ring and the
-// registers at the f32 forward's size (attention_tc.cuh).
+// The step is the ring's key tile (64 keys at hd 16 and below, 32 up to
+// 128, 16 at 256: flash::tile_rows), not the stock kernel's 128 keys, and
+// p * inv is formed before the product, not (p V) * inv after it.  In bf16
+// the 128-key step fixes the scale at which p rounds to bf16, so
+// flash_attention.cu keeps it; in f32 p never rounds to a narrower type, so
+// the step and the place of inv change the order of f32 roundings alone (m
+// is the exact row max in either, l the same sum), and the smaller step
+// keeps the ring and the registers at the f32 forward's size
+// (attention_tc.cuh).
 //
 // What bounds it on the H100: at B 128, S 384, H 768 (12 heads of 64) it
 // reads q, k, v and ab and writes out once: 4 B S H 4 + heads S^2 4
@@ -41,7 +42,9 @@
 // staged once; K and V tiles, the [64 queries, keys] f32 bias tile and
 // the key segment ids through a two-stage cp.async ring; scores in
 // registers; every product 3xTF32 mma.sync.  Shared memory is the query
-// tile and the ring, independent of S.
+// tile and the ring, independent of S: 147,584 bytes at hd 256 (one CTA a
+// multiprocessor), where the output's 128 accumulators a thread are most
+// of the registers.
 
 #include "flash_tc.cuh"
 
@@ -198,15 +201,15 @@ int occupancy_hdp(int* bytes) {
 // q, k, v, out: [b, nh, s, hd] f32; ab: [nh, s, s] f32; q_seg, kv_seg:
 // [b, s] int32 (ab and the segment ids 16-byte aligned); m_out, l_out:
 // [b, nh, s] f32, both null or neither.  Requires s % 128 == 0 and 1 <= hd
-// <= 128.
+// <= 256.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, const void* ab,
                                    const void* q_seg, const void* kv_seg,
                                    void* out, void* m_out, void* l_out, int b,
                                    int nh, int s, int hd, float scale,
                                    void* stream) {
-  if (hd < 1 || hd > kMaxHd || s < 128 || s % 128 || b < 1 || nh < 1 ||
-      (m_out == nullptr) != (l_out == nullptr))
+  if (hd < 1 || hd > flash::kFlashMaxHd || s < 128 || s % 128 || b < 1 ||
+      nh < 1 || (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!flash::aligned16(ab) || !flash::aligned16(q_seg) ||
       !flash::aligned16(kv_seg))
@@ -232,7 +235,10 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   if (hd <= 64)
     return (int)launch<64>(qf, kf, vf, af, qs, ks, of, mo, lo, b, nh, s, hd,
                            chunk, scale, st);
-  return (int)launch<128>(qf, kf, vf, af, qs, ks, of, mo, lo, b, nh, s, hd,
+  if (hd <= 128)
+    return (int)launch<128>(qf, kf, vf, af, qs, ks, of, mo, lo, b, nh, s, hd,
+                            chunk, scale, st);
+  return (int)launch<256>(qf, kf, vf, af, qs, ks, of, mo, lo, b, nh, s, hd,
                           chunk, scale, st);
 }
 
@@ -241,9 +247,10 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
 // depends on s.
 extern "C" int flash_attention_f32_occupancy(int hd, int* bytes) {
   *bytes = 0;
-  if (hd < 1 || hd > kMaxHd) return -(int)cudaErrorInvalidValue;
+  if (hd < 1 || hd > flash::kFlashMaxHd) return -(int)cudaErrorInvalidValue;
   if (hd <= 16) return occupancy_hdp<16>(bytes);
   if (hd <= 32) return occupancy_hdp<32>(bytes);
   if (hd <= 64) return occupancy_hdp<64>(bytes);
-  return occupancy_hdp<128>(bytes);
+  if (hd <= 128) return occupancy_hdp<128>(bytes);
+  return occupancy_hdp<256>(bytes);
 }

@@ -1,6 +1,8 @@
 // Helpers of the stock flash mode's tensor-core kernels: the f32 forward
-// (flash_attention_f32.cu) and the backward (flash_attention_bwd.cu), on
-// the row / column scheme of attention_tc.cuh.
+// (flash_attention_f32.cu), the bf16 forward above hd 128
+// (flash_attention.cu's flash_wide_kernel) and the backward
+// (flash_attention_bwd.cu, whose bf16 passes add flash_wgmma.cuh), on the
+// row / column scheme of attention_tc.cuh.
 //
 // The flash contract differs from the dense one (attention_tc.cuh's
 // score_rows / score_cols) in three ways, each here:
@@ -10,7 +12,8 @@
 //     keys, and every row has a finite max);
 //   - ab is [heads, S, S] in the compute dtype T (bf16 or f32), not f32.
 // S is a multiple of 128, so no tile is ragged: every row and key of a
-// tile lies inside the sequence.
+// tile lies inside the sequence.  Head sizes go up to kFlashMaxHd, as the
+// stock kernel takes them (the dense mode's kernels stop at kMaxHd).
 
 #pragma once
 
@@ -23,6 +26,23 @@ namespace flash {
 using namespace tcattn;
 
 constexpr float kMask = (float)(-0.7 * (double)FLT_MAX);
+constexpr int kFlashMaxHd = 256;
+
+// Rows a ring step: attention_tc.cuh's step_rows, and 16 where a row holds
+// more than 512 bytes (f32 at HDP 256), which keeps two ring stages and
+// the CTA's own rows within a multiprocessor's shared memory.
+template <typename T, int HDP>
+__host__ __device__ constexpr int tile_rows() {
+  return HDP * (int)sizeof(T) > 512 ? 16 : step_rows<T, HDP>();
+}
+
+// The output columns a CTA owns: all HDP up to 128; above, half of them
+// (two CTAs share the row block, each recomputing the scores), which keeps
+// the accumulators within the registers.
+template <int HDP>
+__host__ __device__ constexpr int out_cols() {
+  return HDP > 128 ? 128 : HDP;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -82,7 +102,7 @@ __device__ __forceinline__ void stage_ints(int* dst, const int* src,
 // part starts on a 16-byte boundary.
 template <typename T, int HDP>
 struct RowSlot {
-  static constexpr int LD = HDP + 8, KT = step_rows<T, HDP>(), LDB = KT + 8;
+  static constexpr int LD = HDP + 8, KT = tile_rows<T, HDP>(), LDB = KT + 8;
   static constexpr int kTile = KT * LD * (int)sizeof(T);
   static constexpr int kBias = 2 * kTile;  // byte offsets in the slot
   static constexpr int kSeg = kBias + kRows * LDB * (int)sizeof(T);

@@ -10,9 +10,10 @@ a machine without ``nvcc``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into a ``RuntimeError``.  The kernels
-use the CUDA runtime alone: none takes a TMA tensor map (the int8 GEMM's
-``wgmma`` ring fills by ``cp.async``), so nothing links the driver library
-or asks it for ``cuTensorMapEncodeTiled``.
+link the CUDA runtime alone.  One source takes TMA tensor maps (the flash
+backward's bf16 passes): ``csrc/flash_wgmma.cuh`` finds
+``cuTensorMapEncodeTiled`` with ``dlopen`` in ``libcuda.so.1``, which the
+runtime has loaded, so no build links it.
 
 Each wrapper counts its own launches in :data:`LAUNCHES`, one key a kernel
 of :data:`KERNELS`, so a run can show that the main path went through the

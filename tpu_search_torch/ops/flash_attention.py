@@ -2,7 +2,8 @@
 mode, forward and backward, with their plain PyTorch versions and the
 wrappers of three hand-written CUDA kernels: ``csrc/flash_attention.cu``
 (the bf16 forward), ``csrc/flash_attention_f32.cu`` (the f32 forward) and
-``csrc/flash_attention_bwd.cu`` (the backward, bf16 and f32).
+``csrc/flash_attention_bwd.cu`` (the backward: wgmma and TMA in bf16,
+3xTF32 mma.sync in f32).
 
 It replaces ``jax.experimental.pallas.ops.tpu.flash_attention`` as
 ``tpu_search/models/mpnet.py`` calls it (:262-274, operands built at
@@ -38,15 +39,19 @@ Its backward is the stock kernel's VJP (``_flash_attention_bwd``, with its
   rounded once, before both products; in f32 nothing rounds;
 - the bias's gradient ``dS.to(ab.dtype)`` per batch row, summed over the
   batch (the transpose of JAX's broadcast of one ``[heads, S, S]`` bias to
-  ``[B, heads, S, S]``), in f32 and rounded to ab's dtype once; the
-  segment ids get none.
+  ``[B, heads, S, S]``), in f32 and rounded to ab's dtype once, in the
+  card kernel's order (:func:`grouped_batch_sum`: in bf16 groups of
+  :data:`BIAS_GROUP_ROWS` batch rows from B 32 on, each summed in order,
+  then the groups in order; in f32 the batch in order); the segment ids
+  get none.
 
 The bias is one ``[heads, S, S]`` tensor shared by the batch, which holds
 the values of JAX's ``[B, heads, S, S]`` broadcast without writing them out
 per batch row.  S must be a multiple of 128, as the stock kernel's block
 sizes require, and a head size above 128 a multiple of 128 where S > 128,
 as the stock kernel's tiling requires (``NotImplementedError``, as JAX
-raises); the card's kernels take head sizes up to 128.
+raises, on the CPU and on the card alike); the card's kernels take every
+such head size up to 256 (``ValueError`` above).
 
 CPU tensors take the plain versions; a CUDA tensor launches the kernels or
 raises.  Where grad is enabled and q, k, v or ``ab`` needs it,
@@ -77,16 +82,28 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_fwd_plain",
     "flash_attention_plain",
+    "grouped_batch_sum",
 ]
 
 BLOCK = 128  # the stock kernel's block_q, block_k_major and block_k
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-KERNEL_MAX_HD = 128  # the card kernels' largest head size
+KERNEL_MAX_HD = 256  # the card kernels' largest head size
+# Batch rows a group of the bf16 backward's bias gradient sums (the card
+# kernel's kGroupRows): B // 16 groups, so that their f32 partials hold an
+# eighth of the bytes of every row's bf16 dS.
+BIAS_GROUP_ROWS = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FWD_ARGTYPES = [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P]
-_BWD_ARGTYPES = [_P] * 16 + [_I] * 5 + [ctypes.c_float, _P]
+_FWD = ([_P] * 9 + [_I] * 4 + [ctypes.c_float, _P], ctypes.c_int)
+# each C entry point's (argtypes, restype)
+_SIGNATURES = {
+    "flash_attention": _FWD,
+    "flash_attention_f32": _FWD,
+    "flash_attention_bwd": ([_P] * 16 + [_I] * 6 + [ctypes.c_float, _P],
+                            ctypes.c_int),
+    "flash_attention_bwd_workspace": ([_I] * 6, ctypes.c_longlong),
+}
 
 
 def check_flash_shapes(q, k, v, ab, q_seg, kv_seg) -> None:
@@ -192,6 +209,34 @@ def flash_attention_plain(
     return flash_attention_fwd_plain(q, k, v, ab, q_seg, kv_seg, sm_scale)[0]
 
 
+def bias_group_rows(b: int, dtype: torch.dtype) -> int:
+    """The batch rows of a group of the bias's gradient at batch size
+    ``b``: in bf16 ``ceil(b / groups)`` with ``max(1, b // 16)`` groups; in
+    f32 the whole batch, one group."""
+    if dtype != torch.bfloat16:
+        return b
+    groups = max(1, b // BIAS_GROUP_ROWS)
+    return -(-b // groups)
+
+
+def grouped_batch_sum(x: torch.Tensor, group: int) -> torch.Tensor:
+    """``x [B, ...]`` summed over its first axis in f32 in a fixed order:
+    each run of ``group`` rows from the first, in order, then the runs'
+    sums in order (the card's bias gradient: a CTA sums its group's rows
+    into shared memory, one pass then sums the groups)."""
+    x = x.float()
+    parts = []
+    for g0 in range(0, x.shape[0], group):
+        acc = x[g0].clone()
+        for row in range(g0 + 1, min(x.shape[0], g0 + group)):
+            acc = acc + x[row]
+        parts.append(acc)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
 def flash_attention_bwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -230,7 +275,9 @@ def flash_attention_bwd_plain(
         dks.append(ds.to(grad_out.dtype).float().transpose(-1, -2) @ qf)
         dq = dq + ds.to(k.dtype).float() @ k[:, :, k0:k0 + BLOCK].float()
         if ab_grad:
-            dabs.append(ds.to(ab.dtype).float().sum(dim=0).to(ab.dtype))
+            dabs.append(grouped_batch_sum(
+                ds.to(ab.dtype), bias_group_rows(q.shape[0], ab.dtype)
+            ).to(ab.dtype))
     dk = torch.cat(dks, dim=2)
     dv = torch.cat(dvs, dim=2)
     dab = torch.cat(dabs, dim=-1) if ab_grad else None
@@ -247,23 +294,44 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def _fn(name: str):
-    """The C entry point ``name`` of ``csrc/<name>.cu``."""
-    fn = getattr(_build.library(name), name)
+def _fn(name: str, source: Optional[str] = None):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (``<name>.cu``
+    by default)."""
+    fn = getattr(_build.library(source or name), name)
     if fn.argtypes is None:
-        fn.argtypes = (_BWD_ARGTYPES if name == "flash_attention_bwd"
-                       else _FWD_ARGTYPES)
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = _SIGNATURES[name]
     return fn
+
+
+def _workspace_bytes(b, nh, s, ld, bf16: bool, ab_grad: bool) -> int:
+    """The bytes of the backward's workspace (``csrc/flash_attention_bwd.cu``
+    ``flash_attention_bwd_workspace``): each row's statistics, and the
+    bias's partial sums (bf16: a [groups, heads, S, S] f32 partial, groups
+    B / 16; f32: each batch row's dS)."""
+    nbytes = _fn("flash_attention_bwd_workspace", "flash_attention_bwd")(
+        b, nh, s, ld, int(bf16), int(ab_grad))
+    if nbytes < 0:
+        raise ValueError(f"no backward plan fits the card at B={b} S={s} "
+                         f"ld={ld}")
+    return nbytes
+
+
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the bf16 backward's TMA operand: rows of a multiple of 8
+    elements on a 16-byte aligned base (zero columns appended where hd % 8,
+    a copy where the base is not aligned), as TMA copies them."""
+    pad = -t.shape[-1] % 8
+    if pad:
+        return torch.nn.functional.pad(t, (0, pad))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_card_operands(q, tensors, q_seg, kv_seg) -> None:
     """The card kernels' operand rules, checked before the shapes: head
-    size at most 128 (``ValueError`` naming the limit, where the stock
-    kernel's tiling would refuse some larger ones with
-    ``NotImplementedError``); bf16 or f32 q and every tensor of
-    ``tensors`` of q's dtype, int32 segment ids, all contiguous and on q's
-    device."""
+    size at most 256 (``ValueError`` naming the limit; below it
+    :func:`check_flash_shapes` refuses what the stock kernel refuses);
+    bf16 or f32 q and every tensor of ``tensors`` of q's dtype, int32
+    segment ids, all contiguous and on q's device."""
     hd = q.shape[-1]
     if hd > KERNEL_MAX_HD:
         raise ValueError(f"head_dim={hd} is above the card kernels' limit "
@@ -346,9 +414,13 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """``(dq, dk, dv, dab)``: :func:`flash_attention_bwd_plain`'s contract,
     by ``csrc/flash_attention_bwd.cu`` on the card (bf16 or f32, every
-    tensor of q's dtype, head size up to 128): one C call of three
-    launches, two without ``ab_grad``, which then allocates no ``[B,
-    heads, S, S]`` scratch and returns ``dab`` None."""
+    tensor of q's dtype, head size up to 256): one C call of three
+    launches in bf16 (the rows' statistics, the row pass, the column pass)
+    and two in f32, and one more that sums the bias's partials where
+    ``ab_grad`` and more than one batch group (bf16) or at all (f32);
+    without ``ab_grad`` ``dab`` is None.  In bf16, q, k, v and dO with a
+    head size that is not a multiple of 8 go to the kernel as zero-padded
+    copies (TMA copies rows of a multiple of 16 bytes)."""
     if not _on_card(q):
         return flash_attention_bwd_plain(q, k, v, ab, q_seg, kv_seg, out,
                                          grad_out, m, l, sm_scale, ab_grad)
@@ -362,22 +434,20 @@ def flash_attention_bwd(
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"{name} must be contiguous float32 [B, heads, "
                              f"S] on q's device")
+    bf16 = q.dtype == torch.bfloat16
+    ops = ([_tma_rows(t) for t in (q, k, v, grad_out)] if bf16
+           else [q, k, v, grad_out])
+    ld = ops[0].shape[-1]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    # each row's (m, 1 / l, di) for the column pass, and the per-row dS in
-    # ab's dtype that the bias's batch sum reads
-    stats = torch.empty((b, nh, s, 4), **f32)
-    dab = ds = None
-    if ab_grad:
-        dab = torch.empty_like(ab)
-        ds = torch.empty((b, nh, s, s), dtype=ab.dtype, device=q.device)
+    dab = torch.empty_like(ab) if ab_grad else None
+    work = torch.empty(_workspace_bytes(b, nh, s, ld, bf16, ab_grad),
+                       dtype=torch.uint8, device=q.device)
     code = _fn("flash_attention_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        grad_out.data_ptr(), ab.data_ptr(), q_seg.data_ptr(),
-        kv_seg.data_ptr(), m.data_ptr(), l.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _ptr(dab), _ptr(ds), stats.data_ptr(),
-        b, nh, s, hd, int(q.dtype == torch.bfloat16), float(sm_scale),
-        _build.stream_ptr(q.device),
+        *(t.data_ptr() for t in ops), out.data_ptr(), grad_out.data_ptr(),
+        ab.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), m.data_ptr(),
+        l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _ptr(dab), work.data_ptr(), b, nh, s, hd, ld, int(bf16),
+        float(sm_scale), _build.stream_ptr(q.device),
     )
     _build.check(code, "flash_attention_bwd")
     _build.LAUNCHES["flash_attention_bwd"] += 1
@@ -417,7 +487,7 @@ def flash_attention(
     sm_scale: float,
 ) -> torch.Tensor:
     """See the module docstring.  On the card: q, k, v and ab contiguous
-    in one dtype, bf16 or f32, head size up to 128; int32 segment ids,
+    in one dtype, bf16 or f32, head size up to 256; int32 segment ids,
     contiguous."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (q, k, v, ab)):
