@@ -11,12 +11,13 @@ Phases, each printing its numbers on its own line:
      ``int8_ffn_in``, ``int8_ffn_out`` and ``int8_ffn_fused`` run too)
      are wgmma's alone and that
      ``flash_attention``'s and ``mpnet_attention_bhsd``'s q k^T issue
-     wgmma, that the flash backward's bf16 passes (``rows_wgmma``,
-     ``cols_wgmma``) multiply with wgmma, that the IVF digit scans
-     multiply with wgmma at Q > 8 and
-     mma.sync at Q <= 8, that the attention backward's and the f32
-     forward's kernels, dense and flash, multiply on the tensor cores
-     (HMMA), and print the card's name and power limit;
+     wgmma, that the flash backward's passes (bf16 ``rows_wgmma``,
+     ``cols_wgmma``; the tf32 ``rows_tf32``, ``cols_tf32``) and the flash
+     f32 forward (``flash_tf32_fwd``) multiply with wgmma, that the IVF
+     digit scans multiply with wgmma at Q > 8 and
+     mma.sync at Q <= 8, that the dense attention backward's and f32
+     forward's kernels and the flash bf16 forward above hd 128 multiply on
+     the tensor cores (HMMA), and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it (max error, kernel and plain times,
      the least time the card could take, and where one PyTorch call
@@ -199,15 +200,15 @@ outputs, and on planted requantization inputs; ``int8_ffn_ln`` at 0 ulps
 from its plain version on ``planted_epilogue``'s inputs, whose LayerNorm
 statistics are exact; the stock-flash kernel at ``FLASH_SHAPES`` (S 384
 and 512, hd 64, 32 and 26) and ``FLASH_WIDE_SHAPES`` (hd 160 at S 128,
-256 at S 256) with padded rows and a trained-scale bias, and at the same
-shapes ``[flash_attention_bwd]``, its backward kernel
+256 and 384 at S 256) with padded rows and a trained-scale bias, and at
+the same shapes ``[flash_attention_bwd]``, its backward kernel
 (``flash_attention_bwd.cu``) in bf16 and f32 against its plain version
 from the forward's output and residuals (dQ, dK, dV and dab gated, and
 the same bits from a second call; ms, device ms, launches, each launch's
-device time, the bound, SDPA's forward + backward, shared memory, CTAs a
-multiprocessor, registers and spills of both passes), and
+device time, the bound and each pass's, SDPA's forward + backward, shared
+memory, CTAs a multiprocessor, registers and spills of both passes), and
 ``[flash_attention_f32]``, its f32 forward (``flash_attention_f32.cu``)
-with its residuals, beside SDPA f32;
+with its residuals, beside SDPA f32, with its registers and spills;
 ``[attention_grad]``, the attention's backward kernel
 (``mpnet_attention_bwd.cu``) against its plain twin and against autograd of
 the plain forward at ``GRAD_SHAPES`` in bf16 and f32 (dQ, dK, dV and dBias
@@ -585,7 +586,9 @@ SASS_RULES = {
     "int8_gemm": (("gemm_kernel",), True),
     "int8_ffn_ln": (("ffn_gemm1", "ffn_gemm2", "ffn_out_cq"), True),
     "flash_attention": (("flash_kernel",), False),
-    "flash_attention_bwd": (("rows_wgmma", "cols_wgmma"), False),
+    "flash_attention_bwd": (("rows_wgmma", "cols_wgmma", "rows_tf32",
+                             "cols_tf32", "rows_pair", "cols_pair"), False),
+    "flash_attention_f32": (("flash_tf32_fwd", "flash_pair_fwd"), False),
 }
 # Each redesigned kernel's ptxas report from the build: ``{"<source>
 # <short name>": (registers, spill store bytes, spill load bytes)}``, for
@@ -594,14 +597,13 @@ PTXAS: dict = {}
 
 
 # The tensor-core row / column attention kernels (attention_tc.cuh; the
-# flash mode's f32 forward and backward, and its bf16 forward above hd 128,
-# on it through flash_tc.cuh): every product is an mma.sync (bf16, or
-# 3xTF32 in f32), so each kernel named here must hold HMMA instructions.
+# flash mode's bf16 forward above hd 128 on it through flash_tc.cuh):
+# every product is an mma.sync (bf16, or 3xTF32 in f32), so each kernel
+# named here must hold HMMA instructions.  (The flash mode's f32 kernels
+# multiply with tf32 wgmma: SASS_RULES.)
 HMMA_SASS_RULES = {
     "mpnet_attention_bwd": ("bwd_rows", "bwd_cols"),
     "mpnet_attention_f32": ("attention_f32_tc",),
-    "flash_attention_bwd": ("bwd_rows", "bwd_cols"),
-    "flash_attention_f32": ("flash_f32_kernel",),
     "flash_attention": ("flash_wide_kernel",),
 }
 
@@ -1260,8 +1262,9 @@ def check_attention_bhsd(results: dict) -> None:
 FLASH_SHAPES = ((128, 384, 768, 12), (128, 512, 384, 12), (128, 512, 312, 12))
 # Head sizes above 128, as the stock kernel takes them, at a small B: hd
 # 160 (S 128 only: above 128 a head size must be a multiple of 128 at S >
-# 128) and hd 256.
-FLASH_WIDE_SHAPES = ((16, 128, 320, 2), (16, 256, 512, 2))
+# 128), hd 256 and hd 384 (above 256: the score products over head
+# chunks).
+FLASH_WIDE_SHAPES = ((16, 128, 320, 2), (16, 256, 512, 2), (16, 256, 768, 2))
 
 
 def flash_inputs(gen, b, s, h, nh, dev):
@@ -1316,7 +1319,7 @@ def occupancy(name: str, hd: int) -> str:
 
 def check_flash_attention(results: dict) -> None:
     """The stock-flash kernel against its plain version at the three
-    ``FLASH_SHAPES`` and the two ``FLASH_WIDE_SHAPES``, with padded rows
+    ``FLASH_SHAPES`` and the ``FLASH_WIDE_SHAPES``, with padded rows
     and a trained-scale bias."""
     import torch
 
@@ -1409,48 +1412,71 @@ def flash_bwd_ok(errors: dict, dtype: str) -> bool:
             and errors["over_1ulp_share"] <= ATTN_GRAD_ULP_SHARE)
 
 
-# The flash backward's passes by kernel name (bf16, f32) and the head
-# widths their templates round hd up to.
-BWD_PASSES = {True: ("rows_wgmma", "cols_wgmma"),
-              False: ("bwd_rows", "bwd_cols")}
+def bwd_kernels(hd: int, bf16: bool) -> tuple:
+    """The flash backward's row- and column-pass kernels at head size
+    ``hd`` (their ptxas names): bf16 up to a row of 256 (hd rounded up to
+    8) ``rows_wgmma`` / ``cols_wgmma`` at the width their templates round
+    it up to; f32, and bf16 above, the tf32 passes: up to hd 64 in f32
+    the two-warpgroup rows_pair and cols_pair."""
+    ld = -(-hd // 8) * 8
+    if bf16 and ld <= 256:
+        width = next(w for w in (32, 64, 128, 256) if ld <= w)
+        return f"rows_wgmma<{width}, 1>", f"cols_wgmma<{width}>"
+    kind = "__nv_bfloat16" if bf16 else "float"
+    blocks = -(-hd // 32)
+    if not bf16 and blocks <= 2:  # two warpgroups a CTA
+        return f"rows_pair<{blocks}>", f"cols_pair<{blocks}>"
+    return f"rows_tf32<{kind}>", f"cols_tf32<{kind}>"
 
 
-def bwd_width(hd: int, bf16: bool) -> int:
-    if bf16:
-        ld = -(-hd // 8) * 8
-        return next(w for w in (32, 64, 128, 256) if ld <= w)
-    return next(w for w in (16, 32, 64, 128, 256) if hd <= w)
-
-
-def bwd_occupancy(hd: int, s: int, bf16: bool) -> str:
+def bwd_occupancy(hd: int, s: int, b: int, nh: int, bf16: bool) -> str:
     """The dynamic shared memory, CTAs a multiprocessor, registers and
     spill bytes (ptxas, from the build) of the flash backward's row and
-    column passes at head size ``hd`` and sequence length ``s`` (the bf16
-    row pass's tile of the bias's gradient grows with s)."""
+    column passes at head size ``hd``, sequence length ``s``, batch ``b``
+    and ``nh`` heads (the row pass's tile of the bias's gradient grows with
+    its keys: s in bf16, the plan's key split in the tf32 passes)."""
     import ctypes
 
     from tpu_search_torch.ops import _build
 
     fn = _build.library("flash_attention_bwd").flash_attention_bwd_occupancy
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    width = bwd_width(hd, bf16)
     parts = []
     for pass_, name in ((0, "rows"), (1, "cols")):
         nbytes = ctypes.c_int(0)
-        ctas = fn(hd, s, int(bf16), pass_, ctypes.byref(nbytes))
+        ctas = fn(hd, s, b, nh, int(bf16), pass_, ctypes.byref(nbytes))
         if ctas <= 0:
             fail(f"flash_attention_bwd {name} cannot run at hd={hd}: "
                  f"code {-ctas}")
-        kernel = BWD_PASSES[bf16][pass_]
-        key = (f"{kernel}<{width}, 1>" if kernel == "rows_wgmma"
-               else f"{kernel}<{width}>")
+        key = bwd_kernels(hd, bf16)[pass_]
         regs, stores, loads = PTXAS.get(f"flash_attention_bwd {key}",
                                         ("not_built_here",) * 3)
         parts.append(f"{name}_smem_bytes={nbytes.value} "
                      f"{name}_ctas_per_sm={ctas} {name}_registers={regs} "
                      f"{name}_spill_stores={stores} "
                      f"{name}_spill_loads={loads}")
+    return " ".join(parts)
+
+
+def bwd_pass_bounds(b: int, s: int, h: int, nh: int, size: int,
+                    bf16: bool) -> str:
+    """Each backward pass's bound (``bound``): the row pass reads q, k, v,
+    dO, ab, the rows' statistics and segment ids and writes dQ and the
+    bias's gradient, for three products (s, dP, dQ); the column pass reads
+    q, k, v, dO, ab, the statistics and segment ids and writes dK and dV,
+    for four (s^T, dP^T, dV, dK); 2 B heads S^2 hd flops each, bf16 at
+    989 TFLOP/s, f32 as the 3xTF32 products run."""
+    hd = h // nh
+    shared = (4 * b * s * h + nh * s * s) * size + b * nh * s * 16 + b * s * 8
+    parts = []
+    for name, nbytes, products in (
+            ("rows", shared + b * s * h * size + nh * s * s * size, 3),
+            ("cols", shared + 2 * b * s * h * size, 4)):
+        flops = products * 2 * b * nh * s * s * hd
+        ms, by = (bound(nbytes, flops, "bf16") if bf16
+                  else bound(nbytes, 3 * flops, "tf32"))
+        parts.append(f"{name}_bound_ms={ms:.4f} {name}_bound_by={by}")
     return " ".join(parts)
 
 
@@ -1537,7 +1563,9 @@ def check_flash_attention_bwd(results: dict) -> None:
                   f"kernel_ms={kms:.4f} plain_ms={pms:.4f} "
                   f"device_ms={dev_ms:.4f} launches_per_call={launches:.1f} "
                   f"bound_ms={bound_ms:.4f} bound_by={by} "
-                  f"sdpa_fwd_bwd_ms={lib:.4f} {bwd_occupancy(hd, s, bf16)} "
+                  f"sdpa_fwd_bwd_ms={lib:.4f} "
+                  f"{bwd_pass_bounds(b, s, h, nh, size, bf16)} "
+                  f"{bwd_occupancy(hd, s, b, nh, bf16)} "
                   f"repeats=True seconds={time.perf_counter() - t0:.2f}",
                   flush=True)
             if (s, h) == FLASH_SHAPES[0][1:3] and bf16:
@@ -1603,10 +1631,17 @@ def check_flash_attention_f32(results: dict) -> None:
         lib = flash_sdpa_ms(q, k, v, ab, seg, scale)
         nbytes = 4 * b * s * h * 4 + nh * s * s * 4 + 2 * b * s * 4
         bound_ms, by = bound(nbytes, 3 * 4 * b * nh * s * s * hd, "tf32")
+        # two warpgroups up to hd 64, else one
+        blocks = -(-hd // 32)
+        kernel_name = (f"flash_pair_fwd<{blocks}>" if blocks <= 2
+                       else "flash_tf32_fwd")
+        regs, stores, loads = PTXAS.get(
+            f"flash_attention_f32 {kernel_name}", ("not_built_here",) * 3)
         print(f"[flash_attention_f32] {tag} max_abs_err={err:.3e} "
               f"residual_rel_err={res_err:.3e} kernel_ms={kms:.4f} "
               f"plain_ms={pms:.4f} sdpa_ms={lib:.4f} bound_ms={bound_ms:.4f} "
               f"bound_by={by} {occupancy('flash_attention_f32', hd)} "
+              f"registers={regs} spill_stores={stores} spill_loads={loads} "
               f"seconds={time.perf_counter() - t0:.2f}", flush=True)
         if not (err <= ATTN_F32_TOL and res_err <= ATTN_F32_TOL):
             fail(f"flash_attention_f32 disagrees at {tag}: {err}, {res_err}")

@@ -26,7 +26,10 @@ rows, its f32 forward (``flash_attention_f32.cu``) within 1e-5 with its
 residuals, and its backward (``flash_attention_bwd.cu``) within
 ``chip_smoke.flash_bwd_ok`` of the plain version, bf16 and f32 (S to 1,024,
 B 40), the same bits on a second call, and under autograd one launch of
-each; head sizes the stock kernel refuses refused with its error; the int4 probe's variants equal to their
+each; both, in both dtypes, at head sizes above 256 (300 and 320 at S 128,
+384 and 512 at S 256); the f32 backward's workspace at most an eighth of a
+[B, heads, S, S] f32 scratch; head sizes the stock kernel refuses refused
+with its error; the int4 probe's variants equal to their
 plain versions and the scan-overhead probe's within the flat scan's 1e-4; the IVF int8 / int4
 scans' prologue kernel equal to its plain twin on the cases of
 ``tests/ivf_prep_cases.py``, and both scans exact with the live schedule
@@ -1238,11 +1241,12 @@ def test_flash_attention_kernel(dev, s, hd, nh, b):
 @pytest.mark.parametrize("s,hd,error,match", [
     (64, 64, ValueError, "block_q"), (192, 64, ValueError, "divisible"),
     (256, 160, NotImplementedError, "multiple of 128"),
-    (128, 320, ValueError, "256")])
+    (256, 320, NotImplementedError, "multiple of 128")])
 def test_flash_attention_refuses_shapes(dev, s, hd, error, match):
     """The card refuses what the stock kernel refuses, with its error
     (a head size above 128 that is not a multiple of 128 at S > 128:
-    NotImplementedError), and a head size above its own limit of 256."""
+    NotImplementedError), and nothing else: it has no head-size limit of
+    its own."""
     from tpu_search_torch.ops.flash_attention import flash_attention
 
     q = torch.zeros((1, 2, s, hd), dtype=torch.bfloat16, device=dev)
@@ -1343,11 +1347,77 @@ def test_flash_attention_f32_kernel(dev, s, hd, nh, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,hd,nh,b", [(128, 300, 2, 3), (128, 320, 1, 2),
+                                       (256, 384, 1, 2), (256, 512, 2, 2)])
+def test_flash_attention_above_256(dev, dtype, s, hd, nh, b):
+    """Head sizes above 256, as the stock kernel takes them (any at S 128,
+    multiples of 128 above): the forward of q's dtype (bf16: the wide
+    kernel's head chunks; f32: the tf32 kernel's) within its gate of the
+    plain version, and the backward (the tf32 passes in both dtypes) within
+    ``chip_smoke.flash_bwd_ok``, one launch each."""
+    from chip_smoke import (
+        ATTN_F32_TOL,
+        attention_ok,
+        bf16_errors,
+        flash_bwd_errors,
+        flash_bwd_ok,
+    )
+    from tpu_search_torch.ops import _build
+    from tpu_search_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+    )
+
+    q, k, v, do, ab, seg = flash_case(dev, dtype, s, hd, nh, b, s + hd)
+    scale = 1.0 / math.sqrt(hd)
+    fwd = "flash_attention" if dtype == torch.bfloat16 else (
+        "flash_attention_f32")
+    before = dict(_build.LAUNCHES)
+    out, m, l = flash_attention_fwd(q, k, v, ab, seg, seg, scale)
+    ref, pm, pl = flash_attention_fwd_plain(q, k, v, ab, seg, seg, scale)
+    got = flash_attention_bwd(q, k, v, ab, seg, seg, out, do, m, l, scale)
+    want = flash_attention_bwd_plain(q, k, v, ab, seg, seg, out, do, m, l,
+                                     scale)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[fwd] == before[fwd] + 1
+    assert (_build.LAUNCHES["flash_attention_bwd"]
+            == before["flash_attention_bwd"] + 1)
+    assert torch.isfinite(out.float()).all()
+    if dtype == torch.bfloat16:
+        errors = bf16_errors(out, ref)
+        assert attention_ok(errors, "flash_attention"), errors
+    else:
+        assert float((out - ref).abs().max()) <= ATTN_F32_TOL
+    for g, w in ((m, pm), (l, pl)):
+        assert float(((g - w).abs() / w.abs().clamp(min=1.0)).max()) <= 1e-5
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    for what, g, w in zip(("dq", "dk", "dv", "dab"), got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape, what
+        assert torch.isfinite(g.float()).all(), what
+        errors = flash_bwd_errors(g, w, name)
+        assert flash_bwd_ok(errors, name), (what, errors)
+
+
+def test_flash_attention_bwd_f32_workspace_is_small(dev):
+    """The f32 backward's workspace at B 128, 12 heads, S 384 with a bias
+    gradient: at most an eighth of a [B, heads, S, S] f32 scratch (the
+    groups' partials: B / 16 of them)."""
+    from tpu_search_torch.ops.flash_attention import _workspace_bytes
+
+    b, nh, s = 128, 12, 384
+    nbytes = _workspace_bytes(b, nh, s, 64, False, True)
+    assert 0 < nbytes <= b * nh * s * s * 4 // 8, nbytes
+    assert _workspace_bytes(b, nh, s, 64, False, False) < nbytes
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("s,hd,b", [(384, 64, 40), (256, 256, 3)])
 def test_flash_attention_bwd_repeats(dev, dtype, s, hd, b):
     """Two calls of the backward give the same bits: no atomics, every
-    sum in a fixed order (the bf16 bias's gradient over two batch groups
-    and their partials at B 40)."""
+    sum in a fixed order (the bias's gradient over two batch groups and
+    their partials at B 40, in bf16 and f32)."""
     from tpu_search_torch.ops.flash_attention import (
         flash_attention_bwd,
         flash_attention_fwd,

@@ -4,7 +4,9 @@
   ``jax.experimental.pallas.ops.tpu.flash_attention`` run under
   ``pltpu.force_tpu_interpret_mode()``, in f32, with a bias of trained
   scale (N(0, 4)) and padded tails, at head sizes 26 to 256 (192 at S
-  128, 256 at S 256: above 128 as the stock kernel takes them).
+  128, 256 at S 256: above 128 as the stock kernel takes them), and above
+  256 (320 at S 128, 384 at S 256) at B 2 and one head in both dtypes;
+  hd 320 at S 256 is refused by both.
   Tolerance 1e-5 absolute: the same f32 formula, block by block, with
   sums in another order (read: under 5e-7).  In bf16 at the head sizes
   above 128, the bf16 gate of ``test_torch_flash_attention_grad.py``:
@@ -123,6 +125,58 @@ def test_op_matches_the_stock_kernel_in_bf16(s, hd):
     assert (err > ulp).mean() <= BF16_SHARE
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,hd", [(128, 320), (256, 384)])
+def test_op_matches_the_stock_kernel_above_256(s, hd, dtype):
+    """Head sizes above 256, as the stock kernel takes them (any at S 128,
+    multiples of 128 above), at B 2 and one head: f32 within ``OP_TOL``,
+    bf16 within the bf16 gate."""
+    q, k, v, ab, seg = op_inputs(s, hd, seed=s + hd + 2, nh=1)
+    scale = 1.0 / math.sqrt(hd)
+    if dtype == "float32":
+        ref = jax_flash(q, k, v, ab, seg, scale)
+        got = flash_attention(*(torch.from_numpy(x) for x in (q, k, v, ab)),
+                              torch.from_numpy(seg), torch.from_numpy(seg),
+                              scale)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=OP_TOL)
+        return
+    q, k, v, ab = (np.asarray(jnp.asarray(t, jnp.bfloat16).astype(
+        jnp.float32)) for t in (q, k, v, ab))
+    b, nh = q.shape[:2]
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash_attention(
+            *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)),
+            ab=jnp.broadcast_to(jnp.asarray(ab, jnp.bfloat16),
+                                (b, nh, s, s)),
+            segment_ids=SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg)),
+            sm_scale=scale)
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = flash_attention(*(torch.tensor(t, dtype=torch.bfloat16)
+                            for t in (q, k, v, ab)),
+                          torch.from_numpy(seg), torch.from_numpy(seg), scale)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    err = np.abs(got.float().numpy() - ref)
+    assert err.max() <= BF16_TOL * np.abs(ref).max(), err.max()
+    ulp = np.ldexp(1.0, np.frexp(ref)[1] - 8)
+    assert (err > ulp).mean() <= BF16_SHARE
+
+
+def test_head_size_320_is_refused_by_both_at_s256():
+    """``check_flash_shapes`` refuses hd 320 at S 256 as the stock kernel
+    does (above 128, a multiple of 128 where S > 128)."""
+    from tpu_search_torch.ops.flash_attention import check_flash_shapes
+
+    q, k, v, ab, seg = op_inputs(256, 320, seed=9, nh=1)
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        jax_flash(q, k, v, ab, seg, 0.1)
+    tensors = [torch.from_numpy(x) for x in (q, k, v, ab, seg, seg)]
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        check_flash_shapes(*tensors)
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        flash_attention(*tensors, 0.1)
+
+
 def test_wrapper_takes_the_plain_version_on_the_cpu():
     q, k, v, ab, seg = (torch.from_numpy(x) for x in op_inputs(256, 32, 1))
     assert torch.equal(flash_attention(q, k, v, ab, seg, seg, 0.25),
@@ -226,9 +280,9 @@ def test_card_branch_runs_the_kernels_with_and_without_grad(monkeypatch):
     scratch) unless ``ab`` needs one; without grad or under ``no_grad``,
     one forward call without residuals and one count, as before; bf16 goes
     to ``flash_attention``, f32 to ``flash_attention_f32``; the backward
-    asks its workspace's size first; a head size of 160 runs at S 128, and
-    one above the kernels' 256 raises ``ValueError`` naming the limit
-    before any call."""
+    asks its workspace's size first; head sizes of 160 and 320 run at S
+    128 (the card has no head-size limit of its own), and 320 at S 256
+    raises the stock kernel's ``NotImplementedError`` before any call."""
     from tpu_search_torch.ops import _build
     from tpu_search_torch.ops import flash_attention as fa
 
@@ -281,8 +335,13 @@ def test_card_branch_runs_the_kernels_with_and_without_grad(monkeypatch):
     big_ab = torch.zeros((2, 128, 128), dtype=torch.bfloat16)
     one = torch.ones((1, 128), dtype=torch.int32)
     fa.flash_attention(wide, wide, wide, big_ab, one, one, 0.1)
-    assert [name for name, _ in calls] == ["flash_attention"]
+    fa.flash_attention(big, big, big, big_ab, one, one, 0.1)
+    assert [name for name, _ in calls] == ["flash_attention"] * 2
+    assert calls[1][1][12] == 320  # hd
     calls.clear()
-    with pytest.raises(ValueError, match="256"):
-        fa.flash_attention(big, big, big, big_ab, one, one, 0.1)
+    off = torch.zeros((1, 2, 256, 320), dtype=torch.bfloat16)
+    off_ab = torch.zeros((2, 256, 256), dtype=torch.bfloat16)
+    two = torch.ones((1, 256), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        fa.flash_attention(off, off, off, off_ab, two, two, 0.1)
     assert not calls

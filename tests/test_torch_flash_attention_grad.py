@@ -39,10 +39,10 @@ cases hand both sides the same bf16 values.
   ``MODEL_F32_TOL`` of it in f32 (read: 4.1e-6) and ``K_B_BF16_TOL`` in
   bf16 (read: 1.7e-2; dS rounds to bf16 before its row sums).
 - Head sizes above 128, as the stock kernel takes them (the card's
-  kernels take them up to 256): the op level also at hd 192, S 128 and
-  hd 256, S 256, in both dtypes; hd 160 in f32 against JAX at S 128; at S
-  256 both packages refuse 160 (``NotImplementedError``: the stock
-  kernel's tiling).
+  kernels take every one): the op level also at hd 192, S 128 and hd 256,
+  S 256, in both dtypes; hd 160 in f32 against JAX at S 128; hd 384 at S
+  256 in f32 (B 2, one head); at S 256 both packages refuse 160
+  (``NotImplementedError``: the stock kernel's tiling).
 - The bias's gradient in the card kernel's order
   (``grouped_batch_sum``: groups of batch rows, each summed in order, then
   the groups) from JAX's per-row bf16 dS, against JAX's dab (those rows
@@ -51,7 +51,8 @@ cases hand both sides the same bf16 values.
   over one bf16 ulp), and within 2^-7 of JAX's own gradient of one
   ``[heads, S, S]`` bias shared by the batch (XLA's transpose of the
   broadcast, summed in bf16: one ulp off on 1.5 % of entries, so not the
-  share).
+  share).  In f32 the same groups (``bias_group_rows``), the rows' f32 dS
+  summed in that order within ``F32_TOL`` of JAX's.
 """
 
 import dataclasses
@@ -87,16 +88,17 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def op_inputs(s, hd, seed, dtype):
-    """q, k, v, dO ``[B, heads, S, hd]``, ab ``[heads, S, S]`` and segment
+def op_inputs(s, hd, seed, dtype, b=B, nh=NH):
+    """q, k, v, dO ``[b, heads, S, hd]``, ab ``[heads, S, S]`` and segment
     ids, as f32 numpy holding values of ``dtype``."""
     rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.standard_normal((B, NH, s, hd)).astype(np.float32)
+    q, k, v, do = (rng.standard_normal((b, nh, s, hd)).astype(np.float32)
                    for _ in range(4))
-    ab = (2.0 * rng.standard_normal((NH, s, s))).astype(np.float32)
-    seg = np.ones((B, s), np.int32)
+    ab = (2.0 * rng.standard_normal((nh, s, s))).astype(np.float32)
+    seg = np.ones((b, s), np.int32)
     seg[1, s - 37:] = 0  # a padded tail
-    seg[2, 5:] = 0  # mostly padding
+    if b > 2:
+        seg[2, 5:] = 0  # mostly padding
     jd = DTYPES[dtype][0]
     q, k, v, do, ab = (np.asarray(jnp.asarray(t, jd).astype(jnp.float32))
                        for t in (q, k, v, do, ab))
@@ -178,6 +180,19 @@ def test_op_gradient_matches_jax(s, hd, dtype):
             check(g, w, dtype, name)
 
 
+def test_op_gradient_matches_jax_above_256():
+    """hd 384 at S 256 (above 256, a multiple of 128 as the stock kernel
+    takes it), f32, B 2 and one head."""
+    inputs = op_inputs(256, 384, seed=384, dtype="float32", b=2, nh=1)
+    want = jax_side(*inputs, "float32")
+    got = port_side(*inputs, "float32")
+    want[4] = want[4].sum(axis=0)
+    for name, g, w in zip(("out", "dq", "dk", "dv", "dab", "m", "l"), got,
+                          want):
+        assert g.shape == w.shape and np.isfinite(g).all(), name
+        assert rel_err(g, w) <= F32_TOL, (name, rel_err(g, w))
+
+
 @pytest.mark.parametrize("group", [16, 2])
 def test_grouped_bias_sum_matches_jax(group):
     """Each batch row's bf16 dS from JAX's VJP, summed in the card's
@@ -203,6 +218,44 @@ def test_grouped_bias_sum_matches_jax(group):
         (want,) = pull(jnp.asarray(do, jnp.bfloat16))
     want = np.asarray(want.astype(jnp.float32))
     assert rel_err(got, want) <= GATE_TOL, rel_err(got, want)
+
+
+@pytest.mark.parametrize("group", [3, 2, 1])
+def test_grouped_bias_sum_matches_jax_in_f32(group):
+    """The f32 bias gradient takes the bf16 groups (``bias_group_rows``:
+    B / 16 groups from B 32 on, in either dtype): each batch row's f32 dS
+    from JAX's VJP summed in that order within ``F32_TOL`` of the rows
+    summed at once and of JAX's gradient of one shared f32 bias; the
+    port's plain backward gives the same sum as ``grouped_batch_sum`` with
+    its groups."""
+    from tpu_search_torch.ops.flash_attention import (
+        bias_group_rows,
+        flash_attention_bwd_plain,
+    )
+
+    assert [bias_group_rows(b) for b in (3, 31, 32, 40, 128)] == [
+        3, 31, 16, 20, 16]
+    q, k, v, do, ab, seg = op_inputs(128, 32, seed=34, dtype="float32")
+    rows = jax_side(q, k, v, do, ab, seg, "float32")[4]
+    got = grouped_batch_sum(torch.tensor(rows), group).numpy()
+    assert rel_err(got, rows.sum(axis=0)) <= F32_TOL
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ids = jfa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
+    args = [jnp.asarray(t) for t in (q, k, v)]
+    with pltpu.force_tpu_interpret_mode():
+        _, pull = jax.vjp(
+            lambda shared: jfa.flash_attention(
+                *args, ab=jnp.broadcast_to(shared, (B, NH) + ab.shape[1:]),
+                segment_ids=ids, sm_scale=scale),
+            jnp.asarray(ab))
+        (want,) = pull(jnp.asarray(do))
+    assert rel_err(got, np.asarray(want)) <= F32_TOL
+    t = [torch.tensor(x) for x in (q, k, v, ab)]
+    segs = torch.from_numpy(seg)
+    out, m, l = flash_attention_fwd_plain(*t, segs, segs, scale)
+    dab = flash_attention_bwd_plain(*t, segs, segs, out, torch.tensor(do),
+                                    m, l, scale)[3]
+    assert rel_err(dab.numpy(), rows.sum(axis=0)) <= F32_TOL
 
 
 def test_segments_get_no_gradient_and_ab_none_skips_its_gradient():

@@ -277,13 +277,14 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 }
 
 // c[16 x 8 NT] = a_tile[r0 .. r0 + 15][0 .. HDP) . b_tile[0 .. 8 NT)[0 .. HDP)^T:
-// scores (q k^T, k q^T) and dP (dO v^T, v dO^T).
-template <class Ops, int HDP, int NT>
+// scores (q k^T, k q^T) and dP (dO v^T, v dO^T); c += ... without kZero (a
+// product over head chunks).
+template <class Ops, int HDP, int NT, bool kZero = true>
 __device__ __forceinline__ void rows_by_rows(float (&c)[NT][4],
                                              const typename Ops::T* a_tile,
                                              const typename Ops::T* b_tile,
                                              int ld, int r0, int lane) {
-  zero(c);
+  if constexpr (kZero) zero(c);
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk) {
     typename Ops::A a;

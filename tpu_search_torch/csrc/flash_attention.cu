@@ -23,7 +23,8 @@
 // q, k, v, out and ab are bf16; ab is one [heads, S, S] tensor shared by
 // the batch (JAX broadcasts the same values to [B, heads, S, S]); segment
 // ids are [B, S] int32.  S % 128 == 0, as the stock kernel's block sizes
-// require, and 1 <= hd <= 256 (flash::kFlashMaxHd).  Every rounding step
+// require, and any hd >= 1 (where S > 128 a head size above 128 is a
+// multiple of 128, ops/flash_attention.py checks).  Every rounding step
 // is written out (__fadd_rn, __fmul_rn, __fdiv_rn), so nvcc's -fmad
 // changes nothing.  The step stays 128 keys: m' sets the scale at which p
 // rounds to bf16, so another step would be another function.
@@ -54,7 +55,7 @@
 // were dropped.  Not yet done (later work): P V by wgmma, TMA, overlap of
 // one step's q k^T with the previous step's softmax.
 //
-// Head sizes 129 to 256 (flash_wide_kernel): q in registers (64 a thread
+// Head sizes above 128 (flash_wide_kernel): q in registers (64 a thread
 // at 256) beside the 128-key step's scores, the output and P V's sums
 // would not fit.  So q waits in shared memory, both products are
 // mma.sync from shared memory (attention_tc.cuh's Bf16Ops: rows_by_rows
@@ -62,7 +63,10 @@
 // (kWideCols): 4 CTAs a row block at hd 256, each recomputing the scores.
 // A step's K rows, the CTA's V columns, the bias tile and the key segment
 // ids load by cp.async and wait, one buffer: 137,728 bytes of shared
-// memory, one CTA a multiprocessor.  A correct kernel, not yet a fast one.
+// memory, one CTA a multiprocessor.  Above 256 columns q k^T loops over
+// head chunks of 256, q and the step's K rows staged again for each chunk,
+// and hd / 64 CTAs share a row block.  A correct kernel, not yet a fast
+// one.
 
 #include <float.h>
 
@@ -363,6 +367,7 @@ flash_wide_kernel(const __nv_bfloat16* __restrict__ q,
   int* segs = reinterpret_cast<int*>(qs + kWideSeg);
 
   const int quarters = (hd + kWideCols - 1) / kWideCols;
+  const int hchunks = (hd + kWideHdp - 1) / kWideHdp;  // of q k^T
   const int col0 = blockIdx.x % quarters * kWideCols;
   const int q0 = blockIdx.x / quarters * kBQ, head = blockIdx.y,
             b = blockIdx.z;
@@ -376,8 +381,9 @@ flash_wide_kernel(const __nv_bfloat16* __restrict__ q,
 
   // the padding columns (past hd, past the quarter's) stay zero
   tcattn::zero_smem(smem_wide, kWideBytes, tid);
-  tcattn::stage_rows<T, kBQ>(qs, kWideLd, q + base + (size_t)q0 * hd, hd, kBQ,
-                             hd, chunk, tid);
+  if (hchunks == 1)
+    tcattn::stage_rows<T, kBQ>(qs, kWideLd, q + base + (size_t)q0 * hd, hd,
+                               kBQ, hd, chunk, tid);
 
   float o[OT][4];
   tcattn::zero(o);
@@ -385,21 +391,40 @@ flash_wide_kernel(const __nv_bfloat16* __restrict__ q,
   const bool single = s == kBK;
   for (int j = 0; j < s / kBK; ++j) {
     const int kb = j * kBK;
-    __syncthreads();  // every warp has left the previous step's tiles
-    tcattn::stage_rows<T, kBK>(ks, kWideLd, k + base + (size_t)kb * hd, hd,
-                               kBK, hd, chunk, tid);
-    tcattn::stage_rows<T, kBK>(vs, kWideLdv, v + base + (size_t)kb * hd + col0,
-                               hd, kBK, vcols, chunk, tid);
-    flash::stage_tile<T, kBQ, kBK>(abs, kAbStride,
-                                   ab + ((size_t)head * s + q0) * s + kb, s,
-                                   tid);
-    flash::stage_ints<kBK>(segs, kv_seg + (size_t)b * s + kb, tid);
-    attn2::cp_async_commit();
-    attn2::cp_async_wait<0>();
-    __syncthreads();
-
     float sc[NT][4];
-    tcattn::rows_by_rows<Ops, kWideHdp, NT>(sc, qs, ks, kWideLd, wr, lane);
+    tcattn::zero(sc);
+    // q k^T over head chunks of kWideHdp columns: one above which q and
+    // the step's K rows are staged again for each chunk (hd > 256)
+    for (int hc = 0; hc < hchunks; ++hc) {
+      const int c0 = hc * kWideHdp, w = min(kWideHdp, hd - c0);
+      __syncthreads();  // every warp has left the previous tiles
+      if (w < kWideHdp && hchunks > 1) {  // a narrower last chunk's tail
+        for (int i = tid; i < (kBQ + kBK) * (kWideHdp - w); i += kThreads) {
+          const int r = i / (kWideHdp - w), c = w + i % (kWideHdp - w);
+          (r < kBQ ? qs + r * kWideLd : ks + (r - kBQ) * kWideLd)[c] =
+              __float2bfloat16_rn(0.f);
+        }
+      }
+      if (hchunks > 1)
+        tcattn::stage_rows<T, kBQ>(qs, kWideLd,
+                                   q + base + (size_t)q0 * hd + c0, hd, kBQ, w,
+                                   chunk, tid);
+      tcattn::stage_rows<T, kBK>(ks, kWideLd, k + base + (size_t)kb * hd + c0,
+                                 hd, kBK, w, chunk, tid);
+      if (hc == 0) {
+        tcattn::stage_rows<T, kBK>(vs, kWideLdv,
+                                   v + base + (size_t)kb * hd + col0, hd, kBK,
+                                   vcols, chunk, tid);
+        flash::stage_tile<T, kBQ, kBK>(
+            abs, kAbStride, ab + ((size_t)head * s + q0) * s + kb, s, tid);
+        flash::stage_ints<kBK>(segs, kv_seg + (size_t)b * s + kb, tid);
+      }
+      attn2::cp_async_commit();
+      attn2::cp_async_wait<0>();
+      __syncthreads();
+      tcattn::rows_by_rows<Ops, kWideHdp, NT, false>(sc, qs, ks, kWideLd, wr,
+                                                     lane);
+    }
     flash::score_rows(sc, abs, kAbStride, segs, wr + g, tig, seg0, seg1,
                       scale);
     // the step's softmax, as flash_kernel's
@@ -556,14 +581,15 @@ int occupancy_hdp(int hd, int* bytes) {
 // q, k, v, out: [b, nh, s, hd] bf16; ab: [nh, s, s] bf16 (16-byte
 // aligned); q_seg, kv_seg: [b, s] int32 (16-byte aligned above hd 128);
 // m_out, l_out: [b, nh, s] f32, both null or neither.  Requires s % 128 ==
-// 0 and 1 <= hd <= 256.
+// 0 and hd >= 1 (ops/flash_attention.py check_flash_shapes refuses what the
+// stock kernel refuses).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* ab, const void* q_seg,
                                const void* kv_seg, void* out, void* m_out,
                                void* l_out, int b, int nh, int s, int hd,
                                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd < 1 || hd > flash::kFlashMaxHd || s < kBK || s % kBK ||
+  if (hd < 1 || s < kBK || s % kBK ||
       (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   float* mo = static_cast<float*>(m_out);
@@ -593,7 +619,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 // depends on s.
 extern "C" int flash_attention_occupancy(int hd, int* bytes) {
   *bytes = 0;
-  if (hd > 128 && hd <= flash::kFlashMaxHd) return occupancy_wide(bytes);
+  if (hd > 128) return occupancy_wide(bytes);
 #define FLASH_OCC(HDP) \
   case HDP / 16:       \
     return occupancy_hdp<HDP>(hd, bytes);

@@ -1,8 +1,7 @@
-// Helpers of the stock flash mode's tensor-core kernels: the f32 forward
-// (flash_attention_f32.cu), the bf16 forward above hd 128
-// (flash_attention.cu's flash_wide_kernel) and the backward
-// (flash_attention_bwd.cu, whose bf16 passes add flash_wgmma.cuh), on the
-// row / column scheme of attention_tc.cuh.
+// Helpers of the stock flash mode's tensor-core kernels: the bf16 forward
+// above hd 128 (flash_attention.cu's flash_wide_kernel, on the row scheme
+// of attention_tc.cuh), the f32 forward and the backward (through
+// flash_wgmma.cuh and flash_tf32.cuh).
 //
 // The flash contract differs from the dense one (attention_tc.cuh's
 // score_rows / score_cols) in three ways, each here:
@@ -12,8 +11,8 @@
 //     keys, and every row has a finite max);
 //   - ab is [heads, S, S] in the compute dtype T (bf16 or f32), not f32.
 // S is a multiple of 128, so no tile is ragged: every row and key of a
-// tile lies inside the sequence.  Head sizes go up to kFlashMaxHd, as the
-// stock kernel takes them (the dense mode's kernels stop at kMaxHd).
+// tile lies inside the sequence.  Every head size the stock kernel takes
+// (the dense mode's kernels stop at kMaxHd).
 
 #pragma once
 
@@ -26,15 +25,6 @@ namespace flash {
 using namespace tcattn;
 
 constexpr float kMask = (float)(-0.7 * (double)FLT_MAX);
-constexpr int kFlashMaxHd = 256;
-
-// Rows a ring step: attention_tc.cuh's step_rows, and 16 where a row holds
-// more than 512 bytes (f32 at HDP 256), which keeps two ring stages and
-// the CTA's own rows within a multiprocessor's shared memory.
-template <typename T, int HDP>
-__host__ __device__ constexpr int tile_rows() {
-  return HDP * (int)sizeof(T) > 512 ? 16 : step_rows<T, HDP>();
-}
 
 // The output columns a CTA owns: all HDP up to 128; above, half of them
 // (two CTAs share the row block, each recomputing the scores), which keeps
@@ -42,11 +32,6 @@ __host__ __device__ constexpr int tile_rows() {
 template <int HDP>
 __host__ __device__ constexpr int out_cols() {
   return HDP > 128 ? 128 : HDP;
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
 }
 
 // Two adjacent elements of T as floats (p 4- or 8-byte aligned).
@@ -96,40 +81,6 @@ __device__ __forceinline__ void stage_ints(int* dst, const int* src,
     attn2::cp_async16(dst + 4 * i, src + 4 * i);
 }
 
-// One stage of a row pass's ring (the f32 forward, the backward's dq
-// pass): K and V tiles of KT keys ([KT][LD] T), the bias tile of the CTA's
-// 64 queries x KT keys ([64][LDB] T) and the KT key segment ids; every
-// part starts on a 16-byte boundary.
-template <typename T, int HDP>
-struct RowSlot {
-  static constexpr int LD = HDP + 8, KT = tile_rows<T, HDP>(), LDB = KT + 8;
-  static constexpr int kTile = KT * LD * (int)sizeof(T);
-  static constexpr int kBias = 2 * kTile;  // byte offsets in the slot
-  static constexpr int kSeg = kBias + kRows * LDB * (int)sizeof(T);
-  static constexpr int kBytes = kSeg + KT * 4;
-};
-
-// Issue the copies of a row pass's stage: K and V rows kb .. kb + KT - 1
-// of the head (kh, vh: its [S, hd] rows), the bias of queries q0 .. q0 +
-// 63 against those keys (abh: the head's [S, S] bias) and the keys'
-// segment ids (kvs: the batch row's).
-template <typename T, int HDP>
-__device__ __forceinline__ void stage_keys(unsigned char* slot, const T* kh,
-                                           const T* vh, const T* abh,
-                                           const int* kvs, int s, int q0,
-                                           int kb, int hd, int chunk,
-                                           int tid) {
-  using L = RowSlot<T, HDP>;
-  T* ks = reinterpret_cast<T*>(slot);
-  stage_rows<T, L::KT>(ks, L::LD, kh + (long long)kb * hd, hd, L::KT, hd,
-                       chunk, tid);
-  stage_rows<T, L::KT>(ks + L::KT * L::LD, L::LD, vh + (long long)kb * hd,
-                       hd, L::KT, hd, chunk, tid);
-  stage_tile<T, kRows, L::KT>(reinterpret_cast<T*>(slot + L::kBias), L::LDB,
-                              abh + (long long)q0 * s + kb, s, tid);
-  stage_ints<L::KT>(reinterpret_cast<int*>(slot + L::kSeg), kvs + kb, tid);
-}
-
 // Scores of a row tile in place: rows are the thread's queries (tile rows
 // r, r + 8, segment ids qs0, qs1), columns keys 8 n + 2 t + e % 2 of the
 // tile, from its staged bias tile (rows ldb apart) and key segment ids.
@@ -148,28 +99,6 @@ __device__ __forceinline__ void score_rows(float (&sc)[NT][4], const T* bias,
       const int qs = h ? qs1 : qs0;
       sc[n][2 * h] = score(sc[n][2 * h], bv.x, qs == ks.x, scale);
       sc[n][2 * h + 1] = score(sc[n][2 * h + 1], bv.y, qs == ks.y, scale);
-    }
-  }
-}
-
-// The same for a column tile: rows are the thread's keys (tile rows r, r +
-// 8, segment ids ks[0], ks[1]), columns queries 8 n + 2 t + e % 2 of the
-// tile (segment ids qsegs); the staged bias tile is [query][key] (rows ldb
-// apart), read transposed.
-template <typename T, int NT>
-__device__ __forceinline__ void score_cols(float (&sc)[NT][4], const T* bias,
-                                           int ldb, const int* qsegs,
-                                           const int (&ks)[2], int r, int t,
-                                           float scale) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = 8 * n + 2 * t;
-    const int2 qs = *reinterpret_cast<const int2*>(qsegs + c);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, q = c + (e & 1);
-      sc[n][e] = score(sc[n][e], to_f(bias[q * ldb + r + 8 * h]),
-                       ((e & 1) ? qs.y : qs.x) == ks[h], scale);
     }
   }
 }

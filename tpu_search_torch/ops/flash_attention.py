@@ -1,9 +1,10 @@
 """The stock flash attention of the JAX encoder's ``attention_impl="flash"``
 mode, forward and backward, with their plain PyTorch versions and the
 wrappers of three hand-written CUDA kernels: ``csrc/flash_attention.cu``
-(the bf16 forward), ``csrc/flash_attention_f32.cu`` (the f32 forward) and
-``csrc/flash_attention_bwd.cu`` (the backward: wgmma and TMA in bf16,
-3xTF32 mma.sync in f32).
+(the bf16 forward), ``csrc/flash_attention_f32.cu`` (the f32 forward, 3xTF32
+wgmma) and ``csrc/flash_attention_bwd.cu`` (the backward: bf16 wgmma and
+TMA in bf16 up to hd 256, 3xTF32 wgmma in f32 and tf32 wgmma in bf16
+above).
 
 It replaces ``jax.experimental.pallas.ops.tpu.flash_attention`` as
 ``tpu_search/models/mpnet.py`` calls it (:262-274, operands built at
@@ -40,10 +41,9 @@ Its backward is the stock kernel's VJP (``_flash_attention_bwd``, with its
 - the bias's gradient ``dS.to(ab.dtype)`` per batch row, summed over the
   batch (the transpose of JAX's broadcast of one ``[heads, S, S]`` bias to
   ``[B, heads, S, S]``), in f32 and rounded to ab's dtype once, in the
-  card kernel's order (:func:`grouped_batch_sum`: in bf16 groups of
+  card kernel's order (:func:`grouped_batch_sum`: groups of
   :data:`BIAS_GROUP_ROWS` batch rows from B 32 on, each summed in order,
-  then the groups in order; in f32 the batch in order); the segment ids
-  get none.
+  then the groups in order; one group below); the segment ids get none.
 
 The bias is one ``[heads, S, S]`` tensor shared by the batch, which holds
 the values of JAX's ``[B, heads, S, S]`` broadcast without writing them out
@@ -51,7 +51,7 @@ per batch row.  S must be a multiple of 128, as the stock kernel's block
 sizes require, and a head size above 128 a multiple of 128 where S > 128,
 as the stock kernel's tiling requires (``NotImplementedError``, as JAX
 raises, on the CPU and on the card alike); the card's kernels take every
-such head size up to 256 (``ValueError`` above).
+head size the stock kernel takes.
 
 CPU tensors take the plain versions; a CUDA tensor launches the kernels or
 raises.  Where grad is enabled and q, k, v or ``ab`` needs it,
@@ -87,10 +87,9 @@ __all__ = [
 
 BLOCK = 128  # the stock kernel's block_q, block_k_major and block_k
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-KERNEL_MAX_HD = 256  # the card kernels' largest head size
-# Batch rows a group of the bf16 backward's bias gradient sums (the card
+# Batch rows a group of the backward's bias gradient sums (the card
 # kernel's kGroupRows): B // 16 groups, so that their f32 partials hold an
-# eighth of the bytes of every row's bf16 dS.
+# eighth of the bytes of every row's bf16 dS (a sixteenth of its f32 dS).
 BIAS_GROUP_ROWS = 16
 
 _P = ctypes.c_void_p
@@ -209,12 +208,10 @@ def flash_attention_plain(
     return flash_attention_fwd_plain(q, k, v, ab, q_seg, kv_seg, sm_scale)[0]
 
 
-def bias_group_rows(b: int, dtype: torch.dtype) -> int:
+def bias_group_rows(b: int) -> int:
     """The batch rows of a group of the bias's gradient at batch size
-    ``b``: in bf16 ``ceil(b / groups)`` with ``max(1, b // 16)`` groups; in
-    f32 the whole batch, one group."""
-    if dtype != torch.bfloat16:
-        return b
+    ``b``, in either dtype: ``ceil(b / groups)`` with ``max(1, b // 16)``
+    groups."""
     groups = max(1, b // BIAS_GROUP_ROWS)
     return -(-b // groups)
 
@@ -276,8 +273,7 @@ def flash_attention_bwd_plain(
         dq = dq + ds.to(k.dtype).float() @ k[:, :, k0:k0 + BLOCK].float()
         if ab_grad:
             dabs.append(grouped_batch_sum(
-                ds.to(ab.dtype), bias_group_rows(q.shape[0], ab.dtype)
-            ).to(ab.dtype))
+                ds.to(ab.dtype), bias_group_rows(q.shape[0])).to(ab.dtype))
     dk = torch.cat(dks, dim=2)
     dv = torch.cat(dvs, dim=2)
     dab = torch.cat(dabs, dim=-1) if ab_grad else None
@@ -305,9 +301,10 @@ def _fn(name: str, source: Optional[str] = None):
 
 def _workspace_bytes(b, nh, s, ld, bf16: bool, ab_grad: bool) -> int:
     """The bytes of the backward's workspace (``csrc/flash_attention_bwd.cu``
-    ``flash_attention_bwd_workspace``): each row's statistics, and the
-    bias's partial sums (bf16: a [groups, heads, S, S] f32 partial, groups
-    B / 16; f32: each batch row's dS)."""
+    ``flash_attention_bwd_workspace``): each row's statistics, the
+    bias's partial sums (a [groups, heads, S, S] f32 partial, groups B /
+    16, where there is more than one group) and dQ's f32 scratch (where the
+    row pass takes the keys in chunks)."""
     nbytes = _fn("flash_attention_bwd_workspace", "flash_attention_bwd")(
         b, nh, s, ld, int(bf16), int(ab_grad))
     if nbytes < 0:
@@ -317,9 +314,10 @@ def _workspace_bytes(b, nh, s, ld, bf16: bool, ab_grad: bool) -> int:
 
 
 def _tma_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the bf16 backward's TMA operand: rows of a multiple of 8
+    """``t`` as the bf16 backward's operand: rows of a multiple of 8
     elements on a 16-byte aligned base (zero columns appended where hd % 8,
-    a copy where the base is not aligned), as TMA copies them."""
+    a copy where the base is not aligned), as TMA copies them (up to hd 256;
+    the tf32 passes above read the same rows)."""
     pad = -t.shape[-1] % 8
     if pad:
         return torch.nn.functional.pad(t, (0, pad))
@@ -327,15 +325,10 @@ def _tma_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_card_operands(q, tensors, q_seg, kv_seg) -> None:
-    """The card kernels' operand rules, checked before the shapes: head
-    size at most 256 (``ValueError`` naming the limit; below it
-    :func:`check_flash_shapes` refuses what the stock kernel refuses);
-    bf16 or f32 q and every tensor of ``tensors`` of q's dtype, int32
-    segment ids, all contiguous and on q's device."""
-    hd = q.shape[-1]
-    if hd > KERNEL_MAX_HD:
-        raise ValueError(f"head_dim={hd} is above the card kernels' limit "
-                         f"of {KERNEL_MAX_HD}")
+    """The card kernels' operand rules (the shapes are
+    :func:`check_flash_shapes`'s, as the stock kernel's): bf16 or f32 q and
+    every tensor of ``tensors`` of q's dtype, int32 segment ids, all
+    contiguous and on q's device."""
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("q must be bfloat16 or float32 on CUDA")
     for name, t in tensors:
@@ -414,11 +407,12 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """``(dq, dk, dv, dab)``: :func:`flash_attention_bwd_plain`'s contract,
     by ``csrc/flash_attention_bwd.cu`` on the card (bf16 or f32, every
-    tensor of q's dtype, head size up to 256): one C call of three
-    launches in bf16 (the rows' statistics, the row pass, the column pass)
-    and two in f32, and one more that sums the bias's partials where
-    ``ab_grad`` and more than one batch group (bf16) or at all (f32);
-    without ``ab_grad`` ``dab`` is None.  In bf16, q, k, v and dO with a
+    tensor of q's dtype): one C call of three launches (the rows'
+    statistics, the row pass, the column pass), one more that sums the
+    bias's partials where ``ab_grad`` and more than one batch group, and in
+    the tf32 passes (f32, and bf16 above hd 256) one more that sums dQ's
+    parts where the row pass splits the keys; without ``ab_grad`` ``dab``
+    is None.  In bf16, q, k, v and dO with a
     head size that is not a multiple of 8 go to the kernel as zero-padded
     copies (TMA copies rows of a multiple of 16 bytes)."""
     if not _on_card(q):
@@ -487,8 +481,7 @@ def flash_attention(
     sm_scale: float,
 ) -> torch.Tensor:
     """See the module docstring.  On the card: q, k, v and ab contiguous
-    in one dtype, bf16 or f32, head size up to 256; int32 segment ids,
-    contiguous."""
+    in one dtype, bf16 or f32; int32 segment ids, contiguous."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (q, k, v, ab)):
         return FlashAttention.apply(q, k, v, ab, q_seg, kv_seg, sm_scale)
