@@ -59,7 +59,19 @@ Phases, each printing its numbers on its own line:
      nprobe 32, each shard's scan against its plain twin, the kernels' C
      calls (one a shard) and device launches a call, the wrapper's ms and
      device ms beside the single device's, the merge's and the rescore's
-     ms; and a refined search under a one-rank NCCL group;
+     ms; and a refined search under a one-rank NCCL group; then the bulk
+     build: ``[adopt]`` (``check_adopt``), ``FlatIndex.from_device_vectors``
+     on 1M x 768 unit rows made on the card, f32 and bf16 rows and int8 /
+     int4 codes from f32 and bf16 sources, and 2^20 rows of int8 words
+     adopted as they are, each against ``add`` of the same rows (capacity,
+     stored bits, scales, ids and scores at Q 8), with the device memory
+     each took above its source, and the fused window (a CUDA graph, a
+     one-layer encoder) on the adopted bf16 and word indexes against the
+     classic path; and ``[scale_10m]`` (``run_scale_10m``), the entry
+     point ``benchmarks.scale_10m.run`` at 10,027,008 x 768 int8 words on
+     the card: recall@10 against the f32 truth, the words scanned in their
+     layout and equal to the row scan on the same corpus, the scan's ms
+     and device ms at Q 8 beside its bytes bound;
   3. drive the main path at the full width of all-mpnet-base-v2 with
      random seeded weights, on six storage paths, each a fresh data
      directory: flat bf16 (1,000 conversations), flat
@@ -67,11 +79,14 @@ Phases, each printing its numbers on its own line:
      ``CLAUDE_SEARCH_INDEX_TYPE=ivf`` with bf16 (1,000), int8, int4 and pq
      (200 each; int4 and pq with their automatic int8 refine tier and
      deployed-recall calibration, pq after ``tune_pq_config``), and pq
-     once more with ``CLAUDE_SEARCH_PQ_OPQ=1`` (index, search, the CLI).  Each indexes synthetic conversations through
+     once more with ``CLAUDE_SEARCH_PQ_OPQ=1`` (index, search, the CLI).
+     Each indexes synthetic conversations through
      ``SearchEngine.index_conversations``, searches in process (filtered
      too, and at ``top_k=200``) and through the CLI in a subprocess (the
-     IVF paths also run ``optimize`` through the CLI), and checks that its
-     kernels were launched, with the launch counts set to 0 just before
+     IVF paths but OPQ also run ``optimize`` through the CLI; a CLI check
+     that nothing later in its path waits for runs on a thread beside the
+     paths that follow, all of them joined at the end of the phase), and
+     checks that its kernels were launched, with the launch counts set to 0 just before
      the path and read just after.  The IVF paths warm up on 10 files, not
      1, so that their first add trains the default 100 lists (the JAX
      package's rule: a first batch smaller than nlist shrinks nlist).
@@ -172,7 +187,11 @@ Phases, each printing its numbers on its own line:
      loss, every gradient's cosine, 24 forward and 24 backward launches a
      step), its ms a step beside the dense mode's, and the f32 flash
      embeddings against the CPU's; ``[dryrun]``: the port's
-     ``parallel.dryrun.dryrun_multichip(4)`` on 4 x cuda:0.
+     ``parallel.dryrun.dryrun_multichip(4)`` on 4 x cuda:0;
+ 10. the other ported bulk-build scripts through their entry points
+     (``run_bench_scripts``): ``[ivf_sweep]``, ``[sharded_scan]``,
+     ``[int8_residual_ab]``, ``[cross_encoder_bench]`` and
+     ``[index_e2e]``, each line its JSON, its seconds and its launches.
 Phase 3 ends on the flat bf16 path's encoder (all-mpnet-base-v2 at full
 width, the int8 FFN through its gate) run through
 ``forward(attention_impl="flash")`` at B 128, S 384, the entry point of
@@ -255,6 +274,7 @@ first.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -3076,14 +3096,15 @@ def sharded_plain(index, queries, k: int):
         flat_topk_int8_plain,
         flat_topk_plain,
     )
+    from tpu_search_torch.ops.int8_pack import unpack_int8_rows
     from tpu_search_torch.parallel.sharded_index import merge_shards
 
     penalties = index.device_mask(None)
     scores, ids = [], []
     for shard, penalty in zip(index._shards.values(), penalties):
         if index.dtype == "int8":
-            ps, pi = flat_topk_int8_plain(shard._vectors, shard._scales,
-                                          penalty, queries, k)
+            ps, pi = flat_topk_int8_plain(unpack_int8_rows(shard._vectors),
+                                          shard._scales, penalty, queries, k)
         elif index.dtype == "int4":
             ps, pi = flat_topk_int4_plain(shard._vectors, shard._scales,
                                           penalty, queries, k)
@@ -5645,12 +5666,86 @@ def search_path(engine, total: int, tag: str, check_hit):
     return probes
 
 
-def check_cli(engine, data_dir: Path, query: str, tag: str,
-              env_extra: dict, model: str = "smoke-mpnet",
-              rerank_model: str = "") -> None:
+# A CLI subprocess spends 10-16 s on the card, most of it starting up.  A
+# check of a data directory that nothing later in its path touches runs on
+# a thread of its own (``cli_in_background``), after the earlier checks of
+# the same directory, so that it overlaps the paths that follow;
+# ``join_cli`` waits for them all at the end of phase 3 and fails the run
+# on the first fault.
+_CLI_THREADS: dict = {}
+_CLI_FAULTS: list = []
+_CLI_PROCS: set = set()
+
+
+def run_cli(argv: list, env: dict) -> subprocess.CompletedProcess:
+    """The CLI in a subprocess (``argv`` after ``--data-dir D --device
+    cuda``), ended with the run if the run ends first."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_search_torch.interfaces.cli", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT))
+    _CLI_PROCS.add(proc)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        _CLI_PROCS.discard(proc)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _kill_cli() -> None:
+    for proc in list(_CLI_PROCS):
+        if proc.poll() is None:
+            proc.kill()
+
+
+atexit.register(_kill_cli)
+
+
+def cli_in_background(key: str, step) -> None:
+    """Run ``step()`` (a fault's message, or None) on a thread, after the
+    steps given before under the same ``key`` (a data directory)."""
+    import threading
+
+    before = _CLI_THREADS.get(key)
+
+    def run():
+        if before is not None:
+            before.join()
+        try:
+            fault = step()
+        except Exception as exc:  # reported by join_cli
+            fault = f"{type(exc).__name__}: {exc}"
+        if fault:
+            _CLI_FAULTS.append(fault)
+
+    thread = threading.Thread(target=run, name=f"cli {key}", daemon=True)
+    thread.start()
+    _CLI_THREADS[key] = thread
+
+
+def join_cli() -> None:
+    """Wait for every background CLI check; fail on the first fault."""
+    t0 = time.perf_counter()
+    for thread in list(_CLI_THREADS.values()):
+        thread.join()
+    _CLI_THREADS.clear()
+    print(f"[cli] background checks joined, waited "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if _CLI_FAULTS:
+        fail(_CLI_FAULTS[0])
+
+
+def cli_search(engine, data_dir: Path, query: str, tag: str,
+               env_extra: dict, model: str = "smoke-mpnet",
+               rerank_model: str = ""):
     """``search --json`` (with ``rerank_model``: ``search --rerank
     --rerank-model M --rerank-factor F --json``) in a subprocess, over the
-    index loaded from disk, returns the in-process ids."""
+    index loaded from disk, against the in-process ids: the in-process
+    search runs now, the subprocess in the step returned (a fault's
+    message, or None)."""
     flags, kwargs = [], {}
     if rerank_model:
         flags = ["--rerank", "--rerank-model", rerank_model,
@@ -5660,23 +5755,35 @@ def check_cli(engine, data_dir: Path, query: str, tag: str,
     inproc = [r["chunk_id"] for r in engine.search_conversations(
         query, top_k=RERANK_TOP_K, **kwargs)]
     env = dict(os.environ, CLAUDE_SEARCH_MODEL=model, **env_extra)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
-         "--data-dir", str(data_dir), "--device", "cuda",
-         "search", query, "--top-k", str(RERANK_TOP_K), *flags, "--json"],
-        capture_output=True, text=True, env=env, cwd=str(ROOT),
-        timeout=600,
-    )
-    if proc.returncode != 0:
-        fail(f"CLI search failed: {proc.stderr[-2000:]}")
-    cli_ids = [item["uid"] for item in json.loads(proc.stdout)["items"]]
-    what = "search --rerank --json" if rerank_model else "search --json"
-    print(f"[cli] path={tag} {what} seconds="
-          f"{time.perf_counter() - t0:.2f} same_top_ids={cli_ids == inproc} "
-          f"top={cli_ids[:3]}", flush=True)
-    if cli_ids != inproc:
-        fail(f"CLI (index loaded from disk) {cli_ids} != in-process {inproc}")
+
+    def step():
+        t0 = time.perf_counter()
+        proc = run_cli(["--data-dir", str(data_dir), "--device", "cuda",
+                        "search", query, "--top-k", str(RERANK_TOP_K),
+                        *flags, "--json"], env)
+        if proc.returncode != 0:
+            return f"CLI search on {tag} failed: {proc.stderr[-2000:]}"
+        cli_ids = [item["uid"] for item in json.loads(proc.stdout)["items"]]
+        what = "search --rerank --json" if rerank_model else "search --json"
+        print(f"[cli] path={tag} {what} seconds="
+              f"{time.perf_counter() - t0:.2f} same_top_ids="
+              f"{cli_ids == inproc} top={cli_ids[:3]}", flush=True)
+        if cli_ids != inproc:
+            return (f"CLI on {tag} (index loaded from disk) {cli_ids} != "
+                    f"in-process {inproc}")
+        return None
+
+    return step
+
+
+def check_cli(engine, data_dir: Path, query: str, tag: str,
+              env_extra: dict, model: str = "smoke-mpnet",
+              rerank_model: str = "") -> None:
+    """:func:`cli_search`, run now."""
+    fault = cli_search(engine, data_dir, query, tag, env_extra, model,
+                       rerank_model)()
+    if fault:
+        fail(fault)
 
 
 def rank_one(results, want, text, filters):
@@ -6914,29 +7021,38 @@ def run_quant_path(work: Path, files, dtype: str) -> dict:
               flush=True)
         if dtype == "int4" and gauss < 0.6:
             fail(f"int4 recall@10 on Gaussian rows {gauss:.4f} < 0.6")
-        check_cli(engine, data, probes[4].text, dtype, env)
-        if dtype == "int8":
-            warm_exact_pass(engine, data, probes, dtype, "flat_topk_int8")
+        step = cli_search(engine, data, probes[4].text, dtype, env)
+        if dtype != "int8":
+            cli_in_background(str(data), step)
+            return launches
+        fault = step()
+        if fault:
+            fail(fault)
+        warm_exact_pass(engine, data, probes, dtype, "flat_topk_int8")
         return launches
     finally:
         for key in env:
             os.environ.pop(key, None)
 
 
-def check_cli_optimize(data_dir: Path, tag: str, env_extra: dict) -> None:
-    """``optimize`` through the CLI on the saved index."""
+def cli_optimize(data_dir: Path, tag: str, env_extra: dict):
+    """``optimize`` through the CLI on the saved index, as a step (a
+    fault's message, or None)."""
     env = dict(os.environ, CLAUDE_SEARCH_MODEL="smoke-mpnet", **env_extra)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tpu_search_torch.interfaces.cli",
-         "--data-dir", str(data_dir), "--device", "cuda", "optimize"],
-        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=600,
-    )
-    out = " | ".join(line.strip() for line in proc.stdout.splitlines())
-    print(f"[cli] path={tag} optimize seconds={time.perf_counter() - t0:.2f} "
-          f"rc={proc.returncode} out={out}", flush=True)
-    if proc.returncode != 0 or "Optimization complete" not in proc.stdout:
-        fail(f"CLI optimize failed: {proc.stderr[-2000:]}")
+
+    def step():
+        t0 = time.perf_counter()
+        proc = run_cli(["--data-dir", str(data_dir), "--device", "cuda",
+                        "optimize"], env)
+        out = " | ".join(line.strip() for line in proc.stdout.splitlines())
+        print(f"[cli] path={tag} optimize seconds="
+              f"{time.perf_counter() - t0:.2f} rc={proc.returncode} "
+              f"out={out}", flush=True)
+        if proc.returncode != 0 or "Optimization complete" not in proc.stdout:
+            return f"CLI optimize on {tag} failed: {proc.stderr[-2000:]}"
+        return None
+
+    return step
 
 
 def run_ivf_path(work: Path, files, dtype: str, opq: bool = False) -> dict:
@@ -6946,8 +7062,8 @@ def run_ivf_path(work: Path, files, dtype: str, opq: bool = False) -> dict:
     (auto-train, rebalance, nprobe autotune; int4 and pq with their refine
     tier and calibration, pq through ``tune_pq_config``), search (filtered,
     and at ``top_k=200``), the CLI on the saved index, ``optimize`` through
-    the CLI (not with ``opq``), and for int4 and pq the warm server's
-    answers.  Returns the launch counts of that run (set to 0 after the
+    the CLI (not with ``opq``; both on a background thread where the path
+    ends there), and for int4 and pq the warm server's answers.  Returns the launch counts of that run (set to 0 after the
     warm-up)."""
     import torch
 
@@ -7031,14 +7147,21 @@ def run_ivf_path(work: Path, files, dtype: str, opq: bool = False) -> dict:
             wanted.append("flat_topk_int8")  # the calibration's truth scan
         if any(launches[k] == 0 for k in wanted):
             fail(f"the {tag} path did not run {wanted}: {launches}")
-        check_cli(engine, data, probes[4].text, tag, env)
-        if opq:
+        steps = [cli_search(engine, data, probes[4].text, tag, env)]
+        if not opq:
+            steps.append(cli_optimize(data, tag, env))
+        if dtype not in ("int4", "pq") or opq:
+            # nothing later in the path reads the directory
+            for step in steps:
+                cli_in_background(str(data), step)
             return launches
-        check_cli_optimize(data, tag, env)
-        if dtype in ("int4", "pq"):
-            warm_exact_pass(engine, data, probes, tag,
-                            "ivf_topk_int4" if dtype == "int4"
-                            else "mpnet_attention")
+        for step in steps:
+            fault = step()
+            if fault:
+                fail(fault)
+        warm_exact_pass(engine, data, probes, tag,
+                        "ivf_topk_int4" if dtype == "int4"
+                        else "mpnet_attention")
         if dtype == "int4":
             # The saved index (with its refine tier) over 4 shards: its
             # fused, classic and warm answers against one device's.
@@ -7088,7 +7211,9 @@ def run_bert_path(work: Path, files):
           flush=True)
     if not cos > 0.999:
         fail("CUDA MiniLM encoder disagrees with the plain CPU encoder")
-    check_cli(engine, data, probes[4].text, tag, {}, model="all-MiniLM-L6-v2")
+    cli_in_background(str(data), cli_search(engine, data, probes[4].text,
+                                             tag, {},
+                                             model="all-MiniLM-L6-v2"))
     return engine, data, probes, launches
 
 
@@ -7286,8 +7411,9 @@ def run_rerank_path(engine, data: Path, probes, tag: str, model: str,
     if model == "tiny-overlap":
         check_logit_order(tag, "probe_candidates", card, cpu)
         check_fixture_orderings(reranker, twin)
-    check_cli(engine, data, probes[4].text, tag, {},
-              model="all-MiniLM-L6-v2", rerank_model=model)
+    cli_in_background(str(data), cli_search(
+        engine, data, probes[4].text, tag, {}, model="all-MiniLM-L6-v2",
+        rerank_model=model))
     return launches
 
 
@@ -7388,6 +7514,282 @@ def run_probes(results: dict) -> dict:
 # -- main ----------------------------------------------------------------------
 
 
+# The bulk build ([adopt]): the padded paths adopt ADOPT_N rows (short of
+# their 65,536-aligned capacity), the packed words ADOPT_WORDS_N (their
+# capacity: adopted as they are).  The fused window on them runs a one-layer
+# all-mpnet-base-v2-wide encoder (seeded random weights) over 8 texts.
+ADOPT_N, ADOPT_WORDS_N = 1_000_000, 1 << 20
+ADOPT_CASES = (("float32", "f32"), ("bfloat16", "f32"), ("bfloat16", "bf16"),
+               ("int8", "f32"), ("int8", "bf16"), ("int4", "f32"),
+               ("int8", "words"))
+# The 10M capacity run must find at least this share of the f32 truth's
+# top 10 (int8 rows of unit vectors: the JAX script's recall on its chip
+# is the reference point, not a gate; 0.9 leaves room for near-ties).
+SCALE_MIN_RECALL = 0.9
+
+
+def adopted_window(index, model, ids, mask):
+    """The fused window (``api/fused.py``) of ``index``'s scan with
+    ``model`` as its encoder, q_pad 8, k 10, nothing filtered."""
+    import torch
+
+    from tpu_search_torch.api.fused import Window
+    from tpu_search_torch.index.flat import flat_scan
+
+    key, buffers = index.make_scan_fn()
+    return Window(model=model, ids=ids, mask=mask, q_pad=8,
+                  staged=index.scan_staged(None), normalize=True,
+                  int8_ffn=False, store_normalize=True, scan=flat_scan,
+                  scan_key=key, buffers=buffers, k=10,
+                  device=torch.device("cuda"))
+
+
+def check_adopted_fused(tag: str, index, model, kernel: str) -> dict:
+    """The fused window on an adopted index, captured, then replayed with
+    the launch counts set to 0, against the classic path (the same encoded
+    queries through ``FlatIndex.search``): ids equal, scores within
+    ``WARM_EXACT``.  Returns the replay's launches."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.api.fused import FusedPrograms, _encode
+    from tpu_search_torch.ops import _build
+
+    rng = np.random.default_rng(43)
+    ids = rng.integers(5, model.config.vocab_size, (8, 64)).astype(np.int64)
+    mask = np.ones((8, 64), dtype=np.int64)
+    w = adopted_window(index, model, ids, mask)
+    programs = FusedPrograms()
+    packed, event = programs.dispatch(w)  # the capture
+    event.synchronize()
+    _build.reset_launches()
+    packed, event = programs.dispatch(w)  # a replay
+    event.synchronize()
+    launches = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        queries = _encode(w, torch.from_numpy(ids).cuda(),
+                          torch.from_numpy(mask).cuda())
+    scores, got = index.search(queries.cpu().numpy(), 10)
+    fused_ids = np.rint(packed[:, 10:].numpy()).astype(np.int64)
+    fused_ids[~np.isfinite(packed[:, :10].numpy())] = -1
+    err = float(np.abs(packed[:, :10].numpy() - scores).max())
+    same = bool(np.array_equal(fused_ids, got))
+    print(f"[adopt] fused {tag}: key={w.scan_key} replay_launches="
+          f"{json.dumps({k: v for k, v in launches.items() if v})} "
+          f"ids_equal_classic={same} max_abs_err={err:.3e}", flush=True)
+    if not same or err > WARM_EXACT:
+        fail(f"[adopt] the fused window on the adopted {tag} index differs "
+             f"from the classic path")
+    if launches[kernel] == 0:
+        fail(f"[adopt] the fused window on {tag} did not launch {kernel}")
+    return launches
+
+
+def check_adopt() -> dict:
+    """``[adopt]``: ``FlatIndex.from_device_vectors`` on the card, 1M x 768
+    unit rows made there, in each of ``ADOPT_CASES`` (f32 and bf16 sources;
+    int8 words of 2^20 rows adopted as they are), each against ``add`` of
+    the same rows: the same capacity, stored bits and scales, and ids and
+    scores at Q 8; the device memory the adoption took above its source
+    (its output and a chunk; about none for the words); then the fused
+    window (``api/fused.py``, a CUDA graph) on the adopted bf16 and word
+    index against the classic path.  Returns the fused replays' launches."""
+    import numpy as np
+    import torch
+
+    from tpu_search_torch.index.flat import FlatIndex, quantize_rows_int8
+    from tpu_search_torch.models.convert import model_from_params
+    from tpu_search_torch.models.mpnet import MPNetConfig, init_params
+    from tpu_search_torch.ops.int8_pack import pack_int8_rows
+
+    dev = torch.device("cuda")
+    card = card_name()
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rows = unit_rows(gen, ADOPT_WORDS_N, 768)
+    queries = unit_rows(gen, 8, 768).cpu().numpy()
+    words, word_scales = None, None
+    kept = {}
+    for dtype, source in ADOPT_CASES:
+        if source == "words":
+            codes, word_scales = quantize_rows_int8(rows)
+            words = pack_int8_rows(codes)
+            del codes
+            src, n = rows, ADOPT_WORDS_N
+        else:
+            src = rows[:ADOPT_N]
+            if source == "bf16":
+                src = src.to(torch.bfloat16)
+            n = ADOPT_N
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if source == "words":
+            adopted = FlatIndex.from_device_vectors(
+                words, dtype="int8", scales=word_scales, packed=True)
+        else:
+            adopted = FlatIndex.from_device_vectors(src, dtype=dtype)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak_mb = (torch.cuda.max_memory_allocated() - before) / 2**20
+        stored = adopted._vectors
+        out_mb = (stored.numel() * stored.element_size()
+                  + (0 if adopted._scales is None
+                     else adopted._scales.numel() * 4)
+                  + adopted._valid.numel()) / 2**20
+        added = FlatIndex(768, dtype=dtype, device=dev)
+        added.add(src)
+        # stored rows: int4 two a byte row, int8 four a word
+        rows_of = {"int4": (n + 1) // 2, "int8": n // 4}.get(dtype, n)
+        bits = (adopted.capacity == added.capacity
+                and (adopted.ntotal, adopted.live) == (n, n)
+                and torch.equal(stored[:rows_of], added._vectors[:rows_of]))
+        if adopted._scales is not None:
+            bits &= torch.equal(adopted._scales[:n], added._scales[:n])
+        got, want = adopted.search(queries, 10), added.search(queries, 10)
+        same = bool(np.array_equal(got[1], want[1])
+                    and np.array_equal(got[0], want[0]))
+        zero_copy = (source == "words"
+                     and adopted._vectors.data_ptr() == words.data_ptr())
+        print(f"[adopt] dtype={dtype} source={source} n={n} capacity="
+              f"{adopted.capacity} zero_copy={zero_copy} seconds={seconds:.3f} peak_over_source_mb="
+              f"{peak_mb:.1f} output_mb={out_mb:.1f} bits_equal_add={bits} "
+              f"answers_equal_add={same} card={card!r}", flush=True)
+        if not (bits and same):
+            fail(f"[adopt] {dtype} from {source} differs from add of the "
+                 f"same rows")
+        if source == "words" and not zero_copy:
+            fail("[adopt] the packed words were not adopted as they are")
+        if source == "words" and peak_mb > 64:
+            fail(f"[adopt] adopting the words took {peak_mb:.1f} MB")
+        del added
+        if (dtype, source) in (("bfloat16", "f32"), ("int8", "words")):
+            kept[dtype] = adopted
+    del rows
+    config = MPNetConfig(num_layers=1)
+    model = model_from_params(init_params(config, 5), config)
+    model.layers.to(torch.bfloat16)
+    model = model.to(dev)
+    launches = {}
+    for dtype, kernel in (("bfloat16", "flat_topk"),
+                          ("int8", "flat_topk_int8")):
+        for name, count in check_adopted_fused(
+                dtype, kept[dtype], model, kernel).items():
+            launches[name] = launches.get(name, 0) + count
+    return launches
+
+
+def run_scale_10m(results: dict) -> dict:
+    """``[scale_10m]``: the entry point ``benchmarks.scale_10m.run`` at its
+    full N (10,027,008 x 768 int8 words, adopted as they are) with the
+    launch counts set to 0 just before: recall@10 against the f32 truth at
+    least ``SCALE_MIN_RECALL``, the words scanned in their layout
+    (``flat_topk_int8.cu``, words), the word scan equal to the row scan on
+    the same corpus, the scan's ms and device ms at Q 8 beside its bytes
+    bound.  The word layout's launches and 10M numbers go into the int8
+    entry's ``words``.  Returns the run's launches."""
+    import torch
+
+    from tpu_search_torch.benchmarks import scale_10m
+    from tpu_search_torch.index.flat import flat_scan
+    from tpu_search_torch.ops import _build
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, index, q8 = scale_10m.run("cuda", against_rows=True)
+    launches = out.pop("launches")
+    key, buffers = index.make_scan_fn()
+    staged = index.scan_staged(None)
+    busy, calls = device_breakdown(
+        f"scale_10m words N={index.ntotal} Q=8 k=10",
+        lambda: flat_scan(key, buffers, staged, q8, 10))
+    check_launches("scale_10m words", calls)
+    device_ms = {"words": busy}
+    del index, buffers, staged
+    print(f"[scale_10m] {json.dumps(out)}", flush=True)
+    print(f"[scale_10m] seconds={time.perf_counter() - t0:.2f} device_ms_q8="
+          f"{device_ms['words']:.4f} bound_ms={out['bound_ms']:.4f} "
+          f"share={out['bound_ms'] / device_ms['words']:.4f} "
+          f"rows_scan_ms_q8={out['rows_scan_ms_q8']:.4f} launches="
+          f"{json.dumps(launches)}", flush=True)
+    if out["recall_at_10_vs_f32"] < SCALE_MIN_RECALL:
+        fail(f"[scale_10m] recall {out['recall_at_10_vs_f32']}")
+    if not out["zero_copy"]:
+        fail("[scale_10m] the words were not adopted as they are")
+    if not out["words_equal_rows"]:
+        fail("[scale_10m] the word scan differs from the row scan")
+    if not launches.get("flat_topk_int8"):
+        fail(f"[scale_10m] the words scan was never launched: {launches}")
+    results["flat_topk_int8"].setdefault("words", {}).update(
+        launches=launches["flat_topk_int8"], ms_10m=out["device_scan_ms_q8"],
+        device_ms_10m=device_ms["words"], bound_ms_10m=out["bound_ms"])
+    return launches
+
+
+def run_bench_scripts() -> dict:
+    """The other ported bulk-build scripts through their entry points
+    (``run``), each with the launch counts set to 0 just before and read
+    just after: ``ivf_sweep`` (262,144 x 768 blobs, nlist 256 and 1024;
+    recall 1.0 at nprobe = nlist), ``sharded_scan`` (8 shards on the card,
+    exact), ``int8_residual_ab`` (the JAX bench's 1M x 768, nlist 1024,
+    nprobe 16), ``cross_encoder_bench`` (MiniLM-L-6, batch 64, S 256 and
+    512) and ``index_e2e`` (200 conversations at full width).  Returns
+    each one's launches."""
+    import torch
+
+    from tpu_search_torch.benchmarks import (
+        cross_encoder_bench,
+        index_e2e,
+        int8_residual_ab,
+        ivf_sweep,
+        sharded_scan,
+    )
+    from tpu_search_torch.ops import _build
+
+    runs = {
+        "ivf_sweep": (lambda: ivf_sweep.run(
+            "cuda", n=262_144, nlists=(256, 1024), nprobes=(1, 8, 32, 256),
+            train_sample=262_144), ("ivf_topk", "flat_topk")),
+        "sharded_scan": (lambda: sharded_scan.run("cuda"), ("flat_topk",)),
+        "int8_residual_ab": (lambda: int8_residual_ab.run("cuda"),
+                             ("ivf_topk_int8",)),
+        "cross_encoder_bench": (lambda: cross_encoder_bench.run("cuda"), ()),
+        "index_e2e": (lambda: index_e2e.run("cuda", conversations=201),
+                      ("mpnet_attention", "int8_ffn_ln")),
+    }
+    launches = {}
+    for name, (call, kernels) in runs.items():
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # parser warnings
+            out = call()
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        line = {k: v for k, v in out.items() if k not in ("sweep", "rows")}
+        print(f"[{name}] {json.dumps(line)}", flush=True)
+        for row in out.get("sweep", out.get("rows", [])):
+            print(f"[{name}] {json.dumps(row)}", flush=True)
+        print(f"[{name}] seconds={time.perf_counter() - t0:.2f} launches="
+              f"{json.dumps(launches[name])}", flush=True)
+        if any(not launches[name].get(k) for k in kernels):
+            fail(f"[{name}] did not launch {kernels}: {launches[name]}")
+        if name == "ivf_sweep" and not all(
+                r["recall_at_10"] == 1.0 for r in out["sweep"]
+                if r["nprobe"] == r["nlist"]):
+            fail("[ivf_sweep] recall below 1.0 at nprobe = nlist")
+        if name == "sharded_scan" and not out["exact_match_vs_single_device"]:
+            fail("[sharded_scan] the sharded ids differ from one device's")
+        if name == "cross_encoder_bench" and not all(
+                r["kernels"] for r in out["rows"] if r["impl"] == "kernel"):
+            fail("[cross_encoder_bench] a kernel row launched no kernel")
+        if name == "index_e2e" and (out["errors"] or out["files_processed"]
+                                    != out["conversations"]):
+            fail(f"[index_e2e] indexing errors: {out['errors']}")
+    return launches
+
+
 @contextlib.contextmanager
 def timed_phase(name: str):
     """Prints the seconds a phase of ``main`` took."""
@@ -7465,6 +7867,11 @@ def main() -> None:
         check_sharded()
     with timed_phase("check_sharded_ivf"):
         check_sharded_ivf()
+    bulk = {}
+    with timed_phase("adopt"):
+        bulk["adopt"] = check_adopt()
+    with timed_phase("scale_10m"):
+        bulk["scale_10m"] = run_scale_10m(results)
 
     from tpu_search_torch.utils.synthetic import (
         N_CONVERSATIONS,
@@ -7508,6 +7915,8 @@ def main() -> None:
         launches["rerank"] = {
             k: launches["rerank_tinybert"][k] + launches["rerank_fixture"][k]
             for k in launches["rerank_fixture"]}
+        with timed_phase("cli_join"):
+            join_cli()
         with timed_phase("int8_bench"):
             launches["int8_bench"] = run_int8_bench()
         with timed_phase("probes"):
@@ -7525,6 +7934,9 @@ def main() -> None:
             launches["flash_grad"] = check_flash_grad()
         with timed_phase("dryrun"):
             check_dryrun()
+        with timed_phase("bench_scripts"):
+            bulk.update(run_bench_scripts())
+        print(f"[bulk_build] launches={json.dumps(bulk)}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

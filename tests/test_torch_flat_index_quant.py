@@ -38,6 +38,7 @@ from tpu_search_torch.api.engine import SearchEngine
 from tpu_search_torch.index.flat import FlatIndex
 from tpu_search_torch.ingest.chunker import Chunk
 from tpu_search_torch.ops.int4_pack import bytes_to_nibble_rows
+from tpu_search_torch.ops.int8_pack import unpack_int8_rows
 from tpu_search_torch.storage.hybrid import (
     HybridStorage,
     SearchConfig,
@@ -68,7 +69,9 @@ def stored(index, count):
         scales = np.asarray(index._scales)
     else:
         rows = index._vectors
-        if index.dtype == "int4":
+        if index.dtype == "int8":
+            rows = unpack_int8_rows(rows)
+        elif index.dtype == "int4":
             rows = bytes_to_nibble_rows(rows)
         rows, scales = rows.numpy(), index._scales.numpy()
     return rows[:count].astype(np.int16), scales[:count]

@@ -4,12 +4,11 @@ Counterpart of ``tpu_search/index/flat.py``:
 
 - vectors live in one tensor on the index's device; capacity grows by
   doubling (min 1024), appends write in place.  Storage dtypes:
-  ``float32`` / ``bfloat16`` rows ``[capacity, D]``; ``int8`` rows
-  ``[capacity, D]`` with per-row f32 scales; ``int4`` nibble-pair byte
+  ``float32`` / ``bfloat16`` rows ``[capacity, D]``; ``int8`` as the JAX
+  package holds it, ``[capacity/4, D]`` int32 words (``ops.int8_pack``:
+  4 rows a word), with per-row f32 scales; ``int4`` nibble-pair byte
   rows ``[capacity/2, D]`` uint8 (``ops.int4_pack``, the TPUSIDX2 layout)
-  with per-row f32 scales.  The JAX package packs int8/int4 into int32
-  words for the TPU's DMA engine; the port keeps the plain layouts.
-  int8/int4 score the ``ip`` metric only;
+  with per-row f32 scales.  int8/int4 score the ``ip`` metric only;
 - rows quantize on add, to the bits the JAX index stores (its host and
   device quantizers agree bit for bit, and so does this one);
 - deletion is a tombstone in a ``[capacity]`` validity mask, and
@@ -19,13 +18,20 @@ Counterpart of ``tpu_search/index/flat.py``:
   stream (for float l2 also the ``|v|^2`` correction; for int8/int4 0 or
   ``-inf``), cached per predicate digest until the next mutation, and runs
   the exact top-k scan of the storage dtype (``ops.flat_topk*``: the CUDA
-  kernels on the card, their plain versions on the CPU), any k;
+  kernels on the card, their plain versions on the CPU; int8 the word
+  entry of ``flat_topk_int8.cu``), any k;
 - ``make_scan_fn`` / ``scan_staged`` hand the fused query path
   (``api/fused.py``) the same scan as a function over device tensors,
   over the whole capacity, so a CUDA graph built on it stays valid across
   adds and removes;
 - ``save``/``load`` speak TPUSIDX2, so both packages read each other's
-  files.
+  files;
+- ``from_device_vectors`` builds an index around rows already on a
+  device (the bulk-build path), with the JAX package's capacity (aligned
+  to 65,536 rows from N = 65,536 up, not a power of two) and the bits
+  JAX stores in its live slots: float rows cast, float rows quantized
+  65,536 at a time, pre-quantized int8 rows with their scales, or
+  ``[N/4, D]`` int32 words, taken as they are where N fills the capacity.
 """
 
 from __future__ import annotations
@@ -46,14 +52,31 @@ from ..ops.int4_pack import (
     nibble_rows_to_bytes,
     quantize_rows_int4,
 )
+from ..ops.int8_pack import pack_int8_rows, unpack_int8_rows
 from ..ops.topk_scan import INV127, absmax_scales, row_penalty, row_sq_norms
-from ..utils.shapes import next_pow2, round_up
+from ..utils.shapes import cdiv, next_pow2, round_up
 
-__all__ = ["FlatIndex", "dequantize_rows", "flat_scan", "quantize_rows_int8"]
+__all__ = ["FlatIndex", "adoption_capacity", "dequantize_rows", "flat_scan",
+           "quantize_rows_int8", "read_int8_rows", "write_int8_rows",
+           "write_nibbles"]
 
 _MIN_CAPACITY = 1024
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _QUANTIZED = ("int8", "int4")
+# Rows the bulk build and a load move (and quantize) a step: per-row
+# quantization, so the steps change no bit, and peak device memory is the
+# source, the output and one step's f32 transients.
+_BULK_STEP = 1 << 16
+# Word rows unpacked a step on their way to the host (64 MiB at D 768).
+_WORD_STEP = 1 << 14
+
+
+def adoption_capacity(n: int) -> int:
+    """The JAX package's capacity for ``n`` rows built or loaded in bulk:
+    a multiple of 65,536 from 65,536 rows up (the scan tiles), of 1,024
+    below, never a power-of-two round-up."""
+    align = 65536 if n >= 65536 else _MIN_CAPACITY
+    return max(_MIN_CAPACITY, round_up(n, align))
 
 
 def quantize_rows_int8(vectors: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,6 +87,78 @@ def quantize_rows_int8(vectors: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     v = vectors.float()
     scales = absmax_scales(v, INV127)
     return torch.round(v / scales[:, None]).to(torch.int8), scales
+
+
+def write_int8_rows(words: torch.Tensor, codes: torch.Tensor,
+                    start: int) -> None:
+    """Write ``[n, D]`` int8 ``codes`` into the ``[C, D]`` int32 words at
+    row ``start``: a word the rows fill only in part keeps its other
+    rows."""
+    n = codes.shape[0]
+    if not n:
+        return
+    lo, hi = start // 4, cdiv(start + n, 4)
+    if start % 4 or n % 4:
+        rows = unpack_int8_rows(words[lo:hi]).clone(  # may be a view
+            memory_format=torch.contiguous_format)
+        rows[start - 4 * lo: start - 4 * lo + n] = codes
+        codes = rows
+    words[lo:hi] = pack_int8_rows(codes)
+
+
+def read_int8_rows(words: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Rows ``[a, b)`` of the ``[C, D]`` int32 words as ``[b - a, D]``
+    int8."""
+    rows = unpack_int8_rows(words[a // 4: cdiv(b, 4)])
+    return rows[a % 4: a % 4 + b - a]
+
+
+def write_nibbles(buf: torch.Tensor, u: torch.Tensor, start: int) -> None:
+    """Write ``[n, D]`` biased nibbles into the nibble-pair bytes ``buf``
+    at logical row ``start``: an odd start keeps the low nibble of its
+    byte row; an odd end writes a zero high nibble (the row past them)."""
+    if start % 2:
+        u = torch.cat([buf[start // 2][None] & 0x0F, u])
+    packed = nibble_rows_to_bytes(u)
+    b0 = start // 2
+    buf[b0: b0 + packed.shape[0]] = packed
+
+
+def _bulk_into(buf: torch.Tensor, scales: Optional[torch.Tensor],
+               rows, dtype: str) -> None:
+    """Rows ``[n, D]`` (a tensor on any device with any strides, or a host
+    array) into ``buf`` (and ``scales``) at slots ``[0, n)`` on ``buf``'s
+    device, ``_BULK_STEP`` rows a step: float rows cast or quantized to
+    ``dtype``; int8 rows (pre-quantized codes) packed into the words."""
+    for a in range(0, rows.shape[0], _BULK_STEP):
+        blk = rows[a: a + _BULK_STEP]
+        if isinstance(blk, np.ndarray):
+            blk = torch.from_numpy(np.array(blk))
+        blk = blk.to(buf.device)
+        if blk.dtype == torch.int8:
+            write_int8_rows(buf, blk, a)
+            continue
+        if dtype == "int8":
+            q, s = quantize_rows_int8(blk)
+            write_int8_rows(buf, q, a)
+        elif dtype == "int4":
+            u, s = quantize_rows_int4(blk)
+            write_nibbles(buf, u, a)
+        else:
+            buf[a: a + blk.shape[0]] = blk
+            continue
+        scales[a: a + s.shape[0]] = s
+
+
+def _word_row_chunks(words: torch.Tensor, count: int):
+    """The first ``count`` int8 rows of ``[C, D]`` words as host chunks,
+    unpacked on their device ``_WORD_STEP`` word rows at a time (the JAX
+    package's ``iter_packed_int8_rows``)."""
+    from .serialize import _to_numpy
+
+    for a in range(0, count, 4 * _WORD_STEP):
+        yield _to_numpy(read_int8_rows(words, a, min(a + 4 * _WORD_STEP,
+                                                     count)))
 
 
 def dequantize_rows(dtype: str, stored: torch.Tensor,
@@ -93,8 +188,9 @@ def flat_scan(scan_key: tuple, buffers: tuple, staged: tuple,
     (penalty,) = staged
     n = penalty.shape[0] if rows is None else rows
     if dtype == "int8":
-        return flat_topk_int8_scan(vectors[:n], scales[:n], penalty[:n],
-                                   queries, k)
+        n = round_up(n, 4)  # whole words (the capacity is a multiple of 4)
+        return flat_topk_int8_scan(vectors[: n // 4], scales[:n],
+                                   penalty[:n], queries, k, words=True)
     if dtype == "int4":
         return flat_topk_int4_scan(vectors[: (n + 1) // 2], scales[:n],
                                    penalty[:n], queries, k)
@@ -158,7 +254,7 @@ class FlatIndex:
     def _empty_buffers(self, capacity: int):
         """Zeroed ``(vectors, valid, scales)`` for ``capacity`` slots."""
         if self.dtype == "int8":
-            shape, dtype = (capacity, self.dim), torch.int8
+            shape, dtype = (capacity // 4, self.dim), torch.int32
         elif self.dtype == "int4":
             shape, dtype = (capacity // 2, self.dim), torch.uint8
         else:
@@ -186,14 +282,109 @@ class FlatIndex:
         self._mutated()  # cached penalties have the old capacity
 
     def _write_nibbles(self, u: torch.Tensor, start: int) -> None:
-        """Write ``[n, D]`` biased nibbles at logical slot ``start``: an odd
-        start keeps the low nibble of its byte row; an odd end leaves a
-        zero high nibble (a slot past the count)."""
-        if start % 2:
-            u = torch.cat([self._vectors[start // 2][None] & 0x0F, u])
-        packed = nibble_rows_to_bytes(u)
-        b0 = start // 2
-        self._vectors[b0: b0 + packed.shape[0]] = packed
+        """:func:`write_nibbles` into this index's bytes."""
+        write_nibbles(self._vectors, u, start)
+
+    # -- bulk build ------------------------------------------------------------
+
+    @classmethod
+    def from_device_vectors(
+        cls,
+        vectors: torch.Tensor,
+        metric: str = "ip",
+        dtype: str = "bfloat16",
+        scales: Optional[torch.Tensor] = None,
+        packed: bool = False,
+    ) -> "FlatIndex":
+        """An index around ``[N, D]`` rows already on a device (its
+        device), with no host round trip: the JAX package's contract, its
+        errors, capacity (:func:`adoption_capacity`) and the bits it
+        stores in the live slots.
+
+        - float rows with ``dtype`` float32 / bfloat16 are cast (no copy
+          beyond the cast where N fills the capacity);
+        - float rows with ``dtype`` int8 / int4 are quantized 65,536 rows
+          a step into the stored layout (peak device memory: the source,
+          the output and one step);
+        - int8 rows with their per-row ``scales`` (``dtype="int8"``, N % 4
+          == 0) are packed into the words;
+        - ``packed=True``: ``vectors`` is the ``ops.int8_pack`` ``[N/4,
+          D]`` int32 word layout, with ``scales``; where N fills the
+          capacity the words themselves become the index's buffer (no
+          copy), else they are copied into it."""
+        if packed:
+            if dtype != "int8" or scales is None:
+                raise ValueError(
+                    "packed adoption needs dtype='int8' and per-row scales")
+            if vectors.dtype != torch.int32:
+                raise ValueError("packed adoption takes [N/4, D] int32 words")
+            n, d = int(vectors.shape[0]) * 4, int(vectors.shape[1])
+        else:
+            n, d = (int(s) for s in vectors.shape)
+        index = cls(d, metric=metric, dtype=dtype, device=vectors.device)
+        capacity = adoption_capacity(n)
+        if packed or vectors.dtype == torch.int8:
+            if dtype != "int8" or scales is None:
+                raise ValueError(
+                    "int8 vectors need dtype='int8' and per-row scales")
+            if n % 4:
+                raise ValueError(
+                    "pre-quantized int8 adoption requires N % 4 == 0 "
+                    "(int8 corpora are stored word-packed)")
+            index._adopt_codes(vectors, scales, n, capacity, packed)
+        elif scales is not None:
+            raise ValueError("scales only apply to int8 vectors")
+        else:
+            index._adopt_rows(vectors, capacity)
+        return index
+
+    def _adopt_rows(self, rows: torch.Tensor, capacity: int) -> None:
+        """Hold ``rows [n, D]`` (float; any device, any strides) in this
+        empty index, cast or quantized to its dtype, ``capacity`` slots."""
+        n = rows.shape[0]
+        if (self.dtype in _DTYPES and capacity == n
+                and rows.device == self.device):
+            # the cast (where one is needed) is the only copy
+            vecs = rows.to(_DTYPES[self.dtype]).contiguous()
+            scales = None
+        else:
+            vecs, _, scales = self._empty_buffers(capacity)
+            _bulk_into(vecs, scales, rows, self.dtype)
+            if self.dtype == "int4" and n % 2:
+                # The JAX package's bulk build quantizes its zero padding,
+                # and a save writes the byte that the row past an odd
+                # count shares: that row holds nibble 8 (code 0).
+                vecs[n // 2] |= NIBBLE_BIAS << 4
+        self._held(vecs, scales, n, capacity)
+
+    def _adopt_codes(self, codes: torch.Tensor, scales: torch.Tensor,
+                     n: int, capacity: int, words: bool) -> None:
+        """Hold ``n`` pre-quantized int8 rows (``[n, D]`` int8, or with
+        ``words`` ``[n/4, D]`` int32 words) and their scales: the words as
+        they are where ``n`` fills ``capacity``, else copied (rows
+        packed) into the index's words."""
+        sc = scales.to(device=self.device, dtype=torch.float32)
+        if words and capacity == n and codes.device == self.device:
+            self._held(codes.contiguous(), sc.contiguous(), n, capacity)
+            return
+        vecs, _, padded = self._empty_buffers(capacity)
+        if words:
+            vecs[: n // 4] = codes
+        else:
+            _bulk_into(vecs, None, codes, "int8")
+        padded[:n] = sc
+        self._held(vecs, padded, n, capacity)
+
+    def _held(self, vecs: torch.Tensor, scales: Optional[torch.Tensor],
+              n: int, capacity: int) -> None:
+        """Take ``vecs`` / ``scales`` as the buffers of ``n`` live rows."""
+        self._vectors, self._scales = vecs, scales
+        self._valid = torch.zeros((capacity,), dtype=torch.bool,
+                                  device=self.device)
+        self._valid[:n] = True
+        self._capacity = capacity
+        self._count = n
+        self._mutated()
 
     def add(
         self, vectors: Union[np.ndarray, torch.Tensor], n: Optional[int] = None
@@ -220,7 +411,7 @@ class FlatIndex:
         rows = batch[:n].to(device=self.device, dtype=torch.float32)
         if self.dtype == "int8":
             q, scales = quantize_rows_int8(rows)
-            self._vectors[start: start + n] = q
+            write_int8_rows(self._vectors, q, start)
             self._scales[start: start + n] = scales
         elif self.dtype == "int4":
             u, scales = quantize_rows_int4(rows)
@@ -249,9 +440,14 @@ class FlatIndex:
         """Slots ``[a, b)`` (default: the first ``count``) as f32,
         dequantized for int8/int4; ``a`` even."""
         b = self._count if b is None else b
-        half = self.dtype == "int4"
+        if self.dtype == "int8":
+            stored = read_int8_rows(self._vectors, a, b)
+        elif self.dtype == "int4":
+            stored = self._vectors[a // 2:]
+        else:
+            stored = self._vectors[a:]
         return dequantize_rows(
-            self.dtype, self._vectors[a // 2 if half else a:],
+            self.dtype, stored,
             None if self._scales is None else self._scales[a:], b - a)
 
     def compact(self) -> Dict[int, int]:
@@ -357,8 +553,8 @@ class FlatIndex:
     # -- persistence -----------------------------------------------------------
 
     def save(self, path: str) -> None:
-        """Write a TPUSIDX2 file: vectors in their storage dtype (int8 rows;
-        int4 as ``[ceil(count/2), D]`` nibble-pair bytes), the validity
+        """Write a TPUSIDX2 file: vectors in their storage dtype (int8 rows,
+        unpacked from the words a chunk at a time; int4 as ``[ceil(count/2), D]`` nibble-pair bytes), the validity
         mask, and for int8/int4 the per-row scales."""
         from .serialize import tensor_section, write_file
 
@@ -375,6 +571,9 @@ class FlatIndex:
             vectors = tensor_section("vectors", "uint8", self._vectors, rows)
             if not rows:  # the JAX package's empty int4 section shape
                 vectors = ("vectors", "uint8", (0, self.dim), iter(()))
+        elif self.dtype == "int8" and count:
+            vectors = ("vectors", "int8", (count, self.dim),
+                       _word_row_chunks(self._vectors, count))
         else:
             vectors = tensor_section("vectors", self.dtype, self._vectors, count)
         valid = None if self._valid is None else self._valid.to(torch.uint8)
@@ -403,13 +602,13 @@ class FlatIndex:
         count = header["count"]
         if not count:
             return index
-        # The JAX package's alignment: capacity-align, no power-of-two
-        # round-up for large corpora.
-        align = 65536 if count >= 65536 else _MIN_CAPACITY
-        capacity = max(_MIN_CAPACITY, round_up(count, align))
+        capacity = adoption_capacity(count)
         if index.dtype == "int4":
             index._vectors = upload_rows(
                 arrays["vectors"], "uint8", capacity // 2, index.device)
+        elif index.dtype == "int8":
+            index._vectors = index._empty_buffers(capacity)[0]
+            _bulk_into(index._vectors, None, arrays["vectors"], "int8")
         else:
             index._vectors = upload_rows(
                 arrays["vectors"], index.dtype, capacity, index.device)

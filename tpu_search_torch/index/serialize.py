@@ -51,6 +51,7 @@ _NP_DTYPES = {
 _TORCH_DTYPES = {
     "int8": torch.int8,
     "uint8": torch.uint8,
+    "int32": torch.int32,
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
 }

@@ -3,10 +3,9 @@
 Counterpart of ``tpu_search/ops/int8_pack.py``.  Byte ``b``
 (little-endian) of word ``(s, c)`` is row ``4s+b``, column ``c``.  The TPU
 stored its int8 corpus this way because its DMA engine streams int32 tiles
-faster than int8 ones; the port's index keeps plain ``[N, D]`` int8 rows.
-The layout stays for files and buffers written that way and for the
-word-layout entry of the int8 scan (``ops/flat_topk_int8.py``), which
-reads it as it is.
+faster than int8 ones.  The port's ``FlatIndex`` holds int8 the same way,
+and the word entry of the int8 scan (``ops/flat_topk_int8.py``) reads it
+as it is.
 """
 
 from __future__ import annotations

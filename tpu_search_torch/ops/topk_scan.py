@@ -45,7 +45,9 @@ __all__ = [
     "absmax_scales",
     "digit_scores",
     "flat_topk",
+    "flat_topk_int4",
     "flat_topk_int4_plain",
+    "flat_topk_int8",
     "flat_topk_int8_plain",
     "flat_topk_plain",
     "quantize_queries",
@@ -240,3 +242,35 @@ def flat_topk_int4_plain(
             yield r0, r1, qd @ u[: r1 - r0].double().T - qoff
 
     return _quant_plain(blocks(), rho, qs1, scales, penalty, k)
+
+
+def flat_topk_int8(
+    vectors: torch.Tensor,
+    scales: torch.Tensor,
+    mask: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain int8 scan with the JAX package's ``flat_topk_int8``
+    arguments: ``[N, D]`` int8 rows and a bool ``[N]`` mask instead of a
+    penalty stream."""
+    penalty = torch.where(mask, 0.0, float("-inf"))
+    return flat_topk_int8_plain(vectors, scales, penalty, queries, k)
+
+
+def flat_topk_int4(
+    words: torch.Tensor,
+    scales: torch.Tensor,
+    mask: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain int4 scan with the JAX package's ``flat_topk_int4``
+    arguments: the ``[N/8, D]`` int32 word layout (byte ``b`` of word
+    ``(s, c)`` is nibble-pair byte row ``4s + b``) and a bool ``[N]``
+    mask."""
+    c, d = words.shape
+    nibbles = words.contiguous()[..., None].view(torch.uint8)  # [C, D, 4]
+    nibbles = nibbles.transpose(1, 2).reshape(4 * c, d)
+    penalty = torch.where(mask, 0.0, float("-inf"))
+    return flat_topk_int4_plain(nibbles, scales, penalty, queries, k)

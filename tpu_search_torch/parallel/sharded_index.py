@@ -13,7 +13,8 @@ Counterpart of ``tpu_search/parallel/sharded_index.py``'s
   the JAX package's packed-write room), so the two packages size a shard
   alike and ``k_eff = min(k, local_capacity)`` agrees.
 - Each shard is one port ``FlatIndex`` on its mesh device: rows in the
-  port's layouts (int8 rows, int4 nibble-pair bytes) with their scales,
+  port's layouts (int8 int32 words, int4 nibble-pair bytes) with their
+  scales,
   the validity mask and the f32 penalty stream.  Its scan is
   ``index.flat.flat_scan``: ``flat_topk.cu``, ``flat_topk_int8.cu`` or
   ``flat_topk_int4.cu`` on the card, their plain versions on the CPU.
@@ -71,7 +72,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..index.flat import FlatIndex, dequantize_rows, flat_scan
+from ..index.flat import (
+    FlatIndex,
+    dequantize_rows,
+    flat_scan,
+    read_int8_rows,
+    write_int8_rows,
+)
 from ..index.serialize import _to_numpy as _host
 from ..index.serialize import (
     is_streamed_file,
@@ -85,7 +92,6 @@ from ..ops.int4_pack import (
     nibble_rows_to_disk_bytes,
     words_to_bytes_host,
 )
-from ..ops.int8_pack import pack_int8_rows_host, unpack_int8_rows_host
 from ..utils.shapes import cdiv, next_pow2, round_up
 from .distributed import process_count, process_index
 from .mesh import Mesh
@@ -504,12 +510,24 @@ class ShardedFlatIndex:
         metric: str = "ip",
         dtype: str = "bfloat16",
     ) -> "ShardedFlatIndex":
-        """Adopt ``[N, D]`` rows already on a device: each shard takes its
-        round-robin rows (cast or quantized to ``dtype``) straight from the
-        tensor, with no host round trip."""
-        index = cls(dim=int(vectors.shape[1]), mesh=mesh, metric=metric,
-                    dtype=dtype)
-        index.add(vectors)
+        """Adopt ``[N, D]`` float rows already on a device, with no host
+        round trip: shard ``s`` takes rows ``s, s + S, ...`` (the
+        round-robin layout) straight from the tensor, cast or quantized
+        to ``dtype`` on its own device by ``FlatIndex``'s bulk build, a
+        step at a time (peak memory on a card: the input rows there and
+        that card's shards), into the JAX package's local capacity
+        ``next_pow2(ceil(N / S) + margin)`` (at least 1,024).  A shard
+        may get no rows (N < S).  In a process group every process passes
+        the same ``vectors`` and builds its own shards."""
+        n, d = (int(s) for s in vectors.shape)
+        index = cls(dim=d, mesh=mesh, metric=metric, dtype=dtype)
+        S = index.n_shards
+        local = max(_MIN_LOCAL_CAPACITY,
+                    next_pow2(cdiv(n, S) + _MARGIN.get(dtype, 0)))
+        for s, shard in index._shards.items():
+            shard._adopt_rows(vectors[s::S], local)
+        index._local_capacity = local
+        index._count = n
         return index
 
     # -- search ----------------------------------------------------------------
@@ -604,6 +622,8 @@ class ShardedFlatIndex:
         if self.dtype == "int4":
             nib = bytes_to_nibble_rows(shard._vectors[a // 2: cdiv(b, 2)])
             return _host(nib[: b - a])
+        if self.dtype == "int8":
+            return _host(read_int8_rows(shard._vectors, a, b))
         return _host(shard._vectors[a:b])
 
     def _iter_nibble_bytes(self) -> Iterator[np.ndarray]:
@@ -656,7 +676,7 @@ class ShardedFlatIndex:
         for a in range(0, self._local_capacity, _IO_CHUNK_SLOTS):
             b = min(a + _IO_CHUNK_SLOTS, self._local_capacity)
             if self.dtype == "int8":
-                yield pack_int8_rows_host(_host(shard._vectors[a:b]))
+                yield _host(shard._vectors[a // 4: b // 4])
             elif self.dtype == "int4":
                 yield bytes_to_words_host(_host(shard._vectors[a // 2: b // 2]))
             else:
@@ -708,12 +728,10 @@ class ShardedFlatIndex:
         for s in host_header["shard_ids"]:
             shard = index._shards[s]
             vectors = arrays[f"vectors{s}"]
-            if index.dtype == "int8":
-                vectors = unpack_int8_rows_host(np.asarray(vectors))
-            elif index.dtype == "int4":
+            if index.dtype == "int4":
                 vectors = words_to_bytes_host(np.asarray(vectors))
-            dtype = {"int8": "int8", "int4": "uint8"}.get(index.dtype,
-                                                           index.dtype)
+            dtype = {"int8": "int32", "int4": "uint8"}.get(index.dtype,
+                                                            index.dtype)
             shard._vectors = upload_rows(vectors, dtype, vectors.shape[0],
                                          shard.device)
             shard._valid = torch.from_numpy(
@@ -795,7 +813,7 @@ class ShardedFlatIndex:
                 if src == "int4":
                     shard._write_nibbles(mine.to(shard.device), at)
                 else:
-                    shard._vectors[at: at + m] = mine.to(shard.device)
+                    write_int8_rows(shard._vectors, mine.to(shard.device), at)
                 shard._scales[at: at + m] = sc[s::S].to(shard.device)
                 shard._count = at + m
             return
